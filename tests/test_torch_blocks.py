@@ -1,0 +1,146 @@
+"""The port's modules against the JAX modules on their kernel paths (CPU,
+fp32, 3e-5).
+
+Each JAX module is initialised on seeded numpy inputs, run with its Pallas
+kernels in interpret mode, and its parameters are carried into the port
+through ``vmg_tpu_torch.weights`` (the reference state-dict names).  The
+port's MorphFC mixer selects the same kernel form as the JAX module for
+the shape ('full': axis-branch kernel; 'hybrid': plain axis matmuls and
+the reduce kernel).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from vmg_tpu.models import blocks as jblocks
+from vmg_tpu.models import trajectory as jtraj
+from vmg_tpu_torch.models import blocks, trajectory
+from vmg_tpu_torch.weights import state_dict_from_jax
+
+TOL = dict(atol=3e-5, rtol=3e-5)
+
+
+def _port_params(params, path, prefix):
+    """Export a JAX sub-module's params under a full-model path and strip
+    the matching state-dict prefix."""
+    tree = params["params"]
+    for key in reversed(path.split("/")):
+        tree = {key: tree}
+    return state_dict_from_jax(tree, prefix=prefix)
+
+
+def _load(module, params, path, prefix):
+    module.load_state_dict(_port_params(params, path, prefix), strict=True)
+    return module.eval()
+
+
+def _x(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _run(module, *args, **kw):
+    with torch.no_grad():
+        return module(*(torch.from_numpy(a) for a in args), **kw).numpy()
+
+
+def test_mlp_cnn_grouped(rng):
+    x = _x(rng, (1, 2, 10, 12, 16))
+    jm = jblocks.MlpCnn(16, exp_r=6.0, n_groups=4, impl="interpret")
+    p = jax.jit(jm.init)(jax.random.key(0), jnp.asarray(x))
+    want = np.asarray(jm.apply(p, jnp.asarray(x)))
+    m = _load(blocks.MlpCnn(16, 6.0, 4), p, "encoder_layers0/mlp_blocks0/channel_mixing",
+              "encoder_layers.0.mlp_blocks.0.channel_mixing.")
+    np.testing.assert_allclose(_run(m, x), want, **TOL)
+
+
+# (H, W, C, chunk, with_res): both sides pick 'full' for the first two,
+# 'hybrid' for the others (W % chunk != 0; C % chunk != 0, which pads the axis-FC
+# channels); H = 18 leaves a partial last H-chunk
+MORPH_CASES = [(18, 16, 16, 4, False), (18, 16, 16, 4, True),
+               (12, 14, 16, 4, True), (10, 12, 18, 4, True)]
+
+
+@pytest.mark.parametrize("H,W,C,chunk,with_res", MORPH_CASES)
+def test_morphfc_decay(rng, H, W, C, chunk, with_res):
+    x, res = _x(rng, (1, 2, H, W, C)), _x(rng, (1, 2, H, W, C))
+    jm = jblocks.MorphFCDecay(C, chunk, chunk, channel_mixer="rcab", impl="interpret")
+    p = jax.jit(jm.init)(jax.random.key(1), jnp.asarray(x))
+    kw = dict(residual=jnp.asarray(res), res_scale=0.5) if with_res else {}
+    want = np.asarray(jm.apply(p, jnp.asarray(x), **kw))
+    m = _load(blocks.MorphFCDecay(C, chunk, chunk), p,
+              "encoder_layers0/mlp_blocks0/spatial_mixing",
+              "encoder_layers.0.mlp_blocks.0.spatial_mixing.")
+    kw = dict(residual=torch.from_numpy(res), res_scale=0.5) if with_res else {}
+    np.testing.assert_allclose(_run(m, x, **kw), want, **TOL)
+
+
+def test_tab(rng):
+    x = _x(rng, (1, 2, 12, 14, 16))
+    jm = jblocks.TAB(16, 4, 4, mlp_ratio=6.0, n_groups=4, channel_mixer="rcab")
+    prev = (jblocks.set_morph_impl("interpret"), jblocks.set_ffn_impl("interpret"))
+    try:
+        p = jm.init(jax.random.key(2), jnp.asarray(x), True)
+        want = np.asarray(jm.apply(p, jnp.asarray(x), True))
+    finally:
+        jblocks.set_morph_impl(prev[0])
+        jblocks.set_ffn_impl(prev[1])
+    m = _load(blocks.TAB(16, 4, 4, 6.0, 4), p, "encoder_layers0/mlp_blocks0",
+              "encoder_layers.0.mlp_blocks.0.")
+    np.testing.assert_allclose(_run(m, x), want, **TOL)
+
+
+def test_ltam(rng):
+    n, K, h, w, C, heads = 2, 3, 8, 12, 16, 4
+    curr, anchor = _x(rng, (n, h, w, C)), _x(rng, (n, h, w, C))
+    vals = _x(rng, (n, h, w, K, C))
+    keys = np.asarray(jtraj._normalize(jnp.asarray(_x(rng, (n, h, w, K, C)))))
+    pad = [(0, 0)] * 4 + [(0, 128 - C)]
+    kv_tpu = np.stack([np.pad(vals, pad), np.pad(keys, pad)], -2).reshape(n, h, w, -1)
+    jm = jtraj.LTAM(C, head=heads, keys_prenormalized=True, presampled=True,
+                    pallas_interpret=True)
+    args = (jnp.asarray(curr), None, jnp.asarray(anchor), None, None)
+    p = jm.init(jax.random.key(3), *args, kv_packed=jnp.asarray(kv_tpu))
+    want = np.asarray(jm.apply(p, *args, kv_packed=jnp.asarray(kv_tpu)))
+    m = _load(trajectory.LTAM(C, heads), p, "encoder_layers0/traj_mixing/step/LTAM",
+              "encoder_layers.0.traj_mixing.LTAM.")
+    kv = np.stack([vals, keys], -2).reshape(n, h, w, K * 2 * C)
+    np.testing.assert_allclose(_run(m, curr, anchor, kv), want, **TOL)
+
+
+@pytest.mark.parametrize("T,traj_win", [(7, None), (8, 4)])
+def test_trajectory_multi_head(rng, T, traj_win):
+    B, H, W, C = 1, 8, 12, 16
+    x = _x(rng, (B, T, H, W, C))
+    ff = _x(rng, (B, T - 1, H, W, 2)) * 2
+    fb = _x(rng, (B, T - 1, H, W, 2)) * 2
+    jm = jtraj.TrajectoryMultiHead(
+        embed_dim=C, num_blocks=2, keyframe_stride=3, head=4, mode="wins",
+        r_scaling=0.1, ltam=True, traj_win=traj_win, carry_impl="warped",
+        win_impl="pallas", pallas_interpret=True)
+    p = jax.jit(jm.init)(jax.random.key(4), *map(jnp.asarray, (x, ff, fb)))
+    want = np.asarray(jax.jit(jm.apply)(p, *map(jnp.asarray, (x, ff, fb))))
+    m = _load(trajectory.TrajectoryMultiHead(C, num_blocks=2, keyframe_stride=3, head=4,
+                                             r_scaling=0.1, traj_win=traj_win),
+              p, "encoder_layers0/traj_mixing", "encoder_layers.0.traj_mixing.")
+    np.testing.assert_allclose(_run(m, x, ff, fb), want, **TOL)
+
+
+def test_packed_operands_follow_load_and_cast(rng):
+    """The kernels' packed weights are rebuilt after load_state_dict and
+    after a dtype conversion, not reused from the first forward."""
+    x = torch.from_numpy(_x(rng, (1, 2, 8, 8, 16)))
+    gen = torch.Generator().manual_seed(5)
+    a, b = blocks.TAB(16, 4, 4, 6.0, 4), blocks.TAB(16, 4, 4, 6.0, 4)
+    for m in (a, b):
+        for p in m.parameters():
+            p.data = torch.randn(p.shape, generator=gen) * 0.1
+    with torch.no_grad():
+        a(x)  # packs a's first weights
+        a.load_state_dict(b.state_dict())
+        torch.testing.assert_close(a(x), b(x), rtol=0, atol=0)
+        a.double()
+        assert a.spatial_mixing.operands()["pk"].dtype == torch.float64
+        assert all(t.dtype == torch.float64 for t in a.channel_mixing.operands())

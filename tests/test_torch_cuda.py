@@ -1,0 +1,122 @@
+"""The CUDA kernels of vmg_tpu_torch against their plain PyTorch versions,
+on the card (marker ``cuda``; each test skips without a CUDA device).
+
+Imports neither jax nor the repo's conftest fixtures, so the GPU machine
+runs it as ``python -m pytest tests/test_torch_cuda.py --noconftest``.
+Inputs are seeded; float32 with TF32 off, and bf16.  Tolerance, relative
+to the largest plain output: f32 1e-4 (summation order), bf16 1.6e-2 (a
+few output ulps: both versions round at the same places).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vmg_tpu_torch.ops import group_conv, ltam_attention, morphfc_fused
+
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def _randn(rng, shape, dev, dtype, scale=1.0):
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(dev, dtype)
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= _TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,groups", [(16, 4), (32, 1), (112, 4), (224, 4), (448, 4)])
+def test_group_ffn_kernel(cuda, dtype, C, groups):
+    rng = np.random.default_rng(C)
+    Fh = 6 * C
+    x = _randn(rng, (2, 11, 13, C), cuda, dtype)  # odd H, W: ragged tiles
+    w1 = _randn(rng, (Fh, C // groups, 3, 3), cuda, dtype, (9 * C / groups) ** -0.5)
+    b1 = _randn(rng, (Fh,), cuda, dtype, 0.1)
+    w2 = _randn(rng, (C, Fh), cuda, dtype, 0.02)
+    b2 = _randn(rng, (C,), cuda, dtype, 0.1)
+    args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, groups), b2)
+    for act in ("erf", "tanh"):
+        before = group_conv.fused_group_ffn.launches
+        got = group_conv.fused_group_ffn(*args, groups=groups, act=act)
+        assert group_conv.fused_group_ffn.launches == before + 1
+        _close(got, group_conv.group_ffn_plain(*args, groups=groups, act=act), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [112, 448])
+def test_morphfc_kernels(cuda, dtype, C):
+    rng = np.random.default_rng(C)
+    shape = (3, 18, 12, C)
+    x, h, w, c, res = (_randn(rng, shape, cuda, dtype) for _ in range(5))
+    a = torch.softmax(_randn(rng, (3, 3, C), cuda, torch.float32), dim=1).to(dtype)
+    pk, pb = _randn(rng, (C, C), cuda, dtype, 0.02), _randn(rng, (C,), cuda, dtype, 0.1)
+    torch.testing.assert_close(morphfc_fused.fused_morphfc_reduce(h, w, c),
+                               morphfc_fused.morphfc_reduce_plain(h, w, c),
+                               atol=1e-3, rtol=1e-5)
+    pb = pb.float()
+    for r in (None, res):
+        _close(morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb, residual=r,
+                                                   res_scale=0.5),
+               morphfc_fused.morphfc_combine_plain(x, h, w, c, a, pk, pb, residual=r,
+                                                   res_scale=0.5),
+               dtype)
+    with pytest.raises(ValueError, match="tanh"):
+        morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb, act="sigmoid")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,C,chunk_h,chunk_w", [(18, 24, 16, 4, 4), (16, 24, 112, 8, 8),
+                                                   (14, 16, 32, 2, 8)])
+def test_morphfc_axes_kernel(cuda, dtype, H, W, C, chunk_h, chunk_w):
+    """A ragged last H-chunk and slab (18 rows, 24 columns in 16-wide
+    slabs), the stage-0 channels and chunks, unequal chunks (a 32-wide slab
+    over 16 columns).  h and w are held relative to their largest value
+    (they are ~1/C); the sums are f32 whatever the dtype, held to 1e-5 of
+    the sum of |h| + |w| + |c|."""
+    rng = np.random.default_rng(C + H)
+    x, c = (_randn(rng, (3, H, W, C), cuda, dtype) for _ in range(2))
+    kh, kw = (_randn(rng, (C, C), cuda, dtype, C ** -0.5) for _ in range(2))
+    bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
+    args = (x, c, kh, bh, kw, bw)
+    got = morphfc_fused.fused_morphfc_axes(*args, chunk_h=chunk_h, chunk_w=chunk_w)
+    want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk_h, chunk_w=chunk_w)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got[:2], want[:2]):
+        err = (g.float() - wnt.float()).abs().max().item()
+        assert err <= _TOL[dtype] * wnt.float().abs().max().item(), err
+    scale = (want[0].float().abs() + want[1].float().abs() + c.float().abs()).sum(dim=(1, 2))
+    assert bool(((got[2] - want[2]).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4)])
+def test_ltam_kernel(cuda, dtype, K, C, heads):
+    rng = np.random.default_rng(K)
+    n, h, w = 2, 8, 12
+    q = torch.nn.functional.normalize(_randn(rng, (n, h, w, C), cuda, torch.float32), dim=-1)
+    q = q * (C // heads) ** -0.5
+    kv = _randn(rng, (n, h, w, K * 2 * C), cuda, dtype)
+    pe = torch.exp(_randn(rng, (K, 4, 4, heads), cuda, torch.float32, 0.5))
+    _close(ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
+           ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
+           torch.float32)

@@ -1,0 +1,161 @@
+"""The port's kernel modules against the JAX Pallas kernels.
+
+On CPU: each plain PyTorch version against the JAX kernel run in Pallas
+interpret mode, fp32, on the same seeded numpy inputs, with the JAX tests'
+own tolerances for the same op (2e-5 for the FFN and LTAM attention,
+1e-5 for the reduction and the axis branches -- 1e-3 absolute for their
+sums -- and 3e-5 / 2e-4 for the combine).  The wrappers take
+the plain version for CPU tensors and refuse other non-CUDA tensors.
+The CUDA kernels themselves are checked in ``test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from vmg_tpu.ops.group_conv import fused_group_ffn as j_group_ffn
+from vmg_tpu.ops.ltam_attention import ltam_attention_2x2 as j_ltam
+from vmg_tpu.ops.morphfc_fused import (
+    fused_morphfc_axes as j_axes,
+    fused_morphfc_combine as j_combine,
+    fused_morphfc_reduce as j_reduce,
+)
+from vmg_tpu_torch.ops import decay, group_conv, ltam_attention, morphfc_fused
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _ffn_case(rng, N=2, H=10, W=14, C=16, F=96, g=4):
+    x = rng.standard_normal((N, H, W, C)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, C // g, F)) * 0.2).astype(np.float32)
+    b = (rng.standard_normal((F,)) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((F, C)) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal((C,)) * 0.1).astype(np.float32)
+    return x, k, b, w2, b2, g
+
+
+def _ffn_torch_args(x, k, b, w2, b2, g):
+    """JAX layouts -> the port's (torch) parameter layouts -> the kernel's
+    packed operands."""
+    packed = group_conv.pack_ffn_weights(_t(k.transpose(3, 2, 0, 1)), _t(b), _t(w2.T), g)
+    return (_t(x), *packed, _t(b2))
+
+
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+def test_group_ffn_plain_matches_pallas(rng, act):
+    x, k, b, w2, b2, g = _ffn_case(rng)
+    want = np.asarray(j_group_ffn(*map(jnp.asarray, (x, k, b, w2, b2)), groups=g,
+                                  act=act, impl="pallas", interpret=True, rows=4))
+    got = group_conv.fused_group_ffn(*_ffn_torch_args(x, k, b, w2, b2, g), groups=g, act=act)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("H", [16, 18])
+def test_morphfc_reduce_plain_matches_pallas(rng, H):
+    h, w, c = (rng.standard_normal((2, H, 12, 16)).astype(np.float32) * 0.1
+               for _ in range(3))
+    want = np.asarray(j_reduce(*map(jnp.asarray, (h, w, c)), interpret=True))
+    got = morphfc_fused.fused_morphfc_reduce(_t(h), _t(w), _t(c))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("H,chunk_h,chunk_w", [(16, 4, 4), (18, 4, 4), (14, 2, 8)])
+def test_morphfc_axes_plain_matches_pallas(rng, H, chunk_h, chunk_w):
+    """H = 18 leaves a partial last H-chunk (masked rows); (2, 8) has
+    unequal chunks."""
+    N, W, C = 2, 16, 16
+    x, c = (rng.standard_normal((N, H, W, C)).astype(np.float32) for _ in range(2))
+    kh, kw = ((rng.standard_normal((C, C)) * 0.05).astype(np.float32) for _ in range(2))
+    bh, bw = ((rng.standard_normal((C,)) * 0.1).astype(np.float32) for _ in range(2))
+    want = j_axes(*map(jnp.asarray, (x, c, kh, bh, kw, bw)), chunk_h=chunk_h,
+                  chunk_w=chunk_w, decay=True, non_linear=True, interpret=True)
+    # the port takes the decay folded in, as MorphFCDecay packs it
+    gh, gw = (decay.morphfc_decay_np(ch, C // ch) for ch in (chunk_h, chunk_w))
+    got = morphfc_fused.fused_morphfc_axes(_t(x), _t(c), _t(kh * gh), _t(bh), _t(kw * gw),
+                                           _t(bw), chunk_h=chunk_h, chunk_w=chunk_w)
+    for g, wnt in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-3, rtol=1e-5)
+
+
+def _combine_case(rng, N=2, H=18, W=12, C=16):
+    x, h, w, c, res = (rng.standard_normal((N, H, W, C)).astype(np.float32)
+                       for _ in range(5))
+    a = rng.random((N, 3, C)).astype(np.float32)
+    a /= a.sum(axis=1, keepdims=True)
+    pk = (rng.standard_normal((C, C)) * 0.1).astype(np.float32)
+    pb = (rng.standard_normal((C,)) * 0.1).astype(np.float32)
+    return x, h, w, c, res, a, pk, pb
+
+
+@pytest.mark.parametrize("act", ["tanh", "sigmoid", "relu"])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_morphfc_combine_plain_matches_pallas(rng, act, with_res):
+    x, h, w, c, res, a, pk, pb = _combine_case(rng)
+    r = res if with_res else None
+    want = np.asarray(j_combine(*map(jnp.asarray, (x, h, w, c, a, pk, pb)), act=act,
+                                residual=None if r is None else jnp.asarray(r),
+                                res_scale=0.7, interpret=True))
+    got = morphfc_fused.fused_morphfc_combine(
+        _t(x), _t(h), _t(w), _t(c), _t(a), _t(pk), _t(pb), act=act,
+        residual=None if r is None else _t(r), res_scale=0.7)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=2e-4)
+
+
+def _ltam_case(rng, n=2, K=3, h=8, w=12, C=16, heads=4):
+    d = C // heads
+    q = rng.standard_normal((n, h, w, C)).astype(np.float32)
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True) * d ** -0.5
+    vals = rng.standard_normal((n, h, w, K, C)).astype(np.float32)
+    keys = rng.standard_normal((n, h, w, K, C)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=-1, keepdims=True)
+    pe = np.exp(rng.standard_normal((K, 4, 4, heads)) * 0.5).astype(np.float32)
+    return q, vals, keys, pe, K, heads
+
+
+def test_ltam_plain_matches_pallas(rng):
+    q, vals, keys, pe, K, heads = _ltam_case(rng)
+    n, h, w, C = q.shape
+
+    def pad128(v):
+        return np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, 128 - C)])
+
+    kv_tpu = np.stack([pad128(vals), pad128(keys)], axis=-2).reshape(n, h, w, K * 256)
+    want = np.asarray(j_ltam(jnp.asarray(pad128(q)), jnp.asarray(kv_tpu),
+                             jnp.asarray(pe), K=K, heads=heads, C=C,
+                             interpret=True))[..., :C]
+    kv = np.stack([vals, keys], axis=-2).reshape(n, h, w, K * 2 * C)
+    got = ltam_attention.ltam_attention_2x2(_t(q), _t(kv), _t(pe), K=K, heads=heads)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_wrappers_refuse_non_cpu_non_cuda_tensors():
+    """Only a CPU tensor selects the plain version; any other device goes to
+    the kernel path, which validates and raises instead of falling back."""
+    m = torch.empty((1, 4, 4, 16), device="meta")
+    wrappers = (group_conv.fused_group_ffn, morphfc_fused.fused_morphfc_axes,
+                morphfc_fused.fused_morphfc_reduce, morphfc_fused.fused_morphfc_combine,
+                ltam_attention.ltam_attention_2x2)
+    before = [f.launches for f in wrappers]
+    with pytest.raises(ValueError, match="CUDA"):
+        group_conv.fused_group_ffn(m, torch.empty(4, 36, 24, device="meta"),
+                                   torch.empty(96, device="meta"),
+                                   torch.empty(4, 24, 16, device="meta"),
+                                   torch.empty(16, device="meta"), groups=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        k, b = torch.empty(16, 16, device="meta"), torch.empty(16, device="meta")
+        morphfc_fused.fused_morphfc_axes(m, m, k, b, k, b, chunk_h=4, chunk_w=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        morphfc_fused.fused_morphfc_reduce(m, m, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        morphfc_fused.fused_morphfc_combine(m, m, m, m, torch.empty(1, 3, 16, device="meta"),
+                                            torch.empty(16, 16, device="meta"),
+                                            torch.empty(16, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ltam_attention.ltam_attention_2x2(m, torch.empty(1, 4, 4, 32, device="meta"),
+                                          torch.empty(1, 4, 4, 4, device="meta"),
+                                          K=1, heads=4)
+    assert [f.launches for f in wrappers] == before

@@ -1,0 +1,243 @@
+"""VMG block library: TAB with its MorphFC-decay mixer, RCAB and the
+grouped-conv FFN (``vmg_tpu/models/blocks.py``).
+
+Tensors are channels-last ``(B, T, H, W, C)``; convolutions run through
+:func:`conv_cl`, which hands cuDNN a channels-last NCHW view, so no layout
+copy is made around them.  The MorphFC-decay mixer takes the kernel form
+the JAX package selects for the shape: 'full' (both axis branches and the
+reweight sums in the ``fused_morphfc_axes`` kernel) where the chunks
+divide C and W and chunk * C <= 1024 -- stages 0 and 6 of the full preset
+-- else 'hybrid' (the axis FCs as plain matmuls, then the reduce kernel);
+both end in the combine/projection/gate kernel.  The FFN is the
+``ops/group_conv`` kernel.  The block residual folds into the mixer's
+combine pass (serving form of ``TAB``).  The kernels' weight operands are
+packed once per parameter state (:class:`PackedOperands`).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from vmg_tpu_torch.models.norms import TorchLayerNorm
+from vmg_tpu_torch.ops.decay import morphfc_decay_np
+from vmg_tpu_torch.ops.group_conv import fused_group_ffn, gelu, pack_ffn_weights
+from vmg_tpu_torch.ops.morphfc_fused import (
+    axis_tokens,
+    axis_untokens,
+    fused_morphfc_axes,
+    fused_morphfc_combine,
+    fused_morphfc_reduce,
+)
+
+
+def conv_cl(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Apply ``conv`` to channels-last ``(N, H, W, C)``."""
+    y = conv(x.permute(0, 3, 1, 2))
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_frames(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Per-frame conv of ``(B, T, H, W, C)``."""
+    B, T, H, W, C = x.shape
+    y = conv_cl(conv, x.reshape(B * T, H, W, C))
+    return y.reshape(B, T, *y.shape[1:])
+
+
+class PackedOperands(nn.Module):
+    """A module whose kernels take operands derived from its parameters
+    (repacked, transposed, decay-folded).  They are made by ``_pack`` at
+    the first forward and dropped whenever the parameters are loaded or
+    converted (``load_state_dict``, ``.to``, ``.cuda``, dtype casts), so
+    each parameter state is packed once.  An in-place edit of a parameter
+    after a forward is not seen: load or convert instead."""
+
+    _ops = None
+
+    def _pack(self):
+        raise NotImplementedError
+
+    def operands(self):
+        if self._ops is None:
+            self._ops = self._pack()
+        return self._ops
+
+    def _apply(self, fn, *args, **kw):
+        self._ops = None
+        return super()._apply(fn, *args, **kw)
+
+    def _load_from_state_dict(self, *args, **kw):
+        self._ops = None
+        super()._load_from_state_dict(*args, **kw)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2."""
+
+    def __init__(self, dim, hidden, out, *, gelu_act="erf", device=None):
+        super().__init__()
+        self.gelu_act = gelu_act
+        self.fc1 = nn.Linear(dim, hidden, device=device)
+        self.fc2 = nn.Linear(hidden, out, device=device)
+
+    def forward(self, x):
+        return self.fc2(gelu(self.fc1(x), self.gelu_act))
+
+
+class MlpCnn(PackedOperands):
+    """Grouped 3x3 conv expand -> GELU -> linear project, as one kernel."""
+
+    def __init__(self, dim, exp_r=4.0, n_groups=1, *, gelu_act="erf",
+                 device=None):
+        super().__init__()
+        hidden = int(dim * exp_r)
+        self.n_groups = n_groups
+        self.gelu_act = gelu_act
+        self.fc1 = nn.Conv2d(dim, hidden, 3, padding=1, groups=n_groups,
+                             device=device)
+        self.fc2 = nn.Linear(hidden, dim, device=device)
+
+    def _pack(self):
+        return pack_ffn_weights(self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                                self.n_groups)
+
+    def forward(self, x):
+        B, T, H, W, C = x.shape
+        y = fused_group_ffn(x.reshape(B * T, H, W, C).contiguous(), *self.operands(),
+                            self.fc2.bias, groups=self.n_groups, act=self.gelu_act)
+        return y.reshape(B, T, H, W, C)
+
+
+class CALayer(nn.Module):
+    def __init__(self, channel, reduction=16, device=None):
+        super().__init__()
+        self.conv_du = nn.Sequential(
+            nn.Conv2d(channel, channel // reduction, 1, device=device),
+            nn.ReLU(),
+            nn.Conv2d(channel // reduction, channel, 1, device=device),
+            nn.Sigmoid())
+
+    def forward(self, x):  # (N, H, W, C)
+        y = x.mean(dim=(1, 2), keepdim=True)
+        return x * conv_cl(self.conv_du, y)
+
+
+class RCAB(nn.Module):
+    """conv-ReLU-conv + channel attention, residual (reduction 8)."""
+
+    def __init__(self, n_feat, reduction=8, device=None):
+        super().__init__()
+        self.body = nn.Sequential(
+            nn.Conv2d(n_feat, n_feat, 3, padding=1, device=device),
+            nn.ReLU(),
+            nn.Conv2d(n_feat, n_feat, 3, padding=1, device=device),
+            CALayer(n_feat, reduction, device))
+
+    def forward(self, x):  # (B, T, H, W, C)
+        B, T, H, W, C = x.shape
+        y = x.reshape(B * T, H, W, C)
+        res = conv_cl(self.body[2], F.relu(conv_cl(self.body[0], y)))
+        res = self.body[3](res)
+        return (y + res).reshape(B, T, H, W, C)
+
+
+def _axis_mix(x, k, bias, chunk: int, axis: int):
+    """Decayed axis FC along H (axis 1) or W (axis 2) of (N, H, W, C), the
+    JAX package's XLA form ('hybrid' mode): channels pad to Cp = k's size,
+    the matmul rounds to x's dtype before the bias, relu, then 1/Cp
+    (relu_scale).  ``k`` (Cp, Cp) is the decayed weight, (in, out)."""
+    N, H, W, C = x.shape
+    Cp = k.shape[0]
+    xp = F.pad(x, (0, Cp - C))
+    y = F.relu(axis_tokens(xp, chunk, axis) @ k + bias) / Cp
+    return axis_untokens(y, xp.shape, chunk, axis)[..., :C]
+
+
+class MorphFCDecay(PackedOperands):
+    """Enhanced MorphFCs with retention decay, in the JAX package's kernel
+    forms: H-axis FC, W-axis FC and channel (RCAB) branches, each relu'd
+    and scaled by 1/C; squeeze-mean softmax reweight; projection;
+    symmetric gate ``(x + p) * act(p)``; optional folded block residual."""
+
+    def __init__(self, dim, chunk_h=8, chunk_w=8, *, symm_act="tanh",
+                 gelu_act="erf", device=None):
+        super().__init__()
+        self.dim, self.chunk_h, self.chunk_w = dim, chunk_h, chunk_w
+        self.symm_act = symm_act
+        Ch = -(-dim // chunk_h) * chunk_h
+        Cw = -(-dim // chunk_w) * chunk_w
+        self.mlp_h = nn.Sequential(nn.Linear(Ch, Ch, device=device), nn.ReLU())
+        self.mlp_w = nn.Sequential(nn.Linear(Cw, Cw, device=device), nn.ReLU())
+        # the decay folded into the axis weights when they are packed (the
+        # stored weights stay undecayed); constants, so not in the state dict
+        for name, ch, f in (("gamma_h", chunk_h, Ch), ("gamma_w", chunk_w, Cw)):
+            gamma = torch.tensor(morphfc_decay_np(ch, f // ch), device=device)
+            self.register_buffer(name, gamma, persistent=False)
+        self.mlp_c = RCAB(dim, device=device)
+        self.reweight = Mlp(dim, dim // 4, dim * 3, gelu_act=gelu_act,
+                            device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+
+    def _pack(self):
+        fh, fw = self.mlp_h[0], self.mlp_w[0]
+        return dict(kh=(fh.weight * self.gamma_h).t().contiguous(),
+                    kw=(fw.weight * self.gamma_w).t().contiguous(),
+                    bh=fh.bias.float().contiguous(), bw=fw.bias.float().contiguous(),
+                    pk=self.proj.weight.t().contiguous(),
+                    pb=self.proj.bias.float().contiguous())
+
+    def full_form(self, W: int) -> bool:
+        """The JAX package's 'full' selection (``_pallas_mode``)."""
+        C, ch, cw = self.dim, self.chunk_h, self.chunk_w
+        return (C % ch == 0 and C % cw == 0 and W % cw == 0
+                and ch * C <= 1024 and cw * C <= 1024)
+
+    def forward(self, x, residual=None, res_scale: float = 1.0):
+        B, T, H, W, C = x.shape
+        N = B * T
+        ops = self.operands()
+        xf = x.reshape(N, H, W, C).contiguous()
+        cf = (self.mlp_c(x) / C).reshape(N, H, W, C).contiguous()
+        if self.full_form(W):
+            hf, wf, psum = fused_morphfc_axes(
+                xf, cf, ops["kh"], ops["bh"], ops["kw"], ops["bw"],
+                chunk_h=self.chunk_h, chunk_w=self.chunk_w)
+        else:
+            hf = _axis_mix(xf, ops["kh"], self.mlp_h[0].bias, self.chunk_h, 1).contiguous()
+            wf = _axis_mix(xf, ops["kw"], self.mlp_w[0].bias, self.chunk_w, 2).contiguous()
+            psum = fused_morphfc_reduce(hf, wf, cf)
+
+        a = psum.reshape(B, T, C).sum(dim=1) / float(T * H * W)
+        a = self.reweight(a.to(x.dtype))
+        a = a.reshape(B, C, 3).permute(2, 0, 1).float().softmax(dim=0)
+        a = a.to(x.dtype).permute(1, 0, 2)[:, None].expand(B, T, 3, C)
+        res = None if residual is None else residual.reshape(N, H, W, C).contiguous()
+        y = fused_morphfc_combine(
+            xf, hf, wf, cf, a.reshape(N, 3, C).contiguous(), ops["pk"], ops["pb"],
+            act=self.symm_act, residual=res, res_scale=res_scale)
+        return y.reshape(B, T, H, W, C)
+
+
+class TAB(nn.Module):
+    """LayerNorm -> MorphFC-decay mixer (+ folded residual) -> LayerNorm ->
+    grouped-conv FFN (+ residual); the serving (deterministic) block."""
+
+    def __init__(self, dim, chunk_h=8, chunk_w=8, mlp_ratio=2.0, n_groups=1,
+                 *, symm_act="tanh", mixer_scaling=1.0, gelu_act="erf",
+                 device=None):
+        super().__init__()
+        self.mixer_scaling = mixer_scaling
+        self.norm2 = TorchLayerNorm(dim, device=device)
+        self.spatial_mixing = MorphFCDecay(dim, chunk_h, chunk_w,
+                                           symm_act=symm_act,
+                                           gelu_act=gelu_act, device=device)
+        self.norm3 = TorchLayerNorm(dim, device=device)
+        self.channel_mixing = MlpCnn(dim, mlp_ratio, n_groups,
+                                     gelu_act=gelu_act, device=device)
+
+    def forward(self, x):
+        x = self.spatial_mixing(self.norm2(x), residual=x,
+                                res_scale=self.mixer_scaling)
+        y = self.channel_mixing(self.norm3(x))
+        return x + y * self.mixer_scaling
