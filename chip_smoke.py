@@ -5,25 +5,37 @@
 
 Phases (any failure exits non-zero):
   1. card name and power limit; build the CUDA kernels from
-     vmg_tpu_torch/csrc and time the build;
+     vmg_tpu_torch/csrc (one nvcc per source, in parallel) and time it;
   2. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes, in float32 (TF32 off) and bf16, each timed
-     (CUDA events) next to its plain version (the MorphFC axis-branch
-     kernel also next to the 'hybrid' form it replaces at stages 0/6);
+     shapes of the path that runs it, in float32 (TF32 off) and bf16,
+     each timed (CUDA events) next to its plain version and its bound
+     (the MorphFC axis-branch kernel also next to the 'hybrid' form it
+     replaces at stages 0/6); the LTAM backward at the training shape;
   3. slice parity: FULL_PRESET in float32 at 1x2x64x64, kernel path on the
      card against the plain path (CPU tensors) with the same weights;
-  4. serving: an SRServer on FULL_PRESET in bf16 (tanh GELU, bf16 SPyNet
-     convs), seeded random init, 1x16x180x320 clips: one warm-up request,
-     then 3 clips x 3 reps, each request timed; the output must be finite
-     and (1,16,720,1280,3) and every kernel's launch count over the run
-     must be > 0.
-Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+  4. serving (main path 1): an SRServer on FULL_PRESET in bf16 (tanh GELU,
+     bf16 SPyNet convs), seeded random init, 1x16x180x320 clips: one
+     warm-up request, then 3 clips x 3 reps, each request timed; the
+     output must be finite and (1,16,720,1280,3) and every serving
+     kernel's launch count over the run must be > 0;
+  5. train-step parity: one float32 FULL_PRESET training step (loss and
+     gradients, drop_path 0, remat on) at 1x5x64x64, kernels on the card
+     against the plain path on CPU tensors from the same weights;
+  6. training (main path 2): the function of ``python -m
+     vmg_tpu_torch.train`` on FULL_PRESET -- bf16 compute on float32
+     masters, remat on, B=1, T=16, 64x64 crops, seeded data: one warm-up
+     step, then timed steps; the losses must be finite and both LTAM
+     kernels must have launched.
+Prints a {"kernels": [...]} JSON line (each kernel with its launches on
+the path that runs it, its times, its bound and the library call, if
+any), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -43,6 +55,31 @@ REL_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
 # sum missing one pixel of a 184x320 frame is off by ~1.7e-5 of it.
 SUM_TOL = 1e-6
 SLICE_TOL = 1e-3  # f32 full model, cuDNN and kernels vs CPU, output in ~[0, 1]
+# Train-step parity, f32: the loss within LOSS_TOL relative; each
+# parameter's gradient within GRAD_LIMIT of max(its max|plain|, GRAD_FLOOR x
+# the largest max|plain| of any parameter).  GRAD_TOL of its own max is
+# reported, not held: the plain path misses it against itself -- two CPU
+# thread counts (summation orders) differ by up to ~2e-2 of their own max
+# on gradients ~1e-8 of the largest, and by ~4e-3 on gradients 1e-3 of it
+# (see PERF.md); the phase measures that spread too.
+LOSS_TOL, GRAD_TOL, GRAD_LIMIT, GRAD_FLOOR = 1e-5, 1e-3, 1e-2, 1e-3
+
+# The least time the card could take (NVIDIA H100 SXM data sheet, dense
+# rates): bytes over the HBM rate, operations over the peak rate of their
+# type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16 tensor cores": 989e12, "f32": 67e12}
+
+
+def bound(inputs, outputs, flops, peak):
+    """{bound_ms, bound_by, ...} for a call that reads ``inputs`` once,
+    writes ``outputs`` once and does ``flops`` operations at ``peak``."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops, "bound_peak": peak}
 
 
 def nvidia_smi() -> str:
@@ -82,6 +119,36 @@ def within_sum(got, want, terms, label=""):
             f"max_rel_err={rel:.3e} (tol {SUM_TOL:g} of sum|terms|)")
 
 
+def ltam_dpe_terms(q, kv, pe, g, K, heads):
+    """Per entry of the LTAM backward's dpe (K, 4, 4, heads), the sum of its
+    terms' magnitudes: over the pixels at that query position,
+    exp(logit) (|g.v| + |g.out|) / den, plain PyTorch."""
+    from vmg_tpu_torch.ops.ltam_attention import _tap, ltam_attention_plain
+
+    N, H, W, C = q.shape
+    d = C // heads
+    kv6 = kv.reshape(N, H, W, K, 2, C)
+    qh, gh = q.reshape(N, H, W, heads, d), g.reshape(N, H, W, heads, d)
+    out = ltam_attention_plain(q, kv, pe, K=K, heads=heads).reshape(N, H, W, heads, d)
+    s = (gh * out).sum(-1).abs()
+    pos = (2 * (torch.arange(H, device=q.device) % 2)[:, None]
+           + (torch.arange(W, device=q.device) % 2)[None, :])
+    den, mags = 0.0, {}
+    for k in range(K):
+        for t in range(4):
+            val = _tap(kv6[:, :, :, k, 0], *divmod(t, 2)).float().reshape(N, H, W, heads, d)
+            key = _tap(kv6[:, :, :, k, 1], *divmod(t, 2)).float().reshape(N, H, W, heads, d)
+            ex = torch.exp((qh * key).sum(-1))
+            den = den + ex * pe[k, t][pos]
+            mags[k, t] = ex * ((gh * val).sum(-1).abs() + s)
+    terms = torch.empty_like(pe)
+    for (k, t), m in mags.items():
+        m = m / den.clamp_min(1e-30)
+        for p in range(4):
+            terms[k, t, p] = m[:, pos == p].sum(dim=(0, 1))
+    return terms
+
+
 def check_kernels(report):
     """Phase 2.  Returns one dict per kernel for the JSON line."""
     from vmg_tpu_torch.models.blocks import _axis_mix
@@ -105,14 +172,20 @@ def check_kernels(report):
                                       replaces="vmg_tpu/ops/morphfc_fused.py:421"),
         "ltam_attention_2x2": dict(source="vmg_tpu_torch/csrc/ltam.cu",
                                    replaces="vmg_tpu/ops/ltam_attention.py:282"),
+        "ltam_attention_2x2_bwd": dict(source="vmg_tpu_torch/csrc/ltam.cu",
+                                       replaces="vmg_tpu/ops/ltam_attention.py:308"),
     }
+    # No single PyTorch call computes any of these functions (each needs
+    # layout changes or several ops around a library call), so no library
+    # time is taken.
     for e in entries.values():
-        e.update(route="cuda", max_abs_err=0.0)
+        e.update(route="cuda", max_abs_err=0.0, library_ms=None)
 
-    def compare(name, shape, dtype, kernel, plain, check, primary, extra=""):
+    def compare(name, shape, dtype, kernel, plain, check, primary, work, extra=""):
         """Check and time one kernel call.  ``check(got, want)`` gives one
-        (label, max_abs_err, ok, text) per output; ``primary``: the bf16
-        stage-0 call whose times go into the JSON line."""
+        (label, max_abs_err, ok, text) per output; ``primary``: the call at
+        the main path's shape and dtype whose times go into the JSON line;
+        ``work``: (inputs, operations, peak) for its bound."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
@@ -124,15 +197,20 @@ def check_kernels(report):
             report(f"  {name} {dtype} {shape}: finite={finite}; {text} FAIL")
             raise AssertionError(f"{name} disagrees with its plain version")
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, iters=3)
+        b = bound(work[0], got, work[1], work[2])
         report(f"  {name:22s} {str(dtype):15s} {str(shape):26s} {text} ok  "
-               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{extra}")
+               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b['bound_ms']:.4f} ms "
+               f"({b['bound_by']}){extra}")
         e = entries[name]
         e["max_abs_err"] = max([e["max_abs_err"]] + [err for _, err, _, _ in results])
         if primary:
-            e.update(ms=ms, plain_ms=plain_ms, at=f"{dtype} {shape}")
+            e.update(ms=ms, plain_ms=plain_ms, at=f"{dtype} {shape}", **b)
 
     def dtype_check(dtype):
         return lambda got, want: [within_max(got[0], want[0], REL_TOL[dtype])]
+
+    def peak(dtype):  # the bf16 kernels multiply on the tensor cores
+        return "bf16 tensor cores" if dtype == torch.bfloat16 else "f32"
 
     # the four FFN stage shapes (N = 16 frames): stage 0/6, 1/5, 2/4, 3
     ffn_shapes = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
@@ -146,10 +224,13 @@ def check_kernels(report):
             b1, b2 = rn(Fh, scale=0.1, dtype=dtype), rn(C, scale=0.1, dtype=dtype)
             w2 = rn(C, Fh, scale=0.02, dtype=dtype)
             args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, 4), b2)
+            # grouped 3x3 conv (C/4 inputs per output) and the C x 6C fc2
+            flops = 2 * N * h * w * Fh * (9 * C // 4 + C)
             compare("fused_group_ffn", shape, dtype,
                     lambda: group_conv.fused_group_ffn(*args, groups=4, act="tanh"),
                     lambda: group_conv.group_ffn_plain(*args, groups=4, act="tanh"),
-                    dtype_check(dtype), primary=dtype == torch.bfloat16 and C == 112)
+                    dtype_check(dtype), primary=dtype == torch.bfloat16 and C == 112,
+                    work=((x, w1, b1, w2, b2), flops, peak(dtype)))
             del x, w1, args
 
         # the axis-branch kernel at stages 0/6: chunk 8 along H and W
@@ -175,6 +256,7 @@ def check_kernels(report):
                 lambda: morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck),
                 lambda: morphfc_fused.morphfc_axes_plain(*args, chunk_h=ck, chunk_w=ck),
                 axes_check, primary=dtype == torch.bfloat16,
+                work=(args, 2 * 2 * N * h * w * C * C, peak(dtype)),  # two C x C FCs
                 extra=f"  hybrid form {cuda_ms(hybrid, iters=3):.3f} ms")
         del x, xc, args
 
@@ -187,16 +269,21 @@ def check_kernels(report):
                     lambda: morphfc_fused.fused_morphfc_reduce(xh, xw, xc),
                     lambda: morphfc_fused.morphfc_reduce_plain(xh, xw, xc),
                     lambda got, want: [within_sum(got[0], want[0], terms)],
-                    primary)
+                    primary, work=((xh, xw, xc), 3 * xh.numel(), "f32"))
             a = torch.softmax(rn(N, 3, C), dim=1).to(dtype)
             pk, pb = rn(C, C, scale=0.02, dtype=dtype), rn(C, scale=0.1)
             args = (x, xh, xw, xc, a, pk, pb)
+            # the C x C projection; the weighted sum and gate are elementwise
             compare("fused_morphfc_combine", shape, dtype,
                     lambda: morphfc_fused.fused_morphfc_combine(*args, residual=res),
                     lambda: morphfc_fused.morphfc_combine_plain(*args, residual=res),
-                    dtype_check(dtype), primary)
+                    dtype_check(dtype), primary,
+                    work=((*args, res), 2 * x.numel() * C, peak(dtype)))
             del xh, xw, xc, x, res, args
 
+        # LTAM forward at the serving shape (stage 0 of a 1x16x180x320 clip,
+        # the last keyframe step: K = 5); f32 arithmetic on the CUDA cores:
+        # per pixel, slot and tap a C-long logit and a C-long value sum
         N, h, w, C, K, heads = 1, 184, 320, 112, 5, 4
         q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
         kv = rn(N, h, w, K * 2 * C, dtype=dtype)
@@ -205,19 +292,134 @@ def check_kernels(report):
                 lambda: ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
                 lambda: ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
                 dtype_check(torch.float32),  # f32 output: f32 tolerance
-                primary=dtype == torch.bfloat16)
+                primary=dtype == torch.bfloat16,
+                work=((q, kv, pe), N * h * w * K * 4 * 4 * C, "f32"))
         del q, kv
+
+        # LTAM backward at the training shape (stage 0 of a 64x64 crop,
+        # K = 5): from the forward kernel's saved out and denominator
+        N, h, w = 1, 64, 64
+        q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
+        kv = rn(N, h, w, K * 2 * C, dtype=dtype)
+        pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
+        g = rn(N, h, w, C)
+        out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+        dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
+
+        def bwd_check(got, want):
+            return [within_max(got[0], want[0], REL_TOL[torch.float32], "dq "),
+                    within_max(got[1], want[1], REL_TOL[dtype], "dkv "),
+                    within_sum(got[2], want[2], dpe_terms, "dpe ")]
+
+        # query pass: logit, g.v and dq, C-long each; source pass: dval and
+        # dkey, C-long each -- per pixel, slot and tap
+        compare("ltam_attention_2x2_bwd", (N, h, w, C, K), dtype,
+                lambda: ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g,
+                                                              K=K, heads=heads),
+                lambda: ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K,
+                                                                heads=heads),
+                bwd_check, primary=dtype == torch.bfloat16,
+                work=((q, kv, pe, den, out, g), N * h * w * K * 4 * 10 * C, "f32"))
+        del q, kv, out, den, g
     torch.cuda.empty_cache()
     return entries
 
 
 def launch_counts():
+    """Kernel name -> (object, attribute) of its launch counter."""
     from vmg_tpu_torch.ops import group_conv, ltam_attention, morphfc_fused
-    return {"fused_group_ffn": group_conv.fused_group_ffn,
-            "fused_morphfc_axes": morphfc_fused.fused_morphfc_axes,
-            "fused_morphfc_reduce": morphfc_fused.fused_morphfc_reduce,
-            "fused_morphfc_combine": morphfc_fused.fused_morphfc_combine,
-            "ltam_attention_2x2": ltam_attention.ltam_attention_2x2}
+    ltam = ltam_attention.ltam_attention_2x2
+    return {"fused_group_ffn": (group_conv.fused_group_ffn, "launches"),
+            "fused_morphfc_axes": (morphfc_fused.fused_morphfc_axes, "launches"),
+            "fused_morphfc_reduce": (morphfc_fused.fused_morphfc_reduce, "launches"),
+            "fused_morphfc_combine": (morphfc_fused.fused_morphfc_combine, "launches"),
+            "ltam_attention_2x2": (ltam, "launches"),
+            "ltam_attention_2x2_bwd": (ltam, "bwd_launches")}
+
+
+def zero_counts():
+    for obj, attr in launch_counts().values():
+        setattr(obj, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(obj, attr) for name, (obj, attr) in launch_counts().items()}
+
+
+def grad_errors(grads, want, names):
+    """Per parameter, max|grads - want| over max(max|want|, GRAD_FLOOR x the
+    largest max|want|), and over max|want| alone: (worst floored, worst
+    own, the parameter of the worst own and its max|want|, the largest
+    max|want|, count over GRAD_TOL of own)."""
+    peaks = [w.abs().max().item() for w in want]
+    floor = GRAD_FLOOR * max(peaks)
+    floored, own = [], []
+    for a, w, m in zip(grads, want, peaks):
+        err = (a.cpu() - w).abs().max().item()
+        floored.append(err / max(m, floor))
+        own.append(err / m if m > 0 else (0.0 if err == 0 else float("inf")))
+    i = int(np.argmax(own))
+    return (max(floored), own[i], names[i], peaks[i], max(peaks),
+            sum(e > GRAD_TOL for e in own))
+
+
+def train_parity(report, preset, device="cuda", frames=5):
+    """Phase 5: one f32 training step's loss and gradients, on ``device``
+    (kernels on the card) against the plain path on CPU tensors, and the
+    plain path against itself at another CPU thread count.  Returns a dict
+    of the errors."""
+    from vmg_tpu_torch.configs import TrainConfig
+    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.train.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(preset, drop_path_rate=0.0)
+    cpu_model = create_model(cfg, is_train=True, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    rng = np.random.default_rng(3)
+    lrs = torch.from_numpy(rng.random((1, frames, 64, 64, 3), dtype=np.float32))
+    hrs = torch.from_numpy(rng.random((1, frames, 256, 256, 3), dtype=np.float32))
+    tcfg = TrainConfig(if_aux=True)
+    t1 = time.time()
+    loss_cpu, g_cpu = loss_and_grads(cpu_model, lrs, hrs, tcfg)
+    t_cpu = time.time() - t1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    loss_cpu2, g_cpu2 = loss_and_grads(cpu_model, lrs, hrs, tcfg)
+    torch.set_num_threads(threads)
+    zero_counts()
+    loss_gpu, g_gpu = loss_and_grads(gpu_model, lrs.to(device), hrs.to(device), tcfg)
+    counts = read_counts()
+    names = [n for n, _ in cpu_model.named_parameters()]
+    finite = all(bool(torch.isfinite(g).all()) for g in g_gpu)
+    res = {}
+    for label, loss, grads in (("kernels", loss_gpu, g_gpu), ("plain_self", loss_cpu2, g_cpu2)):
+        floored, own, own_name, own_peak, peak, n_over = grad_errors(grads, g_cpu, names)
+        res[label] = {"loss_rel_err": abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu)),
+                      "grad_err": floored, "grad_err_own_max": own,
+                      "grad_err_own_max_param": own_name, "its_max_grad": own_peak,
+                      "largest_max_grad": peak, "params_over_target": n_over}
+    for label, text in (("kernels", "kernels on the card"),
+                        ("plain_self", f"plain at {max(1, threads // 2)} CPU threads")):
+        r = res[label]
+        report(f"    {text} vs plain at {threads}: loss rel err {r['loss_rel_err']:.3e}; "
+               f"worst gradient error {r['grad_err']:.3e} of max(own, {GRAD_FLOOR:g} x "
+               f"largest) max|plain|; of its own max {r['grad_err_own_max']:.3e} in "
+               f"{r['grad_err_own_max_param']} (its max|plain| {r['its_max_grad']:.3e}, the "
+               f"largest {r['largest_max_grad']:.3e}); {r['params_over_target']} of "
+               f"{len(names)} parameters over {GRAD_TOL:g} of their own max")
+    report(f"    tol: loss {LOSS_TOL:g}, gradients {GRAD_LIMIT:g}; LTAM launches fwd "
+           f"{counts['ltam_attention_2x2']} bwd {counts['ltam_attention_2x2_bwd']}; "
+           f"CPU plain step {t_cpu:.1f} s")
+    k = res["kernels"]
+    if not (finite and k["loss_rel_err"] <= LOSS_TOL and k["grad_err"] <= GRAD_LIMIT):
+        raise AssertionError("train-step parity failed")
+    if counts["ltam_attention_2x2_bwd"] <= 0:
+        raise AssertionError("the parity step did not reach the LTAM backward kernel")
+    del gpu_model, cpu_model
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -230,6 +432,7 @@ def main() -> int:
     from vmg_tpu_torch.models.vmg import create_model
     from vmg_tpu_torch.ops.resize import upsample_trilinear_frames
     from vmg_tpu_torch.serve import SRServer
+    from vmg_tpu_torch.train.__main__ import run as train_run
 
     def report(msg):
         print(msg, flush=True)
@@ -241,6 +444,7 @@ def main() -> int:
     _build.load_library()
     report(f"[1] kernels built and loaded in {time.time() - t0:.1f} s")
 
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report("[2] kernels vs plain versions on the card (tol: f32 "
@@ -250,8 +454,9 @@ def main() -> int:
 
     report("[3] slice parity: FULL_PRESET f32 1x2x64x64, kernels on the card vs "
            "plain versions on CPU tensors, same weights")
-    sd = create_model(FULL_PRESET, generator=torch.Generator().manual_seed(0)).state_dict()
-    cpu_model = create_model(FULL_PRESET)
+    sd = create_model(FULL_PRESET, device="cpu",
+                      generator=torch.Generator().manual_seed(0)).state_dict()
+    cpu_model = create_model(FULL_PRESET, device="cpu")
     cpu_model.load_state_dict(sd)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     x = torch.from_numpy(np.random.default_rng(1).random((1, 2, 64, 64, 3), dtype=np.float32))
@@ -279,11 +484,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     warm = rng.random((1, T, H, W, 3), dtype=np.float32)
     clips = [rng.random((1, T, H, W, 3), dtype=np.float32) for _ in range(3)]
-    counters = launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts()
     t1 = time.time()
     out = server(warm)
     report(f"    warm-up request {time.time() - t1:.2f} s")
@@ -296,28 +499,68 @@ def main() -> int:
             out = server(c)
             per_request.append(T / (time.time() - t2))
     dt = time.time() - t1
-    launches = {name: fn.launches for name, fn in counters.items()}
+    serving_launches = read_counts()
     fps = T * reps * len(clips) / dt
     peak = torch.cuda.max_memory_allocated()
     report(f"    {fps:.3f} frames/s ({dt / (reps * len(clips)):.3f} s per clip, host "
            f"clock, numpy in/out); per request median {np.median(per_request):.3f}, "
            f"range {min(per_request):.3f}-{max(per_request):.3f} frames/s; peak "
            f"allocated {peak / 2**30:.2f} GiB; {kind}; card {smi}")
-    report(f"    launches over the serving run: {launches}")
+    report(f"    launches over the serving run: {serving_launches}")
     if out.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(out).all():
         raise AssertionError(f"bad serving output {out.shape}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in serving_launches.items()
+               if v <= 0 and k != "ltam_attention_2x2_bwd"]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the serving path: {missing}")
+    del server
+    torch.cuda.empty_cache()
+
+    report(f"[5] train-step parity: FULL_PRESET f32 1x5x64x64, drop_path 0, TF32 off, "
+           f"kernels on the card vs plain versions on CPU tensors, same weights")
+    parity = train_parity(report, FULL_PRESET)
+
+    # the trainer as a user runs it: PyTorch's default TF32 settings
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    iters = 6
+    report(f"[6] training: FULL_PRESET bf16 + f32 masters, remat, B=1 T=16 64x64 "
+           f"crops, if_aux, seeded data; 1 warm-up + {iters} timed steps")
+    zero_counts()
+    rec = train_run(preset="full", batch=1, frames=16, crop=64, iters=iters,
+                    grad_acc=1, remat=True, device="cuda")
+    train_launches = read_counts()
+    report(f"    step {rec['step_ms_median']:.1f} ms median ({rec['step_ms_min']:.1f}-"
+           f"{rec['step_ms_max']:.1f}), {rec['frames_per_s']:.3f} frames/s, peak "
+           f"allocated {rec['peak_bytes'] / 2**30:.2f} GiB, losses "
+           f"{rec['loss_first']:.6f} (warm-up) .. {rec['loss_last']:.6f}; {kind}; card {smi}")
+    report(f"    launches over the {iters} timed steps: {train_launches}")
+    losses = [rec["loss_first"], *rec["losses"]]
+    if not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    missing = [k for k in ("ltam_attention_2x2", "ltam_attention_2x2_bwd")
+               if train_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: {missing}")
 
     kernels = []
     for name, e in entries.items():
+        # each kernel's launches on the path that runs it: the LTAM
+        # backward in training, the others in serving
+        path = "training" if name == "ltam_attention_2x2_bwd" else "serving"
+        launches = (train_launches if path == "training" else serving_launches)[name]
         kernels.append({"name": name, "route": e["route"], "source": e["source"],
-                        "replaces": e["replaces"], "launches": launches[name],
+                        "replaces": e["replaces"], "launches": launches,
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                        "plain_ms": e["plain_ms"], "at": e["at"]})
+                        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                        "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                        "at": e["at"], "launches_path": path,
+                        "launches_serving": serving_launches[name],
+                        "launches_training": train_launches[name],
+                        "bound_bytes": e["bound_bytes"], "bound_flops": e["bound_flops"],
+                        "bound_peak": e["bound_peak"]})
     print(json.dumps({"serving": {"frames_per_s": fps, "per_request_frames_per_s": per_request,
                                   "peak_bytes": peak, "slice_max_abs_err": err}}))
+    print(json.dumps({"training": {**rec, "parity": parity}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

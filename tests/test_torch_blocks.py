@@ -144,3 +144,67 @@ def test_packed_operands_follow_load_and_cast(rng):
         a.double()
         assert a.spatial_mixing.operands()["pk"].dtype == torch.float64
         assert all(t.dtype == torch.float64 for t in a.channel_mixing.operands())
+
+
+@pytest.mark.parametrize("C,groups", [(16, 4), (18, 1)])
+def test_tab_training_form_matches_jax_module_path(rng, C, groups):
+    """TAB in training mode (drop_path 0) against the JAX TAB at
+    ``deterministic=False`` -- the module paths training pins (MorphFCDecay
+    fused axis FCs, grouped-conv FFN): output and every gradient, f32.
+    C = 18 pads the axis-FC channels to 20."""
+    x = _x(rng, (1, 2, 12, 14, C))
+    cot = _x(rng, x.shape)
+    jm = jblocks.TAB(C, 4, 4, mlp_ratio=6.0, n_groups=groups, channel_mixer="rcab")
+    p = jax.jit(jm.init, static_argnums=2)(jax.random.key(2), jnp.asarray(x), True)
+
+    def f(params, xx):
+        return jnp.sum(jm.apply(params, xx, False) * cot)
+
+    want = np.asarray(jm.apply(p, jnp.asarray(x), False))
+    gp, gx = jax.grad(f, argnums=(0, 1))(p, jnp.asarray(x))
+    m = _load(blocks.TAB(C, 4, 4, 6.0, groups), p, "encoder_layers0/mlp_blocks0",
+              "encoder_layers.0.mlp_blocks.0.").train()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = m(xt)
+    np.testing.assert_allclose(out.detach().numpy(), want, **TOL)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **TOL)
+    wgrads = _port_params(gp, "encoder_layers0/mlp_blocks0",
+                                  "encoder_layers.0.mlp_blocks.0.")
+    for name, prm in m.named_parameters():
+        np.testing.assert_allclose(prm.grad.numpy(), wgrads[name].numpy(), **TOL,
+                                   err_msg=name)
+
+
+def test_trajectory_grads_match_jax(rng):
+    """TrajectoryMultiHead in training mode with remat (each step
+    checkpointed) against ``jax.grad`` of the JAX module on its Pallas
+    LTAM path (interpret mode, custom VJP): the gradients of the input, the
+    flows (through the bilinear 'border' warps) and every parameter, f32,
+    3e-5 -- the pattern of ``tests/test_fused_layouts.py:338-369``."""
+    B, T, H, W, C = 1, 5, 6, 8, 16
+    x = _x(rng, (B, T, H, W, C))
+    ff, fb = _x(rng, (B, T - 1, H, W, 2)), _x(rng, (B, T - 1, H, W, 2))
+    jm = jtraj.TrajectoryMultiHead(
+        embed_dim=C, num_blocks=1, keyframe_stride=2, head=4, mode="wins",
+        r_scaling=0.1, ltam=True, carry_impl="warped", win_impl="pallas",
+        pallas_interpret=True, remat=True)
+    args = tuple(map(jnp.asarray, (x, ff, fb)))
+    p = jax.jit(jm.init)(jax.random.key(18), *args)
+
+    def loss(params, xx, f1, f2):
+        return jnp.mean(jm.apply(params, xx, f1, f2) ** 2)
+
+    gp, *gin = jax.grad(loss, argnums=(0, 1, 2, 3))(p, *args)
+    m = _load(trajectory.TrajectoryMultiHead(C, num_blocks=1, keyframe_stride=2, head=4,
+                                             r_scaling=0.1, remat=True),
+              p, "encoder_layers0/traj_mixing", "encoder_layers.0.traj_mixing.").train()
+    ins = [torch.from_numpy(a).requires_grad_() for a in (x, ff, fb)]
+    (m(*ins) ** 2).mean().backward()
+    for t, g, name in zip(ins, gin, ("x", "flows_forward", "flows_backward")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL, err_msg=name)
+    wgrads = _port_params(gp, "encoder_layers0/traj_mixing",
+                                  "encoder_layers.0.traj_mixing.")
+    for name, prm in m.named_parameters():
+        np.testing.assert_allclose(prm.grad.numpy(), wgrads[name].numpy(), **TOL,
+                                   err_msg=name)

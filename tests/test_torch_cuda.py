@@ -8,6 +8,9 @@ to the largest plain output: f32 1e-4 (summation order), bf16 1.6e-2 (a
 few output ulps: both versions round at the same places).
 """
 
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -120,3 +123,98 @@ def test_ltam_kernel(cuda, dtype, K, C, heads):
     _close(ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
            ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
            torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4)])
+def test_ltam_bwd_kernel(cuda, dtype, K, C, heads):
+    """The backward kernel against autograd of the plain forward: dq at
+    the f32 tolerance, dkv at its dtype's, dpe (a sum over every pixel)
+    within 1e-4 of its largest entry; and the autograd Function (forward
+    kernel with the denominator, then the backward kernel) end to end."""
+    rng = np.random.default_rng(K + C)
+    n, h, w = 2, 8, 12
+    q = torch.nn.functional.normalize(_randn(rng, (n, h, w, C), cuda, torch.float32), dim=-1)
+    q = q * (C // heads) ** -0.5
+    kv = _randn(rng, (n, h, w, K * 2 * C), cuda, dtype)
+    pe = torch.exp(_randn(rng, (K, 4, 4, heads), cuda, torch.float32, 0.5))
+    g = _randn(rng, (n, h, w, C), cuda, torch.float32)
+    want = ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
+
+    def check(got):
+        _close(got[0], want[0], torch.float32)
+        assert got[1].dtype == dtype
+        _close(got[1], want[1], dtype)
+        err = (got[2] - want[2]).abs().max().item()
+        assert err <= 1e-4 * want[2].abs().max().item(), err
+
+    ref = ltam_attention.ltam_attention_2x2
+    f0, b0 = ref.launches, ref.bwd_launches
+    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+    check(ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g, K=K, heads=heads))
+    leaves = [t.clone().requires_grad_() for t in (q, kv, pe)]
+    y = ltam_attention.ltam_attention_2x2(*leaves, K=K, heads=heads)
+    check(torch.autograd.grad(y, leaves, g))
+    assert (ref.launches - f0, ref.bwd_launches - b0) == (2, 2)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card(cuda):
+    """The f32 training step of TINY_TEST_PRESET (drop_path 0, remat on,
+    T=4: K reaches 2) on the card, through both LTAM kernels under autograd
+    and checkpointing, against the same step on CPU tensors: the loss
+    within 1e-5 relative and the gradient norm within 1e-4 (f32 summation
+    order).  Per forward the trajectory stages attend 2 stages x 2
+    directions x 3 steps = 12 times; remat recomputes them once."""
+    from vmg_tpu_torch.configs import TINY_TEST_PRESET, TrainConfig
+    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.train.optimizer import global_norm
+    from vmg_tpu_torch.train.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(TINY_TEST_PRESET, drop_path_rate=0.0)
+    cpu = create_model(cfg, is_train=True, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(5)
+    lrs = torch.from_numpy(rng.random((1, 4, 64, 64, 3), dtype=np.float32))
+    hrs = torch.from_numpy(rng.random((1, 4, 256, 256, 3), dtype=np.float32))
+    ltam = ltam_attention.ltam_attention_2x2
+    f0, b0 = ltam.launches, ltam.bwd_launches
+    loss, grads = loss_and_grads(gpu, lrs.to(cuda), hrs.to(cuda), TrainConfig())
+    assert (ltam.launches - f0, ltam.bwd_launches - b0) == (24, 12)
+    want_loss, want_grads = loss_and_grads(cpu, lrs, hrs, TrainConfig())
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    norm, want_norm = float(global_norm(grads)), float(global_norm(want_grads))
+    assert abs(norm - want_norm) <= 1e-4 * want_norm, (norm, want_norm)
+
+
+@pytest.mark.cuda
+def test_bf16_train_steps_on_the_card(cuda):
+    """Two steps of ``make_train_step`` in bf16 on float32 masters
+    (TINY_TEST_PRESET, drop_path 0.1 from a generator on the card): finite
+    losses, float32 masters that moved, bf16 compute weights that follow
+    them, and 12 LTAM backward launches per step."""
+    from vmg_tpu_torch.configs import TINY_TEST_PRESET, TrainConfig
+    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.train.train_step import make_train_step
+
+    model = create_model(TINY_TEST_PRESET, is_train=True, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.default_rng(6)
+    batch = {"LRs": torch.from_numpy(rng.random((1, 4, 64, 64, 3), dtype=np.float32)),
+             "HRs": torch.from_numpy(rng.random((1, 4, 256, 256, 3), dtype=np.float32))}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    step = make_train_step(model, TrainConfig(lr=1e-3, T_period=(100,), amp=True), flow_fix=0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b0 = ltam_attention.ltam_attention_2x2.bwd_launches
+    losses = [float(step(batch, gen)["loss"]) for _ in range(2)]
+    assert ltam_attention.ltam_attention_2x2.bwd_launches - b0 == 24
+    assert all(np.isfinite(losses)), losses
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
+    assert moved and not any(n.startswith("spynet") for n in moved)  # SPyNet frozen
+    for (n, p), c in zip(model.named_parameters(), step.compute_model.parameters()):
+        want = p if n.startswith("spynet") else p.to(torch.bfloat16)
+        assert c.dtype == want.dtype and torch.equal(c, want), n

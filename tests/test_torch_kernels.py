@@ -158,4 +158,72 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         ltam_attention.ltam_attention_2x2(m, torch.empty(1, 4, 4, 32, device="meta"),
                                           torch.empty(1, 4, 4, 4, device="meta"),
                                           K=1, heads=4)
+    bwd_before = ltam_attention.ltam_attention_2x2.bwd_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ltam_attention.ltam_attention_2x2_bwd(
+            m, torch.empty(1, 4, 4, 32, device="meta"), torch.empty(1, 4, 4, 4, device="meta"),
+            torch.empty(1, 4, 4, 4, device="meta"), m, m, K=1, heads=4)
     assert [f.launches for f in wrappers] == before
+    assert ltam_attention.ltam_attention_2x2.bwd_launches == bwd_before
+
+
+def test_ltam_plain_grads_match_pallas_vjp():
+    """Gradients of the port's plain LTAM (autograd through normalize, kv
+    packing and the exp(pe) factors) against ``jax.grad`` of the Pallas
+    kernel's custom VJP in interpret mode: the inputs and tolerance of
+    ``tests/test_fused_layouts.py::test_pallas_ltam_attention_grad_matches_autodiff``."""
+    import jax
+    from vmg_tpu.models.trajectory import _normalize as j_normalize
+
+    rng = np.random.default_rng(33)
+    n, K, h, w, C, heads = 1, 2, 6, 8, 16, 4
+    scale = (C // heads) ** -0.5
+    curr = rng.standard_normal((n, h, w, C)).astype(np.float32)
+    keys = rng.standard_normal((n, K, h, w, C)).astype(np.float32)
+    vals = rng.standard_normal((n, K, h, w, C)).astype(np.float32)
+    rpe = (rng.standard_normal((heads, 4, 4)) * 0.5).astype(np.float32)
+    cot = rng.standard_normal((n, h, w, C)).astype(np.float32)
+    slot_decay = decay.ltam_decay_np(heads, K)
+
+    def f_pallas(curr, keys, vals, rpe):
+        def pad128(x):
+            return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, 128 - C)])
+
+        qk = pad128(j_normalize(curr) * scale)
+        kv = jnp.stack([pad128(vals), pad128(j_normalize(keys))], axis=-2)
+        kv = kv.transpose(0, 2, 3, 1, 4, 5).reshape(n, h, w, K * 256)
+        pef = jnp.exp(jnp.einsum("ek,ept->ktpe", slot_decay, rpe))
+        out = j_ltam(qk, kv, pef, K=K, heads=heads, C=C, interpret=True)[..., :C]
+        return jnp.sum(out * cot)
+
+    want = jax.grad(f_pallas, argnums=(0, 1, 2, 3))(curr, keys, vals, rpe)
+
+    from vmg_tpu_torch.models.trajectory import _normalize as normalize
+
+    leaves = [_t(a).requires_grad_() for a in (curr, keys, vals, rpe)]
+    tc, tk, tv, tr = leaves
+    q = normalize(tc) * scale
+    kv = torch.stack([tv, normalize(tk)], dim=-2).permute(0, 2, 3, 1, 4, 5)
+    pef = torch.exp(torch.einsum("ek,ept->ktpe", _t(slot_decay), tr))
+    out = ltam_attention.ltam_attention_2x2(q, kv.reshape(n, h, w, K * 2 * C), pef,
+                                            K=K, heads=heads)
+    got = torch.autograd.grad((out * _t(cot)).sum(), leaves)
+    for g, wnt, name in zip(got, want, ("curr", "keys", "vals", "rpe")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), atol=3e-5, rtol=3e-5,
+                                   err_msg=name)
+
+
+def test_ltam_bwd_wrapper_takes_plain_on_cpu(rng):
+    """On CPU tensors the backward wrapper is the plain backward (autograd
+    of the plain forward), whatever den and out it is handed."""
+    q, vals, keys, pe, K, heads = _ltam_case(rng, n=1, K=2, h=4, w=6)
+    n, h, w, C = q.shape
+    kv = _t(np.stack([vals, keys], axis=-2).reshape(n, h, w, K * 2 * C))
+    g = _t(rng.standard_normal(q.shape).astype(np.float32))
+    before = ltam_attention.ltam_attention_2x2.bwd_launches
+    got = ltam_attention.ltam_attention_2x2_bwd(_t(q), kv, _t(pe), None, None, g,
+                                                K=K, heads=heads)
+    want = ltam_attention.ltam_attention_bwd_plain(_t(q), kv, _t(pe), g, K=K, heads=heads)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert ltam_attention.ltam_attention_2x2.bwd_launches == before

@@ -51,7 +51,7 @@ SEVEN_STAGE = dict(
 @pytest.fixture(scope="module")
 def seven_stage():
     """(JAX params, input clip, JAX output)."""
-    port = vmg_tpu_torch.create_model(VMGNetworkConfig(**SEVEN_STAGE),
+    port = vmg_tpu_torch.create_model(VMGNetworkConfig(**SEVEN_STAGE), device="cpu",
                                       generator=torch.Generator().manual_seed(0))
     params = convert_torch_state_dict(
         {k: v.numpy() for k, v in port.state_dict().items()}, strict=True)
@@ -64,7 +64,7 @@ def seven_stage():
 
 def test_slice_matches_jax(seven_stage):
     params, x, want = seven_stage
-    model = vmg_tpu_torch.create_model(VMGNetworkConfig(**SEVEN_STAGE))
+    model = vmg_tpu_torch.create_model(VMGNetworkConfig(**SEVEN_STAGE), device="cpu")
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
@@ -84,7 +84,7 @@ def test_weights_follow_reference_export(seven_stage):
     assert sorted(sd) == sorted(ref)
     for k, v in ref.items():
         np.testing.assert_array_equal(sd[k].numpy(), np.asarray(v, np.float32))
-    model = vmg_tpu_torch.create_model(VMGNetworkConfig(**SEVEN_STAGE))
+    model = vmg_tpu_torch.create_model(VMGNetworkConfig(**SEVEN_STAGE), device="cpu")
     assert sorted(model.state_dict()) == sorted(sd)
     for k, v in model.state_dict().items():
         assert tuple(v.shape) == tuple(sd[k].shape), k
@@ -104,7 +104,7 @@ def test_server_contract():
     """SRServer: numpy (1, T, h, w, 3) f32 -> (1, T, 4h, 4w, 3) f32, from a
     seeded random-init state dict (tiny preset, CPU, float32)."""
     gen = torch.Generator().manual_seed(0)
-    sd = vmg_tpu_torch.create_model(TINY_TEST_PRESET, generator=gen).state_dict()
+    sd = vmg_tpu_torch.create_model(TINY_TEST_PRESET, device="cpu", generator=gen).state_dict()
     server = SRServer(TINY_TEST_PRESET, sd, "cpu", torch.float32, gelu="erf",
                       fast_flow=False)
     clip = np.random.default_rng(2).random((1, 4, 64, 64, 3)).astype(np.float32)
@@ -118,9 +118,13 @@ import sys
 import numpy as np
 import torch
 import vmg_tpu_torch
+import vmg_tpu_torch.profile_serving
+import vmg_tpu_torch.profile_training
+import vmg_tpu_torch.train.__main__
 from vmg_tpu_torch.serve import SRServer
 gen = torch.Generator().manual_seed(0)
-model = vmg_tpu_torch.create_model(vmg_tpu_torch.TINY_TEST_PRESET, generator=gen)
+model = vmg_tpu_torch.create_model(vmg_tpu_torch.TINY_TEST_PRESET, device="cpu",
+                                   generator=gen)
 with torch.no_grad():
     y = model(torch.rand(1, 4, 64, 64, 3, generator=gen))
 assert y.shape == (1, 4, 256, 256, 3) and bool(torch.isfinite(y).all())
@@ -136,3 +140,69 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+_WEIGHTS_SNIPPET = """
+import os, sys
+import numpy as np
+from vmg_tpu_torch.weights import state_dict_from_jax
+rng = np.random.default_rng(0)
+tree = {"params": {
+    "input_proj": {"proj": {"kernel": rng.random((3, 3, 3, 8)), "bias": rng.random(8)}},
+    "encoder_layers0": {"mlp_blocks0": {"norm2": {"scale": rng.random(8), "bias": rng.random(8)},
+                                        "channel_mixing": {"fc2": {"kernel": rng.random((16, 8)),
+                                                                   "bias": rng.random(8)}}}}}}
+sd = state_dict_from_jax(tree)
+assert tuple(sd["input_proj.proj.0.weight"].shape) == (8, 3, 3, 3)
+assert tuple(sd["encoder_layers.0.mlp_blocks.0.channel_mixing.fc2.weight"].shape) == (8, 16)
+jax_pkg = os.path.join(sys.argv[1], "vmg_tpu") + os.sep
+bad = sorted(n for n, m in list(sys.modules.items())
+             if (getattr(m, "__file__", None) or "").startswith(jax_pkg))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_weights_read_nothing_of_the_jax_package():
+    """``state_dict_from_jax`` loads no module from ``vmg_tpu/``, and no
+    source file of the port names a path under it or imports from it."""
+    import ast
+    import pathlib
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _WEIGHTS_SNIPPET, REPO], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+    pattern = __import__("re").compile(r"(^|[/\\])vmg_tpu([/\\]|$)")
+    for path in pathlib.Path(REPO, "vmg_tpu_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and id(node) not in docs:
+                assert not pattern.search(node.value), (path, node.value)
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] == "vmg_tpu" for n in names), (path, names)
+
+
+def test_entry_points_default_to_the_card():
+    """``create_model`` and ``SRServer`` without a device take the card;
+    without one they raise instead of falling back to the CPU."""
+    sd = vmg_tpu_torch.create_model(TINY_TEST_PRESET, device="cpu").state_dict()
+    if torch.cuda.is_available():
+        model = vmg_tpu_torch.create_model(TINY_TEST_PRESET)
+        assert next(model.parameters()).device.type == "cuda"
+        assert SRServer(TINY_TEST_PRESET, sd).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vmg_tpu_torch.create_model(TINY_TEST_PRESET)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SRServer(TINY_TEST_PRESET, sd)

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
-``csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, at first use, under ``_build/`` (listed
-in ``.gitignore``).  The library's file name carries a hash of the
+``csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+per source, all started together, and link into one shared library with a
+plain C interface, at first use, under ``_build/`` (listed in
+``.gitignore``).  The library's file name carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale one is never
 loaded.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,8 +41,11 @@ _SIGNATURES = {
     # x, c, kh, bh, kw, bw, h, w, partial, psum, N, H, W, C, ch, cw, WT,
     # dtype, stream
     "vmg_morphfc_axes": [_P] * 10 + [_I] * 8 + [_P],
-    # q, kv, pe, out, N, H, W, C, K, heads, dtype, stream
-    "vmg_ltam_fwd": [_P] * 4 + [_I] * 7 + [_P],
+    # q, kv, pe, out, den (or null), N, H, W, C, K, heads, dtype, stream
+    "vmg_ltam_fwd": [_P] * 5 + [_I] * 7 + [_P],
+    # q, kv, pe, den, out, g, dq, dkv, dpe, scratch, partial, N, H, W, C, K,
+    # heads, S, dtype, stream
+    "vmg_ltam_bwd": [_P] * 11 + [_I] * 8 + [_P],
 }
 
 
@@ -78,13 +82,28 @@ def build() -> Path:
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
     cu, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True, cwd=_CSRC)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=_CSRC)
+             for src, obj in zip(cu, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=_CSRC)
+        logs.append(link.stdout)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        failed = [str(src) for src, p in zip(cu, procs) if p.returncode] or ["link"]
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "".join(logs))
     os.replace(tmp, so)
-    if res.stderr.strip():
-        print(res.stderr, end="")
+    text = "".join(logs).strip()
+    if text:
+        print(text)
     return so
 
 

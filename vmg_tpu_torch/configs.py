@@ -1,10 +1,14 @@
-"""Typed VMG network configuration, without YAML.
+"""Typed VMG network and training configuration, without YAML.
 
 Mirrors the architecture fields, derived properties and presets of
-``vmg_tpu.configs.config.VMGNetworkConfig``.  The JAX package's TPU-only
-knobs (remat, remat_policy, morph_fused, stage_barrier, flow_levels) have
-no meaning in the PyTorch port and are left out; the YAML loader stays in
-the JAX package (it imports ``yaml``, which the GPU machine lacks).
+``vmg_tpu.configs.config.VMGNetworkConfig``, and the fields of its
+``TrainConfig`` that the training step reads.  ``remat`` recomputes each
+TAB and each trajectory step in the backward pass
+(``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``
+does.  The JAX package's TPU-only knobs (remat_policy, morph_fused,
+stage_barrier, flow_levels) have no meaning in the PyTorch port and are
+left out; the YAML loader stays in the JAX package (it imports ``yaml``,
+which the GPU machine lacks).
 """
 
 from __future__ import annotations
@@ -67,6 +71,8 @@ class VMGNetworkConfig:
     m_scaling: float = 1.0
     if_local_fuse: bool = True
     channel_mixer: str = "rcab"
+    # training only: checkpoint each TAB and each trajectory step
+    remat: bool = True
 
     def __post_init__(self):
         self.embed_dim = tuple(self.embed_dim)
@@ -103,6 +109,30 @@ class VMGNetworkConfig:
     def scale_factor(self) -> int:
         """Spatial pad multiple: 2^(enc_layers - 1)."""
         return 2 ** (self.num_enc_layers - 1)
+
+
+@dataclass
+class TrainConfig:
+    """The optimizer, schedule, precision and loss settings of a training
+    step (the fields of ``vmg_tpu.configs.config.TrainConfig`` it reads)."""
+
+    lr: float = 2e-4
+    beta1: float = 0.9
+    beta2: float = 0.99
+    warmup_iter: int = -1
+    T_period: Tuple[int, ...] = (600000,)
+    restarts: Optional[Tuple[int, ...]] = None
+    restart_weights: Tuple[float, ...] = (1.0,)
+    eta_min: float = 1e-7
+    amp: bool = False  # bf16 compute on float32 master weights
+    if_grad_clip: bool = False
+    grad_clip_up: float = 0.5
+    pre_training: bool = True  # SPyNet group at pre_lr_ratio * lr
+    pre_lr_ratio: float = 0.125
+    weight_decay: Optional[float] = None  # on the mlp_blocks parameters
+    eps: float = 1e-12  # Charbonnier epsilon (inside the sqrt)
+    if_aux: bool = True
+    aux_ratio: float = 0.005
 
 
 FULL_PRESET = VMGNetworkConfig(

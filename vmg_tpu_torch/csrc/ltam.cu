@@ -1,7 +1,8 @@
-// LTAM 2x2-window trajectory attention, forward.
+// LTAM 2x2-window trajectory attention, forward and backward.
 //
-// Replaces vmg_tpu/ops/ltam_attention.py `ltam_attention_2x2` forward
-// (`_fwd_call`, `_kernel`).  Per pixel (r, c) and head e, the query
+// Replaces vmg_tpu/ops/ltam_attention.py `ltam_attention_2x2`: the forward
+// (`_fwd_call`, `_kernel`) and the backward of its custom VJP
+// (`_bwd_call`, `_bwd_kernel`).  Per pixel (r, c) and head e, the query
 // attends over K keyframe slots x the 4 taps of its own 2x2 window,
 // source (2*(r//2) + ki, 2*(c//2) + kj):
 //
@@ -16,15 +17,37 @@
 //
 // Layout (the port's choice): q (N,H,W,C) f32; kv (N,H,W,K*2*C) in the
 // feature dtype, per slot C value channels then C normalized-key
-// channels, no lane padding; pe (K,4,4,heads) f32; out (N,H,W,C) f32.
+// channels, no lane padding; pe (K,4,4,heads) f32; out (N,H,W,C) f32;
+// den (N,H,W,heads) f32, written only when the caller asks (training).
 //
-// Bound on H100: device-memory traffic.  A step reads the 4 taps of
-// K * 2C channels for every pixel (K = 5 at stage 0: 2.2 KB per pixel in
-// bf16) and does ~4 FLOPs per element read.  Design: one thread per
+// Bound on H100: device-memory traffic.  A forward step reads the 4 taps
+// of K * 2C channels for every pixel (K = 5 at stage 0: 2.2 KB per pixel
+// in bf16) and does ~4 FLOPs per element read.  Design: one thread per
 // (pixel, head) holding its d = C/heads query and numerator values in
 // registers; the 4 pixels of a window read the same taps, back to back
-// in the same warp, so the re-reads hit L1.  The denominator, which
-// only a backward pass needs, is not written.
+// in the same warp, so the re-reads hit L1.
+//
+// Backward, from the saved q, kv, pe, den, out and the cotangent g, with
+// p = exp(logit) * pe / den and s = (g . out) per head:
+//
+//   dlogit = p * ((g . val) - s)         dq   = sum_i dlogit_i * key_i
+//   dval   = sum over queries of p * g   dkey = sum over queries of dlogit * q
+//   dpe[k, tap, pos, e] = sum over pixels at pos of exp(logit) ((g . val) - s) / den
+//
+// The TPU kernel ran the adjoint of tap selection as a 2x2 window sum
+// inside one tile and carried dpe across its sequential grid.  Here:
+//   1. a query pass (one thread per (pixel, head), as the forward) writes
+//      dq and, per (pixel, slot, tap, head), p, dlogit and the dpe term to
+//      a float scratch (N*H*W*K*4*heads each);
+//   2. a source pass (one thread per (source pixel, slot, head)): a
+//      source at in-window position t is read, for tap t, by exactly the
+//      4 queries of its own window, so dval and dkey are 4-term sums in a
+//      fixed order -- no atomics;
+//   3. dpe: per-block partial sums over pixel slices, then one block sums
+//      the partials in slice order (the reduce kernel's scheme,
+//      morphfc.cu): deterministic, no float atomics.
+// Bound: device-memory traffic, as the forward (the backward reads q, g,
+// out and the kv taps and writes dq and an f32 dkv).
 #include "common.cuh"
 
 namespace vmg {
@@ -35,7 +58,8 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
                 const float* __restrict__ pe, float* __restrict__ out,
-                long long total, int H, int W, int C, int K, int heads) {
+                float* __restrict__ den_out, long long total, int H, int W,
+                int C, int K, int heads) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int e = (int)(idx % heads);
@@ -74,6 +98,7 @@ ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
         if (i < d) num[i] = fmaf(ex, to_f<T>(val[i]), num[i]);
     }
   }
+  if (den_out != nullptr) den_out[idx] = den;
   const float dd = fmaxf(den, 1e-30f);
   float* op = out + pix * C + e * d;
 #pragma unroll
@@ -81,20 +106,210 @@ ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
     if (i < d) op[i] = num[i] / dd;
 }
 
+// Pass 1 of the backward: one thread per (pixel, head).  Scratch index of
+// (pixel, slot k, tap, head): ((pix * K + k) * 4 + tap) * heads + e.
+template <typename T>
+__global__ void __launch_bounds__(256)
+ltam_bwd_query_kernel(const float* __restrict__ q, const T* __restrict__ kv,
+                      const float* __restrict__ pe, const float* __restrict__ den_in,
+                      const float* __restrict__ out, const float* __restrict__ g,
+                      float* __restrict__ dq, float* __restrict__ sp,
+                      float* __restrict__ sdl, float* __restrict__ sdpe,
+                      long long total, int H, int W, int C, int K, int heads) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int e = (int)(idx % heads);
+  const long long pix = idx / heads;
+  const int col = (int)(pix % W);
+  const long long t = pix / W;
+  const int row = (int)(t % H);
+  const long long n = t / H;
+  const int d = C / heads;
+  const int pos = (row & 1) * 2 + (col & 1);
+
+  float qv[kLtamD], gv[kLtamD], dqv[kLtamD];
+  const float* qp = q + pix * C + e * d;
+  const float* gp = g + pix * C + e * d;
+  const float* op = out + pix * C + e * d;
+  float s = 0.f;  // (g . out) over the head
+#pragma unroll
+  for (int i = 0; i < kLtamD; ++i) {
+    qv[i] = i < d ? qp[i] : 0.f;
+    gv[i] = i < d ? gp[i] : 0.f;
+    dqv[i] = 0.f;
+    if (i < d) s = fmaf(gv[i], op[i], s);
+  }
+  const float den = fmaxf(den_in[idx], 1e-30f);
+  const size_t slot_stride = 2 * (size_t)C;
+  for (int k = 0; k < K; ++k) {
+    for (int tap = 0; tap < 4; ++tap) {
+      const int sr = (row & ~1) + (tap >> 1), sc = (col & ~1) + (tap & 1);
+      const T* base = kv + ((size_t)(n * H + sr) * W + sc) * (K * slot_stride) +
+                      k * slot_stride + e * d;
+      const T* val = base;
+      const T* key = base + C;
+      float logit = 0.f, gval = 0.f;
+#pragma unroll
+      for (int i = 0; i < kLtamD; ++i)
+        if (i < d) {
+          logit = fmaf(qv[i], to_f<T>(key[i]), logit);
+          gval = fmaf(gv[i], to_f<T>(val[i]), gval);
+        }
+      const float el = expf(logit);
+      const float p = el * pe[((k * 4 + tap) * 4 + pos) * heads + e] / den;
+      const float dl = p * (gval - s);
+#pragma unroll
+      for (int i = 0; i < kLtamD; ++i)
+        if (i < d) dqv[i] = fmaf(dl, to_f<T>(key[i]), dqv[i]);
+      const long long si = ((pix * K + k) * 4 + tap) * heads + e;
+      sp[si] = p;
+      sdl[si] = dl;
+      sdpe[si] = el * (gval - s) / den;
+    }
+  }
+  float* dqp = dq + pix * C + e * d;
+#pragma unroll
+  for (int i = 0; i < kLtamD; ++i)
+    if (i < d) dqp[i] = dqv[i];
+}
+
+// Pass 2: one thread per (source pixel, slot, head); its window's 4
+// queries in position order.
+__global__ void __launch_bounds__(256)
+ltam_bwd_source_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                       const float* __restrict__ sp, const float* __restrict__ sdl,
+                       float* __restrict__ dkv, long long total, int H, int W,
+                       int C, int K, int heads) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int e = (int)(idx % heads);
+  const int k = (int)((idx / heads) % K);
+  const long long spix = idx / ((long long)heads * K);
+  const int sc = (int)(spix % W);
+  const long long t = spix / W;
+  const int sr = (int)(t % H);
+  const long long n = t / H;
+  const int d = C / heads;
+  const int tap = (sr & 1) * 2 + (sc & 1);
+
+  float dval[kLtamD], dkey[kLtamD];
+#pragma unroll
+  for (int i = 0; i < kLtamD; ++i) dval[i] = dkey[i] = 0.f;
+  for (int qpos = 0; qpos < 4; ++qpos) {
+    const int qr = (sr & ~1) + (qpos >> 1), qc = (sc & ~1) + (qpos & 1);
+    const long long qpix = (n * H + qr) * W + qc;
+    const long long si = ((qpix * K + k) * 4 + tap) * heads + e;
+    const float p = sp[si], dl = sdl[si];
+    const float* gp = g + qpix * C + e * d;
+    const float* qp = q + qpix * C + e * d;
+#pragma unroll
+    for (int i = 0; i < kLtamD; ++i)
+      if (i < d) {
+        dval[i] = fmaf(p, gp[i], dval[i]);
+        dkey[i] = fmaf(dl, qp[i], dkey[i]);
+      }
+  }
+  float* vp = dkv + (size_t)spix * K * 2 * C + (size_t)k * 2 * C + e * d;
+#pragma unroll
+  for (int i = 0; i < kLtamD; ++i)
+    if (i < d) {
+      vp[i] = dval[i];
+      vp[C + i] = dkey[i];
+    }
+}
+
+// Pass 3a: block s sums the dpe terms of pixels [s*chunk, (s+1)*chunk) per
+// bin (k, tap, pos, e), bin index ((k*4 + tap)*4 + pos)*heads + e.
+__global__ void __launch_bounds__(256)
+ltam_bwd_dpe_partial_kernel(const float* __restrict__ sdpe, float* __restrict__ partial,
+                            long long P, long long chunk, int H, int W, int K,
+                            int heads) {
+  const int bins = K * 16 * heads;
+  const long long p0 = (long long)blockIdx.x * chunk;
+  const long long p1 = p0 + chunk < P ? p0 + chunk : P;
+  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
+    const int e = b % heads;
+    const int pos = (b / heads) % 4;
+    const int kt = b / (4 * heads);  // k * 4 + tap
+    float acc = 0.f;
+    for (long long pix = p0; pix < p1; ++pix) {
+      const int col = (int)(pix % W), row = (int)((pix / W) % H);
+      if ((row & 1) * 2 + (col & 1) == pos)
+        acc += sdpe[(pix * K * 4 + kt) * heads + e];
+    }
+    partial[(size_t)blockIdx.x * bins + b] = acc;
+  }
+}
+
+// Pass 3b: one block, partials summed in slice order.
+__global__ void __launch_bounds__(256)
+ltam_bwd_dpe_final_kernel(const float* __restrict__ partial, float* __restrict__ dpe,
+                          int S, int bins) {
+  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc += partial[(size_t)s * bins + b];
+    dpe[b] = acc;
+  }
+}
+
 }  // namespace vmg
 
+static bool ltam_shape_ok(int C, int heads, int H, int W) {
+  return heads >= 1 && C % heads == 0 && C / heads <= vmg::kLtamD && H % 2 == 0 &&
+         W % 2 == 0;
+}
+
 extern "C" int vmg_ltam_fwd(const float* q, const void* kv, const float* pe,
-                            float* out, int N, int H, int W, int C, int K,
-                            int heads, int dtype, void* stream) {
-  if (heads < 1 || C % heads != 0 || C / heads > vmg::kLtamD || H % 2 || W % 2)
-    return (int)cudaErrorInvalidValue;
+                            float* out, float* den, int N, int H, int W, int C,
+                            int K, int heads, int dtype, void* stream) {
+  if (!ltam_shape_ok(C, heads, H, W)) return (int)cudaErrorInvalidValue;
   const long long total = (long long)N * H * W * heads;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
   VMG_DISPATCH_DTYPE(dtype, T, {
     vmg::ltam_fwd_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
-        q, (const T*)kv, pe, out, total, H, W, C, K, heads);
+        q, (const T*)kv, pe, out, den, total, H, W, C, K, heads);
   });
+  return (int)cudaGetLastError();
+}
+
+// scratch: 3 * N*H*W*K*4*heads floats (p, dlogit, dpe term); partial:
+// S * K*16*heads floats.  dkv is float32 whatever kv's dtype.
+extern "C" int vmg_ltam_bwd(const float* q, const void* kv, const float* pe,
+                            const float* den, const float* out, const float* g,
+                            float* dq, float* dkv, float* dpe, float* scratch,
+                            float* partial, int N, int H, int W, int C, int K,
+                            int heads, int S, int dtype, void* stream) {
+  if (!ltam_shape_ok(C, heads, H, W) || K < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)N * H * W;
+  const long long terms = P * K * 4 * heads;
+  float* sp = scratch;
+  float* sdl = scratch + terms;
+  float* sdpe = scratch + 2 * terms;
+  const int threads = 256;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long qtotal = P * heads;
+  VMG_DISPATCH_DTYPE(dtype, T, {
+    vmg::ltam_bwd_query_kernel<T><<<(unsigned)((qtotal + threads - 1) / threads),
+                                    threads, 0, st>>>(
+        q, (const T*)kv, pe, den, out, g, dq, sp, sdl, sdpe, qtotal, H, W, C, K,
+        heads);
+  });
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long stotal = P * K * heads;
+  vmg::ltam_bwd_source_kernel<<<(unsigned)((stotal + threads - 1) / threads), threads,
+                                0, st>>>(q, g, sp, sdl, dkv, stotal, H, W, C, K,
+                                         heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long chunk = (P + S - 1) / S;
+  vmg::ltam_bwd_dpe_partial_kernel<<<S, threads, 0, st>>>(sdpe, partial, P, chunk, H,
+                                                         W, K, heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  vmg::ltam_bwd_dpe_final_kernel<<<1, threads, 0, st>>>(partial, dpe, S, K * 16 * heads);
   return (int)cudaGetLastError();
 }

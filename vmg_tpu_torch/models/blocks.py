@@ -3,15 +3,23 @@ grouped-conv FFN (``vmg_tpu/models/blocks.py``).
 
 Tensors are channels-last ``(B, T, H, W, C)``; convolutions run through
 :func:`conv_cl`, which hands cuDNN a channels-last NCHW view, so no layout
-copy is made around them.  The MorphFC-decay mixer takes the kernel form
-the JAX package selects for the shape: 'full' (both axis branches and the
-reweight sums in the ``fused_morphfc_axes`` kernel) where the chunks
-divide C and W and chunk * C <= 1024 -- stages 0 and 6 of the full preset
--- else 'hybrid' (the axis FCs as plain matmuls, then the reduce kernel);
-both end in the combine/projection/gate kernel.  The FFN is the
-``ops/group_conv`` kernel.  The block residual folds into the mixer's
-combine pass (serving form of ``TAB``).  The kernels' weight operands are
-packed once per parameter state (:class:`PackedOperands`).
+copy is made around them.
+
+Eval mode runs the serving (kernel) forms.  The MorphFC-decay mixer takes
+the kernel form the JAX package selects for the shape: 'full' (both axis
+branches and the reweight sums in the ``fused_morphfc_axes`` kernel)
+where the chunks divide C and W and chunk * C <= 1024 -- stages 0 and 6
+of the full preset -- else 'hybrid' (the axis FCs as plain matmuls, then
+the reduce kernel); both end in the combine/projection/gate kernel.  The
+FFN is the ``ops/group_conv`` kernel.  The block residual folds into the
+mixer's combine pass.  The kernels' weight operands are packed once per
+parameter state (:class:`PackedOperands`).
+
+Training mode runs the JAX package's module paths, which training pins
+(``impl="xla"``): the mixer's decayed axis FCs, branch sums, reweight,
+projection and gate as differentiable tensor code, the FFN as a grouped
+convolution, and stochastic depth (:func:`drop_path`) on both residual
+branches of a TAB, with keep masks drawn by the caller.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from vmg_tpu_torch.ops.morphfc_fused import (
     fused_morphfc_axes,
     fused_morphfc_combine,
     fused_morphfc_reduce,
+    symm_gate,
 )
 
 
@@ -47,29 +56,44 @@ def conv_frames(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 class PackedOperands(nn.Module):
     """A module whose kernels take operands derived from its parameters
-    (repacked, transposed, decay-folded).  They are made by ``_pack`` at
-    the first forward and dropped whenever the parameters are loaded or
-    converted (``load_state_dict``, ``.to``, ``.cuda``, dtype casts), so
-    each parameter state is packed once.  An in-place edit of a parameter
-    after a forward is not seen: load or convert instead."""
+    (repacked, transposed, decay-folded).  ``_pack`` makes them from the
+    tensors ``_sources`` lists; they are kept with those tensors' version
+    counters and made again once any of them changed in place (an
+    optimizer step, ``load_state_dict``), and dropped when the parameters
+    are converted (``.to``, ``.cuda``, dtype casts).  So each parameter
+    state is packed once, and a later forward pays one tuple compare."""
 
     _ops = None
+    _ops_key = None
+
+    def _sources(self):
+        raise NotImplementedError
 
     def _pack(self):
         raise NotImplementedError
 
     def operands(self):
-        if self._ops is None:
-            self._ops = self._pack()
+        key = tuple(t._version for t in self._sources())
+        if self._ops is None or key != self._ops_key:
+            with torch.no_grad():
+                self._ops = self._pack()
+            self._ops_key = key
         return self._ops
 
     def _apply(self, fn, *args, **kw):
         self._ops = None
         return super()._apply(fn, *args, **kw)
 
-    def _load_from_state_dict(self, *args, **kw):
-        self._ops = None
-        super()._load_from_state_dict(*args, **kw)
+
+def drop_path(x: torch.Tensor, keep, rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth, timm semantics (scale by 1/keep):
+    ``keep`` is a (B,) bool mask over the leading axis of ``x``, or None
+    (no drop)."""
+    if keep is None or rate == 0.0:
+        return x
+    mask = keep.reshape(-1, *(1,) * (x.ndim - 1))
+    return torch.where(mask, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
 
 
 class Mlp(nn.Module):
@@ -98,12 +122,18 @@ class MlpCnn(PackedOperands):
                              device=device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
 
+    def _sources(self):
+        return self.fc1.weight, self.fc1.bias, self.fc2.weight
+
     def _pack(self):
         return pack_ffn_weights(self.fc1.weight, self.fc1.bias, self.fc2.weight,
                                 self.n_groups)
 
     def forward(self, x):
         B, T, H, W, C = x.shape
+        if self.training:  # the JAX module path: grouped conv, GELU, dense
+            y = gelu(conv_cl(self.fc1, x.reshape(B * T, H, W, C)), self.gelu_act)
+            return self.fc2(y).reshape(B, T, H, W, C)
         y = fused_group_ffn(x.reshape(B * T, H, W, C).contiguous(), *self.operands(),
                             self.fc2.bias, groups=self.n_groups, act=self.gelu_act)
         return y.reshape(B, T, H, W, C)
@@ -179,10 +209,20 @@ class MorphFCDecay(PackedOperands):
                             device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
+    def _sources(self):
+        fh, fw = self.mlp_h[0], self.mlp_w[0]
+        return (fh.weight, fh.bias, fw.weight, fw.bias, self.proj.weight,
+                self.proj.bias)
+
+    def _decayed(self):
+        """The axis-FC weights with the decay folded in, (in, out)."""
+        return ((self.mlp_h[0].weight * self.gamma_h).t(),
+                (self.mlp_w[0].weight * self.gamma_w).t())
+
     def _pack(self):
         fh, fw = self.mlp_h[0], self.mlp_w[0]
-        return dict(kh=(fh.weight * self.gamma_h).t().contiguous(),
-                    kw=(fw.weight * self.gamma_w).t().contiguous(),
+        kh, kw = self._decayed()
+        return dict(kh=kh.contiguous(), kw=kw.contiguous(),
                     bh=fh.bias.float().contiguous(), bw=fw.bias.float().contiguous(),
                     pk=self.proj.weight.t().contiguous(),
                     pb=self.proj.bias.float().contiguous())
@@ -192,6 +232,25 @@ class MorphFCDecay(PackedOperands):
         C, ch, cw = self.dim, self.chunk_h, self.chunk_w
         return (C % ch == 0 and C % cw == 0 and W % cw == 0
                 and ch * C <= 1024 and cw * C <= 1024)
+
+    def train_forward(self, x):
+        """The JAX module path (``blocks.py:874-952``, fused axis FCs):
+        differentiable, no folded residual, every bf16 rounding where the
+        module path rounds."""
+        B, T, H, W, C = x.shape
+        N = B * T
+        kh, kw = self._decayed()
+        xf = x.reshape(N, H, W, C)
+        h = _axis_mix(xf, kh, self.mlp_h[0].bias, self.chunk_h, 1).reshape(x.shape)
+        w = _axis_mix(xf, kw, self.mlp_w[0].bias, self.chunk_w, 2).reshape(x.shape)
+        c = self.mlp_c(x) / C
+        # squeeze-mean and branch softmax in float32
+        a = (h + w + c).float().mean(dim=(1, 2, 3))
+        a = self.reweight(a.to(h.dtype))
+        a = a.reshape(B, C, 3).permute(2, 0, 1).float().softmax(dim=0)
+        a = a.to(h.dtype)[:, :, None, None, None, :]
+        p = self.proj(h * a[0] + w * a[1] + c * a[2])
+        return (x + p) * symm_gate(p, self.symm_act)
 
     def forward(self, x, residual=None, res_scale: float = 1.0):
         B, T, H, W, C = x.shape
@@ -220,14 +279,17 @@ class MorphFCDecay(PackedOperands):
 
 
 class TAB(nn.Module):
-    """LayerNorm -> MorphFC-decay mixer (+ folded residual) -> LayerNorm ->
-    grouped-conv FFN (+ residual); the serving (deterministic) block."""
+    """LayerNorm -> MorphFC-decay mixer -> LayerNorm -> grouped-conv FFN,
+    each with a residual.  Eval: the serving block (the mixer folds the
+    residual).  Training: the module paths, with stochastic depth at rate
+    ``drop_path`` on both branches (keep masks from :meth:`drop_masks`)."""
 
     def __init__(self, dim, chunk_h=8, chunk_w=8, mlp_ratio=2.0, n_groups=1,
                  *, symm_act="tanh", mixer_scaling=1.0, gelu_act="erf",
-                 device=None):
+                 drop_path=0.0, device=None):
         super().__init__()
         self.mixer_scaling = mixer_scaling
+        self.drop_path = drop_path
         self.norm2 = TorchLayerNorm(dim, device=device)
         self.spatial_mixing = MorphFCDecay(dim, chunk_h, chunk_w,
                                            symm_act=symm_act,
@@ -236,7 +298,25 @@ class TAB(nn.Module):
         self.channel_mixing = MlpCnn(dim, mlp_ratio, n_groups,
                                      gelu_act=gelu_act, device=device)
 
-    def forward(self, x):
+    def drop_masks(self, batch: int, device, generator=None):
+        """(2, batch) bool keep masks on ``device`` for the mixer and FFN
+        branches, drawn from ``generator`` (the default generator if None),
+        or None when this block drops nothing.  Drawn outside the block so
+        a recomputed (checkpointed) forward reuses them."""
+        if not self.training or self.drop_path == 0.0:
+            return None
+        dev = generator.device if generator is not None else device
+        u = torch.rand((2, batch), generator=generator, device=dev)
+        return (u < 1.0 - self.drop_path).to(device)
+
+    def forward(self, x, keep=None):
+        if self.training:
+            y = self.spatial_mixing.train_forward(self.norm2(x))
+            x = x + drop_path(y, None if keep is None else keep[0],
+                              self.drop_path) * self.mixer_scaling
+            y = self.channel_mixing(self.norm3(x))
+            return x + drop_path(y, None if keep is None else keep[1],
+                                 self.drop_path) * self.mixer_scaling
         x = self.spatial_mixing(self.norm2(x), residual=x,
                                 res_scale=self.mixer_scaling)
         y = self.channel_mixing(self.norm3(x))

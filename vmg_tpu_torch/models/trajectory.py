@@ -9,6 +9,11 @@ per-slot gathers.  Per slot the carried buffer holds C value channels
 keyframe's input feature), the layout ``ops/ltam_attention`` reads.  A
 slot is appended after every ``keyframe_stride``-th step, so a step sees
 K = its number of past keyframes, exactly, with no masking.
+
+In training with ``remat`` on, each step runs under
+``torch.utils.checkpoint`` (the JAX package's per-step ``jax.checkpoint``):
+its activations are recomputed in the backward pass, the LTAM forward
+kernel included.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vmg_tpu_torch.models.blocks import conv_cl
 from vmg_tpu_torch.ops.decay import ltam_decay_np
@@ -100,10 +106,11 @@ class TrajectoryMultiHead(nn.Module):
     (B, T-1, H, W, 2) forward/backward flows."""
 
     def __init__(self, embed_dim, num_blocks=10, keyframe_stride=3, head=4,
-                 r_scaling=1.0, traj_win=None, device=None):
+                 r_scaling=1.0, traj_win=None, remat=False, device=None):
         super().__init__()
         self.keyframe_stride = keyframe_stride
         self.traj_win = traj_win
+        self.remat = remat
         self.resblocks = ResidualBlocksWithInputConv(
             2 * embed_dim, embed_dim, num_blocks, r_scaling, device)
         self.LTAM = LTAM(embed_dim, head, device)
@@ -125,8 +132,14 @@ class TrajectoryMultiHead(nn.Module):
         feat_prop = torch.zeros_like(feats[0])
         warped = feats[0].new_zeros((N, H, W, 0))
         outs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for s, (lr, flow) in enumerate(zip(feats, flows)):
-            feat_prop, warped = self._step(lr, feat_prop, warped, flow)
+            if remat:  # nothing random runs inside a step
+                feat_prop, warped = checkpoint(self._step, lr, feat_prop, warped, flow,
+                                               use_reentrant=False,
+                                               preserve_rng_state=False)
+            else:
+                feat_prop, warped = self._step(lr, feat_prop, warped, flow)
             outs.append(feat_prop)
             if s % self.keyframe_stride == 0:
                 key = _normalize(lr.float()).to(lr.dtype)

@@ -1,20 +1,27 @@
 """The VMG video super-resolution U-Net in PyTorch (``vmg_tpu/models/vmg.py``).
 
-Serving forward only (the eval path of the JAX package, ``is_train=False``):
-channels-last ``(B, T, H, W, 3)`` RGB in [0, 1] in, ``(B, T, 4H, 4W, 3)``
-float32 out.  Stage tails: trajectory recurrence where ``temporal_type``
-is False, identity where it is None.  Module attribute names follow the
+Channels-last ``(B, T, H, W, 3)`` RGB in [0, 1] in, ``(B, T, 4H, 4W, 3)``
+float32 out.  Eval mode is the serving forward (the JAX package's
+deterministic path, on the kernels); training mode is its
+``deterministic=False`` path: module forms of the TABs, stochastic depth
+on the linear schedule a model built with ``is_train`` carries, and, with
+``cfg.remat``, each TAB and trajectory step recomputed in the backward
+pass.  Stage tails: trajectory recurrence where ``temporal_type`` is
+False, identity where it is None.  Module attribute names follow the
 reference state-dict keys (see ``vmg_tpu_torch.weights``).  Settings
 outside the ported slice raise (see :func:`check_supported`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vmg_tpu_torch.configs import VMGNetworkConfig
 from vmg_tpu_torch.models.blocks import TAB, conv_cl, conv_frames
@@ -108,10 +115,11 @@ def _flow_smoothing(flow, region_range: int):
 
 
 class MlpEncoderStage(nn.Module):
-    """One U-Net stage: TAB stack + local fuse + temporal tail."""
+    """One U-Net stage: TAB stack + local fuse + temporal tail.
+    ``drop_path``: the stochastic-depth rate of each TAB."""
 
     def __init__(self, cfg: VMGNetworkConfig, layer_idx: int, *,
-                 gelu_act="erf", device=None):
+                 gelu_act="erf", drop_path=(), device=None):
         super().__init__()
         self.cfg = cfg
         li = layer_idx
@@ -127,20 +135,28 @@ class MlpEncoderStage(nn.Module):
         self.mlp_blocks = nn.ModuleList(
             TAB(C, chunk_h, chunk_w, cfg.mlp_ratio, cfg.n_groups,
                 symm_act=cfg.symm_act, mixer_scaling=cfg.m_scaling,
-                gelu_act=gelu_act, device=device)
-            for _ in range(cfg.depths[li]))
+                gelu_act=gelu_act,
+                drop_path=drop_path[b] if b < len(drop_path) else 0.0,
+                device=device)
+            for b in range(cfg.depths[li]))
         self.local_cnn = nn.Conv2d(C, C, 3, padding=1, device=device)
         if sp(cfg.temporal_type) is False:
             self.traj_mixing = TrajectoryMultiHead(
                 C, num_blocks=cfg.traj_res_n[li],
                 keyframe_stride=sp(cfg.traj_keyframes_n) or 3,
                 head=sp(cfg.traj_heads) or 4, r_scaling=cfg.r_scaling,
-                traj_win=sp(cfg.traj_win), device=device)
+                traj_win=sp(cfg.traj_win), remat=cfg.remat, device=device)
 
-    def forward(self, x, flow_forward, flow_backward):
+    def forward(self, x, flow_forward, flow_backward, generator=None):
         shortcut = x
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for blk in self.mlp_blocks:
-            x = blk(x)
+            keep = blk.drop_masks(x.shape[0], x.device, generator)
+            if remat:  # masks drawn outside: the recompute reuses them
+                x = checkpoint(blk, x, keep, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk(x, keep)
         x = shortcut + conv_frames(self.local_cnn, x)
         if hasattr(self, "traj_mixing"):
             r = self.cfg.smooth_region_range
@@ -149,24 +165,42 @@ class MlpEncoderStage(nn.Module):
         return x
 
 
+def drop_path_schedule(cfg: VMGNetworkConfig):
+    """Per-stage TAB stochastic-depth rates (``vmg_tpu/models/vmg.py:394-407``):
+    linear from 0 to ``drop_path_rate`` over the encoder's TABs, and the
+    same over the decoder's, reversed."""
+    n_enc = cfg.num_enc_layers
+    enc, dec = cfg.depths[:n_enc], cfg.depths[n_enc:]
+    enc_dpr = list(np.linspace(0, cfg.drop_path_rate, sum(enc)))
+    dec_dpr = list(np.linspace(0, cfg.drop_path_rate, sum(dec)))[::-1]
+    out = [tuple(float(r) for r in enc_dpr[sum(enc[:i]):sum(enc[:i + 1])])
+           for i in range(n_enc)]
+    out += [tuple(float(r) for r in dec_dpr[sum(dec[:j]):sum(dec[:j + 1])])
+            for j in range(len(dec))]
+    return out
+
+
 class VMG(nn.Module):
     """U-Net over frames with trajectory temporal mixing and a PixelShuffle
-    x4 reconstruction head."""
+    x4 reconstruction head.  ``is_train`` gives the TABs their
+    stochastic-depth rates (applied in training mode only)."""
 
     def __init__(self, cfg: VMGNetworkConfig, *, gelu="erf", fast_flow=False,
-                 device=None):
+                 is_train=False, device=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         E = cfg.embed_dim
         n_enc = cfg.num_enc_layers
+        dpr = drop_path_schedule(cfg) if is_train else [()] * cfg.num_layers
         self.spynet = SPyNet(fast_flow=fast_flow, device=device)
         self.input_proj = InputProj(cfg.in_chans, E[0], device)
         self.encoder_layers = nn.ModuleList(
-            MlpEncoderStage(cfg, i, gelu_act=gelu, device=device)
+            MlpEncoderStage(cfg, i, gelu_act=gelu, drop_path=dpr[i], device=device)
             for i in range(n_enc))
         self.decoder_layers = nn.ModuleList(
-            MlpEncoderStage(cfg, n_enc + j, gelu_act=gelu, device=device)
+            MlpEncoderStage(cfg, n_enc + j, gelu_act=gelu, drop_path=dpr[n_enc + j],
+                            device=device)
             for j in range(cfg.num_dec_layers))
         self.downsample = nn.ModuleList(
             UpdownSampling(E[i], E[i + 1], "down", device)
@@ -192,8 +226,12 @@ class VMG(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.input_proj.proj[0].weight.dtype
 
-    def forward(self, x):
-        """x: (B, T, H, W, 3) -> (B, T, 4H, 4W, 3) float32."""
+    def forward(self, x, *, frames_mirror: bool = False, generator=None):
+        """x: (B, T, H, W, 3) -> (B, T, 4H, 4W, 3) float32.
+        ``frames_mirror``: the clip is a mirrored sequence (the dataset's
+        ``use_mirrors``), so the backward flows are the forward flows
+        reversed in time, and SPyNet runs once per level instead of twice.
+        ``generator``: source of the stochastic-depth masks in training."""
         cfg = self.cfg
         B, T, H, W, _ = x.shape
         if H < 64 or W < 64:
@@ -206,12 +244,14 @@ class VMG(nn.Module):
                    (0, Wp - W, 0, Hp - H), mode="replicate")
         xp = xp.permute(0, 2, 3, 1).reshape(B, T, Hp, Wp, 3)
 
-        ff, fb = self._compute_flows(xp)
+        ff, fb = self._compute_flows(xp, frames_mirror)
         feat = self.input_proj(xp.to(self.dtype))
+        stages = [functools.partial(m, generator=generator)
+                  for m in (*self.encoder_layers, *self.decoder_layers)]
         if cfg.num_layers > 3:
-            y = self._forward_multi(feat, ff, fb)
+            y = self._forward_multi(stages, feat, ff, fb)
         else:
-            y = self._forward_few(feat, ff, fb)
+            y = self._forward_few(stages, feat, ff, fb)
         y = feat + conv_frames(self.local_cnn, y)
 
         y = y[:, :, :H, :W]
@@ -223,7 +263,7 @@ class VMG(nn.Module):
         out = conv_cl(self.conv_last, out)
         return out.reshape(Bf, Tf, 4 * Hf, 4 * Wf, 3).float() + upsample_x
 
-    def _compute_flows(self, xp):
+    def _compute_flows(self, xp, frames_mirror: bool):
         """Per-stage flow pyramid: SPyNet rerun on every level."""
         B, T, Hp, Wp, C = xp.shape
         flows_f, flows_b = [], []
@@ -233,8 +273,10 @@ class VMG(nn.Module):
             lv = lv.reshape(B, T, h, w, C)
             src_fwd = lv[:, :-1].reshape(B * (T - 1), h, w, C)
             src_bwd = lv[:, 1:].reshape(B * (T - 1), h, w, C)
-            flows_f.append(self.spynet(src_bwd, src_fwd).reshape(B, T - 1, h, w, 2))
-            flows_b.append(self.spynet(src_fwd, src_bwd).reshape(B, T - 1, h, w, 2))
+            fwd = self.spynet(src_bwd, src_fwd).reshape(B, T - 1, h, w, 2)
+            flows_f.append(fwd)
+            flows_b.append(fwd.flip(1) if frames_mirror else
+                           self.spynet(src_fwd, src_bwd).reshape(B, T - 1, h, w, 2))
         return flows_f, flows_b
 
     def _mdsc(self, seq, x, div=4):
@@ -244,8 +286,8 @@ class VMG(nn.Module):
         p = F.relu(seq[1](p)).permute(0, 2, 3, 1)
         return p.reshape(B, T, *p.shape[1:])
 
-    def _forward_multi(self, x, ff, fb):
-        enc, dec = self.encoder_layers, self.decoder_layers
+    def _forward_multi(self, stages, x, ff, fb):
+        enc, dec = stages[:4], stages[4:]
         x1 = enc[0](x, ff[0], fb[0])
         x2 = enc[1](self.downsample[0](x1), ff[1], fb[1])
         x3 = enc[2](self.downsample[1](x2), ff[2], fb[2])
@@ -256,10 +298,10 @@ class VMG(nn.Module):
         x7 = dec[2](self.upsample[2](x6 + x2), ff[0], fb[0])
         return x7 + x1
 
-    def _forward_few(self, x, ff, fb):
-        x1 = self.encoder_layers[0](x, ff[0], fb[0])
-        x2 = self.encoder_layers[1](self.downsample[0](x1), ff[1], fb[1])
-        x3 = self.decoder_layers[0](self.upsample[0](x2), ff[0], fb[0])
+    def _forward_few(self, stages, x, ff, fb):
+        x1 = stages[0](x, ff[0], fb[0])
+        x2 = stages[1](self.downsample[0](x1), ff[1], fb[1])
+        x3 = stages[2](self.upsample[0](x2), ff[0], fb[0])
         return x3 + x1
 
 
@@ -302,17 +344,26 @@ def cast_for_compute(model: VMG, dtype: torch.dtype) -> VMG:
     return model
 
 
-def create_model(cfg: VMGNetworkConfig, *, dtype=torch.float32, device="cpu",
-                 gelu: str = "erf", fast_flow: bool = False,
+def create_model(cfg: VMGNetworkConfig, *, is_train: bool = False,
+                 dtype=torch.float32, device="cuda", gelu: str = "erf",
+                 fast_flow: bool = False,
                  generator: torch.Generator | None = None) -> VMG:
-    """Build the serving model on ``device`` in ``dtype`` (SPyNet stays
-    float32).  ``generator`` seeds a JAX-like random init, drawn on the
-    generator's device (a CPU generator gives the same weights whatever
-    ``device`` is); without one the parameters keep torch's default init,
-    to be overwritten by a state dict.  ``gelu``: 'erf' (exact) or 'tanh'
-    (serving fast-math); ``fast_flow``: bf16 SPyNet convs."""
+    """Build the model on ``device`` (the card unless the caller passes
+    "cpu"; without CUDA the default raises) in ``dtype`` (SPyNet stays
+    float32), in training mode with its stochastic-depth schedule when
+    ``is_train``, else in eval mode.  ``generator`` seeds a JAX-like random
+    init, drawn on the generator's device (a CPU generator gives the same
+    weights whatever ``device`` is); without one the parameters keep
+    torch's default init, to be overwritten by a state dict.  ``gelu``:
+    'erf' (exact) or 'tanh' (serving fast-math); ``fast_flow``: bf16
+    SPyNet convs."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("create_model: no CUDA device visible; pass "
+                           "device='cpu' to build the model on the CPU")
     init_device = generator.device if generator is not None else device
-    model = VMG(cfg, gelu=gelu, fast_flow=fast_flow, device=init_device)
+    model = VMG(cfg, gelu=gelu, fast_flow=fast_flow, is_train=is_train,
+                device=init_device)
     if generator is not None:
         init_weights(model, generator)
-    return cast_for_compute(model.to(device), dtype).eval()
+    return cast_for_compute(model.to(device), dtype).train(is_train)

@@ -1,8 +1,11 @@
-"""LTAM 2x2-window trajectory attention, forward.
+"""LTAM 2x2-window trajectory attention, forward and backward.
 
-Port of ``ltam_attention_2x2`` of ``vmg_tpu/ops/ltam_attention.py``.  The
-wrapper launches the CUDA kernel ``csrc/ltam.cu`` on CUDA tensors (design
-notes there) and takes :func:`ltam_attention_plain` on CPU tensors.
+Port of ``ltam_attention_2x2`` of ``vmg_tpu/ops/ltam_attention.py`` and of
+its custom VJP.  On CUDA tensors the wrapper launches the kernels of
+``csrc/ltam.cu`` (design notes there): a forward that, when a gradient is
+needed, also writes the softmax denominator, and a backward kernel, bound
+together by a ``torch.autograd.Function``.  On CPU tensors it takes
+:func:`ltam_attention_plain`, which autograd differentiates.
 
 Layout (the port's own; the TPU kernel padded every slot to 128 lanes):
 
@@ -45,14 +48,22 @@ def ltam_attention_plain(q, kv, pe, *, K: int, heads: int):
             val = _tap(kv6[:, :, :, k, 0], ki, kj).float().reshape(N, H, W, heads, d)
             key = _tap(kv6[:, :, :, k, 1], ki, kj).float().reshape(N, H, W, heads, d)
             e = torch.exp((qh * key).sum(-1)) * pe[k, t][pos]
-            den += e
-            num += e[..., None] * val
+            den = den + e
+            num = num + e[..., None] * val
     return (num / den.clamp_min(1e-30)[..., None]).reshape(N, H, W, C)
 
 
-def ltam_attention_2x2(q, kv, pe, *, K: int, heads: int):
-    if q.device.type == "cpu":
-        return ltam_attention_plain(q, kv, pe, K=K, heads=heads)
+def ltam_attention_bwd_plain(q, kv, pe, g, *, K: int, heads: int):
+    """Gradients (dq, dkv, dpe) of ``sum(ltam_attention_plain(q, kv, pe) *
+    g)`` by autograd, each in its input's dtype: the plain version of the
+    backward kernel."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, kv, pe)]
+        out = ltam_attention_plain(*leaves, K=K, heads=heads)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _check(q, kv, pe, K, heads):
     N, H, W, C = q.shape
     if H % 2 or W % 2:
         raise ValueError("2x2 windows need even H and W")
@@ -62,13 +73,86 @@ def ltam_attention_2x2(q, kv, pe, *, K: int, heads: int):
     _build.require(kv, "kv", shape=(N, H, W, K * 2 * C), device=q.device)
     _build.require(pe, "pe", shape=(K, 4, 4, heads), dtype=torch.float32,
                    device=q.device)
+
+
+def _forward_kernel(q, kv, pe, K, heads, with_den: bool):
+    """Launch the forward kernel: out, and den (N, H, W, heads) f32 (the
+    unclamped softmax denominator) when ``with_den``."""
+    _check(q, kv, pe, K, heads)
+    N, H, W, C = q.shape
     out = torch.empty_like(q)
+    den = (torch.empty((N, H, W, heads), dtype=torch.float32, device=q.device)
+           if with_den else None)
     code = _build.load_library().vmg_ltam_fwd(
-        q.data_ptr(), kv.data_ptr(), pe.data_ptr(), out.data_ptr(), N, H, W,
-        C, K, heads, _build.DTYPE_CODES[kv.dtype], _build.stream_of(q))
+        q.data_ptr(), kv.data_ptr(), pe.data_ptr(), out.data_ptr(),
+        _build.ptr(den), N, H, W, C, K, heads, _build.DTYPE_CODES[kv.dtype],
+        _build.stream_of(q))
     _build.check(code, "vmg_ltam_fwd")
     ltam_attention_2x2.launches += 1
-    return out
+    return out, den
+
+
+def ltam_attention_2x2_bwd(q, kv, pe, den, out, g, *, K: int, heads: int):
+    """Gradients (dq f32, dkv in kv's dtype, dpe f32) of the attention from
+    the forward's saved q, kv, pe, den (unclamped), out and the f32
+    cotangent g.  CPU tensors take :func:`ltam_attention_bwd_plain`."""
+    if q.device.type == "cpu":
+        return ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
+    _check(q, kv, pe, K, heads)
+    N, H, W, C = q.shape
+    for name, t, shape in (("den", den, (N, H, W, heads)), ("out", out, q.shape),
+                           ("g", g, q.shape)):
+        _build.require(t, name, shape=shape, dtype=torch.float32, device=q.device)
+    P = N * H * W
+    # dpe: per-slice partial sums over >= 64 pixels, <= 64 slices, then a
+    # fixed-order second pass
+    S = max(1, min(64, -(-P // 64)))
+    dq = torch.empty_like(q)
+    dkv = torch.empty(kv.shape, dtype=torch.float32, device=q.device)
+    dpe = torch.empty_like(pe)
+    scratch = torch.empty((3, P * K * 4 * heads), dtype=torch.float32, device=q.device)
+    partial = torch.empty((S, K * 16 * heads), dtype=torch.float32, device=q.device)
+    code = _build.load_library().vmg_ltam_bwd(
+        q.data_ptr(), kv.data_ptr(), pe.data_ptr(), den.data_ptr(), out.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dpe.data_ptr(),
+        scratch.data_ptr(), partial.data_ptr(), N, H, W, C, K, heads, S,
+        _build.DTYPE_CODES[kv.dtype], _build.stream_of(q))
+    _build.check(code, "vmg_ltam_bwd")
+    ltam_attention_2x2.bwd_launches += 1
+    return dq, dkv.to(kv.dtype), dpe
+
+
+class _LtamAttention(torch.autograd.Function):
+    """The kernel pair under autograd: the forward saves q, kv, pe, den and
+    out, the backward launches the backward kernel (the custom VJP of
+    ``vmg_tpu/ops/ltam_attention.py:344-362``)."""
+
+    @staticmethod
+    def forward(ctx, q, kv, pe, K, heads):
+        out, den = _forward_kernel(q, kv, pe, K, heads, with_den=True)
+        ctx.save_for_backward(q, kv, pe, den, out)
+        ctx.K, ctx.heads = K, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kv, pe, den, out = ctx.saved_tensors
+        dq, dkv, dpe = ltam_attention_2x2_bwd(
+            q, kv, pe, den, out, g.float().contiguous(), K=ctx.K, heads=ctx.heads)
+        return dq, dkv, dpe, None, None
+
+
+def ltam_attention_2x2(q, kv, pe, *, K: int, heads: int):
+    """See the module docstring.  CPU tensors take the plain version; on
+    CUDA tensors the forward kernel runs, through the autograd Function
+    (which also writes the denominator) when a gradient is needed."""
+    if q.device.type == "cpu":
+        return ltam_attention_plain(q, kv, pe, K=K, heads=heads)
+    if torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad
+                                    or pe.requires_grad):
+        return _LtamAttention.apply(q, kv, pe, K, heads)
+    return _forward_kernel(q, kv, pe, K, heads, with_den=False)[0]
 
 
 ltam_attention_2x2.launches = 0
+ltam_attention_2x2.bwd_launches = 0

@@ -129,7 +129,8 @@ def fused_morphfc_reduce(h, w, c):
 fused_morphfc_reduce.launches = 0
 
 
-def _gate(p, act):
+def symm_gate(p, act):
+    """The mixer's symmetric gate activation."""
     if act == "tanh":
         return torch.tanh(p)
     if act == "sigmoid":
@@ -146,7 +147,7 @@ def morphfc_combine_plain(x, h, w, c, a, pk, pb, *, act="tanh",
     a = a.to(x.dtype)[:, :, None, None, :]
     y = h * a[:, 0] + w * a[:, 1] + c * a[:, 2]
     p = (y.float() @ pk.float() + pb.float()).to(x.dtype)
-    out = (x + p) * _gate(p, act)
+    out = (x + p) * symm_gate(p, act)
     if residual is not None:
         out = residual + res_scale * out
     return out

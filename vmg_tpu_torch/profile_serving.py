@@ -41,6 +41,7 @@ CATEGORIES = [
     ("MorphFC reduce kernel (pass 1)", r"vmg::morphfc_partial"),
     ("MorphFC sums, fixed-order pass (axes, reduce)", r"vmg::morphfc_final"),
     ("MorphFC combine kernel", r"vmg::morphfc_combine"),
+    ("LTAM backward kernels", r"vmg::ltam_bwd"),
     ("LTAM kernel", r"vmg::ltam"),
     ("LayerNorm", r"layer_norm"),
     ("convolutions (cuDNN)", r"fprop|cudnn|conv|implicit_gemm"),
@@ -88,6 +89,51 @@ def spread(values):
             "max": float(max(values)), "values": [float(v) for v in values]}
 
 
+def trace_summary(prof) -> dict:
+    """Device events, busy time, span, idle share, device time by category
+    and the longest kernels of a device-activity trace."""
+    events = device_events(prof)
+    work = [(n, s, e) for n, s, e in events if n not in WAITS]
+    by_cat, by_name = {}, {}
+    for n, s, e in work:
+        for table, key in ((by_cat, category(n)), (by_name, n)):
+            calls, us = table.get(key, (0, 0.0))
+            table[key] = (calls + 1, us + (e - s))
+    busy_us = union_us([(s, e) for _, s, e in work])
+    span_us = (max(e for _, _, e in events) - min(s for _, s, _ in events)) if events else 0.0
+    return {
+        "device_events": len(events),
+        "busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3,
+        "idle_share": (1.0 - busy_us / span_us) if span_us else None,
+        "waits_ms": sum(e - s for n, s, e in events if n in WAITS) / 1e3,
+        "by_category_ms": {k: {"calls": c, "ms": us / 1e3} for k, (c, us) in
+                           sorted(by_cat.items(), key=lambda kv: -kv[1][1])},
+        "top_kernels_ms": [{"name": k[:160], "calls": c, "ms": us / 1e3} for k, (c, us) in
+                           sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]],
+    }
+
+
+def print_trace(tr: dict, what: str) -> None:
+    if not tr["device_events"]:
+        print("trace: no device activity recorded; idle share not measured")
+        return
+    print(f"trace of one {what}: {tr['device_events']} device events; device busy "
+          f"{tr['busy_ms']:.2f} ms of a {tr['span_ms']:.2f} ms span, idle share "
+          f"{tr['idle_share']:.4f}; waits {tr['waits_ms']:.2f} ms")
+    print(f"{'device time by category':48s} {'calls':>6s} {'ms':>9s} {'share':>7s}")
+    for k, v in tr["by_category_ms"].items():
+        print(f"{k:48s} {v['calls']:6d} {v['ms']:9.3f} {v['ms'] / tr['busy_ms']:7.2%}")
+    print("longest kernels:")
+    for k in tr["top_kernels_ms"][:12]:
+        print(f"  {k['calls']:6d} {k['ms']:9.3f} ms  {k['name'][:110]}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -102,10 +148,9 @@ def main(argv=None) -> int:
     from vmg_tpu_torch.models.vmg import create_model
     from vmg_tpu_torch.serve import SRServer
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    sd = create_model(FULL_PRESET, generator=torch.Generator().manual_seed(0)).state_dict()
+    smi = card_line()
+    sd = create_model(FULL_PRESET, device="cpu",
+                      generator=torch.Generator().manual_seed(0)).state_dict()
     server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True)
     clip = np.random.default_rng(0).random((1, T, H, W, 3), dtype=np.float32)
     x = torch.from_numpy(clip).cuda()
@@ -131,29 +176,11 @@ def main(argv=None) -> int:
         server(clip)
         served.append(time.time() - t0)
 
-    events = device_events(prof)
-    work = [(n, s, e) for n, s, e in events if n not in WAITS]
-    by_cat, by_name = {}, {}
-    for n, s, e in work:
-        for table, key in ((by_cat, category(n)), (by_name, n)):
-            calls, us = table.get(key, (0, 0.0))
-            table[key] = (calls + 1, us + (e - s))
-    busy_us = union_us([(s, e) for _, s, e in work])
-    span_us = (max(e for _, _, e in events) - min(s for _, s, _ in events)) if events else 0.0
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "resident_s_per_clip": spread(resident), "served_s_per_clip": spread(served),
         "served_frames_per_s": spread([T / s for s in served]),
-        "trace": {
-            "device_events": len(events),
-            "busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3,
-            "idle_share": (1.0 - busy_us / span_us) if span_us else None,
-            "waits_ms": sum(e - s for n, s, e in events if n in WAITS) / 1e3,
-            "by_category_ms": {k: {"calls": c, "ms": us / 1e3} for k, (c, us) in
-                               sorted(by_cat.items(), key=lambda kv: -kv[1][1])},
-            "top_kernels_ms": [{"name": k[:160], "calls": c, "ms": us / 1e3} for k, (c, us) in
-                               sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]],
-        },
+        "trace": trace_summary(prof),
     }
 
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -162,19 +189,7 @@ def main(argv=None) -> int:
           f"(range {r['min']:.4f}-{r['max']:.4f}, {args.reps} reps, CUDA events)")
     print(f"SRServer: median {s['median']:.4f} s per clip (range {s['min']:.4f}-"
           f"{s['max']:.4f}, host clock), {T / s['median']:.3f} frames/s")
-    tr = result["trace"]
-    if not events:
-        print("trace: no device activity recorded; idle share not measured")
-    else:
-        print(f"trace of one forward: device busy {tr['busy_ms']:.2f} ms of a "
-              f"{tr['span_ms']:.2f} ms span, idle share {tr['idle_share']:.4f}; "
-              f"waits {tr['waits_ms']:.2f} ms")
-        print(f"{'device time by category':48s} {'calls':>6s} {'ms':>9s} {'share':>7s}")
-        for k, v in tr["by_category_ms"].items():
-            print(f"{k:48s} {v['calls']:6d} {v['ms']:9.3f} {v['ms'] / tr['busy_ms']:7.2%}")
-        print("longest kernels:")
-        for k in tr["top_kernels_ms"][:12]:
-            print(f"  {k['calls']:6d} {k['ms']:9.3f} ms  {k['name'][:110]}")
+    print_trace(result["trace"], "forward")
     line = json.dumps(result)
     if args.json:
         with open(args.json, "w") as f:

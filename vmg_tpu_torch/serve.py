@@ -3,7 +3,8 @@
 :class:`SRServer` answers clip requests with the contract of
 ``vmg_tpu.eval.inference.SlidingEvaluator.forward_fn``: a numpy float32
 ``(1, T, h, w, 3)`` RGB clip in [0, 1] in, ``(1, T, 4h, 4w, 3)`` float32
-out.  The model runs in ``dtype`` (bf16 by default, SPyNet float32) with
+out.  The model runs on ``device`` (the card unless the caller passes
+"cpu") in ``dtype`` (bf16 by default, SPyNet float32) with
 the serving fast-math of the JAX package's bench protocol: tanh GELU and
 bf16 SPyNet convolutions.
 """
@@ -21,9 +22,12 @@ from vmg_tpu_torch.models.vmg import VMG, cast_for_compute
 
 class SRServer:
     def __init__(self, cfg: VMGNetworkConfig, state_dict: Mapping[str, torch.Tensor],
-                 device, dtype: torch.dtype = torch.bfloat16, *,
+                 device="cuda", dtype: torch.dtype = torch.bfloat16, *,
                  gelu: str = "tanh", fast_flow: bool = True):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SRServer: no CUDA device visible; pass "
+                               "device='cpu' to serve on the CPU")
         model = VMG(cfg, gelu=gelu, fast_flow=fast_flow, device=self.device)
         model.load_state_dict(state_dict, strict=True)
         model = cast_for_compute(model, dtype).eval()
