@@ -10,14 +10,26 @@ Phases (any failure exits non-zero):
      shapes of the path that runs it, in float32 (TF32 off) and bf16,
      each timed (CUDA events) next to its plain version and its bound
      (the MorphFC axis-branch kernel also next to the 'hybrid' form it
-     replaces at stages 0/6); the LTAM backward at the training shape;
+     replaces at stages 0/6, the conv chain next to the module form's
+     cuDNN convolutions, the norm and the pin next to one PyTorch call);
+     the LTAM backward at the training shape;
   3. slice parity: FULL_PRESET in float32 at 1x2x64x64, kernel path on the
      card against the plain path (CPU tensors) with the same weights;
+ 3b. the same with the opt-in kernel forms: the RCAB and trajectory conv
+     chains against phase 3's plain output, the barrier forms against the
+     default forms on the card;
   4. serving (main path 1): an SRServer on FULL_PRESET in bf16 (tanh GELU,
      bf16 SPyNet convs), seeded random init, 1x16x180x320 clips: one
      warm-up request, then 3 clips x 3 reps, each request timed; the
-     output must be finite and (1,16,720,1280,3) and every serving
-     kernel's launch count over the run must be > 0;
+     output must be finite and (1,16,720,1280,3), every serving kernel's
+     launch count over the run must be > 0, and the opt-in forms' kernels
+     must not launch;
+ 4b. serving in the kernel forms (main path 3): the same server, weights
+     and clips with rcab_impl, traj_conv_impl and norm_impl "kernel": one
+     warm-up request, then 3 clips; 968 conv-chain and 50 norm launches
+     per clip; its bf16 error at 1x2x64x64 against phase 3's f32 plain
+     output at most twice the default form's; then one request in each
+     barrier form, which pins 64 times per clip;
   5. train-step parity: one float32 FULL_PRESET training step (loss and
      gradients, drop_path 0, remat on) at 1x5x64x64, kernels on the card
      against the plain path on CPU tensors from the same weights;
@@ -25,7 +37,10 @@ Phases (any failure exits non-zero):
      vmg_tpu_torch.train`` on FULL_PRESET -- bf16 compute on float32
      masters, remat on, B=1, T=16, 64x64 crops, seeded data: one warm-up
      step, then timed steps; the losses must be finite and both LTAM
-     kernels must have launched.
+     kernels must have launched;
+ 6b. the same trainer with norm_impl="kernel": a warm-up step and 2 timed
+     steps; finite losses, norm launches, the warm-up loss within 1e-2 of
+     phase 6's.
 Prints a {"kernels": [...]} JSON line (each kernel with its launches on
 the path that runs it, its times, its bound and the library call, if
 any), the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -55,6 +70,19 @@ REL_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
 # sum missing one pixel of a 184x320 frame is off by ~1.7e-5 of it.
 SUM_TOL = 1e-6
 SLICE_TOL = 1e-3  # f32 full model, cuDNN and kernels vs CPU, output in ~[0, 1]
+# The barrier forms run the default forms' arithmetic plus identity copies:
+# the same outputs up to cuDNN's run-to-run choices, held at 1e-6 of max|out|.
+BARRIER_TOL = 1e-6
+# bf16 kernel-form serving: its error against the f32 plain output at most
+# KFORM_RATIO x the default bf16 form's; its warm-up training loss within
+# TRAIN_LOSS_TOL (relative) of the default form's.
+KFORM_RATIO, TRAIN_LOSS_TOL = 2.0, 1e-2
+# (width, rows of its first call) of every LayerNorm on the serving path of
+# a 1x16x180x320 clip (padded to 184x320): the TABs of stages 0 and 1, the
+# down resamplers 0 and 1 (4C), the up resampler 1 (C/4)
+NORM_SHAPES = [(112, 16 * 184 * 320), (448, 16 * 92 * 160), (224, 16 * 92 * 160),
+               (896, 16 * 46 * 80), (56, 16 * 92 * 160)]
+CHAIN_PER_CLIP, NORM_PER_CLIP, PIN_PER_CLIP = 968, 50, 64
 # Train-step parity, f32: the loss within LOSS_TOL relative; each
 # parameter's gradient within GRAD_LIMIT of max(its max|plain|, GRAD_FLOOR x
 # the largest max|plain| of any parameter).  GRAD_TOL of its own max is
@@ -151,8 +179,10 @@ def ltam_dpe_terms(q, kv, pe, g, K, heads):
 
 def check_kernels(report):
     """Phase 2.  Returns one dict per kernel for the JSON line."""
+    import torch.nn.functional as F
+
     from vmg_tpu_torch.models.blocks import _axis_mix
-    from vmg_tpu_torch.ops import group_conv, ltam_attention, morphfc_fused
+    from vmg_tpu_torch.ops import conv_chain, fused_norm, group_conv, ltam_attention, morphfc_fused
     from vmg_tpu_torch.ops.decay import morphfc_decay_np
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -174,18 +204,28 @@ def check_kernels(report):
                                    replaces="vmg_tpu/ops/ltam_attention.py:282"),
         "ltam_attention_2x2_bwd": dict(source="vmg_tpu_torch/csrc/ltam.cu",
                                        replaces="vmg_tpu/ops/ltam_attention.py:308"),
+        "fused_conv_chain": dict(source="vmg_tpu_torch/csrc/conv_chain.cu",
+                                 replaces="vmg_tpu/ops/conv_chain.py:183"),
+        "fused_norm": dict(source="vmg_tpu_torch/csrc/fused_norm.cu",
+                           replaces="vmg_tpu/ops/fused_norm.py:102"),
+        "layout_pin": dict(source="vmg_tpu_torch/csrc/conv_chain.cu",
+                           replaces="vmg_tpu/ops/conv_chain.py:164"),
     }
-    # No single PyTorch call computes any of these functions (each needs
+    # No single PyTorch call computes the first seven functions (each needs
     # layout changes or several ops around a library call), so no library
-    # time is taken.
+    # time is taken for them; the norm's is F.layer_norm / F.rms_norm, the
+    # pin's x.clone().
     for e in entries.values():
         e.update(route="cuda", max_abs_err=0.0, library_ms=None)
 
-    def compare(name, shape, dtype, kernel, plain, check, primary, work, extra=""):
+    def compare(name, shape, dtype, kernel, plain, check, primary, work, extra="",
+                library=None, keys=None):
         """Check and time one kernel call.  ``check(got, want)`` gives one
         (label, max_abs_err, ok, text) per output; ``primary``: the call at
         the main path's shape and dtype whose times go into the JSON line;
-        ``work``: (inputs, operations, peak) for its bound."""
+        ``work``: (inputs, operations, peak) for its bound; ``library``: one
+        PyTorch call computing the same function, timed beside it; ``keys``:
+        more numbers for the JSON line of a primary call."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
@@ -197,14 +237,17 @@ def check_kernels(report):
             report(f"  {name} {dtype} {shape}: finite={finite}; {text} FAIL")
             raise AssertionError(f"{name} disagrees with its plain version")
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, iters=3)
+        library_ms = None if library is None else cuda_ms(library)
         b = bound(work[0], got, work[1], work[2])
+        lib_text = "" if library_ms is None else f"  library {library_ms:.3f} ms"
         report(f"  {name:22s} {str(dtype):15s} {str(shape):26s} {text} ok  "
-               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b['bound_ms']:.4f} ms "
-               f"({b['bound_by']}){extra}")
+               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib_text}  bound "
+               f"{b['bound_ms']:.4f} ms ({b['bound_by']}){extra}")
         e = entries[name]
         e["max_abs_err"] = max([e["max_abs_err"]] + [err for _, err, _, _ in results])
         if primary:
-            e.update(ms=ms, plain_ms=plain_ms, at=f"{dtype} {shape}", **b)
+            e.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     at=f"{dtype} {shape}", **b, **(keys or {}))
 
     def dtype_check(dtype):
         return lambda got, want: [within_max(got[0], want[0], REL_TOL[dtype])]
@@ -321,20 +364,100 @@ def check_kernels(report):
                 bwd_check, primary=dtype == torch.bfloat16,
                 work=((q, kv, pe, den, out, g), N * h * w * K * 4 * 10 * C, "f32"))
         del q, kv, out, den, g
+
+        # the conv chain: a trajectory resblock (one frame, residual 0.1;
+        # the serving path's shape) and the RCAB branch of a stage-0/6
+        # mixer (16 frames, the pool sums), each next to the module form's
+        # cuDNN convolutions
+        C = 112
+        for N, kw in ((1, dict(res_scale=0.1)), (16, dict(emit_psum=True))):
+            h, w = 184, 320
+            x = rn(N, h, w, C, dtype=dtype)
+            wc = [rn(C, C, 3, 3, scale=(9 * C) ** -0.5, dtype=dtype) for _ in range(2)]
+            bc = [rn(C, scale=0.1, dtype=dtype) for _ in range(2)]
+            ops = (*conv_chain.pack_conv_taps(wc[0], bc[0]),
+                   *conv_chain.pack_conv_taps(wc[1], bc[1]))
+            wcl = [t.contiguous(memory_format=torch.channels_last) for t in wc]
+            xc = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
+
+            def module():  # ResidualBlockNoBN / RCAB's convs in the module form
+                y = F.conv2d(F.relu(F.conv2d(xc, wcl[0], bc[0], padding=1)), wcl[1], bc[1],
+                             padding=1).permute(0, 2, 3, 1)
+                return x + 0.1 * y if "res_scale" in kw else y
+
+            def chain_check(got, want):
+                res = [within_max(got[0], want[0], REL_TOL[dtype])]
+                if len(got) > 1:  # the sums of the kernel's own (rounded) output
+                    own = got[0].float().sum(dim=(1, 2))
+                    terms = got[0].float().abs().sum(dim=(1, 2))
+                    res.append(within_sum(got[1], own, terms, "psum "))
+                    if dtype == torch.float32:
+                        res.append(within_sum(got[1], want[1], terms, "psum vs plain "))
+                return res
+
+            module_ms = cuda_ms(module, iters=5)
+            # two 3x3 convs, C x C, per pixel
+            compare("fused_conv_chain", (N, h, w, C), dtype,
+                    lambda: conv_chain.fused_conv_chain(x, *ops, **kw),
+                    lambda: conv_chain.conv_chain_plain(x, *ops, **kw),
+                    chain_check, primary=dtype == torch.bfloat16 and N == 1,
+                    work=((x, *ops), 2 * 2 * N * h * w * 9 * C * C, peak(dtype)),
+                    extra=f"  module form {module_ms:.3f} ms",
+                    keys={"module_ms": module_ms})
+            del x, xc, ops, wc, wcl
+
+        # the norm at every LayerNorm width of the serving path, each at the
+        # rows of its first call, and RMS at 112; weights in the model dtype
+        for C, rows, rms in [(C, rows, False) for C, rows in NORM_SHAPES] + [
+                (*NORM_SHAPES[0], True)]:
+            x = (rn(rows, C) * 1.5 + 0.5).to(dtype)
+            g = (1.0 + rn(C, scale=0.2)).to(dtype)
+            b = None if rms else rn(C, scale=0.1, dtype=dtype)
+            eps = 1e-6 if rms else 1e-5
+            lib = ((lambda: F.rms_norm(x, (C,), g, eps)) if rms else
+                   (lambda: F.layer_norm(x, (C,), g, b, eps)))
+            compare("fused_norm", ("rms" if rms else "ln", rows, C), dtype,
+                    lambda: fused_norm.fused_norm(x, g, b, eps=eps, rms=rms),
+                    lambda: fused_norm.fused_norm_plain(x, g, b, eps=eps, rms=rms),
+                    dtype_check(dtype),
+                    primary=dtype == torch.bfloat16 and (C, rows) == NORM_SHAPES[0] and not rms,
+                    work=((x, g) + (() if b is None else (b,)), 8 * x.numel(), "f32"),
+                    library=lib)
+            del x
+
+        # the pin: the trajectory step's resblock input (2C channels)
+        x = rn(1, 184, 320, 224, dtype=dtype)
+
+        def exact(got, want):
+            return [within_max(got[0], want[0], 0.0)]
+
+        compare("layout_pin", tuple(x.shape), dtype, lambda: conv_chain.layout_pin(x),
+                lambda: conv_chain.layout_pin_plain(x), exact,
+                primary=dtype == torch.bfloat16, work=((x,), 0, "f32"),
+                library=lambda: x.clone())
+        del x
     torch.cuda.empty_cache()
     return entries
 
 
 def launch_counts():
     """Kernel name -> (object, attribute) of its launch counter."""
-    from vmg_tpu_torch.ops import group_conv, ltam_attention, morphfc_fused
+    from vmg_tpu_torch.ops import (conv_chain, fused_norm, group_conv, ltam_attention,
+                                   morphfc_fused)
     ltam = ltam_attention.ltam_attention_2x2
     return {"fused_group_ffn": (group_conv.fused_group_ffn, "launches"),
             "fused_morphfc_axes": (morphfc_fused.fused_morphfc_axes, "launches"),
             "fused_morphfc_reduce": (morphfc_fused.fused_morphfc_reduce, "launches"),
             "fused_morphfc_combine": (morphfc_fused.fused_morphfc_combine, "launches"),
             "ltam_attention_2x2": (ltam, "launches"),
-            "ltam_attention_2x2_bwd": (ltam, "bwd_launches")}
+            "ltam_attention_2x2_bwd": (ltam, "bwd_launches"),
+            "fused_conv_chain": (conv_chain.fused_conv_chain, "launches"),
+            "fused_norm": (fused_norm.fused_norm, "launches"),
+            "layout_pin": (conv_chain.layout_pin, "launches")}
+
+
+# the kernels of the opt-in forms: none launches in the default forms
+OPT_IN = ("fused_conv_chain", "fused_norm", "layout_pin")
 
 
 def zero_counts():
@@ -429,7 +552,7 @@ def main() -> int:
         return 1
     from vmg_tpu_torch import _build
     from vmg_tpu_torch.configs import FULL_PRESET
-    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
     from vmg_tpu_torch.ops.resize import upsample_trilinear_frames
     from vmg_tpu_torch.serve import SRServer
     from vmg_tpu_torch.train.__main__ import run as train_run
@@ -474,6 +597,27 @@ def main() -> int:
     del gpu_model, cpu_model
     torch.cuda.empty_cache()
 
+    report("[3b] kernel forms, FULL_PRESET f32 1x2x64x64 on the card: rcab/traj conv "
+           f"'kernel' vs phase 3's plain output (tol {SLICE_TOL}); 'barrier' and "
+           f"'barrier_out' vs the default forms (tol {BARRIER_TOL:g} of max|out|)")
+    for forms in (KERNEL_FORMS, dict(traj_conv_impl="barrier"),
+                  dict(traj_conv_impl="barrier_out")):
+        model = create_model(FULL_PRESET, device="cuda", **forms)
+        model.load_state_dict(sd)
+        zero_counts()
+        with torch.inference_mode():
+            out_k = model(x.cuda()).cpu()
+        counts = {k: v for k, v in read_counts().items() if k in OPT_IN}
+        barrier = "traj_conv_impl" in forms and len(forms) == 1
+        ref, tol = (got, BARRIER_TOL * got.abs().max().item()) if barrier else (want, SLICE_TOL)
+        e = (out_k - ref).abs().max().item()
+        report(f"    {forms}: max_abs_err={e:.3e} (tol {tol:.3e}); launches {counts}")
+        need = "layout_pin" if barrier else "fused_conv_chain"
+        if not (torch.isfinite(out_k).all() and e <= tol and counts[need] > 0):
+            raise AssertionError(f"kernel-form slice parity failed for {forms}")
+        del model
+    torch.cuda.empty_cache()
+
     report("[4] serving: SRServer FULL_PRESET bf16 (tanh GELU, fast flow), "
            f"1x{T}x{H}x{W}")
     server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh",
@@ -510,10 +654,71 @@ def main() -> int:
     if out.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(out).all():
         raise AssertionError(f"bad serving output {out.shape}")
     missing = [k for k, v in serving_launches.items()
-               if v <= 0 and k != "ltam_attention_2x2_bwd"]
+               if v <= 0 and k != "ltam_attention_2x2_bwd" and k not in OPT_IN]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
+    if any(serving_launches[k] for k in OPT_IN):
+        raise AssertionError("the default serving forms launched an opt-in form's kernel")
     del server
+    torch.cuda.empty_cache()
+
+    report("[4b] serving in the kernel forms (rcab, traj conv, norm 'kernel'): same "
+           f"weights and clips, 1x{T}x{H}x{W}")
+    server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh",
+                      fast_flow=True, **KERNEL_FORMS)
+    small_k = server(x.numpy())
+    err_default = np.abs(small - want.numpy()).max()
+    err_kernel = np.abs(small_k - want.numpy()).max()
+    report(f"    bf16 vs phase 3's f32 plain output at 1x2x64x64: kernel forms "
+           f"max_abs_err={err_kernel:.3e}, default forms {err_default:.3e} (tol: kernel <= "
+           f"{KFORM_RATIO:g} x default)")
+    if not (np.isfinite(small_k).all() and err_kernel <= KFORM_RATIO * err_default):
+        raise AssertionError("kernel-form bf16 serving is further from the f32 output")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t1 = time.time()
+    out = server(warm)
+    warm_counts = read_counts()
+    report(f"    warm-up request {time.time() - t1:.2f} s; launches {warm_counts}")
+    per_clip = {"fused_conv_chain": CHAIN_PER_CLIP, "fused_norm": NORM_PER_CLIP,
+                "layout_pin": 0}
+    if any(warm_counts[k] != v for k, v in per_clip.items()):
+        raise AssertionError(f"kernel-form launches per clip {warm_counts}, expected {per_clip}")
+    zero_counts()
+    per_request_k = []
+    t1 = time.time()
+    for c in clips:
+        t2 = time.time()
+        out = server(c)
+        per_request_k.append(T / (time.time() - t2))
+    dt_k = time.time() - t1
+    kernel_launches = read_counts()
+    fps_k = T * len(clips) / dt_k
+    peak_k = torch.cuda.max_memory_allocated()
+    report(f"    {fps_k:.3f} frames/s ({dt_k / len(clips):.3f} s per clip, host clock, numpy "
+           f"in/out; default forms {fps:.3f}); per request median "
+           f"{np.median(per_request_k):.3f}, range {min(per_request_k):.3f}-"
+           f"{max(per_request_k):.3f} frames/s; peak allocated {peak_k / 2**30:.2f} GiB "
+           f"(default {peak / 2**30:.2f}); {kind}; card {smi}")
+    report(f"    launches over the {len(clips)} clips: {kernel_launches}")
+    if out.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"bad kernel-form serving output {out.shape}")
+    del server
+    barrier_launches = {}
+    for impl in ("barrier", "barrier_out"):
+        server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh",
+                          fast_flow=True, traj_conv_impl=impl)
+        zero_counts()
+        t1 = time.time()
+        out = server(clips[0])
+        barrier_launches[impl] = read_counts()
+        report(f"    traj_conv_impl={impl!r}: one request {time.time() - t1:.2f} s (its first); "
+               f"launches {barrier_launches[impl]}")
+        pins = barrier_launches[impl]["layout_pin"]
+        if not np.isfinite(out).all() or pins != PIN_PER_CLIP:
+            raise AssertionError(f"{impl}: {pins} pins per clip, expected {PIN_PER_CLIP}")
+        del server
     torch.cuda.empty_cache()
 
     report(f"[5] train-step parity: FULL_PRESET f32 1x5x64x64, drop_path 0, TF32 off, "
@@ -541,26 +746,61 @@ def main() -> int:
                if train_launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the training path: {missing}")
+    if any(train_launches[k] for k in OPT_IN):
+        raise AssertionError("the default training forms launched an opt-in form's kernel")
 
+    iters_k = 2
+    report(f"[6b] training with norm_impl='kernel': as phase 6, 1 warm-up + {iters_k} "
+           "timed steps")
+    zero_counts()
+    rec_k = train_run(preset="full", batch=1, frames=16, crop=64, iters=iters_k,
+                      grad_acc=1, remat=True, device="cuda", norm_impl="kernel")
+    norm_train = read_counts()["fused_norm"]
+    rel = abs(rec_k["loss_first"] - rec["loss_first"]) / abs(rec["loss_first"])
+    report(f"    step {rec_k['step_ms_median']:.1f} ms median ({rec_k['step_ms_min']:.1f}-"
+           f"{rec_k['step_ms_max']:.1f}), peak allocated {rec_k['peak_bytes'] / 2**30:.2f} "
+           f"GiB, losses {rec_k['loss_first']:.6f} (warm-up; phase 6 {rec['loss_first']:.6f}, "
+           f"rel diff {rel:.3e}, tol {TRAIN_LOSS_TOL:g}) .. {rec_k['loss_last']:.6f}; norm "
+           f"launches {norm_train} over {iters_k} steps")
+    losses_k = [rec_k["loss_first"], *rec_k["losses"]]
+    if not all(np.isfinite(v) for v in losses_k) or rel > TRAIN_LOSS_TOL or norm_train <= 0:
+        raise AssertionError(f"kernel-norm training failed: losses {losses_k}, "
+                             f"norm launches {norm_train}")
+
+    # each kernel's launches on the path that runs it: the LTAM backward in
+    # training (phase 6), the conv chain and the norm in kernel-form serving
+    # (phase 4b, 3 clips), the pin in the barrier form (phase 4b, 1 clip),
+    # the others in serving (phase 4)
+    paths = {"ltam_attention_2x2_bwd": ("training", train_launches),
+             "fused_conv_chain": ("kernel-form serving", kernel_launches),
+             "fused_norm": ("kernel-form serving", kernel_launches),
+             "layout_pin": ("barrier-form serving", barrier_launches["barrier"])}
     kernels = []
     for name, e in entries.items():
-        # each kernel's launches on the path that runs it: the LTAM
-        # backward in training, the others in serving
-        path = "training" if name == "ltam_attention_2x2_bwd" else "serving"
-        launches = (train_launches if path == "training" else serving_launches)[name]
+        path, counts = paths.get(name, ("serving", serving_launches))
+        extra = {"module_ms": e["module_ms"]} if "module_ms" in e else {}
         kernels.append({"name": name, "route": e["route"], "source": e["source"],
-                        "replaces": e["replaces"], "launches": launches,
+                        "replaces": e["replaces"], "launches": counts[name],
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                         "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                         "at": e["at"], "launches_path": path,
                         "launches_serving": serving_launches[name],
+                        "launches_kernel_forms": kernel_launches[name],
+                        "launches_barrier": barrier_launches["barrier"][name],
                         "launches_training": train_launches[name],
+                        "launches_training_norm_kernel": norm_train if name == "fused_norm"
+                        else None,
                         "bound_bytes": e["bound_bytes"], "bound_flops": e["bound_flops"],
-                        "bound_peak": e["bound_peak"]})
+                        "bound_peak": e["bound_peak"], **extra})
     print(json.dumps({"serving": {"frames_per_s": fps, "per_request_frames_per_s": per_request,
-                                  "peak_bytes": peak, "slice_max_abs_err": err}}))
-    print(json.dumps({"training": {**rec, "parity": parity}}))
+                                  "peak_bytes": peak, "slice_max_abs_err": err},
+                      "serving_kernel_forms": {
+                          "frames_per_s": fps_k, "per_request_frames_per_s": per_request_k,
+                          "peak_bytes": peak_k, "bf16_err_64": float(err_kernel),
+                          "bf16_err_64_default": float(err_default)}}))
+    print(json.dumps({"training": {**rec, "parity": parity},
+                      "training_norm_kernel": rec_k}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

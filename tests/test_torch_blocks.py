@@ -208,3 +208,101 @@ def test_trajectory_grads_match_jax(rng):
     for name, prm in m.named_parameters():
         np.testing.assert_allclose(prm.grad.numpy(), wgrads[name].numpy(), **TOL,
                                    err_msg=name)
+
+
+# ---- the opt-in kernel forms (conv chain, layout pin) against the JAX
+# package's Pallas forms in interpret mode, 1e-5 (the JAX tests' own
+# tolerance for these modules, tests/test_conv_chain.py)
+
+KTOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("H,W,C", [(12, 16, 24), (13, 10, 16)])
+def test_rcab_kernel_form_matches_jax(rng, H, W, C):
+    """RCAB's conv-chain form (both convs and the attention's pool sums in
+    one pass) against the JAX RCAB at ``impl='interpret'``; C = 24 pads
+    the bf16 taps, 13 rows leave a partial row block on the JAX side."""
+    x = _x(rng, (1, 2, H, W, C)) * 0.1
+    jm = jblocks.RCAB(C, impl="interpret")
+    p = jm.init(jax.random.key(6), jnp.asarray(x))
+    want = np.asarray(jm.apply(p, jnp.asarray(x)))
+    m = _load(blocks.RCAB(C), p, "encoder_layers0/mlp_blocks0/spatial_mixing/mlp_c",
+              "encoder_layers.0.mlp_blocks.0.spatial_mixing.mlp_c.")
+    np.testing.assert_allclose(_run(m, x, kernel=True), want, **KTOL)
+    np.testing.assert_allclose(_run(m, x), want, **KTOL)
+
+
+def test_resblock_kernel_form_matches_jax(rng):
+    x = _x(rng, (2, 12, 16, 24)) * 0.1
+    jm = jtraj.ResidualBlockNoBN(24, res_scale=0.1, impl="interpret")
+    p = jm.init(jax.random.key(7), jnp.asarray(x))
+    want = np.asarray(jm.apply(p, jnp.asarray(x)))
+    m = _load(trajectory.ResidualBlockNoBN(24, 0.1), p,
+              "encoder_layers0/traj_mixing/step/resblocks/block0",
+              "encoder_layers.0.traj_mixing.resblocks.main.2.0.")
+    np.testing.assert_allclose(_run(m, x, kernel=True), want, **KTOL)
+
+
+@pytest.mark.parametrize("H,W,C,chunk", [(18, 16, 16, 4), (16, 24, 32, 8)])
+def test_morphfc_decay_rcab_kernel_form(rng, H, W, C, chunk):
+    """The 'full' mixer with ``rcab_impl="kernel"`` against the JAX mixer,
+    whose 'full' form (interpret) always runs the RCAB chain kernel."""
+    x, res = _x(rng, (1, 2, H, W, C)), _x(rng, (1, 2, H, W, C))
+    jm = jblocks.MorphFCDecay(C, chunk, chunk, channel_mixer="rcab", impl="interpret")
+    p = jax.jit(jm.init)(jax.random.key(1), jnp.asarray(x))
+    want = np.asarray(jm.apply(p, jnp.asarray(x), residual=jnp.asarray(res), res_scale=0.5))
+    m = _load(blocks.MorphFCDecay(C, chunk, chunk, rcab_impl="kernel"), p,
+              "encoder_layers0/mlp_blocks0/spatial_mixing",
+              "encoder_layers.0.mlp_blocks.0.spatial_mixing.")
+    assert m.full_form(W)
+    np.testing.assert_allclose(_run(m, x, residual=torch.from_numpy(res), res_scale=0.5),
+                               want, **TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "barrier", "barrier_out"])
+def test_trajectory_conv_forms_match_jax(rng, impl):
+    """TrajectoryMultiHead with each ``traj_conv_impl`` against the JAX
+    module at ``conv_impl='interpret'`` (the chain kernel in every step),
+    3e-5.  JAX's layout pin has no interpret mode; the pin is the
+    identity, so the barrier forms are held against the same output."""
+    B, T, H, W, C = 1, 5, 8, 12, 16
+    x = _x(rng, (B, T, H, W, C))
+    ff, fb = _x(rng, (B, T - 1, H, W, 2)) * 2, _x(rng, (B, T - 1, H, W, 2)) * 2
+    jm = jtraj.TrajectoryMultiHead(
+        embed_dim=C, num_blocks=2, keyframe_stride=2, head=4, mode="wins",
+        r_scaling=0.1, ltam=True, carry_impl="warped", win_impl="pallas",
+        pallas_interpret=True, conv_impl="interpret")
+    args = tuple(map(jnp.asarray, (x, ff, fb)))
+    p = jax.jit(jm.init)(jax.random.key(8), *args)
+    want = np.asarray(jax.jit(jm.apply)(p, *args))
+    m = _load(trajectory.TrajectoryMultiHead(C, num_blocks=2, keyframe_stride=2, head=4,
+                                             r_scaling=0.1, traj_conv_impl=impl),
+              p, "encoder_layers0/traj_mixing", "encoder_layers.0.traj_mixing.")
+    np.testing.assert_allclose(_run(m, x, ff, fb), want, **TOL)
+
+
+def test_kernel_form_weights_carry_across_strict(rng):
+    """A JAX tree initialised with the kernel impls (RCAB / resblock params
+    made by the kernel path's param-only twins) has the module path's
+    structure and loads, key for key and value for value, into the port's
+    modules built with the kernel forms (``strict=True``)."""
+    x = _x(rng, (1, 2, 8, 8, 16))
+    for jk, jx, path, prefix, port in (
+            (jblocks.RCAB(16, impl="interpret"), jblocks.RCAB(16, impl="xla"),
+             "encoder_layers0/mlp_blocks0/spatial_mixing/mlp_c",
+             "encoder_layers.0.mlp_blocks.0.spatial_mixing.mlp_c.", blocks.RCAB(16)),
+            (jtraj.ResidualBlockNoBN(16, impl="interpret"), jtraj.ResidualBlockNoBN(16),
+             "encoder_layers0/traj_mixing/step/resblocks/block0",
+             "encoder_layers.0.traj_mixing.resblocks.main.2.0.",
+             trajectory.ResidualBlockNoBN(16))):
+        xin = jnp.asarray(x if isinstance(jk, jblocks.RCAB) else x[0])
+        pk = jk.init(jax.random.key(9), xin)
+        px = jx.init(jax.random.key(9), xin)
+        assert jax.tree.structure(pk) == jax.tree.structure(px)
+        sd = _port_params(pk, path, prefix)
+        port.load_state_dict(sd, strict=True)
+        for k, v in port.state_dict().items():
+            torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
+    m = trajectory.TrajectoryMultiHead(16, num_blocks=2, traj_conv_impl="kernel")
+    assert sorted(m.state_dict()) == sorted(
+        trajectory.TrajectoryMultiHead(16, num_blocks=2).state_dict())

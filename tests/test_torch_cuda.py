@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from vmg_tpu_torch.ops import group_conv, ltam_attention, morphfc_fused
+from vmg_tpu_torch.ops import conv_chain, fused_norm, group_conv, ltam_attention, morphfc_fused
 
 _TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -218,3 +218,86 @@ def test_bf16_train_steps_on_the_card(cuda):
     for (n, p), c in zip(model.named_parameters(), step.compute_model.parameters()):
         want = p if n.startswith("spynet") else p.to(torch.bfloat16)
         assert c.dtype == want.dtype and torch.equal(c, want), n
+
+
+def _chain_operands(rng, Cin, Cm, dev, dtype):
+    w1 = _randn(rng, (Cm, Cin, 3, 3), dev, dtype, (9 * Cin) ** -0.5)
+    w2 = _randn(rng, (Cin, Cm, 3, 3), dev, dtype, (9 * Cm) ** -0.5)
+    b1, b2 = _randn(rng, (Cm,), dev, dtype, 0.1), _randn(rng, (Cin,), dev, dtype, 0.1)
+    return (*conv_chain.pack_conv_taps(w1, b1), *conv_chain.pack_conv_taps(w2, b2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,H,W,Cin,Cm", [(2, 13, 22, 16, 16), (2, 11, 16, 24, 16),
+                                          (1, 40, 64, 112, 112), (2, 24, 60, 112, 112)])
+def test_conv_chain_kernel(cuda, dtype, N, H, W, Cin, Cm):
+    """Partial row and column tiles (13 x 22, 40 x 64), padded channels
+    (24 -> 32 in bf16), the path's 112 channels; the trajectory form
+    (residual, res_scale 0.1), the RCAB form and an lrelu chain, each
+    against the plain version.  The sums are the f32 sums of the kernel's
+    own output: held to 1e-5 of the sum of their terms' magnitudes against
+    that output's sums (in bf16 the outputs themselves may differ from the
+    plain version's by an ulp, which the sums add up)."""
+    rng = np.random.default_rng(Cin + H)
+    x = _randn(rng, (N, H, W, Cin), cuda, dtype)
+    ops = _chain_operands(rng, Cin, Cm, cuda, dtype)
+    before = conv_chain.fused_conv_chain.launches
+    for kw in (dict(res_scale=0.1), dict(act1="lrelu")):
+        _close(conv_chain.fused_conv_chain(x, *ops, **kw),
+               conv_chain.conv_chain_plain(x, *ops, **kw), dtype)
+    got, psum = conv_chain.fused_conv_chain(x, *ops, emit_psum=True)
+    want, wpsum = conv_chain.conv_chain_plain(x, *ops, emit_psum=True)
+    _close(got, want, dtype)
+    terms = got.float().abs().sum(dim=(1, 2))
+    assert bool(((psum - got.float().sum(dim=(1, 2))).abs() <= 1e-5 * terms).all())
+    if dtype == torch.float32:
+        assert bool(((psum - wpsum).abs() <= 1e-5 * terms).all())
+    assert conv_chain.fused_conv_chain.launches == before + 3
+    x.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_chain.fused_conv_chain(x, *ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,C,rms", [(7, 112, False), (1001, 56, False), (37, 896, False),
+                                        (4099, 448, False), (13, 224, False), (9, 112, True),
+                                        (5, 20, False)])
+def test_fused_norm_kernel(cuda, dtype, rows, C, rms):
+    """Odd row counts, the five path widths and a width off the vector
+    (20: scalar loads); bias and RMS forms; the autograd path's gradients
+    against autograd of the plain version."""
+    rng = np.random.default_rng(rows + C)
+    x = _randn(rng, (rows, C), cuda, dtype) + 0.5
+    g = _randn(rng, (C,), cuda, dtype, 0.2) + 1.0
+    b = None if rms else _randn(rng, (C,), cuda, dtype, 0.1)
+    eps = 1e-6 if rms else 1e-5
+    before = fused_norm.fused_norm.launches
+    _close(fused_norm.fused_norm(x, g, b, eps=eps, rms=rms),
+           fused_norm.fused_norm_plain(x, g, b, eps=eps, rms=rms), dtype)
+    assert fused_norm.fused_norm.launches == before + 1
+    leaves = [t.clone().requires_grad_() for t in (x, g) + (() if b is None else (b,))]
+    dy = _randn(rng, (rows, C), cuda, dtype)
+    bias = leaves[2] if b is not None else None
+    got = torch.autograd.grad(fused_norm.fused_norm(leaves[0], leaves[1], bias, eps=eps,
+                                                    rms=rms), leaves, dy)
+    want = torch.autograd.grad(fused_norm.fused_norm_plain(leaves[0], leaves[1], bias,
+                                                           eps=eps, rms=rms), leaves, dy)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((1, 184, 320, 224), torch.bfloat16),
+                                         ((2, 7, 5, 3), torch.float32),
+                                         ((3, 5, 7), torch.bfloat16)])
+def test_layout_pin_kernel(cuda, shape, dtype):
+    """Bit-equal, contiguous, not an alias (an odd byte count takes the
+    byte copy)."""
+    x = _randn(np.random.default_rng(0), shape, cuda, dtype)
+    before = conv_chain.layout_pin.launches
+    y = conv_chain.layout_pin(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x) and y.is_contiguous() and y.data_ptr() != x.data_ptr()
+    assert conv_chain.layout_pin.launches == before + 1

@@ -75,6 +75,76 @@ def test_slice_matches_jax(seven_stage):
     np.testing.assert_allclose(got - up, want - up, atol=2e-5)
 
 
+@pytest.mark.parametrize("traj_conv_impl", ["kernel", "barrier", "barrier_out"])
+def test_kernel_forms_match_jax(seven_stage, traj_conv_impl):
+    """The 7-stage model with every opt-in kernel form on (the RCAB chain in
+    the 'full' mixers, the trajectory conv form, the fused norm) against
+    ``vmg_tpu``'s forward, f32, at the golden's tolerances.  The forms are
+    the same functions as the module forms; f32 norms keep the exact path,
+    as in JAX.  (JAX's layout pin has no interpret mode, so the barrier
+    forms are held against the default JAX forward, the same function.)"""
+    params, x, want = seven_stage
+    model = vmg_tpu_torch.create_model(VMGNetworkConfig(**SEVEN_STAGE), device="cpu",
+                                       rcab_impl="kernel", norm_impl="kernel",
+                                       traj_conv_impl=traj_conv_impl)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+    up = upsample_trilinear_frames(torch.from_numpy(x), 4).numpy()
+    np.testing.assert_allclose(got - up, want - up, atol=2e-5)
+
+
+def _count_calls(monkeypatch, module, name):
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*a, **kw):
+        calls.append(a[0].dtype)
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_kernel_form_selection_rules(monkeypatch):
+    """Where each form applies, as in JAX: the RCAB chain only inside the
+    'full' mixers (stages 0, 1, 3, 5, 6 of the 7-stage config) and only in
+    eval; the trajectory chain in every step's blocks (2 stages x 2
+    directions x 4 steps x 2 blocks), eval only; the fused norm on bf16
+    inputs only (2 per TAB + 6 resamplers), in eval and in training; the
+    barrier forms pin once per step; the defaults launch none of them."""
+    from vmg_tpu_torch.models import blocks, norms, trajectory
+    from vmg_tpu_torch.models.vmg import KERNEL_FORMS
+
+    rcab = _count_calls(monkeypatch, blocks, "fused_conv_chain")
+    chain = _count_calls(monkeypatch, trajectory, "fused_conv_chain")
+    pins = _count_calls(monkeypatch, trajectory, "layout_pin")
+    norm = _count_calls(monkeypatch, norms, "fused_norm")
+    cfg = VMGNetworkConfig(**SEVEN_STAGE)
+    x = torch.from_numpy(np.random.default_rng(1).random((1, 4, 64, 64, 3), dtype=np.float32))
+    gen = torch.Generator().manual_seed(0)
+
+    def run(dtype=torch.float32, train=False, **forms):
+        for c in (rcab, chain, pins, norm):
+            c.clear()
+        model = vmg_tpu_torch.create_model(cfg, device="cpu", dtype=dtype, is_train=train,
+                                           generator=gen, **forms)
+        with torch.set_grad_enabled(train):
+            model(x)
+        return len(rcab), len(chain), len(pins), len(norm)
+
+    assert run() == (0, 0, 0, 0)
+    assert run(**KERNEL_FORMS) == (5, 32, 0, 0)
+    assert run(torch.bfloat16, **KERNEL_FORMS) == (5, 32, 0, 20)
+    assert set(rcab + chain + norm) == {torch.bfloat16}
+    assert run(torch.bfloat16, train=True, **KERNEL_FORMS) == (0, 0, 0, 20)
+    assert run(traj_conv_impl="barrier") == (0, 0, 16, 0)
+    assert run(traj_conv_impl="barrier_out") == (0, 0, 16, 0)
+    with pytest.raises(ValueError, match="traj_conv_impl"):
+        vmg_tpu_torch.create_model(cfg, device="cpu", traj_conv_impl="pallas")
+
+
 def test_weights_follow_reference_export(seven_stage):
     """state_dict_from_jax == export_torch_state_dict, key for key and value
     for value, and it fills every parameter of the port's model."""
@@ -121,13 +191,17 @@ import vmg_tpu_torch
 import vmg_tpu_torch.profile_serving
 import vmg_tpu_torch.profile_training
 import vmg_tpu_torch.train.__main__
+import vmg_tpu_torch.ops.conv_chain
+import vmg_tpu_torch.ops.fused_norm
+from vmg_tpu_torch.models.vmg import KERNEL_FORMS
 from vmg_tpu_torch.serve import SRServer
 gen = torch.Generator().manual_seed(0)
-model = vmg_tpu_torch.create_model(vmg_tpu_torch.TINY_TEST_PRESET, device="cpu",
-                                   generator=gen)
-with torch.no_grad():
-    y = model(torch.rand(1, 4, 64, 64, 3, generator=gen))
-assert y.shape == (1, 4, 256, 256, 3) and bool(torch.isfinite(y).all())
+for forms in ({}, KERNEL_FORMS, {"traj_conv_impl": "barrier"}):
+    model = vmg_tpu_torch.create_model(vmg_tpu_torch.TINY_TEST_PRESET, device="cpu",
+                                       generator=gen, **forms)
+    with torch.no_grad():
+        y = model(torch.rand(1, 4, 64, 64, 3, generator=gen))
+    assert y.shape == (1, 4, 256, 256, 3) and bool(torch.isfinite(y).all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2", "vmg_tpu"))
 assert not bad, bad
 print("ok")

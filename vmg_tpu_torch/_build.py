@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     # x, w1, b1, w2, b2, out, N, H, W, C, G, fg, act, dtype, stream
     "vmg_group_ffn": [_P] * 6 + [_I] * 8 + [_P],
@@ -46,6 +46,15 @@ _SIGNATURES = {
     # q, kv, pe, den, out, g, dq, dkv, dpe, scratch, partial, N, H, W, C, K,
     # heads, S, dtype, stream
     "vmg_ltam_bwd": [_P] * 11 + [_I] * 8 + [_P],
+    # x, scale, bias (or null), out, rows, C, eps, rms, dtype, stream
+    "vmg_fused_norm": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
+    # H, W, dtype -> output tiles per frame
+    "vmg_conv_chain_tiles": [_I] * 3,
+    # x, w1, b1, w2, b2, out, partial, psum (or both null), N, H, W, Cin,
+    # Cinp, Cm, Cout, Coutp, act, has_res, res_scale, dtype, stream
+    "vmg_conv_chain": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
+    # x, out, bytes, stream
+    "vmg_layout_pin": [_P, _P, _L, _P],
 }
 
 

@@ -15,6 +15,13 @@ FFN is the ``ops/group_conv`` kernel.  The block residual folds into the
 mixer's combine pass.  The kernels' weight operands are packed once per
 parameter state (:class:`PackedOperands`).
 
+The JAX package's opt-in kernel forms are switches here: ``rcab_impl=
+"kernel"`` runs the RCAB channel branch of the 'full' mixer as the
+``ops/conv_chain`` kernel (both 3x3 convs and the channel-attention pool
+sums in one pass; eval only, C <= 128); ``norm_impl="kernel"`` sends the
+TAB's bf16 LayerNorms through ``ops/fused_norm`` (eval and training).
+The defaults are the JAX package's: module forms.
+
 Training mode runs the JAX package's module paths, which training pins
 (``impl="xla"``): the mixer's decayed axis FCs, branch sums, reweight,
 projection and gate as differentiable tensor code, the FFN as a grouped
@@ -29,6 +36,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from vmg_tpu_torch.models.norms import TorchLayerNorm
+from vmg_tpu_torch.ops.conv_chain import fused_conv_chain, pack_conv_taps
 from vmg_tpu_torch.ops.decay import morphfc_decay_np
 from vmg_tpu_torch.ops.group_conv import fused_group_ffn, gelu, pack_ffn_weights
 from vmg_tpu_torch.ops.morphfc_fused import (
@@ -148,13 +156,18 @@ class CALayer(nn.Module):
             nn.Conv2d(channel // reduction, channel, 1, device=device),
             nn.Sigmoid())
 
-    def forward(self, x):  # (N, H, W, C)
-        y = x.mean(dim=(1, 2), keepdim=True)
+    def forward(self, x, mean=None):  # (N, H, W, C)
+        """``mean``: the (N, 1, 1, C) global pool when the caller has it
+        (the conv-chain kernel's sums); else pooled from x."""
+        y = x.mean(dim=(1, 2), keepdim=True) if mean is None else mean
         return x * conv_cl(self.conv_du, y)
 
 
-class RCAB(nn.Module):
-    """conv-ReLU-conv + channel attention, residual (reduction 8)."""
+class RCAB(PackedOperands):
+    """conv-ReLU-conv + channel attention, residual (reduction 8).
+    ``forward(x, kernel=True)`` (eval, n_feat <= 128) runs both convs and
+    the attention's pool sums as one ``fused_conv_chain`` pass, on taps
+    packed once per parameter state."""
 
     def __init__(self, n_feat, reduction=8, device=None):
         super().__init__()
@@ -164,11 +177,24 @@ class RCAB(nn.Module):
             nn.Conv2d(n_feat, n_feat, 3, padding=1, device=device),
             CALayer(n_feat, reduction, device))
 
-    def forward(self, x):  # (B, T, H, W, C)
+    def _sources(self):
+        return (self.body[0].weight, self.body[0].bias, self.body[2].weight,
+                self.body[2].bias)
+
+    def _pack(self):
+        return (*pack_conv_taps(self.body[0].weight, self.body[0].bias),
+                *pack_conv_taps(self.body[2].weight, self.body[2].bias))
+
+    def forward(self, x, kernel: bool = False):  # (B, T, H, W, C)
         B, T, H, W, C = x.shape
         y = x.reshape(B * T, H, W, C)
-        res = conv_cl(self.body[2], F.relu(conv_cl(self.body[0], y)))
-        res = self.body[3](res)
+        if kernel and C <= 128:
+            res, psum = fused_conv_chain(y.contiguous(), *self.operands(), emit_psum=True)
+            mean = (psum / float(H * W)).to(y.dtype).reshape(B * T, 1, 1, C)
+            res = self.body[3](res, mean)
+        else:
+            res = conv_cl(self.body[2], F.relu(conv_cl(self.body[0], y)))
+            res = self.body[3](res)
         return (y + res).reshape(B, T, H, W, C)
 
 
@@ -188,13 +214,18 @@ class MorphFCDecay(PackedOperands):
     """Enhanced MorphFCs with retention decay, in the JAX package's kernel
     forms: H-axis FC, W-axis FC and channel (RCAB) branches, each relu'd
     and scaled by 1/C; squeeze-mean softmax reweight; projection;
-    symmetric gate ``(x + p) * act(p)``; optional folded block residual."""
+    symmetric gate ``(x + p) * act(p)``; optional folded block residual.
+    ``rcab_impl="kernel"``: the RCAB branch in its kernel form where the
+    'full' form runs (the JAX package's ``VMG_RCAB_KERNEL=1``)."""
 
     def __init__(self, dim, chunk_h=8, chunk_w=8, *, symm_act="tanh",
-                 gelu_act="erf", device=None):
+                 gelu_act="erf", rcab_impl="module", device=None):
         super().__init__()
+        if rcab_impl not in ("module", "kernel"):
+            raise ValueError(f"rcab_impl must be 'module' or 'kernel', got {rcab_impl!r}")
         self.dim, self.chunk_h, self.chunk_w = dim, chunk_h, chunk_w
         self.symm_act = symm_act
+        self.rcab_impl = rcab_impl
         Ch = -(-dim // chunk_h) * chunk_h
         Cw = -(-dim // chunk_w) * chunk_w
         self.mlp_h = nn.Sequential(nn.Linear(Ch, Ch, device=device), nn.ReLU())
@@ -256,9 +287,11 @@ class MorphFCDecay(PackedOperands):
         B, T, H, W, C = x.shape
         N = B * T
         ops = self.operands()
+        full = self.full_form(W)
         xf = x.reshape(N, H, W, C).contiguous()
-        cf = (self.mlp_c(x) / C).reshape(N, H, W, C).contiguous()
-        if self.full_form(W):
+        c = self.mlp_c(x, kernel=full and self.rcab_impl == "kernel")
+        cf = (c / C).reshape(N, H, W, C).contiguous()
+        if full:
             hf, wf, psum = fused_morphfc_axes(
                 xf, cf, ops["kh"], ops["bh"], ops["kw"], ops["bw"],
                 chunk_h=self.chunk_h, chunk_w=self.chunk_w)
@@ -282,19 +315,20 @@ class TAB(nn.Module):
     """LayerNorm -> MorphFC-decay mixer -> LayerNorm -> grouped-conv FFN,
     each with a residual.  Eval: the serving block (the mixer folds the
     residual).  Training: the module paths, with stochastic depth at rate
-    ``drop_path`` on both branches (keep masks from :meth:`drop_masks`)."""
+    ``drop_path`` on both branches (keep masks from :meth:`drop_masks`).
+    ``rcab_impl`` goes to the mixer, ``norm_impl`` to both LayerNorms."""
 
     def __init__(self, dim, chunk_h=8, chunk_w=8, mlp_ratio=2.0, n_groups=1,
                  *, symm_act="tanh", mixer_scaling=1.0, gelu_act="erf",
-                 drop_path=0.0, device=None):
+                 drop_path=0.0, rcab_impl="module", norm_impl="module", device=None):
         super().__init__()
         self.mixer_scaling = mixer_scaling
         self.drop_path = drop_path
-        self.norm2 = TorchLayerNorm(dim, device=device)
+        self.norm2 = TorchLayerNorm(dim, impl=norm_impl, device=device)
         self.spatial_mixing = MorphFCDecay(dim, chunk_h, chunk_w,
-                                           symm_act=symm_act,
-                                           gelu_act=gelu_act, device=device)
-        self.norm3 = TorchLayerNorm(dim, device=device)
+                                           symm_act=symm_act, gelu_act=gelu_act,
+                                           rcab_impl=rcab_impl, device=device)
+        self.norm3 = TorchLayerNorm(dim, impl=norm_impl, device=device)
         self.channel_mixing = MlpCnn(dim, mlp_ratio, n_groups,
                                      gelu_act=gelu_act, device=device)
 

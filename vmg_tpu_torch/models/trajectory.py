@@ -14,6 +14,13 @@ In training with ``remat`` on, each step runs under
 ``torch.utils.checkpoint`` (the JAX package's per-step ``jax.checkpoint``):
 its activations are recomputed in the backward pass, the LTAM forward
 kernel included.
+
+``traj_conv_impl`` is the JAX package's ``VMG_TRAJCONV_KERNEL``, in eval
+only (neither kernel has a backward): ``"module"`` (default) runs the
+step's residual blocks as cuDNN convolutions; ``"kernel"`` runs each block
+as one ``fused_conv_chain`` pass; ``"barrier"`` / ``"barrier_out"`` keep
+the module blocks and pass the blocks' input / output through
+``layout_pin``.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from vmg_tpu_torch.models.blocks import conv_cl
+from vmg_tpu_torch.models.blocks import PackedOperands, conv_cl
+from vmg_tpu_torch.ops.conv_chain import fused_conv_chain, layout_pin, pack_conv_taps
 from vmg_tpu_torch.ops.decay import ltam_decay_np
 from vmg_tpu_torch.ops.ltam_attention import ltam_attention_2x2
 from vmg_tpu_torch.ops.warp import flow_warp
@@ -35,8 +43,13 @@ def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v * torch.rsqrt(n2.clamp_min(eps * eps))
 
 
-class ResidualBlockNoBN(nn.Module):
-    """conv-ReLU-conv with scaled residual."""
+TRAJ_CONV_IMPLS = ("module", "kernel", "barrier", "barrier_out")
+
+
+class ResidualBlockNoBN(PackedOperands):
+    """conv-ReLU-conv with scaled residual; ``forward(x, kernel=True)``
+    (mid_channels <= 128) runs it as one ``fused_conv_chain`` pass on taps
+    packed once per parameter state."""
 
     def __init__(self, mid_channels, res_scale=1.0, device=None):
         super().__init__()
@@ -44,13 +57,24 @@ class ResidualBlockNoBN(nn.Module):
         self.conv1 = nn.Conv2d(mid_channels, mid_channels, 3, padding=1, device=device)
         self.conv2 = nn.Conv2d(mid_channels, mid_channels, 3, padding=1, device=device)
 
-    def forward(self, x):  # (N, H, W, C)
+    def _sources(self):
+        return self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias
+
+    def _pack(self):
+        return (*pack_conv_taps(self.conv1.weight, self.conv1.bias),
+                *pack_conv_taps(self.conv2.weight, self.conv2.bias))
+
+    def forward(self, x, kernel: bool = False):  # (N, H, W, C)
+        if kernel and self.conv1.out_channels <= 128:
+            return fused_conv_chain(x.contiguous(), *self.operands(),
+                                    res_scale=self.res_scale)
         out = conv_cl(self.conv2, F.relu(conv_cl(self.conv1, x)))
         return x + out * self.res_scale
 
 
 class ResidualBlocksWithInputConv(nn.Module):
-    """conv + lrelu(0.1) + N residual blocks."""
+    """conv + lrelu(0.1) + N residual blocks (``kernel``: each block in its
+    kernel form)."""
 
     def __init__(self, in_channels, out_channels, num_blocks, res_scale=1.0,
                  device=None):
@@ -61,9 +85,11 @@ class ResidualBlocksWithInputConv(nn.Module):
             nn.Sequential(*(ResidualBlockNoBN(out_channels, res_scale, device)
                             for _ in range(num_blocks))))
 
-    def forward(self, x):  # (N, H, W, Cin)
+    def forward(self, x, kernel: bool = False):  # (N, H, W, Cin)
         x = F.leaky_relu(conv_cl(self.main[0], x), 0.1)
-        return self.main[2](x)
+        for block in self.main[2]:
+            x = block(x, kernel)
+        return x
 
 
 class LTAM(nn.Module):
@@ -106,8 +132,13 @@ class TrajectoryMultiHead(nn.Module):
     (B, T-1, H, W, 2) forward/backward flows."""
 
     def __init__(self, embed_dim, num_blocks=10, keyframe_stride=3, head=4,
-                 r_scaling=1.0, traj_win=None, remat=False, device=None):
+                 r_scaling=1.0, traj_win=None, remat=False, traj_conv_impl="module",
+                 device=None):
         super().__init__()
+        if traj_conv_impl not in TRAJ_CONV_IMPLS:
+            raise ValueError(f"traj_conv_impl must be one of {TRAJ_CONV_IMPLS}, "
+                             f"got {traj_conv_impl!r}")
+        self.traj_conv_impl = traj_conv_impl
         self.keyframe_stride = keyframe_stride
         self.traj_win = traj_win
         self.remat = remat
@@ -122,7 +153,13 @@ class TrajectoryMultiHead(nn.Module):
             feat_prop = flow_warp(feat_prop, flow, "bilinear", "border")
             warped = flow_warp(warped, flow, "nearest", "border")
             feat_prop = self.LTAM(lr, feat_prop, warped)
-        feat_prop = self.resblocks(torch.cat([lr, feat_prop], dim=-1))
+        impl = "module" if self.training else self.traj_conv_impl
+        rb_in = torch.cat([lr, feat_prop], dim=-1)
+        if impl == "barrier":
+            rb_in = layout_pin(rb_in)
+        feat_prop = self.resblocks(rb_in, kernel=impl == "kernel")
+        if impl == "barrier_out":
+            feat_prop = layout_pin(feat_prop)
         return feat_prop.to(lr.dtype), warped
 
     def _direction(self, feats, flows):

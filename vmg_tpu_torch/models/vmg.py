@@ -10,6 +10,20 @@ pass.  Stage tails: trajectory recurrence where ``temporal_type`` is
 False, identity where it is None.  Module attribute names follow the
 reference state-dict keys (see ``vmg_tpu_torch.weights``).  Settings
 outside the ported slice raise (see :func:`check_supported`).
+
+Three switches select the JAX package's opt-in kernel forms
+(:data:`KERNEL_FORMS` turns all three on); the defaults are its defaults,
+the module forms:
+
+* ``rcab_impl``: ``"module"`` | ``"kernel"`` -- the RCAB channel branch
+  of the 'full' mixers (stages 0/6) as one conv-chain kernel pass, eval
+  only (``VMG_RCAB_KERNEL=1``);
+* ``traj_conv_impl``: ``"module"`` | ``"kernel"`` | ``"barrier"`` |
+  ``"barrier_out"`` -- the trajectory step's residual blocks, eval only
+  (``VMG_TRAJCONV_KERNEL``);
+* ``norm_impl``: ``"module"`` | ``"kernel"`` -- every bf16 LayerNorm (the
+  TABs' and the resamplers') through the fused norm, eval and training
+  (``set_norm_impl('pallas')``).
 """
 
 from __future__ import annotations
@@ -35,6 +49,9 @@ from vmg_tpu_torch.ops.resize import (
     upsample_trilinear_frames,
 )
 
+
+# the three opt-in forms of the JAX package, all on (see the module docstring)
+KERNEL_FORMS = dict(rcab_impl="kernel", traj_conv_impl="kernel", norm_impl="kernel")
 
 # settings the ported slice implements; other values are not ported yet
 # (DCN and 3D window-attention tails, the FFN zoo and mixer variants, ...)
@@ -82,11 +99,11 @@ class UpdownSampling(nn.Module):
     projection runs in float32 whatever the model dtype (the JAX package
     pins it after a bf16 NaN on its TPU; kept for parity)."""
 
-    def __init__(self, dim_in, dim_out, mode, device=None):
+    def __init__(self, dim_in, dim_out, mode, *, norm_impl="module", device=None):
         super().__init__()
         self.mode = mode
         norm_dim = {"down": 4 * dim_in, "up": dim_in // 4}[mode]
-        self.norm = TorchLayerNorm(norm_dim, device=device)
+        self.norm = TorchLayerNorm(norm_dim, impl=norm_impl, device=device)
         self.linear = nn.Linear(norm_dim, dim_out, device=device)
 
     def forward(self, x):
@@ -119,7 +136,8 @@ class MlpEncoderStage(nn.Module):
     ``drop_path``: the stochastic-depth rate of each TAB."""
 
     def __init__(self, cfg: VMGNetworkConfig, layer_idx: int, *,
-                 gelu_act="erf", drop_path=(), device=None):
+                 gelu_act="erf", drop_path=(), rcab_impl="module",
+                 traj_conv_impl="module", norm_impl="module", device=None):
         super().__init__()
         self.cfg = cfg
         li = layer_idx
@@ -137,7 +155,7 @@ class MlpEncoderStage(nn.Module):
                 symm_act=cfg.symm_act, mixer_scaling=cfg.m_scaling,
                 gelu_act=gelu_act,
                 drop_path=drop_path[b] if b < len(drop_path) else 0.0,
-                device=device)
+                rcab_impl=rcab_impl, norm_impl=norm_impl, device=device)
             for b in range(cfg.depths[li]))
         self.local_cnn = nn.Conv2d(C, C, 3, padding=1, device=device)
         if sp(cfg.temporal_type) is False:
@@ -145,7 +163,8 @@ class MlpEncoderStage(nn.Module):
                 C, num_blocks=cfg.traj_res_n[li],
                 keyframe_stride=sp(cfg.traj_keyframes_n) or 3,
                 head=sp(cfg.traj_heads) or 4, r_scaling=cfg.r_scaling,
-                traj_win=sp(cfg.traj_win), remat=cfg.remat, device=device)
+                traj_win=sp(cfg.traj_win), remat=cfg.remat,
+                traj_conv_impl=traj_conv_impl, device=device)
 
     def forward(self, x, flow_forward, flow_backward, generator=None):
         shortcut = x
@@ -183,30 +202,36 @@ def drop_path_schedule(cfg: VMGNetworkConfig):
 class VMG(nn.Module):
     """U-Net over frames with trajectory temporal mixing and a PixelShuffle
     x4 reconstruction head.  ``is_train`` gives the TABs their
-    stochastic-depth rates (applied in training mode only)."""
+    stochastic-depth rates (applied in training mode only).  The kernel
+    form switches are described at the top of this module."""
 
     def __init__(self, cfg: VMGNetworkConfig, *, gelu="erf", fast_flow=False,
-                 is_train=False, device=None):
+                 is_train=False, rcab_impl="module", traj_conv_impl="module",
+                 norm_impl="module", device=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         E = cfg.embed_dim
         n_enc = cfg.num_enc_layers
         dpr = drop_path_schedule(cfg) if is_train else [()] * cfg.num_layers
+        forms = dict(rcab_impl=rcab_impl, traj_conv_impl=traj_conv_impl,
+                     norm_impl=norm_impl)
         self.spynet = SPyNet(fast_flow=fast_flow, device=device)
         self.input_proj = InputProj(cfg.in_chans, E[0], device)
         self.encoder_layers = nn.ModuleList(
-            MlpEncoderStage(cfg, i, gelu_act=gelu, drop_path=dpr[i], device=device)
+            MlpEncoderStage(cfg, i, gelu_act=gelu, drop_path=dpr[i], **forms,
+                            device=device)
             for i in range(n_enc))
         self.decoder_layers = nn.ModuleList(
             MlpEncoderStage(cfg, n_enc + j, gelu_act=gelu, drop_path=dpr[n_enc + j],
-                            device=device)
+                            **forms, device=device)
             for j in range(cfg.num_dec_layers))
         self.downsample = nn.ModuleList(
-            UpdownSampling(E[i], E[i + 1], "down", device)
+            UpdownSampling(E[i], E[i + 1], "down", norm_impl=norm_impl, device=device)
             for i in range(n_enc - 1))
         self.upsample = nn.ModuleList(
-            UpdownSampling(E[n_enc - 1 + i], E[n_enc + i], "up", device)
+            UpdownSampling(E[n_enc - 1 + i], E[n_enc + i], "up", norm_impl=norm_impl,
+                           device=device)
             for i in range(cfg.num_dec_layers))
         if cfg.num_layers > 3:
             self.sc_64_16 = nn.Sequential(
@@ -347,7 +372,9 @@ def cast_for_compute(model: VMG, dtype: torch.dtype) -> VMG:
 def create_model(cfg: VMGNetworkConfig, *, is_train: bool = False,
                  dtype=torch.float32, device="cuda", gelu: str = "erf",
                  fast_flow: bool = False,
-                 generator: torch.Generator | None = None) -> VMG:
+                 generator: torch.Generator | None = None,
+                 rcab_impl: str = "module", traj_conv_impl: str = "module",
+                 norm_impl: str = "module") -> VMG:
     """Build the model on ``device`` (the card unless the caller passes
     "cpu"; without CUDA the default raises) in ``dtype`` (SPyNet stays
     float32), in training mode with its stochastic-depth schedule when
@@ -356,14 +383,16 @@ def create_model(cfg: VMGNetworkConfig, *, is_train: bool = False,
     weights whatever ``device`` is); without one the parameters keep
     torch's default init, to be overwritten by a state dict.  ``gelu``:
     'erf' (exact) or 'tanh' (serving fast-math); ``fast_flow``: bf16
-    SPyNet convs."""
+    SPyNet convs; ``rcab_impl``, ``traj_conv_impl``, ``norm_impl``: the
+    kernel form switches (see the module's docstring)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("create_model: no CUDA device visible; pass "
                            "device='cpu' to build the model on the CPU")
     init_device = generator.device if generator is not None else device
     model = VMG(cfg, gelu=gelu, fast_flow=fast_flow, is_train=is_train,
-                device=init_device)
+                rcab_impl=rcab_impl, traj_conv_impl=traj_conv_impl,
+                norm_impl=norm_impl, device=init_device)
     if generator is not None:
         init_weights(model, generator)
     return cast_for_compute(model.to(device), dtype).train(is_train)

@@ -1,9 +1,13 @@
 """Where the serving forward's time goes on one CUDA card.
 
-    python3 -m vmg_tpu_torch.profile_serving [--reps 5] [--json PATH]
+    python3 -m vmg_tpu_torch.profile_serving [--reps 5] [--forms module|kernel]
+        [--json PATH]
 
 ``FULL_PRESET`` in bf16 with the serving fast-math (tanh GELU, bf16
-SPyNet convolutions), seeded random init, 1x16x180x320 clips.  Reports:
+SPyNet convolutions), seeded random init, 1x16x180x320 clips, in the
+default (module) forms or, with ``--forms kernel``, with the three opt-in
+kernel forms on (the RCAB and trajectory conv chains, the fused norm).
+Reports:
 
 * the device-resident forward per clip (input already on the card, output
   left there): CUDA-event time, median and range over ``--reps`` runs
@@ -43,6 +47,9 @@ CATEGORIES = [
     ("MorphFC combine kernel", r"vmg::morphfc_combine"),
     ("LTAM backward kernels", r"vmg::ltam_bwd"),
     ("LTAM kernel", r"vmg::ltam"),
+    ("conv chain kernel", r"vmg::conv_chain|vmg::chain_psum"),
+    ("fused norm kernel", r"vmg::norm_kernel"),
+    ("layout pin kernel", r"vmg::copy(16|1)_kernel"),
     ("LayerNorm", r"layer_norm"),
     ("convolutions (cuDNN)", r"fprop|cudnn|conv|implicit_gemm"),
     ("matmuls (cuBLAS)", r"gemm|nvjet|cutlass"),
@@ -137,6 +144,8 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--forms", default="module", choices=["module", "kernel"],
+                    help="'kernel': rcab_impl, traj_conv_impl and norm_impl 'kernel'")
     ap.add_argument("--json", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -145,13 +154,15 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from vmg_tpu_torch.configs import FULL_PRESET
-    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
     from vmg_tpu_torch.serve import SRServer
 
     smi = card_line()
     sd = create_model(FULL_PRESET, device="cpu",
                       generator=torch.Generator().manual_seed(0)).state_dict()
-    server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True)
+    forms = KERNEL_FORMS if args.forms == "kernel" else {}
+    server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
+                      **forms)
     clip = np.random.default_rng(0).random((1, T, H, W, 3), dtype=np.float32)
     x = torch.from_numpy(clip).cuda()
 
@@ -178,12 +189,14 @@ def main(argv=None) -> int:
 
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "forms": args.forms,
         "resident_s_per_clip": spread(resident), "served_s_per_clip": spread(served),
         "served_frames_per_s": spread([T / s for s in served]),
         "trace": trace_summary(prof),
     }
 
-    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{args.forms} forms")
     r, s = result["resident_s_per_clip"], result["served_s_per_clip"]
     print(f"device-resident forward: median {r['median']:.4f} s per clip "
           f"(range {r['min']:.4f}-{r['max']:.4f}, {args.reps} reps, CUDA events)")

@@ -6,7 +6,9 @@
 out.  The model runs on ``device`` (the card unless the caller passes
 "cpu") in ``dtype`` (bf16 by default, SPyNet float32) with
 the serving fast-math of the JAX package's bench protocol: tanh GELU and
-bf16 SPyNet convolutions.
+bf16 SPyNet convolutions.  ``rcab_impl``, ``traj_conv_impl`` and
+``norm_impl`` select the JAX package's opt-in kernel forms (module forms
+by default; see ``vmg_tpu_torch.models.vmg``).
 """
 
 from __future__ import annotations
@@ -23,12 +25,15 @@ from vmg_tpu_torch.models.vmg import VMG, cast_for_compute
 class SRServer:
     def __init__(self, cfg: VMGNetworkConfig, state_dict: Mapping[str, torch.Tensor],
                  device="cuda", dtype: torch.dtype = torch.bfloat16, *,
-                 gelu: str = "tanh", fast_flow: bool = True):
+                 gelu: str = "tanh", fast_flow: bool = True, rcab_impl: str = "module",
+                 traj_conv_impl: str = "module", norm_impl: str = "module"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SRServer: no CUDA device visible; pass "
                                "device='cpu' to serve on the CPU")
-        model = VMG(cfg, gelu=gelu, fast_flow=fast_flow, device=self.device)
+        model = VMG(cfg, gelu=gelu, fast_flow=fast_flow, rcab_impl=rcab_impl,
+                    traj_conv_impl=traj_conv_impl, norm_impl=norm_impl,
+                    device=self.device)
         model.load_state_dict(state_dict, strict=True)
         model = cast_for_compute(model, dtype).eval()
         # conv weights in channels-last, the layout every conv here sees

@@ -2,7 +2,7 @@
 
     python -m vmg_tpu_torch.train [--preset full|tiny] [--batch 1]
         [--frames 16] [--crop 64] [--iters 8] [--grad-acc 1] [--no-remat]
-        [--device cuda]
+        [--norm-impl module|kernel] [--device cuda]
 
 The full training step (forward, backward, grouped AdamW) of a randomly
 initialised model (seed 0) on one seeded synthetic batch of B clips of T
@@ -12,7 +12,10 @@ SPyNet frozen through update 1 (flow_fix 0).  One warm-up step (it builds
 the kernels), then ``iters`` timed steps, each ended by a host sync.
 Prints one JSON line: step ms median and range, frames/s, peak device
 bytes, the first (warm-up) and last loss, and the LTAM forward and
-backward kernel launches per step.  The data loader is not ported yet.
+backward and fused-norm kernel launches per step.  ``--norm-impl kernel``
+runs the bf16 LayerNorms through the fused norm kernel (its backward
+recomputes through the plain formulation).  The data loader is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from vmg_tpu_torch.configs import FULL_PRESET, TINY_TEST_PRESET, TrainConfig
 from vmg_tpu_torch.models.vmg import create_model
+from vmg_tpu_torch.ops.fused_norm import fused_norm
 from vmg_tpu_torch.ops.ltam_attention import ltam_attention_2x2
 from vmg_tpu_torch.train.train_step import make_train_step
 
@@ -34,14 +38,16 @@ PRESETS = {"full": FULL_PRESET, "tiny": TINY_TEST_PRESET}
 
 
 def setup(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
-          grad_acc: int = 1, remat: bool = True, device="cuda", seed: int = 0):
+          grad_acc: int = 1, remat: bool = True, device="cuda", seed: int = 0,
+          norm_impl: str = "module"):
     """The protocol's step function, its seeded batch on ``device`` and the
     stochastic-depth generator: (step, batch, generator)."""
     dev = torch.device(device)
     cfg = dataclasses.replace(PRESETS[preset], remat=remat)
     tcfg = TrainConfig(lr=2e-4, T_period=(400000,), if_aux=True, amp=True)
     model = create_model(cfg, is_train=True, device=dev,
-                         generator=torch.Generator().manual_seed(seed))
+                         generator=torch.Generator().manual_seed(seed),
+                         norm_impl=norm_impl)
     rng = np.random.default_rng(seed)
     data = {"LRs": rng.random((batch, frames, crop, crop, 3), dtype=np.float32),
             "HRs": rng.random((batch, frames, 4 * crop, 4 * crop, 3), dtype=np.float32)}
@@ -52,10 +58,11 @@ def setup(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64
 
 def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
         iters: int = 8, grad_acc: int = 1, remat: bool = True, device="cuda",
-        seed: int = 0) -> dict:
+        seed: int = 0, norm_impl: str = "module") -> dict:
     """Warm-up step plus ``iters`` timed steps; returns the record."""
     dev = torch.device(device)
-    step, data, gen = setup(preset, batch, frames, crop, grad_acc, remat, dev, seed)
+    step, data, gen = setup(preset, batch, frames, crop, grad_acc, remat, dev, seed,
+                            norm_impl)
     cuda = dev.type == "cuda"
 
     loss_first = float(step(data, gen)["loss"])
@@ -63,6 +70,7 @@ def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     ltam_attention_2x2.launches = ltam_attention_2x2.bwd_launches = 0
+    fused_norm.launches = 0
     times, losses = [], []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -74,7 +82,8 @@ def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
     med = float(np.median(times))
     return {
         "metric": (f"train step ({preset} preset, B={batch}, T={frames}, {crop}x{crop} "
-                   f"crops, grad_acc={grad_acc}, remat={remat}, bf16 + f32 masters)"),
+                   f"crops, grad_acc={grad_acc}, remat={remat}, norm_impl={norm_impl}, "
+                   "bf16 + f32 masters)"),
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "step_ms_median": med * 1e3,
         "step_ms_min": min(times) * 1e3,
@@ -86,6 +95,7 @@ def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
         "losses": losses,
         "ltam_fwd_launches_per_step": ltam_attention_2x2.launches / iters,
         "ltam_bwd_launches_per_step": ltam_attention_2x2.bwd_launches / iters,
+        "norm_launches_per_step": fused_norm.launches / iters,
     }
 
 
@@ -100,10 +110,11 @@ def main(argv=None) -> None:
     ap.add_argument("--no-remat", action="store_true",
                     help="keep every activation instead of recomputing each TAB "
                          "and trajectory step in the backward pass")
+    ap.add_argument("--norm-impl", default="module", choices=["module", "kernel"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     rec = run(args.preset, args.batch, args.frames, args.crop, args.iters,
-              args.grad_acc, not args.no_remat, args.device)
+              args.grad_acc, not args.no_remat, args.device, norm_impl=args.norm_impl)
     print(json.dumps(rec))
 
 
