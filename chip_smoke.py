@@ -12,7 +12,16 @@ Phases (any failure exits non-zero):
      (the MorphFC axis-branch kernel also next to the 'hybrid' form it
      replaces at stages 0/6, the conv chain next to the module form's
      cuDNN convolutions, the norm and the pin next to one PyTorch call);
-     the LTAM backward at the training shape;
+     the LTAM backward at the training shape; the axis branches' token
+     form, first driven through its op entry point (``form="token"``) at
+     the stage-1/5 (16x92x160x224, chunk 16) and stage-3 (16x23x40x448,
+     chunk 8) shapes, then checked there next to the 'hybrid' form those
+     stages run, and against the big form at the stage-0 shape;
+ 2p. the probes: every probe of ``vmg_tpu_torch.tools.exp_probe`` and
+     ``exp_probe2`` called directly (copies bit-exact, products within 1
+     bf16 ulp of max|plain|), each with its time, bound and one PyTorch
+     call; then both tools' command lines in-process (exit 0, one JSON
+     line per probe);
   3. slice parity: FULL_PRESET in float32 at 1x2x64x64, kernel path on the
      card against the plain path (CPU tensors) with the same weights;
  3b. the same with the opt-in kernel forms: the RCAB and trajectory conv
@@ -42,15 +51,19 @@ Phases (any failure exits non-zero):
      steps; finite losses, norm launches, the warm-up loss within 1e-2 of
      phase 6's.
 Prints a {"kernels": [...]} JSON line (each kernel with its launches on
-the path that runs it, its times, its bound and the library call, if
-any), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+the path that runs it -- the token form's and the probes' on their entry
+points in phases 2/2p, none on the model paths -- its times, its bound and
+the library call, if any), the nvidia-smi line, and last {"ok": true,
+"device": {...}}.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -83,6 +96,8 @@ KFORM_RATIO, TRAIN_LOSS_TOL = 2.0, 1e-2
 NORM_SHAPES = [(112, 16 * 184 * 320), (448, 16 * 92 * 160), (224, 16 * 92 * 160),
                (896, 16 * 46 * 80), (56, 16 * 92 * 160)]
 CHAIN_PER_CLIP, NORM_PER_CLIP, PIN_PER_CLIP = 968, 50, 64
+# the axis branches' token form: (N, H, W, C) and chunk of stages 1/5 and 3
+TOKEN_SHAPES = [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)]
 # Train-step parity, f32: the loss within LOSS_TOL relative; each
 # parameter's gradient within GRAD_LIMIT of max(its max|plain|, GRAD_FLOOR x
 # the largest max|plain| of any parameter).  GRAD_TOL of its own max is
@@ -92,22 +107,15 @@ CHAIN_PER_CLIP, NORM_PER_CLIP, PIN_PER_CLIP = 968, 50, 64
 # (see PERF.md); the phase measures that spread too.
 LOSS_TOL, GRAD_TOL, GRAD_LIMIT, GRAD_FLOOR = 1e-5, 1e-3, 1e-2, 1e-3
 
-# The least time the card could take (NVIDIA H100 SXM data sheet, dense
-# rates): bytes over the HBM rate, operations over the peak rate of their
-# type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16 tensor cores": 989e12, "f32": 67e12}
-
-
 def bound(inputs, outputs, flops, peak):
     """{bound_ms, bound_by, ...} for a call that reads ``inputs`` once,
-    writes ``outputs`` once and does ``flops`` operations at ``peak``."""
+    writes ``outputs`` once and does ``flops`` operations at ``peak``: the
+    least time the card could take (NVIDIA H100 SXM data sheet rates)."""
+    from vmg_tpu_torch.utils.profiling import bound as least_time
+
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[peak] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "bound_flops": flops, "bound_peak": peak}
+    return {**least_time(nbytes, flops, peak), "bound_bytes": nbytes, "bound_flops": flops,
+            "bound_peak": peak}
 
 
 def nvidia_smi() -> str:
@@ -118,16 +126,10 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters=10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Device ms per call of ``fn`` after one warm-up call (CUDA events)."""
+    from vmg_tpu_torch.utils.profiling import timed
+
+    return timed(fn, iters=iters, warmup=1) * 1e3
 
 
 def within_max(got, want, rel, label=""):
@@ -210,6 +212,14 @@ def check_kernels(report):
                            replaces="vmg_tpu/ops/fused_norm.py:102"),
         "layout_pin": dict(source="vmg_tpu_torch/csrc/conv_chain.cu",
                            replaces="vmg_tpu/ops/conv_chain.py:164"),
+        "fused_morphfc_axes_token": dict(source="vmg_tpu_torch/csrc/morphfc.cu",
+                                         replaces="vmg_tpu/ops/morphfc_fused.py:257"),
+        "slab_copy": dict(source="vmg_tpu_torch/csrc/probes.cu",
+                          replaces="tools/exp_mosaic_probe.py:51"),
+        "smem_relayout": dict(source="vmg_tpu_torch/csrc/probes.cu",
+                              replaces="tools/exp_mosaic_probe2.py:46"),
+        "tile_gemm": dict(source="vmg_tpu_torch/csrc/probes.cu",
+                          replaces="tools/exp_mosaic_probe2.py:97"),
     }
     # No single PyTorch call computes the first seven functions (each needs
     # layout changes or several ops around a library call), so no library
@@ -255,6 +265,36 @@ def check_kernels(report):
     def peak(dtype):  # the bf16 kernels multiply on the tensor cores
         return "bf16 tensor cores" if dtype == torch.bfloat16 else "f32"
 
+    def axes_args(shape, ck, dtype):
+        """x, c and the decay-folded axis weights and biases of a mixer."""
+        N, h, w, C = shape
+        x, xc = rn(N, h, w, C, dtype=dtype), rn(N, h, w, C, scale=0.01, dtype=dtype)
+        gamma = torch.from_numpy(morphfc_decay_np(ck, C // ck)).to(dev, dtype)
+        kh, kw = ((rn(C, C, scale=0.02, dtype=dtype) * gamma).contiguous() for _ in range(2))
+        return x, xc, kh, rn(C, scale=0.1), kw, rn(C, scale=0.1)
+
+    def axes_check(xc, dtype):
+        def check(got, want):
+            terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (want[0], want[1], xc))
+            return [within_max(got[0], want[0], REL_TOL[dtype], "h "),
+                    within_max(got[1], want[1], REL_TOL[dtype], "w "),
+                    within_sum(got[2], want[2], terms, "psum ")]
+        return check
+
+    # the token form's path: its op entry point at the wide stages' shapes,
+    # in the serving dtype, counted from zero
+    zero_counts()
+    for shape, ck in TOKEN_SHAPES:
+        args = axes_args(shape, ck, torch.bfloat16)
+        morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck, form="token")
+        del args
+    torch.cuda.synchronize()
+    token_path = read_counts()
+    report(f"  token form's entry point at {TOKEN_SHAPES}: launches {token_path}")
+    if token_path["fused_morphfc_axes_token"] != len(TOKEN_SHAPES):
+        raise AssertionError("the token form's entry point did not launch its kernel")
+    entries["fused_morphfc_axes_token"]["path_launches"] = token_path
+
     # the four FFN stage shapes (N = 16 frames): stage 0/6, 1/5, 2/4, 3
     ffn_shapes = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
                   (16, 23, 40, 448)]
@@ -276,32 +316,44 @@ def check_kernels(report):
                     work=((x, w1, b1, w2, b2), flops, peak(dtype)))
             del x, w1, args
 
-        # the axis-branch kernel at stages 0/6: chunk 8 along H and W
-        N, h, w, C, ck = 16, 184, 320, 112, 8
-        x, xc = rn(N, h, w, C, dtype=dtype), rn(N, h, w, C, scale=0.01, dtype=dtype)
-        gamma = torch.from_numpy(morphfc_decay_np(ck, C // ck)).to(dev, dtype)
-        kh, kw = ((rn(C, C, scale=0.02, dtype=dtype) * gamma).contiguous() for _ in range(2))
-        bh, bw = rn(C, scale=0.1), rn(C, scale=0.1)
-        args = (x, xc, kh, bh, kw, bw)
+        # the axis-branch kernel at stages 0/6: chunk 8 along H and W; its
+        # token form at stages 1/5 and 3, next to the 'hybrid' form they run
+        # (XLA-form axis FCs + the reduce kernel), and against the big form
+        for shape, ck, form in [((16, 184, 320, 112), 8, "big")] + [
+                (shape, ck, "token") for shape, ck in TOKEN_SHAPES]:
+            N, h, w, C = shape
+            args = axes_args(shape, ck, dtype)
+            x, xc, kh, bh, kw, bw = args
+            name = "fused_morphfc_axes" if form == "big" else "fused_morphfc_axes_token"
 
-        def axes_check(got, want):
-            terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (want[0], want[1], xc))
-            return [within_max(got[0], want[0], REL_TOL[dtype], "h "),
-                    within_max(got[1], want[1], REL_TOL[dtype], "w "),
-                    within_sum(got[2], want[2], terms, "psum ")]
+            def hybrid():
+                hh = _axis_mix(x, kh, bh.to(dtype), ck, 1).contiguous()
+                ww = _axis_mix(x, kw, bw.to(dtype), ck, 2).contiguous()
+                return morphfc_fused.fused_morphfc_reduce(hh, ww, xc)
 
-        def hybrid():  # what stages 0/6 ran before: XLA-form axis FCs + reduce
-            hh = _axis_mix(x, kh, bh.to(dtype), ck, 1).contiguous()
-            ww = _axis_mix(x, kw, bw.to(dtype), ck, 2).contiguous()
-            return morphfc_fused.fused_morphfc_reduce(hh, ww, xc)
-
-        compare("fused_morphfc_axes", (N, h, w, C, ck), dtype,
-                lambda: morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck),
-                lambda: morphfc_fused.morphfc_axes_plain(*args, chunk_h=ck, chunk_w=ck),
-                axes_check, primary=dtype == torch.bfloat16,
-                work=(args, 2 * 2 * N * h * w * C * C, peak(dtype)),  # two C x C FCs
-                extra=f"  hybrid form {cuda_ms(hybrid, iters=3):.3f} ms")
-        del x, xc, args
+            hybrid_ms = cuda_ms(hybrid, iters=3)
+            compare(name, (N, h, w, C, ck), dtype,
+                    lambda: morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck,
+                                                             form=form),
+                    lambda: morphfc_fused.morphfc_axes_plain(*args, chunk_h=ck, chunk_w=ck),
+                    axes_check(xc, dtype), primary=dtype == torch.bfloat16 and C in (112, 224),
+                    work=(args, 2 * 2 * N * h * w * C * C, peak(dtype)),  # two C x C FCs
+                    extra=f"  hybrid form {hybrid_ms:.3f} ms", keys={"hybrid_ms": hybrid_ms})
+            if form == "big":  # the token form on the big form's domain
+                big = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck)
+                token = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck,
+                                                         form="token")
+                torch.cuda.synchronize()
+                results = axes_check(xc, dtype)(token, big)
+                text = "; ".join(f"{lbl}max_abs_err={err:.3e} {txt}"
+                                 for lbl, err, _, txt in results)
+                ok = all(r[2] for r in results)
+                report(f"  token form vs big form {dtype} {(N, h, w, C, ck)}: {text} "
+                       f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("the token form disagrees with the big form")
+                del big, token
+            del x, xc, args
 
         for shape in ((16, 184, 320, 112), (16, 23, 40, 448)):
             N, h, w, C = shape
@@ -440,13 +492,71 @@ def check_kernels(report):
     return entries
 
 
+def check_probes(report, entries):
+    """Phase 2p: every probe of both probe tools, called directly, counted
+    from zero; then the tools' command lines.  Fills the three probe
+    kernels' entries."""
+    from vmg_tpu_torch.tools import exp_probe, exp_probe2
+
+    dev = torch.device("cuda")
+    primary = {"slab_copy": "exp_probe.dma_sub328_lane112",
+               "smem_relayout": "exp_probe2.lane_store_cg28",
+               "tile_gemm": "exp_probe2.tile_assembled_s28"}
+    for name in primary:
+        entries[name].update(route="cuda", max_abs_err=0.0, probes={})
+    zero_counts()
+    for tool in (exp_probe, exp_probe2):
+        rng = np.random.default_rng(0)  # the command line's stream
+        short = tool.__name__.rsplit(".", 1)[-1]
+        for name, probe in tool.PROBES.items():
+            r = probe(dev, rng)
+            kernel = ("slab_copy" if name.startswith("dma") else
+                      "tile_gemm" if name.startswith(("mm_", "tile_")) else "smem_relayout")
+            e = entries[kernel]
+            e["max_abs_err"] = max(e["max_abs_err"], r["maxdiff"])
+            e["probes"][f"{short}.{name}"] = r
+            primary_call = primary[kernel] == f"{short}.{name}"
+            lib = "" if r["library_ms"] is None else f"  library {r['library_ms']:.4f} ms"
+            rate = "" if r.get("tf_s") is None else f"  {r['tf_s']:.1f} TFLOP/s"
+            sms = ("" if "ms_all_sms" not in r else
+                   f"  on all {r['sms']} SMs {r['ms_all_sms']:.4f} ms "
+                   f"({r['tf_s_all_sms']:.1f} TFLOP/s)")
+            report(f"  {short}.{name:20s} {kernel:13s} maxdiff {r['maxdiff']:.3e} ok  kernel "
+                   f"{r['ms']:.4f} ms{rate}  plain {r['plain_ms']:.4f} ms{lib}  bound "
+                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}){sms}")
+            if primary_call:
+                e.update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                         at=f"{short}.{name}", bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         bound_bytes=r["bytes"], bound_flops=r["flops"],
+                         bound_peak="bf16 tensor cores" if r["flops"] else None)
+    probe_path = read_counts()
+    report(f"  launches over the probes: {probe_path}")
+    missing = [k for k in primary if probe_path[k] <= 0]
+    if missing:
+        raise AssertionError(f"probe kernels never launched: {missing}")
+    for name in primary:
+        entries[name]["path_launches"] = probe_path
+    for tool in (exp_probe, exp_probe2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tool.main([])
+        names = [next(iter(json.loads(line))) for line in out.getvalue().splitlines()]
+        report(f"  python -m {tool.__name__}: exit {rc}, {len(names)} JSON lines")
+        if rc != 0 or names != list(tool.PROBES):
+            raise AssertionError(f"{tool.__name__} failed: exit {rc}, lines {names}")
+
+
 def launch_counts():
     """Kernel name -> (object, attribute) of its launch counter."""
     from vmg_tpu_torch.ops import (conv_chain, fused_norm, group_conv, ltam_attention,
-                                   morphfc_fused)
+                                   morphfc_fused, probes)
     ltam = ltam_attention.ltam_attention_2x2
     return {"fused_group_ffn": (group_conv.fused_group_ffn, "launches"),
             "fused_morphfc_axes": (morphfc_fused.fused_morphfc_axes, "launches"),
+            "fused_morphfc_axes_token": (morphfc_fused.fused_morphfc_axes, "token_launches"),
+            "slab_copy": (probes.slab_copy, "launches"),
+            "smem_relayout": (probes.smem_relayout, "launches"),
+            "tile_gemm": (probes.tile_gemm, "launches"),
             "fused_morphfc_reduce": (morphfc_fused.fused_morphfc_reduce, "launches"),
             "fused_morphfc_combine": (morphfc_fused.fused_morphfc_combine, "launches"),
             "ltam_attention_2x2": (ltam, "launches"),
@@ -458,6 +568,12 @@ def launch_counts():
 
 # the kernels of the opt-in forms: none launches in the default forms
 OPT_IN = ("fused_conv_chain", "fused_norm", "layout_pin")
+# the kernels on no model path: their entry points only (phases 2, 2p)
+OFF_PATH = ("fused_morphfc_axes_token", "slab_copy", "smem_relayout", "tile_gemm")
+
+
+def off_path_launched(counts):
+    return [k for k in OFF_PATH if counts[k]]
 
 
 def zero_counts():
@@ -574,6 +690,9 @@ def main() -> int:
            f"{REL_TOL[torch.float32]}, bf16 {REL_TOL[torch.bfloat16]} of max|plain|; "
            f"f32 sums {SUM_TOL:g} of the sum of |terms|)")
     entries = check_kernels(report)
+    report("[2p] probes: both probe tools' kernels vs plain versions on the card (copies "
+           "bit-exact, products within 1 bf16 ulp of max|plain|)")
+    check_probes(report, entries)
 
     report("[3] slice parity: FULL_PRESET f32 1x2x64x64, kernels on the card vs "
            "plain versions on CPU tensors, same weights")
@@ -654,11 +773,11 @@ def main() -> int:
     if out.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(out).all():
         raise AssertionError(f"bad serving output {out.shape}")
     missing = [k for k, v in serving_launches.items()
-               if v <= 0 and k != "ltam_attention_2x2_bwd" and k not in OPT_IN]
+               if v <= 0 and k != "ltam_attention_2x2_bwd" and k not in OPT_IN + OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
-    if any(serving_launches[k] for k in OPT_IN):
-        raise AssertionError("the default serving forms launched an opt-in form's kernel")
+    if any(serving_launches[k] for k in OPT_IN) or off_path_launched(serving_launches):
+        raise AssertionError("the default serving forms launched an opt-in or off-path kernel")
     del server
     torch.cuda.empty_cache()
 
@@ -704,6 +823,8 @@ def main() -> int:
     report(f"    launches over the {len(clips)} clips: {kernel_launches}")
     if out.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(out).all():
         raise AssertionError(f"bad kernel-form serving output {out.shape}")
+    if off_path_launched(warm_counts) or off_path_launched(kernel_launches):
+        raise AssertionError("kernel-form serving launched an off-path kernel")
     del server
     barrier_launches = {}
     for impl in ("barrier", "barrier_out"):
@@ -716,7 +837,8 @@ def main() -> int:
         report(f"    traj_conv_impl={impl!r}: one request {time.time() - t1:.2f} s (its first); "
                f"launches {barrier_launches[impl]}")
         pins = barrier_launches[impl]["layout_pin"]
-        if not np.isfinite(out).all() or pins != PIN_PER_CLIP:
+        if not np.isfinite(out).all() or pins != PIN_PER_CLIP or \
+                off_path_launched(barrier_launches[impl]):
             raise AssertionError(f"{impl}: {pins} pins per clip, expected {PIN_PER_CLIP}")
         del server
     torch.cuda.empty_cache()
@@ -746,8 +868,8 @@ def main() -> int:
                if train_launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the training path: {missing}")
-    if any(train_launches[k] for k in OPT_IN):
-        raise AssertionError("the default training forms launched an opt-in form's kernel")
+    if any(train_launches[k] for k in OPT_IN) or off_path_launched(train_launches):
+        raise AssertionError("the default training forms launched an opt-in or off-path kernel")
 
     iters_k = 2
     report(f"[6b] training with norm_impl='kernel': as phase 6, 1 warm-up + {iters_k} "
@@ -755,7 +877,8 @@ def main() -> int:
     zero_counts()
     rec_k = train_run(preset="full", batch=1, frames=16, crop=64, iters=iters_k,
                       grad_acc=1, remat=True, device="cuda", norm_impl="kernel")
-    norm_train = read_counts()["fused_norm"]
+    norm_counts = read_counts()
+    norm_train = norm_counts["fused_norm"]
     rel = abs(rec_k["loss_first"] - rec["loss_first"]) / abs(rec["loss_first"])
     report(f"    step {rec_k['step_ms_median']:.1f} ms median ({rec_k['step_ms_min']:.1f}-"
            f"{rec_k['step_ms_max']:.1f}), peak allocated {rec_k['peak_bytes'] / 2**30:.2f} "
@@ -763,22 +886,27 @@ def main() -> int:
            f"rel diff {rel:.3e}, tol {TRAIN_LOSS_TOL:g}) .. {rec_k['loss_last']:.6f}; norm "
            f"launches {norm_train} over {iters_k} steps")
     losses_k = [rec_k["loss_first"], *rec_k["losses"]]
-    if not all(np.isfinite(v) for v in losses_k) or rel > TRAIN_LOSS_TOL or norm_train <= 0:
+    if not all(np.isfinite(v) for v in losses_k) or rel > TRAIN_LOSS_TOL or norm_train <= 0 \
+            or off_path_launched(norm_counts):
         raise AssertionError(f"kernel-norm training failed: losses {losses_k}, "
                              f"norm launches {norm_train}")
 
     # each kernel's launches on the path that runs it: the LTAM backward in
     # training (phase 6), the conv chain and the norm in kernel-form serving
     # (phase 4b, 3 clips), the pin in the barrier form (phase 4b, 1 clip),
-    # the others in serving (phase 4)
+    # the token form at its op entry point (phase 2), the probe kernels at
+    # the probes' (phase 2p), the others in serving (phase 4)
     paths = {"ltam_attention_2x2_bwd": ("training", train_launches),
              "fused_conv_chain": ("kernel-form serving", kernel_launches),
              "fused_norm": ("kernel-form serving", kernel_launches),
              "layout_pin": ("barrier-form serving", barrier_launches["barrier"])}
+    for name in OFF_PATH:
+        paths[name] = ("op entry point" if name == "fused_morphfc_axes_token"
+                       else "probe entry points", entries[name]["path_launches"])
     kernels = []
     for name, e in entries.items():
         path, counts = paths.get(name, ("serving", serving_launches))
-        extra = {"module_ms": e["module_ms"]} if "module_ms" in e else {}
+        extra = {k: e[k] for k in ("module_ms", "hybrid_ms") if k in e}
         kernels.append({"name": name, "route": e["route"], "source": e["source"],
                         "replaces": e["replaces"], "launches": counts[name],
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
@@ -801,6 +929,7 @@ def main() -> int:
                           "bf16_err_64_default": float(err_default)}}))
     print(json.dumps({"training": {**rec, "parity": parity},
                       "training_norm_kernel": rec_k}))
+    print(json.dumps({"probes": {k: entries[k]["probes"] for k in OFF_PATH[1:]}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from vmg_tpu_torch.ops import conv_chain, fused_norm, group_conv, ltam_attention, morphfc_fused
+from vmg_tpu_torch.ops import (conv_chain, fused_norm, group_conv, ltam_attention,
+                               morphfc_fused, probes)
+from vmg_tpu_torch.tools import exp_probe, exp_probe2
 
 _TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -85,6 +87,22 @@ def test_morphfc_kernels(cuda, dtype, C):
         morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb, act="sigmoid")
 
 
+def _axes_case(rng, H, W, C, dev, dtype):
+    x, c = (_randn(rng, (3, H, W, C), dev, dtype) for _ in range(2))
+    kh, kw = (_randn(rng, (C, C), dev, dtype, C ** -0.5) for _ in range(2))
+    bh, bw = (_randn(rng, (C,), dev, torch.float32, 0.1) for _ in range(2))
+    return x, c, kh, bh, kw, bw
+
+
+def _axes_close(got, want, c, dtype):
+    torch.cuda.synchronize()
+    for g, wnt in zip(got[:2], want[:2]):
+        err = (g.float() - wnt.float()).abs().max().item()
+        assert err <= _TOL[dtype] * wnt.float().abs().max().item(), err
+    scale = (want[0].float().abs() + want[1].float().abs() + c.float().abs()).sum(dim=(1, 2))
+    assert bool(((got[2] - want[2]).abs() <= 1e-5 * scale).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("H,W,C,chunk_h,chunk_w", [(18, 24, 16, 4, 4), (16, 24, 112, 8, 8),
@@ -95,19 +113,80 @@ def test_morphfc_axes_kernel(cuda, dtype, H, W, C, chunk_h, chunk_w):
     over 16 columns).  h and w are held relative to their largest value
     (they are ~1/C); the sums are f32 whatever the dtype, held to 1e-5 of
     the sum of |h| + |w| + |c|."""
-    rng = np.random.default_rng(C + H)
-    x, c = (_randn(rng, (3, H, W, C), cuda, dtype) for _ in range(2))
-    kh, kw = (_randn(rng, (C, C), cuda, dtype, C ** -0.5) for _ in range(2))
-    bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
-    args = (x, c, kh, bh, kw, bw)
+    args = _axes_case(np.random.default_rng(C + H), H, W, C, cuda, dtype)
     got = morphfc_fused.fused_morphfc_axes(*args, chunk_h=chunk_h, chunk_w=chunk_w)
     want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk_h, chunk_w=chunk_w)
-    torch.cuda.synchronize()
-    for g, wnt in zip(got[:2], want[:2]):
-        err = (g.float() - wnt.float()).abs().max().item()
-        assert err <= _TOL[dtype] * wnt.float().abs().max().item(), err
-    scale = (want[0].float().abs() + want[1].float().abs() + c.float().abs()).sum(dim=(1, 2))
-    assert bool(((got[2] - want[2]).abs() <= 1e-5 * scale).all())
+    _axes_close(got, want, args[1], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,C,chunk_h,chunk_w", [
+    (18, 32, 96, 16, 16), (11, 16, 160, 8, 8), (21, 32, 224, 16, 16), (9, 16, 448, 8, 8),
+    (18, 24, 96, 4, 4), (14, 32, 64, 2, 8)])
+def test_morphfc_axes_token_kernel(cuda, dtype, H, W, C, chunk_h, chunk_w):
+    """The token form against the plain version: ragged last H-chunks, a
+    ragged W slab (24 columns in 16-wide slabs), C = 96/160/224/448 with
+    chunk * C > 1024 (two M-tiles at 224, a partial weight column tile at
+    96, 160 and 224), the token form forced below 1024 and unequal chunks.
+    Tolerances as the big form's."""
+    rng = np.random.default_rng(C + H)
+    args = _axes_case(rng, H, W, C, cuda, dtype)
+    ax = morphfc_fused.fused_morphfc_axes
+    big, token = ax.launches, ax.token_launches
+    got = ax(*args, chunk_h=chunk_h, chunk_w=chunk_w, form="token")
+    assert (ax.launches, ax.token_launches) == (big, token + 1)
+    want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk_h, chunk_w=chunk_w)
+    _axes_close(got, want, args[1], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_morphfc_axes_token_against_big(cuda, dtype):
+    """The two forms' kernels on one input (the stage-0 channels and
+    chunks), and the big form's refusal where its weight does not fit."""
+    rng = np.random.default_rng(7)
+    args = _axes_case(rng, 16, 24, 112, cuda, dtype)
+    big = morphfc_fused.fused_morphfc_axes(*args, chunk_h=8, chunk_w=8, form="big")
+    token = morphfc_fused.fused_morphfc_axes(*args, chunk_h=8, chunk_w=8, form="token")
+    assert morphfc_fused.axes_form(112, 8, 8) == "big"
+    _axes_close(token, big, args[1], dtype)
+    wide = _axes_case(rng, 16, 16, 224, cuda, dtype)
+    with pytest.raises(ValueError, match="form='token'"):
+        morphfc_fused.fused_morphfc_axes(*wide, chunk_h=16, chunk_w=16, form="big")
+
+
+_PROBES = [(tool, name) for tool in (exp_probe, exp_probe2) for name in tool.PROBES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool,name", _PROBES, ids=[f"{t.__name__.split('.')[-1]}-{n}"
+                                                    for t, n in _PROBES])
+def test_probe_kernels(cuda, tool, name):
+    """Every probe of both tools on the card: its kernel against its plain
+    version (copies bit-exact, products within 1 bf16 ulp of max|plain|,
+    the tile probes' copies on every SM bit-equal), one launch or more."""
+    counters = (probes.slab_copy, probes.smem_relayout, probes.tile_gemm)
+    before = sum(f.launches for f in counters)
+    res = tool.PROBES[name](cuda, np.random.default_rng(0))
+    assert sum(f.launches for f in counters) > before
+    assert res["ms"] > 0 and res["bound_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse(cuda):
+    """A slab row that breaks the bulk copy's 16-byte rule, a product wider
+    than the kernel's 192 columns, an A operand off its 4-element units."""
+    x = torch.zeros((1, 12, 5, 3), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        probes.slab_copy(x)
+    a = torch.zeros((32, 16), device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros((16, 200), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N = 200"):
+        probes.tile_gemm(a, b, probes.GemmForm("rows", M=32, K=16, lda=16))
+    with pytest.raises(ValueError, match="4-element units"):
+        probes.tile_gemm(a[:, :14].contiguous(), b[:14, :16].contiguous(),
+                         probes.GemmForm("rows", M=32, K=14, lda=14))
 
 
 @pytest.mark.cuda

@@ -3,8 +3,8 @@
 On CPU: each plain PyTorch version against the JAX kernel run in Pallas
 interpret mode, fp32, on the same seeded numpy inputs, with the JAX tests'
 own tolerances for the same op (2e-5 for the FFN and LTAM attention,
-1e-5 for the reduction and the axis branches -- 1e-3 absolute for their
-sums -- and 3e-5 / 2e-4 for the combine).  The wrappers take
+1e-5 for the reduction and the axis branches in both forms -- 1e-3
+absolute for their sums -- and 3e-5 / 2e-4 for the combine).  The wrappers take
 the plain version for CPU tensors and refuse other non-CUDA tensors.
 The CUDA kernels themselves are checked in ``test_torch_cuda.py``.
 """
@@ -79,6 +79,58 @@ def test_morphfc_axes_plain_matches_pallas(rng, H, chunk_h, chunk_w):
     for g, wnt in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("H,W,C,chunk,form", [(18, 32, 96, 16, None), (11, 16, 160, 8, None),
+                                               (14, 16, 16, 4, "token")])
+def test_morphfc_axes_token_plain_matches_pallas(rng, H, W, C, chunk, form):
+    """The token form (JAX's ``_axes_kernel_token``): chunk * C = 1536 and
+    1280 select it, with a partial last H-chunk each; at 64 it is forced,
+    as ``tests/test_morphfc_fused.py`` forces it."""
+    N = 2
+    x, c = (rng.standard_normal((N, H, W, C)).astype(np.float32) for _ in range(2))
+    kh, kw = ((rng.standard_normal((C, C)) * 0.05).astype(np.float32) for _ in range(2))
+    bh, bw = ((rng.standard_normal((C,)) * 0.1).astype(np.float32) for _ in range(2))
+    want = j_axes(*map(jnp.asarray, (x, c, kh, bh, kw, bw)), chunk_h=chunk, chunk_w=chunk,
+                  decay=True, non_linear=True, interpret=True, form=form)
+    g = decay.morphfc_decay_np(chunk, C // chunk)
+    got = morphfc_fused.fused_morphfc_axes(_t(x), _t(c), _t(kh * g), _t(bh), _t(kw * g),
+                                           _t(bw), chunk_h=chunk, chunk_w=chunk, form=form)
+    assert (form or morphfc_fused.axes_form(C, chunk, chunk)) == "token"
+    for gt, wnt in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wnt), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C,chunk", [(112, 8), (224, 16), (448, 8), (96, 16)])
+def test_axes_form_matches_jax_selection(C, chunk):
+    """``axes_form`` is "big" exactly where the JAX module selects 'full'
+    (and with it the big-form axes kernel)."""
+    from vmg_tpu.models.blocks import MorphFCDecay as JMorphFCDecay
+
+    x = jnp.zeros((1, 1, 2 * chunk, 2 * chunk, C), jnp.float32)
+    mode = JMorphFCDecay(dim=C, chunk_h=chunk, chunk_w=chunk)._pallas_mode(x, "interpret")
+    assert (morphfc_fused.axes_form(C, chunk, chunk) == "big") == (mode == "full"), mode
+
+
+def test_axes_form_argument():
+    """An unknown form raises; the forms' launch counters are separate and
+    a non-CUDA tensor reaches neither kernel; the big form's shared-memory
+    size (the kernel's own arithmetic) fits at the stage-0 shape and not at
+    the stage-1 and stage-3 shapes, where the token form is the only one."""
+    m = torch.empty((1, 16, 16, 16), device="meta")
+    k, b = torch.empty(16, 16, device="meta"), torch.empty(16, device="meta")
+    ax = morphfc_fused.fused_morphfc_axes
+    with pytest.raises(ValueError, match="form"):
+        ax(m, m, k, b, k, b, chunk_h=4, chunk_w=4, form="wide")
+    before = (ax.launches, ax.token_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        ax(m, m, k, b, k, b, chunk_h=4, chunk_w=4, form="token")
+    assert (ax.launches, ax.token_launches) == before
+    fits = morphfc_fused.big_form_smem
+    assert fits(64, 112, torch.bfloat16) <= morphfc_fused.MAX_SMEM
+    assert fits(256, 224, torch.bfloat16) > morphfc_fused.MAX_SMEM
+    assert fits(64, 448, torch.bfloat16) > morphfc_fused.MAX_SMEM
 
 
 def _combine_case(rng, N=2, H=18, W=12, C=16):

@@ -193,6 +193,10 @@ import vmg_tpu_torch.profile_training
 import vmg_tpu_torch.train.__main__
 import vmg_tpu_torch.ops.conv_chain
 import vmg_tpu_torch.ops.fused_norm
+import vmg_tpu_torch.ops.probes
+import vmg_tpu_torch.tools.exp_probe
+import vmg_tpu_torch.tools.exp_probe2
+import vmg_tpu_torch.utils.profiling
 from vmg_tpu_torch.models.vmg import KERNEL_FORMS
 from vmg_tpu_torch.serve import SRServer
 gen = torch.Generator().manual_seed(0)

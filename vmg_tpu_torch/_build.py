@@ -41,6 +41,8 @@ _SIGNATURES = {
     # x, c, kh, bh, kw, bw, h, w, partial, psum, N, H, W, C, ch, cw, WT,
     # dtype, stream
     "vmg_morphfc_axes": [_P] * 10 + [_I] * 8 + [_P],
+    # the same arguments (the token form)
+    "vmg_morphfc_axes_token": [_P] * 10 + [_I] * 8 + [_P],
     # q, kv, pe, out, den (or null), N, H, W, C, K, heads, dtype, stream
     "vmg_ltam_fwd": [_P] * 5 + [_I] * 7 + [_P],
     # q, kv, pe, den, out, g, dq, dkv, dpe, scratch, partial, N, H, W, C, K,
@@ -55,6 +57,13 @@ _SIGNATURES = {
     "vmg_conv_chain": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
     # x, out, bytes, stream
     "vmg_layout_pin": [_P, _P, _L, _P],
+    # x, out, Wp, C, R, slabs, wpiece, stream
+    "vmg_probe_slab_copy": [_P] * 2 + [_I] * 5 + [_P],
+    # in, out, A, Bin, Cin, Bout, Cout, kind, p0, p1, stream
+    "vmg_probe_relayout": [_P] * 2 + [_I] * 8 + [_P],
+    # a, b, out, M, N, K, taps, batch, reps, kind, lda, tap_stride,
+    # batch_stride, Wo, Wx, Cx, cg, stride, stream
+    "vmg_probe_tile_gemm": [_P] * 3 + [_I] * 15 + [_P],
 }
 
 

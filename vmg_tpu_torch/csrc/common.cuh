@@ -55,6 +55,20 @@ typedef wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> FragB;
 typedef wm::fragment<wm::accumulator, 16, 16, 16, float> FragC;
 constexpr int kPadH = 8, kPadF = 4;  // 16 bytes of bf16 / f32
 
+// Asynchronous 16-byte global -> shared copies (cp.async): start one,
+// commit the started copies as one group, wait until at most N groups are
+// pending.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// Shared memory one block may use on Hopper (227 KB, opt-in above 48 KB).
+constexpr size_t kMaxSmem = 232448;
+
 }  // namespace vmg
 
 #define VMG_DISPATCH_DTYPE(code, T, ...)          \

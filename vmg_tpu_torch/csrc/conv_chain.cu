@@ -81,14 +81,6 @@ __device__ __forceinline__ float chain_act(float v, int act) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 // Start copying tap `tap` of w (9, Kp, Np) into wsm, rows Np + kPadH apart
 // (every thread issues its share of 16-byte copies, then commits).
 __device__ __forceinline__ void stage_tap(bf16* wsm, const bf16* __restrict__ w, int tap,

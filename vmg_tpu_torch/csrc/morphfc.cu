@@ -2,8 +2,8 @@
 // sums, the reweight reduction, and the combine pass.
 //
 // vmg_morphfc_axes replaces vmg_tpu/ops/morphfc_fused.py
-// `fused_morphfc_axes` (`_axes_kernel`, `_axes_kernel_token`): both
-// decayed axis-FC branches, relu(acc + b) / C rounded once to the input
+// `fused_morphfc_axes` in its big form (`_axes_kernel`, chunk * C <= 1024):
+// both decayed axis-FC branches, relu(acc + b) / C rounded once to the input
 // dtype, and the f32 per-frame sums of h + w + c from the unrounded
 // branch values.  A token is channel segment q (S = C / chunk channels) of
 // a chunk of `chunk` positions along the axis, its C features (p, s); each
@@ -23,6 +23,27 @@
 // Each block writes one f32 partial per channel, summed in a fixed order
 // over its positions; the reduce's second pass adds the partials in a
 // fixed order -- deterministic, no float atomics.
+//
+// vmg_morphfc_axes_token replaces the token form of the same call
+// (`_axes_kernel_token`, chosen where chunk * C > 1024: stages 1/5 at C =
+// 224, chunk 16, and stage 3 at C = 448, chunk 8): the same function, the
+// same slab grid and token maps.  What bounds it: shared memory first --
+// the whole C x C weight, the M x C tokens and their M x C f32 projection
+// (100 + 115 + 229 KB at stage 1, M = 256) do not fit in a block's 227 KB,
+// so the kernel above cannot launch there; then device memory, as above
+// (at stage 1 x and c in, h and w out: 422 MB against 47 GFLOP).  Design:
+// the slab's tokens pass through shared memory in M-tiles of whole token
+// groups (at most 64 rows in bf16, 32 in f32), and the weight in C x nt
+// column tiles (nt = 64 bf16, 32 f32), staged with cp.async and
+// double-buffered (tile j + 1 copies while tile j multiplies); each
+// (M-tile, column tile) product goes to an f32 tile whose epilogue (bias,
+// relu, 1/C, one rounding, the store) runs before the next tile.  Stage 1
+// bf16 takes 111 KB (two blocks per SM), stage 3 200 KB.  Sums: thread i
+// owns channels i and i + 256 and adds their values in a fixed order
+// (tiles, token groups, positions), then the slab's c, summed by position
+// lanes with 16-byte loads and added lane by lane; one f32 partial per
+// block and channel, added in a fixed order by the second pass --
+// deterministic, no atomics.
 //
 // vmg_morphfc_reduce replaces `fused_morphfc_reduce` (`_reduce_kernel`):
 // psum[n, c] = sum over the frame's pixels of (h + w + c) in f32.  Bound on
@@ -47,6 +68,8 @@
 // 16 x 16 register micro-tiles.  A nullable residual pointer covers both
 // TPU variants.  The gate is tanh, the only one a configuration selects.
 #include "common.cuh"
+
+#include <algorithm>
 
 namespace vmg {
 
@@ -447,6 +470,7 @@ int launch_axes(const T* x, const T* c, const T* kh, const float* bh,
   if (C % 16 != 0 || C / AxesSmem<T>::VEC > kThreads || (AxesSmem<T>::kTC && M % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const size_t smem = AxesSmem<T>(M, C).total;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // the token form's domain
   auto kern = morphfc_axes_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -456,6 +480,239 @@ int launch_axes(const T* x, const T* c, const T* kh, const float* bh,
   const dim3 grid((W + WT - 1) / WT, (H + ch - 1) / ch, N);
   kern<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w, partial, H, W, C,
                                          ch, cw, WT);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int S = grid.x * grid.y;
+  morphfc_final_kernel<<<(N * C + 255) / 256, 256, 0, stream>>>(partial, psum, N, C, S);
+  return (int)cudaGetLastError();
+}
+
+// ---- axes, token form: the same function where the weight does not fit ----
+
+// Rows of one M-tile: kTokMT<T> token rows at most (bf16 rows pad to 16 for
+// the fragments), whole groups of L tokens, at least one group.  64 bf16
+// rows keep stage 1 at 111 KB, two blocks per SM.
+template <typename T>
+constexpr int kTokMT = std::is_same<T, bf16>::value ? 64 : 32;
+
+template <typename T>
+__host__ __device__ inline int tok_groups(int L, int G) {
+  const int g = kTokMT<T> / L > 1 ? kTokMT<T> / L : 1;
+  return g < G ? g : G;
+}
+
+template <typename T>
+__host__ __device__ inline int tok_rows(int L, int G) {
+  const int r = tok_groups<T>(L, G) * L;
+  return std::is_same<T, bf16>::value ? (r + 15) / 16 * 16 : r;
+}
+
+// Shared memory: the M-tile of tokens (mt x C), two C x nt weight tiles,
+// the mt x nt f32 product.
+template <typename T>
+struct TokSmem {
+  static constexpr bool kTC = std::is_same<T, bf16>::value;
+  int lda, ldw, ldo;
+  size_t a_bytes, w_bytes, total;
+  __host__ __device__ TokSmem(int mt, int C, int nt) {
+    lda = kTC ? C + kPadH : C;
+    ldw = kTC ? nt + kPadH : nt;
+    ldo = kTC ? nt + kPadF : nt;
+    a_bytes = ((size_t)mt * lda * sizeof(T) + 127) / 128 * 128;
+    w_bytes = ((size_t)C * ldw * sizeof(T) + 127) / 128 * 128;
+    total = a_bytes + 2 * w_bytes + (size_t)mt * ldo * sizeof(float);
+  }
+};
+
+// Start copying columns f0 .. f0 + nw of K (C x C) into Ws (rows ldw apart).
+template <typename T>
+__device__ __forceinline__ void tok_stage_weight(T* Ws, int ldw, const T* __restrict__ K,
+                                                 int C, int f0, int nw) {
+  constexpr int VEC = kVecBytes / sizeof(T);
+  const int cv = nw / VEC;
+  for (int e = threadIdx.x; e < C * cv; e += kThreads) {
+    const int k = e / cv, q = e % cv;
+    cp_async16(Ws + k * ldw + q * VEC, K + (size_t)k * C + f0 + q * VEC);
+  }
+  cp_async_commit();
+}
+
+// Grid (ceil(W / WT), ceil(H / ch), N), the big form's slabs.  A branch's
+// tokens come in groups of L (= its chunk): group t holds tokens t * L + q,
+// q < L, whose feature (P, Z) (column P * S + Z, S = C / L) is channel
+// q * S + Z of position pos(t, P).  Branch H: L = ch, groups t < WT,
+// pos = (P, t).  Branch W: L = cw, groups t < ch * kg, pos = (t / kg,
+// (t % kg) * cw + P).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+morphfc_axes_token_kernel(const T* __restrict__ x, const T* __restrict__ c,
+                          const T* __restrict__ kh, const float* __restrict__ bh,
+                          const T* __restrict__ kw, const float* __restrict__ bw,
+                          T* __restrict__ h_out, T* __restrict__ w_out,
+                          float* __restrict__ partial, int H, int W, int C, int ch,
+                          int cw, int WT, int mt, int nt) {
+  constexpr bool kTC = TokSmem<T>::kTC;
+  constexpr int VEC = kVecBytes / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const TokSmem<T> sm(mt, C, nt);
+  const int lda = sm.lda, ldw = sm.ldw, ldo = sm.ldo, nv = C / VEC;
+  T* A = reinterpret_cast<T*>(smem_raw);
+  T* Wbuf[2] = {reinterpret_cast<T*>(smem_raw + sm.a_bytes),
+                reinterpret_cast<T*>(smem_raw + sm.a_bytes + sm.w_bytes)};
+  float* O = reinterpret_cast<float*>(smem_raw + sm.a_bytes + 2 * sm.w_bytes);
+  const int n = blockIdx.z, r0 = blockIdx.y * ch, w0 = blockIdx.x * WT, kg = WT / cw;
+  const float inv_c = 1.f / C;
+  const size_t frame = (size_t)n * H * W * C;
+  auto at = [&](int r, int w) { return frame + ((size_t)(r0 + r) * W + w0 + w) * C; };
+  auto valid = [&](int r, int w) { return r0 + r < H && w0 + w < W; };
+  float sums[2] = {0.f, 0.f};  // channels threadIdx.x and threadIdx.x + kThreads
+
+  auto branch = [&](const T* __restrict__ K, const float* __restrict__ bias,
+                    T* __restrict__ out, int L, int G, auto pos) {
+    const int S = C / L, GT = tok_groups<T>(L, G);
+    for (int g0 = 0; g0 < G; g0 += GT) {
+      const int ng = min(GT, G - g0), rows = ng * L;
+      const int rows_c = kTC ? (rows + 15) / 16 * 16 : rows;
+      // gather the tile: position (t, P), channel vector v -> token rows
+      for (int e = threadIdx.x; e < rows * nv; e += kThreads) {
+        const int v = e % nv, tp = e / nv, t = g0 + tp / L, P = tp % L;
+        int r, w;
+        pos(t, P, r, w);
+        alignas(16) T vals[VEC];
+        uint4 u = make_uint4(0, 0, 0, 0);
+        if (valid(r, w)) u = *reinterpret_cast<const uint4*>(x + at(r, w) + v * VEC);
+        *reinterpret_cast<uint4*>(vals) = u;
+        int q = v * VEC / S, z = v * VEC % S;  // channel v * VEC + k = (q, z)
+        T* row = A + ((t - g0) * L) * lda + P * S;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          row[q * lda + z] = vals[k];
+          if (++z == S) z = 0, ++q;
+        }
+      }
+      for (int e = rows * C + threadIdx.x; e < rows_c * C; e += kThreads)
+        A[(e / C) * lda + e % C] = from_f<T>(0.f);  // fragment padding rows
+      tok_stage_weight<T>(Wbuf[0], ldw, K, C, 0, min(nt, C));
+      for (int f0 = 0, it = 0; f0 < C; f0 += nt, ++it) {
+        const int nw = min(nt, C - f0);
+        if (f0 + nt < C) {
+          tok_stage_weight<T>(Wbuf[(it + 1) & 1], ldw, K, C, f0 + nt, min(nt, C - f0 - nt));
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();  // tokens and weight tile in; the last epilogue is done with O
+        const T* Ws = Wbuf[it & 1];
+        if constexpr (kTC) {
+          const int MT = rows_c / 16, NT = nw / 16;
+          for (int tt = threadIdx.x >> 5; tt < MT * NT; tt += kWarps) {
+            const int mi = tt % MT, ni = tt / MT;
+            FragC cf;
+            wm::fill_fragment(cf, 0.f);
+            for (int k0 = 0; k0 < C; k0 += 16) {
+              FragA af;
+              FragB bfr;
+              wm::load_matrix_sync(af, A + mi * 16 * lda + k0, lda);
+              wm::load_matrix_sync(bfr, Ws + k0 * ldw + ni * 16, ldw);
+              wm::mma_sync(cf, af, bfr, cf);
+            }
+            wm::store_matrix_sync(O + mi * 16 * ldo + ni * 16, cf, ldo, wm::mem_row_major);
+          }
+        } else {
+          for (int e = threadIdx.x; e < rows * nw; e += kThreads) {
+            const int row = e / nw, col = e % nw;
+            const T* a = A + row * lda;
+            float acc = 0.f;
+            for (int k = 0; k < C; ++k) acc = fmaf(to_f<T>(a[k]), to_f<T>(Ws[k * ldw + col]), acc);
+            O[row * ldo + col] = acc;
+          }
+        }
+        __syncthreads();  // the product tile is in O; the weight buffer is free
+        // epilogue: channel cc = (q, Z) takes features P * S + Z of this tile
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int cc = threadIdx.x + k * kThreads;
+          if (cc >= C) continue;
+          const int q = cc / S, Z = cc % S;
+          if (Z > f0 + nw - 1) continue;  // no feature of this channel in the tile
+          const int p_lo = f0 > Z ? (f0 - Z + S - 1) / S : 0;
+          const int p_hi = min(L - 1, (f0 + nw - 1 - Z) / S);
+          for (int t = g0; t < g0 + ng; ++t) {
+            const int orow = ((t - g0) * L + q) * ldo + Z - f0;  // + P * S >= 0
+            for (int P = p_lo; P <= p_hi; ++P) {
+              int r, w;
+              pos(t, P, r, w);
+              if (!valid(r, w)) continue;
+              const float y = fmaxf(O[orow + P * S] + bias[P * S + Z], 0.f) * inv_c;
+              out[at(r, w) + cc] = from_f<T>(y);
+              sums[k] += y;
+            }
+          }
+        }
+      }
+    }
+  };
+
+  branch(kh, bh, h_out, ch, WT, [&](int t, int P, int& r, int& w) { r = P; w = t; });
+  branch(kw, bw, w_out, cw, ch * kg,
+         [&](int t, int P, int& r, int& w) { r = t / kg; w = (t % kg) * cw + P; });
+  // c over the slab: thread (j, v) adds channel vector v at positions j,
+  // j + R, ... (16-byte loads); then each channel's owner adds the R lane
+  // sums in order.  The tokens' space is free after the last product.
+  const int R = kThreads / nv, j = threadIdx.x / nv, v = threadIdx.x % nv;
+  float* red = reinterpret_cast<float*>(smem_raw);  // R x C
+  if (j < R) {
+    float cs[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) cs[k] = 0.f;
+#pragma unroll 4
+    for (int pos = j; pos < ch * WT; pos += R) {
+      const int r = pos / WT, w = pos % WT;
+      if (!valid(r, w)) continue;
+      alignas(16) T cv[VEC];
+      *reinterpret_cast<uint4*>(cv) = *reinterpret_cast<const uint4*>(c + at(r, w) + v * VEC);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) cs[k] += to_f<T>(cv[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) red[j * C + v * VEC + k] = cs[k];
+  }
+  __syncthreads();
+  const size_t blk = (size_t)n * gridDim.y * gridDim.x + blockIdx.y * gridDim.x + blockIdx.x;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int cc = threadIdx.x + k * kThreads;
+    if (cc >= C) continue;
+    for (int jj = 0; jj < R; ++jj) sums[k] += red[jj * C + cc];
+    partial[blk * C + cc] = sums[k];
+  }
+}
+
+template <typename T>
+int launch_axes_token(const T* x, const T* c, const T* kh, const float* bh,
+                      const T* kw, const float* bw, T* h, T* w, float* partial,
+                      float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
+                      cudaStream_t stream) {
+  if (C % 16 != 0 || C > 2 * kThreads || C / (kVecBytes / (int)sizeof(T)) > kThreads)
+    return (int)cudaErrorInvalidValue;
+  const int kg = WT / cw;
+  const int mh = tok_rows<T>(ch, WT), mw = tok_rows<T>(cw, ch * kg);
+  const int mt = mh > mw ? mh : mw;
+  int nt = TokSmem<T>::kTC ? 64 : 32;
+  while (nt > 16 && TokSmem<T>(mt, C, nt).total > kMaxSmem) nt /= 2;
+  const int nv = C / (kVecBytes / (int)sizeof(T));
+  const size_t red = (size_t)(kThreads / nv) * C * sizeof(float);  // the c sums' lanes
+  const size_t smem = std::max(TokSmem<T>(mt, C, nt).total, red);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = morphfc_axes_token_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((W + WT - 1) / WT, (H + ch - 1) / ch, N);
+  kern<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w, partial, H, W, C,
+                                         ch, cw, WT, mt, nt);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int S = grid.x * grid.y;
@@ -484,6 +741,26 @@ extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
     return vmg::launch_axes<T>((const T*)x, (const T*)c, (const T*)kh, bh,
                                (const T*)kw, bw, (T*)h, (T*)w, partial, psum, N, H,
                                W, C, ch, cw, WT, st);
+  });
+  return (int)cudaErrorInvalidValue;  // not reached: the dispatch returns
+}
+
+// The token form: arguments as vmg_morphfc_axes; C % 16 == 0, C <= 512.
+extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* kh,
+                                      const float* bh, const void* kw, const float* bw,
+                                      void* h, void* w, float* partial, float* psum,
+                                      int N, int H, int W, int C, int ch, int cw,
+                                      int WT, int dtype, void* stream) {
+  if (ch < 1 || cw < 1 || C % ch != 0 || C % cw != 0 || W % cw != 0 || WT % cw != 0 ||
+      N > 65535 || (H + ch - 1) / ch > 65535)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {x, c, kh, kw, (const void*)h, (const void*)w})
+    if ((uintptr_t)p % vmg::kVecBytes != 0) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  VMG_DISPATCH_DTYPE(dtype, T, {
+    return vmg::launch_axes_token<T>((const T*)x, (const T*)c, (const T*)kh, bh,
+                                     (const T*)kw, bw, (T*)h, (T*)w, partial, psum, N, H,
+                                     W, C, ch, cw, WT, st);
   });
   return (int)cudaErrorInvalidValue;  // not reached: the dispatch returns
 }

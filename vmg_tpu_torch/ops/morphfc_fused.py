@@ -61,9 +61,47 @@ def morphfc_axes_plain(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int):
     return h.to(x.dtype), w.to(x.dtype), psum
 
 
-def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int):
+FORMS = ("big", "token")
+# Shared memory one block may use on Hopper (227 KB).
+MAX_SMEM = 232_448
+
+
+def axes_form(C: int, chunk_h: int, chunk_w: int) -> str:
+    """The form ``form=None`` resolves to, as the JAX op selects it: the
+    big-matrix form while chunk * C fits its 1024-lane budget, else the
+    token form."""
+    return "token" if chunk_h * C > 1024 or chunk_w * C > 1024 else "big"
+
+
+def big_form_smem(M: int, C: int, dtype) -> int:
+    """Bytes of shared memory the big-form kernel takes for M tokens per
+    branch (``AxesSmem`` in ``csrc/morphfc.cu``): the C x C weight, the
+    tokens and their f32 projection."""
+    tc = dtype == torch.bfloat16
+    es = 2 if tc else 4
+    ld, ldo = (C + 8, C + 4) if tc else (C, C)
+    lanes = 256 // (C // (16 // es))  # positions the epilogue's threads cover
+
+    def up(b):
+        return -(-b // 128) * 128
+
+    return up(C * ld * es) + up(max(M * ld * es, lanes * C * 4)) + M * ldo * 4
+
+
+def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
+                       form: str | None = None):
     """x, c (N, H, W, C) -> (h, w, psum); needs C % chunk_h == C % chunk_w
-    == W % chunk_w == 0.  CPU tensors take the plain version."""
+    == W % chunk_w == 0.  kh, kw are the axis weights with the decay
+    already folded in, as ``MorphFCDecay`` packs them once per parameter
+    state (the JAX op folds it per call).  ``form``: "big" (the kernel
+    that holds the whole C x C weight; it raises where that does not fit
+    in shared memory), "token" (weight column tiles: any chunk * C) or
+    None for :func:`axes_form`.  Both compute one function, so CPU
+    tensors take the same plain version."""
+    if form is None:
+        form = axes_form(x.shape[-1], chunk_h, chunk_w)
+    elif form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
     if x.device.type == "cpu":
         return morphfc_axes_plain(x, c, kh, bh, kw, bw, chunk_h=chunk_h,
                                   chunk_w=chunk_w)
@@ -82,21 +120,31 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int):
     while chunk_h * chunk_w * kg % 16:
         kg += 1
     WT = chunk_w * kg
+    if form == "big" and big_form_smem(chunk_h * WT, C, dt) > MAX_SMEM:
+        raise ValueError(
+            f"the big form needs {big_form_smem(chunk_h * WT, C, dt)} bytes of shared "
+            f"memory at C={C}, chunks ({chunk_h}, {chunk_w}); a block has {MAX_SMEM}: "
+            "use form='token'")
     S = -(-H // chunk_h) * -(-W // WT)
     h, w = torch.empty_like(x), torch.empty_like(x)
     partial = torch.empty((N, S, C), dtype=torch.float32, device=dev)
     psum = torch.empty((N, C), dtype=torch.float32, device=dev)
-    code = _build.load_library().vmg_morphfc_axes(
+    name = "vmg_morphfc_axes" if form == "big" else "vmg_morphfc_axes_token"
+    code = getattr(_build.load_library(), name)(
         x.data_ptr(), c.data_ptr(), kh.data_ptr(), bh.data_ptr(), kw.data_ptr(),
         bw.data_ptr(), h.data_ptr(), w.data_ptr(), partial.data_ptr(),
         psum.data_ptr(), N, H, W, C, chunk_h, chunk_w, WT,
         _build.DTYPE_CODES[dt], _build.stream_of(x))
-    _build.check(code, "vmg_morphfc_axes")
-    fused_morphfc_axes.launches += 1
+    _build.check(code, name)
+    if form == "big":
+        fused_morphfc_axes.launches += 1
+    else:
+        fused_morphfc_axes.token_launches += 1
     return h, w, psum
 
 
-fused_morphfc_axes.launches = 0
+fused_morphfc_axes.launches = 0  # the big form's kernel
+fused_morphfc_axes.token_launches = 0  # the token form's kernel
 
 
 def morphfc_reduce_plain(h, w, c):
