@@ -12,7 +12,11 @@ Phases (any failure exits non-zero):
      (the MorphFC axis-branch kernel also next to the 'hybrid' form it
      replaces at stages 0/6, the conv chain next to the module form's
      cuDNN convolutions, the norm and the pin next to one PyTorch call);
-     the LTAM backward at the training shape; the axis branches' token
+     the LTAM backward at the training shape; the conv chain at both
+     path shapes run twice and held bit-equal (outputs and sums), with
+     its TFLOP/s, share of the bound and ratio to the module form beside
+     its times before the redesign (PERF.md); the pin with its GB/s and
+     share of the bound; the axis branches' token
      form, first driven through its op entry point (``form="token"``) at
      the stage-1/5 (16x92x160x224, chunk 16) and stage-3 (16x23x40x448,
      chunk 8) shapes, then checked there next to the 'hybrid' form those
@@ -96,6 +100,12 @@ KFORM_RATIO, TRAIN_LOSS_TOL = 2.0, 1e-2
 NORM_SHAPES = [(112, 16 * 184 * 320), (448, 16 * 92 * 160), (224, 16 * 92 * 160),
                (896, 16 * 46 * 80), (56, 16 * 92 * 160)]
 CHAIN_PER_CLIP, NORM_PER_CLIP, PIN_PER_CLIP = 968, 50, 64
+# the bf16 chain's and the pin's times before their redesign, printed
+# beside this run's: PERF.md's, from vmg_tpu_torch/tools/time_chain_pin.py
+# with the timer this script uses (H100 80GB HBM3, 700 W); (frames, dtype)
+# -> ms
+CHAIN_BEFORE_MS = {(1, torch.bfloat16): 0.463, (16, torch.bfloat16): 6.552}
+PIN_BEFORE_MS = 0.0187
 # the axis branches' token form: (N, H, W, C) and chunk of stages 1/5 and 3
 TOKEN_SHAPES = [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)]
 # Train-step parity, f32: the loss within LOSS_TOL relative; each
@@ -258,6 +268,7 @@ def check_kernels(report):
         if primary:
             e.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                      at=f"{dtype} {shape}", **b, **(keys or {}))
+        return ms, b, got
 
     def dtype_check(dtype):
         return lambda got, want: [within_max(got[0], want[0], REL_TOL[dtype])]
@@ -449,14 +460,29 @@ def check_kernels(report):
 
             module_ms = cuda_ms(module, iters=5)
             # two 3x3 convs, C x C, per pixel
-            compare("fused_conv_chain", (N, h, w, C), dtype,
-                    lambda: conv_chain.fused_conv_chain(x, *ops, **kw),
-                    lambda: conv_chain.conv_chain_plain(x, *ops, **kw),
-                    chain_check, primary=dtype == torch.bfloat16 and N == 1,
-                    work=((x, *ops), 2 * 2 * N * h * w * 9 * C * C, peak(dtype)),
-                    extra=f"  module form {module_ms:.3f} ms",
-                    keys={"module_ms": module_ms})
-            del x, xc, ops, wc, wcl
+            flops = 2 * 2 * N * h * w * 9 * C * C
+            ms, b, got = compare(
+                "fused_conv_chain", (N, h, w, C), dtype,
+                lambda: conv_chain.fused_conv_chain(x, *ops, **kw),
+                lambda: conv_chain.conv_chain_plain(x, *ops, **kw),
+                chain_check, primary=dtype == torch.bfloat16 and N == 1,
+                work=((x, *ops), flops, peak(dtype)), extra=f"  module form {module_ms:.3f} ms",
+                keys={"module_ms": module_ms})
+            # the result must not depend on which block took which tile
+            again = conv_chain.fused_conv_chain(x, *ops, **kw)
+            again = again if isinstance(again, tuple) else (again,)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError("two runs of the conv chain differ")
+            before = CHAIN_BEFORE_MS.get((N, dtype))
+            report(f"    {flops / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.3f} of the bound, "
+                   f"{ms / module_ms:.3f} x the module form; two runs bit-equal"
+                   + ("" if before is None else f"; before the redesign {before} ms (PERF.md, same timer)"))
+            if dtype == torch.bfloat16:
+                entries["fused_conv_chain"][f"n{N}"] = {
+                    "ms": ms, "module_ms": module_ms, "bound_ms": b["bound_ms"],
+                    "tflop_s": flops / ms / 1e9}
+            del x, xc, ops, wc, wcl, got, again
 
         # the norm at every LayerNorm width of the serving path, each at the
         # rows of its first call, and RMS at 112; weights in the model dtype
@@ -483,10 +509,14 @@ def check_kernels(report):
         def exact(got, want):
             return [within_max(got[0], want[0], 0.0)]
 
-        compare("layout_pin", tuple(x.shape), dtype, lambda: conv_chain.layout_pin(x),
-                lambda: conv_chain.layout_pin_plain(x), exact,
-                primary=dtype == torch.bfloat16, work=((x,), 0, "f32"),
-                library=lambda: x.clone())
+        ms, b, _ = compare("layout_pin", tuple(x.shape), dtype, lambda: conv_chain.layout_pin(x),
+                           lambda: conv_chain.layout_pin_plain(x), exact,
+                           primary=dtype == torch.bfloat16, work=((x,), 0, "f32"),
+                           library=lambda: x.clone())
+        report(f"    {2 * x.numel() * x.element_size() / ms / 1e6:.0f} GB/s, "
+               f"{b['bound_ms'] / ms:.3f} of the bound"
+               + (f"; before the redesign {PIN_BEFORE_MS} ms (PERF.md, same timer)"
+                  if dtype == torch.bfloat16 else ""))
         del x
     torch.cuda.empty_cache()
     return entries
@@ -906,7 +936,7 @@ def main() -> int:
     kernels = []
     for name, e in entries.items():
         path, counts = paths.get(name, ("serving", serving_launches))
-        extra = {k: e[k] for k in ("module_ms", "hybrid_ms") if k in e}
+        extra = {k: e[k] for k in ("module_ms", "hybrid_ms", "n1", "n16") if k in e}
         kernels.append({"name": name, "route": e["route"], "source": e["source"],
                         "replaces": e["replaces"], "launches": counts[name],
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],

@@ -67,14 +67,42 @@ def test_pack_conv_taps_pads_bf16_to_the_mma_width():
     """bf16 taps pad both channel dims to a multiple of 16 with zeros (the
     tensor-core path); float32 taps keep their widths; the bias is f32."""
     w, b = torch.randn(24, 20, 3, 3), torch.randn(24)
-    taps, bias = conv_chain.pack_conv_taps(w.bfloat16(), b.bfloat16())
+    image, bias = conv_chain.pack_conv_taps(w.bfloat16(), b.bfloat16())
+    assert image.shape == (9, 4, 32, 8) and image.dtype == torch.bfloat16
+    taps = conv_chain.tap_matrices(image)
     assert taps.shape == (9, 32, 32) and taps.dtype == torch.bfloat16
     assert bias.shape == (32,) and bias.dtype == torch.float32
     assert not taps[:, 20:].any() and not taps[:, :, 24:].any() and not bias[24:].any()
     torch.testing.assert_close(taps[4, :20, :24], w[:, :, 1, 1].t().bfloat16())
     taps, bias = conv_chain.pack_conv_taps(w, b)
     assert taps.shape == (9, 20, 24) and bias.shape == (24,)
+    assert conv_chain.tap_matrices(taps) is taps
     torch.testing.assert_close(taps[2], w[:, :, 0, 2].t())
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (24, 24), (112, 112), (128, 128), (24, 112),
+                                      (128, 16)])
+def test_pack_conv_taps_bf16_image_gives_back_the_weight(cin, cout):
+    """The bf16 B image, unpacked element by element as the kernel reads it
+    (tap t, chunk c, output n, element e is input channel 8c + e), gives back
+    the Conv2d weight exactly, zeros in the padding; each 8-row group of a
+    chunk is one 128-byte core matrix."""
+    w = torch.randn(cout, cin, 3, 3).bfloat16()
+    image, _ = conv_chain.pack_conv_taps(w, None)
+    cinp, coutp = -(-cin // 16) * 16, -(-cout // 16) * 16
+    assert image.shape == (9, cinp // 8, coutp, 8) and image.is_contiguous()
+    flat = image.reshape(-1)
+    back = torch.zeros(coutp, cinp, 3, 3, dtype=torch.bfloat16)
+    for t in range(9):
+        for k in range(cinp):
+            c, e = divmod(k, 8)
+            # the byte offset the kernel's descriptor gives entry (k, n)
+            offs = ((t * (cinp // 8) + c) * coutp + torch.arange(coutp)) * 8 + e
+            back[:, k, t // 3, t % 3] = flat[offs]
+    assert torch.equal(back[:cout, :cin], w)
+    assert not back[cout:].any() and not back[:, cin:].any()
+    torch.testing.assert_close(conv_chain._conv_weight(image, cin),
+                               back[:, :cin].float(), rtol=0, atol=0)
 
 
 def test_conv_chain_bf16_rounds_where_the_kernel_does(rng):
@@ -110,3 +138,29 @@ def test_wrappers_refuse_unknown_activations():
     ops = conv_chain.pack_conv_taps(torch.zeros(8, 8, 3, 3), None) * 2
     with pytest.raises(ValueError, match="act"):
         conv_chain.fused_conv_chain(x, *ops, act1="gelu")
+
+
+@pytest.mark.parametrize("kernel,cat", [
+    ("void vmg::conv3x3_wgmma_kernel<112>(CUtensorMap_st, vmg::ConvArgs)", "conv chain kernel"),
+    ("vmg::chain_psum_kernel(float const*, float*, int, int)", "conv chain kernel"),
+    ("vmg::copy_vec_kernel(uint4 const*, uint4*, long long)", "layout pin kernel"),
+    ("vmg::copy1_kernel(unsigned char const*, unsigned char*, long long)", "layout pin kernel"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "convolutions (cuDNN)"),
+])
+def test_profile_files_the_chain_and_pin_kernels_under_their_names(kernel, cat):
+    """profile_serving's device-time breakdown counts the chain's wgmma conv
+    and sums pass as the conv chain and the pin's copies as the pin, apart
+    from cuDNN's convolutions and PyTorch's copies."""
+    from vmg_tpu_torch.profile_serving import category
+    assert category(kernel) == cat
+
+
+def test_time_chain_pin_refuses_without_a_card():
+    """The two-checkout timing tool imports the package from the root it is
+    given and times only on a CUDA device: on the CPU it refuses."""
+    from pathlib import Path
+
+    from vmg_tpu_torch.tools import time_chain_pin
+    root = Path(time_chain_pin.__file__).resolve().parents[2]
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        time_chain_pin._side(root, 1)

@@ -309,15 +309,25 @@ def _chain_operands(rng, Cin, Cm, dev, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,H,W,Cin,Cm", [(2, 13, 22, 16, 16), (2, 11, 16, 24, 16),
-                                          (1, 40, 64, 112, 112), (2, 24, 60, 112, 112)])
+                                          (1, 40, 64, 112, 112), (2, 24, 60, 112, 112),
+                                          (3, 37, 70, 64, 64), (3, 9, 130, 128, 128),
+                                          (2, 37, 70, 20, 20), (1, 8, 200, 112, 48),
+                                          (3, 5, 9, 24, 128), (2, 21, 70, 19, 19),
+                                          (1, 11, 70, 128, 112)])
 def test_conv_chain_kernel(cuda, dtype, N, H, W, Cin, Cm):
-    """Partial row and column tiles (13 x 22, 40 x 64), padded channels
-    (24 -> 32 in bf16), the path's 112 channels; the trajectory form
-    (residual, res_scale 0.1), the RCAB form and an lrelu chain, each
-    against the plain version.  The sums are the f32 sums of the kernel's
-    own output: held to 1e-5 of the sum of their terms' magnitudes against
-    that output's sums (in bf16 the outputs themselves may differ from the
-    plain version's by an ulp, which the sums add up)."""
+    """Partial row and column tiles (13 x 22, 37 x 70, 9 x 130; the bf16
+    tiles are 4 x 64), several frames (the persistent walk crosses frames),
+    padded channels (24 -> 32, 20 -> 32 in bf16; 20 and 19 channels are
+    rows of 40 and 38 bytes, which TMA cannot take: the plain-load slab; 19
+    output channels are stored one at a time), 16 to 128 channels and
+    Cm != Cin (bf16 stages the output tile whole, in halves at 128 x 112
+    and in quarters at 128 x 128); the trajectory form (residual, res_scale
+    0.1), the RCAB form, an lrelu chain and the residual with sums, each
+    against the plain version.  The sums are
+    the f32 sums of the kernel's own output: held to 1e-5 of the sum of
+    their terms' magnitudes against that output's sums (in bf16 the outputs
+    themselves may differ from the plain version's by an ulp, which the sums
+    add up).  Two runs are bit-equal, outputs and sums."""
     rng = np.random.default_rng(Cin + H)
     x = _randn(rng, (N, H, W, Cin), cuda, dtype)
     ops = _chain_operands(rng, Cin, Cm, cuda, dtype)
@@ -332,7 +342,14 @@ def test_conv_chain_kernel(cuda, dtype, N, H, W, Cin, Cm):
     assert bool(((psum - got.float().sum(dim=(1, 2))).abs() <= 1e-5 * terms).all())
     if dtype == torch.float32:
         assert bool(((psum - wpsum).abs() <= 1e-5 * terms).all())
-    assert conv_chain.fused_conv_chain.launches == before + 3
+    again, psum_again = conv_chain.fused_conv_chain(x, *ops, emit_psum=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got) and torch.equal(psum_again, psum)
+    got, psum = conv_chain.fused_conv_chain(x, *ops, res_scale=0.1, emit_psum=True)
+    _close(got, conv_chain.conv_chain_plain(x, *ops, res_scale=0.1), dtype)
+    terms = got.float().abs().sum(dim=(1, 2))
+    assert bool(((psum - got.float().sum(dim=(1, 2))).abs() <= 1e-5 * terms).all())
+    assert conv_chain.fused_conv_chain.launches == before + 5
     x.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         conv_chain.fused_conv_chain(x, *ops)
@@ -369,11 +386,13 @@ def test_fused_norm_kernel(cuda, dtype, rows, C, rms):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [((1, 184, 320, 224), torch.bfloat16),
+                                         ((1, 37, 53, 224), torch.bfloat16),
                                          ((2, 7, 5, 3), torch.float32),
                                          ((3, 5, 7), torch.bfloat16)])
 def test_layout_pin_kernel(cuda, shape, dtype):
-    """Bit-equal, contiguous, not an alias (an odd byte count takes the
-    byte copy)."""
+    """Bit-equal, contiguous, not an alias; 1x37x53x224 bf16 leaves a
+    ragged tail after the grid-stride rounds; an odd byte count takes the
+    byte copy."""
     x = _randn(np.random.default_rng(0), shape, cuda, dtype)
     before = conv_chain.layout_pin.launches
     y = conv_chain.layout_pin(x)

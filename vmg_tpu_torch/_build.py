@@ -7,7 +7,9 @@ plain C interface, at first use, under ``_build/`` (listed in
 sources and flags, so an edited kernel is rebuilt and a stale one is never
 loaded.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
-an exception.
+an exception.  The library links only the CUDA runtime: the conv chain's
+TMA tensor maps come from ``cuTensorMapEncodeTiled``, which it looks up
+at run time through ``cudaGetDriverEntryPoint`` (no ``-lcuda``).
 """
 
 from __future__ import annotations
@@ -52,9 +54,10 @@ _SIGNATURES = {
     "vmg_fused_norm": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
     # H, W, dtype -> output tiles per frame
     "vmg_conv_chain_tiles": [_I] * 3,
-    # x, w1, b1, w2, b2, out, partial, psum (or both null), N, H, W, Cin,
-    # Cinp, Cm, Cout, Coutp, act, has_res, res_scale, dtype, stream
-    "vmg_conv_chain": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
+    # x, w1, b1, w2, b2, out, mid (bf16 scratch, or null), partial, psum
+    # (or both null), N, H, W, Cin, Cinp, Cm, Cout, Coutp, act, has_res,
+    # res_scale, dtype, stream
+    "vmg_conv_chain": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
     # x, out, bytes, stream
     "vmg_layout_pin": [_P, _P, _L, _P],
     # x, out, Wp, C, R, slabs, wpiece, stream

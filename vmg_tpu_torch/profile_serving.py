@@ -47,9 +47,9 @@ CATEGORIES = [
     ("MorphFC combine kernel", r"vmg::morphfc_combine"),
     ("LTAM backward kernels", r"vmg::ltam_bwd"),
     ("LTAM kernel", r"vmg::ltam"),
-    ("conv chain kernel", r"vmg::conv_chain|vmg::chain_psum"),
+    ("conv chain kernel", r"vmg::conv3x3_wgmma|vmg::conv_chain|vmg::chain_psum"),
     ("fused norm kernel", r"vmg::norm_kernel"),
-    ("layout pin kernel", r"vmg::copy(16|1)_kernel"),
+    ("layout pin kernel", r"vmg::copy(_vec|1)_kernel"),
     ("LayerNorm", r"layer_norm"),
     ("convolutions (cuDNN)", r"fprop|cudnn|conv|implicit_gemm"),
     ("matmuls (cuBLAS)", r"gemm|nvjet|cutlass"),
