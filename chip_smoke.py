@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   1. card name and power limit; build the CUDA kernels from
      vmg_tpu_torch/csrc (one nvcc per source, in parallel) and time it;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of the path that runs it, in float32 (TF32 off) and bf16,
+     shapes of the paths that run it, in float32 (TF32 off) and bf16,
      each timed (CUDA events) next to its plain version and its bound
      (the MorphFC axis-branch kernel also next to the 'hybrid' form it
      replaces at stages 0/6, the conv chain next to the module form's
@@ -15,7 +15,12 @@ Phases (any failure exits non-zero):
      the LTAM backward at the training shape; the conv chain at both
      path shapes run twice and held bit-equal (outputs and sums), with
      its TFLOP/s, share of the bound and ratio to the module form beside
-     its times before the redesign (PERF.md); the pin with its GB/s and
+     its times before the redesign (PERF.md); the FFN likewise at the four
+     FULL_PRESET stage shapes and the few-levels shape (16x128x128x144,
+     groups 1), next to its module form (cuDNN grouped conv, GELU,
+     F.linear); the combine with each gate (tanh, sigmoid, relu); LTAM
+     forward (1x128x128) and backward (1x64x64) at head widths 36, 64 and
+     144; the pin with its GB/s and
      share of the bound; the axis branches' token
      form, first driven through its op entry point (``form="token"``) at
      the stage-1/5 (16x92x160x224, chunk 16) and stage-3 (16x23x40x448,
@@ -31,6 +36,8 @@ Phases (any failure exits non-zero):
  3b. the same with the opt-in kernel forms: the RCAB and trajectory conv
      chains against phase 3's plain output, the barrier forms against the
      default forms on the card;
+ 3c. slice parity of FEW_LEVELS_PRESET (C = 144, LTAM head width 36, FFN
+     groups 1), as phase 3;
   4. serving (main path 1): an SRServer on FULL_PRESET in bf16 (tanh GELU,
      bf16 SPyNet convs), seeded random init, 1x16x180x320 clips: one
      warm-up request, then 3 clips x 3 reps, each request timed; the
@@ -43,6 +50,10 @@ Phases (any failure exits non-zero):
      per clip; its bf16 error at 1x2x64x64 against phase 3's f32 plain
      output at most twice the default form's; then one request in each
      barrier form, which pins 64 times per clip;
+ 4c. serving the few-levels model (main path 4): FEW_LEVELS_PRESET with
+     the eval preset's 32 frames and trajectory window, bf16, 1x32x128x128
+     clips: one warm-up request, then 2 clips; finite output of the right
+     shape, the LTAM, FFN, reduce and combine kernels launched; peak memory;
   5. train-step parity: one float32 FULL_PRESET training step (loss and
      gradients, drop_path 0, remat on) at 1x5x64x64, kernels on the card
      against the plain path on CPU tensors from the same weights;
@@ -53,7 +64,10 @@ Phases (any failure exits non-zero):
      kernels must have launched;
  6b. the same trainer with norm_impl="kernel": a warm-up step and 2 timed
      steps; finite losses, norm launches, the warm-up loss within 1e-2 of
-     phase 6's.
+     phase 6's;
+ 6c. the trainer on FEW_LEVELS_PRESET (main path 5), B=1, T=6, 64x64
+     crops: a warm-up and a timed step; finite losses, the LTAM backward
+     launched (head width 36).
 Prints a {"kernels": [...]} JSON line (each kernel with its launches on
 the path that runs it -- the token form's and the probes' on their entry
 points in phases 2/2p, none on the model paths -- its times, its bound and
@@ -100,12 +114,39 @@ KFORM_RATIO, TRAIN_LOSS_TOL = 2.0, 1e-2
 NORM_SHAPES = [(112, 16 * 184 * 320), (448, 16 * 92 * 160), (224, 16 * 92 * 160),
                (896, 16 * 46 * 80), (56, 16 * 92 * 160)]
 CHAIN_PER_CLIP, NORM_PER_CLIP, PIN_PER_CLIP = 968, 50, 64
+# the few-levels serving run: the eval preset's network fields
+# (vmg_tpu/configs/presets/vmg_eval_reds4_few_levels.yml: 32 frames, one
+# trajectory window over them, no flow freeze) on FEW_LEVELS_PRESET, its
+# 128x128 LR tile ('wins'); training at the train preset's 6 frames
+FEW_EVAL = dict(num_frames=32, traj_win=(32, None), flow_fix=None)
+FEW_T, FEW_HW, FEW_TRAIN_T = 32, 128, 6
+# the kernels the few-levels serving path must launch ('hybrid' mixers at
+# C = 144: the reduce, then the combine)
+FEW_PATH = ("ltam_attention_2x2", "fused_group_ffn", "fused_morphfc_reduce",
+            "fused_morphfc_combine")
 # the bf16 chain's and the pin's times before their redesign, printed
 # beside this run's: PERF.md's, from vmg_tpu_torch/tools/time_chain_pin.py
 # with the timer this script uses (H100 80GB HBM3, 700 W); (frames, dtype)
 # -> ms
 CHAIN_BEFORE_MS = {(1, torch.bfloat16): 0.463, (16, torch.bfloat16): 6.552}
 PIN_BEFORE_MS = 0.0187
+# the FFN's path shapes: ((N, H, W, C), groups, hidden ratio) of FULL_PRESET's
+# stages 0/6, 1/5, 2/4 and 3 (16 frames of a 180x320 clip padded to 184x320)
+# and of the few-levels preset (a 128x128 tile, groups 1, mlp_ratio 2)
+FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
+              ((16, 46, 80, 224), 4, 6), ((16, 23, 40, 448), 4, 6),
+              ((16, 128, 128, 144), 1, 2)]
+# the bf16 FFN's times before its redesign (the wmma kernel it replaced), printed
+# beside this run's: PERF.md's, medians of vmg_tpu_torch/tools/
+# time_chain_pin.py --other (that tree and this one in one call, one
+# timer; H100 80GB HBM3, 700 W); shape -> ms
+FFN_BEFORE_MS = {(16, 184, 320, 112): 11.129, (16, 92, 160, 224): 10.560,
+                 (16, 46, 80, 224): 2.886, (16, 23, 40, 448): 3.503,
+                 (16, 128, 128, 144): 4.535}
+# LTAM head widths d = C / heads beyond the full preset's 28: (C, heads, K) --
+# the few-levels preset's 36, 64, and one head of 144 -- at the few-levels
+# serving shape (1x128x128) and training crop (1x64x64), ragged slot counts
+LTAM_WIDTHS = [(144, 4, 3), (128, 2, 4), (144, 1, 5)]
 # the axis branches' token form: (N, H, W, C) and chunk of stages 1/5 and 3
 TOKEN_SHAPES = [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)]
 # Train-step parity, f32: the loss within LOSS_TOL relative; each
@@ -306,26 +347,51 @@ def check_kernels(report):
         raise AssertionError("the token form's entry point did not launch its kernel")
     entries["fused_morphfc_axes_token"]["path_launches"] = token_path
 
-    # the four FFN stage shapes (N = 16 frames): stage 0/6, 1/5, 2/4, 3
-    ffn_shapes = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
-                  (16, 23, 40, 448)]
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ffn_shapes:
-            N, h, w, C = shape
-            Fh = 6 * C
+        # the FFN at the four stage shapes of FULL_PRESET (N = 16 frames,
+        # groups 4, 6C hidden) and the few-levels shape (groups 1, 2C)
+        for (N, h, w, C), G, ratio in FFN_SHAPES:
+            Fh = ratio * C
             x = rn(N, h, w, C, dtype=dtype)
-            w1 = rn(Fh, C // 4, 3, 3, scale=(9 * C / 4) ** -0.5, dtype=dtype)
+            w1 = rn(Fh, C // G, 3, 3, scale=(9 * C / G) ** -0.5, dtype=dtype)
             b1, b2 = rn(Fh, scale=0.1, dtype=dtype), rn(C, scale=0.1, dtype=dtype)
             w2 = rn(C, Fh, scale=0.02, dtype=dtype)
-            args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, 4), b2)
-            # grouped 3x3 conv (C/4 inputs per output) and the C x 6C fc2
-            flops = 2 * N * h * w * Fh * (9 * C // 4 + C)
-            compare("fused_group_ffn", shape, dtype,
-                    lambda: group_conv.fused_group_ffn(*args, groups=4, act="tanh"),
-                    lambda: group_conv.group_ffn_plain(*args, groups=4, act="tanh"),
-                    dtype_check(dtype), primary=dtype == torch.bfloat16 and C == 112,
-                    work=((x, w1, b1, w2, b2), flops, peak(dtype)))
-            del x, w1, args
+            args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, G), b2)
+            # grouped 3x3 conv (C/G inputs per output) and the C x ratio*C fc2
+            flops = 2 * N * h * w * Fh * (9 * C // G + C)
+            shape = (N, h, w, C)
+            bf16 = dtype == torch.bfloat16
+            extra, keys, module_ms = "", {}, None
+            if bf16:  # the module form training runs: cuDNN grouped conv, GELU, fc2
+                xc = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
+                w1c = w1.contiguous(memory_format=torch.channels_last)
+
+                def module():
+                    y = F.conv2d(xc, w1c, b1, padding=1, groups=G).permute(0, 2, 3, 1)
+                    return F.linear(group_conv.gelu(y, "tanh"), w2, b2)
+
+                module_ms = cuda_ms(module, iters=5)
+                extra, keys = f"  module form {module_ms:.3f} ms", {"module_ms": module_ms}
+            ms, b, got = compare(
+                "fused_group_ffn", shape, dtype,
+                lambda: group_conv.fused_group_ffn(*args, groups=G, act="tanh"),
+                lambda: group_conv.group_ffn_plain(*args, groups=G, act="tanh"),
+                dtype_check(dtype), primary=bf16 and shape == FFN_SHAPES[0][0],
+                work=((x, w1, b1, w2, b2), flops, peak(dtype)), extra=extra, keys=keys)
+            # the result must not depend on which block took which tile
+            again = group_conv.fused_group_ffn(*args, groups=G, act="tanh")
+            torch.cuda.synchronize()
+            if not torch.equal(again, got[0]):
+                raise AssertionError(f"two runs of the FFN differ at {shape}")
+            if bf16:
+                before = FFN_BEFORE_MS[shape]
+                report(f"    {flops / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.3f} of the "
+                       f"bound, {ms / module_ms:.3f} x the module form; two runs bit-equal; "
+                       + f"before the redesign {before} ms (PERF.md, same timer)")
+                entries["fused_group_ffn"][f"groups{G}_" + "x".join(map(str, shape))] = {
+                    "ms": ms, "module_ms": module_ms, "bound_ms": b["bound_ms"],
+                    "tflop_s": flops / ms / 1e9}
+            del x, w1, args, got, again
 
         # the axis-branch kernel at stages 0/6: chunk 8 along H and W; its
         # token form at stages 1/5 and 3, next to the 'hybrid' form they run
@@ -379,12 +445,14 @@ def check_kernels(report):
             a = torch.softmax(rn(N, 3, C), dim=1).to(dtype)
             pk, pb = rn(C, C, scale=0.02, dtype=dtype), rn(C, scale=0.1)
             args = (x, xh, xw, xc, a, pk, pb)
-            # the C x C projection; the weighted sum and gate are elementwise
-            compare("fused_morphfc_combine", shape, dtype,
-                    lambda: morphfc_fused.fused_morphfc_combine(*args, residual=res),
-                    lambda: morphfc_fused.morphfc_combine_plain(*args, residual=res),
-                    dtype_check(dtype), primary,
-                    work=((*args, res), 2 * x.numel() * C, peak(dtype)))
+            # the C x C projection; the weighted sum and gate are elementwise;
+            # each gate (tanh on every preset's path)
+            for act in ("tanh", "sigmoid", "relu"):
+                compare("fused_morphfc_combine", (*shape, act), dtype,
+                        lambda: morphfc_fused.fused_morphfc_combine(*args, act=act, residual=res),
+                        lambda: morphfc_fused.morphfc_combine_plain(*args, act=act, residual=res),
+                        dtype_check(dtype), primary and act == "tanh",
+                        work=((*args, res), 2 * x.numel() * C, peak(dtype)))
             del xh, xw, xc, x, res, args
 
         # LTAM forward at the serving shape (stage 0 of a 1x16x180x320 clip,
@@ -427,6 +495,39 @@ def check_kernels(report):
                 bwd_check, primary=dtype == torch.bfloat16,
                 work=((q, kv, pe, den, out, g), N * h * w * K * 4 * 10 * C, "f32"))
         del q, kv, out, den, g
+
+        # LTAM at the wider heads: the forward at the few-levels serving
+        # shape, the backward at its training crop
+        for C, heads, K in LTAM_WIDTHS:
+            d = C // heads
+            for N, h, w in ((1, 128, 128), (1, 64, 64)):
+                q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * d ** -0.5
+                kv = rn(N, h, w, K * 2 * C, dtype=dtype)
+                pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
+                if h == 128:
+                    ms, _, _ = compare(
+                        "ltam_attention_2x2", (N, h, w, C, K, f"d={d}"), dtype,
+                        lambda: ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
+                        lambda: ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
+                        dtype_check(torch.float32), primary=False,
+                        work=((q, kv, pe), N * h * w * K * 4 * 4 * C, "f32"))
+                else:
+                    g = rn(N, h, w, C)
+                    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+                    dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
+                    ms, _, _ = compare(
+                        "ltam_attention_2x2_bwd", (N, h, w, C, K, f"d={d}"), dtype,
+                        lambda: ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g,
+                                                                      K=K, heads=heads),
+                        lambda: ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K,
+                                                                        heads=heads),
+                        bwd_check, primary=False,
+                        work=((q, kv, pe, den, out, g), N * h * w * K * 4 * 10 * C, "f32"))
+                    del g, out, den
+                if dtype == torch.bfloat16:
+                    name = "ltam_attention_2x2" if h == 128 else "ltam_attention_2x2_bwd"
+                    entries[name][f"d{d}"] = {"ms": ms, "at": f"{N}x{h}x{w}x{C} K={K}"}
+                del q, kv
 
         # the conv chain: a trajectory resblock (one frame, residual 0.1;
         # the serving path's shape) and the RCAB branch of a stage-0/6
@@ -697,7 +798,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from vmg_tpu_torch import _build
-    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.configs import FEW_LEVELS_PRESET, FULL_PRESET
     from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
     from vmg_tpu_torch.ops.resize import upsample_trilinear_frames
     from vmg_tpu_torch.serve import SRServer
@@ -765,6 +866,30 @@ def main() -> int:
         if not (torch.isfinite(out_k).all() and e <= tol and counts[need] > 0):
             raise AssertionError(f"kernel-form slice parity failed for {forms}")
         del model
+    torch.cuda.empty_cache()
+
+    report("[3c] slice parity: FEW_LEVELS_PRESET f32 1x2x64x64, kernels on the card vs "
+           "plain versions on CPU tensors, same weights")
+    sd_few = create_model(FEW_LEVELS_PRESET, device="cpu",
+                          generator=torch.Generator().manual_seed(0)).state_dict()
+    cpu_model = create_model(FEW_LEVELS_PRESET, device="cpu")
+    cpu_model.load_state_dict(sd_few)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    zero_counts()
+    with torch.inference_mode():
+        t1 = time.time()
+        want_few = cpu_model(x)
+        t_cpu = time.time() - t1
+        got_few = gpu_model(x.cuda()).cpu()
+    counts = read_counts()
+    err_few = (got_few - want_few).abs().max().item()
+    report(f"    max_abs_err={err_few:.3e} (tol {SLICE_TOL}); CPU plain path {t_cpu:.1f} s; "
+           f"launches {counts}")
+    if not (torch.isfinite(got_few).all() and err_few <= SLICE_TOL):
+        raise AssertionError("few-levels slice parity failed")
+    if min(counts[k] for k in FEW_PATH) <= 0:
+        raise AssertionError(f"the few-levels slice missed a kernel of {FEW_PATH}")
+    del gpu_model, cpu_model
     torch.cuda.empty_cache()
 
     report("[4] serving: SRServer FULL_PRESET bf16 (tanh GELU, fast flow), "
@@ -873,6 +998,41 @@ def main() -> int:
         del server
     torch.cuda.empty_cache()
 
+    few_eval = dataclasses.replace(FEW_LEVELS_PRESET, **FEW_EVAL)
+    d_few = few_eval.embed_dim[0] // few_eval.traj_heads[0]
+    report(f"[4c] serving the few-levels model: SRServer FEW_LEVELS_PRESET with the eval "
+           f"preset's {FEW_EVAL}, bf16, 1x{FEW_T}x{FEW_HW}x{FEW_HW} clips (LTAM head width "
+           f"{d_few}, FFN groups {few_eval.n_groups})")
+    server = SRServer(few_eval, sd_few, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True)
+    few_clips = [rng.random((1, FEW_T, FEW_HW, FEW_HW, 3), dtype=np.float32) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    out = server(few_clips[0])
+    report(f"    warm-up request {time.time() - t1:.2f} s")
+    zero_counts()
+    per_request_few = []
+    t1 = time.time()
+    for c in few_clips[1:]:
+        t2 = time.time()
+        out = server(c)
+        per_request_few.append(FEW_T / (time.time() - t2))
+    dt_few = time.time() - t1
+    few_launches = read_counts()
+    fps_few = FEW_T * (len(few_clips) - 1) / dt_few
+    peak_few = torch.cuda.max_memory_allocated()
+    report(f"    {fps_few:.3f} frames/s ({dt_few / (len(few_clips) - 1):.3f} s per clip, host "
+           f"clock, numpy in/out); per request {[round(v, 3) for v in per_request_few]} "
+           f"frames/s; peak allocated {peak_few / 2**30:.2f} GiB; {kind}; card {smi}")
+    report(f"    launches over the {len(few_clips) - 1} clips: {few_launches}")
+    if out.shape != (1, FEW_T, 4 * FEW_HW, 4 * FEW_HW, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"bad few-levels serving output {out.shape}")
+    missing = [k for k in FEW_PATH if few_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched serving the few-levels model: {missing}")
+    del server
+    torch.cuda.empty_cache()
+
     report(f"[5] train-step parity: FULL_PRESET f32 1x5x64x64, drop_path 0, TF32 off, "
            f"kernels on the card vs plain versions on CPU tensors, same weights")
     parity = train_parity(report, FULL_PRESET)
@@ -921,6 +1081,22 @@ def main() -> int:
         raise AssertionError(f"kernel-norm training failed: losses {losses_k}, "
                              f"norm launches {norm_train}")
 
+    report("[6c] training the few-levels model: as phase 6 on FEW_LEVELS_PRESET, B=1 "
+           f"T={FEW_TRAIN_T} (its num_frames) 64x64 crops, 1 warm-up + 1 timed step")
+    zero_counts()
+    rec_few = train_run(preset="few_levels", batch=1, frames=FEW_TRAIN_T, crop=64, iters=1,
+                        grad_acc=1, remat=True, device="cuda")
+    few_train = read_counts()
+    report(f"    step {rec_few['step_ms_median']:.1f} ms, {rec_few['frames_per_s']:.3f} frames/s, "
+           f"peak allocated {rec_few['peak_bytes'] / 2**30:.2f} GiB, losses "
+           f"{rec_few['loss_first']:.6f} (warm-up) .. {rec_few['loss_last']:.6f}; LTAM head "
+           f"width {FEW_LEVELS_PRESET.embed_dim[0] // FEW_LEVELS_PRESET.traj_heads[0]}; "
+           f"launches over the timed step {few_train}")
+    losses_few = [rec_few["loss_first"], *rec_few["losses"]]
+    if not all(np.isfinite(v) for v in losses_few) or few_train["ltam_attention_2x2_bwd"] <= 0:
+        raise AssertionError(f"few-levels training failed: losses {losses_few}, "
+                             f"LTAM backward launches {few_train['ltam_attention_2x2_bwd']}")
+
     # each kernel's launches on the path that runs it: the LTAM backward in
     # training (phase 6), the conv chain and the norm in kernel-form serving
     # (phase 4b, 3 clips), the pin in the barrier form (phase 4b, 1 clip),
@@ -936,7 +1112,8 @@ def main() -> int:
     kernels = []
     for name, e in entries.items():
         path, counts = paths.get(name, ("serving", serving_launches))
-        extra = {k: e[k] for k in ("module_ms", "hybrid_ms", "n1", "n16") if k in e}
+        extra = {k: v for k, v in e.items() if k in ("module_ms", "hybrid_ms", "n1", "n16")
+                 or k.startswith(("groups", "d"))}
         kernels.append({"name": name, "route": e["route"], "source": e["source"],
                         "replaces": e["replaces"], "launches": counts[name],
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
@@ -949,6 +1126,8 @@ def main() -> int:
                         "launches_training": train_launches[name],
                         "launches_training_norm_kernel": norm_train if name == "fused_norm"
                         else None,
+                        "launches_few_levels_serving": few_launches[name],
+                        "launches_few_levels_training": few_train[name],
                         "bound_bytes": e["bound_bytes"], "bound_flops": e["bound_flops"],
                         "bound_peak": e["bound_peak"], **extra})
     print(json.dumps({"serving": {"frames_per_s": fps, "per_request_frames_per_s": per_request,
@@ -956,9 +1135,12 @@ def main() -> int:
                       "serving_kernel_forms": {
                           "frames_per_s": fps_k, "per_request_frames_per_s": per_request_k,
                           "peak_bytes": peak_k, "bf16_err_64": float(err_kernel),
-                          "bf16_err_64_default": float(err_default)}}))
+                          "bf16_err_64_default": float(err_default)},
+                      "serving_few_levels": {
+                          "frames_per_s": fps_few, "per_request_frames_per_s": per_request_few,
+                          "peak_bytes": peak_few, "slice_max_abs_err": err_few}}))
     print(json.dumps({"training": {**rec, "parity": parity},
-                      "training_norm_kernel": rec_k}))
+                      "training_norm_kernel": rec_k, "training_few_levels": rec_few}))
     print(json.dumps({"probes": {k: entries[k]["probes"] for k in OFF_PATH[1:]}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -47,11 +47,21 @@ def _close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("C,groups", [(16, 4), (32, 1), (112, 4), (224, 4), (448, 4)])
-def test_group_ffn_kernel(cuda, dtype, C, groups):
-    rng = np.random.default_rng(C)
-    Fh = 6 * C
-    x = _randn(rng, (2, 11, 13, C), cuda, dtype)  # odd H, W: ragged tiles
+@pytest.mark.parametrize("C,groups", [(16, 4), (32, 1), (112, 4), (224, 4), (448, 4), (144, 1),
+                                      (256, 2)])
+@pytest.mark.parametrize("N,H,W", [(2, 11, 13), (3, 9, 70)])
+def test_group_ffn_kernel(cuda, dtype, C, groups, N, H, W):
+    """Ragged tiles (odd H and W; 70 columns: a 64-column tile and a
+    6-column one, 9 rows: a partial row band), several frames on the
+    persistent walk; every path width: groups of 4 (cg = 4, 28, 56, 112:
+    borrowed channels at 4, 28 and 56; fg = 168 padded to 176, a last
+    hidden chunk of 32), groups = 1 at C = 32 and the few-levels C = 144
+    (fg = 288); above C = 224 the warpgroups split the output channels
+    (448: fg = 672, a last chunk of 32; 256 at groups 2: 128 channels
+    each).  Two runs are bit-equal."""
+    rng = np.random.default_rng(C + W)
+    Fh = (2 if groups == 1 else 6) * C
+    x = _randn(rng, (N, H, W, C), cuda, dtype)
     w1 = _randn(rng, (Fh, C // groups, 3, 3), cuda, dtype, (9 * C / groups) ** -0.5)
     b1 = _randn(rng, (Fh,), cuda, dtype, 0.1)
     w2 = _randn(rng, (C, Fh), cuda, dtype, 0.02)
@@ -62,12 +72,17 @@ def test_group_ffn_kernel(cuda, dtype, C, groups):
         got = group_conv.fused_group_ffn(*args, groups=groups, act=act)
         assert group_conv.fused_group_ffn.launches == before + 1
         _close(got, group_conv.group_ffn_plain(*args, groups=groups, act=act), dtype)
+        again = group_conv.fused_group_ffn(*args, groups=groups, act=act)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("C", [112, 448])
+@pytest.mark.parametrize("C", [112, 144, 448])
 def test_morphfc_kernels(cuda, dtype, C):
+    """The reduce, and the combine with each gate (tanh, sigmoid - 0.5,
+    relu), with and without the residual."""
     rng = np.random.default_rng(C)
     shape = (3, 18, 12, C)
     x, h, w, c, res = (_randn(rng, shape, cuda, dtype) for _ in range(5))
@@ -77,14 +92,15 @@ def test_morphfc_kernels(cuda, dtype, C):
                                morphfc_fused.morphfc_reduce_plain(h, w, c),
                                atol=1e-3, rtol=1e-5)
     pb = pb.float()
-    for r in (None, res):
-        _close(morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb, residual=r,
-                                                   res_scale=0.5),
-               morphfc_fused.morphfc_combine_plain(x, h, w, c, a, pk, pb, residual=r,
-                                                   res_scale=0.5),
-               dtype)
-    with pytest.raises(ValueError, match="tanh"):
-        morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb, act="sigmoid")
+    for act in ("tanh", "sigmoid", "relu"):
+        for r in (None, res):
+            before = morphfc_fused.fused_morphfc_combine.launches
+            _close(morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb, act=act,
+                                                       residual=r, res_scale=0.5),
+                   morphfc_fused.morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act,
+                                                       residual=r, res_scale=0.5),
+                   dtype)
+            assert morphfc_fused.fused_morphfc_combine.launches == before + 1
 
 
 def _axes_case(rng, H, W, C, dev, dtype):
@@ -191,8 +207,11 @@ def test_probe_wrappers_refuse(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4)])
+@pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4), (2, 32, 2), (3, 144, 4),
+                                        (2, 128, 2), (4, 144, 1)])
 def test_ltam_kernel(cuda, dtype, K, C, heads):
+    """Head widths d = C / heads of 4, 28, 16, 36 (the few-levels preset's:
+    two lanes a head), 64 and 144 (eight lanes), slot counts 1-5."""
     rng = np.random.default_rng(K)
     n, h, w = 2, 8, 12
     q = torch.nn.functional.normalize(_randn(rng, (n, h, w, C), cuda, torch.float32), dim=-1)
@@ -206,7 +225,8 @@ def test_ltam_kernel(cuda, dtype, K, C, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4)])
+@pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4), (2, 32, 2), (3, 144, 4),
+                                        (2, 128, 2), (4, 144, 1)])
 def test_ltam_bwd_kernel(cuda, dtype, K, C, heads):
     """The backward kernel against autograd of the plain forward: dq at
     the f32 tolerance, dkv at its dtype's, dpe (a sum over every pixel)

@@ -53,6 +53,18 @@ def test_group_ffn_plain_matches_pallas(rng, act):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+def test_group_ffn_groups1_matches_xla(rng, act):
+    """groups = 1, hidden 2C (the few-levels preset's FFN, which the port runs
+    in its kernel and ``vmg_tpu`` in its XLA form) against ``vmg_tpu``'s
+    XLA path."""
+    x, k, b, w2, b2, g = _ffn_case(rng, C=32, F=64, g=1)
+    want = np.asarray(j_group_ffn(*map(jnp.asarray, (x, k, b, w2, b2)), groups=g,
+                                  act=act, impl="xla"))
+    got = group_conv.fused_group_ffn(*_ffn_torch_args(x, k, b, w2, b2, g), groups=g, act=act)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
 @pytest.mark.parametrize("H", [16, 18])
 def test_morphfc_reduce_plain_matches_pallas(rng, H):
     h, w, c = (rng.standard_normal((2, H, 12, 16)).astype(np.float32) * 0.1
@@ -168,15 +180,26 @@ def _ltam_case(rng, n=2, K=3, h=8, w=12, C=16, heads=4):
     return q, vals, keys, pe, K, heads
 
 
-def test_ltam_plain_matches_pallas(rng):
-    q, vals, keys, pe, K, heads = _ltam_case(rng)
+def _lanes(C):
+    """C rounded up to the TPU kernel's 128-lane multiple."""
+    return -(-C // 128) * 128
+
+
+# (C, heads): head widths 4, 36 (the few-levels preset's) and 144 (one head)
+LTAM_WIDTHS = [(16, 4), (72, 2), (144, 1)]
+
+
+@pytest.mark.parametrize("C,heads", LTAM_WIDTHS)
+def test_ltam_plain_matches_pallas(rng, C, heads):
+    q, vals, keys, pe, K, heads = _ltam_case(rng, C=C, heads=heads)
     n, h, w, C = q.shape
+    Cp = _lanes(C)
 
-    def pad128(v):
-        return np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, 128 - C)])
+    def pad(v):
+        return np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, Cp - C)])
 
-    kv_tpu = np.stack([pad128(vals), pad128(keys)], axis=-2).reshape(n, h, w, K * 256)
-    want = np.asarray(j_ltam(jnp.asarray(pad128(q)), jnp.asarray(kv_tpu),
+    kv_tpu = np.stack([pad(vals), pad(keys)], axis=-2).reshape(n, h, w, K * 2 * Cp)
+    want = np.asarray(j_ltam(jnp.asarray(pad(q)), jnp.asarray(kv_tpu),
                              jnp.asarray(pe), K=K, heads=heads, C=C,
                              interpret=True))[..., :C]
     kv = np.stack([vals, keys], axis=-2).reshape(n, h, w, K * 2 * C)
@@ -193,9 +216,8 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
                 ltam_attention.ltam_attention_2x2)
     before = [f.launches for f in wrappers]
     with pytest.raises(ValueError, match="CUDA"):
-        group_conv.fused_group_ffn(m, torch.empty(4, 36, 24, device="meta"),
+        group_conv.fused_group_ffn(m, torch.empty(4 * 24 * (36 + 16), device="meta"),
                                    torch.empty(96, device="meta"),
-                                   torch.empty(4, 24, 16, device="meta"),
                                    torch.empty(16, device="meta"), groups=4)
     with pytest.raises(ValueError, match="CUDA"):
         k, b = torch.empty(16, 16, device="meta"), torch.empty(16, device="meta")
@@ -219,16 +241,19 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     assert ltam_attention.ltam_attention_2x2.bwd_launches == bwd_before
 
 
-def test_ltam_plain_grads_match_pallas_vjp():
+@pytest.mark.parametrize("C,heads", LTAM_WIDTHS)
+def test_ltam_plain_grads_match_pallas_vjp(C, heads):
     """Gradients of the port's plain LTAM (autograd through normalize, kv
     packing and the exp(pe) factors) against ``jax.grad`` of the Pallas
     kernel's custom VJP in interpret mode: the inputs and tolerance of
-    ``tests/test_fused_layouts.py::test_pallas_ltam_attention_grad_matches_autodiff``."""
+    ``tests/test_fused_layouts.py::test_pallas_ltam_attention_grad_matches_autodiff``,
+    at each head width."""
     import jax
     from vmg_tpu.models.trajectory import _normalize as j_normalize
 
     rng = np.random.default_rng(33)
-    n, K, h, w, C, heads = 1, 2, 6, 8, 16, 4
+    n, K, h, w = 1, 2, 6, 8
+    Cp = _lanes(C)
     scale = (C // heads) ** -0.5
     curr = rng.standard_normal((n, h, w, C)).astype(np.float32)
     keys = rng.standard_normal((n, K, h, w, C)).astype(np.float32)
@@ -238,12 +263,12 @@ def test_ltam_plain_grads_match_pallas_vjp():
     slot_decay = decay.ltam_decay_np(heads, K)
 
     def f_pallas(curr, keys, vals, rpe):
-        def pad128(x):
-            return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, 128 - C)])
+        def pad(x):
+            return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, Cp - C)])
 
-        qk = pad128(j_normalize(curr) * scale)
-        kv = jnp.stack([pad128(vals), pad128(j_normalize(keys))], axis=-2)
-        kv = kv.transpose(0, 2, 3, 1, 4, 5).reshape(n, h, w, K * 256)
+        qk = pad(j_normalize(curr) * scale)
+        kv = jnp.stack([pad(vals), pad(j_normalize(keys))], axis=-2)
+        kv = kv.transpose(0, 2, 3, 1, 4, 5).reshape(n, h, w, K * 2 * Cp)
         pef = jnp.exp(jnp.einsum("ek,ept->ktpe", slot_decay, rpe))
         out = j_ltam(qk, kv, pef, K=K, heads=heads, C=C, interpret=True)[..., :C]
         return jnp.sum(out * cot)

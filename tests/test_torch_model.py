@@ -22,11 +22,14 @@ import jax
 import jax.numpy as jnp
 
 from vmg_tpu.ckpt.torch_convert import convert_torch_state_dict, export_torch_state_dict
-from vmg_tpu.configs import FULL_PRESET as J_FULL, TINY_TEST_PRESET as J_TINY
+from vmg_tpu.configs import FEW_LEVELS_PRESET as J_FEW, FULL_PRESET as J_FULL
+from vmg_tpu.configs import TINY_TEST_PRESET as J_TINY
 from vmg_tpu.configs import VMGNetworkConfig as JConfig
 from vmg_tpu.models import create_model as j_create_model
 import vmg_tpu_torch
-from vmg_tpu_torch.configs import FULL_PRESET, TINY_TEST_PRESET, VMGNetworkConfig
+from vmg_tpu_torch.configs import (FEW_LEVELS_PRESET, FULL_PRESET, TINY_TEST_PRESET,
+                                   VMGNetworkConfig)
+from vmg_tpu_torch.models.vmg import check_supported
 from vmg_tpu_torch.ops.resize import upsample_trilinear_frames
 from vmg_tpu_torch.serve import SRServer
 from vmg_tpu_torch.weights import state_dict_from_jax
@@ -160,14 +163,45 @@ def test_weights_follow_reference_export(seven_stage):
         assert tuple(v.shape) == tuple(sd[k].shape), k
 
 
-@pytest.mark.parametrize("name", ["FULL_PRESET", "TINY_TEST_PRESET"])
+@pytest.mark.parametrize("name", ["FULL_PRESET", "TINY_TEST_PRESET", "FEW_LEVELS_PRESET"])
 def test_config_fields_match_jax(name):
-    mine = {"FULL_PRESET": FULL_PRESET, "TINY_TEST_PRESET": TINY_TEST_PRESET}[name]
-    ref = {"FULL_PRESET": J_FULL, "TINY_TEST_PRESET": J_TINY}[name]
+    """Each preset equals ``vmg_tpu``'s field by field, and the ported slice
+    takes it (``check_supported``: the few-levels preset's LTAM head width
+    36 and FFN groups 1 included)."""
+    mine = {"FULL_PRESET": FULL_PRESET, "TINY_TEST_PRESET": TINY_TEST_PRESET,
+            "FEW_LEVELS_PRESET": FEW_LEVELS_PRESET}[name]
+    ref = {"FULL_PRESET": J_FULL, "TINY_TEST_PRESET": J_TINY, "FEW_LEVELS_PRESET": J_FEW}[name]
     for f in dataclasses.fields(mine):
         assert getattr(mine, f.name) == getattr(ref, f.name), f.name
     for prop in ("num_layers", "num_enc_layers", "num_dec_layers", "scale_factor"):
         assert getattr(mine, prop) == getattr(ref, prop), prop
+    check_supported(mine)
+
+
+# the few-levels preset's shape at a tiny width: 3 stages of one width,
+# groups 1, hidden 2C, two trajectory heads of 36 channels
+FEW_SHAPED = dict(dataclasses.asdict(TINY_TEST_PRESET), embed_dim=(72, 72, 72),
+                  depths=(1, 1, 1), num_heads=(2, 4, 2), traj_heads=(2, None),
+                  traj_res_n=(1, 0, 1))
+
+
+def test_few_levels_shape_matches_jax():
+    """A forward of the few-levels shape (C = 72, LTAM head width 36, FFN
+    groups 1) against ``vmg_tpu``'s, f32, at the golden's tolerances."""
+    cfg = VMGNetworkConfig(**FEW_SHAPED)
+    assert (cfg.n_groups, cfg.embed_dim[0] // cfg.traj_heads[0]) == (1, 36)
+    port = vmg_tpu_torch.create_model(cfg, device="cpu",
+                                      generator=torch.Generator().manual_seed(0))
+    params = convert_torch_state_dict(
+        {k: v.numpy() for k, v in port.state_dict().items()}, strict=True)
+    model = j_create_model(JConfig(**FEW_SHAPED), is_train=False)
+    x = np.random.default_rng(2).random((1, 3, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(model.apply)(jax.tree.map(jnp.asarray, params), jnp.asarray(x)))
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+    up = upsample_trilinear_frames(torch.from_numpy(x), 4).numpy()
+    np.testing.assert_allclose(got - up, want - up, atol=2e-5)
 
 
 def test_server_contract():

@@ -7,8 +7,9 @@ plain PyTorch version beside it in ``ops/``; CPU tensors take the plain
 version, CUDA tensors the kernel.
 """
 
-from vmg_tpu_torch.configs import FULL_PRESET, TINY_TEST_PRESET, VMGNetworkConfig
+from vmg_tpu_torch.configs import (FEW_LEVELS_PRESET, FULL_PRESET, TINY_TEST_PRESET,
+                                   VMGNetworkConfig)
 from vmg_tpu_torch.models.vmg import VMG, create_model
 
-__all__ = ["FULL_PRESET", "TINY_TEST_PRESET", "VMGNetworkConfig", "VMG",
+__all__ = ["FEW_LEVELS_PRESET", "FULL_PRESET", "TINY_TEST_PRESET", "VMGNetworkConfig", "VMG",
            "create_model"]

@@ -34,12 +34,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # x, w1, b1, w2, b2, out, N, H, W, C, G, fg, act, dtype, stream
-    "vmg_group_ffn": [_P] * 6 + [_I] * 8 + [_P],
+    # x, w, b1, b2, out, N, H, W, C, G, fgp, act, dtype, stream
+    "vmg_group_ffn": [_P] * 5 + [_I] * 8 + [_P],
     # h, w, c, partial, out, N, P, C, S, dtype, stream
     "vmg_morphfc_reduce": [_P] * 5 + [_I] * 5 + [_P],
-    # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, dtype, stream
-    "vmg_morphfc_combine": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, act, dtype, stream
+    "vmg_morphfc_combine": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
     # x, c, kh, bh, kw, bw, h, w, partial, psum, N, H, W, C, ch, cw, WT,
     # dtype, stream
     "vmg_morphfc_axes": [_P] * 10 + [_I] * 8 + [_P],

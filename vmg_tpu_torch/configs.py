@@ -135,6 +135,10 @@ class TrainConfig:
     aux_ratio: float = 0.005
 
 
+# the defaults: the few-levels model (vmg_reds_few_levels.yml and
+# vmg_eval_reds4_few_levels.yml in the JAX package's presets)
+FEW_LEVELS_PRESET = VMGNetworkConfig()
+
 FULL_PRESET = VMGNetworkConfig(
     embed_dim=(112, 224, 224, 448, 224, 224, 112),
     depths=(4, 4, 2, 2, 2, 4, 4),

@@ -68,8 +68,6 @@
 // * f32 (parity runs): scalar FMA, one block per 8 x 8 output tile, the
 //   12 x 12 slab and the 10 x 10 intermediate in shared memory, 16 x 16
 //   register micro-tiles; unpadded weights.
-#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry points
-
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -123,73 +121,6 @@ struct ConvArgs {
   float res_scale;
 };
 
-__device__ __forceinline__ unsigned su32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(su32(b)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(su32(b)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* b, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(su32(b)),
-               "r"(bytes)
-               : "memory");
-}
-// wait until the phase of parity `parity` has completed; a wait of more
-// than ~2^35 cycles (a lost arrival) traps instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  unsigned done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(su32(b)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1LL << 35)) __trap();
-  }
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(su32(dst)), "l"(src), "r"(bytes), "r"(su32(b))
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(su32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(su32(b))
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, no swizzle: core matrices of 8 rows x 16
-// bytes (128 contiguous bytes); lbo: bytes between the two core matrices of a
-// k16 step, sbo: bytes between 8-row groups.
-__device__ __forceinline__ uint64_t mat_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int K>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
-}
-// keep the compiler from moving accumulator reads or writes across wgmma
-template <int R>
-__device__ __forceinline__ void pin_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
@@ -567,62 +498,13 @@ inline int chain_tiles(int H, int W, int dtype, int* tiles_w) {
   return ((H + R - 1) / R) * *tiles_w;
 }
 
-template <typename K>
-int set_smem(K kern, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links no libcuda of its own.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
 // The slab map over an (N, H, W, C) bf16 tensor: boxes of 8 channels x kSW
 // columns x kSR rows of one frame, zeros out of bounds.
 inline int slab_map(CUtensorMap* map, const void* t, int N, int H, int W, int C) {
-  EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {8, kSW, kSR, 1}, elem[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides,
-                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return nhwc_box_map(map, t, N, H, W, C, kSW, kSR);
 }
 
 static bool smem_limit_set[128 / 16 + 1];
-
-// SMs of the current device (the persistent grids' size), asked once.
-inline int sm_count() {
-  static int sms[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64) return 132;
-  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-  return sms[dev];
-}
 
 template <int Np>
 int launch_conv(const bf16* src, ConvArgs a, int N, cudaStream_t s) {

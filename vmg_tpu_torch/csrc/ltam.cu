@@ -22,10 +22,13 @@
 //
 // Bound on H100: device-memory traffic.  A forward step reads the 4 taps
 // of K * 2C channels for every pixel (K = 5 at stage 0: 2.2 KB per pixel
-// in bf16) and does ~4 FLOPs per element read.  Design: one thread per
-// (pixel, head) holding its d = C/heads query and numerator values in
-// registers; the 4 pixels of a window read the same taps, back to back
-// in the same warp, so the re-reads hit L1.
+// in bf16) and does ~4 FLOPs per element read.  Design: one group of L
+// lanes per (pixel, head) holding its d = C/heads query and numerator
+// values in registers, at most 32 a lane (L = 1 up to d = 32, 2 up to 64,
+// ..., 32 up to d = 1024: every head width of the repo's presets; the
+// few-levels preset's d = 36 runs with L = 2); the 4 pixels of a window
+// read the same taps, back to back in the same warp, so the re-reads hit
+// L1.
 //
 // Backward, from the saved q, kv, pe, den, out and the cotangent g, with
 // p = exp(logit) * pe / den and s = (g . out) per head:
@@ -36,10 +39,10 @@
 //
 // The TPU kernel ran the adjoint of tap selection as a 2x2 window sum
 // inside one tile and carried dpe across its sequential grid.  Here:
-//   1. a query pass (one thread per (pixel, head), as the forward) writes
+//   1. a query pass (one group per (pixel, head), as the forward) writes
 //      dq and, per (pixel, slot, tap, head), p, dlogit and the dpe term to
 //      a float scratch (N*H*W*K*4*heads each);
-//   2. a source pass (one thread per (source pixel, slot, head)): a
+//   2. a source pass (one group per (source pixel, slot, head)): a
 //      source at in-window position t is read, for tap t, by exactly the
 //      4 queries of its own window, so dval and dkey are 4-term sums in a
 //      fixed order -- no atomics;
@@ -52,16 +55,61 @@
 
 namespace vmg {
 
-constexpr int kLtamD = 32;  // largest head width held in registers
+// Head widths: each (pixel, head) is a group of L lanes (L = 1, 2, ..., 32,
+// the least power of two with L * kLtamR >= d), lane j holding elements
+// j, j + L, j + 2L, ... of the head in registers, so neighbouring lanes read
+// neighbouring channels.  Dot products are summed per lane in element
+// order, then across the group by a butterfly of __shfl_xor_sync, after
+// which every lane holds the same bits (each level adds the same two
+// values).  L = 1 (d <= 32) is one thread per (pixel, head), no shuffle.
+constexpr int kLtamR = 32;                  // head elements per lane
+constexpr int kLtamMaxD = kLtamR * 32;      // 1024
 
-template <typename T>
+__host__ __device__ inline int ltam_lanes(int d) {
+  int L = 1;
+  while (L * kLtamR < d) L *= 2;
+  return L;
+}
+
+// LF = 1: one lane per (pixel, head) (d <= 32), everything a compile-time
+// constant, the code of a plain per-thread loop; LF = 0: L lanes, L given
+// at run time.
+template <int LF>
+struct LtamLane {
+  int L, j;       // group size, this lane's index in its group
+  unsigned mask;  // the group's lanes of the warp
+  __device__ LtamLane(int lanes)
+      : L(LF == 1 ? 1 : lanes), j(LF == 1 ? 0 : threadIdx.x & (lanes - 1)) {
+    mask = LF == 1 || lanes == 32
+               ? 0xffffffffu
+               : ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+  }
+  __device__ __forceinline__ float sum(float v) const {
+    if constexpr (LF != 1)
+      for (int o = L >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+    return v;
+  }
+  __device__ __forceinline__ int at(int i) const {
+    if constexpr (LF == 1)
+      return i;
+    else
+      return i * L + j;
+  }
+  __device__ __forceinline__ bool has(int i, int d) const { return at(i) < d; }
+};
+
+// One group per (pixel, head): idx = group index (pix * heads + e).
+template <typename T, int LF>
 __global__ void __launch_bounds__(256)
 ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
                 const float* __restrict__ pe, float* __restrict__ out,
                 float* __restrict__ den_out, long long total, int H, int W,
-                int C, int K, int heads) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
+                int C, int K, int heads, int lanes) {
+  const long long gidx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int shift = LF == 1 ? 0 : __ffs(lanes) - 1;  // lanes is a power of two
+  if (gidx >= (total << shift)) return;  // whole groups: total * lanes threads
+  const LtamLane<LF> ln(lanes);
+  const long long idx = gidx >> shift;
   const int e = (int)(idx % heads);
   const long long pix = idx / heads;
   const int col = (int)(pix % W);
@@ -71,11 +119,11 @@ ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
   const int d = C / heads;
   const int pos = (row & 1) * 2 + (col & 1);
 
-  float qv[kLtamD], num[kLtamD];
+  float qv[kLtamR], num[kLtamR];
   const float* qp = q + pix * C + e * d;
 #pragma unroll
-  for (int i = 0; i < kLtamD; ++i) {
-    qv[i] = i < d ? qp[i] : 0.f;
+  for (int i = 0; i < kLtamR; ++i) {
+    qv[i] = ln.has(i, d) ? qp[ln.at(i)] : 0.f;
     num[i] = 0.f;
   }
   float den = 0.f;
@@ -89,35 +137,39 @@ ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
       const T* key = base + C;
       float logit = 0.f;
 #pragma unroll
-      for (int i = 0; i < kLtamD; ++i)
-        if (i < d) logit = fmaf(qv[i], to_f<T>(key[i]), logit);
+      for (int i = 0; i < kLtamR; ++i)
+        if (ln.has(i, d)) logit = fmaf(qv[i], to_f<T>(key[ln.at(i)]), logit);
+      logit = ln.sum(logit);
       const float ex = expf(logit) * pe[((k * 4 + tap) * 4 + pos) * heads + e];
       den += ex;
 #pragma unroll
-      for (int i = 0; i < kLtamD; ++i)
-        if (i < d) num[i] = fmaf(ex, to_f<T>(val[i]), num[i]);
+      for (int i = 0; i < kLtamR; ++i)
+        if (ln.has(i, d)) num[i] = fmaf(ex, to_f<T>(val[ln.at(i)]), num[i]);
     }
   }
-  if (den_out != nullptr) den_out[idx] = den;
+  if (den_out != nullptr && ln.j == 0) den_out[idx] = den;
   const float dd = fmaxf(den, 1e-30f);
   float* op = out + pix * C + e * d;
 #pragma unroll
-  for (int i = 0; i < kLtamD; ++i)
-    if (i < d) op[i] = num[i] / dd;
+  for (int i = 0; i < kLtamR; ++i)
+    if (ln.has(i, d)) op[ln.at(i)] = num[i] / dd;
 }
 
-// Pass 1 of the backward: one thread per (pixel, head).  Scratch index of
+// Pass 1 of the backward: one group per (pixel, head).  Scratch index of
 // (pixel, slot k, tap, head): ((pix * K + k) * 4 + tap) * heads + e.
-template <typename T>
+template <typename T, int LF>
 __global__ void __launch_bounds__(256)
 ltam_bwd_query_kernel(const float* __restrict__ q, const T* __restrict__ kv,
                       const float* __restrict__ pe, const float* __restrict__ den_in,
                       const float* __restrict__ out, const float* __restrict__ g,
                       float* __restrict__ dq, float* __restrict__ sp,
                       float* __restrict__ sdl, float* __restrict__ sdpe,
-                      long long total, int H, int W, int C, int K, int heads) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
+                      long long total, int H, int W, int C, int K, int heads, int lanes) {
+  const long long gidx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int shift = LF == 1 ? 0 : __ffs(lanes) - 1;
+  if (gidx >= (total << shift)) return;
+  const LtamLane<LF> ln(lanes);
+  const long long idx = gidx >> shift;
   const int e = (int)(idx % heads);
   const long long pix = idx / heads;
   const int col = (int)(pix % W);
@@ -127,18 +179,20 @@ ltam_bwd_query_kernel(const float* __restrict__ q, const T* __restrict__ kv,
   const int d = C / heads;
   const int pos = (row & 1) * 2 + (col & 1);
 
-  float qv[kLtamD], gv[kLtamD], dqv[kLtamD];
+  float qv[kLtamR], gv[kLtamR], dqv[kLtamR];
   const float* qp = q + pix * C + e * d;
   const float* gp = g + pix * C + e * d;
   const float* op = out + pix * C + e * d;
   float s = 0.f;  // (g . out) over the head
 #pragma unroll
-  for (int i = 0; i < kLtamD; ++i) {
-    qv[i] = i < d ? qp[i] : 0.f;
-    gv[i] = i < d ? gp[i] : 0.f;
+  for (int i = 0; i < kLtamR; ++i) {
+    const bool ok = ln.has(i, d);
+    qv[i] = ok ? qp[ln.at(i)] : 0.f;
+    gv[i] = ok ? gp[ln.at(i)] : 0.f;
     dqv[i] = 0.f;
-    if (i < d) s = fmaf(gv[i], op[i], s);
+    if (ok) s = fmaf(gv[i], op[ln.at(i)], s);
   }
+  s = ln.sum(s);
   const float den = fmaxf(den_in[idx], 1e-30f);
   const size_t slot_stride = 2 * (size_t)C;
   for (int k = 0; k < K; ++k) {
@@ -150,38 +204,46 @@ ltam_bwd_query_kernel(const float* __restrict__ q, const T* __restrict__ kv,
       const T* key = base + C;
       float logit = 0.f, gval = 0.f;
 #pragma unroll
-      for (int i = 0; i < kLtamD; ++i)
-        if (i < d) {
-          logit = fmaf(qv[i], to_f<T>(key[i]), logit);
-          gval = fmaf(gv[i], to_f<T>(val[i]), gval);
+      for (int i = 0; i < kLtamR; ++i)
+        if (ln.has(i, d)) {
+          logit = fmaf(qv[i], to_f<T>(key[ln.at(i)]), logit);
+          gval = fmaf(gv[i], to_f<T>(val[ln.at(i)]), gval);
         }
+      logit = ln.sum(logit);
+      gval = ln.sum(gval);
       const float el = expf(logit);
       const float p = el * pe[((k * 4 + tap) * 4 + pos) * heads + e] / den;
       const float dl = p * (gval - s);
 #pragma unroll
-      for (int i = 0; i < kLtamD; ++i)
-        if (i < d) dqv[i] = fmaf(dl, to_f<T>(key[i]), dqv[i]);
-      const long long si = ((pix * K + k) * 4 + tap) * heads + e;
-      sp[si] = p;
-      sdl[si] = dl;
-      sdpe[si] = el * (gval - s) / den;
+      for (int i = 0; i < kLtamR; ++i)
+        if (ln.has(i, d)) dqv[i] = fmaf(dl, to_f<T>(key[ln.at(i)]), dqv[i]);
+      if (ln.j == 0) {
+        const long long si = ((pix * K + k) * 4 + tap) * heads + e;
+        sp[si] = p;
+        sdl[si] = dl;
+        sdpe[si] = el * (gval - s) / den;
+      }
     }
   }
   float* dqp = dq + pix * C + e * d;
 #pragma unroll
-  for (int i = 0; i < kLtamD; ++i)
-    if (i < d) dqp[i] = dqv[i];
+  for (int i = 0; i < kLtamR; ++i)
+    if (ln.has(i, d)) dqp[ln.at(i)] = dqv[i];
 }
 
-// Pass 2: one thread per (source pixel, slot, head); its window's 4
-// queries in position order.
+// Pass 2: one group per (source pixel, slot, head), each lane its slice of
+// the head (no reduction); its window's 4 queries in position order.
+template <int LF>
 __global__ void __launch_bounds__(256)
 ltam_bwd_source_kernel(const float* __restrict__ q, const float* __restrict__ g,
                        const float* __restrict__ sp, const float* __restrict__ sdl,
                        float* __restrict__ dkv, long long total, int H, int W,
-                       int C, int K, int heads) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
+                       int C, int K, int heads, int lanes) {
+  const long long gidx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int shift = LF == 1 ? 0 : __ffs(lanes) - 1;
+  if (gidx >= (total << shift)) return;
+  const LtamLane<LF> ln(lanes);
+  const long long idx = gidx >> shift;
   const int e = (int)(idx % heads);
   const int k = (int)((idx / heads) % K);
   const long long spix = idx / ((long long)heads * K);
@@ -192,9 +254,9 @@ ltam_bwd_source_kernel(const float* __restrict__ q, const float* __restrict__ g,
   const int d = C / heads;
   const int tap = (sr & 1) * 2 + (sc & 1);
 
-  float dval[kLtamD], dkey[kLtamD];
+  float dval[kLtamR], dkey[kLtamR];
 #pragma unroll
-  for (int i = 0; i < kLtamD; ++i) dval[i] = dkey[i] = 0.f;
+  for (int i = 0; i < kLtamR; ++i) dval[i] = dkey[i] = 0.f;
   for (int qpos = 0; qpos < 4; ++qpos) {
     const int qr = (sr & ~1) + (qpos >> 1), qc = (sc & ~1) + (qpos & 1);
     const long long qpix = (n * H + qr) * W + qc;
@@ -203,18 +265,18 @@ ltam_bwd_source_kernel(const float* __restrict__ q, const float* __restrict__ g,
     const float* gp = g + qpix * C + e * d;
     const float* qp = q + qpix * C + e * d;
 #pragma unroll
-    for (int i = 0; i < kLtamD; ++i)
-      if (i < d) {
-        dval[i] = fmaf(p, gp[i], dval[i]);
-        dkey[i] = fmaf(dl, qp[i], dkey[i]);
+    for (int i = 0; i < kLtamR; ++i)
+      if (ln.has(i, d)) {
+        dval[i] = fmaf(p, gp[ln.at(i)], dval[i]);
+        dkey[i] = fmaf(dl, qp[ln.at(i)], dkey[i]);
       }
   }
   float* vp = dkv + (size_t)spix * K * 2 * C + (size_t)k * 2 * C + e * d;
 #pragma unroll
-  for (int i = 0; i < kLtamD; ++i)
-    if (i < d) {
-      vp[i] = dval[i];
-      vp[C + i] = dkey[i];
+  for (int i = 0; i < kLtamR; ++i)
+    if (ln.has(i, d)) {
+      vp[ln.at(i)] = dval[i];
+      vp[C + ln.at(i)] = dkey[i];
     }
 }
 
@@ -255,7 +317,7 @@ ltam_bwd_dpe_final_kernel(const float* __restrict__ partial, float* __restrict__
 }  // namespace vmg
 
 static bool ltam_shape_ok(int C, int heads, int H, int W) {
-  return heads >= 1 && C % heads == 0 && C / heads <= vmg::kLtamD && H % 2 == 0 &&
+  return heads >= 1 && C % heads == 0 && C / heads <= vmg::kLtamMaxD && H % 2 == 0 &&
          W % 2 == 0;
 }
 
@@ -264,12 +326,13 @@ extern "C" int vmg_ltam_fwd(const float* q, const void* kv, const float* pe,
                             int K, int heads, int dtype, void* stream) {
   if (!ltam_shape_ok(C, heads, H, W)) return (int)cudaErrorInvalidValue;
   const long long total = (long long)N * H * W * heads;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
+  const int threads = 256, L = vmg::ltam_lanes(C / heads);
+  const long long blocks = (total * L + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
   VMG_DISPATCH_DTYPE(dtype, T, {
-    vmg::ltam_fwd_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
-        q, (const T*)kv, pe, out, den, total, H, W, C, K, heads);
+    auto kern = L == 1 ? vmg::ltam_fwd_kernel<T, 1> : vmg::ltam_fwd_kernel<T, 0>;
+    kern<<<(unsigned)blocks, threads, 0, st>>>(q, (const T*)kv, pe, out, den, total, H, W, C, K,
+                                               heads, L);
   });
   return (int)cudaGetLastError();
 }
@@ -288,21 +351,20 @@ extern "C" int vmg_ltam_bwd(const float* q, const void* kv, const float* pe,
   float* sp = scratch;
   float* sdl = scratch + terms;
   float* sdpe = scratch + 2 * terms;
-  const int threads = 256;
+  const int threads = 256, L = vmg::ltam_lanes(C / heads);
   cudaStream_t st = (cudaStream_t)stream;
   const long long qtotal = P * heads;
   VMG_DISPATCH_DTYPE(dtype, T, {
-    vmg::ltam_bwd_query_kernel<T><<<(unsigned)((qtotal + threads - 1) / threads),
-                                    threads, 0, st>>>(
-        q, (const T*)kv, pe, den, out, g, dq, sp, sdl, sdpe, qtotal, H, W, C, K,
-        heads);
+    auto kern = L == 1 ? vmg::ltam_bwd_query_kernel<T, 1> : vmg::ltam_bwd_query_kernel<T, 0>;
+    kern<<<(unsigned)((qtotal * L + threads - 1) / threads), threads, 0, st>>>(
+        q, (const T*)kv, pe, den, out, g, dq, sp, sdl, sdpe, qtotal, H, W, C, K, heads, L);
   });
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long stotal = P * K * heads;
-  vmg::ltam_bwd_source_kernel<<<(unsigned)((stotal + threads - 1) / threads), threads,
-                                0, st>>>(q, g, sp, sdl, dkv, stotal, H, W, C, K,
-                                         heads);
+  auto src_kern = L == 1 ? vmg::ltam_bwd_source_kernel<1> : vmg::ltam_bwd_source_kernel<0>;
+  src_kern<<<(unsigned)((stotal * L + threads - 1) / threads), threads, 0, st>>>(
+      q, g, sp, sdl, dkv, stotal, H, W, C, K, heads, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long chunk = (P + S - 1) / S;

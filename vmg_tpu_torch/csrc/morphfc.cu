@@ -66,12 +66,27 @@
 // written once.  bf16 (serving) projects on the tensor cores (wmma, f32
 // accumulation); f32 (parity runs) with scalar FMAs in the FFN kernel's
 // 16 x 16 register micro-tiles.  A nullable residual pointer covers both
-// TPU variants.  The gate is tanh, the only one a configuration selects.
+// TPU variants.  The gate, act: 0 tanh(p), 1 sigmoid(p) - 0.5, 2 relu(p);
+// in bf16 it rounds where the TPU kernel's gate in the output dtype does
+// (the sigmoid, then the subtraction).
 #include "common.cuh"
 
 #include <algorithm>
 
 namespace vmg {
+
+// the combine's symmetric gate of p (ACT: 0 tanh, 1 sigmoid - 0.5, 2 relu),
+// rounded through T as the plain version's ops in T round; a template
+// argument, so each kernel's epilogue holds only its own gate
+template <typename T, int ACT>
+__device__ __forceinline__ float symm_gate(float p) {
+  if constexpr (ACT == 1)
+    return rnd<T>(rnd<T>(1.f / (1.f + expf(-p))) - 0.5f);
+  else if constexpr (ACT == 2)
+    return fmaxf(p, 0.f);
+  else
+    return rnd<T>(tanhf(p));
+}
 
 constexpr int kRedX = 64;  // channel lanes of the reduce block
 constexpr int kRedY = 4;   // pixel lanes of the reduce block
@@ -124,7 +139,7 @@ __global__ void morphfc_final_kernel(const float* __restrict__ partial,
 
 // f32 (parity runs): the projection as scalar FMAs in 16 x 16 register
 // micro-tiles, the weighted sums staged in shared memory.
-template <int PR, int ORMAX>
+template <int PR, int ORMAX, int ACT>
 __global__ void __launch_bounds__(kThreads)
 morphfc_combine_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
                            const float* __restrict__ w, const float* __restrict__ c,
@@ -178,21 +193,20 @@ morphfc_combine_f32_kernel(const float* __restrict__ x, const float* __restrict_
     for (int j = 0; j < ORMAX; ++j) {
       if (j >= OR) continue;
       const float pv = acc[i][j] + pb[tx + 16 * j];
-      float o = (x[base + 16 * j] + pv) * tanhf(pv);
+      float o = (x[base + 16 * j] + pv) * symm_gate<float, ACT>(pv);
       if (res != nullptr) o = res[base + 16 * j] + res_scale * o;
       out[base + 16 * j] = o;
     }
   }
 }
 
-template <int PR, int ORMAX>
+template <int PR, int ORMAX, int ACT>
 int launch_combine_f32(const float* x, const float* h, const float* w,
                        const float* c, const float* a, const float* pk,
                        const float* pb, const float* res, float* out, int N,
-                       int P, int C, float res_scale,
-                       cudaStream_t stream) {
+                       int P, int C, float res_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 16 * PR * C;
-  auto kern = morphfc_combine_f32_kernel<PR, ORMAX>;
+  auto kern = morphfc_combine_f32_kernel<PR, ORMAX, ACT>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -213,6 +227,7 @@ __host__ __device__ inline size_t combine_bf16_smem(int C) {
   return (size_t)kCP * ((C + kPadH) * 2 + (C + kPadF) * 4);
 }
 
+template <int ACT>
 __global__ void __launch_bounds__(kThreads)
 morphfc_combine_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
                             const bf16* __restrict__ w, const bf16* __restrict__ c,
@@ -262,29 +277,42 @@ morphfc_combine_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__
     if (p0 + p >= P) continue;
     const size_t idx = ((size_t)n * P + p0 + p) * C + o;
     const float pv = rnd<bf16>(acc[p * lda + o] + pb[o]);
-    float r = rnd<bf16>(rnd<bf16>(to_f<bf16>(x[idx]) + pv) * rnd<bf16>(tanhf(pv)));
+    float r = rnd<bf16>(rnd<bf16>(to_f<bf16>(x[idx]) + pv) * symm_gate<bf16, ACT>(pv));
     if (res != nullptr)
       r = rnd<bf16>(to_f<bf16>(res[idx]) + rnd<bf16>(res_scale * r));
     out[idx] = from_f<bf16>(r);
   }
 }
 
+template <int ACT>
 int launch_combine_bf16(const bf16* x, const bf16* h, const bf16* w,
                         const bf16* c, const bf16* a, const bf16* pk,
                         const float* pb, const bf16* res, bf16* out, int N,
-                        int P, int C, float res_scale,
-                        cudaStream_t stream) {
+                        int P, int C, float res_scale, cudaStream_t stream) {
   const size_t smem = combine_bf16_smem(C);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(morphfc_combine_bf16_kernel,
+    cudaError_t e = cudaFuncSetAttribute(morphfc_combine_bf16_kernel<ACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((P + kCP - 1) / kCP, N);
-  morphfc_combine_bf16_kernel<<<grid, kThreads, smem, stream>>>(
+  morphfc_combine_bf16_kernel<ACT><<<grid, kThreads, smem, stream>>>(
       x, h, w, c, a, pk, pb, res, out, P, C, res_scale);
   return (int)cudaGetLastError();
+}
+
+// the f32 kernel for C's register micro-tile
+template <int ACT>
+int launch_combine_f32_any(const float* x, const float* h, const float* w, const float* c,
+                           const float* a, const float* pk, const float* pb, const float* res,
+                           float* out, int N, int P, int C, float res_scale, cudaStream_t st) {
+  const int OR = C / 16;
+  if (OR <= 7)
+    return launch_combine_f32<4, 7, ACT>(x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, st);
+  if (OR <= 14)
+    return launch_combine_f32<2, 14, ACT>(x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, st);
+  return launch_combine_f32<1, 28, ACT>(x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, st);
 }
 
 // ---- axes: both decayed axis branches + reweight partial sums --------------
@@ -784,29 +812,26 @@ extern "C" int vmg_morphfc_reduce(const void* h, const void* w, const void* c,
 }
 
 // x, h, w, c, res, out: (N, P, C); a: (N, 3, C); pk: (C_in, C_out); pb: (C,)
-// f32; res may be null.
+// f32; res may be null; act: the gate (0 tanh, 1 sigmoid - 0.5, 2 relu).
 extern "C" int vmg_morphfc_combine(const void* x, const void* h, const void* w,
                                    const void* c, const void* a, const void* pk,
                                    const float* pb, const void* res, void* out,
-                                   int N, int P, int C, float res_scale,
+                                   int N, int P, int C, float res_scale, int act,
                                    int dtype, void* stream) {
-  if (C % 16 != 0 || C > 448 || N > 65535) return (int)cudaErrorInvalidValue;
+  if (C % 16 != 0 || C > 448 || N > 65535 || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
     typedef vmg::bf16 T;
-    return vmg::launch_combine_bf16((const T*)x, (const T*)h, (const T*)w,
-                                    (const T*)c, (const T*)a, (const T*)pk, pb,
-                                    (const T*)res, (T*)out, N, P, C, res_scale, st);
+    auto launch = act == 0 ? vmg::launch_combine_bf16<0>
+                           : act == 1 ? vmg::launch_combine_bf16<1> : vmg::launch_combine_bf16<2>;
+    return launch((const T*)x, (const T*)h, (const T*)w, (const T*)c, (const T*)a, (const T*)pk,
+                  pb, (const T*)res, (T*)out, N, P, C, res_scale, st);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const float *xf = (const float*)x, *hf = (const float*)h, *wf = (const float*)w;
-  const float *cf = (const float*)c, *af = (const float*)a, *pkf = (const float*)pk;
-  const float* rf = (const float*)res;
-  float* of = (float*)out;
-  const int OR = C / 16;
-  if (OR <= 7)
-    return vmg::launch_combine_f32<4, 7>(xf, hf, wf, cf, af, pkf, pb, rf, of, N, P, C, res_scale, st);
-  if (OR <= 14)
-    return vmg::launch_combine_f32<2, 14>(xf, hf, wf, cf, af, pkf, pb, rf, of, N, P, C, res_scale, st);
-  return vmg::launch_combine_f32<1, 28>(xf, hf, wf, cf, af, pkf, pb, rf, of, N, P, C, res_scale, st);
+  auto launch = act == 0 ? vmg::launch_combine_f32_any<0>
+                         : act == 1 ? vmg::launch_combine_f32_any<1> : vmg::launch_combine_f32_any<2>;
+  return launch((const float*)x, (const float*)h, (const float*)w, (const float*)c,
+                (const float*)a, (const float*)pk, pb, (const float*)res, (float*)out, N, P, C,
+                res_scale, st);
 }

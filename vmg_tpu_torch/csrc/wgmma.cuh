@@ -1,14 +1,25 @@
-// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, both operands from shared
-// memory through matrix descriptors, for every N the conv kernel takes (a
-// multiple of 16 up to 128).  d: the warpgroup's 64 x N f32 accumulator
-// tile, N / 2 registers a thread (wgmma's fragment layout: register
-// 4j + 2h + e holds row 16 * warp + lane / 4 + 8h, column 8j + 2 (lane % 4)
-// + e); scale_d = 0 overwrites d instead of adding to it.  The PTX names
-// every accumulator register, so the operand list %0 .. %(N/2 - 1) and its
-// constraints are built 8 registers at a time, and one macro writes the
-// instruction for each width.
+// Hopper building blocks shared by the wgmma kernels (conv_chain.cu,
+// group_ffn.cu): wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for every N
+// the kernels take (a multiple of 16 up to 224), with A from shared memory
+// (Wgmma<N>) or from registers (WgmmaRA<N>) and B from shared memory
+// through matrix descriptors; mbarriers, bulk and TMA copies, and the
+// tensor-map encoder.
+//
+// d: the warpgroup's 64 x N f32 accumulator tile, N / 2 registers a thread
+// (wgmma's fragment layout: register 4j + 2h + e holds row 16 * warp + lane
+// / 4 + 8h, column 8j + 2 (lane % 4) + e); scale_d = 0 overwrites d instead
+// of adding to it.  A register-A fragment of a k16 step is 4 registers of
+// two bf16 each: (row r, columns 2 (lane % 4) + {0, 1}), (r + 8, the same),
+// (r, 8 + those), (r + 8, 8 + those), r = 16 * warp + lane / 4 -- so the
+// columns 16s .. 16s + 15 of an accumulator d become an A fragment as
+// pairs (d[8s], d[8s+1]), (d[8s+2], d[8s+3]), (d[8s+4], d[8s+5]),
+// (d[8s+6], d[8s+7]).  The PTX names every accumulator register, so the
+// operand list %0 .. %(N/2 - 1) and its constraints are built 8 registers
+// at a time, and one macro writes the instruction for each width.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry points
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace vmg {
@@ -21,6 +32,12 @@ namespace vmg {
 #define VMG_WG_OPS48 VMG_WG_OPS40 ", %40, %41, %42, %43, %44, %45, %46, %47"
 #define VMG_WG_OPS56 VMG_WG_OPS48 ", %48, %49, %50, %51, %52, %53, %54, %55"
 #define VMG_WG_OPS64 VMG_WG_OPS56 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define VMG_WG_OPS72 VMG_WG_OPS64 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define VMG_WG_OPS80 VMG_WG_OPS72 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define VMG_WG_OPS88 VMG_WG_OPS80 ", %80, %81, %82, %83, %84, %85, %86, %87"
+#define VMG_WG_OPS96 VMG_WG_OPS88 ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define VMG_WG_OPS104 VMG_WG_OPS96 ", %96, %97, %98, %99, %100, %101, %102, %103"
+#define VMG_WG_OPS112 VMG_WG_OPS104 ", %104, %105, %106, %107, %108, %109, %110, %111"
 
 #define VMG_WG_D(i)                                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
@@ -33,32 +50,206 @@ namespace vmg {
 #define VMG_WG_D48 VMG_WG_D40, VMG_WG_D(40)
 #define VMG_WG_D56 VMG_WG_D48, VMG_WG_D(48)
 #define VMG_WG_D64 VMG_WG_D56, VMG_WG_D(56)
+#define VMG_WG_D72 VMG_WG_D64, VMG_WG_D(64)
+#define VMG_WG_D80 VMG_WG_D72, VMG_WG_D(72)
+#define VMG_WG_D88 VMG_WG_D80, VMG_WG_D(80)
+#define VMG_WG_D96 VMG_WG_D88, VMG_WG_D(88)
+#define VMG_WG_D104 VMG_WG_D96, VMG_WG_D(96)
+#define VMG_WG_D112 VMG_WG_D104, VMG_WG_D(104)
 
 template <int N> struct Wgmma;
+template <int N> struct WgmmaRA;
 
-// N, its R = N / 2 accumulator registers, and the operand numbers of the A
-// and B descriptors and of scale_d, which follow them: R, R + 1, R + 2
-#define VMG_WGMMA(N, R, A, B, P)                                                       \
+// N, its R = N / 2 accumulator registers; Wgmma: the A and B descriptors
+// and scale_d follow them as operands R, R + 1, R + 2; WgmmaRA: the four A
+// registers R .. R + 3, then the B descriptor and scale_d, R + 4 and R + 5
+#define VMG_WGMMA(N, R, R1, R2, R3, R4, R5)                                            \
   template <> struct Wgmma<N> {                                                        \
     static __device__ __forceinline__ void mma(float (&d)[R], uint64_t da, uint64_t db, \
                                                int scale_d) {                          \
-      asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" #P ", 0;\n"                  \
+      asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" #R2 ", 0;\n"                 \
                    "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"         \
-                   VMG_WG_OPS##R "}, %" #A ", %" #B ", p, 1, 1, 0, 0;\n}\n"             \
+                   VMG_WG_OPS##R "}, %" #R ", %" #R1 ", p, 1, 1, 0, 0;\n}\n"           \
                    : VMG_WG_D##R                                                       \
                    : "l"(da), "l"(db), "r"(scale_d));                                  \
     }                                                                                  \
+  };                                                                                   \
+  template <> struct WgmmaRA<N> {                                                      \
+    static __device__ __forceinline__ void mma(float (&d)[R], const uint32_t (&a)[4],  \
+                                               uint64_t db, int scale_d) {             \
+      asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" #R5 ", 0;\n"                 \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"         \
+                   VMG_WG_OPS##R "}, {%" #R ", %" #R1 ", %" #R2 ", %" #R3 "}, %" #R4    \
+                   ", p, 1, 1, 0;\n}\n"                                                 \
+                   : VMG_WG_D##R                                                       \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+                     "r"(scale_d));                                                    \
+    }                                                                                  \
   };
 
-VMG_WGMMA(16, 8, 8, 9, 10)
-VMG_WGMMA(32, 16, 16, 17, 18)
-VMG_WGMMA(48, 24, 24, 25, 26)
-VMG_WGMMA(64, 32, 32, 33, 34)
-VMG_WGMMA(80, 40, 40, 41, 42)
-VMG_WGMMA(96, 48, 48, 49, 50)
-VMG_WGMMA(112, 56, 56, 57, 58)
-VMG_WGMMA(128, 64, 64, 65, 66)
+VMG_WGMMA(16, 8, 9, 10, 11, 12, 13)
+VMG_WGMMA(32, 16, 17, 18, 19, 20, 21)
+VMG_WGMMA(48, 24, 25, 26, 27, 28, 29)
+VMG_WGMMA(64, 32, 33, 34, 35, 36, 37)
+VMG_WGMMA(80, 40, 41, 42, 43, 44, 45)
+VMG_WGMMA(96, 48, 49, 50, 51, 52, 53)
+VMG_WGMMA(112, 56, 57, 58, 59, 60, 61)
+VMG_WGMMA(128, 64, 65, 66, 67, 68, 69)
+VMG_WGMMA(144, 72, 73, 74, 75, 76, 77)
+VMG_WGMMA(160, 80, 81, 82, 83, 84, 85)
+VMG_WGMMA(176, 88, 89, 90, 91, 92, 93)
+VMG_WGMMA(192, 96, 97, 98, 99, 100, 101)
+VMG_WGMMA(208, 104, 105, 106, 107, 108, 109)
+VMG_WGMMA(224, 112, 113, 114, 115, 116, 117)
 
 #undef VMG_WGMMA
+
+// ---- mbarriers, bulk and TMA copies, descriptors ------------------------
+
+__device__ __forceinline__ unsigned su32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// Each takes shared-memory addresses (su32), or generic pointers.
+__device__ __forceinline__ void mbar_init(unsigned b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(b) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+}
+// wait until the phase of parity `parity` has completed; a wait of more
+// than ~2^35 cycles (a lost arrival) traps instead of holding the card
+__device__ __forceinline__ void mbar_wait(unsigned b, unsigned parity) {
+  unsigned done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 35)) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, unsigned b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) { mbar_init(su32(b), count); }
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) { mbar_arrive(su32(b)); }
+__device__ __forceinline__ void mbar_expect(uint64_t* b, unsigned bytes) {
+  mbar_expect(su32(b), bytes);
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  mbar_wait(su32(b), parity);
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* b) {
+  bulk_load(su32(dst), src, bytes, su32(b));
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* b) {
+  tma_load_4d(su32(dst), map, c0, c1, c2, c3, su32(b));
+}
+
+// Shared-memory matrix descriptor, no swizzle: core matrices of 8 rows x 16
+// bytes (128 contiguous bytes); lbo: bytes between the two core matrices of a
+// k16 step, sbo: bytes between 8-row groups.
+__device__ __forceinline__ uint64_t mat_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+// generic-proxy writes to shared memory, made visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int K>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across wgmma
+template <int R>
+__device__ __forceinline__ void pin_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// ---- host ------------------------------------------------------------------
+
+template <typename K>
+int set_smem(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda of its own.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A 4-D tensor map over an (N, H, W, C) bf16 tensor: boxes of 8 channels x
+// box_w columns x box_h rows of one frame, no swizzle, zeros out of bounds
+// (also at negative coordinates).
+inline int nhwc_box_map(CUtensorMap* map, const void* t, int N, int H, int W, int C, int box_w,
+                        int box_h) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)box_w, (cuuint32_t)box_h, 1}, elem[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides,
+                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// SMs of the current device (the persistent grids' size), asked once.
+inline int sm_count() {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return 132;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
 
 }  // namespace vmg

@@ -42,6 +42,7 @@ from vmg_tpu_torch.models.blocks import TAB, conv_cl, conv_frames
 from vmg_tpu_torch.models.norms import TorchLayerNorm
 from vmg_tpu_torch.models.spynet import SPyNet
 from vmg_tpu_torch.models.trajectory import TrajectoryMultiHead
+from vmg_tpu_torch.ops.ltam_attention import MAX_HEAD_WIDTH
 from vmg_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from vmg_tpu_torch.ops.resize import (
     adaptive_avg_pool2d,
@@ -75,6 +76,15 @@ def check_supported(cfg: VMGNetworkConfig) -> None:
         bad.append(f"symm_act={cfg.symm_act!r}")
     if cfg.num_layers > 3 and not cfg.use_mdsc:
         bad.append("use_mdsc=False")
+    n_enc = cfg.num_enc_layers
+    for li, C in enumerate(cfg.embed_dim):
+        # the trajectory stages' LTAM head width: the kernel takes any d up
+        # to MAX_HEAD_WIDTH (refused here, before a forward starts); stage
+        # li reads entry i of the per-encoder-stage lists (MlpEncoderStage)
+        i = li if li < n_enc else -(li - n_enc) - 2
+        heads = cfg.traj_heads[i] or 4
+        if cfg.temporal_type[i] is False and (C % heads or C // heads > MAX_HEAD_WIDTH):
+            bad.append(f"traj_heads={cfg.traj_heads} at C={C}")
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 

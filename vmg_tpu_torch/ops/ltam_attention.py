@@ -25,6 +25,10 @@ import torch
 
 from vmg_tpu_torch import _build
 
+# the largest head width C / heads the kernels take (csrc/ltam.cu: up to
+# 32 lanes of 32 registers per (pixel, head)); every preset is below it
+MAX_HEAD_WIDTH = 1024
+
 
 def _tap(v: torch.Tensor, ki: int, kj: int) -> torch.Tensor:
     """(N, H, W, ...) -> per pixel, the value at its window's tap (ki, kj)."""
@@ -67,7 +71,7 @@ def _check(q, kv, pe, K, heads):
     N, H, W, C = q.shape
     if H % 2 or W % 2:
         raise ValueError("2x2 windows need even H and W")
-    if C % heads or C // heads > 32:
+    if C % heads or C // heads > MAX_HEAD_WIDTH:
         raise ValueError(f"head width C/heads = {C}/{heads} unsupported")
     _build.require(q, "q", dtype=torch.float32)
     _build.require(kv, "kv", shape=(N, H, W, K * 2 * C), device=q.device)

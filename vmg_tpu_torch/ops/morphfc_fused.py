@@ -177,6 +177,10 @@ def fused_morphfc_reduce(h, w, c):
 fused_morphfc_reduce.launches = 0
 
 
+# the combine kernel's gate codes
+_GATES = {"tanh": 0, "sigmoid": 1, "relu": 2}
+
+
 def symm_gate(p, act):
     """The mixer's symmetric gate activation."""
     if act == "tanh":
@@ -203,13 +207,13 @@ def morphfc_combine_plain(x, h, w, c, a, pk, pb, *, act="tanh",
 
 def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
                           residual=None, res_scale=1.0):
-    """pk (C_in, C_out) in x's dtype, pb (C,) f32.  The CUDA kernel gates
-    with tanh only, the gate every configuration selects."""
+    """pk (C_in, C_out) in x's dtype, pb (C,) f32; ``act``: the gate,
+    ``"tanh"``, ``"sigmoid"`` (sigmoid(p) - 0.5) or ``"relu"``."""
     if x.device.type == "cpu":
         return morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act,
                                      residual=residual, res_scale=res_scale)
-    if act != "tanh":
-        raise ValueError(f"the combine kernel gates with tanh, not {act!r}")
+    if act not in _GATES:
+        raise ValueError(f"unsupported gate act {act!r}")
     N, H, W, C = x.shape
     dt, dev = x.dtype, x.device
     _build.require(x, "x")
@@ -224,7 +228,7 @@ def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
     code = _build.load_library().vmg_morphfc_combine(
         x.data_ptr(), h.data_ptr(), w.data_ptr(), c.data_ptr(), a.data_ptr(),
         pk.data_ptr(), pb.data_ptr(), _build.ptr(residual), out.data_ptr(),
-        N, H * W, C, float(res_scale), _build.DTYPE_CODES[dt],
+        N, H * W, C, float(res_scale), _GATES[act], _build.DTYPE_CODES[dt],
         _build.stream_of(x))
     _build.check(code, "vmg_morphfc_combine")
     fused_morphfc_combine.launches += 1

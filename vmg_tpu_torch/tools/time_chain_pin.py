@@ -1,5 +1,6 @@
-"""The bf16 conv chain and the layout pin of two checkouts of the port,
-timed on one card with one timer.
+"""The bf16 conv chain, the layout pin, the grouped-conv FFN, the MorphFC
+combine and LTAM attention of two checkouts of the port, timed on one card
+with one timer.
 
     python -m vmg_tpu_torch.tools.time_chain_pin --other DIR [--reps 5]
 
@@ -13,9 +14,15 @@ sleep), which under ~0.05 ms partly times the host's launch rate.  At the
 serving path's shapes, bf16, seeded inputs: ``fused_conv_chain`` on one
 1x184x320x112 trajectory resblock (residual 0.1) and on the 16-frame RCAB
 branch with its sums, the module form's two cuDNN convolutions beside
-each, ``layout_pin`` on 1x184x320x224 and ``x.clone()`` beside it.  Each
-kernel is first held to its own tree's plain version (1e-2 of max|plain|,
-the pin exactly).  One JSON line per process (median and range over
+each, ``layout_pin`` on 1x184x320x224 and ``x.clone()`` beside it, and
+``fused_group_ffn`` at FULL_PRESET's four stage shapes (16 frames: 184x320
+x 112, 92x160 x 224, 46x80 x 224, 23x40 x 448; groups 4, hidden 6C) and the
+few-levels shape (16x128x128x144, groups 1, hidden 2C), each tree on its
+own packed operands; the MorphFC combine (tanh gate, folded residual) at
+the stage-0 shape and the LTAM forward (1x184x320x112, K = 5) and
+backward (1x64x64x112) with bf16 keys and values.  Each kernel is first
+held to its own tree's plain version (1e-2 of max|plain|, the pin
+exactly; LTAM's f32 output and gradients 1e-4).  One JSON line per process (median and range over
 ``--reps`` timings of 20 calls each), then the card's name and power
 limit, then one JSON line of this checkout's median over the other's for
 each timing.
@@ -33,6 +40,14 @@ from pathlib import Path
 
 _ROOT = Path(__file__).resolve().parents[2]
 _ITERS = 20
+# ((N, H, W, C), groups, hidden ratio) of the FFN's path shapes
+FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
+              ((16, 46, 80, 224), 4, 6), ((16, 23, 40, 448), 4, 6),
+              ((16, 128, 128, 144), 1, 2)]
+
+
+def ffn_key(shape, groups) -> str:
+    return "ffn_" + "x".join(map(str, shape)) + f"_g{groups}"
 
 
 def _this_timer():
@@ -69,7 +84,7 @@ def _side(root: Path, reps: int) -> dict:
     import torch.nn.functional as F
 
     import vmg_tpu_torch
-    from vmg_tpu_torch.ops import conv_chain
+    from vmg_tpu_torch.ops import conv_chain, group_conv, ltam_attention, morphfc_fused
 
     pkg = Path(vmg_tpu_torch.__file__).resolve().parent
     if pkg != root.resolve() / "vmg_tpu_torch":
@@ -123,6 +138,63 @@ def _side(root: Path, reps: int) -> dict:
             raise AssertionError("the pin's copy differs from its input")
         out["pin"] = time_both(lambda: conv_chain.layout_pin(x))
         out["clone"] = time_both(lambda: x.clone())
+        del x
+        for (N, h, w, C), G, ratio in FFN_SHAPES:
+            Fh = ratio * C
+            x = rn(N, h, w, C)
+            w1 = rn(Fh, C // G, 3, 3, scale=(9 * C / G) ** -0.5)
+            b1, b2, w2 = rn(Fh, scale=0.1), rn(C, scale=0.1), rn(C, Fh, scale=0.02)
+            args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, G), b2)
+
+            def ffn():
+                return group_conv.fused_group_ffn(*args, groups=G, act="tanh")
+
+            got, want = ffn(), group_conv.group_ffn_plain(*args, groups=G, act="tanh")
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= 1e-2 * want.float().abs().max().item():
+                raise AssertionError(f"FFN {(N, h, w, C)}: max_abs_err {err} against the plain "
+                                     "version")
+            out[ffn_key((N, h, w, C), G)] = {**time_both(ffn), "max_abs_err": err}
+            del x, args, got, want
+
+        def held(name, got, want, rel):
+            err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+            if not err <= rel:
+                raise AssertionError(f"{name}: max_rel_err {err} against the plain version")
+            return err
+
+        C, N, h, w = 112, 16, 184, 320  # the stage-0 shape
+        x, xh, xw, xc, res = (rn(N, h, w, C) for _ in range(5))
+        a = torch.softmax(torch.randn(N, 3, C, generator=gen, device=dev), dim=1).to(dt)
+        cargs = (x, xh, xw, xc, a, rn(C, C, scale=0.02),
+                 torch.randn(C, generator=gen, device=dev) * 0.1)
+        err = held("combine", morphfc_fused.fused_morphfc_combine(*cargs, residual=res),
+                   morphfc_fused.morphfc_combine_plain(*cargs, residual=res), 1e-2)
+        out["combine"] = {**time_both(lambda: morphfc_fused.fused_morphfc_combine(
+            *cargs, residual=res)), "max_rel_err": err}
+        del x, xh, xw, xc, res, cargs
+        K, heads = 5, 4
+        for hh, ww in ((h, w), (64, 64)):
+            q = torch.nn.functional.normalize(
+                torch.randn(1, hh, ww, C, generator=gen, device=dev), dim=-1) * (C // heads) ** -0.5
+            kv = rn(1, hh, ww, K * 2 * C)
+            pe = torch.exp(torch.randn(K, 4, 4, heads, generator=gen, device=dev) * 0.02)
+            if hh == h:
+                err = held("ltam", ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
+                           ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads), 1e-4)
+                out["ltam"] = {**time_both(lambda: ltam_attention.ltam_attention_2x2(
+                    q, kv, pe, K=K, heads=heads)), "max_rel_err": err}
+            else:
+                g = torch.randn(1, hh, ww, C, generator=gen, device=dev)
+                o, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+
+                def bwd():
+                    return ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, o, g, K=K,
+                                                                 heads=heads)
+
+                want = ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
+                err = held("ltam_bwd", bwd()[0], want[0], 1e-4)  # dq (dkv bf16, dpe summed)
+                out["ltam_bwd"] = {**time_both(bwd), "max_rel_err": err}
     return out
 
 
@@ -150,7 +222,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip())
     ratios = {}
-    for key in ("chain_n1", "chain_n16", "module_n1", "module_n16", "pin", "clone"):
+    keys = ["chain_n1", "chain_n16", "module_n1", "module_n16", "pin", "clone", "combine",
+            "ltam", "ltam_bwd"]
+    for key in keys + [ffn_key(shape, G) for shape, G, _ in FFN_SHAPES]:
         for timer in ("ms", "ms_unfenced"):
             med = {s: statistics.median(r[key][timer] for lab, r in runs if lab == s)
                    for s in ("this", "other")}

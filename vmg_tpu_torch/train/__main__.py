@@ -1,6 +1,6 @@
 """Time the port's training step at the ``tools/bench_train.py`` protocol.
 
-    python -m vmg_tpu_torch.train [--preset full|tiny] [--batch 1]
+    python -m vmg_tpu_torch.train [--preset full|few_levels|tiny] [--batch 1]
         [--frames 16] [--crop 64] [--iters 8] [--grad-acc 1] [--no-remat]
         [--norm-impl module|kernel] [--device cuda]
 
@@ -28,13 +28,14 @@ import time
 import numpy as np
 import torch
 
-from vmg_tpu_torch.configs import FULL_PRESET, TINY_TEST_PRESET, TrainConfig
+from vmg_tpu_torch.configs import (FEW_LEVELS_PRESET, FULL_PRESET, TINY_TEST_PRESET,
+                                   TrainConfig)
 from vmg_tpu_torch.models.vmg import create_model
 from vmg_tpu_torch.ops.fused_norm import fused_norm
 from vmg_tpu_torch.ops.ltam_attention import ltam_attention_2x2
 from vmg_tpu_torch.train.train_step import make_train_step
 
-PRESETS = {"full": FULL_PRESET, "tiny": TINY_TEST_PRESET}
+PRESETS = {"full": FULL_PRESET, "few_levels": FEW_LEVELS_PRESET, "tiny": TINY_TEST_PRESET}
 
 
 def setup(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
