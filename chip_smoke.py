@@ -18,7 +18,11 @@ Phases (any failure exits non-zero):
      its times before the redesign (PERF.md); the FFN likewise at the four
      FULL_PRESET stage shapes and the few-levels shape (16x128x128x144,
      groups 1), next to its module form (cuDNN grouped conv, GELU,
-     F.linear); the combine with each gate (tanh, sigmoid, relu); LTAM
+     F.linear); the combine with each gate (tanh, sigmoid, relu), in bf16
+     at the four FULL_PRESET stage shapes and the few-levels shape (run
+     twice and held bit-equal, its share of the bound beside its time
+     before the redesign); the LTAM forward at the stage-0 shape at each
+     slot count K = 1..5 with the sum over a clip's 60 launches, then
      forward (1x128x128) and backward (1x64x64) at head widths 36, 64 and
      144; the pin with its GB/s and
      share of the bound; the axis branches' token
@@ -143,6 +147,21 @@ FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
 FFN_BEFORE_MS = {(16, 184, 320, 112): 11.129, (16, 92, 160, 224): 10.560,
                  (16, 46, 80, 224): 2.886, (16, 23, 40, 448): 3.503,
                  (16, 128, 128, 144): 4.535}
+# the combine's path shapes (N, H, W, C): FULL_PRESET's stages 0/6, 1/5, 2/4
+# and 3, and the few-levels preset's (a 128x128 tile, C = 144)
+COMBINE_SHAPES = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
+                  (16, 23, 40, 448), (16, 128, 128, 144)]
+# the bf16 combine's and LTAM forward's times before their redesign, printed
+# beside this run's: PERF.md's, medians of vmg_tpu_torch/tools/
+# time_chain_pin.py --other (that tree and this one in one call, one timer;
+# H100 80GB HBM3, 700 W); shape -> ms
+COMBINE_BEFORE_MS = {(16, 184, 320, 112): 1.1593, (16, 92, 160, 224): 0.8297,
+                     (16, 46, 80, 224): 0.2186, (16, 23, 40, 448): 0.3164,
+                     (16, 128, 128, 144): 0.4507}
+LTAM_BEFORE_MS = 0.2964  # 1x184x320x112, K = 5
+# LTAM launches of a FULL_PRESET clip at each slot count K = 1..5: 3 steps
+# x 2 directions x 2 trajectory stages
+LTAM_STEPS_PER_K = 12
 # LTAM head widths d = C / heads beyond the full preset's 28: (C, heads, K) --
 # the few-levels preset's 36, 64, and one head of 144 -- at the few-levels
 # serving shape (1x128x128) and training crop (1x64x64), ragged slot counts
@@ -434,7 +453,7 @@ def check_kernels(report):
 
         for shape in ((16, 184, 320, 112), (16, 23, 40, 448)):
             N, h, w, C = shape
-            xh, xw, xc, x, res = (rn(*shape, dtype=dtype) for _ in range(5))
+            xh, xw, xc = (rn(*shape, dtype=dtype) for _ in range(3))
             primary = dtype == torch.bfloat16 and C == 112
             terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (xh, xw, xc))
             compare("fused_morphfc_reduce", shape, dtype,
@@ -442,33 +461,73 @@ def check_kernels(report):
                     lambda: morphfc_fused.morphfc_reduce_plain(xh, xw, xc),
                     lambda got, want: [within_sum(got[0], want[0], terms)],
                     primary, work=((xh, xw, xc), 3 * xh.numel(), "f32"))
+            del xh, xw, xc
+
+        # the combine: bf16 (the B image of Pk) at every path shape, f32 at
+        # stages 0 and 3; each gate (tanh on every preset's path)
+        bf16 = dtype == torch.bfloat16
+        for shape in COMBINE_SHAPES if bf16 else (COMBINE_SHAPES[0], COMBINE_SHAPES[3]):
+            N, h, w, C = shape
+            xh, xw, xc, x, res = (rn(*shape, dtype=dtype) for _ in range(5))
             a = torch.softmax(rn(N, 3, C), dim=1).to(dtype)
             pk, pb = rn(C, C, scale=0.02, dtype=dtype), rn(C, scale=0.1)
-            args = (x, xh, xw, xc, a, pk, pb)
-            # the C x C projection; the weighted sum and gate are elementwise;
-            # each gate (tanh on every preset's path)
+            pkk = morphfc_fused.pack_combine_weight(pk) if bf16 else pk
+            args, pargs = (x, xh, xw, xc, a, pkk, pb), (x, xh, xw, xc, a, pk, pb)
             for act in ("tanh", "sigmoid", "relu"):
-                compare("fused_morphfc_combine", (*shape, act), dtype,
-                        lambda: morphfc_fused.fused_morphfc_combine(*args, act=act, residual=res),
-                        lambda: morphfc_fused.morphfc_combine_plain(*args, act=act, residual=res),
-                        dtype_check(dtype), primary and act == "tanh",
-                        work=((*args, res), 2 * x.numel() * C, peak(dtype)))
-            del xh, xw, xc, x, res, args
+                # the C x C projection; the weighted sum and gate are elementwise
+                ms, b, got = compare(
+                    "fused_morphfc_combine", (*shape, act), dtype,
+                    lambda: morphfc_fused.fused_morphfc_combine(*args, act=act, residual=res),
+                    lambda: morphfc_fused.morphfc_combine_plain(*pargs, act=act, residual=res),
+                    dtype_check(dtype), bf16 and shape == COMBINE_SHAPES[0] and act == "tanh",
+                    work=((x, xh, xw, xc, a, pk, pb, res), 2 * x.numel() * C, peak(dtype)))
+                if bf16 and act == "tanh":
+                    # the result must not depend on which warpgroup took which tile
+                    again = morphfc_fused.fused_morphfc_combine(*args, act=act, residual=res)
+                    torch.cuda.synchronize()
+                    if not torch.equal(again, got[0]):
+                        raise AssertionError(f"two runs of the combine differ at {shape}")
+                    before = COMBINE_BEFORE_MS.get(shape)
+                    report(f"    {b['bound_ms'] / ms:.3f} of the bound "
+                           f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s); two runs bit-equal"
+                           + ("" if before is None else
+                              f"; before the redesign {before} ms (PERF.md)"))
+                    entries["fused_morphfc_combine"]["x".join(map(str, shape))] = {
+                        "ms": ms, "bound_ms": b["bound_ms"], "share": b["bound_ms"] / ms}
+                del got
+            del xh, xw, xc, x, res, args, pargs
 
-        # LTAM forward at the serving shape (stage 0 of a 1x16x180x320 clip,
-        # the last keyframe step: K = 5); f32 arithmetic on the CUDA cores:
-        # per pixel, slot and tap a C-long logit and a C-long value sum
-        N, h, w, C, K, heads = 1, 184, 320, 112, 5, 4
-        q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
-        kv = rn(N, h, w, K * 2 * C, dtype=dtype)
-        pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
-        compare("ltam_attention_2x2", (N, h, w, C, K), dtype,
+        # LTAM forward at the serving shape (stage 0 of a 1x16x180x320
+        # clip) at every slot count a clip's steps see (a slot every third
+        # step: K = 1, 1, 1, 2, ..., 5, 5, 5 in each direction of stages 0
+        # and 6); f32 arithmetic on the CUDA cores: per pixel, slot and tap
+        # a C-long logit and a C-long value sum
+        N, h, w, C, heads = 1, 184, 320, 112, 4
+        clip_ms = clip_bound = 0.0
+        for K in (1, 2, 3, 4, 5) if bf16 else (5,):
+            q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
+            kv = rn(N, h, w, K * 2 * C, dtype=dtype)
+            pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
+            ms, b, _ = compare(
+                "ltam_attention_2x2", (N, h, w, C, K), dtype,
                 lambda: ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
                 lambda: ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
                 dtype_check(torch.float32),  # f32 output: f32 tolerance
-                primary=dtype == torch.bfloat16,
+                primary=bf16 and K == 5,
                 work=((q, kv, pe), N * h * w * K * 4 * 4 * C, "f32"))
-        del q, kv
+            if bf16:
+                report(f"    {b['bound_ms'] / ms:.3f} of the bound"
+                       + (f"; before the redesign {LTAM_BEFORE_MS} ms (PERF.md)" if K == 5
+                          else ""))
+                entries["ltam_attention_2x2"][f"k{K}"] = {"ms": ms, "bound_ms": b["bound_ms"]}
+                clip_ms += LTAM_STEPS_PER_K * ms
+                clip_bound += LTAM_STEPS_PER_K * b["bound_ms"]
+            del q, kv
+        if bf16:
+            report(f"    per FULL_PRESET clip ({5 * LTAM_STEPS_PER_K} launches, "
+                   f"{LTAM_STEPS_PER_K} at each K): {clip_ms:.3f} ms against a bound of "
+                   f"{clip_bound:.3f} ms ({clip_bound / clip_ms:.3f})")
+            entries["ltam_attention_2x2"]["per_clip"] = {"ms": clip_ms, "bound_ms": clip_bound}
 
         # LTAM backward at the training shape (stage 0 of a 64x64 crop,
         # K = 5): from the forward kernel's saved out and denominator

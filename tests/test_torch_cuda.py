@@ -79,28 +79,41 @@ def test_group_ffn_kernel(cuda, dtype, C, groups, N, H, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("C", [112, 144, 448])
-def test_morphfc_kernels(cuda, dtype, C):
+@pytest.mark.parametrize("C", [16, 112, 144, 224, 448])
+@pytest.mark.parametrize("shape", [(3, 18, 12), (2, 23, 40)])
+def test_morphfc_kernels(cuda, dtype, C, shape):
     """The reduce, and the combine with each gate (tanh, sigmoid - 0.5,
-    relu), with and without the residual."""
-    rng = np.random.default_rng(C)
-    shape = (3, 18, 12, C)
+    relu), with and without the residual; frames of 216 and 920 pixels
+    (ragged last 64-pixel tiles, several frames on the persistent walk);
+    every plan: three warpgroups (16, 112), two (144), one (224, Pk
+    resident at 100 KB), two with Pk streamed in column tiles (448).  bf16 takes the
+    packed B image; two runs are bit-equal."""
+    rng = np.random.default_rng(C + shape[2])
+    shape = (*shape, C)
     x, h, w, c, res = (_randn(rng, shape, cuda, dtype) for _ in range(5))
-    a = torch.softmax(_randn(rng, (3, 3, C), cuda, torch.float32), dim=1).to(dtype)
+    a = torch.softmax(_randn(rng, (shape[0], 3, C), cuda, torch.float32), dim=1).to(dtype)
     pk, pb = _randn(rng, (C, C), cuda, dtype, 0.02), _randn(rng, (C,), cuda, dtype, 0.1)
     torch.testing.assert_close(morphfc_fused.fused_morphfc_reduce(h, w, c),
                                morphfc_fused.morphfc_reduce_plain(h, w, c),
                                atol=1e-3, rtol=1e-5)
     pb = pb.float()
+    pkk = morphfc_fused.pack_combine_weight(pk) if dtype == torch.bfloat16 else pk
     for act in ("tanh", "sigmoid", "relu"):
         for r in (None, res):
             before = morphfc_fused.fused_morphfc_combine.launches
-            _close(morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb, act=act,
-                                                       residual=r, res_scale=0.5),
-                   morphfc_fused.morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act,
-                                                       residual=r, res_scale=0.5),
+            got = morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pkk, pb, act=act,
+                                                      residual=r, res_scale=0.5)
+            _close(got, morphfc_fused.morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act,
+                                                            residual=r, res_scale=0.5),
                    dtype)
             assert morphfc_fused.fused_morphfc_combine.launches == before + 1
+            again = morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pkk, pb, act=act,
+                                                        residual=r, res_scale=0.5)
+            torch.cuda.synchronize()
+            assert torch.equal(again, got)
+    if dtype == torch.bfloat16:  # the plain matrix is not the kernel's operand
+        with pytest.raises(ValueError, match="pk has shape"):
+            morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb)
 
 
 def _axes_case(rng, H, W, C, dev, dtype):
@@ -208,25 +221,46 @@ def test_probe_wrappers_refuse(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4), (2, 32, 2), (3, 144, 4),
-                                        (2, 128, 2), (4, 144, 1)])
-def test_ltam_kernel(cuda, dtype, K, C, heads):
+                                        (2, 128, 2), (4, 144, 1), (6, 112, 4), (2, 12, 3),
+                                        (1, 2048, 32)])
+@pytest.mark.parametrize("h,w", [(8, 12), (6, 70)])
+def test_ltam_kernel(cuda, dtype, K, C, heads, h, w):
     """Head widths d = C / heads of 4, 28, 16, 36 (the few-levels preset's:
-    two lanes a head), 64 and 144 (eight lanes), slot counts 1-5."""
-    rng = np.random.default_rng(K)
-    n, h, w = 2, 8, 12
+    two lanes a head), 64 and 144 (eight lanes), slot counts 1-6, kv in
+    f32 and bf16; 70 columns are not a multiple of any column span (16 at
+    d = 28: four spans and a 6-column one).  C = 12 (runs of 24 bytes in
+    bf16) takes the cp.async copies instead of bulk copies; 32 heads of 64
+    split into two head groups per window row."""
+    rng = np.random.default_rng(K + w)
+    n = 2
     q = torch.nn.functional.normalize(_randn(rng, (n, h, w, C), cuda, torch.float32), dim=-1)
     q = q * (C // heads) ** -0.5
     kv = _randn(rng, (n, h, w, K * 2 * C), cuda, dtype)
     pe = torch.exp(_randn(rng, (K, 4, 4, heads), cuda, torch.float32, 0.5))
-    _close(ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
-           ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
+    got = ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads)
+    _close(got, ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
            torch.float32)
+    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    # den: the unclamped softmax denominator per (pixel, head)
+    d = C // heads
+    logits = torch.zeros((n, h, w, heads), device=cuda)
+    kv6 = kv.reshape(n, h, w, K, 2, C).float()
+    pos = (2 * (torch.arange(h, device=cuda) % 2)[:, None]
+           + (torch.arange(w, device=cuda) % 2)[None, :])
+    for k in range(K):
+        for t in range(4):
+            key = ltam_attention._tap(kv6[:, :, :, k, 1], *divmod(t, 2))
+            e = torch.exp((q.reshape(n, h, w, heads, d) * key.reshape(n, h, w, heads, d)).sum(-1))
+            logits += e * pe[k, t][pos]
+    torch.testing.assert_close(den, logits, rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("K,C,heads", [(1, 16, 4), (5, 112, 4), (2, 32, 2), (3, 144, 4),
-                                        (2, 128, 2), (4, 144, 1)])
+                                        (2, 128, 2), (4, 144, 1), (6, 112, 4)])
 def test_ltam_bwd_kernel(cuda, dtype, K, C, heads):
     """The backward kernel against autograd of the plain forward: dq at
     the f32 tolerance, dkv at its dtype's, dpe (a sum over every pixel)

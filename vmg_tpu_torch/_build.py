@@ -38,15 +38,17 @@ _SIGNATURES = {
     "vmg_group_ffn": [_P] * 5 + [_I] * 8 + [_P],
     # h, w, c, partial, out, N, P, C, S, dtype, stream
     "vmg_morphfc_reduce": [_P] * 5 + [_I] * 5 + [_P],
-    # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, act, dtype, stream
-    "vmg_morphfc_combine": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
+    # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, act, nwg, ring,
+    # dtype, stream
+    "vmg_morphfc_combine": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     # x, c, kh, bh, kw, bw, h, w, partial, psum, N, H, W, C, ch, cw, WT,
     # dtype, stream
     "vmg_morphfc_axes": [_P] * 10 + [_I] * 8 + [_P],
     # the same arguments (the token form)
     "vmg_morphfc_axes_token": [_P] * 10 + [_I] * 8 + [_P],
-    # q, kv, pe, out, den (or null), N, H, W, C, K, heads, dtype, stream
-    "vmg_ltam_fwd": [_P] * 5 + [_I] * 7 + [_P],
+    # q, kv, pe, out, den (or null), N, H, W, C, K, heads, Wt, HB, dtype,
+    # stream
+    "vmg_ltam_fwd": [_P] * 5 + [_I] * 9 + [_P],
     # q, kv, pe, den, out, g, dq, dkv, dpe, scratch, partial, N, H, W, C, K,
     # heads, S, dtype, stream
     "vmg_ltam_bwd": [_P] * 11 + [_I] * 8 + [_P],

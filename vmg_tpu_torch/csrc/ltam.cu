@@ -20,15 +20,38 @@
 // channels, no lane padding; pe (K,4,4,heads) f32; out (N,H,W,C) f32;
 // den (N,H,W,heads) f32, written only when the caller asks (training).
 //
-// Bound on H100: device-memory traffic.  A forward step reads the 4 taps
-// of K * 2C channels for every pixel (K = 5 at stage 0: 2.2 KB per pixel
-// in bf16) and does ~4 FLOPs per element read.  Design: one group of L
-// lanes per (pixel, head) holding its d = C/heads query and numerator
-// values in registers, at most 32 a lane (L = 1 up to d = 32, 2 up to 64,
-// ..., 32 up to d = 1024: every head width of the repo's presets; the
-// few-levels preset's d = 36 runs with L = 2); the 4 pixels of a window
-// read the same taps, back to back in the same warp, so the re-reads hit
-// L1.
+// Bound on H100: device-memory traffic.  A forward step reads q, writes
+// out and reads every pixel's kv once (each kv pixel is a tap of exactly
+// the 4 queries of its own window): K = 5 at stage 0 is 2.2 KB of bf16 kv
+// per pixel, 184.6 MB and 0.055 ms a call, at ~4 FLOPs per element read.
+// Design (ltam_fwd_kernel, notes there): one block per (frame, window row,
+// column span, head group) stages each slot's kv for its own windows
+// through shared memory, four slots in flight, with one bulk copy per
+// pixel's contiguous 2C channels, and q and out through the same buffer as
+// contiguous rows; so every tap crosses L2 -> SM once and all global
+// traffic moves whole lines.  The four taps' logits are four interleaved
+// FMA chains: one 28-long chain at a time left the warps waiting on FMA
+// latency.  Thread groups of L lanes per (pixel,
+// head) (L = 1 up to d = 32, 2 up to 64, ..., 32 up to d = 1024: every
+// head width of the repo's presets; the few-levels preset's d = 36 runs
+// with L = 2) keep q and the numerator in registers and read the taps from
+// shared memory 4, 2 or 1 elements at a time, as far as d's alignment
+// allows: a head does not start on 16 bytes at d = 28 or 36.  The scalar
+// kernel this replaced (one group per (pixel, head) reading d 2-byte taps
+// straight from device memory, 8 pixels of a warp 2,240 bytes apart; the
+// window's second row in another block) was bound by load instructions
+// and L1 transactions, at a fifth of the bound.
+//
+// ptxas report: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// -Xptxas -v -c vmg_tpu_torch/csrc/ltam.cu.  The bf16 forward (launch
+// bounds 128 x 4: 128 registers) spills nothing but at head widths that
+// are not even (one element at a time, several lanes: 12-16 bytes); the f32
+// forward (parity runs) spills 8-272 bytes, the backward's d <= 32 query
+// pass 8-20.  Traps: a TMA box holds at most 256 elements a dimension, so
+// a slot's 2C = 288 channels at C = 144 are not one box -- bulk copies
+// have no such limit and need only 16-byte multiples; at d = 28 and 36 a
+// head starts 8 bytes off a 16-byte boundary, so taps are read 4 elements
+// (8 bytes) at a time.
 //
 // Backward, from the saved q, kv, pe, den, out and the cotangent g, with
 // p = exp(logit) * pe / den and s = (g . out) per head:
@@ -39,7 +62,7 @@
 //
 // The TPU kernel ran the adjoint of tap selection as a 2x2 window sum
 // inside one tile and carried dpe across its sequential grid.  Here:
-//   1. a query pass (one group per (pixel, head), as the forward) writes
+//   1. a query pass (one group of lanes per (pixel, head)) writes
 //      dq and, per (pixel, slot, tap, head), p, dlogit and the dpe term to
 //      a float scratch (N*H*W*K*4*heads each);
 //   2. a source pass (one group per (source pixel, slot, head)): a
@@ -52,6 +75,7 @@
 // Bound: device-memory traffic, as the forward (the backward reads q, g,
 // out and the kv taps and writes dq and an f32 dkv).
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace vmg {
 
@@ -98,61 +122,291 @@ struct LtamLane {
   __device__ __forceinline__ bool has(int i, int d) const { return at(i) < d; }
 };
 
-// One group per (pixel, head): idx = group index (pix * heads + e).
-template <typename T, int LF>
-__global__ void __launch_bounds__(256)
-ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
-                const float* __restrict__ pe, float* __restrict__ out,
-                float* __restrict__ den_out, long long total, int H, int W,
-                int C, int K, int heads, int lanes) {
-  const long long gidx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int shift = LF == 1 ? 0 : __ffs(lanes) - 1;  // lanes is a power of two
-  if (gidx >= (total << shift)) return;  // whole groups: total * lanes threads
-  const LtamLane<LF> ln(lanes);
-  const long long idx = gidx >> shift;
-  const int e = (int)(idx % heads);
-  const long long pix = idx / heads;
-  const int col = (int)(pix % W);
-  const long long t = pix / W;
-  const int row = (int)(t % H);
-  const long long n = t / H;
-  const int d = C / heads;
-  const int pos = (row & 1) * 2 + (col & 1);
+// ---- forward: a block per (frame, window row, column span, head group) ----
+//
+// The block's queries are rows 2 rp, 2 rp + 1 and columns c0 .. c0 + Wt -
+// 1 of one frame, for HB heads: exactly the pixels whose 2x2 windows are
+// the block's own, so each kv tap is needed by this block alone.  kv is
+// staged one slot k at a time in nbuf = min(K, 4) buffers (slots k + 1 ..
+// k + nbuf - 1 copy while k is used): per pixel the HB heads' value
+// channels, then their key channels -- one bulk copy where every run is a
+// 16-byte multiple (a pixel's slot is 2C contiguous elements), else cp.async
+// at the widest width the runs allow -- at a pixel stride padded so that
+// the two windows a warp reads fall on other banks.  Blocks of at most 128
+// threads, three or more an SM.
+// q comes in the same way, as one contiguous run of Wt C f32 per row when
+// HB = heads, and out leaves through the same buffer.  A thread group of L
+// lanes per (pixel, head) (LtamLane) keeps q and the numerator in
+// registers and reads the taps from shared memory VU elements at a time
+// (VU = 4, 2 or 1, as the head width's alignment allows); the 4 queries of
+// a window sit in neighbouring groups of one warp, so their reads of a tap
+// are broadcasts.
+struct LtamFwdArgs {
+  int H, W, C, K, heads, d, L;
+  int Wt, HB, spans, hgroups;  // column span, heads per block; spans per row, head groups
+  int pst;                     // kv pixel stride in shared memory (elements)
+  int vkv, vq;                 // copy widths (bytes) of kv and of q / out
+  int bulk;                    // 1: every run a 16-byte multiple: bulk copies
+  int nbuf;                    // kv slot buffers: min(K, kLtamBufs)
+  unsigned q_bytes;            // the q / out buffer
+};
 
-  float qv[kLtamR], num[kLtamR];
-  const float* qp = q + pix * C + e * d;
-#pragma unroll
-  for (int i = 0; i < kLtamR; ++i) {
-    qv[i] = ln.has(i, d) ? qp[ln.at(i)] : 0.f;
-    num[i] = 0.f;
-  }
-  float den = 0.f;
-  const size_t slot_stride = 2 * (size_t)C;
-  for (int k = 0; k < K; ++k) {
-    for (int tap = 0; tap < 4; ++tap) {
-      const int sr = (row & ~1) + (tap >> 1), sc = (col & ~1) + (tap & 1);
-      const T* base = kv + ((size_t)(n * H + sr) * W + sc) * (K * slot_stride) +
-                      k * slot_stride + e * d;
-      const T* val = base;
-      const T* key = base + C;
-      float logit = 0.f;
-#pragma unroll
-      for (int i = 0; i < kLtamR; ++i)
-        if (ln.has(i, d)) logit = fmaf(qv[i], to_f<T>(key[ln.at(i)]), logit);
-      logit = ln.sum(logit);
-      const float ex = expf(logit) * pe[((k * 4 + tap) * 4 + pos) * heads + e];
-      den += ex;
-#pragma unroll
-      for (int i = 0; i < kLtamR; ++i)
-        if (ln.has(i, d)) num[i] = fmaf(ex, to_f<T>(val[ln.at(i)]), num[i]);
+constexpr int kLtamBufs = 4;  // kv slots in flight (buffers) per block
+
+// The kv pixel stride: the 2 HB d staged channels, padded (in 16-byte
+// steps, where the run is a 16-byte multiple) so that 2 strides are 16
+// banks apart.
+__host__ __device__ inline int ltam_pixel_stride(int seg2, int es) {
+  const int words = seg2 * es / 4;
+  if ((seg2 * es) % 16 != 0) return seg2;
+  return seg2 + ((8 - words % 16 + 16) % 16) * 4 / es;
+}
+__host__ __device__ inline size_t ltam_fwd_smem(int Wt, int HB, int d, int es, int nbuf) {
+  const size_t q = ((size_t)2 * Wt * HB * d * 4 + 15) / 16 * 16;
+  const size_t kv = (size_t)nbuf * 2 * Wt * ltam_pixel_stride(2 * HB * d, es) * es;
+  return q + (kv + 7) / 8 * 8 + (1 + nbuf) * 8;  // + the mbarriers of q and of the buffers
+}
+
+// cp.async of 16, 8 or 4 bytes; 2: a plain copy of one bf16 (a run with no
+// 4-byte alignment)
+__device__ __forceinline__ void copy_async(void* smem, const void* gmem, int bytes) {
+  const unsigned s = su32(smem);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+  else if (bytes == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+  else
+    *reinterpret_cast<unsigned short*>(smem) = *reinterpret_cast<const unsigned short*>(gmem);
+}
+
+// VU consecutive elements of T from shared memory, as floats
+template <typename T, int VU>
+__device__ __forceinline__ void lds_vec(const T* p, float (&v)[VU]) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (VU == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p);
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else if constexpr (VU == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p);
+      v[0] = t.x, v[1] = t.y;
+    } else {
+      v[0] = *p;
+    }
+  } else {
+    if constexpr (VU == 4) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+      v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+    } else if constexpr (VU == 2) {
+      const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+      v[0] = t.x, v[1] = t.y;
+    } else {
+      v[0] = __bfloat162float(*p);
     }
   }
-  if (den_out != nullptr && ln.j == 0) den_out[idx] = den;
-  const float dd = fmaxf(den, 1e-30f);
-  float* op = out + pix * C + e * d;
+}
+
+// Threads: 2 Wt HB groups of L lanes.  Group gi: window column cw = gi /
+// (4 HB), then pixel pw of the window (row pw / 2, column pw % 2), then
+// head el; lane j holds the head's elements (i L + j) VU + t, i < 32 / VU.
+// Copies: where every run is a multiple of 16 bytes (a.bulk), warp 0 issues
+// bulk copies -- one per staged pixel and slot (its value and key runs are
+// one run when HB = heads), one per row of q (likewise) -- completing on the
+// buffer's mbarrier, and out leaves by bulk stores; else every thread
+// copies with cp.async at the widest width the runs allow.
+template <typename T, int LF, int VU>
+__global__ void __launch_bounds__(128, 4)
+ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
+                const float* __restrict__ pe, float* __restrict__ out,
+                float* __restrict__ den_out, const LtamFwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int es = sizeof(T), NU = kLtamR / VU;
+  const int d = a.d, seg = a.HB * d, C = a.C;
+  float* qs = reinterpret_cast<float*>(smem);  // [2][Wt][seg] f32: q, then out
+  T* kvs = reinterpret_cast<T*>(smem + a.q_bytes);  // [nbuf][2 rows][Wt][pst]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(kvs + (size_t)a.nbuf * 2 * a.Wt * a.pst) + 7) & ~(uintptr_t)7);
+  int b = blockIdx.x;
+  const int hg = b % a.hgroups;
+  b /= a.hgroups;
+  const int cs = b % a.spans;
+  b /= a.spans;
+  const int rp = b % (a.H / 2), n = b / (a.H / 2);
+  const int r0 = 2 * rp, c0 = cs * a.Wt, Wv = min(a.Wt, a.W - c0), ch0 = hg * seg;
+  const size_t pix0 = ((size_t)n * a.H + r0) * a.W + c0;  // the block's first pixel
+  const size_t kstride = (size_t)a.K * 2 * C;               // kv elements per pixel
+  const bool whole = a.HB == a.heads;  // a pixel's staged channels are one run
+  const int lane = threadIdx.x & 31;
+  const bool issuer = threadIdx.x < 32;
+
+  if (a.bulk) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i <= a.nbuf; ++i) mbar_init(bars + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // q: per staged pixel (row r, column p) seg f32 from channel ch0
+  if (a.bulk) {
+    if (issuer) {
+      const int runs = whole ? 2 : 2 * Wv;
+      const unsigned bytes = (unsigned)((whole ? Wv : 1) * seg * 4);
+      if (lane == 0) mbar_expect(bars, runs * bytes);
+      __syncwarp();
+      for (int i = lane; i < runs; i += 32) {
+        const int r = whole ? i : i / Wv, p = whole ? 0 : i - r * Wv;
+        bulk_load(qs + (r * a.Wt + p) * seg, q + (pix0 + (size_t)r * a.W + p) * C + ch0, bytes,
+                  bars);
+      }
+    }
+  } else {
+    const int nv = seg * 4 / a.vq, fv = a.vq / 4;
+    for (int e = threadIdx.x; e < 2 * Wv * nv; e += blockDim.x) {
+      const int pix = e / nv, v = e - pix * nv, r = pix / Wv, p = pix - r * Wv;
+      copy_async(qs + (r * a.Wt + p) * seg + v * fv,
+                 q + (pix0 + (size_t)r * a.W + p) * C + ch0 + v * fv, a.vq);
+    }
+  }
+  auto copy_slot = [&](int k, int buf) {
+    T* dst0 = kvs + (size_t)buf * 2 * a.Wt * a.pst;
+    const T* src0 = kv + pix0 * kstride + (size_t)k * 2 * C + ch0;
+    if (a.bulk) {
+      if (!issuer) return;
+      const int parts = whole ? 1 : 2, runs = 2 * Wv * parts;
+      const unsigned bytes = (unsigned)((whole ? 2 : 1) * seg * es);
+      if (lane == 0) mbar_expect(bars + 1 + buf, runs * bytes);
+      __syncwarp();
+      for (int i = lane; i < runs; i += 32) {
+        const int pix = i / parts, part = i - pix * parts, r = pix / Wv, p = pix - r * Wv;
+        bulk_load(dst0 + (r * a.Wt + p) * a.pst + part * seg,
+                  src0 + ((size_t)r * a.W + p) * kstride + part * C, bytes, bars + 1 + buf);
+      }
+      return;
+    }
+    const int nv = seg * es / a.vkv, fv = a.vkv / es;
+    for (int e = threadIdx.x; e < 2 * Wv * 2 * nv; e += blockDim.x) {
+      const int pix = e / (2 * nv), rem = e - pix * 2 * nv, part = rem / nv, v = rem - part * nv;
+      const int r = pix / Wv, p = pix - r * Wv;
+      copy_async(dst0 + (r * a.Wt + p) * a.pst + part * seg + v * fv,
+                 src0 + ((size_t)r * a.W + p) * kstride + part * C + v * fv, a.vkv);
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < a.nbuf; ++k) copy_slot(k, k);  // slot 0 with q
+
+  const LtamLane<LF> ln(a.L);
+  const int gi = threadIdx.x / (LF == 1 ? 1 : a.L);
+  const int cw = gi / (4 * a.HB), rem = gi - cw * 4 * a.HB, pw = rem / a.HB, el = rem - pw * a.HB;
+  const int r = pw >> 1, cc = pw & 1, px = 2 * cw + cc, e = hg * a.HB + el;
+  const bool valid = px < Wv;  // Wv is even: whole windows
+  const int pos = 2 * r + cc;  // r0 and c0 are even
+  float qv[kLtamR], num[kLtamR], den = 0.f;
+  auto has = [&](int i) { return (ln.at(i) * VU) < d; };
+  float* qp = qs + (r * a.Wt + px) * seg + el * d;
+  for (int k = 0; k < a.K; ++k) {
+    const int bi = k % a.nbuf;
+    float pk4[4];  // the slot's position factors, loaded before the wait
 #pragma unroll
-  for (int i = 0; i < kLtamR; ++i)
-    if (ln.has(i, d)) op[ln.at(i)] = num[i] / dd;
+    for (int tap = 0; tap < 4; ++tap) pk4[tap] = __ldg(pe + ((k * 4 + tap) * 4 + pos) * a.heads + e);
+    if (a.bulk) {
+      if (k == 0) mbar_wait(bars, 0);
+      mbar_wait(bars + 1 + bi, (k / a.nbuf) & 1);
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // slot k (and q) in for every thread
+    }
+    if (valid) {
+      if (k == 0) {
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          float v[VU];
+          if (has(i)) lds_vec<float, VU>(qp + ln.at(i) * VU, v);
+#pragma unroll
+          for (int t = 0; t < VU; ++t) {
+            qv[i * VU + t] = has(i) ? v[t] : 0.f;
+            num[i * VU + t] = 0.f;
+          }
+        }
+      }
+      // the 4 taps' logits as 4 interleaved chains (each summed in element
+      // order), then their weights, then the numerator in tap order
+      const T* vp = kvs + (size_t)bi * 2 * a.Wt * a.pst + 2 * cw * a.pst + el * d;
+      auto tap_at = [&](int tap) { return vp + ((tap >> 1) * a.Wt + (tap & 1)) * a.pst; };
+      float logit[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        if (has(i)) {
+#pragma unroll
+          for (int tap = 0; tap < 4; ++tap) {
+            float kf[VU];
+            lds_vec<T, VU>(tap_at(tap) + seg + ln.at(i) * VU, kf);
+#pragma unroll
+            for (int t = 0; t < VU; ++t) logit[tap] = fmaf(qv[i * VU + t], kf[t], logit[tap]);
+          }
+        }
+      float ex[4];
+#pragma unroll
+      for (int tap = 0; tap < 4; ++tap) {
+        ex[tap] = expf(ln.sum(logit[tap])) * pk4[tap];
+        den += ex[tap];
+      }
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        if (has(i)) {
+#pragma unroll
+          for (int tap = 0; tap < 4; ++tap) {
+            float vf[VU];
+            lds_vec<T, VU>(tap_at(tap) + ln.at(i) * VU, vf);
+#pragma unroll
+            for (int t = 0; t < VU; ++t) num[i * VU + t] = fmaf(ex[tap], vf[t], num[i * VU + t]);
+          }
+        }
+    }
+    __syncthreads();  // the buffer is free for slot k + nbuf
+    if (k + a.nbuf < a.K) copy_slot(k + a.nbuf, bi);
+  }
+  if (valid) {
+    const size_t pix = pix0 + (size_t)r * a.W + px;
+    if (den_out != nullptr && ln.j == 0) den_out[pix * a.heads + e] = den;
+    const float dd = fmaxf(den, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < NU; ++i)
+      if (has(i))
+#pragma unroll
+        for (int t = 0; t < VU; ++t) qp[ln.at(i) * VU + t] = num[i * VU + t] / dd;
+  }
+  if (a.bulk) {
+    fence_async_shared();  // out's writes, visible to the bulk stores
+    __syncthreads();
+    if (issuer) {
+      const int runs = whole ? 2 : 2 * Wv;
+      const unsigned bytes = (unsigned)((whole ? Wv : 1) * seg * 4);
+      for (int i = lane; i < runs; i += 32) {
+        const int rr = whole ? i : i / Wv, p = whole ? 0 : i - rr * Wv;
+        bulk_store(out + (pix0 + (size_t)rr * a.W + p) * C + ch0, qs + (rr * a.Wt + p) * seg,
+                   bytes);
+      }
+      bulk_commit();
+      bulk_wait<0>();
+    }
+    return;
+  }
+  __syncthreads();
+  const int fv = a.vq / 4, nv = seg / fv;
+  for (int e2 = threadIdx.x; e2 < 2 * Wv * nv; e2 += blockDim.x) {
+    const int pix = e2 / nv, v = e2 - pix * nv, rr = pix / Wv, p = pix - rr * Wv;
+    const float* src = qs + (rr * a.Wt + p) * seg + v * fv;
+    float* dst = out + (pix0 + (size_t)rr * a.W + p) * C + ch0 + v * fv;
+    if (fv == 4)
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    else if (fv == 2)
+      *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
+    else
+      *dst = *src;
+  }
 }
 
 // Pass 1 of the backward: one group per (pixel, head).  Scratch index of
@@ -321,18 +575,53 @@ static bool ltam_shape_ok(int C, int heads, int H, int W) {
          W % 2 == 0;
 }
 
+// Wt, HB: the block's column span and heads (ltam_attention.fwd_plan):
+// Wt even, HB dividing heads, 2 Wt HB lanes(d) <= 128 threads.
 extern "C" int vmg_ltam_fwd(const float* q, const void* kv, const float* pe,
                             float* out, float* den, int N, int H, int W, int C,
-                            int K, int heads, int dtype, void* stream) {
-  if (!ltam_shape_ok(C, heads, H, W)) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)N * H * W * heads;
-  const int threads = 256, L = vmg::ltam_lanes(C / heads);
-  const long long blocks = (total * L + threads - 1) / threads;
+                            int K, int heads, int Wt, int HB, int dtype, void* stream) {
+  if (!ltam_shape_ok(C, heads, H, W) || N < 1 || K < 1 || Wt < 2 || Wt % 2 != 0 || HB < 1 ||
+      heads % HB != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  vmg::LtamFwdArgs a = {};
+  a.H = H, a.W = W, a.C = C, a.K = K, a.heads = heads, a.d = C / heads;
+  a.L = vmg::ltam_lanes(a.d), a.Wt = Wt, a.HB = HB;
+  a.spans = (W + Wt - 1) / Wt, a.hgroups = heads / HB;
+  const int threads = 2 * Wt * HB * a.L, es = dtype == 1 ? 2 : 4, seg = HB * a.d;
+  if (threads > 128) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)N * (H / 2) * a.spans * a.hgroups;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.pst = vmg::ltam_pixel_stride(2 * seg, es);
+  // the widest copies the runs' lengths, offsets and the pointers allow
+  auto width = [](int run_bytes, int stride_bytes, std::initializer_list<const void*> ptrs) {
+    for (int v : {16, 8, 4}) {
+      bool ok = run_bytes % v == 0 && stride_bytes % v == 0;
+      for (const void* p : ptrs) ok = ok && (uintptr_t)p % v == 0;
+      if (ok) return v;
+    }
+    return 2;
+  };
+  a.vkv = width(seg * es, C * es, {kv});
+  a.vq = width(seg * 4, C * 4, {q, out});
+  if (a.vq < 4 || (dtype == 0 && a.vkv < 4)) return (int)cudaErrorMisalignedAddress;
+  a.bulk = a.vkv == 16 && a.vq == 16 && (a.pst * es) % 16 == 0;
+  a.q_bytes = (unsigned)(((size_t)2 * Wt * seg * 4 + 15) / 16 * 16);
+  a.nbuf = K < vmg::kLtamBufs ? K : vmg::kLtamBufs;
+  const size_t smem = vmg::ltam_fwd_smem(Wt, HB, a.d, es, a.nbuf);
+  if (smem > vmg::kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int vu = a.d % 4 == 0 ? 4 : a.d % 2 == 0 ? 2 : 1;
   cudaStream_t st = (cudaStream_t)stream;
   VMG_DISPATCH_DTYPE(dtype, T, {
-    auto kern = L == 1 ? vmg::ltam_fwd_kernel<T, 1> : vmg::ltam_fwd_kernel<T, 0>;
-    kern<<<(unsigned)blocks, threads, 0, st>>>(q, (const T*)kv, pe, out, den, total, H, W, C, K,
-                                               heads, L);
+    auto pick = [&](auto lf) {
+      constexpr int LF = decltype(lf)::value;
+      return vu == 4 ? vmg::ltam_fwd_kernel<T, LF, 4>
+                     : vu == 2 ? vmg::ltam_fwd_kernel<T, LF, 2> : vmg::ltam_fwd_kernel<T, LF, 1>;
+    };
+    auto kern = a.L == 1 ? pick(std::integral_constant<int, 1>())
+                         : pick(std::integral_constant<int, 0>());
+    const int e = vmg::set_smem(kern, smem);
+    if (e) return e;
+    kern<<<(unsigned)blocks, threads, smem, st>>>(q, (const T*)kv, pe, out, den, a);
   });
   return (int)cudaGetLastError();
 }

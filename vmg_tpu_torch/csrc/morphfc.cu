@@ -56,22 +56,51 @@
 // vmg_morphfc_combine replaces `fused_morphfc_combine` (`_combine_body`,
 // `_combine_kernel`, `_combine_res_kernel`): y = a0*h + a1*w + a2*c in the
 // input dtype, p = round(y @ Pk + pb) to the input dtype, out = (x + p) *
-// tanh(p), optionally res + s * out.  Bound on H100: the C x C projection
-// is C MACs per element (112..448) against ~12 bytes of bf16 traffic per
-// element, compute-bound as scalar FMAs, memory-bound on the tensor
-// cores.  Design: one block per (frame, pixel tile); the weighted sum is
-// formed once per element into shared memory and projected from there
-// (Pk read from L1/L2, it is at most 400 KB); the gate and residual are
-// applied in the epilogue, so x, h, w, c, res are each read once and out
-// written once.  bf16 (serving) projects on the tensor cores (wmma, f32
-// accumulation); f32 (parity runs) with scalar FMAs in the FFN kernel's
-// 16 x 16 register micro-tiles.  A nullable residual pointer covers both
-// TPU variants.  The gate, act: 0 tanh(p), 1 sigmoid(p) - 0.5, 2 relu(p);
-// in bf16 it rounds where the TPU kernel's gate in the output dtype does
-// (the sigmoid, then the subtraction).
+// gate(p), optionally res + s * out.  A nullable residual pointer covers
+// both TPU variants.  The gate, act: 0 tanh(p), 1 sigmoid(p) - 0.5, 2
+// relu(p), a template argument; in bf16 it rounds where the TPU kernel's
+// gate in the output dtype does (the sigmoid, then the subtraction).
+// Bound on H100: device memory.  bf16 reads x, h, w, c, res and writes out,
+// 12 bytes an element, against 2C FLOP on the tensor cores: 1.27 GB and
+// 0.378 ms at stage 0 (16 x 184 x 320 x 112), where the product alone
+// would take 0.024 ms.  So the design keeps every byte moving in 16-byte
+// units and the weights off the device-memory path:
+// * bf16 (serving), morphfc_combine_wgmma_kernel (notes at the kernel):
+//   persistent blocks of 1-3 consumer warpgroups, each walking its own
+//   64-pixel tiles through its own ring of shared-memory slots; y formed
+//   once, with the plain version's roundings, straight into wgmma
+//   register-A fragments;
+//   the product on wgmma m64nNk16 against the Pk image (packed once per
+//   parameter state, pack_combine_weight), resident in shared memory up to
+//   C = 224 (25 KB at 112, 41 KB at 144, 98 KB at 224), streamed through
+//   the ring in C x 64 column tiles above (448: 392 KB does not fit); the
+//   tiles staged by TMA in 64-channel boxes; the epilogue on the
+//   accumulator fragments, out by TMA store.
+//   The wmma kernel this replaced read Pk from L2 for every 32
+//   pixels (0.74 GB a stage-0 call beside 1.27 GB of activations), moved
+//   2 bytes a thread with an integer divide per element, round-tripped the
+//   f32 product through shared memory and overlapped nothing.
+// * f32 (parity runs): one block per (frame, pixel tile), the weighted sums
+//   staged in shared memory, the projection as scalar FMAs in the FFN
+//   kernel's 16 x 16 register micro-tiles, Pk (C_in, C_out) read from L1/L2.
+// ptxas report: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// -Xptxas -v -c vmg_tpu_torch/csrc/morphfc.cu.  For the combine's wgmma
+// instantiations C7519 ("warpgroup.arrive is injected") and C7517
+// ("warpgroup.wait is injected") lines are expected; only the streamed one
+// (C > 224) spills, 36-52 bytes at 255 registers.  A spill at C <= 224 is a
+// regression: the biases loaded ahead of the x unit's wait spilled 200-400
+// bytes at C = 224 and ran slower.  Traps: a box in the 128-byte
+// swizzle must start 1024-byte aligned in shared memory (the kernel traps
+// if the dynamic base is not); a 64-channel box past C loads zeros and its
+// store writes nothing there, which covers C = 112, 144 and 224; asm
+// "memory" clobbers (mbarrier waits, barriers) keep the compiler from
+// hoisting loads across them, so the branch weights are loaded before a
+// unit's wait by hand.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 #include <algorithm>
+#include <cstring>
 
 namespace vmg {
 
@@ -218,88 +247,366 @@ int launch_combine_f32(const float* x, const float* h, const float* w,
   return (int)cudaGetLastError();
 }
 
-// bf16 (serving): the weighted sums go to shared memory as bf16 (rounded
-// where the plain version rounds), the projection runs on the tensor cores
-// into an f32 tile, and the epilogue rounds p, gates and adds the residual.
-constexpr int kCP = 32;  // pixels per block
+// ---- bf16 (serving): persistent warpgroups, a TMA ring, wgmma ------------
+//
+// A tile is kCM = 64 pixels of one frame (a = (N, 3, C) is per frame), one
+// m64 wgmma tile.  Each consumer warpgroup walks its own tiles and streams
+// them through its own ring of `ring` slots as units, in the order it
+// consumes them: h, w, c (in K chunks of KW channels), then per N-tile of
+// NT output channels [the Pk tile,] and per column chunk of XW of its
+// channels x, res.  Whole tensors up to C = 160; above, units of two boxes
+// (128 channels, 16 KB) keep several in flight beside C = 224's 98 KB Pk.
+// One thread of the warpgroup
+// issues each unit's copies: TMA boxes of 64 channels x 64 pixels of an
+// (N, P, C) tensor (8 KB, 128-byte rows in the 128-byte swizzle: 16-byte
+// chunk i of pixel row r at chunk i ^ (r % 8), so the fragment reads below
+// hit 8 different bank groups; rows past the frame and channels past C
+// read as zeros), or one bulk copy for a Pk tile, completing on the slot's
+// mbarrier.  The TMA engine keeps whole lines in flight without a
+// thread's request slots: 16-byte cp.async copies from every thread held
+// the first version of this kernel far below its bound, however many
+// warpgroups it ran.
+//
+// y never goes to shared memory: each thread forms its register-A fragments
+// of y straight from h, w and c at the fragment's positions, one unit at a
+// time (y = h a0; y = rnd(y + rnd(w a1)); y = rnd(y + rnd(c a2)), bf16x2
+// ops that round once each, where the plain version rounds).  The product
+// is wgmma m64nNk16 with B the Pk image (pack_combine_weight): resident in
+// shared memory, loaded once per block, up to C = 224; above (C = 448: 401
+// KB) streamed through the ring one C x 64 column tile at a time.  The
+// epilogue works on the accumulator fragments: p = rnd(acc + pb), the gate,
+// r = rnd(rnd(x + p) g), out = rnd(res + rnd(s r)); out overwrites res (or
+// x) in its slot and leaves by TMA store (rows past the frame and channels
+// past C are not written).
+//
+// Each step: barrier of the warpgroup (everyone is done with unit u - 1),
+// the issuing thread starts unit u + ring - 1 in u - 1's slot (after its
+// last store has read its slot), everyone waits on unit u's mbarrier and
+// consumes it.  So ring - 1 units are in flight while one is consumed.  No
+// proxy fence per step: the units are read in place, and the out tile's
+// writes are fenced once, before their store.
+constexpr int kCM = 64;                         // pixels per tile
+constexpr int kCBox = 64;                       // channels per TMA box (128 bytes)
+constexpr unsigned kCBoxBytes = kCM * kCBox * 2;  // 8 KB
+constexpr int kCRingMax = 8;                    // unit slots per warpgroup
 
-__host__ __device__ inline size_t combine_bf16_smem(int C) {
-  return (size_t)kCP * ((C + kPadH) * 2 + (C + kPadF) * 4);
+struct CombineMaps {
+  CUtensorMap x, h, w, c, res, out;  // (N, P, C), 64 x 64 boxes, 128-byte swizzle
+};
+
+struct CombineArgs {
+  const bf16 *a, *pk;
+  const float* pb;
+  float res_scale;
+  int P, C;
+  int KW, nK;     // channels per h / w / c unit, units per tensor
+  int nN;         // N-tiles
+  int XW, nX;     // channels per x / res unit, units per N-tile and tensor
+  int stream;     // 1: Pk streamed per N-tile through the ring (C > 224)
+  int ring, nwg;  // slots per consumer warpgroup, consumer warpgroups
+  int has_res;
+  int tiles_pf, tiles, units;  // tiles per frame, in all; units per tile
+  unsigned slot_bytes, pk_bytes;
+};
+
+// Output channels per N-tile: all C up to 224 (Pk resident), else 64
+// (morphfc_fused.combine_tile_n).
+__host__ __device__ inline int combine_tile_n(int C) { return C <= 224 ? C : 64; }
+// Channels per h / w / c unit and per x / res unit: all C up to 160, else
+// two boxes.
+__host__ __device__ inline int combine_k_width(int C) { return C <= 160 ? C : 128; }
+__host__ __device__ inline int combine_x_width(int C) {
+  return combine_tile_n(C) <= 160 ? combine_tile_n(C) : 128;
+}
+__host__ __device__ inline unsigned combine_slot_bytes(int C) {
+  const unsigned act = (unsigned)((combine_k_width(C) + kCBox - 1) / kCBox) * kCBoxBytes;
+  const unsigned pkt = C > 224 ? (unsigned)C * kCBox * 2 : 0;
+  return act > pkt ? act : pkt;
+}
+__host__ __device__ inline size_t combine_smem(int C, int nwg, int ring) {
+  // the rings (1024-byte aligned), the resident Pk image, the barriers
+  return (size_t)nwg * ring * combine_slot_bytes(C) + (C <= 224 ? (size_t)C * C * 2 : 0) + 256;
+}
+// Consumer warpgroups a block may have: three while y's fragments, the
+// accumulator and the epilogue's values fit 168 registers a thread (up to
+// C = 128; ptxas spilled ~200 bytes at 144 and 160), else two.
+__host__ __device__ constexpr int combine_max_wg(int KSM, int NT) {
+  return KSM <= 8 && NT <= 128 ? 3 : 2;
 }
 
+__device__ __forceinline__ void wg_bar(int g) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(g + 1) : "memory");
+}
+__device__ __forceinline__ __nv_bfloat162 u2b(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+__device__ __forceinline__ uint32_t b2u(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// the gate of a bf16 pair, rounded as symm_gate<bf16, ACT> rounds
 template <int ACT>
-__global__ void __launch_bounds__(kThreads)
-morphfc_combine_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
-                            const bf16* __restrict__ w, const bf16* __restrict__ c,
-                            const bf16* __restrict__ a, const bf16* __restrict__ pk,
-                            const float* __restrict__ pb, const bf16* __restrict__ res,
-                            bf16* __restrict__ out, int P, int C, float res_scale) {
-  constexpr int MT = kCP / 16;  // 16-pixel row tiles
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldy = C + kPadH, lda = C + kPadF;
-  bf16* ys = reinterpret_cast<bf16*>(smem_raw);           // kCP x ldy
-  float* acc = reinterpret_cast<float*>(ys + kCP * ldy);  // kCP x lda
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.y, p0 = blockIdx.x * kCP;
-  const bf16* an = a + (size_t)n * 3 * C;
-
-  for (int e = threadIdx.x; e < kCP * C; e += kThreads) {
-    const int p = e / C, ch = e % C;
-    float v = 0.f;
-    if (p0 + p < P) {
-      const size_t idx = ((size_t)n * P + p0 + p) * C + ch;
-      const float th = rnd<bf16>(to_f<bf16>(h[idx]) * to_f<bf16>(an[ch]));
-      const float tw = rnd<bf16>(to_f<bf16>(w[idx]) * to_f<bf16>(an[C + ch]));
-      const float tc = rnd<bf16>(to_f<bf16>(c[idx]) * to_f<bf16>(an[2 * C + ch]));
-      v = rnd<bf16>(th + tw) + tc;
-    }
-    ys[p * ldy + ch] = from_f<bf16>(v);
-  }
-  __syncthreads();
-
-  for (int t = warp; t < MT * (C / 16); t += kWarps) {
-    const int mi = t % MT, ni = t / MT;
-    FragC cf;
-    wm::fill_fragment(cf, 0.f);
-    for (int k0 = 0; k0 < C; k0 += 16) {
-      FragA af;
-      FragB bfr;
-      wm::load_matrix_sync(af, ys + mi * 16 * ldy + k0, ldy);
-      wm::load_matrix_sync(bfr, pk + (size_t)k0 * C + ni * 16, C);
-      wm::mma_sync(cf, af, bfr, cf);
-    }
-    wm::store_matrix_sync(acc + mi * 16 * lda + ni * 16, cf, lda, wm::mem_row_major);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < kCP * C; e += kThreads) {
-    const int p = e / C, o = e % C;
-    if (p0 + p >= P) continue;
-    const size_t idx = ((size_t)n * P + p0 + p) * C + o;
-    const float pv = rnd<bf16>(acc[p * lda + o] + pb[o]);
-    float r = rnd<bf16>(rnd<bf16>(to_f<bf16>(x[idx]) + pv) * symm_gate<bf16, ACT>(pv));
-    if (res != nullptr)
-      r = rnd<bf16>(to_f<bf16>(res[idx]) + rnd<bf16>(res_scale * r));
-    out[idx] = from_f<bf16>(r);
+__device__ __forceinline__ __nv_bfloat162 combine_gate(__nv_bfloat162 p) {
+  if constexpr (ACT == 2) {
+    return __hmax2(p, __float2bfloat162_rn(0.f));
+  } else {
+    const float2 f = __bfloat1622float2(p);
+    if constexpr (ACT == 1)
+      return __hsub2(__floats2bfloat162_rn(1.f / (1.f + expf(-f.x)), 1.f / (1.f + expf(-f.y))),
+                     __float2bfloat162_rn(0.5f));
+    else
+      return __floats2bfloat162_rn(tanhf(f.x), tanhf(f.y));
   }
 }
+// The bf16 pair of a unit slot at pixel row `row` (row % 8 == r8), 8-channel
+// chunk k8 of the unit, byte q4 of the chunk: box k8 / 8, chunk k8 % 8
+// swizzled with the row.
+__device__ __forceinline__ __nv_bfloat162* slot_pair(unsigned char* slot, int row, int r8, int k8,
+                                                     int q4) {
+  return reinterpret_cast<__nv_bfloat162*>(slot + (k8 >> 3) * kCBoxBytes + row * 128 +
+                                           (((k8 & 7) ^ r8) << 4) + q4);
+}
 
-template <int ACT>
-int launch_combine_bf16(const bf16* x, const bf16* h, const bf16* w,
-                        const bf16* c, const bf16* a, const bf16* pk,
-                        const float* pb, const bf16* res, bf16* out, int N,
-                        int P, int C, float res_scale, cudaStream_t stream) {
-  const size_t smem = combine_bf16_smem(C);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(morphfc_combine_bf16_kernel<ACT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// KSM: k-steps of y's fragments (C / 16; 28 where Pk streams); NT: output
+// channels per N-tile (the accumulator: NT / 2 registers a thread).
+template <int KSM, int NT, int ACT>
+__global__ void __launch_bounds__(128 * combine_max_wg(KSM, NT), 1)
+morphfc_combine_wgmma_kernel(const __grid_constant__ CombineMaps maps, const CombineArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw;  // the swizzled boxes need 1024-byte alignment
+  if ((su32(base) & 1023) != 0) __trap();
+  const int g = threadIdx.x >> 7, tid = threadIdx.x & 127, wq = tid >> 5, lane = tid & 31;
+  const bool leader = tid == 0;  // issues the warpgroup's copies and stores
+  unsigned char* ring = base + (size_t)g * a.ring * a.slot_bytes;
+  unsigned char* pks = base + (size_t)a.nwg * a.ring * a.slot_bytes;  // resident Pk image
+  uint64_t* pk_bar = reinterpret_cast<uint64_t*>(pks + a.pk_bytes);
+  uint64_t* full = pk_bar + 1 + g * kCRingMax;  // this warpgroup's slots
+  const int C = a.C;
+  const int G = gridDim.x * a.nwg, gw = blockIdx.x * a.nwg + g;
+  const int ntiles = gw < a.tiles ? (a.tiles - gw + G - 1) / G : 0;
+  const int total = ntiles * a.units;
+  const int XV = 1 + a.has_res, V = a.stream + a.nX * XV;  // units per x chunk, N-tile
+
+  if (threadIdx.x == 0) {
+    mbar_init(pk_bar, 1);
+    for (int i = 0; i < a.nwg * kCRingMax; ++i) mbar_init(pk_bar + 1 + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  dim3 grid((P + kCP - 1) / kCP, N);
-  morphfc_combine_bf16_kernel<ACT><<<grid, kThreads, smem, stream>>>(
-      x, h, w, c, a, pk, pb, res, out, P, C, res_scale);
+  __syncthreads();
+  if (threadIdx.x == 0 && !a.stream) {
+    mbar_expect(pk_bar, (unsigned)(C * C * 2));
+    bulk_load(pks, a.pk, (unsigned)(C * C * 2), pk_bar);
+  }
+
+  auto slot_of = [&](int u) { return ring + (size_t)(u % a.ring) * a.slot_bytes; };
+  // unit u's copies: h, w, c (kind 0-2) K chunk, x, res (3, 4) N-tile, or
+  // (5) the N-tile's Pk columns
+  auto issue = [&](int u) {
+    if (u >= total) return;
+    const int t = u / a.units;
+    int k = u - t * a.units, kind, ch0, width;
+    if (k < 3 * a.nK) {
+      kind = k / a.nK;
+      ch0 = (k - kind * a.nK) * a.KW;
+      width = min(a.KW, C - ch0);
+    } else {
+      k -= 3 * a.nK;
+      const int nt = k / V;
+      int v = k - nt * V - a.stream;
+      ch0 = nt * NT;
+      width = NT;
+      if (v < 0) {
+        kind = 5;
+      } else {
+        const int cx = v / XV;
+        kind = 3 + v - cx * XV;
+        ch0 += cx * a.XW;
+        width = min(a.XW, NT - cx * a.XW);
+      }
+    }
+    unsigned char* slot = slot_of(u);
+    uint64_t* bar = full + u % a.ring;
+    if (kind == 5) {  // the image's N-tile ch0 / NT: C x NT contiguous
+      const unsigned bytes = (unsigned)(C * NT * 2);
+      mbar_expect(bar, bytes);
+      bulk_load(slot, a.pk + (size_t)ch0 * C, bytes, bar);
+      return;
+    }
+    const CUtensorMap* map = kind == 0 ? &maps.h : kind == 1 ? &maps.w : kind == 2 ? &maps.c
+                             : kind == 3 ? &maps.x : &maps.res;
+    const int tile = gw + t * G, n = tile / a.tiles_pf, r0 = (tile - n * a.tiles_pf) * kCM;
+    const int nb = (width + kCBox - 1) / kCBox;
+    mbar_expect(bar, nb * kCBoxBytes);
+    for (int b = 0; b < nb; ++b) tma_load_3d(slot + b * kCBoxBytes, map, ch0 + b * kCBox, r0, n, bar);
+  };
+  if (leader)
+    for (int u = 0; u < a.ring - 1; ++u) issue(u);
+
+  const int r_lo = 16 * wq + (lane >> 2), r8 = lane >> 2, q4 = 4 * (lane & 3);
+  int u = 0;
+  // the next unit: its slot, once its copies are in
+  auto step = [&]() {
+    wg_bar(g);
+    if (leader) {
+      bulk_wait_read<0>();  // the last store has read its slot
+      issue(u + a.ring - 1);
+    }
+    mbar_wait(full + u % a.ring, (u / a.ring) & 1);
+    return slot_of(u++);
+  };
+  // the out columns ch0 .. ch0 + width - 1 of the tile, from a slot
+  auto store = [&](const unsigned char* slot, int n, int r0, int ch0, int width) {
+    fence_async_shared();
+    wg_bar(g);
+    if (leader) {
+      for (int b = 0; b * kCBox < width; ++b)
+        tma_store_3d(&maps.out, slot + b * kCBoxBytes, ch0 + b * kCBox, r0, n);
+      bulk_commit();
+    }
+  };
+  for (int t = 0; t < ntiles; ++t) {
+    const int tile = gw + t * G, n = tile / a.tiles_pf, r0 = (tile - n * a.tiles_pf) * kCM;
+    // y as register-A fragments: register q of k-step s holds row r_lo + 8
+    // (q & 1), channels 16 s + 8 (q >> 1) + 2 (lane % 4) + {0, 1}
+    uint32_t yf[KSM][4];
+    for (int kind = 0; kind < 3; ++kind) {
+      const unsigned* ak =
+          reinterpret_cast<const unsigned*>(a.a + ((size_t)n * 3 + kind) * C + 2 * (lane & 3));
+      for (int kc = 0; kc < a.nK; ++kc) {
+        const int s0 = kc * a.KW / 16, s1 = min(C, (kc + 1) * a.KW) / 16;
+        // the unit's branch weights, loaded before its wait (which the
+        // compiler cannot move loads across)
+        uint32_t aw[KSM][2];
+#pragma unroll
+        for (int s = 0; s < KSM; ++s)
+          if (s >= s0 && s < s1) aw[s][0] = __ldg(ak + 8 * s), aw[s][1] = __ldg(ak + 8 * s + 4);
+        unsigned char* slot = step();
+#pragma unroll
+        for (int s = 0; s < KSM; ++s) {
+          if (s < s0 || s >= s1) continue;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const __nv_bfloat162 term =
+                __hmul2(*slot_pair(slot, r_lo + 8 * (q & 1), r8, 2 * (s - s0) + (q >> 1), q4),
+                        u2b(aw[s][q >> 1]));
+            if (kind == 0)
+              yf[s][q] = b2u(term);
+            else
+              yf[s][q] = b2u(__hadd2(u2b(yf[s][q]), term));
+          }
+        }
+      }
+    }
+    for (int nt = 0; nt < a.nN; ++nt) {
+      const int ch0 = nt * NT;
+      // acc = y @ (the N-tile's columns of Pk): B k-step s at 2 s NT 16
+      // bytes, its two 8-row halves NT 16 apart, 8-column groups 128 apart
+      unsigned bsm;
+      if (a.stream) {
+        bsm = su32(step());
+      } else {
+        mbar_wait(pk_bar, 0);
+        bsm = su32(pks);
+      }
+      float acc[NT / 2];
+      wg_fence();
+#pragma unroll
+      for (int s = 0; s < KSM; ++s) {
+        if (s >= C / 16) break;
+        WgmmaRA<NT>::mma(acc, yf[s], mat_desc(bsm + s * 2 * NT * 16, NT * 16, 128), s != 0);
+      }
+      wg_commit();
+      pin_regs(acc);
+      wg_wait<0>();
+      pin_regs(acc);
+#pragma unroll
+      for (int s = 0; s < KSM; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(yf[s][q])::"memory");
+      // the epilogue on the accumulator's fragments, one column chunk of
+      // XW channels at a time: register 4 j + 2 hh + e is row r_lo + 8 hh,
+      // channel ch0 + 8 j + 2 (lane % 4) + e.  With a residual, r goes back
+      // into the pair's first accumulator register until res is in.
+      for (int cx = 0; cx < a.nX; ++cx) {
+        const int j0 = cx * a.XW / 8, j1 = min(NT, (cx + 1) * a.XW) / 8;
+        unsigned char* xs = step();
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          if (j < j0 || j >= j1) continue;
+          const int ch = ch0 + 8 * j + 2 * (lane & 3);
+          const float2 bj =
+              ch < C ? __ldg(reinterpret_cast<const float2*>(a.pb + ch)) : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            __nv_bfloat162* px = slot_pair(xs, r_lo + 8 * hh, r8, j - j0, q4);
+            const __nv_bfloat162 p = __floats2bfloat162_rn(acc[4 * j + 2 * hh] + bj.x,
+                                                           acc[4 * j + 2 * hh + 1] + bj.y);
+            const __nv_bfloat162 r = __hmul2(__hadd2(*px, p), combine_gate<ACT>(p));
+            if (a.has_res)
+              acc[4 * j + 2 * hh] = __uint_as_float(b2u(r));
+            else
+              *px = r;
+          }
+        }
+        if (!a.has_res) {
+          store(xs, n, r0, ch0 + 8 * j0, 8 * (j1 - j0));
+          continue;
+        }
+        unsigned char* rs = step();  // out = rnd(res + rnd(s r))
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          if (j < j0 || j >= j1) continue;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            __nv_bfloat162* px = slot_pair(rs, r_lo + 8 * hh, r8, j - j0, q4);
+            const float2 r = __bfloat1622float2(u2b(__float_as_uint(acc[4 * j + 2 * hh])));
+            *px = __hadd2(*px, __floats2bfloat162_rn(a.res_scale * r.x, a.res_scale * r.y));
+          }
+        }
+        store(rs, n, r0, ch0 + 8 * j0, 8 * (j1 - j0));
+      }
+    }
+  }
+  if (leader) bulk_wait<0>();  // the stores are done before the block's shared memory goes
+}
+
+template <int KSM, int NT, int ACT>
+int launch_combine_wgmma(const CombineMaps& maps, const CombineArgs& a, cudaStream_t s) {
+  if (a.nwg < 1 || a.nwg > combine_max_wg(KSM, NT) || a.ring < 2 || a.ring > kCRingMax)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = combine_smem(a.C, a.nwg, a.ring);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = morphfc_combine_wgmma_kernel<KSM, NT, ACT>;
+  static bool smem_set = false;  // the largest size, once per instantiation
+  if (!smem_set) {
+    const int e = set_smem(kern, kMaxSmem);
+    if (e) return e;
+    smem_set = true;
+  }
+  const int sms = sm_count(), want = (a.tiles + a.nwg - 1) / a.nwg;
+  kern<<<want < sms ? want : sms, 128 * a.nwg, smem, s>>>(maps, a);
   return (int)cudaGetLastError();
+}
+
+template <int ACT>
+int combine_bf16(const CombineMaps& m, const CombineArgs& a, cudaStream_t s) {
+  if (a.C > 224) return launch_combine_wgmma<28, 64, ACT>(m, a, s);
+  switch (a.C) {
+    case 16: return launch_combine_wgmma<1, 16, ACT>(m, a, s);
+    case 32: return launch_combine_wgmma<2, 32, ACT>(m, a, s);
+    case 48: return launch_combine_wgmma<3, 48, ACT>(m, a, s);
+    case 64: return launch_combine_wgmma<4, 64, ACT>(m, a, s);
+    case 80: return launch_combine_wgmma<5, 80, ACT>(m, a, s);
+    case 96: return launch_combine_wgmma<6, 96, ACT>(m, a, s);
+    case 112: return launch_combine_wgmma<7, 112, ACT>(m, a, s);
+    case 128: return launch_combine_wgmma<8, 128, ACT>(m, a, s);
+    case 144: return launch_combine_wgmma<9, 144, ACT>(m, a, s);
+    case 160: return launch_combine_wgmma<10, 160, ACT>(m, a, s);
+    case 176: return launch_combine_wgmma<11, 176, ACT>(m, a, s);
+    case 192: return launch_combine_wgmma<12, 192, ACT>(m, a, s);
+    case 208: return launch_combine_wgmma<13, 208, ACT>(m, a, s);
+    case 224: return launch_combine_wgmma<14, 224, ACT>(m, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // the f32 kernel for C's register micro-tile
@@ -811,24 +1118,51 @@ extern "C" int vmg_morphfc_reduce(const void* h, const void* w, const void* c,
   return (int)cudaGetLastError();
 }
 
-// x, h, w, c, res, out: (N, P, C); a: (N, 3, C); pk: (C_in, C_out); pb: (C,)
-// f32; res may be null; act: the gate (0 tanh, 1 sigmoid - 0.5, 2 relu).
+// x, h, w, c, res, out: (N, P, C); a: (N, 3, C); pb: (C,) f32; res may be
+// null; act: the gate (0 tanh, 1 sigmoid - 0.5, 2 relu).  pk: f32 (C_in,
+// C_out); bf16 the image of pack_combine_weight, (C / NT, C / 8, NT, 8) with
+// NT = combine_tile_n(C).  nwg, ring: the bf16 kernel's consumer warpgroups
+// and ring slots (morphfc_fused.combine_plan); the f32 kernel ignores them.
 extern "C" int vmg_morphfc_combine(const void* x, const void* h, const void* w,
                                    const void* c, const void* a, const void* pk,
                                    const float* pb, const void* res, void* out,
                                    int N, int P, int C, float res_scale, int act,
-                                   int dtype, void* stream) {
-  if (C % 16 != 0 || C > 448 || N > 65535 || act < 0 || act > 2)
+                                   int nwg, int ring, int dtype, void* stream) {
+  if (C % 16 != 0 || C > 448 || N < 1 || P < 1 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
-    typedef vmg::bf16 T;
-    auto launch = act == 0 ? vmg::launch_combine_bf16<0>
-                           : act == 1 ? vmg::launch_combine_bf16<1> : vmg::launch_combine_bf16<2>;
-    return launch((const T*)x, (const T*)h, (const T*)w, (const T*)c, (const T*)a, (const T*)pk,
-                  pb, (const T*)res, (T*)out, N, P, C, res_scale, st);
+    for (const void* p : {x, h, w, c, res, pk, (const void*)out})
+      if ((uintptr_t)p % 16 != 0) return (int)cudaErrorMisalignedAddress;
+    if ((uintptr_t)a % 4 != 0 || (uintptr_t)pb % 8 != 0) return (int)cudaErrorMisalignedAddress;
+    vmg::CombineArgs ca = {};
+    ca.a = (const vmg::bf16*)a, ca.pk = (const vmg::bf16*)pk, ca.pb = pb;
+    ca.res_scale = res_scale, ca.P = P, ca.C = C;
+    ca.KW = vmg::combine_k_width(C), ca.nK = (C + ca.KW - 1) / ca.KW;
+    const int NT = vmg::combine_tile_n(C);
+    ca.nN = (C + NT - 1) / NT, ca.stream = C > 224, ca.has_res = res != nullptr;
+    ca.XW = vmg::combine_x_width(C), ca.nX = (NT + ca.XW - 1) / ca.XW;
+    ca.ring = ring, ca.nwg = nwg;
+    ca.tiles_pf = (P + vmg::kCM - 1) / vmg::kCM;
+    if ((long long)N * ca.tiles_pf > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    ca.tiles = N * ca.tiles_pf;
+    ca.units = 3 * ca.nK + ca.nN * (ca.stream + ca.nX * (1 + ca.has_res));
+    ca.slot_bytes = vmg::combine_slot_bytes(C);
+    ca.pk_bytes = ca.stream ? 0 : (unsigned)(C * C * 2);
+    vmg::CombineMaps maps;
+    memset(&maps, 0, sizeof(maps));
+    const void* ts[6] = {x, h, w, c, res, out};
+    CUtensorMap* ms[6] = {&maps.x, &maps.h, &maps.w, &maps.c, &maps.res, &maps.out};
+    for (int i = 0; i < 6; ++i) {
+      if (ts[i] == nullptr) continue;
+      const int e = vmg::bf16_box_map3(ms[i], ts[i], C, P, N, vmg::kCBox, vmg::kCM, true);
+      if (e) return e;
+    }
+    auto launch = act == 0 ? vmg::combine_bf16<0> : act == 1 ? vmg::combine_bf16<1>
+                                                             : vmg::combine_bf16<2>;
+    return launch(maps, ca, st);
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || N > 65535) return (int)cudaErrorInvalidValue;
   auto launch = act == 0 ? vmg::launch_combine_f32_any<0>
                          : act == 1 ? vmg::launch_combine_f32_any<1> : vmg::launch_combine_f32_any<2>;
   return launch((const float*)x, (const float*)h, (const float*)w, (const float*)c,

@@ -1,9 +1,10 @@
-// Hopper building blocks shared by the wgmma kernels (conv_chain.cu,
-// group_ffn.cu): wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for every N
+// Hopper building blocks shared by the wgmma and bulk-copy kernels
+// (conv_chain.cu, group_ffn.cu, morphfc.cu's combine, ltam.cu's forward):
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for every N
 // the kernels take (a multiple of 16 up to 224), with A from shared memory
 // (Wgmma<N>) or from registers (WgmmaRA<N>) and B from shared memory
-// through matrix descriptors; mbarriers, bulk and TMA copies, and the
-// tensor-map encoder.
+// through matrix descriptors; mbarriers, bulk and TMA copies both ways, and
+// the tensor-map encoders.
 //
 // d: the warpgroup's 64 x N f32 accumulator tile, N / 2 registers a thread
 // (wgmma's fragment layout: register 4j + 2h + e holds row 16 * warp + lane
@@ -152,6 +153,42 @@ __device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map
       "r"(b)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(su32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(su32(b))
+      : "memory");
+}
+// shared -> global: a TMA box, or `bytes` contiguous bytes; each in the
+// issuing thread's current bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(su32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(su32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the issuing thread's bulk groups: all but N have read their shared memory
+// (.read) or are complete
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
 __device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) { mbar_init(su32(b), count); }
 __device__ __forceinline__ void mbar_arrive(uint64_t* b) { mbar_arrive(su32(b)); }
 __device__ __forceinline__ void mbar_expect(uint64_t* b, unsigned bytes) {
@@ -239,6 +276,24 @@ inline int nhwc_box_map(CUtensorMap* map, const void* t, int N, int H, int W, in
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides,
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 3-D tensor map over a (d2, d1, d0) bf16 tensor, d0 innermost: boxes of
+// box0 x box1 x 1, zeros out of bounds; swizzle128: the 128-byte swizzle
+// (box0 = 64: 128-byte box rows, 16-byte chunk i of row r at chunk i ^ (r %
+// 8); the box's shared memory 1024-byte aligned), else none.
+inline int bf16_box_map3(CUtensorMap* map, const void* t, int d0, int d1, int d2, int box0,
+                         int box1, bool swizzle128) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d1 * d0 * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1}, elem[3] = {1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(t), dims, strides,
+                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

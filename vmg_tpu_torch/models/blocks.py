@@ -45,6 +45,7 @@ from vmg_tpu_torch.ops.morphfc_fused import (
     fused_morphfc_axes,
     fused_morphfc_combine,
     fused_morphfc_reduce,
+    pack_combine_weight,
     symm_gate,
 )
 
@@ -253,10 +254,12 @@ class MorphFCDecay(PackedOperands):
     def _pack(self):
         fh, fw = self.mlp_h[0], self.mlp_w[0]
         kh, kw = self._decayed()
+        pk = self.proj.weight.t().contiguous()
+        if pk.is_cuda and pk.dtype == torch.bfloat16:  # the bf16 kernel's B image
+            pk = pack_combine_weight(pk)
         return dict(kh=kh.contiguous(), kw=kw.contiguous(),
                     bh=fh.bias.float().contiguous(), bw=fw.bias.float().contiguous(),
-                    pk=self.proj.weight.t().contiguous(),
-                    pb=self.proj.bias.float().contiguous())
+                    pk=pk, pb=self.proj.bias.float().contiguous())
 
     def full_form(self, W: int) -> bool:
         """The JAX package's 'full' selection (``_pallas_mode``)."""

@@ -79,6 +79,46 @@ def _check(q, kv, pe, K, heads):
                    device=q.device)
 
 
+def lanes(d: int) -> int:
+    """Lanes per (pixel, head) of the kernels: the least power of two whose
+    32 registers a lane hold the head width d (``ltam_lanes``)."""
+    L = 1
+    while L * 32 < d:
+        L *= 2
+    return L
+
+
+def _pixel_stride(seg2: int, es: int) -> int:
+    """The forward's kv pixel stride in shared memory (``ltam_pixel_stride``):
+    the staged 2 HB d channels, padded in 16-byte steps so that two strides
+    fall 16 banks apart."""
+    if seg2 * es % 16:
+        return seg2
+    return seg2 + (8 - (seg2 * es // 4) % 16) % 16 * 4 // es
+
+
+# kv slot buffers of the forward kernel's block (``kLtamBufs``): slots in flight
+FWD_BUFFERS = 4
+
+
+def fwd_smem(Wt: int, HB: int, d: int, dtype, nbuf: int = FWD_BUFFERS) -> int:
+    """Shared memory of the forward kernel's block (``ltam_fwd_smem``): q /
+    out as f32, ``nbuf`` kv slot buffers of two rows of Wt pixels each, and
+    the mbarriers of the bulk copies."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    kv = nbuf * 2 * Wt * _pixel_stride(2 * HB * d, es) * es
+    return -(-2 * Wt * HB * d * 4 // 16) * 16 + -(-kv // 8) * 8 + (1 + nbuf) * 8
+
+
+def fwd_plan(C: int, heads: int):
+    """(Wt, HB) of the forward kernel: HB, the most heads that divide
+    ``heads`` with HB * lanes <= 32, and Wt, the widest even column span that
+    keeps the block's 2 Wt HB lane groups within 128 threads."""
+    L = lanes(C // heads)
+    HB = max(b for b in range(1, heads + 1) if heads % b == 0 and b * L <= 32)
+    return 2 * (32 // (HB * L)), HB
+
+
 def _forward_kernel(q, kv, pe, K, heads, with_den: bool):
     """Launch the forward kernel: out, and den (N, H, W, heads) f32 (the
     unclamped softmax denominator) when ``with_den``."""
@@ -87,9 +127,10 @@ def _forward_kernel(q, kv, pe, K, heads, with_den: bool):
     out = torch.empty_like(q)
     den = (torch.empty((N, H, W, heads), dtype=torch.float32, device=q.device)
            if with_den else None)
+    Wt, HB = fwd_plan(C, heads)
     code = _build.load_library().vmg_ltam_fwd(
         q.data_ptr(), kv.data_ptr(), pe.data_ptr(), out.data_ptr(),
-        _build.ptr(den), N, H, W, C, K, heads, _build.DTYPE_CODES[kv.dtype],
+        _build.ptr(den), N, H, W, C, K, heads, Wt, HB, _build.DTYPE_CODES[kv.dtype],
         _build.stream_of(q))
     _build.check(code, "vmg_ltam_fwd")
     ltam_attention_2x2.launches += 1

@@ -8,7 +8,8 @@ CPU tensors.  Tensors are ``(N, H, W, C)``; ``a`` holds the per-frame
 softmax branch weights ``(N, 3, C)``.  Weights come as the kernels take
 them, packed once by the module (``MorphFCDecay.operands``): matrices
 ``(C_in, C_out)`` in the tensors' dtype (the axis weights with the decay
-folded in), biases float32.
+folded in; the combine's projection, for the bf16 kernel, as its wgmma B
+image, :func:`pack_combine_weight`), biases float32.
 """
 
 from __future__ import annotations
@@ -205,9 +206,92 @@ def morphfc_combine_plain(x, h, w, c, a, pk, pb, *, act="tanh",
     return out
 
 
+# The bf16 combine kernel (csrc/morphfc.cu ``morphfc_combine_wgmma_kernel``):
+# 64-pixel tiles; each tensor's tile lands in a ring slot as TMA boxes of 64
+# channels x 64 pixels (8 KB); a ring of such slots per consumer warpgroup.
+COMBINE_BOX = 64
+COMBINE_BOX_BYTES = 64 * 64 * 2
+COMBINE_RING_MAX = 8
+
+
+def combine_tile_n(C: int) -> int:
+    """Output channels per N-tile of the bf16 kernel: all C up to 224 (the
+    Pk image stays in shared memory), else 64 -- Pk streams in column tiles
+    of that width."""
+    return C if C <= 224 else COMBINE_BOX
+
+
+def combine_k_width(C: int) -> int:
+    """Channels per h / w / c unit of the bf16 kernel: all C up to 160, else
+    128 (two boxes)."""
+    return C if C <= 160 else 2 * COMBINE_BOX
+
+
+def combine_x_width(C: int) -> int:
+    """Channels per x / res unit: as :func:`combine_k_width`, of an
+    N-tile's."""
+    nt = combine_tile_n(C)
+    return nt if nt <= 160 else 2 * COMBINE_BOX
+
+
+def combine_image_shape(C: int):
+    """Shape of the bf16 kernel's Pk operand: ``(ceil(C / NT), C / 8, NT, 8)``
+    (columns past C, in the last N-tile above C = 224, are zeros)."""
+    nt = combine_tile_n(C)
+    return (-(-C // nt), C // 8, nt, 8)
+
+
+def pack_combine_weight(pk):
+    """(C_in, C_out) projection -> the bf16 kernel's wgmma B image, per
+    N-tile t of NT output channels ``img[t, kg, n, ki] = pk[8 kg + ki, t NT
+    + n]`` (zero past C): K-major 8 x 16-byte core matrices, each N-tile
+    contiguous.  ``MorphFCDecay`` packs it once per parameter state."""
+    C = pk.shape[0]
+    if tuple(pk.shape) != (C, C) or C % 16:
+        raise ValueError(f"pk must be (C, C) with C % 16 == 0, got {tuple(pk.shape)}")
+    t, _, nt, _ = combine_image_shape(C)
+    pk = F.pad(pk, (0, t * nt - C))
+    return pk.reshape(C // 8, 8, t, nt).permute(2, 0, 3, 1).contiguous()
+
+
+def unpack_combine_weight(img):
+    """The (C_in, C_out) projection of a :func:`pack_combine_weight` image."""
+    t, kg, nt, _ = img.shape
+    C = kg * 8
+    return img.permute(1, 3, 0, 2).reshape(C, t * nt)[:, :C]
+
+
+def _combine_slot_bytes(C: int) -> int:
+    act = -(-combine_k_width(C) // COMBINE_BOX) * COMBINE_BOX_BYTES
+    return max(act, C * COMBINE_BOX * 2 if C > 224 else 0)
+
+
+def combine_smem(C: int, nwg: int, ring: int) -> int:
+    """Shared memory of the bf16 kernel (``combine_smem`` in the source):
+    nwg rings of ``ring`` slots, the resident Pk image (C <= 224) and the
+    barriers."""
+    return nwg * ring * _combine_slot_bytes(C) + (C * C * 2 if C <= 224 else 0) + 256
+
+
+def combine_plan(C: int):
+    """(consumer warpgroups, ring slots) of the bf16 kernel at C: the most
+    warpgroups (3 where their registers allow, C <= 128; else 2) whose rings
+    hold 3 slots each in shared memory, else the most with 2; at most
+    ``COMBINE_RING_MAX`` slots."""
+    fixed, slot = combine_smem(C, 0, 0), _combine_slot_bytes(C)
+    options = (3, 2, 1) if C <= 128 else (2, 1)
+    for least in (3, 2):
+        for nwg in options:
+            ring = min(COMBINE_RING_MAX, (MAX_SMEM - fixed) // (nwg * slot))
+            if ring >= least:
+                return nwg, ring
+    raise ValueError(f"the combine kernel has no plan at C={C}")
+
+
 def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
                           residual=None, res_scale=1.0):
-    """pk (C_in, C_out) in x's dtype, pb (C,) f32; ``act``: the gate,
+    """pb (C,) f32; pk in x's dtype: (C_in, C_out), or in bf16 on CUDA the
+    image :func:`pack_combine_weight` makes of it; ``act``: the gate,
     ``"tanh"``, ``"sigmoid"`` (sigmoid(p) - 0.5) or ``"relu"``."""
     if x.device.type == "cpu":
         return morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act,
@@ -217,19 +301,23 @@ def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
     N, H, W, C = x.shape
     dt, dev = x.dtype, x.device
     _build.require(x, "x")
+    if C % 16 or C > 448:
+        raise ValueError(f"the combine kernel takes C % 16 == 0, C <= 448; got C={C}")
+    pk_shape = combine_image_shape(C) if dt == torch.bfloat16 else (C, C)
     checks = [("h", h, x.shape, dt), ("w", w, x.shape, dt),
               ("c", c, x.shape, dt), ("a", a, (N, 3, C), dt),
-              ("pk", pk, (C, C), dt), ("pb", pb, (C,), torch.float32)]
+              ("pk", pk, pk_shape, dt), ("pb", pb, (C,), torch.float32)]
     if residual is not None:
         checks.append(("residual", residual, x.shape, dt))
     for name, t, shape, dtype in checks:
         _build.require(t, name, shape=shape, dtype=dtype, device=dev)
+    nwg, ring = combine_plan(C) if dt == torch.bfloat16 else (1, 2)
     out = torch.empty_like(x)
     code = _build.load_library().vmg_morphfc_combine(
         x.data_ptr(), h.data_ptr(), w.data_ptr(), c.data_ptr(), a.data_ptr(),
         pk.data_ptr(), pb.data_ptr(), _build.ptr(residual), out.data_ptr(),
-        N, H * W, C, float(res_scale), _GATES[act], _build.DTYPE_CODES[dt],
-        _build.stream_of(x))
+        N, H * W, C, float(res_scale), _GATES[act], nwg, ring,
+        _build.DTYPE_CODES[dt], _build.stream_of(x))
     _build.check(code, "vmg_morphfc_combine")
     fused_morphfc_combine.launches += 1
     return out

@@ -1,12 +1,15 @@
 """Where the serving forward's time goes on one CUDA card.
 
     python3 -m vmg_tpu_torch.profile_serving [--reps 5] [--forms module|kernel]
-        [--json PATH]
+        [--preset full|few_levels] [--json PATH]
 
 ``FULL_PRESET`` in bf16 with the serving fast-math (tanh GELU, bf16
 SPyNet convolutions), seeded random init, 1x16x180x320 clips, in the
 default (module) forms or, with ``--forms kernel``, with the three opt-in
 kernel forms on (the RCAB and trajectory conv chains, the fused norm).
+``--preset few_levels``: ``FEW_LEVELS_PRESET`` with its eval preset's
+network fields (32 frames, one 32-frame trajectory window, no flow
+freeze) on 1x32x128x128 clips, the eval preset's 128x128 tile.
 Reports:
 
 * the device-resident forward per clip (input already on the card, output
@@ -27,6 +30,7 @@ Prints a table and one JSON line; ``--json`` also writes the JSON there.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -36,7 +40,10 @@ import time
 import numpy as np
 import torch
 
-T, H, W = 16, 180, 320
+# preset -> (clip frames, height, width); few_levels also takes its eval
+# preset's network fields (vmg_eval_reds4_few_levels.yml)
+CLIPS = {"full": (16, 180, 320), "few_levels": (32, 128, 128)}
+FEW_EVAL = dict(num_frames=32, traj_win=(32, None), flow_fix=None)
 
 # (category, kernel-name pattern), first match wins
 CATEGORIES = [
@@ -146,22 +153,26 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--forms", default="module", choices=["module", "kernel"],
                     help="'kernel': rcab_impl, traj_conv_impl and norm_impl 'kernel'")
+    ap.add_argument("--preset", default="full", choices=sorted(CLIPS))
     ap.add_argument("--json", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
+    T, H, W = CLIPS[args.preset]
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device visible", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.configs import FEW_LEVELS_PRESET, FULL_PRESET
     from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
     from vmg_tpu_torch.serve import SRServer
 
     smi = card_line()
-    sd = create_model(FULL_PRESET, device="cpu",
+    base = FULL_PRESET if args.preset == "full" else FEW_LEVELS_PRESET
+    preset = base if args.preset == "full" else dataclasses.replace(base, **FEW_EVAL)
+    sd = create_model(base, device="cpu",
                       generator=torch.Generator().manual_seed(0)).state_dict()
     forms = KERNEL_FORMS if args.forms == "kernel" else {}
-    server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
+    server = SRServer(preset, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
                       **forms)
     clip = np.random.default_rng(0).random((1, T, H, W, 3), dtype=np.float32)
     x = torch.from_numpy(clip).cuda()
@@ -189,14 +200,14 @@ def main(argv=None) -> int:
 
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "forms": args.forms,
+        "preset": args.preset, "forms": args.forms, "clip": [1, T, H, W],
         "resident_s_per_clip": spread(resident), "served_s_per_clip": spread(served),
         "served_frames_per_s": spread([T / s for s in served]),
         "trace": trace_summary(prof),
     }
 
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{args.forms} forms")
+          f"{args.preset} preset, 1x{T}x{H}x{W} clips, {args.forms} forms")
     r, s = result["resident_s_per_clip"], result["served_s_per_clip"]
     print(f"device-resident forward: median {r['median']:.4f} s per clip "
           f"(range {r['min']:.4f}-{r['max']:.4f}, {args.reps} reps, CUDA events)")

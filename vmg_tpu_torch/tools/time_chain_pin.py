@@ -19,8 +19,11 @@ each, ``layout_pin`` on 1x184x320x224 and ``x.clone()`` beside it, and
 x 112, 92x160 x 224, 46x80 x 224, 23x40 x 448; groups 4, hidden 6C) and the
 few-levels shape (16x128x128x144, groups 1, hidden 2C), each tree on its
 own packed operands; the MorphFC combine (tanh gate, folded residual) at
-the stage-0 shape and the LTAM forward (1x184x320x112, K = 5) and
-backward (1x64x64x112) with bf16 keys and values.  Each kernel is first
+the same five shapes (C = 112, 224, 224, 448, 144), on its tree's Pk
+operand; the LTAM forward at the stage-0 shape (1x184x320x112) at K = 1..5
+with its sum over a FULL_PRESET clip's 60 launches (12 at each K), and at
+the few-levels head width (1x128x128x144, d = 36, K = 3); and the backward
+(1x64x64x112, K = 5), with bf16 keys and values.  Each kernel is first
 held to its own tree's plain version (1e-2 of max|plain|, the pin
 exactly; LTAM's f32 output and gradients 1e-4).  One JSON line per process (median and range over
 ``--reps`` timings of 20 calls each), then the card's name and power
@@ -46,8 +49,24 @@ FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
               ((16, 128, 128, 144), 1, 2)]
 
 
+# (N, H, W, C) of the combine: FULL_PRESET's stages 0/6, 1/5, 2/4, 3 and the
+# few-levels preset
+COMBINE_SHAPES = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
+                  (16, 23, 40, 448), (16, 128, 128, 144)]
+# (H, W, head width, K) of the LTAM forward timings
+LTAM_CASES = [(184, 320, 28, K) for K in range(1, 6)] + [(128, 128, 36, 3)]
+
+
 def ffn_key(shape, groups) -> str:
     return "ffn_" + "x".join(map(str, shape)) + f"_g{groups}"
+
+
+def combine_key(shape) -> str:
+    return "combine_" + "x".join(map(str, shape))
+
+
+def ltam_key(h, w, d, K) -> str:
+    return f"ltam_{h}x{w}_d{d}_k{K}"
 
 
 def _this_timer():
@@ -163,28 +182,40 @@ def _side(root: Path, reps: int) -> dict:
                 raise AssertionError(f"{name}: max_rel_err {err} against the plain version")
             return err
 
-        C, N, h, w = 112, 16, 184, 320  # the stage-0 shape
-        x, xh, xw, xc, res = (rn(N, h, w, C) for _ in range(5))
-        a = torch.softmax(torch.randn(N, 3, C, generator=gen, device=dev), dim=1).to(dt)
-        cargs = (x, xh, xw, xc, a, rn(C, C, scale=0.02),
-                 torch.randn(C, generator=gen, device=dev) * 0.1)
-        err = held("combine", morphfc_fused.fused_morphfc_combine(*cargs, residual=res),
-                   morphfc_fused.morphfc_combine_plain(*cargs, residual=res), 1e-2)
-        out["combine"] = {**time_both(lambda: morphfc_fused.fused_morphfc_combine(
-            *cargs, residual=res)), "max_rel_err": err}
-        del x, xh, xw, xc, res, cargs
-        K, heads = 5, 4
-        for hh, ww in ((h, w), (64, 64)):
-            q = torch.nn.functional.normalize(
-                torch.randn(1, hh, ww, C, generator=gen, device=dev), dim=-1) * (C // heads) ** -0.5
-            kv = rn(1, hh, ww, K * 2 * C)
-            pe = torch.exp(torch.randn(K, 4, 4, heads, generator=gen, device=dev) * 0.02)
-            if hh == h:
-                err = held("ltam", ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
-                           ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads), 1e-4)
-                out["ltam"] = {**time_both(lambda: ltam_attention.ltam_attention_2x2(
-                    q, kv, pe, K=K, heads=heads)), "max_rel_err": err}
-            else:
+        # the combine at every path shape (tanh gate, folded residual), on
+        # the Pk operand its tree's bf16 kernel takes (a tree with
+        # pack_combine_weight takes the B image)
+        pack = getattr(morphfc_fused, "pack_combine_weight", lambda pk: pk)
+        for N, hc, wc, C in COMBINE_SHAPES:
+            x, xh, xw, xc, res = (rn(N, hc, wc, C) for _ in range(5))
+            a = torch.softmax(torch.randn(N, 3, C, generator=gen, device=dev), dim=1).to(dt)
+            pk, pb = rn(C, C, scale=0.02), torch.randn(C, generator=gen, device=dev) * 0.1
+            cargs, pargs = (x, xh, xw, xc, a, pack(pk), pb), (x, xh, xw, xc, a, pk, pb)
+            err = held("combine", morphfc_fused.fused_morphfc_combine(*cargs, residual=res),
+                       morphfc_fused.morphfc_combine_plain(*pargs, residual=res), 1e-2)
+            out[combine_key((N, hc, wc, C))] = {**time_both(
+                lambda: morphfc_fused.fused_morphfc_combine(*cargs, residual=res)),
+                "max_rel_err": err}
+            del x, xh, xw, xc, res, cargs, pargs
+        # the LTAM forward at the stage-0 shape at K = 1..5 and at the
+        # few-levels head width (d = 36, 1x128x128, K = 3); the backward at
+        # 1x64x64, K = 5
+        for (hh, ww, C, heads), Ks in (((184, 320, 112, 4), (1, 2, 3, 4, 5)),
+                                       ((128, 128, 144, 4), (3,)), ((64, 64, 112, 4), (5,))):
+            for K in Ks:
+                q = torch.nn.functional.normalize(
+                    torch.randn(1, hh, ww, C, generator=gen, device=dev), dim=-1) * \
+                    (C // heads) ** -0.5
+                kv = rn(1, hh, ww, K * 2 * C)
+                pe = torch.exp(torch.randn(K, 4, 4, heads, generator=gen, device=dev) * 0.02)
+                if hh != 64:
+                    err = held("ltam", ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
+                               ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
+                               1e-4)
+                    out[ltam_key(hh, ww, C // heads, K)] = {**time_both(
+                        lambda: ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads)),
+                        "max_rel_err": err}
+                    continue
                 g = torch.randn(1, hh, ww, C, generator=gen, device=dev)
                 o, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
 
@@ -195,6 +226,9 @@ def _side(root: Path, reps: int) -> dict:
                 want = ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
                 err = held("ltam_bwd", bwd()[0], want[0], 1e-4)  # dq (dkv bf16, dpe summed)
                 out["ltam_bwd"] = {**time_both(bwd), "max_rel_err": err}
+        # the forward's device time per FULL_PRESET clip: 12 launches at each K
+        out["ltam_per_clip"] = {t: 12 * sum(out[ltam_key(184, 320, 28, K)][t] for K in range(1, 6))
+                                for t in ("ms", "ms_unfenced")}
     return out
 
 
@@ -222,9 +256,12 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip())
     ratios = {}
-    keys = ["chain_n1", "chain_n16", "module_n1", "module_n16", "pin", "clone", "combine",
-            "ltam", "ltam_bwd"]
-    for key in keys + [ffn_key(shape, G) for shape, G, _ in FFN_SHAPES]:
+    keys = ["chain_n1", "chain_n16", "module_n1", "module_n16", "pin", "clone", "ltam_bwd",
+            "ltam_per_clip"]
+    keys += [ffn_key(shape, G) for shape, G, _ in FFN_SHAPES]
+    keys += [combine_key(shape) for shape in COMBINE_SHAPES]
+    keys += [ltam_key(*case) for case in LTAM_CASES]
+    for key in keys:
         for timer in ("ms", "ms_unfenced"):
             med = {s: statistics.median(r[key][timer] for lab, r in runs if lab == s)
                    for s in ("this", "other")}
