@@ -159,6 +159,11 @@ COMBINE_BEFORE_MS = {(16, 184, 320, 112): 1.1593, (16, 92, 160, 224): 0.8297,
                      (16, 46, 80, 224): 0.2186, (16, 23, 40, 448): 0.3164,
                      (16, 128, 128, 144): 0.4507}
 LTAM_BEFORE_MS = 0.2964  # 1x184x320x112, K = 5
+# the LTAM backward's (1x64x64x112, K = 5) and the bf16 axes kernel's
+# (16x184x320x112, chunk 8) times before their redesign: PERF.md's kernel
+# table (chip_smoke.py phase 2 of the tree before; H100 80GB HBM3, 700 W)
+LTAM_BWD_BEFORE_MS = 0.2213
+AXES_BEFORE_MS = 1.3472
 # LTAM launches of a FULL_PRESET clip at each slot count K = 1..5: 3 steps
 # x 2 directions x 2 trajectory stages
 LTAM_STEPS_PER_K = 12
@@ -428,13 +433,26 @@ def check_kernels(report):
                 return morphfc_fused.fused_morphfc_reduce(hh, ww, xc)
 
             hybrid_ms = cuda_ms(hybrid, iters=3)
-            compare(name, (N, h, w, C, ck), dtype,
-                    lambda: morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck,
-                                                             form=form),
-                    lambda: morphfc_fused.morphfc_axes_plain(*args, chunk_h=ck, chunk_w=ck),
-                    axes_check(xc, dtype), primary=dtype == torch.bfloat16 and C in (112, 224),
-                    work=(args, 2 * 2 * N * h * w * C * C, peak(dtype)),  # two C x C FCs
-                    extra=f"  hybrid form {hybrid_ms:.3f} ms", keys={"hybrid_ms": hybrid_ms})
+            ms, b, got = compare(
+                name, (N, h, w, C, ck), dtype,
+                lambda: morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck,
+                                                         form=form),
+                lambda: morphfc_fused.morphfc_axes_plain(*args, chunk_h=ck, chunk_w=ck),
+                axes_check(xc, dtype), primary=dtype == torch.bfloat16 and C in (112, 224),
+                work=(args, 2 * 2 * N * h * w * C * C, peak(dtype)),  # two C x C FCs
+                extra=f"  hybrid form {hybrid_ms:.3f} ms", keys={"hybrid_ms": hybrid_ms})
+            if form == "big":
+                # the result must not depend on which warpgroup took which tile
+                again = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b_) for a, b_ in zip(again, got)):
+                    raise AssertionError(f"two runs of the axes kernel differ at {shape}")
+                if dtype == torch.bfloat16:
+                    report(f"    {b['bound_ms'] / ms:.3f} of the bound "
+                           f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s); two runs bit-equal; "
+                           f"before the redesign {AXES_BEFORE_MS} ms (PERF.md)")
+                del again
+            del got
             if form == "big":  # the token form on the big form's domain
                 big = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck)
                 token = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck,
@@ -529,31 +547,55 @@ def check_kernels(report):
                    f"{clip_bound:.3f} ms ({clip_bound / clip_ms:.3f})")
             entries["ltam_attention_2x2"]["per_clip"] = {"ms": clip_ms, "bound_ms": clip_bound}
 
-        # LTAM backward at the training shape (stage 0 of a 64x64 crop,
-        # K = 5): from the forward kernel's saved out and denominator
+        # LTAM backward at the training shape (stage 0 of a 64x64 crop) at
+        # every slot count a step's backward sees (12 launches at each K = 1..5,
+        # as the forward's), from the forward kernel's saved out and
+        # denominator; two runs bit-equal
         N, h, w = 1, 64, 64
-        q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
-        kv = rn(N, h, w, K * 2 * C, dtype=dtype)
-        pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
-        g = rn(N, h, w, C)
-        out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
-        dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
+        step_ms = step_bound = 0.0
 
         def bwd_check(got, want):
             return [within_max(got[0], want[0], REL_TOL[torch.float32], "dq "),
                     within_max(got[1], want[1], REL_TOL[dtype], "dkv "),
                     within_sum(got[2], want[2], dpe_terms, "dpe ")]
 
-        # query pass: logit, g.v and dq, C-long each; source pass: dval and
-        # dkey, C-long each -- per pixel, slot and tap
-        compare("ltam_attention_2x2_bwd", (N, h, w, C, K), dtype,
+        for K in (1, 2, 3, 4, 5) if bf16 else (5,):
+            q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
+            kv = rn(N, h, w, K * 2 * C, dtype=dtype)
+            pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
+            g = rn(N, h, w, C)
+            out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+            dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
+            # per pixel, slot and tap: logit, g.v and dq, C-long each; dval
+            # and dkey, C-long each
+            ms, b, got = compare(
+                "ltam_attention_2x2_bwd", (N, h, w, C, K), dtype,
                 lambda: ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g,
                                                               K=K, heads=heads),
                 lambda: ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K,
                                                                 heads=heads),
-                bwd_check, primary=dtype == torch.bfloat16,
+                bwd_check, primary=bf16 and K == 5,
                 work=((q, kv, pe, den, out, g), N * h * w * K * 4 * 10 * C, "f32"))
-        del q, kv, out, den, g
+            again = ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g, K=K,
+                                                          heads=heads)
+            torch.cuda.synchronize()
+            if got[1].dtype != kv.dtype or not all(torch.equal(a, b_) for a, b_ in zip(again, got)):
+                raise AssertionError(f"the LTAM backward at K={K}: dkv not in kv's dtype, or "
+                                     "two runs differ")
+            if bf16:
+                report(f"    {b['bound_ms'] / ms:.3f} of the bound; two runs bit-equal"
+                       + (f"; before the redesign {LTAM_BWD_BEFORE_MS} ms (PERF.md)" if K == 5
+                          else ""))
+                entries["ltam_attention_2x2_bwd"][f"k{K}"] = {"ms": ms, "bound_ms": b["bound_ms"]}
+                step_ms += LTAM_STEPS_PER_K * ms
+                step_bound += LTAM_STEPS_PER_K * b["bound_ms"]
+            del q, kv, out, den, g, got, again
+        if bf16:
+            report(f"    per FULL_PRESET training step ({5 * LTAM_STEPS_PER_K} launches, "
+                   f"{LTAM_STEPS_PER_K} at each K): {step_ms:.3f} ms against a bound of "
+                   f"{step_bound:.3f} ms ({step_bound / step_ms:.3f})")
+            entries["ltam_attention_2x2_bwd"]["per_step"] = {"ms": step_ms,
+                                                             "bound_ms": step_bound}
 
         # LTAM at the wider heads: the forward at the few-levels serving
         # shape, the backward at its training crop

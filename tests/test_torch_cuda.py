@@ -185,6 +185,30 @@ def test_morphfc_axes_token_against_big(cuda, dtype):
         morphfc_fused.fused_morphfc_axes(*wide, chunk_h=16, chunk_w=16, form="big")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,chunk", [(7, 70, 44, 112, 4), (5, 20, 32, 48, 16),
+                                           (3, 21, 40, 32, 2), (17, 184, 40, 112, 8)])
+def test_morphfc_axes_persistent_walk(cuda, N, H, W, C, chunk):
+    """The bf16 kernel's persistent walk: a frame count and widths that do
+    not divide into the walkers' runs or the slabs (a ragged last W slab at
+    44 and 40 columns, a ragged last H chunk at 70, 20 and 21 rows), runs
+    that cross frames (378 and 1,955 tiles over at most 2 x 132 walkers),
+    odd S = C / chunk (48 / 16), and two runs bit-equal."""
+    rng = np.random.default_rng(N * W + C)
+    x, c = (_randn(rng, (N, H, W, C), cuda, torch.bfloat16) for _ in range(2))
+    kh, kw = (_randn(rng, (C, C), cuda, torch.bfloat16, C ** -0.5) for _ in range(2))
+    bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
+    args = (x, c, kh, bh, kw, bw)
+    ax = morphfc_fused.fused_morphfc_axes
+    before = ax.launches
+    got = ax(*args, chunk_h=chunk, chunk_w=chunk, form="big")
+    again = ax(*args, chunk_h=chunk, chunk_w=chunk, form="big")
+    assert ax.launches == before + 2
+    want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk, chunk_w=chunk)
+    _axes_close(got, want, c, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 _PROBES = [(tool, name) for tool in (exp_probe, exp_probe2) for name in tool.PROBES]
 
 
@@ -290,6 +314,33 @@ def test_ltam_bwd_kernel(cuda, dtype, K, C, heads):
     y = ltam_attention.ltam_attention_2x2(*leaves, K=K, heads=heads)
     check(torch.autograd.grad(y, leaves, g))
     assert (ref.launches - f0, ref.bwd_launches - b0) == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,C,heads", [(5, 112, 4), (6, 112, 4), (3, 144, 4)])
+def test_ltam_bwd_kernel_training_shape(cuda, dtype, K, C, heads):
+    """The backward at the training crop (1x64x64: stage 0 of FULL_PRESET,
+    d = 28, and the few-levels d = 36) and at K = 6 there: the tolerances
+    of test_ltam_bwd_kernel, dkv returned in kv's dtype, two runs
+    bit-equal."""
+    rng = np.random.default_rng(K * C)
+    n, h, w = 1, 64, 64
+    q = torch.nn.functional.normalize(_randn(rng, (n, h, w, C), cuda, torch.float32), dim=-1)
+    q = q * (C // heads) ** -0.5
+    kv = _randn(rng, (n, h, w, K * 2 * C), cuda, dtype)
+    pe = torch.exp(_randn(rng, (K, 4, 4, heads), cuda, torch.float32, 0.5))
+    g = _randn(rng, (n, h, w, C), cuda, torch.float32)
+    want = ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
+    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+    got = ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g, K=K, heads=heads)
+    again = ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g, K=K, heads=heads)
+    _close(got[0], want[0], torch.float32)
+    assert got[1].dtype == kv.dtype == dtype
+    _close(got[1], want[1], dtype)
+    err = (got[2] - want[2]).abs().max().item()
+    assert err <= 1e-4 * want[2].abs().max().item(), err
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda

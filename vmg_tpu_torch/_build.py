@@ -41,17 +41,18 @@ _SIGNATURES = {
     # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, act, nwg, ring,
     # dtype, stream
     "vmg_morphfc_combine": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    # x, c, kh, bh, kw, bw, h, w, partial, psum, scratch (or null), N, H, W,
+    # C, ch, cw, WT, nwg, ring, npass, grid, dtype, stream
+    "vmg_morphfc_axes": [_P] * 11 + [_I] * 12 + [_P],
     # x, c, kh, bh, kw, bw, h, w, partial, psum, N, H, W, C, ch, cw, WT,
-    # dtype, stream
-    "vmg_morphfc_axes": [_P] * 10 + [_I] * 8 + [_P],
-    # the same arguments (the token form)
+    # dtype, stream (the token form)
     "vmg_morphfc_axes_token": [_P] * 10 + [_I] * 8 + [_P],
     # q, kv, pe, out, den (or null), N, H, W, C, K, heads, Wt, HB, dtype,
     # stream
     "vmg_ltam_fwd": [_P] * 5 + [_I] * 9 + [_P],
-    # q, kv, pe, den, out, g, dq, dkv, dpe, scratch, partial, N, H, W, C, K,
-    # heads, S, dtype, stream
-    "vmg_ltam_bwd": [_P] * 11 + [_I] * 8 + [_P],
+    # q, kv, pe, den, out, g, dq, dkv, dpe, partial, N, H, W, C, K, heads,
+    # Wt, HB, nbuf, dtype, stream
+    "vmg_ltam_bwd": [_P] * 10 + [_I] * 10 + [_P],
     # x, scale, bias (or null), out, rows, C, eps, rms, dtype, stream
     "vmg_fused_norm": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
     # H, W, dtype -> output tiles per frame
@@ -150,6 +151,13 @@ def check(code: int, name: str) -> None:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the persistent
+    kernels' grid)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -46,8 +46,8 @@
 // -Xptxas -v -c vmg_tpu_torch/csrc/ltam.cu.  The bf16 forward (launch
 // bounds 128 x 4: 128 registers) spills nothing but at head widths that
 // are not even (one element at a time, several lanes: 12-16 bytes); the f32
-// forward (parity runs) spills 8-272 bytes, the backward's d <= 32 query
-// pass 8-20.  Traps: a TMA box holds at most 256 elements a dimension, so
+// forward (parity runs) spills 8-272 bytes.  The backward: see
+// ltam_bwd_kernel.  Traps: a TMA box holds at most 256 elements a dimension, so
 // a slot's 2C = 288 channels at C = 144 are not one box -- bulk copies
 // have no such limit and need only 16-byte multiples; at d = 28 and 36 a
 // head starts 8 bytes off a 16-byte boundary, so taps are read 4 elements
@@ -61,19 +61,22 @@
 //   dpe[k, tap, pos, e] = sum over pixels at pos of exp(logit) ((g . val) - s) / den
 //
 // The TPU kernel ran the adjoint of tap selection as a 2x2 window sum
-// inside one tile and carried dpe across its sequential grid.  Here:
-//   1. a query pass (one group of lanes per (pixel, head)) writes
-//      dq and, per (pixel, slot, tap, head), p, dlogit and the dpe term to
-//      a float scratch (N*H*W*K*4*heads each);
-//   2. a source pass (one group per (source pixel, slot, head)): a
-//      source at in-window position t is read, for tap t, by exactly the
-//      4 queries of its own window, so dval and dkey are 4-term sums in a
-//      fixed order -- no atomics;
-//   3. dpe: per-block partial sums over pixel slices, then one block sums
-//      the partials in slice order (the reduce kernel's scheme,
-//      morphfc.cu): deterministic, no float atomics.
-// Bound: device-memory traffic, as the forward (the backward reads q, g,
-// out and the kv taps and writes dq and an f32 dkv).
+// inside one tile and carried dpe across its sequential grid.  Here
+// (ltam_bwd_kernel, notes there) one block per (frame, window row, column
+// span, head group) -- the forward's tiling -- holds every query that reads
+// its source pixels, so each pixel's lane group computes its query terms
+// (p, dlogit, dq) and, after one exchange through shared memory, its
+// source's dval and dkey as 4-term sums in query-position order, rounded
+// once to kv's dtype.  dpe: one partial per block and bin, summed in block
+// order by ltam_bwd_dpe_kernel (two launches; deterministic, no float
+// atomics, no scratch of per-(pixel, slot, tap) terms).
+// Bound: device-memory traffic, as the forward: q, g and out read in f32,
+// kv read and dkv written in kv's dtype, dq written in f32 -- 25.8 MB and
+// 0.0077 ms at the training shape (1x64x64x112, K = 5, bf16), against
+// ~92 MFLOP.  The four-pass kernel this replaced (a query pass of one
+// thread per (pixel, head) reading taps straight from device memory, 16,384
+// threads at that shape; a source pass over a 3 x P K 4 heads f32 scratch;
+// a single-block dpe sum; dkv in f32, then a cast pass) ran at 29x that.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -89,11 +92,13 @@ namespace vmg {
 constexpr int kLtamR = 32;                  // head elements per lane
 constexpr int kLtamMaxD = kLtamR * 32;      // 1024
 
-__host__ __device__ inline int ltam_lanes(int d) {
+// the least power of two L with L * R >= d
+__host__ __device__ inline int ltam_lanes_for(int d, int R) {
   int L = 1;
-  while (L * kLtamR < d) L *= 2;
+  while (L * R < d) L *= 2;
   return L;
 }
+__host__ __device__ inline int ltam_lanes(int d) { return ltam_lanes_for(d, kLtamR); }
 
 // LF = 1: one lane per (pixel, head) (d <= 32), everything a compile-time
 // constant, the code of a plain per-thread loop; LF = 0: L lanes, L given
@@ -409,163 +414,331 @@ ltam_fwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
   }
 }
 
-// Pass 1 of the backward: one group per (pixel, head).  Scratch index of
-// (pixel, slot k, tap, head): ((pix * K + k) * 4 + tap) * heads + e.
-template <typename T, int LF>
-__global__ void __launch_bounds__(256)
-ltam_bwd_query_kernel(const float* __restrict__ q, const T* __restrict__ kv,
-                      const float* __restrict__ pe, const float* __restrict__ den_in,
-                      const float* __restrict__ out, const float* __restrict__ g,
-                      float* __restrict__ dq, float* __restrict__ sp,
-                      float* __restrict__ sdl, float* __restrict__ sdpe,
-                      long long total, int H, int W, int C, int K, int heads, int lanes) {
-  const long long gidx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int shift = LF == 1 ? 0 : __ffs(lanes) - 1;
-  if (gidx >= (total << shift)) return;
-  const LtamLane<LF> ln(lanes);
-  const long long idx = gidx >> shift;
-  const int e = (int)(idx % heads);
-  const long long pix = idx / heads;
-  const int col = (int)(pix % W);
-  const long long t = pix / W;
-  const int row = (int)(t % H);
-  const long long n = t / H;
-  const int d = C / heads;
-  const int pos = (row & 1) * 2 + (col & 1);
+// ---- backward: the forward's block, each lane group a query and a source ----
+//
+// A block covers the forward's (frame, window row, column span Wt, head
+// group HB) and holds both rows of its windows, so the 4 queries that read
+// a source pixel (the 4 pixels of its own window) are all in it.  Thread
+// group (window cw, in-window position pw, head el) of L lanes plays two
+// roles for its pixel, slot by slot:
+//   * query: the 4 taps' logits and (g . val), then p, dlogit and the dpe
+//     term per tap (to shared memory), dq += dlogit key_tap (registers);
+//   * source (its pixel is tap pw of its window): dval = sum over the
+//     window's queries qp = 0..3 of p[qp, pw] g[qp], dkey likewise with
+//     dlogit and q -- 4-term sums in query-position order from shared
+//     memory, rounded once to kv's dtype and stored.
+// q and g come in once per block as f32 runs (bulk copies, or cp.async
+// where a run is not a 16-byte multiple), kv slot by slot into min(K, 4)
+// buffers as in the forward; s = (g . out) is formed once per (pixel,
+// head).  More lanes per (pixel, head) than the forward (ltam_bwd_lanes: 8
+// or 12 head elements a lane up to d = 256), so the work spreads over 4x the
+// threads of one group per (pixel, head): at the training crop (1x64x64,
+// d = 28, K = 5; and d = 36, K = 3) 4 lanes, 256 blocks of 256 threads
+// (8 columns x 4 heads), 65,536 threads; at <= 128 registers two blocks,
+// 16 warps, fit an SM, so the grid is one wave on 132 SMs.  dpe: per slot each block sums its
+// windows' terms in column order into one partial per (slot, tap,
+// position, head) -- ltam_bwd_dpe_kernel then adds a bin's partials in
+// block order, one warp a bin.  Deterministic; no scratch of the P x K x 4 x
+// heads terms, no float atomics; dkv leaves in kv's dtype.
+// ptxas (launch bounds 256 x 2: 128 registers): the bf16 d = 28 kernel
+// (VU = 4, R = 8) uses 128 registers and spills nothing; R = 12 (d = 36)
+// spills 64 bytes; odd or 2-aligned head widths (VU = 1, 2) 36-352 bytes;
+// R = 32 (d > 256, launch bounds 256 x 1) runs at 252-255 registers.
+constexpr int kLtamBwdThreads = 256;
 
-  float qv[kLtamR], gv[kLtamR], dqv[kLtamR];
-  const float* qp = q + pix * C + e * d;
-  const float* gp = g + pix * C + e * d;
-  const float* op = out + pix * C + e * d;
-  float s = 0.f;  // (g . out) over the head
-#pragma unroll
-  for (int i = 0; i < kLtamR; ++i) {
-    const bool ok = ln.has(i, d);
-    qv[i] = ok ? qp[ln.at(i)] : 0.f;
-    gv[i] = ok ? gp[ln.at(i)] : 0.f;
-    dqv[i] = 0.f;
-    if (ok) s = fmaf(gv[i], op[ln.at(i)], s);
+// head elements per lane of the backward: 8, or 12 where that halves the
+// lanes (d = 36: 4 lanes, not 8 -- one wave of blocks at the training
+// crop, not two), up to d = 256; 32 above
+__host__ __device__ inline int ltam_bwd_reg(int d) {
+  if (d > 8 * 32) return kLtamR;
+  return ltam_lanes_for(d, 12) < ltam_lanes_for(d, 8) ? 12 : 8;
+}
+__host__ __device__ inline int ltam_bwd_lanes(int d) { return ltam_lanes_for(d, ltam_bwd_reg(d)); }
+// q and g (f32), the p / dlogit / dpe exchange, nbuf kv slot buffers, the
+// mbarriers (ltam_attention.bwd_smem)
+__host__ __device__ inline size_t ltam_bwd_smem(int Wt, int HB, int d, int es, int nbuf) {
+  const size_t q = ((size_t)2 * Wt * HB * d * 4 + 15) / 16 * 16;
+  const size_t pd = ((size_t)2 * Wt * HB * 4 * 3 * 4 + 15) / 16 * 16;
+  const size_t kv = (size_t)nbuf * 2 * Wt * ltam_pixel_stride(2 * HB * d, es) * es;
+  return 2 * q + pd + (kv + 7) / 8 * 8 + (1 + nbuf) * 8;
+}
+
+struct LtamBwdArgs {
+  int H, W, C, K, heads, d, L;
+  int Wt, HB, spans, hgroups;
+  int pst, vkv, vq, bulk, nbuf;
+  unsigned q_bytes, pd_bytes;
+  int nblk;  // blocks of a head group: the length of a dpe bin's partials
+};
+
+// VU elements of T to global memory from floats (rounded once to T)
+template <typename T, int VU>
+__device__ __forceinline__ void stg_vec(T* p, const float* v) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (VU == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    else if constexpr (VU == 2)
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    else
+      *p = v[0];
+  } else {
+    if constexpr (VU == 4) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 u;
+      u.x = *reinterpret_cast<unsigned*>(&lo);
+      u.y = *reinterpret_cast<unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(p) = u;
+    } else if constexpr (VU == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+    } else {
+      *p = __float2bfloat16_rn(v[0]);
+    }
   }
-  s = ln.sum(s);
-  const float den = fmaxf(den_in[idx], 1e-30f);
-  const size_t slot_stride = 2 * (size_t)C;
-  for (int k = 0; k < K; ++k) {
-    for (int tap = 0; tap < 4; ++tap) {
-      const int sr = (row & ~1) + (tap >> 1), sc = (col & ~1) + (tap & 1);
-      const T* base = kv + ((size_t)(n * H + sr) * W + sc) * (K * slot_stride) +
-                      k * slot_stride + e * d;
-      const T* val = base;
-      const T* key = base + C;
-      float logit = 0.f, gval = 0.f;
+}
+
+// Threads: 2 Wt HB groups of L lanes, laid out as the forward's (group gi:
+// window column cw, pixel pw of the window, head el); lane j holds the
+// head's elements (i L + j) VU + t, i < R / VU.  partial: (K * 16 * heads)
+// bins x nblk blocks, bin ((k * 4 + tap) * 4 + pos) * heads + e.
+template <typename T, int VU, int R>
+__global__ void __launch_bounds__(kLtamBwdThreads, R == kLtamR ? 1 : 2)
+ltam_bwd_kernel(const float* __restrict__ q, const T* __restrict__ kv,
+                const float* __restrict__ pe, const float* __restrict__ den_in,
+                const float* __restrict__ out, const float* __restrict__ g,
+                float* __restrict__ dq, T* __restrict__ dkv, float* __restrict__ partial,
+                const LtamBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NU = R / VU;
+  const int d = a.d, seg = a.HB * d, C = a.C;
+  float* qs = reinterpret_cast<float*>(smem);                // [2][Wt][seg] f32
+  float* gs = reinterpret_cast<float*>(smem + a.q_bytes);    // [2][Wt][seg] f32
+  float* pd = reinterpret_cast<float*>(smem + 2 * a.q_bytes);  // [group][tap][p, dl, dpe]
+  T* kvs = reinterpret_cast<T*>(smem + 2 * a.q_bytes + a.pd_bytes);  // [nbuf][2][Wt][pst]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(kvs + (size_t)a.nbuf * 2 * a.Wt * a.pst) + 7) & ~(uintptr_t)7);
+  const int hg = blockIdx.x % a.hgroups, blk = blockIdx.x / a.hgroups;
+  const int cs = blk % a.spans, rp = (blk / a.spans) % (a.H / 2), n = blk / a.spans / (a.H / 2);
+  const int r0 = 2 * rp, c0 = cs * a.Wt, Wv = min(a.Wt, a.W - c0), ch0 = hg * seg;
+  const size_t pix0 = ((size_t)n * a.H + r0) * a.W + c0;  // the block's first pixel
+  const size_t kstride = (size_t)a.K * 2 * C;               // kv elements per pixel
+  const bool whole = a.HB == a.heads;
+  const int lane = threadIdx.x & 31;
+  const bool issuer = threadIdx.x < 32;
+
+  if (a.bulk) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i <= a.nbuf; ++i) mbar_init(bars + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // q and g: per staged pixel seg f32 from channel ch0, both on bars[0]
+  if (a.bulk) {
+    if (issuer) {
+      const int runs = whole ? 2 : 2 * Wv;
+      const unsigned bytes = (unsigned)((whole ? Wv : 1) * seg * 4);
+      if (lane == 0) mbar_expect(bars, 2 * runs * bytes);
+      __syncwarp();
+      for (int i = lane; i < 2 * runs; i += 32) {
+        const int which = i / runs, ii = i - which * runs;
+        const int r = whole ? ii : ii / Wv, p = whole ? 0 : ii - r * Wv;
+        bulk_load((which ? gs : qs) + (r * a.Wt + p) * seg,
+                  (which ? g : q) + (pix0 + (size_t)r * a.W + p) * C + ch0, bytes, bars);
+      }
+    }
+  } else {
+    const int nv = seg * 4 / a.vq, fv = a.vq / 4, per = 2 * Wv * nv;
+    for (int e = threadIdx.x; e < 2 * per; e += blockDim.x) {
+      const int which = e / per, e2 = e - which * per;
+      const int pix = e2 / nv, v = e2 - pix * nv, r = pix / Wv, p = pix - r * Wv;
+      copy_async((which ? gs : qs) + (r * a.Wt + p) * seg + v * fv,
+                 (which ? g : q) + (pix0 + (size_t)r * a.W + p) * C + ch0 + v * fv, a.vq);
+    }
+  }
+  auto copy_slot = [&](int k, int buf) {
+    T* dst0 = kvs + (size_t)buf * 2 * a.Wt * a.pst;
+    const T* src0 = kv + pix0 * kstride + (size_t)k * 2 * C + ch0;
+    if (a.bulk) {
+      if (!issuer) return;
+      const int parts = whole ? 1 : 2, runs = 2 * Wv * parts;
+      const unsigned bytes = (unsigned)((whole ? 2 : 1) * seg * sizeof(T));
+      if (lane == 0) mbar_expect(bars + 1 + buf, runs * bytes);
+      __syncwarp();
+      for (int i = lane; i < runs; i += 32) {
+        const int pix = i / parts, part = i - pix * parts, r = pix / Wv, p = pix - r * Wv;
+        bulk_load(dst0 + (r * a.Wt + p) * a.pst + part * seg,
+                  src0 + ((size_t)r * a.W + p) * kstride + part * C, bytes, bars + 1 + buf);
+      }
+      return;
+    }
+    const int nv = seg * (int)sizeof(T) / a.vkv, fv = a.vkv / (int)sizeof(T);
+    for (int e = threadIdx.x; e < 2 * Wv * 2 * nv; e += blockDim.x) {
+      const int pix = e / (2 * nv), rem = e - pix * 2 * nv, part = rem / nv, v = rem - part * nv;
+      const int r = pix / Wv, p = pix - r * Wv;
+      copy_async(dst0 + (r * a.Wt + p) * a.pst + part * seg + v * fv,
+                 src0 + ((size_t)r * a.W + p) * kstride + part * C + v * fv, a.vkv);
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < a.nbuf; ++k) copy_slot(k, k);  // slot 0 with q and g
+
+  const LtamLane<0> ln(a.L);
+  const int gi = threadIdx.x / a.L;
+  const int cw = gi / (4 * a.HB), rem = gi - cw * 4 * a.HB, pw = rem / a.HB, el = rem - pw * a.HB;
+  const int r = pw >> 1, px = 2 * cw + (pw & 1), e = hg * a.HB + el;
+  const bool valid = px < Wv;  // Wv is even: whole windows
+  // r0 and c0 are even: pw is the pixel's query position and its tap index
+  // as a source of its own window
+  const size_t pix = pix0 + (size_t)r * a.W + px;
+  auto has = [&](int i) { return ln.at(i) * VU < d; };
+  if (a.bulk) {
+    mbar_wait(bars, 0);
+  } else {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  // this pixel's q and g in registers, s = (g . out) and the denominator
+  float qv[R], gv[R], dqv[R], s = 0.f, den = 1.f;
+  if (valid) {
+    const float* qp = qs + (r * a.Wt + px) * seg + el * d;
+    const float* gp = gs + (r * a.Wt + px) * seg + el * d;
+    const float* op = out + pix * C + e * d;
 #pragma unroll
-      for (int i = 0; i < kLtamR; ++i)
-        if (ln.has(i, d)) {
-          logit = fmaf(qv[i], to_f<T>(key[ln.at(i)]), logit);
-          gval = fmaf(gv[i], to_f<T>(val[ln.at(i)]), gval);
+    for (int i = 0; i < NU; ++i) {
+      float vq[VU], vg[VU], vo[VU];
+      if (has(i)) {
+        lds_vec<float, VU>(qp + ln.at(i) * VU, vq);
+        lds_vec<float, VU>(gp + ln.at(i) * VU, vg);
+        lds_vec<float, VU>(op + ln.at(i) * VU, vo);
+      }
+#pragma unroll
+      for (int t = 0; t < VU; ++t) {
+        qv[i * VU + t] = has(i) ? vq[t] : 0.f;
+        gv[i * VU + t] = has(i) ? vg[t] : 0.f;
+        dqv[i * VU + t] = 0.f;
+        if (has(i)) s = fmaf(vg[t], vo[t], s);
+      }
+    }
+    s = ln.sum(s);
+    den = fmaxf(den_in[pix * a.heads + e], 1e-30f);
+  }
+  for (int k = 0; k < a.K; ++k) {
+    const int bi = k % a.nbuf;
+    float pk4[4];  // the slot's position factors, loaded before the wait
+#pragma unroll
+    for (int tap = 0; tap < 4; ++tap) pk4[tap] = __ldg(pe + ((k * 4 + tap) * 4 + pw) * a.heads + e);
+    if (a.bulk) {
+      mbar_wait(bars + 1 + bi, (k / a.nbuf) & 1);
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // slot k in for every thread
+    }
+    const T* vp = kvs + (size_t)bi * 2 * a.Wt * a.pst + 2 * cw * a.pst + el * d;
+    auto tap_at = [&](int tap) { return vp + ((tap >> 1) * a.Wt + (tap & 1)) * a.pst; };
+    if (valid) {
+      // query: the 4 taps' logits and (g . val) as 8 interleaved chains
+      float lg[4] = {0.f, 0.f, 0.f, 0.f}, gval[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        if (has(i)) {
+#pragma unroll
+          for (int tap = 0; tap < 4; ++tap) {
+            float kf[VU], vf[VU];
+            lds_vec<T, VU>(tap_at(tap) + seg + ln.at(i) * VU, kf);
+            lds_vec<T, VU>(tap_at(tap) + ln.at(i) * VU, vf);
+#pragma unroll
+            for (int t = 0; t < VU; ++t) {
+              lg[tap] = fmaf(qv[i * VU + t], kf[t], lg[tap]);
+              gval[tap] = fmaf(gv[i * VU + t], vf[t], gval[tap]);
+            }
+          }
         }
-      logit = ln.sum(logit);
-      gval = ln.sum(gval);
-      const float el = expf(logit);
-      const float p = el * pe[((k * 4 + tap) * 4 + pos) * heads + e] / den;
-      const float dl = p * (gval - s);
+      float dl[4];
 #pragma unroll
-      for (int i = 0; i < kLtamR; ++i)
-        if (ln.has(i, d)) dqv[i] = fmaf(dl, to_f<T>(key[ln.at(i)]), dqv[i]);
-      if (ln.j == 0) {
-        const long long si = ((pix * K + k) * 4 + tap) * heads + e;
-        sp[si] = p;
-        sdl[si] = dl;
-        sdpe[si] = el * (gval - s) / den;
+      for (int tap = 0; tap < 4; ++tap) {
+        const float ex = expf(ln.sum(lg[tap])), gs_ = ln.sum(gval[tap]) - s;
+        const float p = ex * pk4[tap] / den;
+        dl[tap] = p * gs_;
+        if (ln.j == 0) {
+          float* o = pd + (gi * 4 + tap) * 3;
+          o[0] = p, o[1] = dl[tap], o[2] = ex * gs_ / den;
+        }
       }
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        if (has(i)) {
+#pragma unroll
+          for (int tap = 0; tap < 4; ++tap) {
+            float kf[VU];
+            lds_vec<T, VU>(tap_at(tap) + seg + ln.at(i) * VU, kf);
+#pragma unroll
+            for (int t = 0; t < VU; ++t) dqv[i * VU + t] = fmaf(dl[tap], kf[t], dqv[i * VU + t]);
+          }
+        }
     }
-  }
-  float* dqp = dq + pix * C + e * d;
+    __syncthreads();  // every query's p, dlogit and dpe term are in pd
+    if (valid) {
+      // source: this pixel as tap pw of slot k, its window's 4 queries in
+      // position order
+      float pq[4], dlq[4];
 #pragma unroll
-  for (int i = 0; i < kLtamR; ++i)
-    if (ln.has(i, d)) dqp[ln.at(i)] = dqv[i];
-}
-
-// Pass 2: one group per (source pixel, slot, head), each lane its slice of
-// the head (no reduction); its window's 4 queries in position order.
-template <int LF>
-__global__ void __launch_bounds__(256)
-ltam_bwd_source_kernel(const float* __restrict__ q, const float* __restrict__ g,
-                       const float* __restrict__ sp, const float* __restrict__ sdl,
-                       float* __restrict__ dkv, long long total, int H, int W,
-                       int C, int K, int heads, int lanes) {
-  const long long gidx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int shift = LF == 1 ? 0 : __ffs(lanes) - 1;
-  if (gidx >= (total << shift)) return;
-  const LtamLane<LF> ln(lanes);
-  const long long idx = gidx >> shift;
-  const int e = (int)(idx % heads);
-  const int k = (int)((idx / heads) % K);
-  const long long spix = idx / ((long long)heads * K);
-  const int sc = (int)(spix % W);
-  const long long t = spix / W;
-  const int sr = (int)(t % H);
-  const long long n = t / H;
-  const int d = C / heads;
-  const int tap = (sr & 1) * 2 + (sc & 1);
-
-  float dval[kLtamR], dkey[kLtamR];
-#pragma unroll
-  for (int i = 0; i < kLtamR; ++i) dval[i] = dkey[i] = 0.f;
-  for (int qpos = 0; qpos < 4; ++qpos) {
-    const int qr = (sr & ~1) + (qpos >> 1), qc = (sc & ~1) + (qpos & 1);
-    const long long qpix = (n * H + qr) * W + qc;
-    const long long si = ((qpix * K + k) * 4 + tap) * heads + e;
-    const float p = sp[si], dl = sdl[si];
-    const float* gp = g + qpix * C + e * d;
-    const float* qp = q + qpix * C + e * d;
-#pragma unroll
-    for (int i = 0; i < kLtamR; ++i)
-      if (ln.has(i, d)) {
-        dval[i] = fmaf(p, gp[ln.at(i)], dval[i]);
-        dkey[i] = fmaf(dl, qp[ln.at(i)], dkey[i]);
+      for (int qp = 0; qp < 4; ++qp) {
+        const float* o = pd + (((cw * 4 + qp) * a.HB + el) * 4 + pw) * 3;
+        pq[qp] = o[0], dlq[qp] = o[1];
       }
-  }
-  float* vp = dkv + (size_t)spix * K * 2 * C + (size_t)k * 2 * C + e * d;
+      T* dst = dkv + pix * kstride + (size_t)k * 2 * C + e * d;
 #pragma unroll
-  for (int i = 0; i < kLtamR; ++i)
-    if (ln.has(i, d)) {
-      vp[ln.at(i)] = dval[i];
-      vp[C + ln.at(i)] = dkey[i];
+      for (int i = 0; i < NU; ++i)
+        if (has(i)) {
+          float dv[VU], dk[VU];
+#pragma unroll
+          for (int t = 0; t < VU; ++t) dv[t] = dk[t] = 0.f;
+#pragma unroll
+          for (int qp = 0; qp < 4; ++qp) {
+            const int off = ((qp >> 1) * a.Wt + 2 * cw + (qp & 1)) * seg + el * d + ln.at(i) * VU;
+            float gq[VU], qq[VU];
+            lds_vec<float, VU>(gs + off, gq);
+            lds_vec<float, VU>(qs + off, qq);
+#pragma unroll
+            for (int t = 0; t < VU; ++t) {
+              dv[t] = fmaf(pq[qp], gq[t], dv[t]);
+              dk[t] = fmaf(dlq[qp], qq[t], dk[t]);
+            }
+          }
+          stg_vec<T, VU>(dst + ln.at(i) * VU, dv);
+          stg_vec<T, VU>(dst + C + ln.at(i) * VU, dk);
+        }
     }
-}
-
-// Pass 3a: block s sums the dpe terms of pixels [s*chunk, (s+1)*chunk) per
-// bin (k, tap, pos, e), bin index ((k*4 + tap)*4 + pos)*heads + e.
-__global__ void __launch_bounds__(256)
-ltam_bwd_dpe_partial_kernel(const float* __restrict__ sdpe, float* __restrict__ partial,
-                            long long P, long long chunk, int H, int W, int K,
-                            int heads) {
-  const int bins = K * 16 * heads;
-  const long long p0 = (long long)blockIdx.x * chunk;
-  const long long p1 = p0 + chunk < P ? p0 + chunk : P;
-  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
-    const int e = b % heads;
-    const int pos = (b / heads) % 4;
-    const int kt = b / (4 * heads);  // k * 4 + tap
-    float acc = 0.f;
-    for (long long pix = p0; pix < p1; ++pix) {
-      const int col = (int)(pix % W), row = (int)((pix / W) % H);
-      if ((row & 1) * 2 + (col & 1) == pos)
-        acc += sdpe[(pix * K * 4 + kt) * heads + e];
+    // dpe: the block's windows in column order, one partial per bin
+    for (int x = threadIdx.x; x < 16 * a.HB; x += blockDim.x) {
+      const int tap = x / (4 * a.HB), qpos = (x / a.HB) % 4, eh = x % a.HB;
+      float acc = 0.f;
+      for (int w2 = 0; w2 < Wv / 2; ++w2) acc += pd[(((w2 * 4 + qpos) * a.HB + eh) * 4 + tap) * 3 + 2];
+      partial[(size_t)(((k * 4 + tap) * 4 + qpos) * a.heads + hg * a.HB + eh) * a.nblk + blk] = acc;
     }
-    partial[(size_t)blockIdx.x * bins + b] = acc;
+    __syncthreads();  // the buffer and pd are free
+    if (k + a.nbuf < a.K) copy_slot(k + a.nbuf, bi);
+  }
+  if (valid) {
+    float* dst = dq + pix * C + e * d;
+#pragma unroll
+    for (int i = 0; i < NU; ++i)
+      if (has(i)) stg_vec<float, VU>(dst + ln.at(i) * VU, dqv + i * VU);
   }
 }
 
-// Pass 3b: one block, partials summed in slice order.
+// dpe: one warp a bin, lane l adding the bin's partials l, l + 32, ... in
+// order, then a fixed butterfly across the warp.
 __global__ void __launch_bounds__(256)
-ltam_bwd_dpe_final_kernel(const float* __restrict__ partial, float* __restrict__ dpe,
-                          int S, int bins) {
-  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += partial[(size_t)s * bins + b];
-    dpe[b] = acc;
-  }
+ltam_bwd_dpe_kernel(const float* __restrict__ partial, float* __restrict__ dpe, int bins,
+                    int nblk) {
+  const int bin = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (bin >= bins) return;
+  const float* p = partial + (size_t)bin * nblk;
+  float acc = 0.f;
+  for (int i = lane; i < nblk; i += 32) acc += p[i];
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) dpe[bin] = acc;
 }
 
 }  // namespace vmg
@@ -626,41 +799,66 @@ extern "C" int vmg_ltam_fwd(const float* q, const void* kv, const float* pe,
   return (int)cudaGetLastError();
 }
 
-// scratch: 3 * N*H*W*K*4*heads floats (p, dlogit, dpe term); partial:
-// S * K*16*heads floats.  dkv is float32 whatever kv's dtype.
+// Wt, HB, nbuf: the block's column span and heads and its kv buffers
+// (ltam_attention.bwd_plan): Wt even, HB dividing heads, 2 Wt HB
+// ltam_bwd_lanes(d) <= 256 threads, 1 <= nbuf <= min(K, 4).  partial:
+// K*16*heads x N*(H/2)*ceil(W/Wt) floats; dkv in kv's dtype.
 extern "C" int vmg_ltam_bwd(const float* q, const void* kv, const float* pe,
                             const float* den, const float* out, const float* g,
-                            float* dq, float* dkv, float* dpe, float* scratch,
-                            float* partial, int N, int H, int W, int C, int K,
-                            int heads, int S, int dtype, void* stream) {
-  if (!ltam_shape_ok(C, heads, H, W) || K < 1 || S < 1)
+                            float* dq, void* dkv, float* dpe, float* partial, int N, int H,
+                            int W, int C, int K, int heads, int Wt, int HB, int nbuf,
+                            int dtype, void* stream) {
+  if (!ltam_shape_ok(C, heads, H, W) || N < 1 || K < 1 || Wt < 2 || Wt % 2 != 0 || HB < 1 ||
+      heads % HB != 0 || nbuf < 1 || nbuf > K || nbuf > vmg::kLtamBufs ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const long long P = (long long)N * H * W;
-  const long long terms = P * K * 4 * heads;
-  float* sp = scratch;
-  float* sdl = scratch + terms;
-  float* sdpe = scratch + 2 * terms;
-  const int threads = 256, L = vmg::ltam_lanes(C / heads);
+  vmg::LtamBwdArgs a = {};
+  a.H = H, a.W = W, a.C = C, a.K = K, a.heads = heads, a.d = C / heads;
+  a.L = vmg::ltam_bwd_lanes(a.d), a.Wt = Wt, a.HB = HB;
+  a.spans = (W + Wt - 1) / Wt, a.hgroups = heads / HB;
+  const int threads = 2 * Wt * HB * a.L, es = dtype == 1 ? 2 : 4, seg = HB * a.d;
+  if (threads > vmg::kLtamBwdThreads) return (int)cudaErrorInvalidValue;
+  const long long nblk = (long long)N * (H / 2) * a.spans;
+  if (nblk * a.hgroups > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.nblk = (int)nblk;
+  a.pst = vmg::ltam_pixel_stride(2 * seg, es);
+  auto width = [](int run_bytes, int stride_bytes, std::initializer_list<const void*> ptrs) {
+    for (int v : {16, 8, 4}) {
+      bool ok = run_bytes % v == 0 && stride_bytes % v == 0;
+      for (const void* p : ptrs) ok = ok && (uintptr_t)p % v == 0;
+      if (ok) return v;
+    }
+    return 2;
+  };
+  a.vkv = width(seg * es, C * es, {kv});
+  a.vq = width(seg * 4, C * 4, {q, g});
+  if (a.vq < 4 || (dtype == 0 && a.vkv < 4)) return (int)cudaErrorMisalignedAddress;
+  a.bulk = a.vkv == 16 && a.vq == 16 && (a.pst * es) % 16 == 0;
+  a.q_bytes = (unsigned)(((size_t)2 * Wt * seg * 4 + 15) / 16 * 16);
+  a.pd_bytes = (unsigned)(((size_t)2 * Wt * HB * 4 * 3 * 4 + 15) / 16 * 16);
+  a.nbuf = nbuf;
+  const size_t smem = vmg::ltam_bwd_smem(Wt, HB, a.d, es, nbuf);
+  if (smem > vmg::kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int vu = a.d % 4 == 0 ? 4 : a.d % 2 == 0 ? 2 : 1;
+  const int reg = vmg::ltam_bwd_reg(a.d);
   cudaStream_t st = (cudaStream_t)stream;
-  const long long qtotal = P * heads;
   VMG_DISPATCH_DTYPE(dtype, T, {
-    auto kern = L == 1 ? vmg::ltam_bwd_query_kernel<T, 1> : vmg::ltam_bwd_query_kernel<T, 0>;
-    kern<<<(unsigned)((qtotal * L + threads - 1) / threads), threads, 0, st>>>(
-        q, (const T*)kv, pe, den, out, g, dq, sp, sdl, sdpe, qtotal, H, W, C, K, heads, L);
+    auto pick = [&](auto rr) {
+      constexpr int R = decltype(rr)::value;
+      return vu == 4 ? vmg::ltam_bwd_kernel<T, 4, R>
+                     : vu == 2 ? vmg::ltam_bwd_kernel<T, 2, R> : vmg::ltam_bwd_kernel<T, 1, R>;
+    };
+    auto kern = reg == vmg::kLtamR ? pick(std::integral_constant<int, vmg::kLtamR>())
+                : reg == 12 ? pick(std::integral_constant<int, 12>())
+                            : pick(std::integral_constant<int, 8>());
+    const int e = vmg::set_smem(kern, smem);
+    if (e) return e;
+    kern<<<(unsigned)(nblk * a.hgroups), threads, smem, st>>>(q, (const T*)kv, pe, den, out, g, dq,
+                                                              (T*)dkv, partial, a);
   });
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long stotal = P * K * heads;
-  auto src_kern = L == 1 ? vmg::ltam_bwd_source_kernel<1> : vmg::ltam_bwd_source_kernel<0>;
-  src_kern<<<(unsigned)((stotal * L + threads - 1) / threads), threads, 0, st>>>(
-      q, g, sp, sdl, dkv, stotal, H, W, C, K, heads, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long chunk = (P + S - 1) / S;
-  vmg::ltam_bwd_dpe_partial_kernel<<<S, threads, 0, st>>>(sdpe, partial, P, chunk, H,
-                                                         W, K, heads);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  vmg::ltam_bwd_dpe_final_kernel<<<1, threads, 0, st>>>(partial, dpe, S, K * 16 * heads);
+  const int bins = K * 16 * heads;
+  vmg::ltam_bwd_dpe_kernel<<<(bins + 7) / 8, 256, 0, st>>>(partial, dpe, bins, a.nblk);
   return (int)cudaGetLastError();
 }

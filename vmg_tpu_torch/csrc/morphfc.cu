@@ -10,18 +10,25 @@
 // branch is then a (tokens x C) @ (C x C) matmul with the decayed weight
 // -- the TPU kernel's block-diagonal big matrix without its zero blocks,
 // which on the TPU bought a transpose-free layout.  Bound on H100: device
-// memory at the stage-0 shape (x and c read, h and w written: ~4 bf16
-// tensors against C MACs per element and branch on the tensor cores).
-// Design: one block per (frame, chunk_h rows, WT columns) slab, WT a
-// multiple of chunk_w so the W chunks lie inside it, >= 64 tokens.  The
-// block stages the branch's C x C weight in shared memory, gathers the
-// slab's H tokens there too (rows past H read as zeros), projects them
-// (bf16: wmma with f32 accumulation; f32: scalar FMAs), adds bias, relu and
-// 1/C in the epilogue, writes h and sums it; then the same for the W tokens
-// of the same slab (x again, from L2), adding the slab's c to the sums.
-// Global loads and stores move 16 bytes (one position's channel vector).
-// Each block writes one f32 partial per channel, summed in a fixed order
-// over its positions; the reduce's second pass adds the partials in a
+// memory at the stage-0 shape (x and c read, h and w written: 844.2 MB and
+// 0.252 ms at 16 x 184 x 320 x 112, against 47 GFLOP, 0.048 ms on the
+// tensor cores).
+// * bf16 (serving), morphfc_axes_wgmma_kernel (notes at the kernel):
+//   persistent warpgroups over contiguous runs of slabs, both decayed
+//   weights resident as wgmma B images staged once per block (50 KB at C =
+//   112), x and c slabs by TMA into a ring (three slots a warpgroup at the
+//   stage-0 shape), x read once for both branches, the token matrices
+//   formed straight into register-A fragments, the epilogue on the
+//   accumulator staged back into the slot and stored by TMA; per-walker
+//   per-frame partial sums.  The wmma kernel this replaced ran one block
+//   per 8 x 8 slab (14,720 at stage 0) that staged both weights from L2
+//   (739 MB of L2 -> SM traffic a call), scattered the slab into shared
+//   memory two bytes at a time, round-tripped the f32 product through
+//   shared memory, read x twice and overlapped nothing: 5.3x its bound.
+// * f32 (parity runs), morphfc_axes_f32_kernel: one block per slab, the
+//   weight and tokens staged in shared memory, scalar FMAs.
+// Each writes one f32 partial per (frame, slab or walker) and channel,
+// summed in a fixed order; morphfc_final_kernel adds the partials in a
 // fixed order -- deterministic, no float atomics.
 //
 // vmg_morphfc_axes_token replaces the token form of the same call
@@ -87,7 +94,11 @@
 // -Xptxas -v -c vmg_tpu_torch/csrc/morphfc.cu.  For the combine's wgmma
 // instantiations C7519 ("warpgroup.arrive is injected") and C7517
 // ("warpgroup.wait is injected") lines are expected; only the streamed one
-// (C > 224) spills, 36-52 bytes at 255 registers.  A spill at C <= 224 is a
+// (C > 224) spills, 36-52 bytes at 255 registers.  The bf16 axes kernel
+// (launch bounds 256 x 1) holds the accumulator (C / 2), the fragments (C /
+// 4) and the position sums (C / 2) a thread: no spill up to C = 96 (186-254
+// registers), 72 bytes of spill stores at C = 112 (the path) at 255, more
+// from C = 128 on (248 bytes at 128, 3,412 at 240; off every path).  A spill at C <= 224 is a
 // regression: the biases loaded ahead of the x unit's wait spilled 200-400
 // bytes at C = 224 and ran slower.  Traps: a box in the 128-byte
 // swizzle must start 1024-byte aligned in shared memory (the kernel traps
@@ -155,15 +166,31 @@ morphfc_partial_kernel(const T* __restrict__ h, const T* __restrict__ w,
   }
 }
 
-__global__ void morphfc_final_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ out, int N, int C,
-                                     int S) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * C) return;
-  const int n = i / C, ch = i % C;
+// Pass 2 of the per-frame sums (reduce, both axes forms): out[n, c] = the
+// sum over s of partial[n, s, c], in a fixed order -- warp w of a block
+// adds s = w, w + 8, ... (lane = channel, reads coalesced), then the 8 warps'
+// sums are added in warp order.  A block per (frame, 32 channels).
+__global__ void __launch_bounds__(256)
+morphfc_final_kernel(const float* __restrict__ partial, float* __restrict__ out, int C, int S) {
+  __shared__ float red[8][32];
+  const int n = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int ch = blockIdx.x * 32 + lane;
   float v = 0.f;
-  for (int s = 0; s < S; ++s) v += partial[((size_t)n * S + s) * C + ch];
-  out[i] = v;
+  if (ch < C)
+    for (int s = w; s < S; s += 8) v += partial[((size_t)n * S + s) * C + ch];
+  red[w][lane] = v;
+  __syncthreads();
+  if (threadIdx.x < 32 && ch < C) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += red[i][lane];
+    out[(size_t)n * C + ch] = t;
+  }
+}
+
+inline int launch_final(const float* partial, float* out, int N, int C, int S, cudaStream_t st) {
+  morphfc_final_kernel<<<dim3((C + 31) / 32, N), 256, 0, st>>>(partial, out, C, S);
+  return (int)cudaGetLastError();
 }
 
 // f32 (parity runs): the projection as scalar FMAs in 16 x 16 register
@@ -626,96 +653,47 @@ int launch_combine_f32_any(const float* x, const float* h, const float* w, const
 
 constexpr int kVecBytes = 16;  // global loads and stores move 16 bytes
 
-// Shared memory of the axes kernel: the C x C weight of the branch being
-// projected, the M x C token matrix in T (bf16 rows padded for the fragment
-// loads; at the end it holds the R x C f32 partial sums), and the M x C f32
-// projection.  R = kThreads / (C / VEC) position lanes per channel vector.
-template <typename T>
+// ---- f32 (parity runs): one block per slab, the weight and tokens staged --
+//
+// Shared memory of the f32 kernel: the C x C weight of the branch being
+// projected, the M x C token matrix (at the end the R x C partial sums), and
+// the M x C projection.  R = kThreads / (C / 4) position lanes per channel
+// vector.
 struct AxesSmem {
-  static constexpr bool kTC = std::is_same<T, bf16>::value;
-  static constexpr int VEC = kVecBytes / sizeof(T);
-  int ld, ldo, R;
+  int R;
   size_t k_bytes, a_bytes, total;
   __host__ __device__ AxesSmem(int M, int C) {
-    ld = kTC ? C + kPadH : C;  // rows of the weight and of the tokens
-    ldo = kTC ? C + kPadF : C;
-    R = kThreads / (C / VEC);
-    k_bytes = ((size_t)C * ld * sizeof(T) + 127) / 128 * 128;
-    const size_t tok = (size_t)M * ld * sizeof(T), red = (size_t)R * C * sizeof(float);
+    R = kThreads / (C / 4);
+    k_bytes = ((size_t)C * C * 4 + 127) / 128 * 128;
+    const size_t tok = (size_t)M * C * 4, red = (size_t)R * C * 4;
     a_bytes = ((tok > red ? tok : red) + 127) / 128 * 128;
-    total = k_bytes + a_bytes + (size_t)M * ldo * sizeof(float);
+    total = k_bytes + a_bytes + (size_t)M * C * 4;
   }
 };
-
-// Ks (C x C, row stride ld) <- K (C x C, global), 16 bytes per load.
-template <typename T>
-__device__ __forceinline__ void axes_stage_weight(T* Ks, int ld, const T* __restrict__ K,
-                                                  int C) {
-  constexpr int VEC = AxesSmem<T>::VEC;
-  const int nv = C / VEC;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < C * nv; e += kThreads) {
-    const int row = e / nv, v = e % nv;
-    *reinterpret_cast<uint4*>(Ks + row * ld + v * VEC) =
-        *reinterpret_cast<const uint4*>(K + (size_t)row * C + v * VEC);
-  }
-}
-
-// O (M x C, f32) = A (M x C) @ Ks (C x C), both in shared memory.
-template <typename T>
-__device__ __forceinline__ void axes_project(const T* A, const T* Ks, int ld, float* O,
-                                             int ldo, int M, int C) {
-  if constexpr (AxesSmem<T>::kTC) {
-    const int MT = M / 16;
-    for (int t = threadIdx.x >> 5; t < MT * (C / 16); t += kWarps) {
-      const int mi = t % MT, ni = t / MT;
-      FragC cf;
-      wm::fill_fragment(cf, 0.f);
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        FragA af;
-        FragB bfr;
-        wm::load_matrix_sync(af, A + mi * 16 * ld + k0, ld);
-        wm::load_matrix_sync(bfr, Ks + k0 * ld + ni * 16, ld);
-        wm::mma_sync(cf, af, bfr, cf);
-      }
-      wm::store_matrix_sync(O + mi * 16 * ldo + ni * 16, cf, ldo, wm::mem_row_major);
-    }
-  } else {
-    for (int e = threadIdx.x; e < M * C; e += kThreads) {
-      const int t = e / C, f = e % C;
-      const T* a = A + t * ld;
-      float acc = 0.f;
-      for (int k = 0; k < C; ++k) acc = fmaf(to_f<T>(a[k]), to_f<T>(Ks[k * ld + f]), acc);
-      O[t * ldo + f] = acc;
-    }
-  }
-}
 
 // Grid (ceil(W / WT), ceil(H / ch), N).  Branch H: token (w, q) is row
 // w * ch + q, feature (p, s) column p * Sh + s, p the slab row.  Branch W:
 // token (r, G, q) is row (r * kg + G) * cw + q, feature (p, s) column
 // p * Sw + s, p the column inside W chunk G.  The output feature (P, Z) of
-// a token lands at position P of its chunk, channel q * S + Z.  Slab
-// positions are (r, w), r < ch, w < WT; global traffic moves VEC channels
-// of one position per 16-byte access.  In the epilogues thread (j, v) owns
-// channel vector v at positions j, j + R, ... and keeps its f32 sums of
-// h + w + c in registers to the end, so every sum has one fixed order.
-template <typename T>
+// a token lands at position P of its chunk, channel q * S + Z.  In the
+// epilogues thread (j, v) owns channel vector v at positions j, j + R, ...
+// and keeps its sums of h + w + c in registers to the end, so every sum has
+// one fixed order.
 __global__ void __launch_bounds__(kThreads)
-morphfc_axes_kernel(const T* __restrict__ x, const T* __restrict__ c,
-                    const T* __restrict__ kh, const float* __restrict__ bh,
-                    const T* __restrict__ kw, const float* __restrict__ bw,
-                    T* __restrict__ h_out, T* __restrict__ w_out,
-                    float* __restrict__ partial, int H, int W, int C, int ch,
-                    int cw, int WT) {
-  constexpr int VEC = AxesSmem<T>::VEC;
+morphfc_axes_f32_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                        const float* __restrict__ kh, const float* __restrict__ bh,
+                        const float* __restrict__ kw, const float* __restrict__ bw,
+                        float* __restrict__ h_out, float* __restrict__ w_out,
+                        float* __restrict__ partial, int H, int W, int C, int ch, int cw,
+                        int WT) {
+  constexpr int VEC = 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int M = ch * WT, nv = C / VEC;
-  const AxesSmem<T> sm(M, C);
-  const int ld = sm.ld, ldo = sm.ldo, R = sm.R;
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* A = reinterpret_cast<T*>(smem_raw + sm.k_bytes);
-  float* red = reinterpret_cast<float*>(A);  // after the last projection
+  const AxesSmem sm(M, C);
+  const int R = sm.R;
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* A = reinterpret_cast<float*>(smem_raw + sm.k_bytes);
+  float* red = A;  // after the last projection
   float* O = reinterpret_cast<float*>(smem_raw + sm.k_bytes + sm.a_bytes);
   const int n = blockIdx.z, r0 = blockIdx.y * ch, w0 = blockIdx.x * WT;
   const int Sh = C / ch, Sw = C / cw, kg = WT / cw;
@@ -723,23 +701,35 @@ morphfc_axes_kernel(const T* __restrict__ x, const T* __restrict__ c,
   const size_t frame = (size_t)n * H * W * C;
   auto at = [&](int r, int w) { return frame + ((size_t)(r0 + r) * W + w0 + w) * C; };
   auto valid = [&](int r, int w) { return r0 + r < H && w0 + w < W; };
-  auto load = [&](const T* src, int r, int w, int v, T* dst) {
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (valid(r, w)) u = *reinterpret_cast<const uint4*>(src + at(r, w) + v * VEC);
-    *reinterpret_cast<uint4*>(dst) = u;
+  auto load = [&](const float* src, int r, int w, int v, float* dst) {
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (valid(r, w)) u = *reinterpret_cast<const float4*>(src + at(r, w) + v * VEC);
+    *reinterpret_cast<float4*>(dst) = u;
+  };
+  auto stage_weight = [&](const float* __restrict__ K) {
+    for (int e = threadIdx.x; e < C * nv; e += kThreads)
+      *reinterpret_cast<float4*>(Ks + e * VEC) = *reinterpret_cast<const float4*>(K + e * VEC);
   };
   // slab (r, w, channel vector v) -> token matrix; row(r, w, q), col(r, w, s)
   auto fill = [&](auto row, auto col, int S) {
-#pragma unroll 2
     for (int e = threadIdx.x; e < M * nv; e += kThreads) {
       const int v = e % nv, rw = e / nv, r = rw / WT, w = rw % WT;
-      alignas(16) T vals[VEC];
+      alignas(16) float vals[VEC];
       load(x, r, w, v, vals);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
         const int cc = v * VEC + k;
-        A[row(r, w, cc / S) * ld + col(r, w, cc % S)] = vals[k];
+        A[row(r, w, cc / S) * C + col(r, w, cc % S)] = vals[k];
       }
+    }
+  };
+  auto project = [&]() {
+    for (int e = threadIdx.x; e < M * C; e += kThreads) {
+      const int t = e / C, f = e % C;
+      const float* a = A + t * C;
+      float acc = 0.f;
+      for (int k = 0; k < C; ++k) acc = fmaf(a[k], Ks[k * C + f], acc);
+      O[t * C + f] = acc;
     }
   };
   const int j = threadIdx.x / nv, v = threadIdx.x % nv;  // epilogue lanes
@@ -748,22 +738,22 @@ morphfc_axes_kernel(const T* __restrict__ x, const T* __restrict__ c,
   for (int k = 0; k < VEC; ++k) sums[k] = 0.f;
   // token matrix outputs -> relu(o + b) / C -> out, summed; trow(r, w, q),
   // feature f(r, w, Z) = P * S + Z
-  auto epilogue = [&](T* out, const float* bias, auto trow, auto feat, int S, bool add_c) {
+  auto epilogue = [&](float* out, const float* bias, auto trow, auto feat, int S, bool add_c) {
     if (j >= R) return;
     for (int pos = j; pos < M; pos += R) {
       const int r = pos / WT, w = pos % WT;
       if (!valid(r, w)) continue;
-      alignas(16) T vals[VEC];
-      alignas(16) T cv[VEC];
+      alignas(16) float vals[VEC];
+      alignas(16) float cv[VEC];
       if (add_c) load(c, r, w, v, cv);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
         const int cc = v * VEC + k, f = feat(r, w, cc % S);
-        const float y = fmaxf(O[trow(r, w, cc / S) * ldo + f] + bias[f], 0.f) * inv_c;
-        vals[k] = from_f<T>(y);
-        sums[k] += add_c ? y + to_f<T>(cv[k]) : y;
+        const float y = fmaxf(O[trow(r, w, cc / S) * C + f] + bias[f], 0.f) * inv_c;
+        vals[k] = y;
+        sums[k] += add_c ? y + cv[k] : y;
       }
-      *reinterpret_cast<uint4*>(out + at(r, w) + v * VEC) = *reinterpret_cast<uint4*>(vals);
+      *reinterpret_cast<float4*>(out + at(r, w) + v * VEC) = *reinterpret_cast<float4*>(vals);
     }
   };
   auto h_row = [&](int, int w, int q) { return w * ch + q; };
@@ -771,16 +761,16 @@ morphfc_axes_kernel(const T* __restrict__ x, const T* __restrict__ c,
   auto w_row = [&](int r, int w, int q) { return (r * kg + w / cw) * cw + q; };
   auto w_col = [&](int, int w, int s) { return (w % cw) * Sw + s; };
 
-  axes_stage_weight<T>(Ks, ld, kh, C);
+  stage_weight(kh);
   fill(h_row, h_col, Sh);
   __syncthreads();
-  axes_project<T>(A, Ks, ld, O, ldo, M, C);
+  project();
   __syncthreads();
   epilogue(h_out, bh, h_row, h_col, Sh, false);  // h(r, w): feature P = r
-  axes_stage_weight<T>(Ks, ld, kw, C);
+  stage_weight(kw);
   fill(w_row, w_col, Sw);
   __syncthreads();
-  axes_project<T>(A, Ks, ld, O, ldo, M, C);
+  project();
   __syncthreads();
   epilogue(w_out, bw, w_row, w_col, Sw, true);
   if (j < R) {
@@ -796,30 +786,395 @@ morphfc_axes_kernel(const T* __restrict__ x, const T* __restrict__ c,
   }
 }
 
-template <typename T>
-int launch_axes(const T* x, const T* c, const T* kh, const float* bh,
-                const T* kw, const float* bw, T* h, T* w, float* partial,
-                float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
-                cudaStream_t stream) {
-  const int M = ch * WT;
-  if (C % 16 != 0 || C / AxesSmem<T>::VEC > kThreads || (AxesSmem<T>::kTC && M % 16 != 0))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = AxesSmem<T>(M, C).total;
+int launch_axes_f32(const float* x, const float* c, const float* kh, const float* bh,
+                    const float* kw, const float* bw, float* h, float* w, float* partial,
+                    float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
+                    cudaStream_t stream) {
+  if (C % 16 != 0 || C / 4 > kThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = AxesSmem(ch * WT, C).total;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // the token form's domain
-  auto kern = morphfc_axes_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = set_smem(morphfc_axes_f32_kernel, smem);
+  if (e) return e;
   const dim3 grid((W + WT - 1) / WT, (H + ch - 1) / ch, N);
-  kern<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w, partial, H, W, C,
-                                         ch, cw, WT);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int S = grid.x * grid.y;
-  morphfc_final_kernel<<<(N * C + 255) / 256, 256, 0, stream>>>(partial, psum, N, C, S);
+  morphfc_axes_f32_kernel<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w, partial,
+                                                            H, W, C, ch, cw, WT);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_final(partial, psum, N, C, grid.x * grid.y, stream);
+}
+
+// ---- bf16 (serving): persistent warpgroups, resident weights, TMA slabs ----
+//
+// A tile is one slab of ch rows x WT columns of a frame (WT a multiple of
+// cw, so the W chunks lie inside it; >= 64 positions,
+// morphfc_fused.axes_slab_width).  Each branch's token matrix has its token
+// groups (ch, resp. cw tokens: the channel segments q of one chunk) padded
+// to a power of two cp of rows and its rows to whole m64 sub-tiles, so
+// every sub-tile holds whole groups and row m is segment q = m % cp
+// (padding rows are zero tokens that write and sum nothing).  Both branches of a tile
+// read one x slab, brought in once by one TMA box (C x WT x ch; rows past H
+// and columns past W read as zeros) with the c slab, into a ring of slots
+// per consumer warpgroup; each warpgroup walks a contiguous run of tiles
+// (a fixed assignment), its leader thread issuing the next slot's boxes.
+//
+// Per sub-tile: the token matrix is formed straight into wgmma register-A
+// fragments from the slab -- A[(w, q)][(P, s)] = x[P][w][q S + s] (H),
+// A[(r, G, q)][(p, s)] = x[r][G cw + p][q S + s] (W); with S = C / chunk
+// even, a fragment register's k pair is two neighbouring channels, one
+// 4-byte shared read (odd S: two 2-byte reads) -- then m64nCk16 against the
+// branch's decayed weight, a B image staged once per block from the plain
+// (C_in, C_out) matrix.  The epilogue works on the accumulator: relu(acc +
+// b) / C, rounded once, lands at position P, channel q S + Z of the output
+// slab, which is the (token, feature)'s own x element: so h overwrites x in
+// its slot sub-tile by sub-tile (each reads and writes only its own token
+// columns), and w goes where c was (summed first).  Both leave by TMA store.
+//
+// Sums: each thread keeps the unrounded values of its accumulator
+// positions (row m % 64, column f) summed over its tiles, in tile order --
+// the (segment, feature) of a position is the same in every sub-tile, and
+// so is the channel q S + Z -- beside its c lanes' sums.  At each change of
+// frame (a walker's run crosses one or two) the warpgroup writes them to
+// its global scratch and each channel's thread adds its positions in a
+// fixed order into the walker's per-frame partial; morphfc_final_kernel
+// adds the walkers' partials.  Deterministic, no atomics.
+constexpr int kAxRingMax = 4;  // slots per warpgroup
+
+struct AxesMaps {
+  CUtensorMap x, c, h, w;  // (N, H, W, C): boxes of C x WT x ch, no swizzle
+};
+
+struct AxesArgs {
+  const bf16 *kh, *kw;
+  const float *bh, *bw;
+  float *partial, *scratch;
+  int N, H, W, C, ch, cw, WT, kg;
+  int lchp, lcwp;                      // log2 of the padded group sizes
+  int tiles_w, tiles_pf, tiles;        // slabs per slab row, per frame; all
+  int nwg, ring, npass, walkers;
+  unsigned slab_bytes, box_bytes;      // a slab's slot half (128-aligned); one box
+};
+
+// one slab: ch * WT positions of C bf16, 128-byte aligned
+__host__ __device__ inline unsigned axes_slab_bytes(int positions, int C) {
+  return ((unsigned)positions * C * 2 + 127) / 128 * 128;
+}
+// the rings (x and c slabs per slot), the weights (both where npass == 1),
+// the biases, the barriers (morphfc_fused.axes_smem)
+__host__ __device__ inline size_t axes_smem(int C, unsigned slab, int nwg, int ring, int npass) {
+  return (size_t)nwg * ring * 2 * slab + (size_t)(npass == 1 ? 2 : 1) * C * C * 2 +
+         (size_t)2 * C * 4 + (size_t)nwg * kAxRingMax * 8;
+}
+
+template <int KS>
+__global__ void __launch_bounds__(256, 1)
+morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs a) {
+  constexpr int C = 16 * KS, NJ = C / 8;  // accumulator column groups
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw;
+  if ((su32(base) & 127) != 0) __trap();
+  const int g = threadIdx.x >> 7, tid = threadIdx.x & 127, wq = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, l4 = lane & 3;
+  const bool leader = tid == 0;  // issues the warpgroup's copies and stores
+  const unsigned slot_bytes = 2 * a.slab_bytes;
+  unsigned char* ring = base + (size_t)g * a.ring * slot_bytes;
+  bf16* wsm = reinterpret_cast<bf16*>(base + (size_t)a.nwg * a.ring * slot_bytes);
+  float* bias = reinterpret_cast<float*>(wsm + (size_t)(a.npass == 1 ? 2 : 1) * C * C);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bias + 2 * C);
+  uint64_t* full = bars + g * kAxRingMax;
+  const int G = a.walkers, gw = blockIdx.x * a.nwg + g;
+  const int t0 = (int)((long long)gw * a.tiles / G);
+  const int nt = (int)((long long)(gw + 1) * a.tiles / G) - t0, total = a.npass * nt;
+  const float inv_c = 1.f / C;
+
+  // a weight's B image: element (k, n) at ((k / 8) C + n) 8 + k % 8 (K-major
+  // 8 x 16-byte core matrices), from the plain (C_in, C_out) matrix
+  auto stage = [&](bf16* dst, const bf16* __restrict__ K) {
+    for (int it = threadIdx.x; it < C / 8 * C; it += blockDim.x) {
+      const int kg8 = it / C, nn = it - kg8 * C;
+      alignas(16) bf16 v[8];
+#pragma unroll
+      for (int ki = 0; ki < 8; ++ki) v[ki] = K[(size_t)(8 * kg8 + ki) * C + nn];
+      *reinterpret_cast<uint4*>(dst + (size_t)it * 8) = *reinterpret_cast<const uint4*>(v);
+    }
+    fence_async_shared();  // the image, visible to wgmma
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.nwg * kAxRingMax; ++i) mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < C; i += blockDim.x) bias[i] = a.bh[i], bias[C + i] = a.bw[i];
+  stage(wsm, a.kh);
+  if (a.npass == 1) stage(wsm + (size_t)C * C, a.kw);
+  __syncthreads();
+
+  auto tile_at = [&](int t, int& n, int& r0, int& w0) {
+    n = t / a.tiles_pf;
+    const int rem = t - n * a.tiles_pf, ty = rem / a.tiles_w;
+    r0 = ty * a.ch, w0 = (rem - ty * a.tiles_w) * a.WT;
+  };
+  auto slot_of = [&](int u) { return ring + (size_t)(u % a.ring) * slot_bytes; };
+  // unit u = pass * nt + i: tile t0 + i's x slab (and its c slab, in the
+  // pass that runs the W branch)
+  auto issue = [&](int u) {
+    if (u >= total) return;
+    const int pass = u / nt, i = u - pass * nt;
+    int n, r0, w0;
+    tile_at(t0 + i, n, r0, w0);
+    const bool with_c = a.npass == 1 || pass == 1;
+    unsigned char* slot = slot_of(u);
+    uint64_t* bar = full + u % a.ring;
+    mbar_expect(bar, (with_c ? 2 : 1) * a.box_bytes);
+    tma_load_4d(slot, &maps.x, 0, w0, r0, n, bar);
+    if (with_c) tma_load_4d(slot + a.slab_bytes, &maps.c, 0, w0, r0, n, bar);
+  };
+  if (leader)
+    for (int u = 0; u < a.ring - 1; ++u) issue(u);
+
+  // per-thread sums: accumulator position (row half hh, column 8 j + 2 l4
+  // + e) over the walker's tiles; the c lanes' 8 channels
+  float ss[2][NJ][2], cs[8];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) ss[hh][j][0] = ss[hh][j][1] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cs[k] = 0.f;
+  const int nv = C / 8, Rc = 128 / nv, jc = tid / nv, vc = tid - jc * nv;  // c lanes
+  float* sc = a.scratch + (size_t)gw * (C / 2 + 8) * 128;
+
+  // the walker's sums of frame n into its partial, in a fixed order: per
+  // channel (q, Z), rows m = q, q + cp, ... < 64, then features P S + Z, P
+  // < chunk, then the c lanes
+  auto flush = [&](int n, int pass, int chunk, int lcp, int S) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[((hh * NJ + j) * 2 + e) * 128 + tid] = ss[hh][j][e];
+          ss[hh][j][e] = 0.f;
+        }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      sc[(C / 2 + k) * 128 + tid] = cs[k];
+      cs[k] = 0.f;
+    }
+    wg_bar(g);
+    for (int cc = tid; cc < C; cc += 128) {
+      const int q = cc / S, Z = cc - q * S;
+      float acc = 0.f;
+      for (int m = q; m < 64; m += 1 << lcp) {
+        const float* row = sc + (m >> 4) * 32 + (m & 7) * 4;
+        const int hh = (m >> 3) & 1;
+        for (int P = 0; P < chunk; ++P) {
+          const int f = P * S + Z;
+          acc += row[((hh * NJ + (f >> 3)) * 2 + (f & 1)) * 128 + ((f & 7) >> 1)];
+        }
+      }
+      for (int j2 = 0; j2 < Rc; ++j2) acc += sc[(C / 2 + (cc & 7)) * 128 + j2 * nv + (cc >> 3)];
+      a.partial[((size_t)n * a.npass * G + (size_t)pass * G + gw) * C + cc] = acc;
+    }
+    wg_bar(g);
+  };
+
+  int u = 0;
+  for (int pass = 0; pass < a.npass; ++pass) {
+    if (pass == 1) {  // two passes: kw replaces kh
+      __syncthreads();
+      stage(wsm, a.kw);
+      __syncthreads();
+    }
+    const bool doH = a.npass == 1 || pass == 0, doW = a.npass == 1 || pass == 1;
+    // the pass's branch geometry (both branches alike where npass == 1)
+    const int chunk = doH ? a.ch : a.cw, lcp = doH ? a.lchp : a.lcwp, S = C / chunk;
+    const bool even = (S & 1) == 0;
+    // column 8 j + 2 l4 (+ 1) of the token matrices is feature (P, Z): its
+    // start and its step over j
+    const int P0 = 2 * l4 / S, Z0 = 2 * l4 - P0 * S, dP = 8 / S, dZ = 8 - dP * S;
+    int cur = -1, first = -1, last = -1;
+    for (int i = 0; i <= nt; ++i, ++u) {
+      int n = -1, r0 = 0, w0 = 0;
+      if (i < nt) tile_at(t0 + i, n, r0, w0);
+      if (n != cur) {  // the run enters a frame, or ends (one call site: flush inlines)
+        if (cur >= 0) flush(cur, pass, chunk, lcp, S);
+        if (first < 0) first = n;
+        last = cur;
+        cur = n;
+      }
+      if (i == nt) break;
+      if (leader) {
+        bulk_wait_read<0>();  // the last stores have read their slot
+        issue(u + a.ring - 1);
+      }
+      mbar_wait(full + u % a.ring, (u / a.ring) & 1);
+      unsigned char* slot = slot_of(u);
+      bf16* xs = reinterpret_cast<bf16*>(slot);
+      bf16* cslab = reinterpret_cast<bf16*>(slot + a.slab_bytes);
+      if (doW && jc < Rc) {  // c over the slab (zeros past the frame)
+        for (int pos = jc; pos < a.ch * a.WT; pos += Rc) {
+          const uint4 v = *reinterpret_cast<const uint4*>(cslab + (size_t)pos * C + vc * 8);
+          const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f2 = __bfloat1622float2(b2[k]);
+            cs[2 * k] += f2.x, cs[2 * k + 1] += f2.y;
+          }
+        }
+      }
+      // one branch: its sub-tiles' fragments, product, epilogue into dst
+      auto branch = [&](auto is_h) {
+        constexpr bool IH = decltype(is_h)::value;
+        // token groups: WT (H) or ch kg (W), cp rows each, in whole m64 sub-tiles
+        const int cp = 1 << (IH ? a.lchp : a.lcwp), ngroups = IH ? a.WT : a.ch * a.kg;
+        const int rows = ((ngroups << (IH ? a.lchp : a.lcwp)) + 63) / 64 * 64;
+        const int cstride = IH ? a.WT * C : C;
+        bf16* dst = IH ? xs : cslab;
+        const float* bs = bias + (IH ? 0 : C);
+        const unsigned bsm = su32(wsm + (a.npass == 1 && !IH ? (size_t)C * C : 0));
+        for (int m0 = 0; m0 < rows; m0 += 64) {
+          int rowpart[2];
+          bool real[2], rvalid[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int m = m0 + 16 * wq + 8 * hh + gr, grp = m >> (IH ? a.lchp : a.lcwp);
+            const int q = m & (cp - 1);
+            real[hh] = q < chunk && grp < ngroups;
+            if (IH) {
+              rowpart[hh] = grp * C + q * S;
+              rvalid[hh] = real[hh] && w0 + grp < a.W;
+            } else {
+              const int rr = grp / a.kg, G2 = grp - rr * a.kg;
+              rowpart[hh] = (rr * a.WT + G2 * a.cw) * C + q * S;
+              rvalid[hh] = real[hh] && r0 + rr < a.H && w0 + G2 * a.cw < a.W;
+            }
+          }
+          uint32_t fr[KS][4];
+          int P = P0, Z = Z0;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            int P1 = P, Z1 = Z + 1;
+            if (Z1 == S) Z1 = 0, P1 = P + 1;
+            const int c0 = P * cstride + Z, c1 = P1 * cstride + Z1;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              uint32_t v = 0;
+              if (real[hh]) {
+                const bf16* src = xs + rowpart[hh];
+                if (even) {
+                  v = *reinterpret_cast<const uint32_t*>(src + c0);
+                } else {
+                  const unsigned short lo = *reinterpret_cast<const unsigned short*>(src + c0);
+                  const unsigned short hi = *reinterpret_cast<const unsigned short*>(src + c1);
+                  v = (uint32_t)lo | ((uint32_t)hi << 16);
+                }
+              }
+              fr[j >> 1][(j & 1) * 2 + hh] = v;
+            }
+            P += dP, Z += dZ;
+            if (Z >= S) Z -= S, ++P;
+          }
+          float acc[C / 2];
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            WgmmaRA<C>::mma(acc, fr[ks], mat_desc(bsm + ks * 2 * C * 16, C * 16, 128), ks != 0);
+          wg_commit();
+          pin_regs(acc);
+          wg_bar(g);  // every fragment read of the slab's sub-tile (and, for W, the c sums) is done
+          wg_wait<0>();
+          pin_regs(acc);
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq) asm volatile("" : "+r"(fr[ks][qq])::"memory");
+          // epilogue: register 4 j + 2 hh + e is row hh, column 8 j + 2 l4 + e
+          P = P0, Z = Z0;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            int P1 = P, Z1 = Z + 1;
+            if (Z1 == S) Z1 = 0, P1 = P + 1;
+            const int c0 = P * cstride + Z, c1 = P1 * cstride + Z1;
+            const float2 bj = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * l4);
+            // H: the feature's position is the slab row P (or P1)
+            const bool cv0 = !IH || r0 + P < a.H, cv1 = !IH || r0 + P1 < a.H;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float y0 = fmaxf(acc[4 * j + 2 * hh] + bj.x, 0.f) * inv_c;
+              const float y1 = fmaxf(acc[4 * j + 2 * hh + 1] + bj.y, 0.f) * inv_c;
+              if (rvalid[hh]) {
+                ss[hh][j][0] += cv0 ? y0 : 0.f;
+                ss[hh][j][1] += cv1 ? y1 : 0.f;
+              }
+              if (real[hh]) {
+                bf16* o = dst + rowpart[hh];
+                if (even) {
+                  *reinterpret_cast<__nv_bfloat162*>(o + c0) = __floats2bfloat162_rn(y0, y1);
+                } else {
+                  o[c0] = __float2bfloat16_rn(y0);
+                  o[c1] = __float2bfloat16_rn(y1);
+                }
+              }
+            }
+            P += dP, Z += dZ;
+            if (Z >= S) Z -= S, ++P;
+          }
+        }
+      };
+      if (doW) branch(std::false_type());  // x is read, w goes where c was
+      if (doH) branch(std::true_type());   // h overwrites x, sub-tile by sub-tile
+      fence_async_shared();  // the staged outputs, visible to the TMA stores
+      wg_bar(g);
+      if (leader) {
+        if (doH) tma_store_4d(&maps.h, xs, 0, w0, r0, n);
+        if (doW) tma_store_4d(&maps.w, cslab, 0, w0, r0, n);
+        bulk_commit();
+      }
+    }
+    // frames of no tile of this walker's run: zero partials
+    for (int n = 0; n < a.N; ++n) {
+      if (last >= 0 && n >= first && n <= last) continue;
+      for (int cc = tid; cc < C; cc += 128)
+        a.partial[((size_t)n * a.npass * G + (size_t)pass * G + gw) * C + cc] = 0.f;
+    }
+  }
+  if (leader) bulk_wait<0>();  // the stores are done before the block's shared memory goes
+}
+
+template <int KS>
+int launch_axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
+  const size_t smem = axes_smem(a.C, a.slab_bytes, a.nwg, a.ring, a.npass);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = morphfc_axes_wgmma_kernel<KS>;
+  static bool smem_set = false;  // the largest size, once per instantiation
+  if (!smem_set) {
+    const int e = set_smem(kern, kMaxSmem);
+    if (e) return e;
+    smem_set = true;
+  }
+  kern<<<grid, 128 * a.nwg, smem, st>>>(m, a);
   return (int)cudaGetLastError();
+}
+
+int axes_bf16(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
+  switch (a.C / 16) {
+    case 1: return launch_axes_wgmma<1>(m, a, grid, st);
+    case 2: return launch_axes_wgmma<2>(m, a, grid, st);
+    case 3: return launch_axes_wgmma<3>(m, a, grid, st);
+    case 4: return launch_axes_wgmma<4>(m, a, grid, st);
+    case 5: return launch_axes_wgmma<5>(m, a, grid, st);
+    case 6: return launch_axes_wgmma<6>(m, a, grid, st);
+    case 7: return launch_axes_wgmma<7>(m, a, grid, st);
+    case 8: return launch_axes_wgmma<8>(m, a, grid, st);
+    case 9: return launch_axes_wgmma<9>(m, a, grid, st);
+    case 10: return launch_axes_wgmma<10>(m, a, grid, st);
+    case 11: return launch_axes_wgmma<11>(m, a, grid, st);
+    case 12: return launch_axes_wgmma<12>(m, a, grid, st);
+    case 13: return launch_axes_wgmma<13>(m, a, grid, st);
+    case 14: return launch_axes_wgmma<14>(m, a, grid, st);
+    case 15: return launch_axes_wgmma<15>(m, a, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---- axes, token form: the same function where the weight does not fit ----
@@ -1051,33 +1406,67 @@ int launch_axes_token(const T* x, const T* c, const T* kh, const float* bh,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int S = grid.x * grid.y;
-  morphfc_final_kernel<<<(N * C + 255) / 256, 256, 0, stream>>>(partial, psum, N, C, S);
-  return (int)cudaGetLastError();
+  return launch_final(partial, psum, N, C, S, stream);
 }
 
 }  // namespace vmg
 
 // x, c, h, w: (N, H, W, C); kh, kw: (C_in, C_out) decayed axis weights;
-// bh, bw: (C,) f32; partial: (N, ceil(H/ch) * ceil(W/WT), C) f32 scratch;
-// psum: (N, C) f32.  C % 16 == C % ch == C % cw == W % cw == 0, WT % cw
-// == 0; bf16: ch * WT % 16 == 0.
+// bh, bw: (C,) f32; psum: (N, C) f32.  C % 16 == C % ch == C % cw == W % cw
+// == 0, WT % cw == 0.  f32: one block per slab of ch x WT; partial: (N,
+// ceil(H/ch) * ceil(W/WT), C) f32; scratch, nwg, ring, npass and grid
+// unused.  bf16: the persistent kernel with the plan of
+// morphfc_fused.axes_plan (WT, npass, nwg, ring) on grid blocks; partial:
+// (N, npass * grid * nwg, C) f32; scratch: grid * nwg * (C / 2 + 8) * 128 f32.
 extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
                                 const float* bh, const void* kw, const float* bw,
-                                void* h, void* w, float* partial, float* psum,
-                                int N, int H, int W, int C, int ch, int cw,
-                                int WT, int dtype, void* stream) {
+                                void* h, void* w, float* partial, float* psum, float* scratch,
+                                int N, int H, int W, int C, int ch, int cw, int WT, int nwg,
+                                int ring, int npass, int grid, int dtype, void* stream) {
   if (ch < 1 || cw < 1 || C % ch != 0 || C % cw != 0 || W % cw != 0 || WT % cw != 0 ||
       N > 65535 || (H + ch - 1) / ch > 65535)
     return (int)cudaErrorInvalidValue;
   for (const void* p : {x, c, kh, kw, (const void*)h, (const void*)w})
     if ((uintptr_t)p % vmg::kVecBytes != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
-  VMG_DISPATCH_DTYPE(dtype, T, {
-    return vmg::launch_axes<T>((const T*)x, (const T*)c, (const T*)kh, bh,
-                               (const T*)kw, bw, (T*)h, (T*)w, partial, psum, N, H,
-                               W, C, ch, cw, WT, st);
-  });
-  return (int)cudaErrorInvalidValue;  // not reached: the dispatch returns
+  if (dtype == 0)
+    return vmg::launch_axes_f32((const float*)x, (const float*)c, (const float*)kh, bh,
+                                (const float*)kw, bw, (float*)h, (float*)w, partial, psum, N, H,
+                                W, C, ch, cw, WT, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  auto lg2 = [](int v) {  // log2 of the least power of two >= v
+    int l = 0;
+    while ((1 << l) < v) ++l;
+    return l;
+  };
+  vmg::AxesArgs a = {};
+  a.kh = (const vmg::bf16*)kh, a.kw = (const vmg::bf16*)kw, a.bh = bh, a.bw = bw;
+  a.partial = partial, a.scratch = scratch;
+  a.N = N, a.H = H, a.W = W, a.C = C, a.ch = ch, a.cw = cw, a.WT = WT, a.kg = WT / cw;
+  a.lchp = lg2(ch), a.lcwp = lg2(cw);
+  a.nwg = nwg, a.ring = ring, a.npass = npass, a.walkers = grid * nwg;
+  // the box within TMA's limits, token groups of at most 64 rows
+  if (C > 240 || WT > 256 || ch > 64 || cw > 64 || nwg < 1 || nwg > 2 || ring < 1 ||
+      ring > vmg::kAxRingMax || npass < 1 || npass > 2 || (npass == 1 && ch != cw) ||
+      grid < 1 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  a.tiles_w = (W + WT - 1) / WT;
+  a.tiles_pf = a.tiles_w * ((H + ch - 1) / ch);
+  if ((long long)N * a.tiles_pf > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.tiles = N * a.tiles_pf;
+  a.box_bytes = (unsigned)(ch * WT * C * 2);
+  a.slab_bytes = vmg::axes_slab_bytes(ch * WT, C);
+  vmg::AxesMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const void* ts[4] = {x, c, h, w};
+  CUtensorMap* ms[4] = {&maps.x, &maps.c, &maps.h, &maps.w};
+  for (int i = 0; i < 4; ++i) {
+    const int e = vmg::nhwc_box_map(ms[i], ts[i], N, H, W, C, WT, ch, C);
+    if (e) return e;
+  }
+  int e = vmg::axes_bf16(maps, a, grid, st);
+  if (e) return e;
+  return vmg::launch_final(partial, psum, N, C, npass * a.walkers, st);
 }
 
 // The token form: arguments as vmg_morphfc_axes; C % 16 == 0, C <= 512.
@@ -1114,8 +1503,7 @@ extern "C" int vmg_morphfc_reduce(const void* h, const void* w, const void* c,
   });
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  vmg::morphfc_final_kernel<<<(N * C + 255) / 256, 256, 0, st>>>(partial, out, N, C, S);
-  return (int)cudaGetLastError();
+  return vmg::launch_final(partial, out, N, C, S, st);
 }
 
 // x, h, w, c, res, out: (N, P, C); a: (N, 3, C); pb: (C,) f32; res may be

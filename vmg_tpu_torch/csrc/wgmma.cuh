@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the wgmma and bulk-copy kernels
 // (conv_chain.cu, group_ffn.cu, morphfc.cu's combine, ltam.cu's forward):
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for every N
-// the kernels take (a multiple of 16 up to 224), with A from shared memory
+// the kernels take (a multiple of 16 up to 240), with A from shared memory
 // (Wgmma<N>) or from registers (WgmmaRA<N>) and B from shared memory
 // through matrix descriptors; mbarriers, bulk and TMA copies both ways, and
 // the tensor-map encoders.
@@ -39,6 +39,7 @@ namespace vmg {
 #define VMG_WG_OPS96 VMG_WG_OPS88 ", %88, %89, %90, %91, %92, %93, %94, %95"
 #define VMG_WG_OPS104 VMG_WG_OPS96 ", %96, %97, %98, %99, %100, %101, %102, %103"
 #define VMG_WG_OPS112 VMG_WG_OPS104 ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define VMG_WG_OPS120 VMG_WG_OPS112 ", %112, %113, %114, %115, %116, %117, %118, %119"
 
 #define VMG_WG_D(i)                                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
@@ -57,6 +58,7 @@ namespace vmg {
 #define VMG_WG_D96 VMG_WG_D88, VMG_WG_D(88)
 #define VMG_WG_D104 VMG_WG_D96, VMG_WG_D(96)
 #define VMG_WG_D112 VMG_WG_D104, VMG_WG_D(104)
+#define VMG_WG_D120 VMG_WG_D112, VMG_WG_D(112)
 
 template <int N> struct Wgmma;
 template <int N> struct WgmmaRA;
@@ -102,6 +104,7 @@ VMG_WGMMA(176, 88, 89, 90, 91, 92, 93)
 VMG_WGMMA(192, 96, 97, 98, 99, 100, 101)
 VMG_WGMMA(208, 104, 105, 106, 107, 108, 109)
 VMG_WGMMA(224, 112, 113, 114, 115, 116, 117)
+VMG_WGMMA(240, 120, 121, 122, 123, 124, 125)
 
 #undef VMG_WGMMA
 
@@ -169,6 +172,13 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(su32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(su32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
@@ -262,17 +272,18 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D tensor map over an (N, H, W, C) bf16 tensor: boxes of 8 channels x
-// box_w columns x box_h rows of one frame, no swizzle, zeros out of bounds
-// (also at negative coordinates).
+// A 4-D tensor map over an (N, H, W, C) bf16 tensor: boxes of box_c (8 by
+// default) channels x box_w columns x box_h rows of one frame, no swizzle,
+// zeros out of bounds (also at negative coordinates).
 inline int nhwc_box_map(CUtensorMap* map, const void* t, int N, int H, int W, int C, int box_w,
-                        int box_h) {
+                        int box_h, int box_c = 8) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
                                  (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {8, (cuuint32_t)box_w, (cuuint32_t)box_h, 1}, elem[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w, (cuuint32_t)box_h, 1},
+                   elem[4] = {1, 1, 1, 1};
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides,
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -3,8 +3,9 @@
 Port of ``ltam_attention_2x2`` of ``vmg_tpu/ops/ltam_attention.py`` and of
 its custom VJP.  On CUDA tensors the wrapper launches the kernels of
 ``csrc/ltam.cu`` (design notes there): a forward that, when a gradient is
-needed, also writes the softmax denominator, and a backward kernel, bound
-together by a ``torch.autograd.Function``.  On CPU tensors it takes
+needed, also writes the softmax denominator, and a backward kernel (with
+a second launch that sums the dpe partials), bound together by a
+``torch.autograd.Function``.  On CPU tensors it takes
 :func:`ltam_attention_plain`, which autograd differentiates.
 
 Layout (the port's own; the TPU kernel padded every slot to 128 lanes):
@@ -79,13 +80,18 @@ def _check(q, kv, pe, K, heads):
                    device=q.device)
 
 
-def lanes(d: int) -> int:
-    """Lanes per (pixel, head) of the kernels: the least power of two whose
-    32 registers a lane hold the head width d (``ltam_lanes``)."""
+def _lanes_for(d: int, R: int) -> int:
+    """The least power of two L with L * R >= d (``ltam_lanes_for``)."""
     L = 1
-    while L * 32 < d:
+    while L * R < d:
         L *= 2
     return L
+
+
+def lanes(d: int) -> int:
+    """Lanes per (pixel, head) of the forward kernel: the least power of two
+    whose 32 registers a lane hold the head width d (``ltam_lanes``)."""
+    return _lanes_for(d, 32)
 
 
 def _pixel_stride(seg2: int, es: int) -> int:
@@ -137,6 +143,51 @@ def _forward_kernel(q, kv, pe, K, heads, with_den: bool):
     return out, den
 
 
+# threads of the backward kernel's block (``kLtamBwdThreads``); shared memory
+# one block may use on Hopper (227 KB)
+BWD_THREADS = 256
+MAX_SMEM = 232_448
+
+
+def bwd_lanes(d: int) -> int:
+    """Lanes per (pixel, head) of the backward kernel (``ltam_bwd_lanes``):
+    the least power of two whose 8 registers a lane -- 12 where that halves
+    the lanes, 32 above d = 256 -- hold the head width d: 4 at d = 28 (where
+    the forward has 1) and at d = 36."""
+    if d > 256:
+        return _lanes_for(d, 32)
+    return min(_lanes_for(d, 8), _lanes_for(d, 12))
+
+
+def bwd_smem(Wt: int, HB: int, d: int, dtype, nbuf: int) -> int:
+    """Shared memory of the backward kernel's block (``ltam_bwd_smem``): q
+    and g as f32, the (p, dlogit, dpe term) exchange of 2 Wt HB queries x 4
+    taps, ``nbuf`` kv slot buffers and their mbarriers."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    q = -(-2 * Wt * HB * d * 4 // 16) * 16
+    pd = -(-2 * Wt * HB * 4 * 3 * 4 // 16) * 16
+    kv = nbuf * 2 * Wt * _pixel_stride(2 * HB * d, es) * es
+    return 2 * q + pd + -(-kv // 8) * 8 + (1 + nbuf) * 8
+
+
+def bwd_plan(C: int, heads: int, K: int, dtype):
+    """(Wt, HB, nbuf) of the backward kernel: HB, the most heads that divide
+    ``heads`` with two columns' 4 HB lane groups within a block; Wt, the
+    widest even span within ``BWD_THREADS`` threads; min(K, 4) kv buffers,
+    fewer (then narrower spans) where shared memory runs out."""
+    d = C // heads
+    L = bwd_lanes(d)
+    HB = max(b for b in range(1, heads + 1)
+             if heads % b == 0 and 4 * b * L <= BWD_THREADS)
+    Wt = 2 * (BWD_THREADS // (4 * HB * L))
+    nbuf = min(K, FWD_BUFFERS)
+    while nbuf > 1 and bwd_smem(Wt, HB, d, dtype, nbuf) > MAX_SMEM:
+        nbuf -= 1
+    while Wt > 2 and bwd_smem(Wt, HB, d, dtype, nbuf) > MAX_SMEM:
+        Wt -= 2
+    return Wt, HB, nbuf
+
+
 def ltam_attention_2x2_bwd(q, kv, pe, den, out, g, *, K: int, heads: int):
     """Gradients (dq f32, dkv in kv's dtype, dpe f32) of the attention from
     the forward's saved q, kv, pe, den (unclamped), out and the f32
@@ -148,23 +199,22 @@ def ltam_attention_2x2_bwd(q, kv, pe, den, out, g, *, K: int, heads: int):
     for name, t, shape in (("den", den, (N, H, W, heads)), ("out", out, q.shape),
                            ("g", g, q.shape)):
         _build.require(t, name, shape=shape, dtype=torch.float32, device=q.device)
-    P = N * H * W
-    # dpe: per-slice partial sums over >= 64 pixels, <= 64 slices, then a
-    # fixed-order second pass
-    S = max(1, min(64, -(-P // 64)))
+    Wt, HB, nbuf = bwd_plan(C, heads, K, kv.dtype)
     dq = torch.empty_like(q)
-    dkv = torch.empty(kv.shape, dtype=torch.float32, device=q.device)
+    dkv = torch.empty_like(kv)
     dpe = torch.empty_like(pe)
-    scratch = torch.empty((3, P * K * 4 * heads), dtype=torch.float32, device=q.device)
-    partial = torch.empty((S, K * 16 * heads), dtype=torch.float32, device=q.device)
+    # dpe: one partial per (bin, block of a head group), summed by a second
+    # launch in block order
+    nblk = N * (H // 2) * -(-W // Wt)
+    partial = torch.empty((K * 16 * heads, nblk), dtype=torch.float32, device=q.device)
     code = _build.load_library().vmg_ltam_bwd(
         q.data_ptr(), kv.data_ptr(), pe.data_ptr(), den.data_ptr(), out.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dpe.data_ptr(),
-        scratch.data_ptr(), partial.data_ptr(), N, H, W, C, K, heads, S,
-        _build.DTYPE_CODES[kv.dtype], _build.stream_of(q))
+        g.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dpe.data_ptr(), partial.data_ptr(),
+        N, H, W, C, K, heads, Wt, HB, nbuf, _build.DTYPE_CODES[kv.dtype],
+        _build.stream_of(q))
     _build.check(code, "vmg_ltam_bwd")
     ltam_attention_2x2.bwd_launches += 1
-    return dq, dkv.to(kv.dtype), dpe
+    return dq, dkv, dpe
 
 
 class _LtamAttention(torch.autograd.Function):

@@ -75,18 +75,65 @@ def axes_form(C: int, chunk_h: int, chunk_w: int) -> str:
 
 
 def big_form_smem(M: int, C: int, dtype) -> int:
-    """Bytes of shared memory the big-form kernel takes for M tokens per
-    branch (``AxesSmem`` in ``csrc/morphfc.cu``): the C x C weight, the
-    tokens and their f32 projection."""
-    tc = dtype == torch.bfloat16
-    es = 2 if tc else 4
-    ld, ldo = (C + 8, C + 4) if tc else (C, C)
-    lanes = 256 // (C // (16 // es))  # positions the epilogue's threads cover
+    """Bytes of shared memory the big-form kernel needs at least for slabs
+    of M positions: f32, the C x C weight, the tokens and their projection
+    (``AxesSmem`` in ``csrc/morphfc.cu``); bf16, one warpgroup with one
+    slot (the x and c slabs) and one resident weight (:func:`axes_smem`)."""
+    if dtype == torch.bfloat16:
+        return axes_smem(C, _slab_bytes(M, C), 1, 1, 2)
+    lanes = 256 // (C // 4)  # positions the epilogue's threads cover
+    return -(-C * C * 4 // 128) * 128 + -(-max(M * C, lanes * C) * 4 // 128) * 128 + M * C * 4
 
-    def up(b):
-        return -(-b // 128) * 128
 
-    return up(C * ld * es) + up(max(M * ld * es, lanes * C * 4)) + M * ldo * 4
+# The bf16 big-form kernel (csrc/morphfc.cu ``morphfc_axes_wgmma_kernel``):
+# persistent blocks of 1-2 consumer warpgroups, each with a ring of up to
+# AXES_RING_MAX slots holding a tile's x and c slabs.
+AXES_RING_MAX = 4
+
+
+def _pow2(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def _slab_bytes(positions: int, C: int) -> int:
+    return -(-positions * C * 2 // 128) * 128
+
+
+def axes_slab_width(C: int, chunk_h: int, chunk_w: int) -> int:
+    """WT of the bf16 kernel's ch x WT slabs: the least multiple of chunk_w
+    that gives a slab at least 64 positions (one m64 sub-tile of tokens a
+    branch at the stage-0/6 chunks, 8 x 8)."""
+    return chunk_w * -(-64 // (chunk_h * chunk_w))
+
+
+def axes_smem(C: int, slab: int, nwg: int, ring: int, npass: int) -> int:
+    """Shared memory of the bf16 kernel (``axes_smem`` in the source): nwg
+    rings of ``ring`` slots of two slabs, the resident weights (both where
+    one pass runs both branches), the biases and the barriers."""
+    return (nwg * ring * 2 * slab + (2 if npass == 1 else 1) * C * C * 2 + 2 * C * 4
+            + nwg * AXES_RING_MAX * 8)
+
+
+def axes_plan(C: int, chunk_h: int, chunk_w: int):
+    """(WT, npass, nwg, ring) of the bf16 kernel, or None where no plan fits
+    a block: one pass over the tiles with both weights resident where the
+    chunks are equal and they fit (else two, H then W, x read twice), two
+    warpgroups with at least two slots each, else one with at least one,
+    the most slots up to AXES_RING_MAX."""
+    WT = axes_slab_width(C, chunk_h, chunk_w)
+    if C > 240 or WT > 256 or chunk_h > 64 or chunk_w > 64:
+        return None
+    slab = _slab_bytes(chunk_h * WT, C)
+    for npass in ((1, 2) if chunk_h == chunk_w else (2,)):
+        for nwg, least in ((2, 2), (1, 1)):
+            ring = min(AXES_RING_MAX, (MAX_SMEM - axes_smem(C, slab, nwg, 0, npass))
+                       // (nwg * 2 * slab))
+            if ring >= least:
+                return WT, npass, nwg, ring
+    return None
 
 
 def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
@@ -116,30 +163,51 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
                                   ("kw", kw, (C, C), dt),
                                   ("bw", bw, (C,), torch.float32)):
         _build.require(t, name, shape=shape, dtype=dtype, device=dev)
-    # slab width: whole W chunks, >= 64 tokens per branch, a multiple of 16
-    kg = -(-64 // (chunk_h * chunk_w))
-    while chunk_h * chunk_w * kg % 16:
-        kg += 1
-    WT = chunk_w * kg
-    if form == "big" and big_form_smem(chunk_h * WT, C, dt) > MAX_SMEM:
-        raise ValueError(
-            f"the big form needs {big_form_smem(chunk_h * WT, C, dt)} bytes of shared "
-            f"memory at C={C}, chunks ({chunk_h}, {chunk_w}); a block has {MAX_SMEM}: "
-            "use form='token'")
-    S = -(-H // chunk_h) * -(-W // WT)
     h, w = torch.empty_like(x), torch.empty_like(x)
-    partial = torch.empty((N, S, C), dtype=torch.float32, device=dev)
     psum = torch.empty((N, C), dtype=torch.float32, device=dev)
-    name = "vmg_morphfc_axes" if form == "big" else "vmg_morphfc_axes_token"
-    code = getattr(_build.load_library(), name)(
-        x.data_ptr(), c.data_ptr(), kh.data_ptr(), bh.data_ptr(), kw.data_ptr(),
-        bw.data_ptr(), h.data_ptr(), w.data_ptr(), partial.data_ptr(),
-        psum.data_ptr(), N, H, W, C, chunk_h, chunk_w, WT,
-        _build.DTYPE_CODES[dt], _build.stream_of(x))
-    _build.check(code, name)
+    if form == "big" and dt == torch.bfloat16:
+        plan = axes_plan(C, chunk_h, chunk_w)
+        if plan is None:
+            need = big_form_smem(chunk_h * axes_slab_width(C, chunk_h, chunk_w), C, dt)
+            raise ValueError(
+                f"the big form needs {need} bytes of shared memory at C={C}, chunks "
+                f"({chunk_h}, {chunk_w}); a block has {MAX_SMEM}: use form='token'")
+        # persistent: walkers (warpgroups) on every SM, each a contiguous run
+        # of slabs, one f32 partial per walker, pass and frame
+        WT, npass, nwg, ring = plan
+        tiles = N * -(-H // chunk_h) * -(-W // WT)
+        grid = min(_build.sm_count(dev.index or 0), -(-tiles // nwg))
+        S = npass * grid * nwg
+        scratch = torch.empty((grid * nwg, (C // 2 + 8) * 128), dtype=torch.float32,
+                              device=dev)
+    else:
+        # f32 big form and the token form: one block per slab of whole W
+        # chunks, >= 64 tokens per branch, a multiple of 16
+        kg = -(-64 // (chunk_h * chunk_w))
+        while chunk_h * chunk_w * kg % 16:
+            kg += 1
+        WT = chunk_w * kg
+        if form == "big" and big_form_smem(chunk_h * WT, C, dt) > MAX_SMEM:
+            raise ValueError(
+                f"the big form needs {big_form_smem(chunk_h * WT, C, dt)} bytes of shared "
+                f"memory at C={C}, chunks ({chunk_h}, {chunk_w}); a block has {MAX_SMEM}: "
+                "use form='token'")
+        S = -(-H // chunk_h) * -(-W // WT)
+        scratch, nwg, ring, npass, grid = None, 0, 0, 0, 0
+    partial = torch.empty((N, S, C), dtype=torch.float32, device=dev)
+    pointers = (x.data_ptr(), c.data_ptr(), kh.data_ptr(), bh.data_ptr(), kw.data_ptr(),
+                bw.data_ptr(), h.data_ptr(), w.data_ptr(), partial.data_ptr(), psum.data_ptr())
     if form == "big":
+        code = _build.load_library().vmg_morphfc_axes(
+            *pointers, _build.ptr(scratch), N, H, W, C, chunk_h, chunk_w, WT, nwg, ring,
+            npass, grid, _build.DTYPE_CODES[dt], _build.stream_of(x))
+        _build.check(code, "vmg_morphfc_axes")
         fused_morphfc_axes.launches += 1
     else:
+        code = _build.load_library().vmg_morphfc_axes_token(
+            *pointers, N, H, W, C, chunk_h, chunk_w, WT, _build.DTYPE_CODES[dt],
+            _build.stream_of(x))
+        _build.check(code, "vmg_morphfc_axes_token")
         fused_morphfc_axes.token_launches += 1
     return h, w, psum
 

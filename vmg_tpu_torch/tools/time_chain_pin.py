@@ -1,6 +1,6 @@
 """The bf16 conv chain, the layout pin, the grouped-conv FFN, the MorphFC
-combine and LTAM attention of two checkouts of the port, timed on one card
-with one timer.
+combine and axes kernels and LTAM attention of two checkouts of the port,
+timed on one card with one timer.
 
     python -m vmg_tpu_torch.tools.time_chain_pin --other DIR [--reps 5]
 
@@ -22,10 +22,13 @@ own packed operands; the MorphFC combine (tanh gate, folded residual) at
 the same five shapes (C = 112, 224, 224, 448, 144), on its tree's Pk
 operand; the LTAM forward at the stage-0 shape (1x184x320x112) at K = 1..5
 with its sum over a FULL_PRESET clip's 60 launches (12 at each K), and at
-the few-levels head width (1x128x128x144, d = 36, K = 3); and the backward
-(1x64x64x112, K = 5), with bf16 keys and values.  Each kernel is first
+the few-levels head width (1x128x128x144, d = 36, K = 3); the backward at
+the training crop (1x64x64x112) at K = 1..5 with its sum over a training
+step's 60 launches, and at d = 36 (1x64x64x144, K = 3), with bf16 keys and
+values; and the axes kernel's big form at stages 0/6 (16x184x320x112,
+chunk 8).  Each kernel is first
 held to its own tree's plain version (1e-2 of max|plain|, the pin
-exactly; LTAM's f32 output and gradients 1e-4).  One JSON line per process (median and range over
+exactly; LTAM's f32 output and dq 1e-4).  One JSON line per process (median and range over
 ``--reps`` timings of 20 calls each), then the card's name and power
 limit, then one JSON line of this checkout's median over the other's for
 each timing.
@@ -53,8 +56,11 @@ FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
 # few-levels preset
 COMBINE_SHAPES = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
                   (16, 23, 40, 448), (16, 128, 128, 144)]
-# (H, W, head width, K) of the LTAM forward timings
+# (H, W, head width, K) of the LTAM forward and backward timings
 LTAM_CASES = [(184, 320, 28, K) for K in range(1, 6)] + [(128, 128, 36, 3)]
+LTAM_BWD_CASES = [(64, 64, 28, K) for K in range(1, 6)] + [(64, 64, 36, 3)]
+# (N, H, W, C, chunk) of the axes kernel: FULL_PRESET's stages 0/6
+AXES_SHAPE = (16, 184, 320, 112, 8)
 
 
 def ffn_key(shape, groups) -> str:
@@ -65,8 +71,12 @@ def combine_key(shape) -> str:
     return "combine_" + "x".join(map(str, shape))
 
 
-def ltam_key(h, w, d, K) -> str:
-    return f"ltam_{h}x{w}_d{d}_k{K}"
+def ltam_key(h, w, d, K, kind="ltam") -> str:
+    return f"{kind}_{h}x{w}_d{d}_k{K}"
+
+
+def axes_key() -> str:
+    return "axes_" + "x".join(map(str, AXES_SHAPE[:4]))
 
 
 def _this_timer():
@@ -197,11 +207,26 @@ def _side(root: Path, reps: int) -> dict:
                 lambda: morphfc_fused.fused_morphfc_combine(*cargs, residual=res)),
                 "max_rel_err": err}
             del x, xh, xw, xc, res, cargs, pargs
+        # the axes kernel (big form) at stages 0/6: both branches at chunk 8,
+        # the decayed weights as the module packs them (C_in, C_out)
+        N, hh, ww, C, ck = AXES_SHAPE
+        x, xc = rn(N, hh, ww, C), rn(N, hh, ww, C, scale=0.01)
+        kh, kw = rn(C, C, scale=0.02), rn(C, C, scale=0.02)
+        bh, bw = (torch.randn(C, generator=gen, device=dev) * 0.1 for _ in range(2))
+        aargs = (x, xc, kh, bh, kw, bw)
+        got = morphfc_fused.fused_morphfc_axes(*aargs, chunk_h=ck, chunk_w=ck, form="big")
+        want = morphfc_fused.morphfc_axes_plain(*aargs, chunk_h=ck, chunk_w=ck)
+        err = max(held("axes h", got[0], want[0], 1e-2), held("axes w", got[1], want[1], 1e-2))
+        out[axes_key()] = {**time_both(lambda: morphfc_fused.fused_morphfc_axes(
+            *aargs, chunk_h=ck, chunk_w=ck, form="big")), "max_rel_err": err}
+        del x, xc, aargs, got, want
         # the LTAM forward at the stage-0 shape at K = 1..5 and at the
         # few-levels head width (d = 36, 1x128x128, K = 3); the backward at
-        # 1x64x64, K = 5
+        # the training crop 1x64x64 at K = 1..5 and at d = 36, K = 3
         for (hh, ww, C, heads), Ks in (((184, 320, 112, 4), (1, 2, 3, 4, 5)),
-                                       ((128, 128, 144, 4), (3,)), ((64, 64, 112, 4), (5,))):
+                                       ((128, 128, 144, 4), (3,)),
+                                       ((64, 64, 112, 4), (1, 2, 3, 4, 5)),
+                                       ((64, 64, 144, 4), (3,))):
             for K in Ks:
                 q = torch.nn.functional.normalize(
                     torch.randn(1, hh, ww, C, generator=gen, device=dev), dim=-1) * \
@@ -225,10 +250,15 @@ def _side(root: Path, reps: int) -> dict:
 
                 want = ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
                 err = held("ltam_bwd", bwd()[0], want[0], 1e-4)  # dq (dkv bf16, dpe summed)
-                out["ltam_bwd"] = {**time_both(bwd), "max_rel_err": err}
-        # the forward's device time per FULL_PRESET clip: 12 launches at each K
+                out[ltam_key(hh, ww, C // heads, K, "ltam_bwd")] = {**time_both(bwd),
+                                                                   "max_rel_err": err}
+        # device time per FULL_PRESET clip (forward) and training step
+        # (backward): 12 launches at each K
         out["ltam_per_clip"] = {t: 12 * sum(out[ltam_key(184, 320, 28, K)][t] for K in range(1, 6))
                                 for t in ("ms", "ms_unfenced")}
+        out["ltam_bwd_per_step"] = {
+            t: 12 * sum(out[ltam_key(64, 64, 28, K, "ltam_bwd")][t] for K in range(1, 6))
+            for t in ("ms", "ms_unfenced")}
     return out
 
 
@@ -256,11 +286,12 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip())
     ratios = {}
-    keys = ["chain_n1", "chain_n16", "module_n1", "module_n16", "pin", "clone", "ltam_bwd",
-            "ltam_per_clip"]
+    keys = ["chain_n1", "chain_n16", "module_n1", "module_n16", "pin", "clone", axes_key(),
+            "ltam_per_clip", "ltam_bwd_per_step"]
     keys += [ffn_key(shape, G) for shape, G, _ in FFN_SHAPES]
     keys += [combine_key(shape) for shape in COMBINE_SHAPES]
     keys += [ltam_key(*case) for case in LTAM_CASES]
+    keys += [ltam_key(*case, "ltam_bwd") for case in LTAM_BWD_CASES]
     for key in keys:
         for timer in ("ms", "ms_unfenced"):
             med = {s: statistics.median(r[key][timer] for lab, r in runs if lab == s)
