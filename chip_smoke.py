@@ -29,7 +29,12 @@ Phases (any failure exits non-zero):
      form, first driven through its op entry point (``form="token"``) at
      the stage-1/5 (16x92x160x224, chunk 16) and stage-3 (16x23x40x448,
      chunk 8) shapes, then checked there next to the 'hybrid' form those
-     stages run, and against the big form at the stage-0 shape;
+     stages run (two runs bit-equal), and against the big form at the
+     stage-0 shape;
+     the reduce at every shape it runs (FULL_PRESET's stages 1/5, 2/4, 3
+     and the few-levels 32x128x128 and 32x64x64 at C = 144) and at stages
+     0/6, two runs bit-equal, with its sum over each preset's clip (14 and
+     12 launches);
  2p. the probes: every probe of ``vmg_tpu_torch.tools.exp_probe`` and
      ``exp_probe2`` called directly (copies bit-exact, products within 1
      bf16 ulp of max|plain|), each with its time, bound and one PyTorch
@@ -173,6 +178,20 @@ LTAM_STEPS_PER_K = 12
 LTAM_WIDTHS = [(144, 4, 3), (128, 2, 4), (144, 1, 5)]
 # the axis branches' token form: (N, H, W, C) and chunk of stages 1/5 and 3
 TOKEN_SHAPES = [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)]
+# the reduce's shapes (N, H, W, C) and launches per clip: FULL_PRESET's
+# stages 1/5, 2/4 and 3 ('hybrid' mixers), the few-levels preset's two
+# resolutions of a 32-frame clip (C = 144), and stages 0/6 (the 'full' form
+# runs there: the kernel table's continuity row)
+REDUCE_SHAPES = [((16, 92, 160, 224), 8), ((16, 46, 80, 224), 4), ((16, 23, 40, 448), 2),
+                 ((32, 128, 128, 144), 8), ((32, 64, 64, 144), 4), ((16, 184, 320, 112), 0)]
+REDUCE_FEW = ((32, 128, 128, 144), (32, 64, 64, 144))
+# the reduce's and the token form's times before their redesign, printed
+# beside this run's: PERF.md's step 0 (vmg_tpu_torch/tools/time_chain_pin.py
+# on the tree before, the timer this script uses; H100 80GB HBM3, 700 W)
+REDUCE_BEFORE_MS = {(16, 92, 160, 224): 0.2156, (16, 46, 80, 224): 0.0638,
+                    (16, 23, 40, 448): 0.0841, (32, 128, 128, 144): 0.3060,
+                    (32, 64, 64, 144): 0.0806, (16, 184, 320, 112): 0.4759}
+TOKEN_BEFORE_MS = {(16, 92, 160, 224): 1.2431, (16, 23, 40, 448): 0.3689}
 # Train-step parity, f32: the loss within LOSS_TOL relative; each
 # parameter's gradient within GRAD_LIMIT of max(its max|plain|, GRAD_FLOOR x
 # the largest max|plain| of any parameter).  GRAD_TOL of its own max is
@@ -441,17 +460,20 @@ def check_kernels(report):
                 axes_check(xc, dtype), primary=dtype == torch.bfloat16 and C in (112, 224),
                 work=(args, 2 * 2 * N * h * w * C * C, peak(dtype)),  # two C x C FCs
                 extra=f"  hybrid form {hybrid_ms:.3f} ms", keys={"hybrid_ms": hybrid_ms})
-            if form == "big":
-                # the result must not depend on which warpgroup took which tile
-                again = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b_) for a, b_ in zip(again, got)):
-                    raise AssertionError(f"two runs of the axes kernel differ at {shape}")
-                if dtype == torch.bfloat16:
-                    report(f"    {b['bound_ms'] / ms:.3f} of the bound "
-                           f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s); two runs bit-equal; "
-                           f"before the redesign {AXES_BEFORE_MS} ms (PERF.md)")
-                del again
+            # the result must not depend on which warpgroup took which tile
+            again = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck, form=form)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(again, got)):
+                raise AssertionError(f"two runs of the axes kernel ({form}) differ at {shape}")
+            del again
+            if dtype == torch.bfloat16:
+                before = AXES_BEFORE_MS if form == "big" else TOKEN_BEFORE_MS[shape]
+                report(f"    {b['bound_ms'] / ms:.3f} of the bound "
+                       f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s); two runs bit-equal; "
+                       f"before the redesign {before} ms (PERF.md)")
+                if form == "token":
+                    entries[name]["x".join(map(str, shape))] = {
+                        "ms": ms, "bound_ms": b["bound_ms"], "hybrid_ms": hybrid_ms}
             del got
             if form == "big":  # the token form on the big form's domain
                 big = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck)
@@ -469,17 +491,42 @@ def check_kernels(report):
                 del big, token
             del x, xc, args
 
-        for shape in ((16, 184, 320, 112), (16, 23, 40, 448)):
+        # the reduce at every shape it runs (bf16) and at stages 0 and 3
+        # (f32), two runs bit-equal; its sum over a clip of each preset
+        clip = {False: [0.0, 0.0], True: [0.0, 0.0]}  # few-levels? -> ms, bound
+        for shape, per_clip in (REDUCE_SHAPES if bf16 else
+                                [(REDUCE_SHAPES[-1][0], 0), (REDUCE_SHAPES[2][0], 0)]):
             N, h, w, C = shape
             xh, xw, xc = (rn(*shape, dtype=dtype) for _ in range(3))
-            primary = dtype == torch.bfloat16 and C == 112
             terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (xh, xw, xc))
-            compare("fused_morphfc_reduce", shape, dtype,
-                    lambda: morphfc_fused.fused_morphfc_reduce(xh, xw, xc),
-                    lambda: morphfc_fused.morphfc_reduce_plain(xh, xw, xc),
-                    lambda got, want: [within_sum(got[0], want[0], terms)],
-                    primary, work=((xh, xw, xc), 3 * xh.numel(), "f32"))
-            del xh, xw, xc
+            ms, b, got = compare("fused_morphfc_reduce", shape, dtype,
+                                 lambda: morphfc_fused.fused_morphfc_reduce(xh, xw, xc),
+                                 lambda: morphfc_fused.morphfc_reduce_plain(xh, xw, xc),
+                                 lambda got, want: [within_sum(got[0], want[0], terms)],
+                                 bf16 and shape == REDUCE_SHAPES[0][0],
+                                 work=((xh, xw, xc), 3 * xh.numel(), "f32"))
+            again = morphfc_fused.fused_morphfc_reduce(xh, xw, xc)
+            torch.cuda.synchronize()
+            if not torch.equal(again, got[0]):
+                raise AssertionError(f"two runs of the reduce differ at {shape}")
+            if bf16:
+                few = shape in REDUCE_FEW
+                clip[few][0] += per_clip * ms
+                clip[few][1] += per_clip * b["bound_ms"]
+                report(f"    {b['bound_ms'] / ms:.3f} of the bound "
+                       f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s), {per_clip} launches a "
+                       f"{'few-levels' if few else 'FULL_PRESET'} clip; two runs bit-equal; "
+                       f"before the redesign {REDUCE_BEFORE_MS[shape]} ms (PERF.md)")
+                entries["fused_morphfc_reduce"]["x".join(map(str, shape))] = {
+                    "ms": ms, "bound_ms": b["bound_ms"], "launches_per_clip": per_clip}
+            del xh, xw, xc, got, again
+        if bf16:
+            for few, (label, n) in ((False, ("FULL_PRESET", 14)), (True, ("few-levels", 12))):
+                c_ms, c_bound = clip[few]
+                report(f"    reduce per {label} clip ({n} launches): {c_ms:.4f} ms against a "
+                       f"bound of {c_bound:.4f} ms ({c_bound / c_ms:.3f})")
+                entries["fused_morphfc_reduce"]["per_clip_few" if few else "per_clip"] = {
+                    "ms": c_ms, "bound_ms": c_bound}
 
         # the combine: bf16 (the B image of Pk) at every path shape, f32 at
         # stages 0 and 3; each gate (tanh on every preset's path)

@@ -116,6 +116,55 @@ def test_morphfc_kernels(cuda, dtype, C, shape):
             morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,H,W,C", [(3, 7, 9, 16), (2, 5, 11, 40), (1, 1, 3, 112), (4, 2, 2, 448),
+                                     (2, 33, 65, 144), (16, 23, 40, 448), (16, 46, 80, 224),
+                                     (3, 4, 5, 24), (2, 3, 3, 6), (2, 5, 7, 511)])
+def test_morphfc_reduce_kernel(cuda, dtype, N, H, W, C):
+    """The reduce's first pass at ragged widths (C = 16, 40: 2 and 5
+    vectors a pixel; 24 and 6: 8- and 4-byte loads in bf16; 511: one
+    element a load, more vectors than a block has threads), frames smaller
+    than a block's lanes (3, 11 and 4 pixels), the stage-2/4 and stage-3
+    shapes and a few-levels width, against the plain version: f32 sums
+    within 1e-6 of the sum of their terms' magnitudes; two runs bit-equal
+    (the plan is a function of the shape)."""
+    rng = np.random.default_rng(C + H)
+    h, w, c = (_randn(rng, (N, H, W, C), cuda, dtype) for _ in range(3))
+    before = morphfc_fused.fused_morphfc_reduce.launches
+    got = morphfc_fused.fused_morphfc_reduce(h, w, c)
+    again = morphfc_fused.fused_morphfc_reduce(h, w, c)
+    assert morphfc_fused.fused_morphfc_reduce.launches == before + 2
+    want = morphfc_fused.morphfc_reduce_plain(h, w, c)
+    terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (h, w, c))
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-6 * terms).all())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,C,offset", [(torch.bfloat16, 448, 1), (torch.bfloat16, 448, 2),
+                                            (torch.bfloat16, 112, 1), (torch.float32, 448, 1),
+                                            (torch.float32, 511, 2)])
+def test_morphfc_reduce_kernel_views(cuda, dtype, C, offset):
+    """Contiguous views whose data start ``offset`` elements into their
+    storage (2, 4 or 8 bytes off a 16-byte boundary): narrower loads, and at
+    C = 448 more vectors a pixel than a block has threads; against the
+    plain version as above, two runs bit-equal."""
+    rng = np.random.default_rng(C + offset)
+    shape = (3, 9, 13, C)
+    n = int(np.prod(shape))
+    h, w, c = (_randn(rng, (n + offset,), cuda, dtype)[offset:].view(shape) for _ in range(3))
+    assert h.data_ptr() % 16 != 0
+    got = morphfc_fused.fused_morphfc_reduce(h, w, c)
+    again = morphfc_fused.fused_morphfc_reduce(h, w, c)
+    want = morphfc_fused.morphfc_reduce_plain(h, w, c)
+    terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (h, w, c))
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-6 * terms).all())
+    assert torch.equal(got, again)
+
+
 def _axes_case(rng, H, W, C, dev, dtype):
     x, c = (_randn(rng, (3, H, W, C), dev, dtype) for _ in range(2))
     kh, kw = (_randn(rng, (C, C), dev, dtype, C ** -0.5) for _ in range(2))
@@ -183,6 +232,70 @@ def test_morphfc_axes_token_against_big(cuda, dtype):
     wide = _axes_case(rng, 16, 16, 224, cuda, dtype)
     with pytest.raises(ValueError, match="form='token'"):
         morphfc_fused.fused_morphfc_axes(*wide, chunk_h=16, chunk_w=16, form="big")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)])
+def test_morphfc_axes_token_path_shapes(cuda, shape, chunk):
+    """The bf16 token form at the stage-1/5 and stage-3 shapes (the ragged
+    last H chunk at 92 and 23 rows) against the plain version, within
+    phase 2's tolerances (h and w 1e-2 of their largest value, the sums
+    1e-6 of the sum of |h| + |w| + |c|); two runs bit-equal (resident
+    weight tiles at stage 1/5, streamed at stage 3)."""
+    N, H, W, C = shape
+    rng = np.random.default_rng(C + H)
+    x = _randn(rng, shape, cuda, torch.bfloat16)
+    c = _randn(rng, shape, cuda, torch.bfloat16, 0.01)
+    kh, kw = (_randn(rng, (C, C), cuda, torch.bfloat16, 0.02) for _ in range(2))
+    bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
+    args = (x, c, kh, bh, kw, bw)
+    ax = morphfc_fused.fused_morphfc_axes
+    got = ax(*args, chunk_h=chunk, chunk_w=chunk, form="token")
+    again = ax(*args, chunk_h=chunk, chunk_w=chunk, form="token")
+    want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk, chunk_w=chunk)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got[:2], want[:2]):
+        assert (g.float() - wnt.float()).abs().max().item() <= 1e-2 * wnt.float().abs().max().item()
+    terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (want[0], want[1], c))
+    assert bool(((got[2] - want[2]).abs() <= 1e-6 * terms).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,chunk", [(16, 23, 40, 448, 8), (4, 46, 80, 224, 16),
+                                           (3, 21, 32, 448, 16), (2, 16, 64, 512, 16),
+                                           (5, 20, 32, 160, 8), (3, 14, 32, 64, 2)])
+def test_morphfc_axes_token_back_to_back(cuda, N, H, W, C, chunk):
+    """The bf16 token form in 5 rounds of 40 calls queued with no
+    synchronisation between (the pack, c's sums, the kernel and the sums
+    pass of one call behind the last call's), at both compile-time path
+    shapes and in the generic instantiations (tile widths 16, 32 and 64;
+    weight tiles resident, and streamed at C = 448 and 512; a channel
+    array a warp at chunk 2): every call's output bit-equal to the first,
+    which the plain version holds within phase 2's tolerances.  A weight
+    producer whose lane 0 waited alone on the other warpgroup trapped at
+    the stage-3 shape within 200 such calls."""
+    rng = np.random.default_rng(C + H + chunk)
+    shape = (N, H, W, C)
+    x = _randn(rng, shape, cuda, torch.bfloat16)
+    c = _randn(rng, shape, cuda, torch.bfloat16, 0.01)
+    kh, kw = (_randn(rng, (C, C), cuda, torch.bfloat16, 0.02) for _ in range(2))
+    bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
+    args = (x, c, kh, bh, kw, bw)
+    first = None
+    for _ in range(5):
+        outs = [morphfc_fused.fused_morphfc_axes(*args, chunk_h=chunk, chunk_w=chunk,
+                                                 form="token") for _ in range(40)]
+        torch.cuda.synchronize()
+        first = first or outs[0]
+        for out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(first, out))
+    want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk, chunk_w=chunk)
+    torch.cuda.synchronize()
+    for g, wnt in zip(first[:2], want[:2]):
+        assert (g.float() - wnt.float()).abs().max().item() <= 1e-2 * wnt.float().abs().max().item()
+    terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (want[0], want[1], c))
+    assert bool(((first[2] - want[2]).abs() <= 1e-6 * terms).all())
 
 
 @pytest.mark.cuda

@@ -36,17 +36,17 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     # x, w, b1, b2, out, N, H, W, C, G, fgp, act, dtype, stream
     "vmg_group_ffn": [_P] * 5 + [_I] * 8 + [_P],
-    # h, w, c, partial, out, N, P, C, S, dtype, stream
-    "vmg_morphfc_reduce": [_P] * 5 + [_I] * 5 + [_P],
+    # h, w, c, partial, out, N, P, C, S, per, vec, dtype, stream
+    "vmg_morphfc_reduce": [_P] * 5 + [_I] * 7 + [_P],
     # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, act, nwg, ring,
     # dtype, stream
     "vmg_morphfc_combine": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     # x, c, kh, bh, kw, bw, h, w, partial, psum, scratch (or null), N, H, W,
     # C, ch, cw, WT, nwg, ring, npass, grid, dtype, stream
     "vmg_morphfc_axes": [_P] * 11 + [_I] * 12 + [_P],
-    # x, c, kh, bh, kw, bw, h, w, partial, psum, N, H, W, C, ch, cw, WT,
-    # dtype, stream (the token form)
-    "vmg_morphfc_axes_token": [_P] * 10 + [_I] * 8 + [_P],
+    # x, c, kh, bh, kw, bw, h, w, img, bimg, partial, psum, plan (or null),
+    # N, H, W, C, ch, cw, WT, dtype, stream (the token form)
+    "vmg_morphfc_axes_token": [_P] * 13 + [_I] * 8 + [_P],
     # q, kv, pe, out, den (or null), N, H, W, C, K, heads, Wt, HB, dtype,
     # stream
     "vmg_ltam_fwd": [_P] * 5 + [_I] * 9 + [_P],

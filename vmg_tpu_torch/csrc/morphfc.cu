@@ -33,32 +33,35 @@
 //
 // vmg_morphfc_axes_token replaces the token form of the same call
 // (`_axes_kernel_token`, chosen where chunk * C > 1024: stages 1/5 at C =
-// 224, chunk 16, and stage 3 at C = 448, chunk 8): the same function, the
-// same slab grid and token maps.  What bounds it: shared memory first --
-// the whole C x C weight, the M x C tokens and their M x C f32 projection
-// (100 + 115 + 229 KB at stage 1, M = 256) do not fit in a block's 227 KB,
-// so the kernel above cannot launch there; then device memory, as above
-// (at stage 1 x and c in, h and w out: 422 MB against 47 GFLOP).  Design:
-// the slab's tokens pass through shared memory in M-tiles of whole token
-// groups (at most 64 rows in bf16, 32 in f32), and the weight in C x nt
-// column tiles (nt = 64 bf16, 32 f32), staged with cp.async and
-// double-buffered (tile j + 1 copies while tile j multiplies); each
-// (M-tile, column tile) product goes to an f32 tile whose epilogue (bias,
-// relu, 1/C, one rounding, the store) runs before the next tile.  Stage 1
-// bf16 takes 111 KB (two blocks per SM), stage 3 200 KB.  Sums: thread i
-// owns channels i and i + 256 and adds their values in a fixed order
-// (tiles, token groups, positions), then the slab's c, summed by position
-// lanes with 16-byte loads and added lane by lane; one f32 partial per
-// block and channel, added in a fixed order by the second pass --
-// deterministic, no atomics.
+// 224, chunk 16, and stage 3 at C = 448, chunk 8): the same function and
+// token maps.  What bounds it: shared memory first -- one C x C weight is
+// 100 KB at C = 224 and 392 KB at 448, so the big form's two resident
+// weights do not fit; then device memory (at stage 1 x and c in, h and w
+// out: 422 MB against 47 GFLOP).
+// * bf16 (serving), morphfc_axes_token_wgmma_kernel (notes at the kernel):
+//   the big form's persistent design with the weight in column tiles --
+//   units of 64 tokens of one branch by TMA, register-A token fragments,
+//   wgmma against one weight's B image (resident up to C = 224, else
+//   streamed in C x NT tiles by the first warpgroup's first warp, each
+//   tile shared by both consumer warpgroups), the epilogue staged in place and
+//   stored by TMA; one tile's accumulator a thread.  Three more launches: the B images (pack),
+//   c's partial sums (the reduce's first pass) and the sums pass.  The
+//   wmma kernel this replaced ran one 256-thread block per slab, gathered
+//   the tokens two bytes at a time, re-staged the whole weight from L2 per
+//   slab with cp.async and round-tripped the f32 product through shared
+//   memory: 10x (stage 1) and 23x (stage 3) its bound.
+// * f32 (parity runs), morphfc_axes_token_f32_kernel: the first port's design, kept
+//   (one block per slab, tokens and weight column tiles in shared memory,
+//   scalar FMAs).
 //
 // vmg_morphfc_reduce replaces `fused_morphfc_reduce` (`_reduce_kernel`):
 // psum[n, c] = sum over the frame's pixels of (h + w + c) in f32.  Bound on
-// H100: device-memory bandwidth (3 reads, no compute).  The TPU kernel
-// carried the sum across its sequential grid; here blocks run in parallel,
-// so pass 1 writes one f32 partial per (frame, pixel slice) and pass 2 adds
-// the slices in a fixed order.  Neighbouring threads read neighbouring
-// channels of a pixel, so loads coalesce.
+// H100: device-memory bandwidth (3 reads, no compute; 316.6 MB, 0.0945 ms
+// at stage 1/5).  The TPU kernel carried the sum across its sequential
+// grid; here blocks run in parallel, so pass 1 (morphfc_partial_kernel,
+// notes at the kernel: 16-byte loads, every lane live, 12 loads in flight
+// a thread, a grid of at least two blocks an SM) writes one f32 partial per
+// (frame, pixel slice) and pass 2 adds the slices in a fixed order.
 //
 // vmg_morphfc_combine replaces `fused_morphfc_combine` (`_combine_body`,
 // `_combine_kernel`, `_combine_res_kernel`): y = a0*h + a1*w + a2*c in the
@@ -98,15 +101,20 @@
 // (launch bounds 256 x 1) holds the accumulator (C / 2), the fragments (C /
 // 4) and the position sums (C / 2) a thread: no spill up to C = 96 (186-254
 // registers), 72 bytes of spill stores at C = 112 (the path) at 255, more
-// from C = 128 on (248 bytes at 128, 3,412 at 240; off every path).  A spill at C <= 224 is a
-// regression: the biases loaded ahead of the x unit's wait spilled 200-400
-// bytes at C = 224 and ran slower.  Traps: a box in the 128-byte
-// swizzle must start 1024-byte aligned in shared memory (the kernel traps
-// if the dynamic base is not); a 64-channel box past C loads zeros and its
-// store writes nothing there, which covers C = 112, 144 and 224; asm
-// "memory" clobbers (mbarrier waits, barriers) keep the compiler from
-// hoisting loads across them, so the branch weights are loaded before a
-// unit's wait by hand.
+// from C = 128 on (248 bytes at 128, 3,412 at 240; off every path).  A
+// spill at C <= 224 is a regression: the biases loaded ahead of the x
+// unit's wait spilled 200-400 bytes at C = 224 and ran slower.  The token
+// kernel spills nothing: 195 registers at C = 224 chunk 16 and 234 at C =
+// 448 chunk 8 (the compile-time instantiations, no C7519 line), 195-234 in
+// the generic ones (33 C7519 lines each: a fence a guarded k-step); a
+// spill in either compile-time instantiation is a regression.  The
+// reduce's first pass: 32-79 registers (3 blocks an SM), no spill.  Traps:
+// a box in the 128-byte swizzle must start 1024-byte aligned in shared
+// memory (the kernel traps if the dynamic base is not); a 64-channel box
+// past C loads zeros and its store writes nothing there, which covers C =
+// 112, 144 and 224; asm "memory" clobbers (mbarrier waits, barriers) keep
+// the compiler from hoisting loads across them, so the branch weights are
+// loaded before a unit's wait by hand.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -128,42 +136,130 @@ __device__ __forceinline__ float symm_gate(float p) {
     return rnd<T>(tanhf(p));
 }
 
-constexpr int kRedX = 64;  // channel lanes of the reduce block
-constexpr int kRedY = 4;   // pixel lanes of the reduce block
-constexpr int kRedC = 8;   // channels per thread: C <= kRedX * kRedC
+// ---- the reduce, pass 1: one f32 partial per (frame, pixel slice) ----------
+//
+// Bound: device memory (3 reads of (N, P, C), no arithmetic to speak of).
+// Threads are (pixel lane j, channel vector v) with nv = C / VEC vectors a
+// pixel of VEC channels in one 16-byte load (bf16 8, f32 4; a narrower
+// vector where C or a pointer is not a 16-byte multiple): every thread is
+// live at every width the presets use (nv = 14, 18, 28, 56 at C = 112,
+// 144, 224, 448).  A block is one contiguous pixel slice of one frame; its
+// lanes walk it kRedUnroll pixels at a time, each thread with three
+// tensors x kRedUnroll independent loads (__ldg) in flight.  The slice count
+// S comes from the wrapper (morphfc_fused.reduce_plan): at least two blocks
+// per SM, a function of the shape and the SM count only, so the sums --
+// per thread in pixel order, then the lanes in lane order through shared
+// memory -- repeat bit for bit.  Where a pixel has more than kRedThreads
+// vectors (odd C above 256, or a view off a 16-byte boundary at C = 448)
+// a block is one lane whose threads walk vectors v, v + kRedThreads, ...
+// and write their sums straight into the partial.  NTENS = 1 sums one
+// tensor (the token form's c).  The 64 x 4-thread kernel this replaced kept
+// 8 channel slots a thread at a stride of 64 (2 of them live at C = 112)
+// and loaded 2 bytes at a time.
+constexpr int kRedThreads = 256;
+constexpr int kRedUnroll = 4;
 
-template <typename T>
-__global__ void __launch_bounds__(kRedX * kRedY)
+template <int B> struct RawVec;  // B bytes in one load
+template <> struct RawVec<16> { typedef uint4 t; };
+template <> struct RawVec<8> { typedef uint2 t; };
+template <> struct RawVec<4> { typedef unsigned t; };
+template <> struct RawVec<2> { typedef unsigned short t; };
+
+template <typename T, int VEC>
+__device__ __forceinline__ void add_vec(float (&acc)[VEC],
+                                        const typename RawVec<VEC * sizeof(T)>::t& r) {
+  const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] += to_f<T>(e[k]);
+}
+
+template <typename T, int VEC, int NTENS>
+__global__ void __launch_bounds__(kRedThreads, 3)
 morphfc_partial_kernel(const T* __restrict__ h, const T* __restrict__ w,
                        const T* __restrict__ c, float* __restrict__ partial,
-                       int P, int C, int S) {
-  __shared__ float red[kRedY][kRedX * kRedC];
+                       int P, int C, int per, int stot, int soff) {
+  typedef typename RawVec<VEC * sizeof(T)>::t R;
+  __shared__ float red[kRedThreads * VEC];  // lanes x C <= kRedThreads * VEC (lanes >= 2)
+  const int nv = C / VEC, lanes = max(1, kRedThreads / nv);
   const int n = blockIdx.y, s = blockIdx.x;
-  const int cx = threadIdx.x, pyl = threadIdx.y;
-  const int per = (P + S - 1) / S;
+  const int j = threadIdx.x / nv, v0 = threadIdx.x - j * nv;
   const int p0 = s * per, p1 = min(P, p0 + per);
-  float acc[kRedC];
+  float* prow = partial + ((size_t)n * stot + soff + s) * C;
+  // one vector a thread, except in a one-lane block of more than kRedThreads vectors
+  for (int v = v0; j < lanes && v < nv; v += kRedThreads) {
+    float acc[VEC];
 #pragma unroll
-  for (int k = 0; k < kRedC; ++k) acc[k] = 0.f;
-  for (int p = p0 + pyl; p < p1; p += kRedY) {
-    const size_t base = ((size_t)n * P + p) * C;
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+    const size_t base = (size_t)n * P * nv + v;  // vector v of the frame's pixel 0
+    const R* hv = reinterpret_cast<const R*>(h) + base;
+    const R* wv = reinterpret_cast<const R*>(w) + base;
+    const R* cv = reinterpret_cast<const R*>(c) + base;
+    int p = p0 + j;
+    for (; p + (kRedUnroll - 1) * lanes < p1; p += kRedUnroll * lanes) {
+      R a[kRedUnroll], b[kRedUnroll], d[kRedUnroll];
 #pragma unroll
-    for (int k = 0; k < kRedC; ++k) {
-      const int ch = cx + kRedX * k;
-      if (ch < C)
-        acc[k] += to_f<T>(h[base + ch]) + to_f<T>(w[base + ch]) + to_f<T>(c[base + ch]);
+      for (int u = 0; u < kRedUnroll; ++u) {
+        const size_t i = (size_t)(p + u * lanes) * nv;
+        a[u] = __ldg(hv + i);
+        if (NTENS == 3) b[u] = __ldg(wv + i), d[u] = __ldg(cv + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kRedUnroll; ++u) {
+        add_vec<T, VEC>(acc, a[u]);
+        if (NTENS == 3) add_vec<T, VEC>(acc, b[u]), add_vec<T, VEC>(acc, d[u]);
+      }
+    }
+    for (; p < p1; p += lanes) {
+      const size_t i = (size_t)p * nv;
+      add_vec<T, VEC>(acc, __ldg(hv + i));
+      if (NTENS == 3) add_vec<T, VEC>(acc, __ldg(wv + i)), add_vec<T, VEC>(acc, __ldg(cv + i));
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      if (lanes == 1)
+        prow[v * VEC + k] = acc[k];
+      else
+        red[j * C + v * VEC + k] = acc[k];
     }
   }
-#pragma unroll
-  for (int k = 0; k < kRedC; ++k) red[pyl][cx + kRedX * k] = acc[k];
+  if (lanes == 1) return;  // the whole block alike
   __syncthreads();
-  const int tid = pyl * kRedX + cx;
-  for (int ch = tid; ch < C; ch += kRedX * kRedY) {
-    float v = 0.f;
-#pragma unroll
-    for (int r = 0; r < kRedY; ++r) v += red[r][ch];
-    partial[((size_t)n * S + s) * C + ch] = v;
+  for (int ch = threadIdx.x; ch < C; ch += kRedThreads) {
+    float t = 0.f;
+    for (int r = 0; r < lanes; ++r) t += red[r * C + ch];
+    prow[ch] = t;
   }
+}
+
+// Launch pass 1 over (N, S) blocks: slices of `per` pixels, partial rows
+// soff .. soff + S - 1 of (N, stot, C).  vec: channels a load.
+template <typename T, int NTENS>
+int launch_partial(const T* h, const T* w, const T* c, float* partial, int N, int P, int C,
+                   int S, int per, int vec, int stot, int soff, cudaStream_t st) {
+  const dim3 grid(S, N);
+#define VMG_PARTIAL(V)                                                                       \
+  morphfc_partial_kernel<T, V, NTENS><<<grid, kRedThreads, 0, st>>>(h, w, c, partial, P, C, \
+                                                                     per, stot, soff)
+  if (vec * (int)sizeof(T) == 16) VMG_PARTIAL(16 / sizeof(T));
+  else if (vec * (int)sizeof(T) == 8) VMG_PARTIAL(8 / sizeof(T));
+  else if (vec * (int)sizeof(T) == 4) VMG_PARTIAL(4 / sizeof(T));
+  else if (std::is_same<T, bf16>::value && vec == 1) VMG_PARTIAL(1);
+  else return (int)cudaErrorInvalidValue;
+#undef VMG_PARTIAL
+  return (int)cudaGetLastError();
+}
+
+// a reduce plan the kernel can run: C in vectors of vec, pointers aligned
+// to a vector, S slices of per pixels covering P with none empty
+inline bool partial_plan_ok(const void* const* ptrs, int nptr, int N, int P, int C, int S,
+                            int per, int vec, int elem) {
+  if (vec < 1 || vec * elem > 16 || (vec * elem) & (vec * elem - 1) || C < 1 || C % vec != 0 ||
+      N < 1 || N > 65535 || P < 1 || S < 1 || per < 1 ||
+      (long long)S * per < P || (long long)(S - 1) * per >= P)
+    return false;
+  for (int i = 0; i < nptr; ++i)
+    if ((uintptr_t)ptrs[i] % (uintptr_t)(vec * elem) != 0) return false;
+  return true;
 }
 
 // Pass 2 of the per-frame sums (reduce, both axes forms): out[n, c] = the
@@ -1177,52 +1273,43 @@ int axes_bf16(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
   }
 }
 
-// ---- axes, token form: the same function where the weight does not fit ----
+// ---- axes, token form: the same function where the weights do not fit ---
+//
+// f32 (parity runs): morphfc_axes_token_f32_kernel, the first port's design --
+// one block per slab of whole W chunks, the tokens in shared memory in
+// M-tiles of whole token groups (at most 32 rows), the weight in C x 32
+// column tiles double-buffered with cp.async, scalar FMAs, the epilogue
+// per (M-tile, column tile); channel-owned sums in a fixed order.
+//
+// bf16 (the serving dtype): morphfc_axes_token_wgmma_kernel (notes at the
+// kernel), after a pack launch (the weights as wgmma B images) and a
+// reduce launch (c's per-frame partials, morphfc_partial_kernel).
 
-// Rows of one M-tile: kTokMT<T> token rows at most (bf16 rows pad to 16 for
-// the fragments), whole groups of L tokens, at least one group.  64 bf16
-// rows keep stage 1 at 111 KB, two blocks per SM.
-template <typename T>
-constexpr int kTokMT = std::is_same<T, bf16>::value ? 64 : 32;
-
-template <typename T>
-__host__ __device__ inline int tok_groups(int L, int G) {
-  const int g = kTokMT<T> / L > 1 ? kTokMT<T> / L : 1;
-  return g < G ? g : G;
-}
-
-template <typename T>
-__host__ __device__ inline int tok_rows(int L, int G) {
-  const int r = tok_groups<T>(L, G) * L;
-  return std::is_same<T, bf16>::value ? (r + 15) / 16 * 16 : r;
-}
-
-// Shared memory: the M-tile of tokens (mt x C), two C x nt weight tiles,
-// the mt x nt f32 product.
-template <typename T>
-struct TokSmem {
-  static constexpr bool kTC = std::is_same<T, bf16>::value;
-  int lda, ldw, ldo;
+// Shared memory of the f32 kernel: the M-tile of tokens (mt x C), two C x
+// nt weight tiles, the mt x nt product.
+struct TokSmemF32 {
   size_t a_bytes, w_bytes, total;
-  __host__ __device__ TokSmem(int mt, int C, int nt) {
-    lda = kTC ? C + kPadH : C;
-    ldw = kTC ? nt + kPadH : nt;
-    ldo = kTC ? nt + kPadF : nt;
-    a_bytes = ((size_t)mt * lda * sizeof(T) + 127) / 128 * 128;
-    w_bytes = ((size_t)C * ldw * sizeof(T) + 127) / 128 * 128;
-    total = a_bytes + 2 * w_bytes + (size_t)mt * ldo * sizeof(float);
+  __host__ __device__ TokSmemF32(int mt, int C, int nt) {
+    a_bytes = ((size_t)mt * C * 4 + 127) / 128 * 128;
+    w_bytes = ((size_t)C * nt * 4 + 127) / 128 * 128;
+    total = a_bytes + 2 * w_bytes + (size_t)mt * nt * 4;
   }
 };
 
-// Start copying columns f0 .. f0 + nw of K (C x C) into Ws (rows ldw apart).
-template <typename T>
-__device__ __forceinline__ void tok_stage_weight(T* Ws, int ldw, const T* __restrict__ K,
+constexpr int kTokMTF32 = 32;  // token rows of an f32 M-tile: whole groups, at least one
+
+__host__ __device__ inline int tok_groups_f32(int L, int G) {
+  const int g = kTokMTF32 / L > 1 ? kTokMTF32 / L : 1;
+  return g < G ? g : G;
+}
+
+// Start copying columns f0 .. f0 + nw of K (C x C) into Ws (rows nt apart).
+__device__ __forceinline__ void tok_stage_weight(float* Ws, int nt, const float* __restrict__ K,
                                                  int C, int f0, int nw) {
-  constexpr int VEC = kVecBytes / sizeof(T);
-  const int cv = nw / VEC;
+  const int cv = nw / 4;
   for (int e = threadIdx.x; e < C * cv; e += kThreads) {
     const int k = e / cv, q = e % cv;
-    cp_async16(Ws + k * ldw + q * VEC, K + (size_t)k * C + f0 + q * VEC);
+    cp_async16(Ws + k * nt + q * 4, K + (size_t)k * C + f0 + q * 4);
   }
   cp_async_commit();
 }
@@ -1233,22 +1320,20 @@ __device__ __forceinline__ void tok_stage_weight(T* Ws, int ldw, const T* __rest
 // q * S + Z of position pos(t, P).  Branch H: L = ch, groups t < WT,
 // pos = (P, t).  Branch W: L = cw, groups t < ch * kg, pos = (t / kg,
 // (t % kg) * cw + P).
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-morphfc_axes_token_kernel(const T* __restrict__ x, const T* __restrict__ c,
-                          const T* __restrict__ kh, const float* __restrict__ bh,
-                          const T* __restrict__ kw, const float* __restrict__ bw,
-                          T* __restrict__ h_out, T* __restrict__ w_out,
-                          float* __restrict__ partial, int H, int W, int C, int ch,
-                          int cw, int WT, int mt, int nt) {
-  constexpr bool kTC = TokSmem<T>::kTC;
-  constexpr int VEC = kVecBytes / sizeof(T);
+morphfc_axes_token_f32_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                              const float* __restrict__ kh, const float* __restrict__ bh,
+                              const float* __restrict__ kw, const float* __restrict__ bw,
+                              float* __restrict__ h_out, float* __restrict__ w_out,
+                              float* __restrict__ partial, int H, int W, int C, int ch, int cw,
+                              int WT, int mt, int nt) {
+  constexpr int VEC = 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const TokSmem<T> sm(mt, C, nt);
-  const int lda = sm.lda, ldw = sm.ldw, ldo = sm.ldo, nv = C / VEC;
-  T* A = reinterpret_cast<T*>(smem_raw);
-  T* Wbuf[2] = {reinterpret_cast<T*>(smem_raw + sm.a_bytes),
-                reinterpret_cast<T*>(smem_raw + sm.a_bytes + sm.w_bytes)};
+  const TokSmemF32 sm(mt, C, nt);
+  const int nv = C / VEC;
+  float* A = reinterpret_cast<float*>(smem_raw);
+  float* Wbuf[2] = {reinterpret_cast<float*>(smem_raw + sm.a_bytes),
+                    reinterpret_cast<float*>(smem_raw + sm.a_bytes + sm.w_bytes)};
   float* O = reinterpret_cast<float*>(smem_raw + sm.a_bytes + 2 * sm.w_bytes);
   const int n = blockIdx.z, r0 = blockIdx.y * ch, w0 = blockIdx.x * WT, kg = WT / cw;
   const float inv_c = 1.f / C;
@@ -1257,65 +1342,44 @@ morphfc_axes_token_kernel(const T* __restrict__ x, const T* __restrict__ c,
   auto valid = [&](int r, int w) { return r0 + r < H && w0 + w < W; };
   float sums[2] = {0.f, 0.f};  // channels threadIdx.x and threadIdx.x + kThreads
 
-  auto branch = [&](const T* __restrict__ K, const float* __restrict__ bias,
-                    T* __restrict__ out, int L, int G, auto pos) {
-    const int S = C / L, GT = tok_groups<T>(L, G);
+  auto branch = [&](const float* __restrict__ K, const float* __restrict__ bias,
+                    float* __restrict__ out, int L, int G, auto pos) {
+    const int S = C / L, GT = tok_groups_f32(L, G);
     for (int g0 = 0; g0 < G; g0 += GT) {
       const int ng = min(GT, G - g0), rows = ng * L;
-      const int rows_c = kTC ? (rows + 15) / 16 * 16 : rows;
       // gather the tile: position (t, P), channel vector v -> token rows
       for (int e = threadIdx.x; e < rows * nv; e += kThreads) {
         const int v = e % nv, tp = e / nv, t = g0 + tp / L, P = tp % L;
         int r, w;
         pos(t, P, r, w);
-        alignas(16) T vals[VEC];
-        uint4 u = make_uint4(0, 0, 0, 0);
-        if (valid(r, w)) u = *reinterpret_cast<const uint4*>(x + at(r, w) + v * VEC);
-        *reinterpret_cast<uint4*>(vals) = u;
+        float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (valid(r, w)) u = *reinterpret_cast<const float4*>(x + at(r, w) + v * VEC);
+        const float vals[VEC] = {u.x, u.y, u.z, u.w};
         int q = v * VEC / S, z = v * VEC % S;  // channel v * VEC + k = (q, z)
-        T* row = A + ((t - g0) * L) * lda + P * S;
+        float* row = A + ((t - g0) * L) * C + P * S;
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-          row[q * lda + z] = vals[k];
+          row[q * C + z] = vals[k];
           if (++z == S) z = 0, ++q;
         }
       }
-      for (int e = rows * C + threadIdx.x; e < rows_c * C; e += kThreads)
-        A[(e / C) * lda + e % C] = from_f<T>(0.f);  // fragment padding rows
-      tok_stage_weight<T>(Wbuf[0], ldw, K, C, 0, min(nt, C));
+      tok_stage_weight(Wbuf[0], nt, K, C, 0, min(nt, C));
       for (int f0 = 0, it = 0; f0 < C; f0 += nt, ++it) {
         const int nw = min(nt, C - f0);
         if (f0 + nt < C) {
-          tok_stage_weight<T>(Wbuf[(it + 1) & 1], ldw, K, C, f0 + nt, min(nt, C - f0 - nt));
+          tok_stage_weight(Wbuf[(it + 1) & 1], nt, K, C, f0 + nt, min(nt, C - f0 - nt));
           cp_async_wait<1>();
         } else {
           cp_async_wait<0>();
         }
         __syncthreads();  // tokens and weight tile in; the last epilogue is done with O
-        const T* Ws = Wbuf[it & 1];
-        if constexpr (kTC) {
-          const int MT = rows_c / 16, NT = nw / 16;
-          for (int tt = threadIdx.x >> 5; tt < MT * NT; tt += kWarps) {
-            const int mi = tt % MT, ni = tt / MT;
-            FragC cf;
-            wm::fill_fragment(cf, 0.f);
-            for (int k0 = 0; k0 < C; k0 += 16) {
-              FragA af;
-              FragB bfr;
-              wm::load_matrix_sync(af, A + mi * 16 * lda + k0, lda);
-              wm::load_matrix_sync(bfr, Ws + k0 * ldw + ni * 16, ldw);
-              wm::mma_sync(cf, af, bfr, cf);
-            }
-            wm::store_matrix_sync(O + mi * 16 * ldo + ni * 16, cf, ldo, wm::mem_row_major);
-          }
-        } else {
-          for (int e = threadIdx.x; e < rows * nw; e += kThreads) {
-            const int row = e / nw, col = e % nw;
-            const T* a = A + row * lda;
-            float acc = 0.f;
-            for (int k = 0; k < C; ++k) acc = fmaf(to_f<T>(a[k]), to_f<T>(Ws[k * ldw + col]), acc);
-            O[row * ldo + col] = acc;
-          }
+        const float* Ws = Wbuf[it & 1];
+        for (int e = threadIdx.x; e < rows * nw; e += kThreads) {
+          const int row = e / nw, col = e % nw;
+          const float* a = A + row * C;
+          float acc = 0.f;
+          for (int k = 0; k < C; ++k) acc = fmaf(a[k], Ws[k * nt + col], acc);
+          O[row * nt + col] = acc;
         }
         __syncthreads();  // the product tile is in O; the weight buffer is free
         // epilogue: channel cc = (q, Z) takes features P * S + Z of this tile
@@ -1328,13 +1392,13 @@ morphfc_axes_token_kernel(const T* __restrict__ x, const T* __restrict__ c,
           const int p_lo = f0 > Z ? (f0 - Z + S - 1) / S : 0;
           const int p_hi = min(L - 1, (f0 + nw - 1 - Z) / S);
           for (int t = g0; t < g0 + ng; ++t) {
-            const int orow = ((t - g0) * L + q) * ldo + Z - f0;  // + P * S >= 0
+            const int orow = ((t - g0) * L + q) * nt + Z - f0;  // + P * S >= 0
             for (int P = p_lo; P <= p_hi; ++P) {
               int r, w;
               pos(t, P, r, w);
               if (!valid(r, w)) continue;
               const float y = fmaxf(O[orow + P * S] + bias[P * S + Z], 0.f) * inv_c;
-              out[at(r, w) + cc] = from_f<T>(y);
+              out[at(r, w) + cc] = y;
               sums[k] += y;
             }
           }
@@ -1359,10 +1423,8 @@ morphfc_axes_token_kernel(const T* __restrict__ x, const T* __restrict__ c,
     for (int pos = j; pos < ch * WT; pos += R) {
       const int r = pos / WT, w = pos % WT;
       if (!valid(r, w)) continue;
-      alignas(16) T cv[VEC];
-      *reinterpret_cast<uint4*>(cv) = *reinterpret_cast<const uint4*>(c + at(r, w) + v * VEC);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) cs[k] += to_f<T>(cv[k]);
+      const float4 cv = *reinterpret_cast<const float4*>(c + at(r, w) + v * VEC);
+      cs[0] += cv.x, cs[1] += cv.y, cs[2] += cv.z, cs[3] += cv.w;
     }
 #pragma unroll
     for (int k = 0; k < VEC; ++k) red[j * C + v * VEC + k] = cs[k];
@@ -1378,35 +1440,556 @@ morphfc_axes_token_kernel(const T* __restrict__ x, const T* __restrict__ c,
   }
 }
 
-template <typename T>
-int launch_axes_token(const T* x, const T* c, const T* kh, const float* bh,
-                      const T* kw, const float* bw, T* h, T* w, float* partial,
-                      float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
-                      cudaStream_t stream) {
-  if (C % 16 != 0 || C > 2 * kThreads || C / (kVecBytes / (int)sizeof(T)) > kThreads)
+int launch_axes_token_f32(const float* x, const float* c, const float* kh, const float* bh,
+                          const float* kw, const float* bw, float* h, float* w, float* partial,
+                          float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
+                          cudaStream_t stream) {
+  if (C % 16 != 0 || C > 2 * kThreads || N > 65535 || (H + ch - 1) / ch > 65535)
     return (int)cudaErrorInvalidValue;
   const int kg = WT / cw;
-  const int mh = tok_rows<T>(ch, WT), mw = tok_rows<T>(cw, ch * kg);
+  const int mh = tok_groups_f32(ch, WT) * ch, mw = tok_groups_f32(cw, ch * kg) * cw;
   const int mt = mh > mw ? mh : mw;
-  int nt = TokSmem<T>::kTC ? 64 : 32;
-  while (nt > 16 && TokSmem<T>(mt, C, nt).total > kMaxSmem) nt /= 2;
-  const int nv = C / (kVecBytes / (int)sizeof(T));
-  const size_t red = (size_t)(kThreads / nv) * C * sizeof(float);  // the c sums' lanes
-  const size_t smem = std::max(TokSmem<T>(mt, C, nt).total, red);
+  int nt = 32;
+  while (nt > 16 && TokSmemF32(mt, C, nt).total > kMaxSmem) nt /= 2;
+  const size_t red = (size_t)(kThreads / (C / 4)) * C * sizeof(float);  // the c sums' lanes
+  const size_t smem = std::max(TokSmemF32(mt, C, nt).total, red);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = morphfc_axes_token_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = set_smem(morphfc_axes_token_f32_kernel, smem);
+  if (e) return e;
   const dim3 grid((W + WT - 1) / WT, (H + ch - 1) / ch, N);
-  kern<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w, partial, H, W, C,
-                                         ch, cw, WT, mt, nt);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int S = grid.x * grid.y;
-  return launch_final(partial, psum, N, C, S, stream);
+  morphfc_axes_token_f32_kernel<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w,
+                                                                  partial, H, W, C, ch, cw, WT,
+                                                                  mt, nt);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_final(partial, psum, N, C, grid.x * grid.y, stream);
+}
+
+// ---- bf16: persistent warpgroups, weight column tiles, TMA units ----------
+//
+// Bound: device memory.  At stage 1/5 (16 x 92 x 160 x 224, chunk 16) each
+// branch is a (tokens x 224) @ (224 x 224) product, 47 GFLOP for both (0.048
+// ms on the tensor cores) against 422 MB of x, c in and h, w out (0.126
+// ms); at stage 3 (16 x 23 x 40 x 448, chunk 8) 12.3 GFLOP (0.012 ms)
+// against 52.8 MB (0.016 ms).  The big form's kernel above holds both C x
+// C weights in shared memory; here one is 100 KB (C = 224) or 392 KB (448).
+//
+// Units.  A unit is 64 tokens of one branch: 64 / cp = Gu groups of a
+// chunk's L tokens (cp = L rounded up to a power of two; segments q >= L
+// are zero tokens that write and sum nothing), one m64 wgmma row tile; a
+// warp's 16 rows hold 16 / Gu whole segments (so one channel array a
+// warpgroup takes the sums), laid out so a store's lanes hit several.
+// Branch H: Gu columns x one L-row chunk; branch W: Gu rows x one L-column
+// chunk.  Its x comes by one TMA
+// box of all C channels (a 5-D map, C in pieces of <= 256) into a ring
+// slot: 28 KB at stage 1, 56 KB at stage 3.  Rows and columns past the
+// frame read as zeros; the store clips them.  Each block runs one branch
+// (the grid is split between them in proportion to their units), so it
+// needs one weight; x is read once per branch (527 MB at stage 1: a bound
+// of 0.157 ms, not 0.126).
+//
+// Weights.  A pack launch writes each weight as a wgmma B image in column
+// tiles of NT = 8 G (C x NT each, K-major core matrices; G = 16 at stage
+// 1/5, 8 at stage 3: a tile a whole block of 8 channels).  Its output
+// columns come in blocks of 8 channels: tile t holds channels 8 zb .. 8 zb
+// + 7 (zb = t / tpz) at G chunk positions P from (t % tpz) G, column 8 (P -
+// P0) + i being channel 8 zb + i -- so accumulator lane l4 holds channels
+// 8 zb + 2 l4 + {0, 1} of every position: 4-byte output stores to 8
+// different channels a quad (a channel-major order put the quad's lanes 4
+// positions apart, one bank), and a thread's sums stay per channel over
+// the tile.  Columns past S (padded to 8) or past the chunk are zero.
+// Resident (where the image fits beside two slots a warpgroup: C <= 224):
+// one bulk copy per block.  Streamed (C = 448: 56 KB tiles, two slots):
+// the first warpgroup's first warp streams the tiles through a ring, each tile
+// shared by both warpgroups (an empty barrier of 8 warp arrivals), which
+// walk their units in step (one with fewer units takes the last step's
+// tiles without one).
+//
+// Per unit: the token matrix is formed straight into register-A fragments
+// from the slot (as in the big form's kernel: k pairs of neighbouring
+// channels, one 4-byte read for even S); per column tile, m64nNTk16
+// against the tile; the epilogue relu(acc + b) / C, rounded once, lands at
+// its (token, feature)'s own x element, so the output is staged in place
+// and leaves by TMA store.
+// The accumulator is one tile's (NT / 2 registers), not C / 2.
+//
+// Sums, without atomics, in one fixed order: (1) each thread adds its
+// positions per channel, its two rows where they share a segment q; (2)
+// shuffles add the lanes of the segment (2 at stage 1, 4 at stage 3) and
+// one lane writes the (q, channel) total; (3) morphfc_final_kernel adds
+// the walkers' and c's partials.  At the compile-time path shapes a tile
+// is a whole 8-channel block, so (1) runs in registers over all the
+// walker's units of a frame and (2) once a frame, straight into the
+// walker's partial row (no channel array: the shared memory that frees
+// holds stage 3's 56 KB tiles); elsewhere (2) runs at each tile's end into
+// a channel array a warpgroup, which goes into the partial at a change of
+// frame.  Walkers are frame-aligned (wpf walkers share
+// a frame's units, or one walker takes fpw whole frames), so the partial
+// holds N x (a few) rows: stage 3 writes 0.9 MB, not a row per walker and
+// frame.  Why the 8-channel blocks: with the columns in channel-major
+// order a fold (shuffles, a shared-memory read-modify-write) came every 8
+// or 16 columns and a quad's 2-byte stores hit one bank; the two made the
+// epilogue the kernel's largest cost.
+constexpr int kTokWg = 2;       // consumer warpgroups a block
+constexpr int kTokRingMax = 2;  // x slots a warpgroup
+constexpr int kTokWMax = 8;     // weight tiles resident, or ring slots
+
+// The plan as the wrapper computes it (morphfc_fused.token_plan, its fields
+// in the order of TOKEN_PLAN_FIELDS and TOKEN_BRANCH_FIELDS there): every
+// decision -- the tile width, the compile-time shapes, residence, rings,
+// the grid's split -- and each branch's geometry are made there once;
+// vmg_morphfc_axes_token only checks that the kernel can run the plan.
+struct TokPlanBranch {
+  int L, S, lgu, tpz, ucols, upf, ntiles, blocks, wpf, fpw;
+};
+struct TokPlan {
+  int nt, exact, resident, ring, wring, nws, sc, per_c, stot;
+  TokPlanBranch br[2];
+};
+
+struct TokMaps {
+  CUtensorMap x[2], out[2];  // per branch (0: H, 1: W): x, and h / w; 5-D, one unit a box
+};
+
+struct TokBranch {
+  const bf16* img;            // B image: ntiles x (C / 8) x NT x 8
+  const float* bias;          // its bias, ntiles x NT
+  int L, S, lgu, tpz;         // chunk, C / L, log2 of groups a unit (64 / cp), tiles a zb
+  int ucols, upf, ntiles;     // units a unit row, a frame; column tiles
+  unsigned box_bytes;         // a unit's x box (Gu x L positions of C channels)
+  int blocks, block0;         // the branch's blocks, its first
+  int wpf, fpw, slot0;        // walkers a frame (fpw == 0) or frames a walker; first partial row
+};
+
+struct TokArgs {
+  TokBranch br[2];
+  float* partial;
+  int N, H, W, C, KS, stot;
+  int ring, resident, wring, nws;
+  unsigned slot_bytes, tile_bytes;
+  unsigned off_w, off_sum, off_bar;
+};
+
+// The shared memory of the bf16 kernel (morphfc_fused.token_smem): the
+// rings, the weights (resident: all tiles; else wtiles ring slots), nws
+// channel arrays a warpgroup, the barriers.
+struct TokLayout {
+  unsigned slot, off_w, off_sum, off_bar, total;
+  __host__ __device__ TokLayout(int C, int NT, int ring, int wtiles, int nws) {
+    slot = ((unsigned)64 * C * 2 + 127) / 128 * 128;
+    off_w = kTokWg * ring * slot;
+    off_sum = off_w + (unsigned)wtiles * C * NT * 2;
+    off_bar = off_sum + kTokWg * nws * C * 4;
+    total = off_bar + (kTokWg * kTokRingMax + 2 * kTokWMax) * 8;
+  }
+};
+
+// the pack launch: each branch's B image and bias image
+struct TokPack {
+  const bf16* k[2];
+  const float* b[2];
+  bf16* img[2];
+  float* bimg[2];
+  int L[2], S[2], tpz[2];
+  int C, NT, chunks0, chunks;  // 16-byte chunks of branch 0's image, of both
+};
+
+// image column n of tile t: channel Z = 8 (t / tpz) + n % 8 at chunk
+// position P = (t % tpz) NT / 8 + n / 8, plain column P S + Z (zero past S
+// or the chunk)
+__global__ void __launch_bounds__(256)
+morphfc_axes_token_pack_kernel(const TokPack p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.chunks) return;
+  const int br = i < p.chunks0 ? 0 : 1, e = br ? i - p.chunks0 : i;
+  const int C = p.C, NT = p.NT, KG = C / 8;
+  const int nn = e % NT, rest = e / NT, kg = rest % KG, t = rest / KG;
+  const int Z = 8 * (t / p.tpz[br]) + nn % 8, P = (t % p.tpz[br]) * (NT / 8) + nn / 8;
+  const bool real = Z < p.S[br] && P < p.L[br];
+  const int f = P * p.S[br] + Z;
+  alignas(16) bf16 v[8];
+#pragma unroll
+  for (int ki = 0; ki < 8; ++ki)
+    v[ki] = real ? p.k[br][(size_t)(8 * kg + ki) * C + f] : __float2bfloat16_rn(0.f);
+  *reinterpret_cast<uint4*>(p.img[br] + (size_t)e * 8) = *reinterpret_cast<const uint4*>(v);
+  if (kg == 0) p.bimg[br][t * NT + nn] = real ? p.b[br][f] : 0.f;
+}
+
+// KSMAX: k-steps of the fragments (an upper bound of the run-time C / 16);
+// NT: columns a tile (8 G); LX > 0: the shape is compile-time, C = 16 KSMAX
+// and both chunks LX (the path shapes: C = 224, chunk 16; C = 448, chunk
+// 8), so the index arithmetic folds to constants, the epilogue has no
+// run-time branch and the k-steps no guard (a guarded wgmma gets a
+// warpgroup fence of its own, C7519)
+template <int KSMAX, int NT, int LX>
+__global__ void __launch_bounds__(kTokWg * 128, 1)
+morphfc_axes_token_wgmma_kernel(const __grid_constant__ TokMaps maps,
+                                const __grid_constant__ TokArgs a) {
+  constexpr bool EXACT = LX > 0;
+  constexpr int NG = NT / 8;  // chunk positions a tile
+  // a compile-time shape whose tiles each hold a whole 8-channel block
+  // keeps its sums in registers: rsum[zb][e] is channel 8 zb + 2 l4 + e of
+  // the thread's segment, over all its units of the frame
+  constexpr bool REG = EXACT && NG >= LX;
+  constexpr int NZB = EXACT ? (16 * KSMAX / (LX > 0 ? LX : 1) + 7) / 8 : 1;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw;
+  if ((su32(base) & 127) != 0) __trap();
+  const int b = blockIdx.x < a.br[0].blocks ? 0 : 1;
+  const TokBranch& B = a.br[b];
+  const int C = EXACT ? 16 * KSMAX : a.C, KS = EXACT ? KSMAX : a.KS;
+  unsigned char* wts = base + a.off_w;
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(base + a.off_bar);
+  uint64_t* wfull = xfull + kTokWg * kTokRingMax;
+  uint64_t* wempty = wfull + kTokWMax;
+  const int g = threadIdx.x >> 7, tid = threadIdx.x & 127, wq = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, l4 = lane & 3;
+  const bool leader = tid == 0;  // issues the warpgroup's copies and stores
+  // the warpgroup's channel arrays: one, or (Gu >= 32: a segment's rows
+  // span warps) one a warp
+  float* ws = reinterpret_cast<float*>(base + a.off_sum) + (size_t)g * a.nws * C;
+  float* wsw = ws + (size_t)(a.nws == 1 ? 0 : wq) * C;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTokWg * kTokRingMax; ++i) mbar_init(xfull + i, 1);
+    for (int i = 0; i < kTokWMax; ++i) mbar_init(wfull + i, 1), mbar_init(wempty + i, 4 * kTokWg);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < kTokWg * a.nws * C; i += blockDim.x)
+    reinterpret_cast<float*>(base + a.off_sum)[i] = 0.f;
+  __syncthreads();
+
+  // walker k of the branch: units [u0, u1) of the branch's list, its
+  // partial row within a frame
+  auto range = [&](int k, int& u0, int& u1, int& slot) {
+    slot = 0;
+    if (B.fpw == 0) {
+      if (k >= a.N * B.wpf) {
+        u0 = u1 = 0;
+        return;
+      }
+      const int f = k / B.wpf, sub = k - f * B.wpf;
+      u0 = f * B.upf + (int)((long long)sub * B.upf / B.wpf);
+      u1 = f * B.upf + (int)((long long)(sub + 1) * B.upf / B.wpf);
+      slot = sub;
+    } else {
+      const int f0 = min(a.N, k * B.fpw), f1 = min(a.N, f0 + B.fpw);
+      u0 = f0 * B.upf, u1 = f1 * B.upf;
+    }
+  };
+  const int kb = blockIdx.x - B.block0;
+  int u0 = 0, u1 = 0, myslot = 0, steps = 0;
+#pragma unroll
+  for (int w = 0; w < kTokWg; ++w) {
+    int v0, v1, sv;
+    range(kTokWg * kb + w, v0, v1, sv);
+    steps = max(steps, v1 - v0);
+    if (w == g) u0 = v0, u1 = v1, myslot = sv;
+  }
+  const int nmine = u1 - u0;
+  // weight tiles: resident, the whole image once; streamed, tile seq of
+  // the block's walk (steps x ntiles) into slot seq % wring, issued by the
+  // first warp of the first warpgroup once both warpgroups are done with
+  // tile seq - wring.  The whole warp waits for that and its lane 0
+  // issues: were lane 0 alone to wait on the other warpgroup, its warp's
+  // other lanes could run on into the .aligned wgmma instructions without
+  // it
+  const int wtotal = steps * B.ntiles;
+  auto issue_w = [&](int seq) {
+    if (seq >= wtotal) return;
+    const int s = seq % a.wring;
+    if (seq >= a.wring) mbar_wait(wempty + s, (seq / a.wring - 1) & 1);
+    if (lane == 0) {
+      mbar_expect(wfull + s, a.tile_bytes);
+      bulk_load(wts + (size_t)s * a.tile_bytes,
+                B.img + (size_t)(seq % B.ntiles) * (a.tile_bytes / 2), a.tile_bytes, wfull + s);
+    }
+    __syncwarp();
+  };
+  const bool wwarp = g == 0 && wq == 0 && !a.resident;  // warp-uniform
+  if (threadIdx.x == 0 && a.resident && steps > 0) {
+    mbar_expect(wfull, B.ntiles * a.tile_bytes);
+    bulk_load(wts, B.img, B.ntiles * a.tile_bytes, wfull);
+  }
+  if (wwarp)
+    for (int seq = 0; seq < a.wring - 1; ++seq) issue_w(seq);
+
+  unsigned char* ring = base + (size_t)g * a.ring * a.slot_bytes;
+  uint64_t* full = xfull + g * kTokRingMax;
+  const int L = EXACT ? LX : B.L, S = EXACT ? 16 * KSMAX / LX : B.S;
+  const int lgu = EXACT ? 6 - (LX > 8 ? (LX > 16 ? (LX > 32 ? 6 : 5) : 4) : LX > 4 ? 3 : 2) : B.lgu;
+  const int gu = 1 << lgu, tpz = EXACT && NG >= LX ? 1 : B.tpz;
+  const float inv_c = 1.f / C;
+  // unit u of the branch's list: frame n, first row y0, first column x0
+  auto unit_at = [&](int u, int& n, int& y0, int& x0) {
+    n = u / B.upf;
+    const int r = u - n * B.upf, ur = r / B.ucols, uc = r - ur * B.ucols;
+    y0 = ur * (b == 0 ? L : gu);
+    x0 = uc * (b == 0 ? gu : L);
+  };
+  auto issue = [&](int i) {  // the warpgroup's i-th unit into slot i % ring
+    if (i >= nmine) return;
+    int n, y0, x0;
+    unit_at(u0 + i, n, y0, x0);
+    mbar_expect(full + i % a.ring, B.box_bytes);
+    tma_load_5d(ring + (size_t)(i % a.ring) * a.slot_bytes, &maps.x[b], 0, 0, x0, y0, n,
+                full + i % a.ring);
+  };
+  if (leader)
+    for (int i = 0; i < a.ring - 1; ++i) issue(i);
+
+  // the thread's two accumulator rows (gr, gr + 8 of its warp): tokens
+  // (group grp, segment q).  A warp holds QW = 16 / Gu segments (Gu <= 16)
+  // of all Gu groups: lane row gr is segment gr % QW of group gr / QW (+ 8 /
+  // QW for the second row), so the lanes of one store hit QW segments and
+  // both rows share one; a segment's 16 x Gu / 16 rows lie in one warp (for
+  // Gu >= 32 it spans Gu / 16 warps, with a channel array each)
+  const int lqw = max(0, 4 - lgu);
+  int rowpart[2], q[2], grp[2];
+  bool real[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (lgu >= 5) {
+      const int m = 16 * wq + gr + 8 * hh;
+      q[hh] = m >> lgu, grp[hh] = m & (gu - 1);
+    } else if (lqw == 4) {
+      q[hh] = 16 * wq + gr + 8 * hh, grp[hh] = 0;
+    } else {
+      q[hh] = (wq << lqw) + (gr & ((1 << lqw) - 1));
+      grp[hh] = (gr >> lqw) + (hh << (3 - lqw));
+    }
+    real[hh] = q[hh] < L;
+    rowpart[hh] = (b == 0 ? grp[hh] * C : grp[hh] * L * C) + q[hh] * S;
+  }
+  const int cstride = b == 0 ? gu * C : C;
+  const bool even = EXACT ? (16 * KSMAX / LX) % 2 == 0 : (S & 1) == 0;
+  // fragment column 8 j + 2 l4 (+ 1) is feature (P, Z): its start and its step over j
+  const int P0 = 2 * l4 / S, Z0 = 2 * l4 - P0 * S, dP = 8 / S, dZ = 8 - dP * S;
+  // the rows share q except where a warp holds 16 segments; the lanes of a
+  // segment differ in gr's bits from lsh on
+  const bool hshare = lqw < 4;
+  const int lsh = min(lqw, 3);
+  const bool owner = (gr >> lsh) == 0;
+
+  // (2) a tile's per-thread sums rs[hh][e] of channels zc + e into the
+  // channel array: the rows sharing q, then the lanes sharing it
+  auto fold = [&](int zc, float (&rs)[2][2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v0 = rs[0][e], v1 = rs[1][e];
+      if (hshare) v0 += v1;
+      for (int bb = lsh; bb < 3; ++bb) v0 += __shfl_xor_sync(0xffffffffu, v0, 4 << bb);
+      const int Z = zc + e;
+      if (owner && Z < S) {
+        if (real[0]) wsw[q[0] * S + Z] += v0;
+        if (!hshare && real[1]) wsw[q[1] * S + Z] += v1;
+      }
+    }
+  };
+  float rsum[NZB][2];
+#pragma unroll
+  for (int zb = 0; zb < NZB; ++zb) rsum[zb][0] = rsum[zb][1] = 0.f;
+  // (3) the warpgroup's sums of frame n into the walker's partial row:
+  // registers (the lanes of a segment added by shuffles, one lane a
+  // segment writes its channels) or the channel arrays
+  auto flush = [&](int n) {
+    float* row = a.partial + ((size_t)n * a.stot + B.slot0 + myslot) * C;
+    if constexpr (REG) {
+#pragma unroll
+      for (int zb = 0; zb < NZB; ++zb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = rsum[zb][e];
+          rsum[zb][e] = 0.f;
+          for (int bb = lsh; bb < 3; ++bb) v += __shfl_xor_sync(0xffffffffu, v, 4 << bb);
+          const int Zc = 8 * zb + 2 * l4 + e;
+          if (owner && real[0] && Zc < S) row[q[0] * S + Zc] = v;
+        }
+      return;
+    }
+    wg_bar(g);
+    for (int ch = tid; ch < C; ch += 128) {
+      float t = 0.f;
+      for (int w = 0; w < a.nws; ++w) t += ws[(size_t)w * C + ch], ws[(size_t)w * C + ch] = 0.f;
+      row[ch] = t;
+    }
+    wg_bar(g);
+  };
+
+  int cur = -1;
+  for (int i = 0; i < steps; ++i) {
+    if (i >= nmine) {  // no unit: keep step with the other warpgroup's tiles
+      if (!a.resident)
+        for (int t = 0; t < B.ntiles; ++t) {
+          const int seq = i * B.ntiles + t, s = seq % a.wring;
+          if (wwarp) issue_w(seq + a.wring - 1);
+          mbar_wait(wfull + s, (seq / a.wring) & 1);
+          if (lane == 0) mbar_arrive(wempty + s);
+        }
+      continue;
+    }
+    int n, y0, x0;
+    unit_at(u0 + i, n, y0, x0);
+    if (n != cur) {  // one call site: flush inlines
+      if (cur >= 0) flush(cur);
+      cur = n;
+    }
+    if (leader) {
+      bulk_wait_read<0>();  // the last store has read its slot
+      issue(i + a.ring - 1);
+    }
+    mbar_wait(full + i % a.ring, (i / a.ring) & 1);
+    bf16* xs = reinterpret_cast<bf16*>(ring + (size_t)(i % a.ring) * a.slot_bytes);
+    // positions in the frame, for the sums: the rows' groups, and (H) the
+    // chunk positions P < prow
+    bool sv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      sv[hh] = real[hh] && (b == 0 ? x0 + grp[hh] < a.W : y0 + grp[hh] < a.H);
+    const int prow = b == 0 ? min(L, a.H - y0) : L;
+    uint32_t fr[KSMAX][4];
+    {
+      int P = P0, Z = Z0;
+#pragma unroll
+      for (int j = 0; j < 2 * KSMAX; ++j) {
+        if (EXACT || j < 2 * KS) {
+          int P1 = P, Z1 = Z + 1;
+          if (Z1 == S) Z1 = 0, P1 = P + 1;
+          const int c0 = P * cstride + Z, c1 = P1 * cstride + Z1;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            uint32_t v = 0;
+            if (real[hh]) {
+              const bf16* src = xs + rowpart[hh];
+              if (even) {
+                v = *reinterpret_cast<const uint32_t*>(src + c0);
+              } else {
+                const unsigned short lo = *reinterpret_cast<const unsigned short*>(src + c0);
+                const unsigned short hi = *reinterpret_cast<const unsigned short*>(src + c1);
+                v = (uint32_t)lo | ((uint32_t)hi << 16);
+              }
+            }
+            fr[j >> 1][(j & 1) * 2 + hh] = v;
+          }
+          P += dP, Z += dZ;
+          if (Z >= S) Z -= S, ++P;
+        } else {
+          fr[j >> 1][(j & 1) * 2] = fr[j >> 1][(j & 1) * 2 + 1] = 0;
+        }
+      }
+    }
+    auto tile = [&](const int t) {
+      const int seq = i * B.ntiles + t, s = seq % a.wring;
+      unsigned bsm;
+      if (a.resident) {
+        if (i == 0 && t == 0) mbar_wait(wfull, 0);
+        bsm = su32(wts) + t * a.tile_bytes;
+      } else {
+        if (wwarp) issue_w(seq + a.wring - 1);
+        mbar_wait(wfull + s, (seq / a.wring) & 1);
+        bsm = su32(wts) + s * a.tile_bytes;
+      }
+      // the warp converged for the .aligned wgmma; ahead of the bias loads,
+      // which a __syncwarp after them would wait for (stage 1/5 ran 14%
+      // slower so)
+      __syncwarp();
+      // the tile's bias (its columns 8 j + 2 l4 + {0, 1}), in flight during the product
+      const int zc = 8 * (t / tpz), pb = (t - (t / tpz) * tpz) * NG, Z = zc + 2 * l4;
+      float2 bj[NG];
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+        bj[j] = __ldg(reinterpret_cast<const float2*>(B.bias + t * NT + 8 * j + 2 * l4));
+      float acc[NT / 2];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KSMAX; ++ks)
+        if (EXACT || ks < KS)
+          WgmmaRA<NT>::mma(acc, fr[ks], mat_desc(bsm + ks * 2 * NT * 16, NT * 16, 128), ks != 0);
+      wg_commit();
+      pin_regs(acc);
+      wg_wait<0>();
+      pin_regs(acc);
+#pragma unroll
+      for (int ks = 0; ks < KSMAX; ++ks)
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) asm volatile("" : "+r"(fr[ks][qq])::"memory");
+      if (!a.resident && lane == 0) mbar_arrive(wempty + s);  // this warp is done with the tile
+      // epilogue: register 4 j + 2 hh + e is row hh, channel zc + 2 l4 + e
+      // at chunk position pb + j; stored where the row is a token and the
+      // channel real, summed where the position lies in the frame
+      const bool zok = Z < S;
+      bool st[2];
+      bf16* ob[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        st[hh] = zok && real[hh];
+        ob[hh] = xs + rowpart[hh] + pb * cstride + Z;
+      }
+      float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      // one copy of the loop a parity of S: even, a 4-byte store a pair
+      auto epilogue = [&](auto is_even) {
+        constexpr bool EV = decltype(is_even)::value;
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const int P = pb + j;
+          if (!(EXACT && NG == LX) && P >= L) break;  // warp-uniform
+          const bool in = P < prow;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float y0v = fmaxf(acc[4 * j + 2 * hh] + bj[j].x, 0.f) * inv_c;
+            const float y1v = fmaxf(acc[4 * j + 2 * hh + 1] + bj[j].y, 0.f) * inv_c;
+            bf16* o = ob[hh] + j * cstride;
+            if (EV) {
+              if (st[hh]) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0v, y1v);
+            } else {
+              if (st[hh]) o[0] = __float2bfloat16_rn(y0v);
+              if (st[hh] && Z + 1 < S) o[1] = __float2bfloat16_rn(y1v);
+            }
+            const bool sum = in && sv[hh];
+            if constexpr (REG) {  // the rows share q (hshare at both path shapes)
+              rsum[t][0] += sum ? y0v : 0.f;
+              rsum[t][1] += sum ? y1v : 0.f;
+            } else {
+              rs[hh][0] += sum ? y0v : 0.f;
+              rs[hh][1] += sum ? y1v : 0.f;
+            }
+          }
+        }
+      };
+      if (even)
+        epilogue(std::true_type());
+      else
+        epilogue(std::false_type());
+      if constexpr (!REG) fold(zc + 2 * l4, rs);
+    };
+    if constexpr (REG) {
+#pragma unroll
+      for (int t = 0; t < NZB; ++t) tile(t);
+    } else {
+      for (int t = 0; t < B.ntiles; ++t) tile(t);
+    }
+    fence_async_shared();  // the staged output, visible to the TMA store
+    __syncwarp();
+    wg_bar(g);
+    if (leader) {
+      tma_store_5d(&maps.out[b], xs, 0, 0, x0, y0, n);
+      bulk_commit();
+    }
+  }
+  if (cur >= 0) flush(cur);
+  if (leader) bulk_wait<0>();  // the stores are done before the block's shared memory goes
+}
+
+template <int KSMAX, int NT, int LX>
+int launch_axes_token_wgmma(const TokMaps& m, const TokArgs& a, unsigned smem, cudaStream_t st) {
+  auto kern = morphfc_axes_token_wgmma_kernel<KSMAX, NT, LX>;
+  static bool smem_set = false;  // the largest size, once per instantiation
+  if (!smem_set) {
+    const int e = set_smem(kern, kMaxSmem);
+    if (e) return e;
+    smem_set = true;
+  }
+  kern<<<a.br[0].blocks + a.br[1].blocks, kTokWg * 128, smem, st>>>(m, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace vmg
@@ -1469,40 +2052,146 @@ extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
   return vmg::launch_final(partial, psum, N, C, npass * a.walkers, st);
 }
 
-// The token form: arguments as vmg_morphfc_axes; C % 16 == 0, C <= 512.
+// The token form: x, c, kh, bh, kw, bw, h, w, psum as vmg_morphfc_axes; C %
+// 16 == 0, C <= 512.  f32: one block per slab of ch x WT; partial: (N,
+// ceil(H/ch) * ceil(W/WT), C); img, bimg and plan unused.  bf16: plan is
+// morphfc_fused.token_plan's (TokPlan), WT unused; img: both B images
+// (ntiles x C x NT bf16 each), bimg: their biases (ntiles x NT f32 each);
+// partial: (N, stot, C).
 extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* kh,
                                       const float* bh, const void* kw, const float* bw,
-                                      void* h, void* w, float* partial, float* psum,
-                                      int N, int H, int W, int C, int ch, int cw,
-                                      int WT, int dtype, void* stream) {
+                                      void* h, void* w, void* img, float* bimg, float* partial,
+                                      float* psum, const vmg::TokPlan* plan, int N, int H, int W,
+                                      int C, int ch, int cw, int WT, int dtype, void* stream) {
   if (ch < 1 || cw < 1 || C % ch != 0 || C % cw != 0 || W % cw != 0 || WT % cw != 0 ||
-      N > 65535 || (H + ch - 1) / ch > 65535)
+      C % 16 != 0 || C > 512 || N < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   for (const void* p : {x, c, kh, kw, (const void*)h, (const void*)w})
     if ((uintptr_t)p % vmg::kVecBytes != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
-  VMG_DISPATCH_DTYPE(dtype, T, {
-    return vmg::launch_axes_token<T>((const T*)x, (const T*)c, (const T*)kh, bh,
-                                     (const T*)kw, bw, (T*)h, (T*)w, partial, psum, N, H,
-                                     W, C, ch, cw, WT, st);
-  });
-  return (int)cudaErrorInvalidValue;  // not reached: the dispatch returns
+  if (dtype == 0)
+    return vmg::launch_axes_token_f32((const float*)x, (const float*)c, (const float*)kh, bh,
+                                      (const float*)kw, bw, (float*)h, (float*)w, partial, psum,
+                                      N, H, W, C, ch, cw, WT, st);
+  if (dtype != 1 || plan == nullptr || img == nullptr || bimg == nullptr ||
+      (uintptr_t)img % 16 != 0 || (uintptr_t)bimg % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  using vmg::bf16;
+  const vmg::TokPlan& p = *plan;
+  const int NT = p.nt;
+  // the instantiations: the path shapes (stages 1/5 and 3) at their tile
+  // widths, else NT = 16, 32 or 64
+  const bool exact = p.exact != 0;
+  if (exact ? !((C == 224 && ch == 16 && cw == 16 && NT == 128) ||
+                (C == 448 && ch == 8 && cw == 8 && NT == 64)) || p.nws != 0
+            : (NT != 16 && NT != 32 && NT != 64) || (p.nws != 1 && p.nws != 4))
+    return (int)cudaErrorInvalidValue;
+  if ((p.ring != 1 && p.ring != 2) || p.wring < 2 || p.wring > vmg::kTokWMax ||
+      (p.resident != 0 && p.resident != 1))
+    return (int)cudaErrorInvalidValue;
+  vmg::TokArgs a = {};
+  vmg::TokPack pk = {};
+  const int Ls[2] = {ch, cw};
+  const void* ks[2] = {kh, kw};
+  const float* bs[2] = {bh, bw};
+  int slots = 0, ntmax = 0;
+  for (int br = 0; br < 2; ++br) {
+    const vmg::TokPlanBranch& q = p.br[br];
+    vmg::TokBranch& B = a.br[br];
+    // the units tile the frame (H: gu columns x L rows; W: L columns x gu
+    // rows), the tiles cover the chunk's positions and every 8-channel
+    // block of S, a segment's token rows are a power of two with gu of
+    // them in 64 (from 32 a warp's channel array each), the walkers
+    // cover the frames
+    const int L = Ls[br], gu = q.lgu >= 0 && q.lgu <= 6 ? 1 << q.lgu : 0;
+    const int bw_ = br == 0 ? gu : L, bh_ = br == 0 ? L : gu;
+    int cp = 1;
+    while (cp < L) cp *= 2;
+    const int Gw = vmg::kTokWg * q.blocks;
+    if (q.L != L || q.S != C / L || gu * cp != 64 || (gu >= 32 && !exact && p.nws != 4) ||
+        q.tpz < 1 || q.tpz * (NT / 8) < L || (exact && q.tpz != 1) ||
+        q.ntiles != (q.S + 7) / 8 * q.tpz || q.ucols < 1 || (long long)q.ucols * bw_ < W ||
+        q.upf < q.ucols || q.upf % q.ucols != 0 || (long long)(q.upf / q.ucols) * bh_ < H ||
+        (long long)N * q.upf > 0x7fffffff || q.blocks < 1 ||
+        (q.fpw == 0 ? (q.wpf < 1 || q.wpf > q.upf || (long long)N * q.wpf > Gw)
+                    : (q.wpf != 1 || (long long)q.fpw * Gw < N)))
+      return (int)cudaErrorInvalidValue;
+    B.L = L, B.S = q.S, B.lgu = q.lgu, B.tpz = q.tpz;
+    B.ucols = q.ucols, B.upf = q.upf, B.ntiles = q.ntiles;
+    B.box_bytes = (unsigned)gu * L * C * 2;
+    B.blocks = q.blocks, B.block0 = br == 0 ? 0 : p.br[0].blocks;
+    B.wpf = q.wpf, B.fpw = q.fpw, B.slot0 = slots;
+    slots += B.fpw == 0 ? B.wpf : 1;
+    ntmax = std::max(ntmax, B.ntiles);
+    pk.k[br] = (const bf16*)ks[br], pk.b[br] = bs[br];
+    pk.img[br] = (bf16*)img + (br == 0 ? 0 : (size_t)a.br[0].ntiles * C * NT);
+    pk.bimg[br] = bimg + (br == 0 ? 0 : a.br[0].ntiles * NT);
+    pk.L[br] = L, pk.S[br] = B.S, pk.tpz[br] = B.tpz;
+    B.img = pk.img[br], B.bias = pk.bimg[br];
+  }
+  if (p.stot != slots + p.sc || (p.resident && ntmax > vmg::kTokWMax))
+    return (int)cudaErrorInvalidValue;
+  const vmg::TokLayout lay(C, NT, p.ring, p.resident ? ntmax : p.wring, p.nws);
+  if (lay.total > vmg::kMaxSmem) return (int)cudaErrorInvalidValue;
+  a.partial = partial;
+  a.N = N, a.H = H, a.W = W, a.C = C, a.KS = C / 16, a.stot = p.stot;
+  a.ring = p.ring, a.resident = p.resident, a.wring = p.wring, a.nws = p.nws;
+  a.slot_bytes = lay.slot, a.tile_bytes = (unsigned)C * NT * 2;
+  a.off_w = lay.off_w, a.off_sum = lay.off_sum, a.off_bar = lay.off_bar;
+  // both weights as B images
+  pk.C = C, pk.NT = NT;
+  pk.chunks0 = a.br[0].ntiles * (C / 8) * NT;
+  pk.chunks = pk.chunks0 + a.br[1].ntiles * (C / 8) * NT;
+  vmg::morphfc_axes_token_pack_kernel<<<(pk.chunks + 255) / 256, 256, 0, st>>>(pk);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  // c's per-frame partials: rows slots .. stot - 1
+  const void* cptr[1] = {c};
+  if (!vmg::partial_plan_ok(cptr, 1, N, H * W, C, p.sc, p.per_c, 8, 2))
+    return (int)cudaErrorInvalidValue;
+  e = vmg::launch_partial<bf16, 1>((const bf16*)c, (const bf16*)c, (const bf16*)c, partial, N,
+                                   H * W, C, p.sc, p.per_c, 8, p.stot, slots, st);
+  if (e) return e;
+  vmg::TokMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  int nsp = (C + 255) / 256;
+  while (C % nsp != 0 || (C / nsp) % 8 != 0) ++nsp;
+  const void* outs[2] = {h, w};
+  for (int br = 0; br < 2; ++br) {
+    const int gu = 1 << a.br[br].lgu;
+    const int bw_ = br == 0 ? gu : cw, bh_ = br == 0 ? ch : gu;
+    e = vmg::nhwc_split_map(&maps.x[br], x, N, H, W, C, nsp, bw_, bh_);
+    if (!e) e = vmg::nhwc_split_map(&maps.out[br], outs[br], N, H, W, C, nsp, bw_, bh_);
+    if (e) return e;
+  }
+  if (exact)
+    e = C == 224 ? vmg::launch_axes_token_wgmma<14, 128, 16>(maps, a, lay.total, st)
+                 : vmg::launch_axes_token_wgmma<28, 64, 8>(maps, a, lay.total, st);
+  else if (NT == 16)
+    e = vmg::launch_axes_token_wgmma<32, 16, 0>(maps, a, lay.total, st);
+  else if (NT == 32)
+    e = vmg::launch_axes_token_wgmma<32, 32, 0>(maps, a, lay.total, st);
+  else
+    e = vmg::launch_axes_token_wgmma<32, 64, 0>(maps, a, lay.total, st);
+  if (e) return e;
+  return vmg::launch_final(partial, psum, N, C, p.stot, st);
 }
 
 // h, w, c: (N, P, C) with P = H*W pixels per frame; partial: (N, S, C) f32
-// scratch; out: (N, C) f32.
+// scratch; out: (N, C) f32.  The plan of morphfc_fused.reduce_plan: S
+// slices of per pixels, vec channels a load.
 extern "C" int vmg_morphfc_reduce(const void* h, const void* w, const void* c,
-                                  float* partial, float* out, int N, int P,
-                                  int C, int S, int dtype, void* stream) {
-  if (C > vmg::kRedX * vmg::kRedC || N > 65535 || S < 1)
-    return (int)cudaErrorInvalidValue;
+                                  float* partial, float* out, int N, int P, int C, int S,
+                                  int per, int vec, int dtype, void* stream) {
+  const void* ptrs[3] = {h, w, c};
   cudaStream_t st = (cudaStream_t)stream;
   VMG_DISPATCH_DTYPE(dtype, T, {
-    vmg::morphfc_partial_kernel<T><<<dim3(S, N), dim3(vmg::kRedX, vmg::kRedY), 0, st>>>(
-        (const T*)h, (const T*)w, (const T*)c, partial, P, C, S);
+    if (!vmg::partial_plan_ok(ptrs, 3, N, P, C, S, per, vec, (int)sizeof(T)))
+      return (int)cudaErrorInvalidValue;
+    const int e = vmg::launch_partial<T, 3>((const T*)h, (const T*)w, (const T*)c, partial, N,
+                                            P, C, S, per, vec, S, 0, st);
+    if (e) return e;
   });
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   return vmg::launch_final(partial, out, N, C, S, st);
 }
 

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the wgmma and bulk-copy kernels
 // (conv_chain.cu, group_ffn.cu, morphfc.cu's combine, ltam.cu's forward):
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for every N
-// the kernels take (a multiple of 16 up to 240), with A from shared memory
+// the kernels take (a multiple of 16 up to 240, and 56), with A from shared memory
 // (Wgmma<N>) or from registers (WgmmaRA<N>) and B from shared memory
 // through matrix descriptors; mbarriers, bulk and TMA copies both ways, and
 // the tensor-map encoders.
@@ -28,6 +28,7 @@ namespace vmg {
 #define VMG_WG_OPS8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define VMG_WG_OPS16 VMG_WG_OPS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define VMG_WG_OPS24 VMG_WG_OPS16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define VMG_WG_OPS28 VMG_WG_OPS24 ", %24, %25, %26, %27"
 #define VMG_WG_OPS32 VMG_WG_OPS24 ", %24, %25, %26, %27, %28, %29, %30, %31"
 #define VMG_WG_OPS40 VMG_WG_OPS32 ", %32, %33, %34, %35, %36, %37, %38, %39"
 #define VMG_WG_OPS48 VMG_WG_OPS40 ", %40, %41, %42, %43, %44, %45, %46, %47"
@@ -47,6 +48,7 @@ namespace vmg {
 #define VMG_WG_D8 VMG_WG_D(0)
 #define VMG_WG_D16 VMG_WG_D8, VMG_WG_D(8)
 #define VMG_WG_D24 VMG_WG_D16, VMG_WG_D(16)
+#define VMG_WG_D28 VMG_WG_D24, "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
 #define VMG_WG_D32 VMG_WG_D24, VMG_WG_D(24)
 #define VMG_WG_D40 VMG_WG_D32, VMG_WG_D(32)
 #define VMG_WG_D48 VMG_WG_D40, VMG_WG_D(40)
@@ -93,6 +95,7 @@ template <int N> struct WgmmaRA;
 VMG_WGMMA(16, 8, 9, 10, 11, 12, 13)
 VMG_WGMMA(32, 16, 17, 18, 19, 20, 21)
 VMG_WGMMA(48, 24, 25, 26, 27, 28, 29)
+VMG_WGMMA(56, 28, 29, 30, 31, 32, 33)
 VMG_WGMMA(64, 32, 33, 34, 35, 36, 37)
 VMG_WGMMA(80, 40, 41, 42, 43, 44, 45)
 VMG_WGMMA(96, 48, 49, 50, 51, 52, 53)
@@ -156,6 +159,15 @@ __device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map
       "r"(b)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, int c4, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      ::"r"(su32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(su32(b))
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, uint64_t* b) {
   asm volatile(
@@ -179,6 +191,14 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
   asm volatile(
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(su32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(su32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
       : "memory");
 }
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
@@ -285,6 +305,28 @@ inline int nhwc_box_map(CUtensorMap* map, const void* t, int N, int H, int W, in
   const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w, (cuuint32_t)box_h, 1},
                    elem[4] = {1, 1, 1, 1};
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides,
+                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 5-D tensor map over an (N, H, W, C) bf16 tensor with C split into nsp
+// pieces of C / nsp (a box dimension holds at most 256 elements): boxes of
+// all C channels x box_w columns x box_h rows of one frame, landing in
+// shared memory as (box_h, box_w, C), no swizzle, zeros out of bounds.
+inline int nhwc_split_map(CUtensorMap* map, const void* t, int N, int H, int W, int C, int nsp,
+                          int box_w, int box_h) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int cs = C / nsp;
+  const cuuint64_t dims[5] = {(cuuint64_t)cs, (cuuint64_t)nsp, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t strides[4] = {(cuuint64_t)cs * 2, (cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[5] = {(cuuint32_t)cs, (cuuint32_t)nsp, (cuuint32_t)box_w,
+                             (cuuint32_t)box_h, 1},
+                   elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(t), dims, strides,
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

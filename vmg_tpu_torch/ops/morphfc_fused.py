@@ -14,6 +14,8 @@ image, :func:`pack_combine_weight`), biases float32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -136,6 +138,117 @@ def axes_plan(C: int, chunk_h: int, chunk_w: int):
     return None
 
 
+# The bf16 token form (csrc/morphfc.cu ``morphfc_axes_token_wgmma_kernel``):
+# blocks of TOKEN_WG consumer warpgroups, each walking units of 64 tokens
+# through a ring of up to TOKEN_RING_MAX x slots; weights as B images in
+# column tiles, up to TOKEN_WMAX resident (or ring slots when streamed).
+TOKEN_WG = 2
+TOKEN_RING_MAX = 2
+TOKEN_WMAX = 8
+# The plan's fields as the C entry point reads them (``TokPlan`` in the
+# source, in this order): the kernel's, then each branch's (H, then W).
+TOKEN_PLAN_FIELDS = ("nt", "exact", "resident", "ring", "wring", "nws", "sc", "per_c", "stot")
+TOKEN_BRANCH_FIELDS = ("L", "S", "lgu", "tpz", "ucols", "upf", "ntiles", "blocks", "wpf",
+                       "fpw")
+
+
+def token_nt(C: int, chunk_h: int, chunk_w: int) -> int:
+    """Columns a weight tile of the bf16 token kernel: G chunk positions of
+    8 channels, G = the chunks rounded up to powers of two (>= 2), at most
+    the chunk at the compile-time path shapes (a tile a block of 8
+    channels: 16 at stages 1/5, 8 at stage 3), else 4 above C = 224 (28 KB
+    tiles stream beside the channel arrays) and 8 below."""
+    g = min(max(2, _pow2(chunk_h)), max(2, _pow2(chunk_w)),
+            (16 if C == 224 else 8) if token_exact(C, chunk_h, chunk_w) else
+            4 if C > 224 else 8)
+    return 8 * g
+
+
+def token_exact(C: int, chunk_h: int, chunk_w: int) -> bool:
+    """The path shapes the bf16 token kernel compiles for (stages 1/5: C =
+    224, chunk 16; stage 3: C = 448, chunk 8): tiles of whole 8-channel
+    blocks, the sums in registers (no channel arrays)."""
+    return (C, chunk_h, chunk_w) in ((224, 16, 16), (448, 8, 8))
+
+
+def token_branch(H: int, W: int, C: int, L: int, axis: int, nt: int) -> dict:
+    """One branch's geometry in the bf16 token kernel: chunk L, S = C / L
+    channels a segment, cp = L rounded up to a power of two (token rows a
+    group), gu = 64 / cp = 2**lgu groups a unit; the unit grid of a frame (H: gu
+    columns x one L-row chunk; W: gu rows x one L-column chunk); the
+    image's column tiles: blocks of 8 channels (S padded to 8), each in
+    ``tpz`` tiles of nt / 8 chunk positions."""
+    cp = _pow2(L)
+    gu = 64 // cp
+    ucols = -(-W // gu) if axis == 1 else W // L
+    urows = -(-H // L) if axis == 1 else -(-H // gu)
+    tpz = -(-L // (nt // 8))
+    return dict(L=L, S=C // L, cp=cp, gu=gu, lgu=gu.bit_length() - 1, ucols=ucols, urows=urows,
+                upf=ucols * urows, tpz=tpz, ntiles=-(-(C // L) // 8) * tpz)
+
+
+def token_smem(C: int, nt: int, ring: int, wtiles: int, nws: int) -> int:
+    """Shared memory of the bf16 token kernel (``TokLayout`` in the
+    source): TOKEN_WG rings of ``ring`` 64-token slots, ``wtiles`` weight
+    tiles (C x nt), ``nws`` channel arrays a warpgroup, the barriers."""
+    slot = -(-64 * C * 2 // 128) * 128
+    return (TOKEN_WG * ring * slot + wtiles * C * nt * 2 + TOKEN_WG * nws * C * 4
+            + (TOKEN_WG * TOKEN_RING_MAX + 2 * TOKEN_WMAX) * 8)
+
+
+def token_plan(N: int, H: int, W: int, C: int, chunk_h: int, chunk_w: int, sms: int):
+    """The bf16 token kernel's plan, or None where it has none: a dict
+    with ``branches`` (:func:`token_branch` of H then W, each with its
+    ``blocks`` and walkers: ``wpf`` walkers share each frame's units, or
+    one walker takes ``fpw`` whole frames), ``nt``, ``exact`` (a
+    compile-time path shape, :func:`token_exact`), ``resident`` (the
+    image whole in shared memory beside two slots a warpgroup, which it
+    is up to C = 224; else its tiles stream through ``wring`` slots),
+    ``ring``, ``nws``, c's reduce plan (``sc`` slices of ``per_c``
+    pixels) and ``stot`` partial rows a frame.  The grid (at most ``sms``
+    blocks) is split between the branches by their units.  The C entry
+    point takes the plan as it is (:func:`token_plan_ints`) and only
+    checks it."""
+    if C % 16 or C > 512 or chunk_h > 64 or chunk_w > 64:
+        return None
+    nt = token_nt(C, chunk_h, chunk_w)
+    brs = [token_branch(H, W, C, chunk_h, 1, nt), token_branch(H, W, C, chunk_w, 2, nt)]
+    ntmax = max(b["ntiles"] for b in brs)
+    # channel arrays a warpgroup: none at the compile-time shapes (sums in
+    # registers), one a warp where a unit has 32 or 64 groups
+    nws = 0 if token_exact(C, chunk_h, chunk_w) else 4 if min(chunk_h, chunk_w) <= 2 else 1
+    resident = ntmax <= TOKEN_WMAX and token_smem(C, nt, 2, ntmax, nws) <= MAX_SMEM
+    ring = wring = None
+    for r in (2, 1):
+        fits = [w for w in range(TOKEN_WMAX, 1, -1)
+                if token_smem(C, nt, r, ntmax if resident else w, nws) <= MAX_SMEM]
+        if fits:
+            ring, wring = r, fits[0]
+            break
+    if ring is None:
+        return None
+    units = [N * b["upf"] for b in brs]
+    caps = [-(-u // TOKEN_WG) for u in units]
+    grid = max(2, min(sms, sum(caps)))
+    bh = min(caps[0], grid - 1, max(1, round(grid * units[0] / sum(units))))
+    for b, blocks in zip(brs, (bh, min(caps[1], grid - bh))):
+        G = TOKEN_WG * blocks
+        b.update(blocks=blocks, wpf=min(G // N, b["upf"]), fpw=0) if N <= G else \
+            b.update(blocks=blocks, wpf=1, fpw=-(-N // G))
+    sc, per_c = reduce_plan(N, H * W, C, 8, sms)
+    slots = sum(b["wpf"] if b["fpw"] == 0 else 1 for b in brs)
+    return dict(branches=brs, nt=nt, exact=token_exact(C, chunk_h, chunk_w),
+                resident=resident, ring=ring, wring=wring, nws=nws, sc=sc, per_c=per_c,
+                stot=slots + sc)
+
+
+def token_plan_ints(plan) -> list:
+    """A :func:`token_plan` as the C entry point reads it: the
+    TOKEN_PLAN_FIELDS, then each branch's TOKEN_BRANCH_FIELDS."""
+    return ([int(plan[k]) for k in TOKEN_PLAN_FIELDS]
+            + [int(b[k]) for b in plan["branches"] for k in TOKEN_BRANCH_FIELDS])
+
+
 def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
                        form: str | None = None):
     """x, c (N, H, W, C) -> (h, w, psum); needs C % chunk_h == C % chunk_w
@@ -144,8 +257,8 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
     state (the JAX op folds it per call).  ``form``: "big" (the kernel
     that holds the whole C x C weight; it raises where that does not fit
     in shared memory), "token" (weight column tiles: any chunk * C) or
-    None for :func:`axes_form`.  Both compute one function, so CPU
-    tensors take the same plain version."""
+    None for :func:`axes_form`.  Both forms compute one function, so CPU tensors take the same plain
+    version."""
     if form is None:
         form = axes_form(x.shape[-1], chunk_h, chunk_w)
     elif form not in FORMS:
@@ -165,6 +278,7 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
         _build.require(t, name, shape=shape, dtype=dtype, device=dev)
     h, w = torch.empty_like(x), torch.empty_like(x)
     psum = torch.empty((N, C), dtype=torch.float32, device=dev)
+    sms = _build.sm_count(dev.index or 0)
     if form == "big" and dt == torch.bfloat16:
         plan = axes_plan(C, chunk_h, chunk_w)
         if plan is None:
@@ -176,13 +290,14 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
         # of slabs, one f32 partial per walker, pass and frame
         WT, npass, nwg, ring = plan
         tiles = N * -(-H // chunk_h) * -(-W // WT)
-        grid = min(_build.sm_count(dev.index or 0), -(-tiles // nwg))
+        grid = min(sms, -(-tiles // nwg))
         S = npass * grid * nwg
         scratch = torch.empty((grid * nwg, (C // 2 + 8) * 128), dtype=torch.float32,
                               device=dev)
     else:
         # f32 big form and the token form: one block per slab of whole W
-        # chunks, >= 64 tokens per branch, a multiple of 16
+        # chunks, >= 64 tokens per branch, a multiple of 16 (the f32 slab
+        # grid; the bf16 token kernel takes its own plan below)
         kg = -(-64 // (chunk_h * chunk_w))
         while chunk_h * chunk_w * kg % 16:
             kg += 1
@@ -194,19 +309,34 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
                 "use form='token'")
         S = -(-H // chunk_h) * -(-W // WT)
         scratch, nwg, ring, npass, grid = None, 0, 0, 0, 0
+    # the bf16 token form: the pack, c's partials, the kernel, the sums pass
+    img = bimg = plan_ints = None
+    if form == "token" and dt == torch.bfloat16:
+        tp = token_plan(N, H, W, C, chunk_h, chunk_w, sms)
+        if tp is None:
+            raise ValueError(f"the token form takes C % 16 == 0, C <= 512 and chunks <= 64 "
+                             f"in bf16; got C={C}, chunks ({chunk_h}, {chunk_w})")
+        tiles = sum(b["ntiles"] for b in tp["branches"])  # both images, back to back
+        img = torch.empty(tiles * C * tp["nt"], dtype=dt, device=dev)
+        bimg = torch.empty(tiles * tp["nt"], dtype=torch.float32, device=dev)
+        S = tp["stot"]
+        ints = token_plan_ints(tp)
+        plan_ints = (ctypes.c_int * len(ints))(*ints)
     partial = torch.empty((N, S, C), dtype=torch.float32, device=dev)
     pointers = (x.data_ptr(), c.data_ptr(), kh.data_ptr(), bh.data_ptr(), kw.data_ptr(),
-                bw.data_ptr(), h.data_ptr(), w.data_ptr(), partial.data_ptr(), psum.data_ptr())
+                bw.data_ptr(), h.data_ptr(), w.data_ptr())
     if form == "big":
         code = _build.load_library().vmg_morphfc_axes(
-            *pointers, _build.ptr(scratch), N, H, W, C, chunk_h, chunk_w, WT, nwg, ring,
-            npass, grid, _build.DTYPE_CODES[dt], _build.stream_of(x))
+            *pointers, partial.data_ptr(), psum.data_ptr(), _build.ptr(scratch), N, H, W, C,
+            chunk_h, chunk_w, WT, nwg, ring, npass, grid, _build.DTYPE_CODES[dt],
+            _build.stream_of(x))
         _build.check(code, "vmg_morphfc_axes")
         fused_morphfc_axes.launches += 1
     else:
         code = _build.load_library().vmg_morphfc_axes_token(
-            *pointers, N, H, W, C, chunk_h, chunk_w, WT, _build.DTYPE_CODES[dt],
-            _build.stream_of(x))
+            *pointers, _build.ptr(img), _build.ptr(bimg), partial.data_ptr(),
+            psum.data_ptr(), plan_ints, N, H, W, C, chunk_h, chunk_w, WT,
+            _build.DTYPE_CODES[dt], _build.stream_of(x))
         _build.check(code, "vmg_morphfc_axes_token")
         fused_morphfc_axes.token_launches += 1
     return h, w, psum
@@ -221,6 +351,44 @@ def morphfc_reduce_plain(h, w, c):
     return (h.float() + w.float() + c.float()).sum(dim=(1, 2))
 
 
+# The reduce's first pass (csrc/morphfc.cu ``morphfc_partial_kernel``):
+# blocks of RED_THREADS threads, each lane walking RED_UNROLL pixels at a time.
+RED_THREADS = 256
+RED_UNROLL = 4
+
+
+def reduce_vec(C: int, itemsize: int, ptrs=()) -> int:
+    """Channels per load of the reduce: the widest of 16, 8, 4 or 2 bytes
+    (1 element) that divides C and aligns every pointer in ``ptrs``."""
+    nbytes = 16
+    while nbytes > itemsize and (C * itemsize % nbytes
+                                 or any(p % nbytes for p in ptrs)):
+        nbytes //= 2
+    return max(1, nbytes // itemsize)
+
+
+def reduce_lanes(C: int, vec: int) -> int:
+    """Pixel lanes a block of the reduce's first pass: RED_THREADS threads
+    of C / vec vectors a pixel; one lane, whose threads walk more than one
+    vector each, where a pixel has more vectors than a block has threads."""
+    return max(1, RED_THREADS // (C // vec))
+
+
+def reduce_plan(N: int, P: int, C: int, vec: int, sms: int):
+    """(S, per) of the reduce's first pass: S slices of ``per`` pixels per
+    frame, each a block, none empty.  At least two blocks per SM (N S >= 2
+    sms) while a frame has a pixel for each of a block's lanes; fewer
+    otherwise.  A function of the shape, the load width ``vec`` and the
+    card's SM count only; ``vec`` (:func:`reduce_vec`) depends on the
+    pointers' alignment too, so a view that starts off a 16-byte boundary
+    sums in another order than a fresh tensor of its shape.  Fresh tensors
+    of one shape repeat the partial sums, and the result, bit for bit."""
+    lanes = reduce_lanes(C, vec)
+    S = max(1, min(-(-2 * sms // N), P // lanes))
+    per = -(-P // S)
+    return -(-P // per), per
+
+
 def fused_morphfc_reduce(h, w, c):
     if h.device.type == "cpu":
         return morphfc_reduce_plain(h, w, c)
@@ -229,14 +397,13 @@ def fused_morphfc_reduce(h, w, c):
     for name, t in (("w", w), ("c", c)):
         _build.require(t, name, shape=h.shape, dtype=h.dtype, device=h.device)
     P = H * W
-    # pixel slices per frame (pass 1): >= 64 pixels each, <= 64 slices, so
-    # small frames still spread over the SMs
-    S = max(1, min(64, -(-P // 64)))
+    vec = reduce_vec(C, h.element_size(), [t.data_ptr() for t in (h, w, c)])
+    S, per = reduce_plan(N, P, C, vec, _build.sm_count(h.device.index or 0))
     partial = torch.empty((N, S, C), dtype=torch.float32, device=h.device)
     out = torch.empty((N, C), dtype=torch.float32, device=h.device)
     code = _build.load_library().vmg_morphfc_reduce(
         h.data_ptr(), w.data_ptr(), c.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), N, P, C, S, _build.DTYPE_CODES[h.dtype],
+        out.data_ptr(), N, P, C, S, per, vec, _build.DTYPE_CODES[h.dtype],
         _build.stream_of(h))
     _build.check(code, "vmg_morphfc_reduce")
     fused_morphfc_reduce.launches += 1

@@ -25,13 +25,21 @@ with its sum over a FULL_PRESET clip's 60 launches (12 at each K), and at
 the few-levels head width (1x128x128x144, d = 36, K = 3); the backward at
 the training crop (1x64x64x112) at K = 1..5 with its sum over a training
 step's 60 launches, and at d = 36 (1x64x64x144, K = 3), with bf16 keys and
-values; and the axes kernel's big form at stages 0/6 (16x184x320x112,
-chunk 8).  Each kernel is first
-held to its own tree's plain version (1e-2 of max|plain|, the pin
-exactly; LTAM's f32 output and dq 1e-4).  One JSON line per process (median and range over
-``--reps`` timings of 20 calls each), then the card's name and power
-limit, then one JSON line of this checkout's median over the other's for
-each timing.
+values; the axes kernel's big form at stages 0/6 (16x184x320x112,
+chunk 8); its token form at stages 1/5 (16x92x160x224, chunk 16) and 3
+(16x23x40x448, chunk 8), with the 'hybrid' form those stages run beside
+it (the module's axis FCs, then the reduce); and the reduce at every
+shape it runs (FULL_PRESET's stages 1/5, 2/4 and 3, the few-levels
+preset's 32x128x128 and 32x64x64 at C = 144) and at stages 0/6
+(16x184x320x112, the kernel table's continuity row), with its sum over a
+clip (``reduce_per_clip``: 8, 4 and 2 launches; ``reduce_per_clip_few``:
+8 and 4).  Each kernel is first held to its own tree's plain version
+(1e-2 of max|plain|, the pin exactly; LTAM's f32 output and dq 1e-4; the
+f32 sums 1e-6 of the sum of their terms' magnitudes).  One JSON line per
+process (median and range over ``--reps`` timings of 20 calls each),
+then the card's name and power limit, then one JSON line of this
+checkout's median over the other's for each timing.  ``--only
+reduce,token`` (key prefixes) times just those kernels: a quick check.
 """
 
 from __future__ import annotations
@@ -61,6 +69,15 @@ LTAM_CASES = [(184, 320, 28, K) for K in range(1, 6)] + [(128, 128, 36, 3)]
 LTAM_BWD_CASES = [(64, 64, 28, K) for K in range(1, 6)] + [(64, 64, 36, 3)]
 # (N, H, W, C, chunk) of the axes kernel: FULL_PRESET's stages 0/6
 AXES_SHAPE = (16, 184, 320, 112, 8)
+# (N, H, W, C, chunk) of the token form: FULL_PRESET's stages 1/5 and 3
+TOKEN_SHAPES = [(16, 92, 160, 224, 16), (16, 23, 40, 448, 8)]
+# (N, H, W, C) of the reduce and its launches per clip: FULL_PRESET's
+# stages 1/5, 2/4 and 3 ('hybrid' mixers), the few-levels preset's two
+# resolutions (32 frames, C = 144), and stages 0/6 (the 'full' form runs
+# there: a continuity row, no launches)
+REDUCE_SHAPES = [((16, 92, 160, 224), 8), ((16, 46, 80, 224), 4), ((16, 23, 40, 448), 2),
+                 ((32, 128, 128, 144), 8), ((32, 64, 64, 144), 4), ((16, 184, 320, 112), 0)]
+REDUCE_FEW = {(32, 128, 128, 144), (32, 64, 64, 144)}
 
 
 def ffn_key(shape, groups) -> str:
@@ -77,6 +94,14 @@ def ltam_key(h, w, d, K, kind="ltam") -> str:
 
 def axes_key() -> str:
     return "axes_" + "x".join(map(str, AXES_SHAPE[:4]))
+
+
+def token_key(shape, kind="token") -> str:
+    return f"{kind}_" + "x".join(map(str, shape[:4])) + f"_c{shape[4]}"
+
+
+def reduce_key(shape) -> str:
+    return "reduce_" + "x".join(map(str, shape))
 
 
 def _this_timer():
@@ -105,9 +130,10 @@ def _unfenced(fn, iters, warmup=3):
     return start.elapsed_time(end) / 1e3 / iters
 
 
-def _side(root: Path, reps: int) -> dict:
-    """Times the chain, the pin and their yardsticks with the package at
-    ``root``; raises if a kernel disagrees with its plain version."""
+def _side(root: Path, reps: int, only=None) -> dict:
+    """Times the kernels with the package at ``root`` (those whose keys
+    start with one of ``only``, if given); raises if a kernel disagrees
+    with its plain version."""
     sys.path.insert(0, str(root))
     import torch
     import torch.nn.functional as F
@@ -134,10 +160,15 @@ def _side(root: Path, reps: int) -> dict:
                 "ms_unfenced": statistics.median(old),
                 "range_unfenced": [min(old), max(old)]}
 
+    def wanted(*prefixes):
+        return only is None or any(p.startswith(o) for p in prefixes for o in only)
+
     out = {"tree": str(root), "package": str(pkg)}
     C, h, w = 112, 184, 320
     with torch.no_grad():
         for N, kw in ((1, dict(res_scale=0.1)), (16, dict(emit_psum=True))):
+            if not wanted("chain", "module"):
+                continue
             x = rn(N, h, w, C)
             wc = [rn(C, C, 3, 3, scale=(9 * C) ** -0.5) for _ in range(2)]
             bc = [rn(C, scale=0.1) for _ in range(2)]
@@ -162,13 +193,14 @@ def _side(root: Path, reps: int) -> dict:
             out[f"chain_n{N}"] = {**time_both(chain), "max_abs_err": err}
             out[f"module_n{N}"] = time_both(module)
             del x, xc, ops, wc, wcl, got, want
-        x = rn(1, h, w, 2 * C)
-        if not torch.equal(conv_chain.layout_pin(x), x):
-            raise AssertionError("the pin's copy differs from its input")
-        out["pin"] = time_both(lambda: conv_chain.layout_pin(x))
-        out["clone"] = time_both(lambda: x.clone())
-        del x
-        for (N, h, w, C), G, ratio in FFN_SHAPES:
+        if wanted("pin", "clone"):
+            x = rn(1, h, w, 2 * C)
+            if not torch.equal(conv_chain.layout_pin(x), x):
+                raise AssertionError("the pin's copy differs from its input")
+            out["pin"] = time_both(lambda: conv_chain.layout_pin(x))
+            out["clone"] = time_both(lambda: x.clone())
+            del x
+        for (N, h, w, C), G, ratio in FFN_SHAPES if wanted("ffn") else ():
             Fh = ratio * C
             x = rn(N, h, w, C)
             w1 = rn(Fh, C // G, 3, 3, scale=(9 * C / G) ** -0.5)
@@ -196,7 +228,7 @@ def _side(root: Path, reps: int) -> dict:
         # the Pk operand its tree's bf16 kernel takes (a tree with
         # pack_combine_weight takes the B image)
         pack = getattr(morphfc_fused, "pack_combine_weight", lambda pk: pk)
-        for N, hc, wc, C in COMBINE_SHAPES:
+        for N, hc, wc, C in COMBINE_SHAPES if wanted("combine") else ():
             x, xh, xw, xc, res = (rn(N, hc, wc, C) for _ in range(5))
             a = torch.softmax(torch.randn(N, 3, C, generator=gen, device=dev), dim=1).to(dt)
             pk, pb = rn(C, C, scale=0.02), torch.randn(C, generator=gen, device=dev) * 0.1
@@ -207,26 +239,66 @@ def _side(root: Path, reps: int) -> dict:
                 lambda: morphfc_fused.fused_morphfc_combine(*cargs, residual=res)),
                 "max_rel_err": err}
             del x, xh, xw, xc, res, cargs, pargs
-        # the axes kernel (big form) at stages 0/6: both branches at chunk 8,
-        # the decayed weights as the module packs them (C_in, C_out)
-        N, hh, ww, C, ck = AXES_SHAPE
-        x, xc = rn(N, hh, ww, C), rn(N, hh, ww, C, scale=0.01)
-        kh, kw = rn(C, C, scale=0.02), rn(C, C, scale=0.02)
-        bh, bw = (torch.randn(C, generator=gen, device=dev) * 0.1 for _ in range(2))
-        aargs = (x, xc, kh, bh, kw, bw)
-        got = morphfc_fused.fused_morphfc_axes(*aargs, chunk_h=ck, chunk_w=ck, form="big")
-        want = morphfc_fused.morphfc_axes_plain(*aargs, chunk_h=ck, chunk_w=ck)
-        err = max(held("axes h", got[0], want[0], 1e-2), held("axes w", got[1], want[1], 1e-2))
-        out[axes_key()] = {**time_both(lambda: morphfc_fused.fused_morphfc_axes(
-            *aargs, chunk_h=ck, chunk_w=ck, form="big")), "max_rel_err": err}
-        del x, xc, aargs, got, want
+        def held_sums(name, got, want, terms):
+            err = ((got - want).abs() / terms).max().item()
+            if not err <= 1e-6:
+                raise AssertionError(f"{name}: sums off by {err} of sum|terms|")
+            return err
+
+        # the axes kernel: the big form at stages 0/6 (both branches at
+        # chunk 8), the token form at stages 1/5 and 3 next to the 'hybrid'
+        # form; the decayed weights as the module packs them (C_in, C_out)
+        from vmg_tpu_torch.models.blocks import _axis_mix
+
+        for (N, hh, ww, C, ck), form in [(AXES_SHAPE, "big")] + [
+                (shape, "token") for shape in TOKEN_SHAPES]:
+            key = axes_key() if form == "big" else token_key((N, hh, ww, C, ck))
+            if not wanted(key.split("_")[0], "hybrid"):
+                continue
+            x, xc = rn(N, hh, ww, C), rn(N, hh, ww, C, scale=0.01)
+            kh, kw = rn(C, C, scale=0.02), rn(C, C, scale=0.02)
+            bh, bw = (torch.randn(C, generator=gen, device=dev) * 0.1 for _ in range(2))
+            aargs = (x, xc, kh, bh, kw, bw)
+
+            def axes():
+                return morphfc_fused.fused_morphfc_axes(*aargs, chunk_h=ck, chunk_w=ck, form=form)
+
+            got = axes()
+            ref = morphfc_fused.morphfc_axes_plain(*aargs, chunk_h=ck, chunk_w=ck)
+            terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (ref[0], ref[1], xc))
+            err = max(held("axes h", got[0], ref[0], 1e-2), held("axes w", got[1], ref[1], 1e-2))
+            out[key] = {**time_both(axes), "max_rel_err": err,
+                        "sums_rel_err": held_sums("axes psum", got[2], ref[2], terms)}
+            if form == "token":
+                def hybrid():
+                    hb = _axis_mix(x, kh, bh.to(dt), ck, 1).contiguous()
+                    wb = _axis_mix(x, kw, bw.to(dt), ck, 2).contiguous()
+                    return morphfc_fused.fused_morphfc_reduce(hb, wb, xc)
+
+                out[token_key((N, hh, ww, C, ck), "hybrid")] = time_both(hybrid)
+            del x, xc, aargs, got, ref
+        # the reduce at each shape it runs, f32 sums of three bf16 tensors
+        for shape, _ in REDUCE_SHAPES if wanted("reduce") else ():
+            xh, xw, xc = (rn(*shape) for _ in range(3))
+            terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (xh, xw, xc))
+            err = held_sums("reduce", morphfc_fused.fused_morphfc_reduce(xh, xw, xc),
+                            morphfc_fused.morphfc_reduce_plain(xh, xw, xc), terms)
+            out[reduce_key(shape)] = {**time_both(
+                lambda: morphfc_fused.fused_morphfc_reduce(xh, xw, xc)), "sums_rel_err": err}
+            del xh, xw, xc
+        if wanted("reduce"):
+            # device time per clip: FULL_PRESET's 14 launches, the few-levels 12
+            for name, few in (("reduce_per_clip", False), ("reduce_per_clip_few", True)):
+                out[name] = {t: sum(k * out[reduce_key(s)][t] for s, k in REDUCE_SHAPES
+                                    if (s in REDUCE_FEW) == few)
+                             for t in ("ms", "ms_unfenced")}
         # the LTAM forward at the stage-0 shape at K = 1..5 and at the
         # few-levels head width (d = 36, 1x128x128, K = 3); the backward at
         # the training crop 1x64x64 at K = 1..5 and at d = 36, K = 3
         for (hh, ww, C, heads), Ks in (((184, 320, 112, 4), (1, 2, 3, 4, 5)),
                                        ((128, 128, 144, 4), (3,)),
                                        ((64, 64, 112, 4), (1, 2, 3, 4, 5)),
-                                       ((64, 64, 144, 4), (3,))):
+                                       ((64, 64, 144, 4), (3,))) if wanted("ltam") else ():
             for K in Ks:
                 q = torch.nn.functional.normalize(
                     torch.randn(1, hh, ww, C, generator=gen, device=dev), dim=-1) * \
@@ -254,11 +326,13 @@ def _side(root: Path, reps: int) -> dict:
                                                                    "max_rel_err": err}
         # device time per FULL_PRESET clip (forward) and training step
         # (backward): 12 launches at each K
-        out["ltam_per_clip"] = {t: 12 * sum(out[ltam_key(184, 320, 28, K)][t] for K in range(1, 6))
-                                for t in ("ms", "ms_unfenced")}
-        out["ltam_bwd_per_step"] = {
-            t: 12 * sum(out[ltam_key(64, 64, 28, K, "ltam_bwd")][t] for K in range(1, 6))
-            for t in ("ms", "ms_unfenced")}
+        if wanted("ltam"):
+            out["ltam_per_clip"] = {
+                t: 12 * sum(out[ltam_key(184, 320, 28, K)][t] for K in range(1, 6))
+                for t in ("ms", "ms_unfenced")}
+            out["ltam_bwd_per_step"] = {
+                t: 12 * sum(out[ltam_key(64, 64, 28, K, "ltam_bwd")][t] for K in range(1, 6))
+                for t in ("ms", "ms_unfenced")}
     return out
 
 
@@ -267,9 +341,11 @@ def main(argv=None) -> int:
     ap.add_argument("--other", type=Path, help="root of the other checkout")
     ap.add_argument("--side", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", help="comma-separated key prefixes to time (default: all)")
     args = ap.parse_args(argv)
+    only = None if args.only is None else args.only.split(",")
     if args.side is not None:
-        print(json.dumps(_side(args.side, args.reps)), flush=True)
+        print(json.dumps(_side(args.side, args.reps, only)), flush=True)
         return 0
     if args.other is None:
         ap.error("--other is required")
@@ -277,7 +353,8 @@ def main(argv=None) -> int:
     for label, root in (("other", args.other), ("this", _ROOT), ("this", _ROOT),
                         ("other", args.other)):
         res = subprocess.run([sys.executable, __file__, "--side", str(root.resolve()),
-                              "--reps", str(args.reps)],
+                              "--reps", str(args.reps)]
+                             + ([] if only is None else ["--only", args.only]),
                              stdout=subprocess.PIPE, text=True, check=True, timeout=900)
         line = json.loads(res.stdout.strip().splitlines()[-1])
         print(json.dumps({"side": label, **line}), flush=True)
@@ -292,7 +369,11 @@ def main(argv=None) -> int:
     keys += [combine_key(shape) for shape in COMBINE_SHAPES]
     keys += [ltam_key(*case) for case in LTAM_CASES]
     keys += [ltam_key(*case, "ltam_bwd") for case in LTAM_BWD_CASES]
-    for key in keys:
+    keys += [token_key(shape, kind) for shape in TOKEN_SHAPES
+             for kind in ("token", "hybrid")]
+    keys += [reduce_key(shape) for shape, _ in REDUCE_SHAPES]
+    keys += ["reduce_per_clip", "reduce_per_clip_few"]
+    for key in (k for k in keys if all(k in r for _, r in runs)):
         for timer in ("ms", "ms_unfenced"):
             med = {s: statistics.median(r[key][timer] for lab, r in runs if lab == s)
                    for s in ("this", "other")}
