@@ -37,9 +37,12 @@ Phases (any failure exits non-zero):
      12 launches);
  2p. the probes: every probe of ``vmg_tpu_torch.tools.exp_probe`` and
      ``exp_probe2`` called directly (copies bit-exact, products within 1
-     bf16 ulp of max|plain|), each with its time, bound and one PyTorch
-     call; then both tools' command lines in-process (exit 0, one JSON
-     line per probe);
+     bf16 ulp of max|plain|, the tiles' copies on every SM bit-equal),
+     each with its time, bound and one PyTorch call (the assembled tiles
+     also beside ``torch.matmul`` of their patch), the slab copy and the
+     tile GEMM beside an empty launch's time (the launch floor) and their
+     times before the redesign; then both tools' command lines in-process
+     (exit 0, one JSON line per probe);
   3. slice parity: FULL_PRESET in float32 at 1x2x64x64, kernel path on the
      card against the plain path (CPU tensors) with the same weights;
  3b. the same with the opt-in kernel forms: the RCAB and trajectory conv
@@ -192,6 +195,9 @@ REDUCE_BEFORE_MS = {(16, 92, 160, 224): 0.2156, (16, 46, 80, 224): 0.0638,
                     (16, 23, 40, 448): 0.0841, (32, 128, 128, 144): 0.3060,
                     (32, 64, 64, 144): 0.0806, (16, 184, 320, 112): 0.4759}
 TOKEN_BEFORE_MS = {(16, 92, 160, 224): 1.2431, (16, 23, 40, 448): 0.3689}
+# the probe kernels before their redesign, at their primary probes (PERF.md,
+# PR 10 step 0, time_chain_pin on the previous tree; same timer)
+PROBE_BEFORE_MS = {"slab_copy": 0.0036, "tile_gemm": 0.0464}
 # Train-step parity, f32: the loss within LOSS_TOL relative; each
 # parameter's gradient within GRAD_LIMIT of max(its max|plain|, GRAD_FLOOR x
 # the largest max|plain| of any parameter).  GRAD_TOL of its own max is
@@ -776,8 +782,11 @@ def check_probes(report, entries):
     from zero; then the tools' command lines.  Fills the three probe
     kernels' entries."""
     from vmg_tpu_torch.tools import exp_probe, exp_probe2
+    from vmg_tpu_torch.utils.profiling import timed
 
     dev = torch.device("cuda")
+    floor = timed(lambda: torch.cuda._sleep(0), iters=20) * 1e3
+    report(f"  empty launch (torch.cuda._sleep(0)): {floor:.4f} ms, the floor under these kernels")
     primary = {"slab_copy": "exp_probe.dma_sub328_lane112",
                "smem_relayout": "exp_probe2.lane_store_cg28",
                "tile_gemm": "exp_probe2.tile_assembled_s28"}
@@ -796,6 +805,8 @@ def check_probes(report, entries):
             e["probes"][f"{short}.{name}"] = r
             primary_call = primary[kernel] == f"{short}.{name}"
             lib = "" if r["library_ms"] is None else f"  library {r['library_ms']:.4f} ms"
+            if r.get("matmul_ms") is not None:
+                lib += f" (matmul of the patch {r['matmul_ms']:.4f} ms)"
             rate = "" if r.get("tf_s") is None else f"  {r['tf_s']:.1f} TFLOP/s"
             sms = ("" if "ms_all_sms" not in r else
                    f"  on all {r['sms']} SMs {r['ms_all_sms']:.4f} ms "
@@ -803,6 +814,9 @@ def check_probes(report, entries):
             report(f"  {short}.{name:20s} {kernel:13s} maxdiff {r['maxdiff']:.3e} ok  kernel "
                    f"{r['ms']:.4f} ms{rate}  plain {r['plain_ms']:.4f} ms{lib}  bound "
                    f"{r['bound_ms']:.5f} ms ({r['bound_by']}){sms}")
+            if primary_call and kernel in PROBE_BEFORE_MS:
+                report(f"    {kernel}: before the redesign {PROBE_BEFORE_MS[kernel]} ms (PERF.md, "
+                       f"same timer); {r['ms'] / floor:.2f} x the empty launch")
             if primary_call:
                 e.update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                          at=f"{short}.{name}", bound_ms=r["bound_ms"], bound_by=r["bound_by"],

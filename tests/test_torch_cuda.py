@@ -339,6 +339,98 @@ def test_probe_kernels(cuda, tool, name):
     assert res["ms"] > 0 and res["bound_ms"] > 0
 
 
+def _bf16(rng, shape, dev, scale=1.0):
+    return _randn(rng, shape, dev, torch.bfloat16, scale)
+
+
+# (id, form, A shape, B shape): the tile GEMM at the shapes its design makes
+# special -- row tiles off 64 rows, 8 to 192 columns, every A form on both
+# A paths (TMA where rows are 16-byte aligned, the producer's cp.async
+# otherwise), 'cols' with batch > 1, nine K = 28 taps, a stride-32 patch
+# whose B gap rows hold junk
+_GEMM_CASES = [
+    *[(f"rows_M100_N{n}", probes.GemmForm("rows", M=100, K=64, lda=64), (100, 64), (64, n))
+      for n in (8, 56, 168, 192)],
+    ("rows_K252_cp", probes.GemmForm("rows", M=130, K=252, lda=252), (130, 252), (252, 168)),
+    ("rows_3taps", probes.GemmForm("rows", M=150, K=72, taps=3, lda=72, tap_stride=160 * 72),
+     (480, 72), (3, 72, 56)),
+    ("cols_batch3_cp", probes.GemmForm("cols", M=100, K=40, batch=3, lda=100), (3, 40, 100),
+     (40, 24)),
+    ("cols_batch2", probes.GemmForm("cols", M=136, K=300, batch=2, lda=136), (2, 300, 136),
+     (300, 192)),
+    ("taps_K28", probes.GemmForm("taps", M=3 * 70, K=28, taps=9, Wo=70, Cx=32), (5, 80, 32),
+     (9, 28, 56)),
+    ("taps_K28_cp", probes.GemmForm("taps", M=2 * 37, K=28, taps=9, Wo=37, Cx=28), (4, 40, 28),
+     (9, 28, 168)),
+    ("taps_K40", probes.GemmForm("taps", M=2 * 70, K=40, taps=9, Wo=70, Cx=40), (4, 80, 40),
+     (9, 40, 192)),
+    ("assembled_s28", probes.GemmForm("assembled", M=2 * 100, K=252, Wo=100, Cx=128, cg=28,
+                                      stride=28), (4, 110, 128), (252, 168)),
+    ("assembled_s28_cp", probes.GemmForm("assembled", M=2 * 37, K=252, Wo=37, Cx=28, cg=28,
+                                         stride=28), (4, 40, 28), (252, 64)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("name,form,a_shape,b_shape", _GEMM_CASES,
+                         ids=[c[0] for c in _GEMM_CASES])
+def test_tile_gemm_kernel(cuda, name, form, a_shape, b_shape, reps):
+    """The tile GEMM against its plain version, within 1 bf16 ulp of the
+    largest plain output (f32 sums in another order, one rounding); every
+    copy of reps > 1 equal to the first, two runs bit-equal."""
+    rng = np.random.default_rng(7)
+    a, b = _bf16(rng, a_shape, cuda), _bf16(rng, b_shape, cuda, 0.1)
+    before = probes.tile_gemm.launches
+    got = probes.tile_gemm(a, b, form, reps=reps)
+    again = probes.tile_gemm(a, b, form, reps=reps)
+    want = probes.tile_gemm_plain(a, b, form)
+    torch.cuda.synchronize()
+    assert probes.tile_gemm.launches == before + 2
+    one = got if reps == 1 else got[0]
+    assert one.shape == want.shape
+    err = (one.float() - want.float()).abs().max().item()
+    assert err <= 8e-3 * want.float().abs().max().item(), err
+    assert torch.equal(got, again)
+    if reps > 1:
+        assert all(torch.equal(c, got[0]) for c in got)
+
+
+@pytest.mark.cuda
+def test_tile_gemm_stride32_gaps(cuda):
+    """The stride-32 assembled patch on the card: junk in B's gap rows (the
+    four rows past each tap's 28) never counts."""
+    rng = np.random.default_rng(8)
+    x = _bf16(rng, (10, 328, 128), cuda)
+    w = _bf16(rng, (9, 32, 168), cuda, 0.05)
+    w[:, 28:] = 7.0
+    form = probes.GemmForm("assembled", M=8 * 320, K=288, Wo=320, Cx=128, cg=28, stride=32)
+    got = probes.tile_gemm(x, w.reshape(288, 168), form)
+    want = probes.tile_gemm_plain(x, w.reshape(288, 168), form)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 8e-3 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H2,Wp,C,R,slabs", [
+    (20, 328, 112, 6, 2), (20, 322, 112, 6, 2), (20, 328, 28, 6, 2), (20, 328, 128, 6, 2),
+    (20, 331, 112, 6, 2), (20, 326, 28, 6, 2), (12, 100, 16, 4, 3)],
+    ids=["dma_sub328_lane112", "dma_sub322_lane112", "dma_sub328_lane28", "dma_sub328_lane128",
+         "ragged_331x112", "ragged_326x28", "R4_3slabs"])
+def test_slab_copy_kernel(cuda, H2, Wp, C, R, slabs):
+    """The slab copy bit-exact against its plain version at every dma_*
+    probe's shape and where the last piece is ragged; two runs equal."""
+    x = _bf16(np.random.default_rng(9), (2, H2, Wp, C), cuda)
+    piece = probes.slab_piece(Wp, C, R, slabs, torch.cuda.get_device_properties(cuda)
+                              .multi_processor_count)
+    if (H2, Wp, C) in ((20, 331, 112), (20, 326, 28)):
+        assert Wp % piece != 0  # the shape exercises a ragged last piece
+    got, again = probes.slab_copy(x, R, slabs), probes.slab_copy(x, R, slabs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.slab_copy_plain(x, R, slabs)) and torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_probe_wrappers_refuse(cuda):
     """A slab row that breaks the bulk copy's 16-byte rule, a product wider

@@ -11,6 +11,7 @@ themselves are checked in ``test_torch_cuda.py``.
 """
 
 import json
+import math
 import os
 import re
 
@@ -181,3 +182,315 @@ def test_probe_wrappers_refuse_non_cpu_non_cuda_tensors():
         probes.tile_gemm(m[0, 0], m[0, 0, :112, :112],
                          probes.GemmForm("rows", M=328, K=112, lda=112))
     assert [f.launches for f in counters] == before
+
+
+# ---- the kernels' plans and index arithmetic (pure Python: the CUDA
+# kernels run only on the card, test_torch_cuda.py) ----------------------
+
+_DMA = [(328, 112), (322, 112), (328, 28), (328, 128)]
+
+
+@pytest.mark.parametrize("Wp,C", _DMA + [(331, 112), (326, 28), (64, 8), (5, 3), (4000, 8)])
+@pytest.mark.parametrize("sms,slabs", [(132, 2), (114, 2), (132, 3)])
+def test_slab_piece_spreads_over_the_card(Wp, C, sms, slabs):
+    """A piece is a whole number of 16-byte units a row and stages at most
+    SLAB_PIECE_BYTES; the pieces cover the row once (a ragged last piece
+    included), and the grid (pieces x slabs) covers most of the SMs
+    without exceeding them, unless the row or the byte cap runs out."""
+    R = 6
+    piece = probes.slab_piece(Wp, C, R, slabs, sms)
+    unit = next(u for u in range(1, 9) if u * C * 2 % 16 == 0)
+    assert piece >= unit and piece % unit == 0
+    pieces = -(-Wp // piece)
+    assert (pieces - 1) * piece < Wp <= pieces * piece
+    assert R * piece * C * 2 <= max(probes.SLAB_PIECE_BYTES, R * unit * C * 2)
+    assert pieces * slabs <= sms or piece == unit
+    if (Wp, C) in _DMA:
+        assert pieces * slabs >= 0.8 * sms
+
+
+def test_slab_piece_at_the_primary_probe():
+    """dma_sub328_lane112 on 132 SMs: 66 pieces of 5 columns a slab, one
+    block on every SM (was 7 pieces of 64 KB a slab)."""
+    assert probes.slab_piece(328, 112, 6, 2, 132) == 5
+
+
+R8, W320 = 8, 320  # the stage-0 tile: 8 rows of 320 output columns
+
+
+def _s28():
+    return probes.GemmForm("assembled", M=R8 * W320, K=9 * 28, Wo=W320, Cx=128, cg=28, stride=28)
+
+
+_PLAN_CASES = [  # (form, N, reps): every probe, the all-SM forms, odd shapes
+    (_s28(), 168, 1), (_s28(), 168, 132),
+    (probes.GemmForm("assembled", M=2560, K=288, Wo=320, Cx=128, cg=28, stride=32), 168, 132),
+    (probes.GemmForm("taps", M=2560, K=28, taps=9, Wo=320, Cx=128), 168, 1),
+    (probes.GemmForm("rows", M=2560, K=128, taps=3, lda=128, tap_stride=320 * 128), 168, 132),
+    (probes.GemmForm("cols", M=384, K=288, batch=8, lda=384), 168, 1),
+    (probes.GemmForm("cols", M=384, K=288, batch=16, lda=384), 168, 1),
+    (probes.GemmForm("rows", M=2560, K=252, lda=252), 168, 1),
+    (probes.GemmForm("rows", M=100, K=64, lda=64), 8, 1),
+    (probes.GemmForm("rows", M=100, K=64, lda=64), 192, 3),
+    (probes.GemmForm("taps", M=2 * 70, K=40, taps=9, Wo=70, Cx=40), 192, 1),
+    (probes.GemmForm("cols", M=68, K=36, batch=2, lda=68), 56, 1),
+    (probes.GemmForm("rows", M=1000, K=1000, lda=1000), 56, 1)]
+
+
+@pytest.mark.parametrize("form,N,reps", _PLAN_CASES)
+@pytest.mark.parametrize("tma", [True, False])
+def test_gemm_plan_fits_and_is_whole(form, N, reps, tma):
+    """The plan's width is compiled (whole 64-column atoms), its column
+    tiles hold N (none empty), its grid is a multiple of the tiles and no
+    larger than the units, a tap's K is padded to whole stages of 32 or 64
+    columns, its B boxes divide Kp (at most 256 rows), its ring is deep
+    enough for the path (4 stages by TMA, 5 by cp.async) and its shared
+    memory fits a block."""
+    plan = probes.gemm_plan(form, N, reps, sms=132, tma=tma)
+    taps, Kt, R, W = probes.gemm_geometry(form)
+    assert plan.nt in probes.GEMM_WIDTHS
+    assert (plan.splits - 1) * plan.nt < N <= plan.splits * plan.nt
+    assert plan.units == R * -(-W // 64) * form.batch * reps * plan.splits
+    assert plan.grid % plan.splits == 0 and plan.splits <= plan.grid <= min(plan.units, 132)
+    assert plan.kw in (32, 64) and plan.Kp % plan.kw == 0 and plan.Kp - plan.kw < Kt <= plan.Kp
+    assert plan.kbox % 8 == 0 and plan.kbox <= 256 and plan.Kp % plan.kbox == 0
+    assert (4 if tma else 5) <= plan.ring <= probes.GEMM_MAX_RING
+    conv = form.kind in ("taps", "assembled")
+    assert plan.smem == probes.gemm_smem(taps, plan.Kp, plan.nt, plan.kw, plan.ring, conv)
+    assert plan.smem <= probes.SMEM_MAX
+
+
+def test_gemm_plan_fills_the_card():
+    """The stage-0 conv tile (2560 x 168) is cut into 40 row tiles x 3
+    column tiles of 64 (120 blocks on 132 SMs), its nine taps as 32-column
+    stages; run on every SM at once it keeps whole 192-column tiles, one
+    persistent block an SM; the smaller cols probe (8 x 384 rows) splits
+    in two."""
+    one = probes.gemm_plan(_s28(), 168, sms=132)
+    assert (one.nt, one.splits, one.grid, one.kw, one.Kp) == (64, 3, 120, 32, 32)
+    many = probes.gemm_plan(_s28(), 168, reps=132, sms=132)
+    assert (many.nt, many.splits, many.grid, many.units) == (192, 1, 132, 5280)
+    cols = probes.GemmForm("cols", M=384, K=288, batch=8, lda=384)
+    assert (probes.gemm_plan(cols, 168, sms=132).grid, probes.gemm_plan(cols, 168).nt) == (96, 128)
+
+
+def test_gemm_plan_refuses_what_fits_nowhere():
+    """A B that does not fit in shared memory even 64 columns wide raises
+    (no fallback)."""
+    form = probes.GemmForm("rows", M=64, K=256, taps=9, lda=256, tap_stride=64 * 256)
+    with pytest.raises(ValueError, match="does not fit"):
+        probes.gemm_plan(form, 64)
+
+
+@pytest.mark.parametrize("form,ptr,want", [
+    (_s28(), 0, True), (_s28(), 8, False),
+    (probes.GemmForm("taps", M=74, K=28, taps=9, Wo=37, Cx=28), 0, False),
+    (probes.GemmForm("rows", M=2560, K=128, taps=3, lda=128, tap_stride=320 * 128), 0, True),
+    (probes.GemmForm("rows", M=2560, K=252, lda=252), 0, False),
+    (probes.GemmForm("rows", M=64, K=64, taps=2, lda=64, tap_stride=100), 0, False),
+    (probes.GemmForm("cols", M=384, K=288, batch=8, lda=384), 0, True),
+    (probes.GemmForm("cols", M=68, K=36, batch=2, lda=68), 0, False)])
+def test_gemm_tma_where_rows_align(form, ptr, want):
+    """A comes by TMA where its rows (and taps) lie on 16-byte boundaries,
+    else by the producer threads' cp.async: the probes' conv tiles, 3dot
+    and cols by TMA, mm_2560x252's 504-byte rows by cp.async."""
+    assert probes.gemm_tma(form, ptr) is want
+
+
+# The kernel's shared-memory layouts, modelled byte for byte: TMA boxes
+# and the cp.async fallback write swizzled rows, the wgmma descriptors read
+# them back.  The 128-byte swizzle moves 16-byte chunk bits 4-6 by address
+# bits 7-9, the 64-byte one bits 4-5 by bits 7-8, on absolute addresses
+# (the card's wgmma unit and TMA agree on that: a conv tap's descriptor
+# starts dx rows into a box, off the swizzle period, with no base offset).
+
+def _swz(addr, mode):
+    return addr ^ ((((addr >> 7) & (7 if mode == 1 else 3))) << 4)
+
+
+def _tma_box(smem, base, rows, mode):
+    """A TMA box landing at base: rows (lists of values, 64 or 128 bytes
+    each) one after another, swizzled."""
+    width = len(rows[0]) * 2
+    for i, row in enumerate(rows):
+        for e, v in enumerate(row):
+            smem[_swz(base + i * width + 2 * e, mode)] = v
+
+
+def _read_kmajor(smem, start, kw, rows=64):
+    """A K-major operand (rows x 16, one k16 step) through its descriptor:
+    8-row groups 8 * kw * 2 bytes apart, rows kw * 2 bytes, the swizzle of
+    kw * 2-byte rows."""
+    mode = 1 if kw == 64 else 2
+    return [[smem.get(_swz(start + (i // 8) * 16 * kw + (i % 8) * kw * 2 + 2 * k, mode), "?")
+             for k in range(16)] for i in range(rows)]
+
+
+def _read_mnmajor(smem, start, lbo, cols):
+    """An MN-major operand (16 k x cols) through its descriptor: 128-byte
+    k rows, 8-row groups 1024 bytes apart, 64-column atoms lbo apart."""
+    return [[smem.get(_swz(start + (k // 8) * 1024 + (k % 8) * 128 + (n // 64) * lbo
+                           + 2 * (n % 64), 1), "?") for n in range(cols)] for k in range(16)]
+
+
+def _a_stage_cp(form, a, plan, bi, t, r, w0, k0, base):
+    """csrc/probes.cu gemm_stage_copy in Python: each 16-byte chunk the
+    producer's threads copy (or zero), at its swizzled place."""
+    taps, Kt, R, Wo = probes.gemm_geometry(form)
+    flat, smem = a.reshape(-1).tolist(), {}
+    kw = plan.kw
+    if form.kind == "cols":
+        for k in range(64):
+            for i in range(8):
+                gk, gm = k0 + k, w0 + 8 * i
+                vals = [flat[bi * form.K * form.M + gk * form.lda + gm + e]
+                        if gk < form.K and gm + e < form.M else 0.0 for e in range(8)]
+                dst = base + k * 128 + ((i ^ (k & 7)) << 4)
+                for e, v in enumerate(vals):
+                    smem[dst + 2 * e] = v
+        return smem
+    conv = form.kind in ("taps", "assembled")
+    rows = -(-taps // 3) * 72 if conv else 64
+    for m in range(rows):
+        for i in range(kw // 8):
+            k = k0 + 8 * i
+            w = w0 + (m % 72 if conv else m)
+            sw = (m & 7) if kw == 64 else ((m >> 1) & 3)
+            if conv:
+                src = ((m // 72 + r) * a.shape[1] + w) * form.Cx
+                ok = w < a.shape[1]
+            else:
+                src = t * form.tap_stride + w * form.lda
+                ok = w < Wo
+            vals = [flat[src + k + e] if ok and k + e < Kt else 0.0 for e in range(8)]
+            dst = base + m * kw * 2 + ((i ^ sw) << 4)
+            for e, v in enumerate(vals):
+                smem[dst + 2 * e] = v
+    return smem
+
+
+def _a_stage_tma(form, a, plan, bi, t, r, w0, k0, base):
+    """The A box of the same stage landing (zeros out of bounds)."""
+    taps, Kt, R, Wo = probes.gemm_geometry(form)
+    smem, kw = {}, plan.kw
+    if form.kind == "cols":
+        rows = [[float(a[bi, k0 + k, w0 + m]) if k0 + k < form.K and w0 + m < form.M else 0.0
+                 for m in range(64)] for k in range(64)]
+        _tma_box(smem, base, rows, 1)
+        return smem
+    if form.kind in ("taps", "assembled"):
+        rows = [[float(a[r + dy, w0 + px, k0 + e])
+                 if w0 + px < a.shape[1] and k0 + e < Kt and r + dy < a.shape[0] else 0.0
+                 for e in range(kw)] for dy in range(-(-taps // 3)) for px in range(72)]
+    else:
+        flat = a.reshape(-1)
+        arows = -(-flat.numel() // form.lda)
+        row0 = t * (form.tap_stride // form.lda) + w0
+        rows = [[float(flat[(row0 + m) * form.lda + k0 + e])
+                 if row0 + m < arows and k0 + e < Kt else 0.0 for e in range(kw)]
+                for m in range(64)]
+    _tma_box(smem, base, rows, 1 if kw == 64 else 2)
+    return smem
+
+
+_FORMS = [
+    ("assembled_s28", lambda: probes.GemmForm("assembled", M=2 * 37, K=9 * 28, Wo=37, Cx=32,
+                                              cg=28, stride=28), (4, 80, 32)),
+    ("assembled_s32", lambda: probes.GemmForm("assembled", M=2 * 37, K=9 * 32, Wo=37, Cx=32,
+                                              cg=28, stride=32), (4, 80, 32)),
+    ("taps_K28_Cx32", lambda: probes.GemmForm("taps", M=2 * 37, K=28, taps=9, Wo=37, Cx=32),
+     (4, 80, 32)),
+    ("taps_K40_Cx48", lambda: probes.GemmForm("taps", M=1 * 70, K=40, taps=9, Wo=70, Cx=48),
+     (3, 80, 48)),
+    ("rows_K72_3taps", lambda: probes.GemmForm("rows", M=70, K=72, taps=3, lda=72,
+                                               tap_stride=80 * 72), (240, 72)),
+    ("cols_batch2", lambda: probes.GemmForm("cols", M=72, K=40, batch=2, lda=72), (2, 40, 72)),
+]
+
+
+@pytest.mark.parametrize("path", ["tma", "cp.async"])
+@pytest.mark.parametrize("name,form_of,shape", _FORMS, ids=[f[0] for f in _FORMS])
+def test_gemm_a_stages_read_the_operand(name, form_of, shape, path):
+    """Every A stage -- landed by TMA boxes or copied by the producer's
+    threads -- read through the consumer's descriptors (a conv tap dx rows
+    into its tap row, each k16 step 32 bytes along the rows, MN-major
+    steps 2048 bytes) is the plain operand's block, zeros past M, past K
+    and past a tap's channels: for each A form, ragged row tiles, each tap
+    and K chunk and batch item."""
+    form = form_of()
+    a = torch.arange(1, math.prod(shape) + 1, dtype=torch.float32).reshape(shape)
+    plan = probes.gemm_plan(form, 8, tma=path == "tma")
+    taps, Kt, R, Wo = probes.gemm_geometry(form)
+    conv = form.kind in ("taps", "assembled")
+    if form.kind == "assembled":  # the nine taps of cg channels
+        ops = probes.GemmForm("taps", M=form.M, K=form.cg, taps=9, Wo=form.Wo,
+                              Cx=form.Cx).operands(a)
+    else:
+        ops = form.operands(a)
+    stage = _a_stage_tma if path == "tma" else _a_stage_cp
+    base = 4096
+    for bi in range(form.batch):
+        for r in range(R):
+            for w0 in range(0, Wo, 64):
+                for t0 in range(1 if conv else taps):
+                    for c in range(plan.Kp // plan.kw):
+                        smem = stage(form, a, plan, bi, t0, r, w0, c * plan.kw, base)
+                        for t in (range(9) if conv else [t0]):
+                            want_t = ops[t][bi if form.kind == "cols" else 0]
+                            a0 = base + ((t // 3) * 72 + t % 3) * plan.kw * 2 if conv else base
+                            for s in range(plan.kw // 16):
+                                k = c * plan.kw + 16 * s
+                                if form.kind == "cols":
+                                    got = torch.tensor(_read_mnmajor(smem, a0 + 2048 * s, 0, 64)).T
+                                else:
+                                    got = torch.tensor(_read_kmajor(smem, a0 + 32 * s, plan.kw))
+                                want = torch.zeros(64, 16)
+                                m0 = r * Wo + w0
+                                blk = want_t[m0:m0 + min(64, Wo - w0), k:k + 16]
+                                want[:blk.shape[0], :blk.shape[1]] = blk
+                                n = min(64, Wo - w0)  # rows past the image row are not stored
+                                torch.testing.assert_close(got[:n], want[:n], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("form,N", [(_s28(), 168),
+                                    (probes.GemmForm("assembled", M=2560, K=288, Wo=320, Cx=128,
+                                                     cg=28, stride=32), 168),
+                                    (probes.GemmForm("rows", M=64, K=72, taps=3, lda=72,
+                                                     tap_stride=64 * 72), 136),
+                                    (probes.GemmForm("cols", M=64, K=300, lda=64), 24)])
+def test_gemm_b_image_reads_b(form, N):
+    """The B image a block loads (one TMA box of 64 columns x Kp rows x the
+    taps an atom, from the (taps, K, N) map -- the assembled form's taps
+    stride apart with cg rows each -- zeros out of bounds) read through the
+    MN-major descriptors is B_t's block for every tap, K chunk and k16 step
+    (zero rows past a tap's K, zero columns past N); the unit walk gives
+    each (output, row tile, column tile) to exactly one block, which keeps
+    its column tile."""
+    plan = probes.gemm_plan(form, N, sms=132)
+    taps, Kt, R, W = probes.gemm_geometry(form)
+    ktap = form.stride if form.kind == "assembled" else form.K
+    b = torch.arange(1, taps * ktap * N + 1, dtype=torch.float32).reshape(taps, ktap, N)
+    b_atom = taps * plan.Kp * 128
+    tb = taps if plan.kbox == plan.Kp else 1
+    for split in range(plan.splits):
+        n0, smem = split * plan.nt, {}
+        for at in range(plan.nt // 64):
+            for t in range(0, taps, tb):
+                for k in range(0, plan.Kp, plan.kbox):
+                    rows = [[float(b[t + tt, k + kk, n0 + 64 * at + e])
+                             if k + kk < Kt and n0 + 64 * at + e < N else 0.0 for e in range(64)]
+                            for tt in range(tb) for kk in range(plan.kbox)]
+                    _tma_box(smem, at * b_atom + (t * plan.Kp + k) * 128, rows, 1)
+        for t in range(taps):
+            for k in range(0, plan.Kp, 16):
+                got = torch.tensor(_read_mnmajor(smem, (t * plan.Kp + k) * 128, b_atom, plan.nt))
+                want = torch.zeros(16, plan.nt)
+                blk = b[t, k:min(k + 16, Kt), n0:n0 + plan.nt]
+                want[:blk.shape[0], :blk.shape[1]] = blk
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+    seen = {}
+    for blk in range(plan.grid):
+        for u in range(blk, plan.units, plan.grid):
+            assert u % plan.splits == blk % plan.splits
+            seen[u] = seen.get(u, 0) + 1
+    assert sorted(seen) == list(range(plan.units)) and set(seen.values()) == {1}

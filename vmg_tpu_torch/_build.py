@@ -68,8 +68,9 @@ _SIGNATURES = {
     # in, out, A, Bin, Cin, Bout, Cout, kind, p0, p1, stream
     "vmg_probe_relayout": [_P] * 2 + [_I] * 8 + [_P],
     # a, b, out, M, N, K, taps, batch, reps, kind, lda, tap_stride,
-    # batch_stride, Wo, Wx, Cx, cg, stride, stream
-    "vmg_probe_tile_gemm": [_P] * 3 + [_I] * 15 + [_P],
+    # batch_stride, Wo, Wx, Cx, cg, stride, arows, nt, kw, kbox, ring, grid,
+    # tma, stream
+    "vmg_probe_tile_gemm": [_P] * 3 + [_I] * 22 + [_P],
 }
 
 

@@ -6,12 +6,20 @@
 // halo'd (R, Wp, C) row slab into VMEM, waited on with its DMA semaphore,
 // then rows 1 .. R-2 stored): the counterpart is the bulk asynchronous
 // copy (cp.async.bulk, the TMA's one-dimensional form) completing on an
-// mbarrier.  Bound: device memory (the output, read and written once).  A
-// 6-row slab of 328 x 112 bf16 is 440 KB, over a block's 227 KB, so the
-// slab is split along W into pieces of at most 64 KB, one block each; each
-// row of a piece is one bulk copy.  Bulk copies move multiples of 16 bytes
-// between 16-byte aligned addresses: the wrapper refuses a shape whose row
-// pieces break that rule instead of copying another way.
+// mbarrier.  Bound: device memory (the output, read and written once); at
+// the probes' 0.6 MB it is launch and memory latency.  So the slab is cut
+// along W into pieces small enough that the grid covers the card
+// (`slab_piece`: about SMs / slabs pieces a slab, each row piece a whole
+// number of 16-byte units); a block is one warp whose lane r issues row r
+// of its piece as one bulk copy on the row's own mbarrier and, as soon as
+// that row has landed, stores it back by one bulk copy
+// (cp.async.bulk.global.shared::cta).  A block's set-up before its first
+// copy (the barriers) weighs as much as the copies at this size, so the
+// kernel is launched with programmatic dependent launch (`launch_pdl`):
+// that part of a launch overlaps the end of the grid before it.  Bulk copies
+// move multiples of 16 bytes between 16-byte aligned addresses: the
+// wrapper refuses a shape whose row pieces break that rule instead of
+// copying another way.
 //
 // vmg_probe_relayout replaces the layout probes (`vmem_subshift`,
 // `vmem_lane_store`, `vmem_lane_read`, `roll_lane`, `subdim_store`,
@@ -26,71 +34,110 @@
 //
 // vmg_probe_tile_gemm replaces `mm_time` and the stage-0 conv-tile probes
 // (`tile_assembled`, `tile_accum`, `tile_3dot`): out = round(sum over taps
-// of A_t @ B_t) with f32 accumulation, bf16 wmma (16x16x16).  Bound:
-// operations at these shapes' arithmetic intensity (0.2-0.6 GFLOP against
-// ~1 MB).  One block of 8 warps per 128 output rows, each warp 16 rows x
-// all N columns (<= 192) of accumulators; per tap, the A operand is
-// gathered into shared memory in 8-byte units in the probe's form --
-// row-major, column-major (the TPU tool's contraction of dim 1), a 3x3
-// conv tap of an (R + 2, Wx, Cx) slab, or all nine taps assembled as one
-// im2col operand at a channel stride (zeros in the gaps) -- and B_t is
-// staged beside it, K padded to 16 with zeros, N to 16.  A `reps` grid
-// dimension runs the same tile on every SM at once.
+// of A_t @ B_t) with f32 accumulation.  Bound: operations at these shapes'
+// arithmetic intensity (0.2-0.6 GFLOP against ~1 MB), so the tile has to
+// reach the tensor cores the way a conv kernel on this card would.  What
+// limits a block here is the number of copies it asks of its SM's TMA unit
+// (a fixed cost a box, then one a 64- or 128-byte row) or of its threads
+// (cp.async), not the bytes or the products, so the design is about feeding:
+//   - wgmma m64nNTk16 on 64-row tiles, N cut into `splits` column tiles of
+//     NT = 64, 128 or 192 (whole 128-byte swizzle atoms) where one tile per
+//     64 rows would leave SMs idle (`probes.gemm_plan`: 40 row tiles x 3
+//     column tiles of 64 at the stage-0 tile's 2560 x 168).  A block owns
+//     one column tile and walks (output, row tile) units, so B stays.
+//   - B, every tap of the block's columns, is loaded once: one TMA box of
+//     64 columns x Kp rows x taps per atom from a 3-D map over (taps, K,
+//     N), the 128-byte swizzle, read MN-major by the descriptors; rows K ..
+//     Kp (K padded to 32 or 64) arrive as zeros (out of bounds).
+//   - A streams through a ring of stages by TMA where its rows are 16-byte
+//     aligned: K-major boxes of 64 rows x kw columns (kw = 32, the 64-byte
+//     swizzle, where a tap's K fits 32; else 64, the 128-byte), "cols" (the
+//     TPU tool's contraction of dim 1, A = a[bi]^T) as MN-major 64 x 64
+//     boxes.  The conv forms load one box a K chunk: the three tap rows dy
+//     of 72 pixels (64 output columns and the halo), and tap (dy, dx) is
+//     that box's tap row dy from pixel row dx on (the wgmma unit swizzles by
+//     absolute address, as TMA does, so such a start needs no base offset):
+//     one box for nine taps.  The assembled form is those nine taps of cg
+//     channels, each tap's channels past cg out of bounds in A's and B's
+//     maps (zeros: exact), so its gaps are never read.  Where a row is not
+//     16-byte aligned (a 252-column "rows" A), the producer warpgroup's 128
+//     threads copy the same layouts with cp.async (16 bytes, or two 8-byte
+//     halves; zeros past M and K), signalling a stage once the one behind
+//     it has landed.
+//   - The consumer warpgroup runs each stage's wgmma chain and hands a
+//     stage back on its empty mbarrier once the chain three after it is in
+//     flight: copies overlap the products.
+//   - Epilogue: the accumulator fragments as bf16 pairs into a staged tile
+//     (64 rows of 128 bytes an atom, swizzled: no bank conflicts), out by
+//     TMA stores, rows past the image row and columns past N clipped by the
+//     map.  (Storing the pairs straight from registers, each warp store
+//     spread over 8 rows, was slower for a 192-column tile.)
+//   - Programmatic dependent launch, as the slab copy.
+// The `reps` dimension runs the same product that many times at once (one
+// output each), the conv tile on every SM.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace vmg {
 
 // ---- slab copy ---------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
+
+// Programmatic dependent launch: a grid launched with the stream
+// serialization attribute (launch_pdl) starts while the grid before it in
+// the stream finishes; it lets the next grid start likewise
+// (pdl_launch_dependents), and waits until the grid before it has completed
+// and its memory is visible (pdl_wait) before it touches device memory.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+template <typename... Params, typename... Args>
+int launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, void* stream,
+               Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// out[i, r, w, :] = x[0, i * (R - 2) + 1 + r, w, :], r < R - 2; grid
-// (pieces, slabs), piece p covering columns p * wpiece .. + wpiece.
-__global__ void __launch_bounds__(kThreads)
+// out[i, r - 1, w, :] = x[0, i * (R - 2) + r, w, :], 1 <= r <= R - 2; grid
+// (pieces, slabs), piece p covering columns p * wpiece .. + wpiece; one
+// warp, lane r issuing row r (and r + 32, ..) on the row's own mbarrier.
+// Shared memory: R row pieces wpiece * C * 2 bytes apart, then R mbarriers.
+__global__ void __launch_bounds__(32)
 slab_copy_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int Wp, int C, int R,
                  int wpiece) {
   extern __shared__ __align__(128) unsigned char slab[];
-  __shared__ __align__(8) unsigned long long bar;
-  const int i = blockIdx.y, w0 = blockIdx.x * wpiece;
-  const int ncols = min(wpiece, Wp - w0);
-  const unsigned row_bytes = (unsigned)ncols * C * 2;
-  const unsigned b = smem_addr(&bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  pdl_launch_dependents();
+  const int lane = threadIdx.x, i = blockIdx.y, w0 = blockIdx.x * wpiece;
+  const unsigned row_bytes = (unsigned)(min(wpiece, Wp - w0) * C * 2);
+  const size_t pitch = (size_t)wpiece * C * 2;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(slab + (size_t)R * pitch);
+  for (int r = lane; r < R; r += 32) mbar_init(&bar[r], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncwarp();
+  pdl_wait();
+  for (int r = lane; r < R; r += 32) {  // every row of the halo'd piece
+    mbar_expect(&bar[r], row_bytes);
+    bulk_load(slab + r * pitch, x + ((size_t)(i * (R - 2) + r) * Wp + w0) * C, row_bytes,
+              &bar[r]);
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-                 "r"(row_bytes * R)
-                 : "memory");
-    for (int r = 0; r < R; ++r) {
-      const bf16* src = x + ((size_t)(i * (R - 2) + r) * Wp + w0) * C;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(slab + (size_t)r * row_bytes)),
-          "l"(src), "r"(row_bytes), "r"(b)
-          : "memory");
-    }
+  for (int r = lane; r < R; r += 32) {  // an inner row out as soon as it has landed
+    mbar_wait(&bar[r], 0);  // (the halo rows too, before the block's shared memory goes)
+    if (r == 0 || r == R - 1) continue;
+    bulk_store(out + ((size_t)(i * (R - 2) + r - 1) * Wp + w0) * C, slab + r * pitch, row_bytes);
+    bulk_commit();
   }
-  unsigned done = 0;
-  while (!done) {  // wait for phase 0 to complete: every byte has landed
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(b)
-        : "memory");
-  }
-  const int nv = row_bytes / 16;
-  for (int r = 1; r < R - 1; ++r) {
-    const uint4* s = reinterpret_cast<const uint4*>(slab + (size_t)r * row_bytes);
-    uint4* d = reinterpret_cast<uint4*>(out + (((size_t)i * (R - 2) + r - 1) * Wp + w0) * C);
-    for (int e = threadIdx.x; e < nv; e += kThreads) d[e] = s[e];
-  }
+  bulk_wait_read<0>();  // and the stores have read it
 }
 
 // ---- relayout ----------------------------------------------------------------
@@ -175,114 +222,287 @@ relayout_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, int Bin, in
 
 // ---- tile GEMM ---------------------------------------------------------------
 
-constexpr int kGemmMT = 128;  // output rows per block: 8 warps x 16
-constexpr int kGemmNT = 12;   // N <= 192
+constexpr int kGemmMT = 64;        // output rows per tile: one m64 wgmma row block
+constexpr int kGemmThreads = 256;  // the consumer warpgroup, then the producer warpgroup
+constexpr int kGemmMaxRing = 16;
+constexpr int kAtom = 64 * 128;    // a 64-row x 128-byte swizzle atom block
+constexpr int kConvRows = 72;      // a conv stage's pixel rows: 64 output columns, the halo, to 8
 
-// The A operand's forms (tap t, batch item bi, row m, column k < K).
+// The A operand's forms (tap t, batch item bi, row m, column k < K); the
+// assembled form arrives as nine conv taps of cg columns each.
 struct GemmForm {
-  int kind;       // 0 rows, 1 cols, 2 conv taps, 3 assembled
-  int lda;        // rows / cols: the row (column) stride
-  int tap_stride; // rows: elements between taps
+  int kind;        // 0 rows, 1 cols, 2 conv taps
+  int lda;         // rows / cols: the row (column) stride
+  int tap_stride;  // rows: elements between taps
   int batch_stride;
-  int Wo, Wx, Cx, cg, stride;  // conv forms: output width, slab width and channels
+  int Wx, Cx;      // conv taps: slab width and channels
 };
 
-// Row-wise forms: where columns k .. k + 3 of row m start in a, or null
-// where they are zeros (the gaps of a stride wider than the group).
-__device__ __forceinline__ const bf16* gemm_a4(const bf16* __restrict__ a, const GemmForm& f,
-                                               int t, int m, int k) {
-  if (f.kind == 0) return a + (size_t)t * f.tap_stride + (size_t)m * f.lda + k;
-  if (f.kind == 3) {
-    t = k / f.stride;
-    k %= f.stride;
-    if (k >= f.cg) return nullptr;
+// The launch: the problem and `probes.gemm_plan`'s choices.  Row tiles are
+// R image rows x wtiles 64-wide pieces of Wo (rows / cols: R = 1, Wo = M);
+// a unit is (output, row tile, column tile).
+struct GemmArgs {
+  const bf16* a;
+  int M, N, K, taps, batch, units, R, Wo, wtiles;
+  int Kp, kw, nk, kbox, ring, splits, tma;  // a tap's K padded to nk chunks of kw (32 or 64)
+  GemmForm f;
+};
+struct GemmMaps {
+  CUtensorMap a, b, out;
+};
+
+// 16 or 8 bytes global -> shared, or zeros where src is null (source size 0)
+__device__ __forceinline__ void cp_async_16z(unsigned dst, const void* src, const void* any) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src ? src : any), "r"(src ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_8z(unsigned dst, const void* src, const void* any) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src ? src : any), "r"(src ? 8 : 0)
+               : "memory");
+}
+// One 16-byte chunk: one copy where both halves are contiguous and aligned.
+__device__ __forceinline__ void cp_async_chunk(unsigned dst, const bf16* p0, const bf16* p1,
+                                               const void* any) {
+  if (p0 != nullptr && p1 == p0 + 4 && (reinterpret_cast<uintptr_t>(p0) & 15) == 0) {
+    cp_async_16z(dst, p0, any);
+  } else {
+    cp_async_8z(dst, p0, any);
+    cp_async_8z(dst + 8, p1, any);
   }
-  const int r = m / f.Wo, w = m % f.Wo;
-  return a + ((size_t)(t / 3 + r) * f.Wx + t % 3 + w) * f.Cx + k;
 }
 
-__host__ __device__ inline size_t gemm_smem(int Kp, int Np) {
-  const size_t ab = (size_t)kGemmMT * (Kp + kPadH) * 2 + (size_t)Kp * (Np + kPadH) * 2;
-  const size_t o = (size_t)kGemmMT * (Np + kPadF) * 4;
-  return ab > o ? ab : o;
+__host__ __device__ inline size_t gemm_b_bytes(int taps, int Kp, int NT) {
+  return (size_t)(NT / 64) * taps * Kp * 128;
+}
+// A stage: 64 rows of kw columns, or for conv taps the (taps + 2) / 3 tap
+// rows dy of 72 pixels each (one box; each a whole number of swizzle
+// periods, 512 or 1024 bytes); its bytes, and its slot (1024-byte aligned)
+__host__ __device__ inline size_t gemm_stage_bytes(int kw, int taps, int conv) {
+  return conv ? (size_t)(taps + 2) / 3 * kConvRows * kw * 2 : (size_t)kGemmMT * kw * 2;
+}
+__host__ __device__ inline size_t gemm_slot_bytes(int kw, int taps, int conv) {
+  return (gemm_stage_bytes(kw, taps, conv) + 1023) / 1024 * 1024;
+}
+// B image, A ring, output tile, barriers (1 + 2 kGemmMaxRing), alignment slack
+__host__ __device__ inline size_t gemm_smem(int taps, int Kp, int NT, int kw, int ring, int conv) {
+  return gemm_b_bytes(taps, Kp, NT) + ring * gemm_slot_bytes(kw, taps, conv) +
+         (size_t)(NT / 64) * kAtom + (1 + 2 * kGemmMaxRing) * 8 + 1024;
 }
 
-// out (reps, batch, M, N) = round(sum_t A_t (M x K) @ b[t] (K x N)); grid
-// (ceil(M / 128), batch, reps).
-__global__ void __launch_bounds__(kThreads)
-tile_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bm, bf16* __restrict__ out,
-                 int M, int N, int K, int taps, GemmForm f) {
-  extern __shared__ __align__(128) unsigned char raw[];
-  const int Kp = (K + 15) / 16 * 16, Np = (N + 15) / 16 * 16;
-  const int lda = Kp + kPadH, ldb = Np + kPadH, ldo = Np + kPadF;
-  bf16* As = reinterpret_cast<bf16*>(raw);
-  bf16* Bs = As + kGemmMT * lda;
-  float* Os = reinterpret_cast<float*>(raw);  // after the last tap
-  const int m0 = blockIdx.x * kGemmMT, bi = blockIdx.y, warp = threadIdx.x >> 5;
-  const int NT = Np / 16;
-  FragC acc[kGemmNT];
-#pragma unroll
-  for (int j = 0; j < kGemmNT; ++j) wm::fill_fragment(acc[j], 0.f);
-  const bf16* ab = a + (size_t)bi * f.batch_stride;
-  for (int t = 0; t < taps; ++t) {
-    // A in 8-byte units: 4 columns of one row, or (column-major source) 4
-    // rows of one column, neighbouring threads on neighbouring units
-    if (f.kind == 1) {
-      constexpr int MU = kGemmMT / 4;
-      for (int u = threadIdx.x; u < MU * Kp; u += kThreads) {
-        const int m = (u % MU) * 4, k = u / MU;
-        uint2 v = make_uint2(0, 0);
-        if (m0 + m < M && k < K)
-          v = *reinterpret_cast<const uint2*>(ab + (size_t)k * f.lda + m0 + m);
-        const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) As[(m + i) * lda + k] = e[i];
-      }
-    } else {
-      const int KU = Kp / 4;
-      for (int u = threadIdx.x; u < kGemmMT * KU; u += kThreads) {
-        const int m = u / KU, k = (u % KU) * 4;
-        uint2 v = make_uint2(0, 0);
-        if (m0 + m < M && k < K) {
-          const bf16* p = gemm_a4(ab, f, t, m0 + m, k);
-          if (p != nullptr) v = *reinterpret_cast<const uint2*>(p);
-        }
-        *reinterpret_cast<uint2*>(As + m * lda + k) = v;
-      }
+// An A stage by the producer's 128 threads with cp.async, in the layout
+// the TMA path's boxes land in: K-major rows of kw * 2 bytes (64 rows of
+// a; conv: tap row dy's 72 pixels of image row r + dy from column w0, the
+// tap rows one after another), 16-byte chunk i of row m at i ^ (m % 8) (kw
+// = 64, the 128-byte swizzle) or i ^ (m / 2 % 4) (kw = 32, the 64-byte);
+// "cols" MN-major, 64 k rows of 64 m, chunk i of row k at i ^ (k % 8).
+// Neighbouring threads on neighbouring chunks of a row; zeros past K, past
+// M and past the slab's columns.
+__device__ __forceinline__ void gemm_stage_copy(const GemmArgs& g, unsigned dst, int p, int bi,
+                                                int t, int r, int w0, int k0) {
+  const bf16* ab = g.a + (size_t)bi * g.f.batch_stride;
+  if (g.f.kind == 1) {  // a[bi][k][m]: 8 rows of one column a chunk
+    for (int e = p; e < 64 * 8; e += 128) {
+      const int k = e >> 3, i = e & 7, gk = k0 + k, gm = w0 + 8 * i;
+      const bf16* row = ab + (size_t)gk * g.f.lda;
+      cp_async_chunk(dst + k * 128 + ((i ^ (k & 7)) << 4),
+                     gk < g.K && gm < g.M ? row + gm : nullptr,
+                     gk < g.K && gm + 4 < g.M ? row + gm + 4 : nullptr, g.a);
     }
-    const bf16* bt = bm + (size_t)t * K * N;
-    const int nv = Np / 8;
-    for (int e = threadIdx.x; e < Kp * nv; e += kThreads) {
-      const int k = e / nv, v = e % nv;
-      uint4 u = make_uint4(0, 0, 0, 0);
-      if (k < K && v * 8 < N) u = *reinterpret_cast<const uint4*>(bt + (size_t)k * N + v * 8);
-      *reinterpret_cast<uint4*>(Bs + k * ldb + v * 8) = u;
-    }
-    __syncthreads();
-    for (int k0 = 0; k0 < Kp; k0 += 16) {
-      FragA af;
-      wm::load_matrix_sync(af, As + warp * 16 * lda + k0, lda);
-#pragma unroll
-      for (int j = 0; j < kGemmNT; ++j) {
-        if (j < NT) {
-          FragB bfr;
-          wm::load_matrix_sync(bfr, Bs + k0 * ldb + j * 16, ldb);
-          wm::mma_sync(acc[j], af, bfr, acc[j]);
-        }
-      }
-    }
-    __syncthreads();
+    return;
   }
-#pragma unroll
-  for (int j = 0; j < kGemmNT; ++j)
-    if (j < NT)
-      wm::store_matrix_sync(Os + warp * 16 * ldo + j * 16, acc[j], ldo, wm::mem_row_major);
+  const int cpr = g.kw / 8, conv = g.f.kind == 2;  // chunks a row
+  const int rows = conv ? (g.taps + 2) / 3 * kConvRows : kGemmMT;
+  for (int e = p; e < rows * cpr; e += 128) {
+    const int m = e / cpr, i = e % cpr, k = k0 + 8 * i;
+    const int sw = g.kw == 64 ? (m & 7) : ((m >> 1) & 3);
+    const int w = w0 + (conv ? m % kConvRows : m), wend = conv ? g.f.Wx : g.Wo;
+    const bf16* src = conv ? ab + ((size_t)(m / kConvRows + r) * g.f.Wx + w) * g.f.Cx
+                           : ab + (size_t)t * g.f.tap_stride + (size_t)w * g.f.lda;
+    cp_async_chunk(dst + m * g.kw * 2 + ((i ^ sw) << 4),
+                   w < wend && k < g.K ? src + k : nullptr,
+                   w < wend && k + 4 < g.K ? src + k + 4 : nullptr, g.a);
+  }
+}
+
+// The A box of stage (tap t, chunk c) of row tile (r, w0) of batch item
+// bi; conv: all tap rows of chunk c.
+__device__ __forceinline__ void gemm_stage_tma(const GemmArgs& g, const CUtensorMap* map,
+                                               void* dst, uint64_t* bar, int bi, int t, int r,
+                                               int w0, int c) {
+  if (g.f.kind == 1)
+    tma_load_3d(dst, map, w0, c * 64, bi, bar);
+  else if (g.f.kind == 0)
+    tma_load_3d(dst, map, c * g.kw, t * (g.f.tap_stride / g.f.lda) + w0, 0, bar);
+  else
+    tma_load_3d(dst, map, c * g.kw, w0, r, bar);
+}
+
+__device__ __forceinline__ void gemm_consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// out (reps, batch, M, N) = round(sum_t A_t (M x K) @ b[t] (K x N)); a
+// persistent grid (a multiple of `splits`): block x owns column tile x %
+// splits and walks units x, x + gridDim.x, ...; unit u is column tile u %
+// splits of row tile (u / splits) % (R * wtiles) of output u / (splits * R *
+// wtiles) (copy * batch + batch item).  Shared memory, 1024-byte aligned:
+// B (NT / 64 column atoms of taps * Kp rows of 128 bytes, MN-major, the
+// 128-byte swizzle), the A ring, the output tile (NT / 64 atoms of 64 rows
+// of 128 bytes, swizzled), the mbarriers.
+template <int NT, int TA, int KW, int CONV>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+tile_gemm_wgmma_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs g) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int NA = NT / 64;
+  unsigned char* bimg = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const unsigned b_atom = (unsigned)g.taps * g.Kp * 128;
+  unsigned char* ring = bimg + (size_t)NA * b_atom;
+  const unsigned stage_bytes = (unsigned)gemm_slot_bytes(KW, g.taps, CONV);
+  // stages a unit: (tap, chunk), or for conv taps (chunk): its tap (dy, dx)
+  // is tap row dy's 72 pixels from row dx on
+  const int stap = CONV ? 1 : g.taps;
+  unsigned char* otile = ring + (size_t)g.ring * stage_bytes;
+  uint64_t* bfull = reinterpret_cast<uint64_t*>(otile + NA * kAtom);
+  uint64_t* full = bfull + 1;
+  uint64_t* empty = full + kGemmMaxRing;
+  const int rtiles = g.R * g.wtiles;
+  const int n0 = (blockIdx.x % g.splits) * NT;
+
+  pdl_launch_dependents();
+  if (threadIdx.x == 0) {
+    mbar_init(bfull, 1);
+    for (int s = 0; s < g.ring; ++s) {
+      mbar_init(&full[s], g.tma ? 1 : 128);
+      mbar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  bf16* o = out + ((size_t)blockIdx.z * gridDim.y + bi) * M * N;
-  for (int e = threadIdx.x; e < kGemmMT * N; e += kThreads) {
-    const int m = e / N, n = e % N;
-    if (m0 + m < M) o[(size_t)(m0 + m) * N + n] = from_f<bf16>(Os[m * ldo + n]);
+  pdl_wait();  // the grid before has completed: a, b and out are ours
+
+  if (threadIdx.x >= 128) {
+    // ---- producer warpgroup: B once by TMA; A by TMA (one thread) or by
+    // cp.async (all 128)
+    const int p = threadIdx.x - 128;
+    if (p == 0) {
+      if (g.tma) asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.a) : "memory");
+      const int tb = g.kbox == g.Kp ? g.taps : 1;  // taps a box holds
+      mbar_expect(bfull, NA * b_atom);
+      for (int at = 0; at < NA; ++at)
+        for (int t = 0; t < g.taps; t += tb)
+          for (int k = 0; k < g.Kp; k += g.kbox)
+            tma_load_3d(bimg + (size_t)at * b_atom + ((size_t)t * g.Kp + k) * 128, &maps.b,
+                        n0 + 64 * at, k, t, bfull);
+    }
+    if (g.tma && p != 0) return;
+    int q = 0;  // stages issued
+    for (int u = blockIdx.x; u < g.units; u += gridDim.x) {
+      const int rest = u / g.splits, rt = rest % rtiles, bi = (rest / rtiles) % g.batch;
+      const int r = rt / g.wtiles, w0 = (rt % g.wtiles) * kGemmMT;
+      for (int t = 0; t < stap; ++t)
+        for (int c = 0; c < g.nk; ++c, ++q) {
+          const int slot = q % g.ring;
+          mbar_wait(&empty[slot], ((q / g.ring) & 1) ^ 1);
+          unsigned char* st = ring + (size_t)slot * stage_bytes;
+          if (g.tma) {
+            mbar_expect(&full[slot], (unsigned)gemm_stage_bytes(KW, g.taps, CONV));
+            gemm_stage_tma(g, &maps.a, st, &full[slot], bi, t, r, w0, c);
+            continue;
+          }
+          gemm_stage_copy(g, su32(st), p, bi, t, r, w0, c * g.kw);
+          cp_async_commit();
+          if (q >= 1) {  // the stage before has landed: visible to wgmma, full
+            cp_async_wait<1>();
+            fence_async_shared();
+            mbar_arrive(&full[(q - 1) % g.ring]);
+          }
+        }
+    }
+    if (!g.tma && q > 0) {
+      cp_async_wait<0>();
+      fence_async_shared();
+      mbar_arrive(&full[(q - 1) % g.ring]);
+    }
+    return;
   }
+
+  // ---- the consumer warpgroup: wgmma chains, then the epilogue
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.out) : "memory");
+  const unsigned ring_a = su32(ring), b_a = su32(bimg);
+  // A: K-major rows of KW * 2 bytes in 8-row groups (k16 steps 32 bytes
+  // along a row; the 128- or 64-byte swizzle), or MN-major 128-byte k rows
+  // (k16 steps 2048 bytes); B: MN-major 128-byte k rows, 64-column atoms
+  // b_atom apart.  Up to kLag chains stay in flight; a stage goes back to
+  // the producer when its chain is done.
+  constexpr unsigned a_sbo = TA ? 1024 : 16 * KW, a_mode = KW == 64 ? 1 : 2;
+  constexpr unsigned a_step = TA ? 2048 : 32;
+  constexpr int kLag = 3;
+  float acc[NT / 2];
+  int q = 0;
+  mbar_wait(bfull, 0);
+  for (int u = blockIdx.x; u < g.units; u += gridDim.x) {
+    const int rest = u / g.splits, rt = rest % rtiles, z = rest / rtiles;
+    const int r = rt / g.wtiles, w0 = (rt % g.wtiles) * kGemmMT;
+    const int q0 = q;
+    for (int t0 = 0; t0 < stap; ++t0)
+      for (int c = 0; c < g.nk; ++c, ++q) {
+        const int slot = q % g.ring;
+        mbar_wait(&full[slot], (q / g.ring) & 1);
+        wg_fence();
+        pin_regs(acc);
+        const unsigned sa = ring_a + slot * stage_bytes;
+#pragma unroll
+        for (int i = 0; i < (CONV ? 9 : 1); ++i) {  // conv: the nine taps
+          const int t = CONV ? i : t0;
+          // conv: tap (dy, dx) starts dx rows into tap row dy; the wgmma
+          // unit swizzles by absolute shared-memory address, as TMA does,
+          // so a start off the swizzle period needs no base offset
+          const unsigned a0 = CONV ? sa + ((i / 3) * kConvRows + i % 3) * KW * 2 : sa;
+          const unsigned sb = b_a + (t * g.Kp + c * KW) * 128;
+#pragma unroll
+          for (int s = 0; s < KW / 16; ++s)
+            Wgmma<NT>::template mmaT<TA, 1>(acc, mat_desc_sw(a0 + s * a_step, 16, a_sbo, a_mode),
+                                            mat_desc_sw(sb + s * 2048, b_atom, 1024, 1),
+                                            q > q0 || i > 0 || s > 0);
+        }
+        wg_commit();
+        pin_regs(acc);
+        if (q - q0 >= kLag) {  // the chain kLag back is done with its stage
+          wg_wait<kLag>();
+          if (threadIdx.x == 0) mbar_arrive(&empty[(q - kLag) % g.ring]);
+        }
+      }
+    wg_wait<0>();
+    pin_regs(acc);
+    if (threadIdx.x == 0) {
+      for (int i = q - kLag > q0 ? q - kLag : q0; i < q; ++i) mbar_arrive(&empty[i % g.ring]);
+      bulk_wait_read<0>();  // the last tile's stores have read the output tile
+    }
+    gemm_consumers_sync();
+    // register 4j + 2h + e: row 16 warp + lane / 4 + 8h, column 8j + 2 (lane
+    // % 4) + e: 16-byte chunk j % 8 of the row of atom j / 8, swizzled
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(otile + (j / 8) * kAtom + row * 128 +
+                                           (((j & 7) ^ (row & 7)) << 4) + 4 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+    fence_async_shared();  // the staged tile, visible to the TMA stores
+    gemm_consumers_sync();
+    if (threadIdx.x == 0) {
+      for (int at = 0; at < NA && n0 + 64 * at < g.N; ++at)
+        tma_store_4d(&maps.out, otile + at * kAtom, n0 + 64 * at, w0, r, z);
+      bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait<0>();  // the stores are done before shared memory goes
 }
 
 }  // namespace vmg
@@ -294,17 +514,13 @@ extern "C" int vmg_probe_slab_copy(const void* x, void* out, int Wp, int C, int 
   if (R < 3 || wpiece < 1 || ((size_t)wpiece * C * 2) % 16 || ((size_t)Wp * C * 2) % 16 ||
       (uintptr_t)x % 16 || (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)R * wpiece * C * 2;
-  if (smem > vmg::kMaxSmem - 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(vmg::slab_copy_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const size_t smem = (size_t)R * wpiece * C * 2 + (size_t)R * 8;
+  if (smem > vmg::kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int e = vmg::set_smem(vmg::slab_copy_kernel, smem);
+  if (e != 0) return e;
   const dim3 grid((Wp + wpiece - 1) / wpiece, slabs);
-  vmg::slab_copy_kernel<<<grid, vmg::kThreads, smem, (cudaStream_t)stream>>>(
-      (const vmg::bf16*)x, (vmg::bf16*)out, Wp, C, R, wpiece);
-  return (int)cudaGetLastError();
+  return vmg::launch_pdl(vmg::slab_copy_kernel, grid, dim3(32), smem, stream, (const vmg::bf16*)x,
+                         (vmg::bf16*)out, Wp, C, R, wpiece);
 }
 
 // in: (A, Bin, Cin), out: (A, Bout, Cout) bf16.  kind 0 slice (p0 row
@@ -341,29 +557,112 @@ extern "C" int vmg_probe_relayout(const void* in, void* out, int A, int Bin, int
 }
 
 // a: the A source in the form's layout; b: (taps, K, N); out: (reps, batch,
-// M, N), all bf16.  N % 8 == 0, N <= 192; K, the strides and the
-// channel counts multiples of 4 (8-byte A units; M for kind 1).
+// M, N), all bf16.  N % 8 == 0, N <= 192; K, the strides and the channel
+// counts multiples of 4 (8-byte A units; M for kind 1).  nt, kw, kbox,
+// ring, grid and tma: `probes.gemm_plan`'s, checked here.
 extern "C" int vmg_probe_tile_gemm(const void* a, const void* b, void* out, int M, int N,
                                    int K, int taps, int batch, int reps, int kind, int lda,
                                    int tap_stride, int batch_stride, int Wo, int Wx, int Cx,
-                                   int cg, int stride, void* stream) {
+                                   int cg, int stride, int arows, int nt, int kw, int kbox,
+                                   int ring, int grid, int tma, void* stream) {
   using namespace vmg;
-  if (N % 8 || N > 16 * kGemmNT || K < 1 || taps < 1 || kind < 0 || kind > 3 ||
-      batch > 65535 || reps > 65535 || (uintptr_t)b % 16 || (uintptr_t)a % 8 ||
-      K % 4 || lda % 4 || tap_stride % 4 || batch_stride % 4 || Cx % 4 || cg % 4 ||
-      stride % 4 || (kind == 1 && M % 4) || ((kind == 2 || kind == 3) && Wo < 1) ||
-      (kind == 3 && (stride < cg || K != 9 * stride)))
+  if (N % 8 || N > 192 || M < 1 || K < 1 || taps < 1 || batch < 1 || reps < 1 || kind < 0 ||
+      kind > 3 || (uintptr_t)b % 16 || (uintptr_t)a % 8 || (uintptr_t)out % 16 || K % 4 ||
+      lda % 4 || tap_stride % 4 || batch_stride % 4 || Cx % 4 || cg % 4 || stride % 4 ||
+      (kind == 1 && M % 4) || ((kind == 2 || kind == 3) && (Wo < 1 || M % Wo)) ||
+      (kind == 3 && (stride < cg || K != 9 * stride)) || nt < 64 || nt % 64 || nt > 192)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gemm_smem((K + 15) / 16 * 16, (N + 15) / 16 * 16);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(tile_gemm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  // the assembled form as nine conv taps of cg columns, B's tap t at row t * stride
+  const long long b_tap = (kind == 3 ? (long long)stride : K) * N * 2;
+  if (kind == 3) {
+    K = cg;
+    taps = 9;
+    kind = 2;
   }
-  const GemmForm f{kind, lda, tap_stride, batch_stride, Wo, Wx, Cx, cg, stride};
-  const dim3 grid((M + kGemmMT - 1) / kGemmMT, batch, reps);
-  tile_gemm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)b, (bf16*)out, M, N, K, taps, f);
-  return (int)cudaGetLastError();
+  const int R = kind == 2 ? M / Wo : 1, W = kind == 2 ? Wo : M;
+  const int wtiles = (W + kGemmMT - 1) / kGemmMT, splits = (N + nt - 1) / nt;
+  const int Kp = (K + kw - 1) / kw * kw;
+  const long long units = (long long)reps * batch * R * wtiles * splits;
+  const bool tma_ok = (uintptr_t)a % 16 == 0 &&
+                      (kind == 1   ? M % 8 == 0
+                       : kind == 0 ? lda % 8 == 0 && (taps == 1 || tap_stride % lda == 0)
+                                   : Cx % 8 == 0);
+  if ((kw != 32 && kw != 64) || (kind == 1 && kw != 64) || units > (1LL << 30) ||
+      (long long)reps * batch > (1LL << 30) || kbox < 8 || kbox > 256 || kbox % 8 ||
+      Kp % kbox || (kbox == Kp && taps > 256) || ring < (tma ? 4 : 5) || ring > kGemmMaxRing ||
+      grid < 1 || grid % splits || grid > units || (tma && !tma_ok))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = gemm_smem(taps, Kp, nt, kw, ring, kind == 2);
+  if (kind == 2 && taps != 9) return (int)cudaErrorInvalidValue;  // a 3x3 conv
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  GemmMaps maps{};
+  const CUtensorMapSwizzle sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  {  // B: (taps, K, N), 64 columns x kbox rows x (all taps where kbox == Kp)
+    const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)taps};
+    const cuuint64_t strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)b_tap};
+    const cuuint32_t box[3] = {64, (cuuint32_t)kbox, (cuuint32_t)(kbox == Kp ? taps : 1)};
+    int e = bf16_map(&maps.b, b, 3, dims, strides, box, sw128);
+    if (e != 0) return e;
+  }
+  {  // out: (reps * batch, R, W, N), 64 columns x 64 rows of one image row
+    const cuuint64_t dims[4] = {(cuuint64_t)N, (cuuint64_t)W, (cuuint64_t)R,
+                                (cuuint64_t)reps * batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)N * 2, (cuuint64_t)W * N * 2,
+                                   (cuuint64_t)R * W * N * 2};
+    const cuuint32_t box[4] = {64, kGemmMT, 1, 1};
+    int e = bf16_map(&maps.out, out, 4, dims, strides, box, sw128);
+    if (e != 0) return e;
+  }
+  if (tma) {  // A: 64 rows x kw columns (K-major), or 64 x 64 (cols, MN-major)
+    cuuint64_t dims[3], strides[2];
+    cuuint32_t box[3] = {(cuuint32_t)kw, kGemmMT, 1};
+    if (kind == 1) {
+      dims[0] = M, dims[1] = K, dims[2] = batch;
+      strides[0] = (cuuint64_t)M * 2, strides[1] = (cuuint64_t)K * M * 2;
+      box[0] = 64, box[1] = 64;
+    } else if (kind == 0) {
+      dims[0] = K, dims[1] = arows, dims[2] = 1;
+      strides[0] = (cuuint64_t)lda * 2, strides[1] = (cuuint64_t)arows * lda * 2;
+    } else {  // a tap's K channels of 72 pixels of the tap rows (the rest of Cx
+              // out of bounds: zeros)
+      dims[0] = K, dims[1] = Wx, dims[2] = arows;
+      strides[0] = (cuuint64_t)Cx * 2, strides[1] = (cuuint64_t)Wx * Cx * 2;
+      box[1] = kConvRows, box[2] = (taps + 2) / 3;
+    }
+    int e = bf16_map(&maps.a, a, 3, dims, strides, box,
+                     kw == 64 ? sw128 : CU_TENSOR_MAP_SWIZZLE_64B);
+    if (e != 0) return e;
+  }
+  const GemmArgs g{(const bf16*)a, M, N, K, taps, batch, (int)units, R, W, wtiles,
+                   Kp, kw, Kp / kw, kbox, ring, splits, tma,
+                   GemmForm{kind, lda, tap_stride, batch_stride, Wx, Cx}};
+  int e = 0;
+  // A MN-major ("cols", 64-column stages), or K-major in 64- or 32-column
+  // stages of rows or of conv tap rows
+  const int form = kind == 1 ? 0 : (kw == 64 ? 1 : 2) + (kind == 2 ? 2 : 0);
+#define VMG_GEMM_LAUNCH(W, TA, KW, CONV)                                                  \
+  e = set_smem(tile_gemm_wgmma_kernel<W, TA, KW, CONV>, smem);                            \
+  if (e == 0)                                                                             \
+    e = launch_pdl(tile_gemm_wgmma_kernel<W, TA, KW, CONV>, dim3(grid), dim3(kGemmThreads), \
+                   smem, stream, maps, g);
+#define VMG_GEMM_NT(W)                                   \
+  case W:                                                \
+    switch (form) {                                      \
+      case 0: VMG_GEMM_LAUNCH(W, 1, 64, 0) break;        \
+      case 1: VMG_GEMM_LAUNCH(W, 0, 64, 0) break;        \
+      case 2: VMG_GEMM_LAUNCH(W, 0, 32, 0) break;        \
+      case 3: VMG_GEMM_LAUNCH(W, 0, 64, 1) break;        \
+      default: VMG_GEMM_LAUNCH(W, 0, 32, 1) break;       \
+    }                                                    \
+    break;
+  switch (nt) {  // the compiled widths: probes.GEMM_WIDTHS
+    VMG_GEMM_NT(64)
+    VMG_GEMM_NT(128)
+    VMG_GEMM_NT(192)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef VMG_GEMM_NT
+#undef VMG_GEMM_LAUNCH
+  return e;
 }

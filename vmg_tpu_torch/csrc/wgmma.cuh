@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the wgmma and bulk-copy kernels
 // (conv_chain.cu, group_ffn.cu, morphfc.cu's combine, ltam.cu's forward):
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for every N
-// the kernels take (a multiple of 16 up to 240, and 56), with A from shared memory
-// (Wgmma<N>) or from registers (WgmmaRA<N>) and B from shared memory
-// through matrix descriptors; mbarriers, bulk and TMA copies both ways, and
-// the tensor-map encoders.
+// the kernels take (a multiple of 16 up to 240, and 56), with A from
+// shared memory (Wgmma<N>; Wgmma<N>::mmaT<TA, TB> reads A and / or B
+// MN-major, "transposed") or from registers (WgmmaRA<N>) and B from shared
+// memory through matrix descriptors; mbarriers, bulk and TMA copies both
+// ways, and the tensor-map encoders.
 //
 // d: the warpgroup's 64 x N f32 accumulator tile, N / 2 registers a thread
 // (wgmma's fragment layout: register 4j + 2h + e holds row 16 * warp + lane
@@ -66,7 +67,8 @@ template <int N> struct Wgmma;
 template <int N> struct WgmmaRA;
 
 // N, its R = N / 2 accumulator registers; Wgmma: the A and B descriptors
-// and scale_d follow them as operands R, R + 1, R + 2; WgmmaRA: the four A
+// and scale_d follow them as operands R, R + 1, R + 2 (mmaT: then the
+// transpose flags, immediates R + 3 and R + 4); WgmmaRA: the four A
 // registers R .. R + 3, then the B descriptor and scale_d, R + 4 and R + 5
 #define VMG_WGMMA(N, R, R1, R2, R3, R4, R5)                                            \
   template <> struct Wgmma<N> {                                                        \
@@ -77,6 +79,15 @@ template <int N> struct WgmmaRA;
                    VMG_WG_OPS##R "}, %" #R ", %" #R1 ", p, 1, 1, 0, 0;\n}\n"           \
                    : VMG_WG_D##R                                                       \
                    : "l"(da), "l"(db), "r"(scale_d));                                  \
+    }                                                                                  \
+    template <int TA, int TB>                                                          \
+    static __device__ __forceinline__ void mmaT(float (&d)[R], uint64_t da, uint64_t db, \
+                                                int scale_d) {                         \
+      asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" #R2 ", 0;\n"                 \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"         \
+                   VMG_WG_OPS##R "}, %" #R ", %" #R1 ", p, 1, 1, %" #R3 ", %" #R4 ";\n}\n" \
+                   : VMG_WG_D##R                                                       \
+                   : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));                \
     }                                                                                  \
   };                                                                                   \
   template <> struct WgmmaRA<N> {                                                      \
@@ -242,6 +253,15 @@ __device__ __forceinline__ uint64_t mat_desc(unsigned addr, unsigned lbo, unsign
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
 }
+// The same with a swizzle mode (bits 62-63: 1 the 128-byte swizzle, 2 the
+// 64-byte, 3 the 32-byte), base offset 0.  The swizzle applies to absolute
+// shared-memory address bits, as TMA's does: an operand may start anywhere
+// in a swizzled image (K-major ones step along K, or down whole rows, by
+// moving addr; the probes' tile GEMM checks both on the card).
+__device__ __forceinline__ uint64_t mat_desc_sw(unsigned addr, unsigned lbo, unsigned sbo,
+                                                unsigned mode) {
+  return mat_desc(addr, lbo, sbo) | ((uint64_t)mode << 62);
+}
 // generic-proxy writes to shared memory, made visible to wgmma (the async proxy)
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -347,6 +367,20 @@ inline int bf16_box_map3(CUtensorMap* map, const void* t, int d0, int d1, int d2
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                    swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A tensor map over a bf16 tensor of `rank` (<= 5) dimensions, innermost
+// first, with the given strides (bytes, dimensions 1 ..) and box; zeros out
+// of bounds.
+inline int bf16_map(CUtensorMap* map, const void* t, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle sw) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(t),
+                   dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -14,6 +14,7 @@ Every tensor is bf16.  ``vmg_tpu_torch.tools.exp_probe`` and
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +22,13 @@ import torch.nn.functional as F
 from vmg_tpu_torch import _build
 
 SLAB_PIECE_BYTES = 64 * 1024  # the largest slab piece one block stages
+# the tile GEMM kernel's compiled column-tile widths (csrc/probes.cu:
+# whole 64-column swizzle atoms), its row tile, its A stages at most, and
+# the shared memory a block may use
+GEMM_WIDTHS = (64, 128, 192)
+GEMM_TILE_M = 64
+GEMM_MAX_RING = 16
+SMEM_MAX = 232448
 
 
 def _require_bf16(t, name):
@@ -33,13 +41,15 @@ def slab_copy_plain(x, R: int = 6, slabs: int = 2):
     return torch.stack([x[0, i * (R - 2) + 1:i * (R - 2) + R - 1] for i in range(slabs)])
 
 
-def slab_piece(Wp: int, C: int, R: int) -> int:
-    """Columns per slab piece: at most SLAB_PIECE_BYTES per piece, a whole
-    number of 16-byte units per row (the bulk copy's rule)."""
-    unit = 1
-    while unit * C * 2 % 16:
-        unit += 1
-    return max(unit, SLAB_PIECE_BYTES // (R * C * 2) // unit * unit)
+def slab_piece(Wp: int, C: int, R: int, slabs: int = 2, sms: int = 132) -> int:
+    """Columns per slab piece, one block each: about ``sms // slabs``
+    pieces a slab, so that the grid covers the card; at most
+    SLAB_PIECE_BYTES staged a block; a whole number of 16-byte units a row
+    (the bulk copy's rule)."""
+    unit = 8 // math.gcd(8, C)
+    units = -(-Wp // unit)
+    piece = -(-units // max(1, sms // slabs)) * unit
+    return min(piece, max(unit, SLAB_PIECE_BYTES // (R * C * 2) // unit * unit))
 
 
 def slab_copy(x, R: int = 6, slabs: int = 2):
@@ -56,9 +66,9 @@ def slab_copy(x, R: int = 6, slabs: int = 2):
         raise ValueError(f"a row of {Wp} x {C} bf16 is {Wp * C * 2} bytes; bulk copies move "
                          "multiples of 16 bytes from 16-byte aligned addresses")
     out = torch.empty((slabs, R - 2, Wp, C), dtype=x.dtype, device=x.device)
+    piece = slab_piece(Wp, C, R, slabs, _build.sm_count(x.device.index))
     code = _build.load_library().vmg_probe_slab_copy(
-        x.data_ptr(), out.data_ptr(), Wp, C, R, slabs, slab_piece(Wp, C, R),
-        _build.stream_of(x))
+        x.data_ptr(), out.data_ptr(), Wp, C, R, slabs, piece, _build.stream_of(x))
     _build.check(code, "vmg_probe_slab_copy")
     slab_copy.launches += 1
     return out
@@ -184,6 +194,110 @@ def tile_gemm_plain(a, b, form: GemmForm):
     return acc.to(torch.bfloat16)
 
 
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How :func:`tile_gemm`'s kernel cuts a product: column tiles of
+    ``nt`` (``splits`` of them); each tap's K padded to ``Kp``, streamed
+    in A stages of ``kw`` columns (64 rows each, ``ring`` of them); B by
+    TMA boxes of ``kbox`` rows; ``grid`` blocks over ``units`` (output,
+    row tile, column tile); ``smem`` bytes of shared memory a block."""
+    nt: int
+    splits: int
+    kw: int
+    Kp: int
+    kbox: int
+    ring: int
+    grid: int
+    units: int
+    smem: int
+
+
+def gemm_slot_bytes(kw: int, taps: int, conv: bool) -> int:
+    """An A stage's ring slot, 1024-byte aligned: 64 rows of kw columns, or
+    for a conv form all its tap rows of 72 pixels (the 64 output columns
+    and their halo) in one box."""
+    rows = -(-taps // 3) * 72 if conv else GEMM_TILE_M
+    return -(-rows * kw * 2 // 1024) * 1024
+
+
+def gemm_smem(taps: int, Kp: int, nt: int, kw: int, ring: int, conv: bool) -> int:
+    """A block's shared memory (``gemm_smem`` in csrc/probes.cu): the
+    resident B image (nt / 64 column atoms of taps * Kp rows of 128 bytes),
+    the A ring, the output tile, the mbarriers, 1024-byte alignment."""
+    return ((nt // 64) * taps * Kp * 128 + ring * gemm_slot_bytes(kw, taps, conv)
+            + (nt // 64) * GEMM_TILE_M * 128 + (1 + 2 * GEMM_MAX_RING) * 8 + 1024)
+
+
+def gemm_geometry(form: GemmForm):
+    """(taps, K of a tap, image rows R, row width W) as the kernel walks
+    the form: the assembled form as nine conv taps of cg columns (its gaps
+    never read), a conv form's rows as R image rows of Wo, rows and cols
+    as one row of M."""
+    if form.kind == "assembled":
+        return 9, form.cg, form.M // form.Wo, form.Wo
+    if form.kind == "taps":
+        return form.taps, form.K, form.M // form.Wo, form.Wo
+    return form.taps, form.K, 1, form.M
+
+
+def gemm_tma(form: GemmForm, ptr: int) -> bool:
+    """Whether the kernel can fetch ``form``'s A operand at address ``ptr``
+    by TMA: 16-byte aligned rows (M for 'cols', lda for 'rows' with taps
+    whole rows apart, the channel count for the conv forms); else its
+    producer threads copy A with cp.async."""
+    if ptr % 16:
+        return False
+    if form.kind == "cols":
+        return form.M % 8 == 0
+    if form.kind == "rows":
+        return form.lda % 8 == 0 and (form.taps == 1 or form.tap_stride % form.lda == 0)
+    return form.Cx % 8 == 0
+
+
+def gemm_plan(form: GemmForm, N: int, reps: int = 1, sms: int = 132,
+              tma: bool = True) -> GemmPlan:
+    """The tile GEMM's cut, from the shapes, the SM count and the A path
+    (``tma``, :func:`gemm_tma`) only.  A tap's K goes in 32-column stages
+    (the 64-byte swizzle) where it fits 32, else in 64-column stages (the
+    128-byte swizzle; always for 'cols').  Each block keeps its column
+    tile's B (every tap) resident, so a width fits when that image, the A
+    ring and the output tile do: four stages where A comes by TMA (the
+    consumer keeps three chains in flight), five where the producer's
+    threads copy it (they signal a stage one behind).  Among the widths
+    that fit (up to the first that holds all N), take the least waves x
+    (64 + nt x taps x Kp / 256): a fixed cost a tile plus its products, so
+    a product that would leave SMs idle is cut into more column tiles and
+    one that fills the card keeps them wide.  A block owns one column tile
+    for its whole walk: the grid is a multiple of ``splits``.  Raises
+    where no width fits."""
+    taps, Kt, R, W = gemm_geometry(form)
+    conv = form.kind in ("taps", "assembled")
+    kw = 64 if form.kind == "cols" or Kt > 32 else 32
+    Kp = -(-Kt // kw) * kw
+    kbox = Kp if Kp <= 256 else max(d for d in range(8, 257, 8) if Kp % d == 0)
+    rows = R * -(-W // GEMM_TILE_M) * form.batch * reps
+    top = min(w for w in GEMM_WIDTHS if w >= N)
+    best, best_cost = None, None
+    for nt in (w for w in GEMM_WIDTHS if w <= top):
+        splits = -(-N // nt)
+        ring = min(GEMM_MAX_RING,
+                   (SMEM_MAX - gemm_smem(taps, Kp, nt, kw, 0, conv))
+                   // gemm_slot_bytes(kw, taps, conv))
+        if ring < (4 if tma else 5):
+            continue
+        units = rows * splits
+        grid = min(units, max(splits, sms // splits * splits))
+        cost = -(-units // grid) * (64 + nt * taps * Kp / 256)
+        if best_cost is None or cost <= best_cost:
+            best_cost = cost
+            best = GemmPlan(nt, splits, kw, Kp, kbox, ring, grid, units,
+                            gemm_smem(taps, Kp, nt, kw, ring, conv))
+    if best is None:
+        raise ValueError(f"{form}: its B ({taps} taps x {Kp} rows) does not fit in shared memory "
+                         f"at any column tile of {GEMM_WIDTHS}")
+    return best
+
+
 def tile_gemm(a, b, form: GemmForm, reps: int = 1):
     """The product of :func:`tile_gemm_plain` on the tensor cores;
     ``reps`` > 1 runs the same product that many times at once (one
@@ -204,6 +318,8 @@ def tile_gemm(a, b, form: GemmForm, reps: int = 1):
             or (form.kind == "cols" and form.M % 4):
         raise ValueError(f"{form}: the kernel reads A in 4-element units, so K, the strides "
                          "and the channel counts (M for 'cols') are multiples of 4")
+    if form.kind == "taps" and form.taps != 9:
+        raise ValueError(f"{form}: a 'taps' form is the nine taps of a 3x3 conv")
     if form.kind in ("taps", "assembled"):
         R = form.M // form.Wo
         if form.M % form.Wo or a.dim() != 3 or a.shape[0] < R + 2 or a.shape[1] < form.Wo + 2 \
@@ -215,13 +331,18 @@ def tile_gemm(a, b, form: GemmForm, reps: int = 1):
     if form.kind == "rows" and a.numel() < (form.taps - 1) * form.tap_stride + \
             (form.M - 1) * form.lda + form.K:
         raise ValueError(f"a {tuple(a.shape)} is too small for {form}")
+    tma = gemm_tma(form, a.data_ptr())
+    plan = gemm_plan(form, N, reps, _build.sm_count(a.device.index), tma)
     out = torch.empty((reps, form.batch, form.M, N), dtype=a.dtype, device=a.device)
-    Wx = a.shape[1] if form.kind in ("taps", "assembled") else 0
+    conv = form.kind in ("taps", "assembled")
+    # rows of a the kernel's A map spans: the slab's, or a's in rows of lda
+    arows = a.shape[0] if conv else -(-a.numel() // form.lda) if form.kind == "rows" else 0
     code = _build.load_library().vmg_probe_tile_gemm(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), form.M, N, form.K, form.taps, form.batch,
         reps, _GEMM_KINDS[form.kind], form.lda, form.tap_stride,
-        form.K * form.M if form.kind == "cols" else 0, form.Wo, Wx, form.Cx, form.cg,
-        form.stride, _build.stream_of(a))
+        form.K * form.M if form.kind == "cols" else 0, form.Wo, a.shape[1] if conv else 0,
+        form.Cx, form.cg, form.stride, arows, plan.nt, plan.kw, plan.kbox, plan.ring, plan.grid,
+        int(tma), _build.stream_of(a))
     _build.check(code, "vmg_probe_tile_gemm")
     tile_gemm.launches += 1
     return out[0] if reps == 1 else out

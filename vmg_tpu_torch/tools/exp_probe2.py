@@ -14,7 +14,8 @@ three dy products over 128 packed channels (``tile_3dot_K128``)?  Output
 as in ``exp_probe``; a tile probe on the card also runs the same tile on
 every SM at once (``ms_all_sms``, ``tf_s_all_sms``), the rate a conv
 kernel's tiles would see.  The library call of the conv tiles is one
-``F.conv2d`` of the same function.
+``F.conv2d`` of the same function; the assembled tiles also give
+``matmul_ms``, ``torch.matmul`` of the patch formed beforehand.
 
 ``tile_assembled_s32`` writes zeros in the four patch channels past each
 tap's 28: the TPU kernel left them unwritten, so it multiplied whatever
@@ -29,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from vmg_tpu_torch.ops.probes import GemmForm, tile_gemm, tile_gemm_plain
-from vmg_tpu_torch.tools._probing import bf16_input, gemm_probe, main as _main
+from vmg_tpu_torch.tools._probing import ITERS, bf16_input, gemm_probe, main as _main
+from vmg_tpu_torch.utils.profiling import timed
 from vmg_tpu_torch.tools.exp_probe import lane_taps_cat, relayout_probe, taps
 
 R, W, CG, FG = 8, 320, 28, 168  # the stage-0 tile: rows, columns, group channels in/out
@@ -43,16 +45,23 @@ def conv_library(x, w_oihw):
 
 
 def tile_probe(form_of, w_shape, w_oihw):
-    """The stage-0 tile with the A operand in ``form_of``'s form."""
+    """The stage-0 tile with the A operand in ``form_of``'s form; an
+    assembled tile is also timed as ``torch.matmul`` of its patch
+    (``matmul_ms``: the product alone, the patch formed beforehand)."""
     def probe(dev, rng):
         x = bf16_input(rng, (R + 2, 328, 128), dev)
         w = bf16_input(rng, w_shape, dev, scale=0.05)
         form = form_of()
-        return gemm_probe(dev, lambda: tile_gemm(x, w, form),
-                          lambda: tile_gemm_plain(x, w, form),
-                          conv_library(x, w_oihw(w)),
-                          (R + 2) * (W + 2) * CG * 2 + w.numel() * 2, 2 * R * W * FG * 9 * CG,
-                          all_sms=lambda reps: tile_gemm(x, w, form, reps=reps))
+        res = gemm_probe(dev, lambda: tile_gemm(x, w, form),
+                         lambda: tile_gemm_plain(x, w, form),
+                         conv_library(x, w_oihw(w)),
+                         (R + 2) * (W + 2) * CG * 2 + w.numel() * 2, 2 * R * W * FG * 9 * CG,
+                         all_sms=lambda reps: tile_gemm(x, w, form, reps=reps))
+        if form.kind == "assembled":
+            patch = form.operands(x)[0][0].contiguous()
+            res["matmul_ms"] = (timed(lambda: torch.matmul(patch, w), iters=ITERS) * 1e3
+                                if dev.type == "cuda" else None)
+        return res
     return probe
 
 

@@ -1,6 +1,6 @@
 """The bf16 conv chain, the layout pin, the grouped-conv FFN, the MorphFC
-combine and axes kernels and LTAM attention of two checkouts of the port,
-timed on one card with one timer.
+combine and axes kernels, LTAM attention and the probe kernels of two
+checkouts of the port, timed on one card with one timer.
 
     python -m vmg_tpu_torch.tools.time_chain_pin --other DIR [--reps 5]
 
@@ -33,13 +33,23 @@ shape it runs (FULL_PRESET's stages 1/5, 2/4 and 3, the few-levels
 preset's 32x128x128 and 32x64x64 at C = 144) and at stages 0/6
 (16x184x320x112, the kernel table's continuity row), with its sum over a
 clip (``reduce_per_clip``: 8, 4 and 2 launches; ``reduce_per_clip_few``:
-8 and 4).  Each kernel is first held to its own tree's plain version
-(1e-2 of max|plain|, the pin exactly; LTAM's f32 output and dq 1e-4; the
-f32 sums 1e-6 of the sum of their terms' magnitudes).  One JSON line per
-process (median and range over ``--reps`` timings of 20 calls each),
-then the card's name and power limit, then one JSON line of this
-checkout's median over the other's for each timing.  ``--only
-reduce,token`` (key prefixes) times just those kernels: a quick check.
+8 and 4).  The probe kernels at every probe of the two probe tools that
+runs them: the slab copy at the four ``dma_*`` shapes beside ``clone``
+(``slab_copy_<probe>``), the tile GEMM at the three ``mm_*`` products
+beside ``torch.matmul`` and the four stage-0 conv tiles beside ``F.conv2d``
+(``tile_gemm_<probe>``; the s28 tile also beside ``torch.matmul`` of its
+assembled patch), each conv tile also on every SM at once
+(``..._all_sms``); and an empty launch (``empty_launch``,
+``torch.cuda._sleep(0)``), the floor under these microsecond kernels.
+Each kernel is first held to its own tree's plain version (1e-2 of
+max|plain|, the pin and the slab copy exactly, the tile GEMM 1 bf16 ulp;
+LTAM's f32 output and dq 1e-4; the f32 sums 1e-6 of the sum of their
+terms' magnitudes).  One JSON line per process (median and range over
+``--reps`` timings of 20 calls each), then the card's name and power
+limit, then one JSON line of this checkout's median over the other's for
+each timing.  ``--only reduce,token`` (key prefixes) times just those
+kernels: a quick check (``--only slab_copy,tile_gemm,empty``: the
+probes).
 """
 
 from __future__ import annotations
@@ -78,6 +88,17 @@ TOKEN_SHAPES = [(16, 92, 160, 224, 16), (16, 23, 40, 448, 8)]
 REDUCE_SHAPES = [((16, 92, 160, 224), 8), ((16, 46, 80, 224), 4), ((16, 23, 40, 448), 2),
                  ((32, 128, 128, 144), 8), ((32, 64, 64, 144), 4), ((16, 184, 320, 112), 0)]
 REDUCE_FEW = {(32, 128, 128, 144), (32, 64, 64, 144)}
+# the probes of the two probe kernels, under the probe tools' names: the
+# slab copy's (H2, Wp, C) of a (2, H2, Wp, C) input, six-row slabs
+SLAB_PROBES = {"dma_sub328_lane112": (20, 328, 112), "dma_sub322_lane112": (20, 322, 112),
+               "dma_sub328_lane28": (20, 328, 28), "dma_sub328_lane128": (20, 328, 128)}
+# the tile GEMM's: mm_* (lhs, rhs shapes; a 3-D lhs contracts its dim 1)
+# and the stage-0 conv tile (R = 8 rows x W = 320, cg = 28 in, fg = 168
+# out) in its four A forms
+MM_PROBES = {"mm_R8_288x384_168": ((8, 288, 384), (288, 168)),
+             "mm_R16_288x384_168": ((16, 288, 384), (288, 168)),
+             "mm_2560x252_168": ((2560, 252), (252, 168))}
+TILE_PROBES = ("tile_assembled_s28", "tile_assembled_s32", "tile_accum_taps", "tile_3dot_K128")
 
 
 def ffn_key(shape, groups) -> str:
@@ -104,14 +125,15 @@ def reduce_key(shape) -> str:
     return "reduce_" + "x".join(map(str, shape))
 
 
-def _this_timer():
-    """This checkout's ``timed``, loaded from its file whatever tree the
-    process imports ``vmg_tpu_torch`` from."""
+def _this_profiling():
+    """This checkout's ``utils/profiling`` (``timed``, ``bound``), loaded
+    from its file whatever tree the process imports ``vmg_tpu_torch``
+    from."""
     spec = importlib.util.spec_from_file_location(
         "_this_profiling", _ROOT / "vmg_tpu_torch" / "utils" / "profiling.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.timed
+    return mod
 
 
 def _unfenced(fn, iters, warmup=3):
@@ -146,7 +168,8 @@ def _side(root: Path, reps: int, only=None) -> dict:
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     if not torch.cuda.is_available():
         raise RuntimeError("time_chain_pin times the card and needs a CUDA device")
-    timed = _this_timer()
+    prof = _this_profiling()
+    timed = prof.timed
     dev, dt = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -333,6 +356,96 @@ def _side(root: Path, reps: int, only=None) -> dict:
             out["ltam_bwd_per_step"] = {
                 t: 12 * sum(out[ltam_key(64, 64, 28, K, "ltam_bwd")][t] for K in range(1, 6))
                 for t in ("ms", "ms_unfenced")}
+        if wanted("empty"):  # the floor under a microsecond-scale kernel
+            out["empty_launch"] = time_both(lambda: torch.cuda._sleep(0))
+        if wanted("slab_copy", "tile_gemm"):
+            out.update(_probe_times(prof.bound, time_both, rn, dev, wanted))
+    return out
+
+
+def _probe_times(bound, time_both, rn, dev, wanted) -> dict:
+    """The slab copy and the tile GEMM at every probe of the probe tools
+    (keys ``slab_copy_<probe>``, ``tile_gemm_<probe>``), each held to its
+    tree's plain version (copies exactly, products within 1 bf16 ulp of
+    max|plain|) and timed beside its PyTorch call (``library``), with its
+    bound; the conv tiles also on every SM at once (``..._all_sms``, every
+    copy equal to the single tile) and the s28 tile also beside
+    ``torch.matmul`` of its assembled patch (``library_matmul``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vmg_tpu_torch.ops import probes
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = {}
+    for name, (H2, Wp, C) in SLAB_PROBES.items() if wanted("slab_copy") else ():
+        x = rn(2, H2, Wp, C)
+        got, want = probes.slab_copy(x), probes.slab_copy_plain(x)
+        if not torch.equal(got, want):
+            raise AssertionError(f"slab copy {name}: not bit-exact")
+        out[f"slab_copy_{name}"] = {
+            **time_both(lambda: probes.slab_copy(x)), "library_call": "clone",
+            "library": time_both(lambda: x[0, 1:9].clone()), **bound(2 * nbytes(want), 0)}
+    if not wanted("tile_gemm"):
+        return out
+    R, W, CG, FG = 8, 320, 28, 168
+    cases = {}
+    for name, (sa, sb) in MM_PROBES.items():
+        a, b = rn(*sa), rn(*sb)
+        if len(sa) == 3:
+            form = probes.GemmForm("cols", M=sa[2], K=sb[0], batch=sa[0], lda=sa[2])
+            lib = (lambda a, b: lambda: torch.matmul(a.transpose(1, 2), b))(a, b)
+        else:
+            form = probes.GemmForm("rows", M=sa[0], K=sb[0], lda=sb[0])
+            lib = (lambda a, b: lambda: torch.matmul(a, b))(a, b)
+        cases[name] = (a, b, form, "matmul", lib, nbytes(a, b))
+    for name in TILE_PROBES:
+        if name == "tile_3dot_K128":
+            x, w = rn(R + 2, W, 128), rn(3, 128, FG, scale=0.05)
+            form = probes.GemmForm("rows", M=R * W, K=128, taps=3, lda=128, tap_stride=W * 128)
+            xs, wk = x.permute(2, 0, 1)[None], w.permute(2, 1, 0)[..., None].contiguous()
+            cases[name] = (x, w, form, "conv2d", (lambda xs, wk: lambda: F.conv2d(xs, wk))(
+                xs, wk), nbytes(x, w))
+            continue
+        x = rn(R + 2, 328, 128)
+        if name == "tile_accum_taps":
+            w = rn(9, CG, FG, scale=0.05)
+            form = probes.GemmForm("taps", M=R * W, K=CG, taps=9, Wo=W, Cx=128)
+            w_oihw = w.reshape(3, 3, CG, FG).permute(3, 2, 0, 1)
+        else:
+            stride = int(name[-2:])
+            w = rn(9 * stride, FG, scale=0.05)
+            form = probes.GemmForm("assembled", M=R * W, K=9 * stride, Wo=W, Cx=128, cg=CG,
+                                   stride=stride)
+            w_oihw = w.reshape(3, 3, stride, FG)[:, :, :CG].permute(3, 2, 0, 1)
+        xs, wc = x[:, :W + 2, :CG].permute(2, 0, 1)[None], w_oihw.contiguous()
+        cases[name] = (x, w, form, "conv2d", (lambda xs, wc: lambda: F.conv2d(xs, wc))(xs, wc),
+                       (R + 2) * (W + 2) * CG * 2 + nbytes(w))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (a, b, form, call, lib, read) in cases.items():
+        got, want = probes.tile_gemm(a, b, form), probes.tile_gemm_plain(a, b, form)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= 8e-3 * want.float().abs().max().item():
+            raise AssertionError(f"tile GEMM {name}: max_abs_err {err} over 1 bf16 ulp")
+        flops = 2 * form.batch * form.M * b.shape[-1] * form.K * form.taps
+        key = f"tile_gemm_{name}"
+        out[key] = {**time_both(lambda: probes.tile_gemm(a, b, form)), "max_abs_err": err,
+                    "library_call": call, "library": time_both(lib),
+                    **bound(read + nbytes(want), flops)}
+        out[key]["tf_s"] = flops / out[key]["ms"] / 1e9
+        if name == "tile_assembled_s28":
+            patch = form.operands(a)[0][0].contiguous()
+            out[key]["library_matmul"] = time_both(lambda: torch.matmul(patch, b))
+        if name.startswith("tile_"):
+            many = probes.tile_gemm(a, b, form, reps=sms)
+            if not all(torch.equal(c, got) for c in many):
+                raise AssertionError(f"tile GEMM {name}: a copy on {sms} SMs differs")
+            del many
+            out[f"{key}_all_sms"] = t = {
+                **time_both(lambda: probes.tile_gemm(a, b, form, reps=sms)), "reps": sms}
+            t["tf_s"] = sms * flops / t["ms"] / 1e9
     return out
 
 
@@ -372,7 +485,10 @@ def main(argv=None) -> int:
     keys += [token_key(shape, kind) for shape in TOKEN_SHAPES
              for kind in ("token", "hybrid")]
     keys += [reduce_key(shape) for shape, _ in REDUCE_SHAPES]
-    keys += ["reduce_per_clip", "reduce_per_clip_few"]
+    keys += ["reduce_per_clip", "reduce_per_clip_few", "empty_launch"]
+    keys += [f"slab_copy_{name}" for name in SLAB_PROBES]
+    keys += [f"tile_gemm_{name}" for name in (*MM_PROBES, *TILE_PROBES)]
+    keys += [f"tile_gemm_{name}_all_sms" for name in TILE_PROBES]
     for key in (k for k in keys if all(k in r for _, r in runs)):
         for timer in ("ms", "ms_unfenced"):
             med = {s: statistics.median(r[key][timer] for lab, r in runs if lab == s)
