@@ -39,10 +39,10 @@ Phases (any failure exits non-zero):
      ``exp_probe2`` called directly (copies bit-exact, products within 1
      bf16 ulp of max|plain|, the tiles' copies on every SM bit-equal),
      each with its time, bound and one PyTorch call (the assembled tiles
-     also beside ``torch.matmul`` of their patch), the slab copy and the
-     tile GEMM beside an empty launch's time (the launch floor) and their
-     times before the redesign; then both tools' command lines in-process
-     (exit 0, one JSON line per probe);
+     also beside ``torch.matmul`` of their patch), the three probe kernels
+     beside an empty launch's time (the launch floor; every relayout probe
+     as its ratio to it) and their times before the redesign; then both
+     tools' command lines in-process (exit 0, one JSON line per probe);
   3. slice parity: FULL_PRESET in float32 at 1x2x64x64, kernel path on the
      card against the plain path (CPU tensors) with the same weights;
  3b. the same with the opt-in kernel forms: the RCAB and trajectory conv
@@ -54,8 +54,8 @@ Phases (any failure exits non-zero):
      bf16 SPyNet convs), seeded random init, 1x16x180x320 clips: one
      warm-up request, then 3 clips x 3 reps, each request timed; the
      output must be finite and (1,16,720,1280,3), every serving kernel's
-     launch count over the run must be > 0, and the opt-in forms' kernels
-     must not launch;
+     launch count over the run must be > 0, the FFN's one a TAB (22 a
+     clip), and the opt-in forms' kernels must not launch;
  4b. serving in the kernel forms (main path 3): the same server, weights
      and clips with rcab_impl, traj_conv_impl and norm_impl "kernel": one
      warm-up request, then 3 clips; 968 conv-chain and 50 norm launches
@@ -65,7 +65,8 @@ Phases (any failure exits non-zero):
  4c. serving the few-levels model (main path 4): FEW_LEVELS_PRESET with
      the eval preset's 32 frames and trajectory window, bf16, 1x32x128x128
      clips: one warm-up request, then 2 clips; finite output of the right
-     shape, the LTAM, FFN, reduce and combine kernels launched; peak memory;
+     shape, the LTAM, FFN (12 a clip), reduce and combine kernels launched;
+     peak memory;
   5. train-step parity: one float32 FULL_PRESET training step (loss and
      gradients, drop_path 0, remat on) at 1x5x64x64, kernels on the card
      against the plain path on CPU tensors from the same weights;
@@ -126,6 +127,9 @@ KFORM_RATIO, TRAIN_LOSS_TOL = 2.0, 1e-2
 NORM_SHAPES = [(112, 16 * 184 * 320), (448, 16 * 92 * 160), (224, 16 * 92 * 160),
                (896, 16 * 46 * 80), (56, 16 * 92 * 160)]
 CHAIN_PER_CLIP, NORM_PER_CLIP, PIN_PER_CLIP = 968, 50, 64
+# FFN kernel launches a clip, one a TAB at every width: FULL_PRESET's 22,
+# the few-levels preset's 12
+FFN_PER_CLIP, FEW_FFN_PER_CLIP = 22, 12
 # the few-levels serving run: the eval preset's network fields
 # (vmg_tpu/configs/presets/vmg_eval_reds4_few_levels.yml: 32 frames, one
 # trajectory window over them, no flow freeze) on FEW_LEVELS_PRESET, its
@@ -196,8 +200,9 @@ REDUCE_BEFORE_MS = {(16, 92, 160, 224): 0.2156, (16, 46, 80, 224): 0.0638,
                     (32, 64, 64, 144): 0.0806, (16, 184, 320, 112): 0.4759}
 TOKEN_BEFORE_MS = {(16, 92, 160, 224): 1.2431, (16, 23, 40, 448): 0.3689}
 # the probe kernels before their redesign, at their primary probes (PERF.md,
-# PR 10 step 0, time_chain_pin on the previous tree; same timer)
-PROBE_BEFORE_MS = {"slab_copy": 0.0036, "tile_gemm": 0.0464}
+# the step 0 of each redesign: time_chain_pin on the previous tree; same
+# timer; the relayout at lane_store_cg28)
+PROBE_BEFORE_MS = {"slab_copy": 0.0036, "tile_gemm": 0.0464, "smem_relayout": 0.0043}
 # Train-step parity, f32: the loss within LOSS_TOL relative; each
 # parameter's gradient within GRAD_LIMIT of max(its max|plain|, GRAD_FLOOR x
 # the largest max|plain| of any parameter).  GRAD_TOL of its own max is
@@ -817,6 +822,8 @@ def check_probes(report, entries):
             if primary_call and kernel in PROBE_BEFORE_MS:
                 report(f"    {kernel}: before the redesign {PROBE_BEFORE_MS[kernel]} ms (PERF.md, "
                        f"same timer); {r['ms'] / floor:.2f} x the empty launch")
+            elif kernel == "smem_relayout":
+                report(f"    {r['ms'] / floor:.2f} x the empty launch")
             if primary_call:
                 e.update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                          at=f"{short}.{name}", bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -961,6 +968,7 @@ def main() -> int:
         return 1
     from vmg_tpu_torch import _build
     from vmg_tpu_torch.configs import FEW_LEVELS_PRESET, FULL_PRESET
+    from vmg_tpu_torch.models.blocks import MlpCnn
     from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
     from vmg_tpu_torch.ops.resize import upsample_trilinear_frames
     from vmg_tpu_torch.serve import SRServer
@@ -1087,6 +1095,13 @@ def main() -> int:
            f"range {min(per_request):.3f}-{max(per_request):.3f} frames/s; peak "
            f"allocated {peak / 2**30:.2f} GiB; {kind}; card {smi}")
     report(f"    launches over the serving run: {serving_launches}")
+    ffns = [m.fc2.out_features for m in server.model.modules() if isinstance(m, MlpCnn)]
+    clips_run = 1 + reps * len(clips)
+    report(f"    FFN: {len(ffns)} a clip at C in {sorted(set(ffns))}, "
+           f"{serving_launches['fused_group_ffn'] / clips_run:g} kernel launches a clip")
+    if len(ffns) != FFN_PER_CLIP or serving_launches["fused_group_ffn"] != FFN_PER_CLIP * clips_run:
+        raise AssertionError(f"FFN kernel launches {serving_launches['fused_group_ffn']} over "
+                             f"{clips_run} clips, expected {FFN_PER_CLIP} a clip")
     if out.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(out).all():
         raise AssertionError(f"bad serving output {out.shape}")
     missing = [k for k, v in serving_launches.items()
@@ -1192,6 +1207,9 @@ def main() -> int:
     missing = [k for k in FEW_PATH if few_launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched serving the few-levels model: {missing}")
+    if few_launches["fused_group_ffn"] != FEW_FFN_PER_CLIP * (len(few_clips) - 1):
+        raise AssertionError(f"few-levels FFN kernel launches {few_launches['fused_group_ffn']}, "
+                             f"expected {FEW_FFN_PER_CLIP} a clip")
     del server
     torch.cuda.empty_cache()
 

@@ -56,6 +56,27 @@ def test_mlp_cnn_grouped(rng):
     np.testing.assert_allclose(_run(m, x), want, **TOL)
 
 
+@pytest.mark.parametrize("C", [448, 224])
+def test_mlp_cnn_eval_takes_the_kernel_at_every_width(rng, monkeypatch, C):
+    """In eval, MlpCnn goes through the fused_group_ffn wrapper once at
+    every width, FULL_PRESET's stage 3 (C = 448, where the bf16 kernel
+    splits the output channels between its warpgroups) included, and
+    matches vmg_tpu's MlpCnn(impl='interpret') (groups 4, exp_r 6) within
+    TOL."""
+    calls = []
+    kernel_fn = blocks.fused_group_ffn
+    monkeypatch.setattr(blocks, "fused_group_ffn",
+                        lambda *a, **kw: calls.append(a[0].shape) or kernel_fn(*a, **kw))
+    x = _x(rng, (1, 2, 6, 8, C))
+    jm = jblocks.MlpCnn(C, exp_r=6.0, n_groups=4, impl="interpret")
+    p = jax.jit(jm.init)(jax.random.key(0), jnp.asarray(x))
+    want = np.asarray(jm.apply(p, jnp.asarray(x)))
+    m = _load(blocks.MlpCnn(C, 6.0, 4), p, "encoder_layers0/mlp_blocks0/channel_mixing",
+              "encoder_layers.0.mlp_blocks.0.channel_mixing.")
+    np.testing.assert_allclose(_run(m, x), want, **TOL)
+    assert calls == [(2, 6, 8, C)]
+
+
 # (H, W, C, chunk, with_res): both sides pick 'full' for the first two,
 # 'hybrid' for the others (W % chunk != 0; C % chunk != 0, which pads the axis-FC
 # channels); H = 18 leaves a partial last H-chunk

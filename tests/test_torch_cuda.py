@@ -431,6 +431,85 @@ def test_slab_copy_kernel(cuda, H2, Wp, C, R, slabs):
     assert torch.equal(got, probes.slab_copy_plain(x, R, slabs)) and torch.equal(got, again)
 
 
+# (id, input shape, layout): every map kind at the probes' shapes and where
+# the design takes its other branches -- runs off 16-byte alignment (taps of
+# 56-byte rows, a channel slice at 56 bytes, the roll's 2-byte run, slice
+# offsets of 1-7 rows and channels), row tiles that are not whole 16-byte
+# units (odd Cout, 13 and 9 channels) and ragged last row tiles, roll shifts
+# 0 and C - 1, a tiling whose tile does not divide the input's rows, inputs
+# that end off a 16-byte unit (the staged tail)
+_RELAY_CASES = [
+    ("subshift1", (8, 328, 128), probes.Layout("slice", rows=320, chans=128, row=1)),
+    ("lane_store_cg28", (8, 328, 28), probes.Layout("taps", rows=320, taps=9)),
+    ("lane_store_cg128", (8, 328, 128), probes.Layout("taps", rows=320, taps=9)),
+    ("lane_read_off28", (8, 320, 112), probes.Layout("slice", rows=320, chans=28, ch=28)),
+    ("roll_lane", (8, 128, 384), probes.Layout("roll", shift=1)),
+    ("sublane_store_t32", (1, 32, 384), probes.Layout("tile", taps=9)),
+    *[(f"slice_r{r}", (3, 21, 13), probes.Layout("slice", rows=13, chans=5, row=r, ch=r))
+      for r in (1, 3, 7)],
+    *[(f"taps{t}_c7", (2, 30, 7), probes.Layout("taps", rows=31 - t, taps=t)) for t in (1, 4, 9)],
+    ("taps9_ragged", (3, 11, 28), probes.Layout("taps", rows=3, taps=9)),
+    *[(f"roll{s}_c9", (2, 9, 9), probes.Layout("roll", shift=s)) for s in (0, 1, 8)],
+    ("roll2_tail", (1, 7, 3), probes.Layout("roll", shift=2)),
+    ("tile7_c11", (1, 5, 11), probes.Layout("tile", taps=7)),
+    ("tile3_frames2", (2, 32, 384), probes.Layout("tile", taps=3)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [None, 3])
+@pytest.mark.parametrize("name,shape,layout", _RELAY_CASES, ids=[c[0] for c in _RELAY_CASES])
+def test_smem_relayout_kernel(cuda, name, shape, layout, sms, monkeypatch):
+    """The relayout kernel bit-exact against relayout_plain for every map
+    kind, aligned and unaligned runs, ragged last row tiles and odd Cout,
+    on the card's plan and on a plan for three SMs (longer row tiles); two
+    runs bit-equal; one launch a call."""
+    if sms is not None:
+        monkeypatch.setattr(probes._build, "sm_count", lambda index: sms)
+    x = _bf16(np.random.default_rng(11), shape, cuda)
+    before = probes.smem_relayout.launches
+    got = probes.smem_relayout(x, layout)
+    assert probes.smem_relayout.launches == before + 1
+    again = probes.smem_relayout(x, layout)
+    torch.cuda.synchronize()
+    assert probes.smem_relayout.launches == before + 2
+    assert torch.equal(got, probes.relayout_plain(x, layout).contiguous())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_smem_relayout_refuses(cuda):
+    """An input off 16-byte alignment raises, launching nothing."""
+    x = torch.zeros(181, device=cuda, dtype=torch.bfloat16)[1:].reshape(1, 20, 9)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    before = probes.smem_relayout.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.smem_relayout(x, probes.Layout("roll", shift=1))
+    assert probes.smem_relayout.launches == before
+
+
+@pytest.mark.cuda
+def test_mlp_cnn_kernel_at_stage3_on_the_card(cuda):
+    """MlpCnn in eval at FULL_PRESET's stage 3 (16x23x40x448, groups 4,
+    exp_r 6), bf16: one FFN kernel launch, and its output agrees with the
+    module form (the training path: grouped conv, GELU, fc2) within the
+    FFN's bf16 tolerance."""
+    from vmg_tpu_torch.models import blocks
+
+    torch.manual_seed(0)
+    m = blocks.MlpCnn(448, 6.0, 4, gelu_act="tanh").to(cuda, torch.bfloat16).eval()
+    x = _bf16(np.random.default_rng(12), (1, 16, 23, 40, 448), cuda)
+    before = group_conv.fused_group_ffn.launches
+    with torch.no_grad():
+        got = m(x)
+        torch.cuda.synchronize()
+        assert group_conv.fused_group_ffn.launches == before + 1
+        module = m.train()(x)
+    torch.cuda.synchronize()
+    assert group_conv.fused_group_ffn.launches == before + 1
+    _close(got, module, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_probe_wrappers_refuse(cuda):
     """A slab row that breaks the bulk copy's 16-byte rule, a product wider

@@ -494,3 +494,190 @@ def test_gemm_b_image_reads_b(form, N):
             assert u % plan.splits == blk % plan.splits
             seen[u] = seen.get(u, 0) + 1
     assert sorted(seen) == list(range(plan.units)) and set(seen.values()) == {1}
+
+
+# ---- the relayout kernel's plan and index arithmetic -------------------------
+
+_RELAY_PROBES = [  # (shape, layout): the eight distinct probes of both tools
+    ((8, 328, 128), probes.Layout("slice", rows=320, chans=128, row=1)),
+    ((8, 328, 128), probes.Layout("slice", rows=320, chans=128, row=2)),
+    ((8, 328, 28), probes.Layout("taps", rows=320, taps=9)),
+    ((8, 328, 32), probes.Layout("taps", rows=320, taps=9)),
+    ((8, 328, 128), probes.Layout("taps", rows=320, taps=9)),
+    ((8, 320, 112), probes.Layout("slice", rows=320, chans=28, ch=28)),
+    ((8, 128, 384), probes.Layout("roll", shift=1)),
+    ((1, 32, 384), probes.Layout("tile", taps=9))]
+_RELAY_IDS = ["subshift1", "subshift2", "lane_store_cg28", "lane_store_cg32",
+              "lane_store_cg128", "lane_read_off28", "roll_lane", "sublane_store_t32"]
+# ragged shapes: row tiles that are not whole 16-byte units (odd Cout, Bout
+# not a multiple of the tile), roll shifts 0, 1, C - 1 and past C, slice
+# offsets at every residue mod 8 (rows and channels), taps 1 to 9, a tiling
+# whose tile does not divide the input's rows, inputs whose byte count is
+# not a whole number of 16-byte units (the staged tail)
+_RELAY_RAGGED = (
+    [((3, 21, 13), probes.Layout("slice", rows=13, chans=5, row=r, ch=r)) for r in range(8)]
+    + [((2, 40, 24), probes.Layout("slice", rows=29, chans=24, row=r)) for r in range(8)]
+    + [((2, 30, 7), probes.Layout("taps", rows=30 - t + 1, taps=t)) for t in range(1, 10)]
+    + [((3, 11, 28), probes.Layout("taps", rows=3, taps=9))]
+    + [((2, 9, 9), probes.Layout("roll", shift=s)) for s in (0, 1, 8, 13, -1)]
+    + [((2, 5, 384), probes.Layout("roll", shift=1)), ((1, 7, 3), probes.Layout("roll", shift=2))]
+    + [((1, 5, 11), probes.Layout("tile", taps=7)), ((2, 32, 384), probes.Layout("tile", taps=3)),
+       ((1, 3, 5), probes.Layout("tile", taps=4))])
+
+
+def _relay_vec(stage, s):
+    """``relay_vec``: the 16 bytes at stage offset s from the two aligned
+    16-byte words that hold them, shifted by whole words, then by a byte
+    permute of 2 bytes."""
+    q = s & ~15
+    assert s % 2 == 0 and 0 <= q and q + 32 <= len(stage)
+    u = [int(w) for w in stage[q:q + 32].view(np.uint32)]
+    if s & 8:
+        u = u[2:]
+    if s & 4:
+        u = u[1:]
+    words = [(u[i] >> 16) | ((u[i + 1] & 0xFFFF) << 16) if s & 2 else u[i] for i in range(4)]
+    return np.array(words, np.uint32).view(np.uint8)
+
+
+def _relayout_model(x, layout, plan):
+    """The relayout kernel's walk in bytes: each block of ``plan`` stages its
+    span (``relayout_span``) from the 16-byte unit below it -- whole units by
+    the bulk copy, the tail past the input's last whole unit element by
+    element -- into a stage that holds junk elsewhere, tabulates its rows'
+    runs (``relayout_row``) and writes the output's 16-byte vectors from them
+    (``_relay_vec`` inside one run, element by element across a boundary or
+    where a vector is shared with the next block).  Checks that every read
+    stays inside what was staged and every output element is written
+    once."""
+    A, Bin, Cin = x.shape
+    kind, p0, p1, Bout, Cout = probes.relayout_args(layout, x.shape)
+    src = x.contiguous().view(torch.int16).numpy().view(np.uint8)
+    src = src.reshape(-1)
+    out = np.zeros(A * Bout * Cout * 2, np.uint8)
+    written = np.zeros(A * Bout * Cout, np.int64)
+    for a in range(A):
+        for bx in range(plan.grid[0]):
+            b0, b1 = bx * plan.rows, min(Bout, (bx + 1) * plan.rows)
+            lo, hi = probes.relayout_span(kind, p0, p1, Bin, Cin, Cout, a, b0, b1)
+            S0 = (2 * lo) & ~15
+            S1 = min((2 * hi + 15) & ~15, src.size & ~15)  # src: the input's bytes
+            assert S0 <= S1 <= 2 * hi + 15 and (S1 - S0) % 16 == 0
+            stage = np.full(plan.stage, 0xCD, np.uint8)
+            stage[:S1 - S0] = src[S0:S1]
+            stage[S1 - S0:2 * hi - S0] = src[S1:2 * hi]
+            staged = 2 * hi - S0
+            table = []
+            for b in range(b0, b1):
+                s0, l0, s1 = probes.relayout_row(kind, p0, p1, Bin, Cin, Cout, a, b)
+                assert lo <= s0 and s0 + l0 <= hi and (l0 == Cout or lo <= s1 <= hi - Cout + l0)
+                table.append((2 * s0 - S0, l0, 2 * s1 - S0))
+
+            def elem(rel):
+                off0, len0, off1 = table[rel // Cout]
+                c = rel % Cout
+                off = off0 + 2 * c if c < len0 else off1 + 2 * (c - len0)
+                assert 0 <= off and off + 2 <= staged
+                return stage[off:off + 2]
+
+            e0, e1 = (a * Bout + b0) * Cout, (a * Bout + b1) * Cout
+            for k in range(e0 // 8, -(-e1 // 8)):
+                v0 = 8 * k
+                if v0 >= e0 and v0 + 8 <= e1:
+                    rel = v0 - e0
+                    off0, len0, off1 = table[rel // Cout]
+                    c = rel % Cout
+                    if c + 8 <= len0 or len0 <= c and c + 8 <= Cout:
+                        s = off0 + 2 * c if c + 8 <= len0 else off1 + 2 * (c - len0)
+                        assert s + 16 <= staged
+                        vec = _relay_vec(stage, s)
+                    else:
+                        vec = np.concatenate([elem(rel + j) for j in range(8)])
+                    out[2 * v0:2 * v0 + 16] = vec
+                    written[v0:v0 + 8] += 1
+                else:
+                    for e in range(max(v0, e0), min(v0 + 8, e1)):
+                        out[2 * e:2 * e + 2] = elem(e - e0)
+                        written[e] += 1
+    assert (written == 1).all()
+    return torch.from_numpy(out.view(np.int16).copy()).view(torch.bfloat16).reshape(A, Bout, Cout)
+
+
+@pytest.mark.parametrize("shape,layout", _RELAY_PROBES, ids=_RELAY_IDS)
+def test_relayout_model_matches_plain_at_the_probes(shape, layout):
+    """At every relayout probe's shape the plan's blocks, staged spans, run
+    tables and 16-byte vectors reproduce relayout_plain bit for bit."""
+    x, _ = _inputs(shape)
+    plan = probes.relayout_plan(layout, shape, 132)
+    _exact(_relayout_model(x, layout, plan), probes.relayout_plain(x, layout).contiguous())
+
+
+@pytest.mark.parametrize("sms", [132, 3])
+@pytest.mark.parametrize("shape,layout", _RELAY_RAGGED,
+                         ids=[f"{lay.kind}{i}" for i, (_, lay) in enumerate(_RELAY_RAGGED)])
+def test_relayout_model_matches_plain_ragged(shape, layout, sms):
+    """Ragged shapes, on a full card and on three SMs (longer row tiles):
+    the model reproduces relayout_plain bit for bit."""
+    x, _ = _inputs(shape, seed=3)
+    plan = probes.relayout_plan(layout, shape, sms)
+    _exact(_relayout_model(x, layout, plan), probes.relayout_plain(x, layout).contiguous())
+
+
+@pytest.mark.parametrize("shape,layout", _RELAY_PROBES, ids=_RELAY_IDS)
+def test_relayout_plan_fills_the_card(shape, layout):
+    """At the probes: row tiles of whole 16-byte units, at most
+    RELAY_BLOCKS_PER_SM blocks an SM (more only where a block would write
+    more than RELAY_MAX_VECTORS vectors) and at least one an SM where the
+    output has the rows, shared memory within a block's, about
+    RELAY_VECS_PER_THREAD vectors a thread."""
+    plan = probes.relayout_plan(layout, shape, 132)
+    kind, p0, _, Bout, Cout = probes.relayout_args(layout, shape)
+    blocks = plan.grid[0] * plan.grid[1]
+    vectors = plan.rows * Cout // 8
+    assert plan.rows * Cout * 2 % 16 == 0 and vectors <= probes.RELAY_MAX_VECTORS
+    assert min(132, shape[0] * Bout) <= blocks
+    assert blocks <= probes.RELAY_BLOCKS_PER_SM * 132 or \
+        (plan.rows + 1) * Cout > 8 * probes.RELAY_MAX_VECTORS
+    assert plan.grid == (-(-Bout // plan.rows), shape[0])
+    assert plan.stage == probes.relayout_stage_bytes(kind, p0, shape[1], shape[2], Cout, plan.rows)
+    assert plan.smem == probes.relayout_smem(kind, p0, shape[1], shape[2], Cout, plan.rows)
+    assert plan.smem <= probes.SMEM_MAX
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= probes.RELAY_MAX_THREADS
+    assert plan.threads >= min(probes.RELAY_MAX_THREADS, vectors // probes.RELAY_VECS_PER_THREAD)
+
+
+def test_relayout_plan_at_the_primary_probe():
+    """lane_store_cg28 on 132 SMs: row tiles of 10 rows (5040 bytes: 315
+    vectors), 32 a frame, 256 blocks of 160 threads; lane_store_cg128: 5
+    rows (720 vectors, the most a block takes), 512 blocks of 256."""
+    plan = probes.relayout_plan(probes.Layout("taps", rows=320, taps=9), (8, 328, 28), 132)
+    assert (plan.rows, plan.grid, plan.threads) == (10, (32, 8), 160)
+    plan = probes.relayout_plan(probes.Layout("taps", rows=320, taps=9), (8, 328, 128), 132)
+    assert (plan.rows, plan.grid, plan.threads) == (5, (64, 8), 256)
+
+
+@pytest.mark.parametrize("shape,layout,ptr,match", [
+    ((8, 328, 28), probes.Layout("taps", rows=320, taps=9), 8, "16-byte"),
+    ((8, 328, 28), probes.Layout("taps", rows=320, taps=9), 2, "16-byte"),
+    ((2, 10, 8), probes.Layout("slice", rows=0, chans=8), 0, "empty"),
+    ((2, 10, 8), probes.Layout("taps", rows=4, taps=0), 0, "empty"),
+    ((2, 10, 8), probes.Layout("slice", rows=8, chans=8, row=3), 0, "outside"),
+    ((2, 10, 8), probes.Layout("slice", rows=4, chans=5, ch=4), 0, "outside"),
+    ((2, 10, 8), probes.Layout("taps", rows=8, taps=4), 0, "rows"),
+    ((70000, 2, 8), probes.Layout("roll", shift=1), 0, "65535"),
+    ((1, 2, 120000), probes.Layout("roll", shift=1), 0, "shared memory"),
+    ((1, 4000, 40), probes.Layout("taps", rows=1000, taps=3000), 0, "shared memory"),
+    ((2, 10, 8), probes.Layout("gather"), 0, "unknown")])
+def test_relayout_plan_refuses(shape, layout, ptr, match):
+    """What the kernel does not take raises from the plan, which the
+    wrapper runs before every launch: a misaligned input, an empty output,
+    a slice or taps outside the input, too many frames, a stage past a
+    block's shared memory, an unknown map."""
+    with pytest.raises(ValueError, match=match):
+        probes.relayout_plan(layout, shape, 132, ptr)
+
+
+def test_relayout_wrapper_refuses_an_unknown_map_on_the_cpu():
+    x, _ = _inputs((2, 4, 8))
+    with pytest.raises(ValueError, match="unknown"):
+        probes.smem_relayout(x, probes.Layout("gather"))

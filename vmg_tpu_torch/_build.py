@@ -65,8 +65,9 @@ _SIGNATURES = {
     "vmg_layout_pin": [_P, _P, _L, _P],
     # x, out, Wp, C, R, slabs, wpiece, stream
     "vmg_probe_slab_copy": [_P] * 2 + [_I] * 5 + [_P],
-    # in, out, A, Bin, Cin, Bout, Cout, kind, p0, p1, stream
-    "vmg_probe_relayout": [_P] * 2 + [_I] * 8 + [_P],
+    # in, out, A, Bin, Cin, Bout, Cout, kind, p0, p1, rows, threads, stage,
+    # smem, stream
+    "vmg_probe_relayout": [_P] * 2 + [_I] * 12 + [_P],
     # a, b, out, M, N, K, taps, batch, reps, kind, lda, tap_stride,
     # batch_stride, Wo, Wx, Cx, cg, stride, arows, nt, kw, kbox, ring, grid,
     # tma, stream

@@ -23,14 +23,33 @@
 //
 // vmg_probe_relayout replaces the layout probes (`vmem_subshift`,
 // `vmem_lane_store`, `vmem_lane_read`, `roll_lane`, `subdim_store`,
-// `lane_store`, `lane_concat`): a template over the index map.  A block
-// stages the input rows one 8-row output tile needs in shared memory
-// (16-byte loads where the rows allow), then writes the tile in the
-// probe's layout, neighbouring threads on neighbouring output elements
-// (two per 4-byte store).
-// Bound: device memory.  Maps: a slice (row and channel offsets), taps
-// (out[b, t * C + k] = in[b + t, k]), a roll along channels, and a tiling
-// of the rows.
+// `lane_store`, `lane_concat`): a copy of an (A, B, C) tensor into a slice
+// (row and channel offsets), taps (out[b, t * C + k] = in[b + t, k]), a roll
+// along channels or a tiling of the rows.  Bound: device memory, and at the
+// probes' 0.1-6 MB launch and memory latency.  Every map is a copy of
+// contiguous runs: an output row is one run of input (slice, taps, tile)
+// or two (roll).  So the index map leaves the inner loop:
+//   - a block (`probes.relayout_plan`: a row tile of `rows` output rows,
+//     a whole number of 16-byte units where the row width allows; at most
+//     two blocks an SM, at most 768 output vectors a block, two a thread)
+//     stages the input span its rows read -- one contiguous range, whole
+//     rows for a channel slice -- by one bulk asynchronous copy
+//     (cp.async.bulk) from the 16-byte unit below its first element,
+//     completing on an mbarrier (a tail past the input's last whole unit,
+//     element by element);
+//   - while the copy is in flight, each output row's runs (byte offsets into
+//     the stage, the first run's length) are worked out once, into a table;
+//   - threads then assemble the block's output as 16-byte vectors,
+//     neighbouring threads on neighbouring vectors: a vector inside one run
+//     from the two aligned 16-byte words that hold it, shifted by selects and
+//     a byte permute (runs start anywhere on 2 bytes: taps of 56-byte rows,
+//     the channel slice, the roll's 2-byte run), stored as one 16-byte store;
+//     a vector across a run or row boundary element by element, walking
+//     the rows from its first (one divide a vector, none an element);
+//   - launched with programmatic dependent launch, as the slab copy.
+// Bulk copies read 16-byte aligned addresses: the wrapper refuses an input
+// that is not 16-byte aligned, and a shape whose staged span does not fit a
+// block's shared memory.
 //
 // vmg_probe_tile_gemm replaces `mm_time` and the stage-0 conv-tile probes
 // (`tile_assembled`, `tile_accum`, `tile_3dot`): out = round(sum over taps
@@ -142,80 +161,176 @@ slab_copy_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int Wp, int
 
 // ---- relayout ----------------------------------------------------------------
 
-constexpr int kRelayRows = 8;  // output rows per block
+constexpr int kRelayMaxThreads = 256;
 
-// Each map names, for output (b, c) of an A x Bout x Cout tensor, the input
-// row and channel it copies, and the input rows an output row tile needs.
-struct SliceMap {  // out[b, c] = in[b + boff, c + coff]
-  int boff, coff;
-  __device__ int lo(int b0, int) const { return b0 + boff; }
-  __device__ int hi(int b1, int) const { return b1 + boff; }
-  __device__ void src(int b, int c, int, int& rb, int& rc) const { rb = b + boff; rc = c + coff; }
-};
-struct TapsMap {  // out[b, t * Cin + k] = in[b + t, k], t < taps
-  int taps;
-  __device__ int lo(int b0, int) const { return b0; }
-  __device__ int hi(int b1, int) const { return b1 + taps - 1; }
-  __device__ void src(int b, int c, int Cin, int& rb, int& rc) const {
-    rb = b + c / Cin;
-    rc = c % Cin;
-  }
-};
-struct RollMap {  // out[b, c] = in[b, (c - shift) mod Cin]
-  int shift;
-  __device__ int lo(int b0, int) const { return b0; }
-  __device__ int hi(int b1, int) const { return b1; }
-  __device__ void src(int b, int c, int Cin, int& rb, int& rc) const {
-    rb = b;
-    rc = ((c - shift) % Cin + Cin) % Cin;
-  }
-};
-struct TileMap {  // out[b, c] = in[b mod Bin, c]
-  __device__ int lo(int, int) const { return 0; }
-  __device__ int hi(int, int Bin) const { return Bin; }
-  __device__ void src(int b, int c, int Bin, int& rb, int& rc) const {
-    rb = b % Bin;
-    rc = c;
-  }
+// The relayout's operands: in (A, Bin, Cin) -> out (A, Bout, Cout), bf16;
+// kind 0 slice (p0 row, p1 channel offset), 1 taps (p0 taps), 2 roll (p0
+// shift, 0 <= p0 < Cin), 3 tile; `rows` output rows a block.
+struct RelayArgs {
+  const bf16* in;
+  bf16* out;
+  int Bin, Cin, Bout, Cout, kind, p0, p1, rows;
+  long long in_elems;
 };
 
-template <typename Map>
-__global__ void __launch_bounds__(kThreads)
-relayout_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, int Bin, int Cin,
-                int Bout, int Cout, Map map) {
-  extern __shared__ __align__(128) unsigned char raw[];
-  bf16* tile = reinterpret_cast<bf16*>(raw);
-  const int a = blockIdx.y, b0 = blockIdx.x * kRelayRows;
-  const int b1 = min(Bout, b0 + kRelayRows);
-  const int lo = map.lo(b0, Bin), hi = min(Bin, map.hi(b1, Bin));
-  const bf16* src = in + ((size_t)a * Bin + lo) * Cin;
-  const int n = (hi - lo) * Cin;
-  if ((uintptr_t)src % 16 == 0 && n % 8 == 0) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(tile);
-    for (int e = threadIdx.x; e < n / 8; e += kThreads) d[e] = s[e];
+// Flat input elements [lo, hi) that output rows [b0, b1) of frame a read
+// (probes.relayout_span).
+__device__ __forceinline__ void relay_span(const RelayArgs& g, int a, int b0, int b1,
+                                           long long& lo, long long& hi) {
+  const long long f = (long long)a * g.Bin;
+  if (g.kind == 0) {
+    lo = (f + b0 + g.p0) * g.Cin + g.p1;
+    hi = (f + b1 - 1 + g.p0) * g.Cin + g.p1 + g.Cout;
+  } else if (g.kind == 1) {
+    lo = (f + b0) * g.Cin;
+    hi = (f + b1 - 1 + g.p0) * g.Cin;
+  } else if (g.kind == 2) {
+    lo = (f + b0) * g.Cin;
+    hi = (f + b1) * g.Cin;
+  } else {  // rows b mod Bin: the whole frame where the block wraps
+    int r0 = b0 % g.Bin, n = b1 - b0;
+    if (r0 + n > g.Bin) r0 = 0, n = g.Bin;
+    lo = (f + r0) * g.Cin;
+    hi = (f + r0 + n) * g.Cin;
+  }
+}
+
+// Output row b of frame a as at most two runs of input (probes.relayout_row):
+// element c < len0 is flat input element src0 + c, the rest src1 + c - len0.
+__device__ __forceinline__ void relay_row(const RelayArgs& g, int a, int b, long long& src0,
+                                          int& len0, long long& src1) {
+  const long long f = (long long)a * g.Bin;
+  len0 = g.Cout;
+  src1 = 0;
+  if (g.kind == 0) {
+    src0 = (f + b + g.p0) * g.Cin + g.p1;
+  } else if (g.kind == 1) {
+    src0 = (f + b) * g.Cin;
+  } else if (g.kind == 2) {  // out[c] = in[(c - shift) mod Cin]: the last `shift`, then the rest
+    src1 = (f + b) * g.Cin;
+    src0 = src1 + g.Cin - g.p0;
+    len0 = g.p0;
   } else {
-    for (int e = threadIdx.x; e < n; e += kThreads) tile[e] = src[e];
+    src0 = (f + b % g.Bin) * g.Cin;
+  }
+}
+
+// The 16 bytes at stage + s (s even): the two aligned 16-byte words that
+// hold them, shifted down by s % 16 bytes -- whole words by selects, the
+// 2-byte remainder by a byte permute.
+__device__ __forceinline__ uint4 relay_vec(const unsigned char* stage, int s) {
+  const uint4 w0 = *reinterpret_cast<const uint4*>(stage + (s & ~15));
+  const uint4 w1 = *reinterpret_cast<const uint4*>(stage + (s & ~15) + 16);
+  uint32_t u0 = w0.x, u1 = w0.y, u2 = w0.z, u3 = w0.w, u4 = w1.x, u5 = w1.y;
+  const uint32_t u6 = w1.z, u7 = w1.w;
+  if (s & 8) u0 = u2, u1 = u3, u2 = u4, u3 = u5, u4 = u6, u5 = u7;
+  if (s & 4) u0 = u1, u1 = u2, u2 = u3, u3 = u4, u4 = u5;
+  const unsigned sel = (s & 2) ? 0x5432 : 0x3210;
+  return make_uint4(__byte_perm(u0, u1, sel), __byte_perm(u1, u2, sel),
+                    __byte_perm(u2, u3, sel), __byte_perm(u3, u4, sel));
+}
+
+// Walks the block's output element by element from row r, column c: the
+// row's runs in registers, the next row's read from the table only where
+// the walk crosses into it.
+struct RelayCursor {
+  const unsigned char* stage;
+  const int* table;
+  int Cout, r, c, off0, len0, off1;
+  __device__ __forceinline__ RelayCursor(const unsigned char* s, const int* t, int cout, int row,
+                                         int col)
+      : stage(s), table(t), Cout(cout), r(row), c(col) {
+    load();
+  }
+  __device__ __forceinline__ void load() {
+    off0 = table[3 * r];
+    len0 = table[3 * r + 1];
+    off1 = table[3 * r + 2];
+  }
+  __device__ __forceinline__ unsigned short next() {
+    if (c == Cout) ++r, c = 0, load();
+    const int off = c < len0 ? off0 + 2 * c : off1 + 2 * (c - len0);
+    ++c;
+    return *reinterpret_cast<const unsigned short*>(stage + off);
+  }
+};
+
+// grid (row tiles, A): block (x, a) writes output rows [x rows, + rows) of
+// frame a.  Shared memory: the staged input span (stage_bytes, from 16
+// bytes below its first element, with room for relay_vec's second word),
+// the rows' run table (byte offsets into the stage), the mbarrier.
+__global__ void __launch_bounds__(kRelayMaxThreads)
+relayout_kernel(RelayArgs g, int stage_bytes) {
+  extern __shared__ __align__(128) unsigned char relay_smem[];
+  unsigned char* stage = relay_smem;
+  int* table = reinterpret_cast<int*>(relay_smem + stage_bytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(relay_smem + stage_bytes +
+                                              (12 * g.rows + 7) / 8 * 8);
+  pdl_launch_dependents();
+  const int a = blockIdx.y, b0 = blockIdx.x * g.rows, b1 = min(g.Bout, b0 + g.rows);
+  long long lo, hi;
+  relay_span(g, a, b0, b1, lo, hi);
+  // one bulk copy of the span's whole 16-byte units; a tail past the input's
+  // last whole unit element by element
+  const long long S0 = (2 * lo) & ~15LL;
+  const long long S1 = min((2 * hi + 15) & ~15LL, (2 * g.in_elems) & ~15LL);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int Bm = std::is_same<Map, TileMap>::value ? Bin : Cin;  // the map's modulus
-  auto at = [&](int b, int c) {
-    int rb, rc;
-    map.src(b, c, Bm, rb, rc);
-    return tile[(rb - lo) * Cin + rc];
-  };
-  if (Cout % 2 == 0) {  // two elements (4 bytes) per store
-    for (int e = threadIdx.x; e < (b1 - b0) * Cout / 2; e += kThreads) {
-      const int b = b0 + 2 * e / Cout, c = 2 * e % Cout;
-      __nv_bfloat162 v;
-      v.x = at(b, c);
-      v.y = at(b, c + 1);
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)a * Bout + b) * Cout + c) = v;
-    }
-  } else {
-    for (int e = threadIdx.x; e < (b1 - b0) * Cout; e += kThreads) {
-      const int b = b0 + e / Cout, c = e % Cout;
-      out[((size_t)a * Bout + b) * Cout + c] = at(b, c);
+  pdl_wait();
+  const unsigned char* in = reinterpret_cast<const unsigned char*>(g.in);
+  if (threadIdx.x == 0) {
+    mbar_expect(bar, (unsigned)(S1 - S0));
+    if (S1 > S0) bulk_load(stage, in + S0, (unsigned)(S1 - S0), bar);
+  }
+  for (long long e = S1 + 2 * threadIdx.x; e < 2 * hi; e += 2 * blockDim.x)
+    *reinterpret_cast<unsigned short*>(stage + (e - S0)) =
+        *reinterpret_cast<const unsigned short*>(in + e);
+  // each row's runs, once, while the copy is in flight
+  for (int r = threadIdx.x; r < b1 - b0; r += blockDim.x) {
+    long long s0, s1;
+    int l0;
+    relay_row(g, a, b0 + r, s0, l0, s1);
+    table[3 * r] = (int)(2 * s0 - S0);
+    table[3 * r + 1] = l0;
+    table[3 * r + 2] = (int)(2 * s1 - S0);
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  // the block's output span as 16-byte vectors, neighbouring threads on
+  // neighbouring vectors: a vector inside one run from relay_vec, one across
+  // a run or row boundary element by element; a vector the span shares with
+  // the next block's (a row tile whose bytes are not a multiple of 16) is
+  // written element by element, its own elements only
+  const long long e0 = ((long long)a * g.Bout + b0) * g.Cout;
+  const long long e1 = ((long long)a * g.Bout + b1) * g.Cout;
+  unsigned short* out = reinterpret_cast<unsigned short*>(g.out);
+  for (long long k = e0 / 8 + threadIdx.x; 8 * k < e1; k += blockDim.x) {
+    const long long v0 = 8 * k;
+    if (v0 >= e0 && v0 + 8 <= e1) {
+      const int rel = (int)(v0 - e0), r = rel / g.Cout, c = rel - r * g.Cout;
+      const int off0 = table[3 * r], len0 = table[3 * r + 1], off1 = table[3 * r + 2];
+      uint4 v;
+      if (c + 8 <= len0) {
+        v = relay_vec(stage, off0 + 2 * c);
+      } else if (c >= len0 && c + 8 <= g.Cout) {
+        v = relay_vec(stage, off1 + 2 * (c - len0));
+      } else {
+        RelayCursor cur(stage, table, g.Cout, r, c);
+        uint32_t h[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) h[j] = cur.next();
+        v = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16,
+                       h[6] | h[7] << 16);
+      }
+      *reinterpret_cast<uint4*>(out + v0) = v;
+    } else {
+      const long long first = max(v0, e0);
+      const int rel = (int)(first - e0), r = rel / g.Cout;
+      RelayCursor cur(stage, table, g.Cout, r, rel - r * g.Cout);
+      for (long long e = first; e < min(v0 + 8, e1); ++e) out[e] = cur.next();
     }
   }
 }
@@ -523,37 +638,50 @@ extern "C" int vmg_probe_slab_copy(const void* x, void* out, int Wp, int C, int 
                          (vmg::bf16*)out, Wp, C, R, wpiece);
 }
 
-// in: (A, Bin, Cin), out: (A, Bout, Cout) bf16.  kind 0 slice (p0 row
-// offset, p1 channel offset), 1 taps (p0 taps), 2 roll (p0 shift), 3 tile.
+// in: (A, Bin, Cin), out: (A, Bout, Cout) bf16, 16-byte aligned.  kind 0
+// slice (p0 row offset, p1 channel offset), 1 taps (p0 taps), 2 roll (p0
+// shift, 0 <= p0 < Cin), 3 tile; rows, threads, stage (bytes) and smem:
+// `probes.relayout_plan`'s.  Checked here only that the stage holds the
+// largest span a block reads, with relay_vec's room past it, and that smem
+// holds the stage, the run table and the mbarrier.
 extern "C" int vmg_probe_relayout(const void* in, void* out, int A, int Bin, int Cin,
-                                  int Bout, int Cout, int kind, int p0, int p1,
-                                  void* stream) {
+                                  int Bout, int Cout, int kind, int p0, int p1, int rows,
+                                  int threads, int stage, int smem, void* stream) {
   using namespace vmg;
-  const int halo = kind == 1 ? p0 - 1 : 0;
-  const int rows = kind == 3 ? Bin : kRelayRows + halo;
-  const size_t smem = (size_t)rows * Cin * 2;
-  if (A > 65535 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Bout + kRelayRows - 1) / kRelayRows, A);
-  const bf16* i = (const bf16*)in;
-  bf16* o = (bf16*)out;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (A < 1 || A > 65535 || Bin < 1 || Cin < 1 || Bout < 1 || Cout < 1 || rows < 1 ||
+      threads < 32 || threads > kRelayMaxThreads || threads % 32 || (uintptr_t)in % 16 ||
+      (uintptr_t)out % 16)
+    return (int)cudaErrorInvalidValue;
+  long long span;  // input elements a block stages at most
   switch (kind) {
     case 0:
-      relayout_kernel<<<grid, kThreads, smem, st>>>(i, o, Bin, Cin, Bout, Cout, SliceMap{p0, p1});
+      if (p0 < 0 || p1 < 0 || p0 + Bout > Bin || p1 + Cout > Cin) return (int)cudaErrorInvalidValue;
+      span = (long long)(rows - 1) * Cin + Cout;
       break;
     case 1:
-      relayout_kernel<<<grid, kThreads, smem, st>>>(i, o, Bin, Cin, Bout, Cout, TapsMap{p0});
+      if (p0 < 1 || Cout != p0 * Cin || Bout + p0 - 1 > Bin) return (int)cudaErrorInvalidValue;
+      span = (long long)(rows - 1 + p0) * Cin;
       break;
     case 2:
-      relayout_kernel<<<grid, kThreads, smem, st>>>(i, o, Bin, Cin, Bout, Cout, RollMap{p0});
+      if (p0 < 0 || p0 >= Cin || Bout != Bin || Cout != Cin) return (int)cudaErrorInvalidValue;
+      span = (long long)rows * Cin;
       break;
     case 3:
-      relayout_kernel<<<grid, kThreads, smem, st>>>(i, o, Bin, Cin, Bout, Cout, TileMap{});
+      if (Cout != Cin) return (int)cudaErrorInvalidValue;
+      span = (long long)(rows > Bin || Bin % rows ? Bin : rows) * Cin;
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (stage % 16 || stage < 2 * span + 48 || smem > (long long)kMaxSmem ||
+      smem < stage + (12LL * rows + 7) / 8 * 8 + 8)
+    return (int)cudaErrorInvalidValue;
+  const int e = set_smem(relayout_kernel, (size_t)smem);
+  if (e != 0) return e;
+  const RelayArgs g{(const bf16*)in, (bf16*)out, Bin, Cin, Bout, Cout, kind, p0, p1, rows,
+                    (long long)A * Bin * Cin};
+  return launch_pdl(relayout_kernel, dim3((Bout + rows - 1) / rows, A), dim3(threads),
+                    (size_t)smem, stream, g, stage);
 }
 
 // a: the A source in the form's layout; b: (taps, K, N); out: (reps, batch,

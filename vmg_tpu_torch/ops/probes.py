@@ -119,25 +119,147 @@ def relayout_plain(x, layout: Layout):
     raise ValueError(f"unknown layout {k!r}")
 
 
+# the relayout kernel's cut (chosen on the card among 1-4 blocks an SM and
+# 2-4 vectors a thread at the probes' shapes): blocks an SM at most (all
+# resident at once), threads a block at most, 16-byte output vectors a
+# thread (the aim) and a block (at most: three a thread)
+RELAY_BLOCKS_PER_SM = 2
+RELAY_MAX_THREADS = 256
+RELAY_VECS_PER_THREAD = 2
+RELAY_MAX_VECTORS = 3 * RELAY_MAX_THREADS
+
+
+def relayout_args(layout: Layout, shape):
+    """(kind code, p0, p1, Bout, Cout): the C entry's map parameters for an
+    input of ``shape`` (A, B, C); a roll's shift taken mod C."""
+    A, B, C = shape
+    _, Bout, Cout = layout.out_shape(A, B, C)
+    p0, p1 = {"slice": (layout.row, layout.ch), "taps": (layout.taps, 0),
+              "roll": (layout.shift % C if C else 0, 0), "tile": (0, 0)}[layout.kind]
+    return _KINDS[layout.kind], p0, p1, Bout, Cout
+
+
+def relayout_span(kind, p0, p1, Bin, Cin, Cout, a, b0, b1):
+    """Flat input elements [lo, hi) that output rows [b0, b1) of frame a
+    read (``relay_span`` in csrc/probes.cu): one contiguous range; a
+    tiling block that wraps past the last input row stages the whole
+    frame."""
+    f = a * Bin
+    if kind == 0:
+        return (f + b0 + p0) * Cin + p1, (f + b1 - 1 + p0) * Cin + p1 + Cout
+    if kind == 1:
+        return (f + b0) * Cin, (f + b1 - 1 + p0) * Cin
+    if kind == 2:
+        return (f + b0) * Cin, (f + b1) * Cin
+    r0, n = b0 % Bin, b1 - b0
+    if r0 + n > Bin:
+        r0, n = 0, Bin
+    return (f + r0) * Cin, (f + r0 + n) * Cin
+
+
+def relayout_row(kind, p0, p1, Bin, Cin, Cout, a, b):
+    """Output row b of frame a as runs of input (``relay_row``): (src0,
+    len0, src1) -- element c < len0 is flat input element src0 + c, the
+    rest src1 + c - len0 (a roll's two runs; one run elsewhere)."""
+    f = a * Bin
+    if kind == 0:
+        return (f + b + p0) * Cin + p1, Cout, 0
+    if kind == 1:
+        return (f + b) * Cin, Cout, 0
+    if kind == 2:
+        return (f + b) * Cin + Cin - p0, p0, (f + b) * Cin
+    return (f + b % Bin) * Cin, Cout, 0
+
+
+def relayout_stage_bytes(kind, p0, Bin, Cin, Cout, rows) -> int:
+    """A block's stage: its span at most (a full row tile's; the whole
+    frame for a tiling whose blocks can wrap), from the 16-byte unit below
+    its first element, and 48 bytes more for the aligned reads past it."""
+    span = {0: (rows - 1) * Cin + Cout, 1: (rows - 1 + p0) * Cin, 2: rows * Cin,
+            3: (Bin if rows > Bin or Bin % rows else rows) * Cin}[kind]
+    return -(-2 * span // 16) * 16 + 48
+
+
+def relayout_smem(kind, p0, Bin, Cin, Cout, rows) -> int:
+    """A block's shared memory: the stage, the rows' run table (three ints
+    a row), the mbarrier."""
+    return relayout_stage_bytes(kind, p0, Bin, Cin, Cout, rows) + -(-12 * rows // 8) * 8 + 8
+
+
+@dataclasses.dataclass(frozen=True)
+class RelayPlan:
+    """How :func:`smem_relayout`'s kernel cuts a copy: row tiles of
+    ``rows`` output rows, a block each, ``grid`` = (row tiles, A);
+    ``threads`` a block; ``stage`` bytes of staged input and ``smem`` bytes
+    of shared memory a block (the C entry takes both and checks them)."""
+    rows: int
+    grid: tuple
+    threads: int
+    stage: int
+    smem: int
+
+
+def relayout_plan(layout: Layout, shape, sms: int = 132, ptr: int = 0) -> RelayPlan:
+    """The relayout kernel's cut of ``layout`` over an input of ``shape``
+    at address ``ptr``, from the shapes and the SM count only.  A row tile
+    is a whole number of 16-byte units where it can be (rows a multiple of
+    8 / gcd(8, Cout)), and the least such that the grid stays within
+    RELAY_BLOCKS_PER_SM blocks an SM; fewer rows where the stage would not
+    fit or a block would write more than RELAY_MAX_VECTORS 16-byte output
+    vectors; RELAY_VECS_PER_THREAD vectors a thread, up to
+    RELAY_MAX_THREADS threads.  Raises on what the kernel does
+    not take: an empty output, an input that is not 16-byte aligned, a
+    slice or taps outside the input, more than 65535 frames, a stage that
+    does not fit a block's shared memory at any row tile."""
+    if layout.kind not in _KINDS:
+        raise ValueError(f"unknown layout {layout.kind!r}")
+    A, Bin, Cin = shape
+    kind, p0, p1, Bout, Cout = relayout_args(layout, shape)
+    if min(A, Bin, Cin, Bout, Cout) < 1:
+        raise ValueError(f"{layout} of an input {tuple(shape)} has an empty output")
+    if ptr % 16:
+        raise ValueError("the relayout stages its input by bulk copies, which read 16-byte "
+                         f"aligned addresses; the input is at {ptr:#x}")
+    if layout.kind == "slice" and (p0 < 0 or p1 < 0 or p0 + Bout > Bin or p1 + Cout > Cin):
+        raise ValueError(f"slice {layout} is outside x {tuple(shape)}")
+    if layout.kind == "taps" and Bout + p0 - 1 > Bin:
+        raise ValueError(f"{p0} taps of {Bout} rows need {Bout + p0 - 1} rows, x has {Bin}")
+    if A > 65535:
+        raise ValueError(f"{A} frames: the kernel's grid takes at most 65535")
+    unit = 8 // math.gcd(8, Cout)
+    per_frame = max(1, RELAY_BLOCKS_PER_SM * sms // A)  # row tiles a frame at most
+    rows = -(-Bout // per_frame)
+    rows = -(-rows // unit) * unit
+    while rows > unit and (relayout_smem(kind, p0, Bin, Cin, Cout, rows) > SMEM_MAX
+                           or rows * Cout > 8 * RELAY_MAX_VECTORS):
+        rows -= unit
+    if layout.kind == "tile" and rows < Bin and Bin % rows:
+        rows = max(d for d in range(1, rows + 1) if Bin % d == 0)  # no block wraps
+    smem = relayout_smem(kind, p0, Bin, Cin, Cout, rows)
+    if smem > SMEM_MAX:
+        raise ValueError(f"{layout} of an input {tuple(shape)}: a block's stage ({smem} bytes "
+                         f"at {rows} rows) does not fit its shared memory ({SMEM_MAX})")
+    vectors = -(-rows * Cout // 8) + 1
+    threads = min(RELAY_MAX_THREADS, 32 * -(-vectors // (32 * RELAY_VECS_PER_THREAD)))
+    return RelayPlan(rows, (-(-Bout // rows), A), threads,
+                     relayout_stage_bytes(kind, p0, Bin, Cin, Cout, rows), smem)
+
+
 def smem_relayout(x, layout: Layout):
-    """x (A, B, C) -> its copy in ``layout``, staged through shared memory."""
+    """x (A, B, C) -> its copy in ``layout``, staged through shared memory
+    (``csrc/probes.cu``: bulk copies in, 16-byte vectors out)."""
     if layout.kind not in _KINDS:
         raise ValueError(f"unknown layout {layout.kind!r}")
     if x.device.type == "cpu":
         return relayout_plain(x, layout).contiguous()
     _require_bf16(x, "x")
     A, B, C = x.shape
-    if layout.kind == "slice" and (layout.row + layout.rows > B or layout.ch + layout.chans > C):
-        raise ValueError(f"slice {layout} is outside x {tuple(x.shape)}")
-    if layout.kind == "taps" and layout.rows + layout.taps - 1 > B:
-        raise ValueError(f"{layout.taps} taps of {layout.rows} rows need "
-                         f"{layout.rows + layout.taps - 1} rows, x has {B}")
-    out = torch.empty(layout.out_shape(A, B, C), dtype=x.dtype, device=x.device)
-    p0, p1 = {"slice": (layout.row, layout.ch), "taps": (layout.taps, 0),
-              "roll": (layout.shift, 0), "tile": (0, 0)}[layout.kind]
+    plan = relayout_plan(layout, x.shape, _build.sm_count(x.device.index), x.data_ptr())
+    kind, p0, p1, Bout, Cout = relayout_args(layout, x.shape)
+    out = torch.empty((A, Bout, Cout), dtype=x.dtype, device=x.device)
     code = _build.load_library().vmg_probe_relayout(
-        x.data_ptr(), out.data_ptr(), A, B, C, out.shape[1], out.shape[2],
-        _KINDS[layout.kind], p0, p1, _build.stream_of(x))
+        x.data_ptr(), out.data_ptr(), A, B, C, Bout, Cout, kind, p0, p1, plan.rows,
+        plan.threads, plan.stage, plan.smem, _build.stream_of(x))
     _build.check(code, "vmg_probe_relayout")
     smem_relayout.launches += 1
     return out

@@ -17,8 +17,10 @@ branch with its sums, the module form's two cuDNN convolutions beside
 each, ``layout_pin`` on 1x184x320x224 and ``x.clone()`` beside it, and
 ``fused_group_ffn`` at FULL_PRESET's four stage shapes (16 frames: 184x320
 x 112, 92x160 x 224, 46x80 x 224, 23x40 x 448; groups 4, hidden 6C) and the
-few-levels shape (16x128x128x144, groups 1, hidden 2C), each tree on its
-own packed operands; the MorphFC combine (tanh gate, folded residual) at
+few-levels preset's two (32 frames: 128x128 and 64x64 x 144, groups 1,
+hidden 2C), each tree on its own packed operands, with the module form
+beside each (``ffn_module_*``: cuDNN grouped conv, GELU, ``F.linear``);
+the MorphFC combine (tanh gate, folded residual) at
 the same five shapes (C = 112, 224, 224, 448, 144), on its tree's Pk
 operand; the LTAM forward at the stage-0 shape (1x184x320x112) at K = 1..5
 with its sum over a FULL_PRESET clip's 60 launches (12 at each K), and at
@@ -35,21 +37,25 @@ preset's 32x128x128 and 32x64x64 at C = 144) and at stages 0/6
 clip (``reduce_per_clip``: 8, 4 and 2 launches; ``reduce_per_clip_few``:
 8 and 4).  The probe kernels at every probe of the two probe tools that
 runs them: the slab copy at the four ``dma_*`` shapes beside ``clone``
-(``slab_copy_<probe>``), the tile GEMM at the three ``mm_*`` products
+(``slab_copy_<probe>``), the relayout at its eight distinct probes (the
+eleven entries of the two tools) beside the probe's own PyTorch call
+(``smem_relayout_<probe>``: ``clone`` of a slice, ``cat``, ``roll``,
+``repeat``; and each call behind an empty launch, ``after_empty``, which
+no launch overlaps), the tile GEMM at the three ``mm_*`` products
 beside ``torch.matmul`` and the four stage-0 conv tiles beside ``F.conv2d``
 (``tile_gemm_<probe>``; the s28 tile also beside ``torch.matmul`` of its
 assembled patch), each conv tile also on every SM at once
 (``..._all_sms``); and an empty launch (``empty_launch``,
 ``torch.cuda._sleep(0)``), the floor under these microsecond kernels.
 Each kernel is first held to its own tree's plain version (1e-2 of
-max|plain|, the pin and the slab copy exactly, the tile GEMM 1 bf16 ulp;
-LTAM's f32 output and dq 1e-4; the f32 sums 1e-6 of the sum of their
-terms' magnitudes).  One JSON line per process (median and range over
+max|plain|, the pin, the slab copy and the relayout exactly, the tile
+GEMM 1 bf16 ulp; LTAM's f32 output and dq 1e-4; the f32 sums 1e-6 of the
+sum of their terms' magnitudes).  One JSON line per process (median and range over
 ``--reps`` timings of 20 calls each), then the card's name and power
 limit, then one JSON line of this checkout's median over the other's for
 each timing.  ``--only reduce,token`` (key prefixes) times just those
-kernels: a quick check (``--only slab_copy,tile_gemm,empty``: the
-probes).
+kernels: a quick check (``--only slab_copy,smem_relayout,tile_gemm,empty``:
+the probes).
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ _ITERS = 20
 # ((N, H, W, C), groups, hidden ratio) of the FFN's path shapes
 FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
               ((16, 46, 80, 224), 4, 6), ((16, 23, 40, 448), 4, 6),
-              ((16, 128, 128, 144), 1, 2)]
+              ((32, 128, 128, 144), 1, 2), ((32, 64, 64, 144), 1, 2)]
 
 
 # (N, H, W, C) of the combine: FULL_PRESET's stages 0/6, 1/5, 2/4, 3 and the
@@ -99,10 +105,35 @@ MM_PROBES = {"mm_R8_288x384_168": ((8, 288, 384), (288, 168)),
              "mm_R16_288x384_168": ((16, 288, 384), (288, 168)),
              "mm_2560x252_168": ((2560, 252), (252, 168))}
 TILE_PROBES = ("tile_assembled_s28", "tile_assembled_s32", "tile_accum_taps", "tile_3dot_K128")
+# the relayout's distinct probes: (input shape, the Layout's fields, the
+# probe's PyTorch call as a function of (x, torch), the probe-tool entries
+# it stands for); the tile probe's 2-D (32, 384) input as one frame
+RELAYOUT_PROBES = {
+    "vmem_subshift1": ((8, 328, 128), dict(kind="slice", rows=320, chans=128, row=1),
+                       lambda x, torch: x[:, 1:321].clone(), ("exp_probe.vmem_subshift1",)),
+    "vmem_subshift2": ((8, 328, 128), dict(kind="slice", rows=320, chans=128, row=2),
+                       lambda x, torch: x[:, 2:322].clone(), ("exp_probe.vmem_subshift2",)),
+    "lane_store_cg28": ((8, 328, 28), dict(kind="taps", rows=320, taps=9),
+                        lambda x, torch: torch.cat([x[:, t:t + 320] for t in range(9)], -1),
+                        ("exp_probe.lane_store_cg28", "exp_probe2.lane_store_cg28",
+                         "exp_probe2.lane_concat_cg28")),
+    "lane_store_cg32": ((8, 328, 32), dict(kind="taps", rows=320, taps=9),
+                        lambda x, torch: torch.cat([x[:, t:t + 320] for t in range(9)], -1),
+                        ("exp_probe.lane_store_cg32", "exp_probe2.lane_store_cg32")),
+    "lane_store_cg128": ((8, 328, 128), dict(kind="taps", rows=320, taps=9),
+                         lambda x, torch: torch.cat([x[:, t:t + 320] for t in range(9)], -1),
+                         ("exp_probe2.lane_store_cg128",)),
+    "lane_read_off28": ((8, 320, 112), dict(kind="slice", rows=320, chans=28, ch=28),
+                        lambda x, torch: x[:, :, 28:56].clone(), ("exp_probe.lane_read_off28",)),
+    "roll_lane": ((8, 128, 384), dict(kind="roll", shift=1),
+                  lambda x, torch: torch.roll(x, 1, 2), ("exp_probe.roll_lane",)),
+    "sublane_store_t32": ((1, 32, 384), dict(kind="tile", taps=9),
+                          lambda x, torch: x.repeat(1, 9, 1), ("exp_probe.sublane_store_t32",)),
+}
 
 
-def ffn_key(shape, groups) -> str:
-    return "ffn_" + "x".join(map(str, shape)) + f"_g{groups}"
+def ffn_key(shape, groups, kind="ffn") -> str:
+    return f"{kind}_" + "x".join(map(str, shape)) + f"_g{groups}"
 
 
 def combine_key(shape) -> str:
@@ -239,7 +270,16 @@ def _side(root: Path, reps: int, only=None) -> dict:
                 raise AssertionError(f"FFN {(N, h, w, C)}: max_abs_err {err} against the plain "
                                      "version")
             out[ffn_key((N, h, w, C), G)] = {**time_both(ffn), "max_abs_err": err}
-            del x, args, got, want
+            # the module form (what training runs): cuDNN grouped conv on a
+            # channels-last view, GELU, fc2
+            xc, w1c = x.permute(0, 3, 1, 2), w1.contiguous(memory_format=torch.channels_last)
+
+            def module():
+                y = F.conv2d(xc, w1c, b1, padding=1, groups=G).permute(0, 2, 3, 1)
+                return F.linear(group_conv.gelu(y, "tanh"), w2, b2)
+
+            out[ffn_key((N, h, w, C), G, "ffn_module")] = time_both(module)
+            del x, xc, w1c, args, got, want
 
         def held(name, got, want, rel):
             err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
@@ -358,7 +398,7 @@ def _side(root: Path, reps: int, only=None) -> dict:
                 for t in ("ms", "ms_unfenced")}
         if wanted("empty"):  # the floor under a microsecond-scale kernel
             out["empty_launch"] = time_both(lambda: torch.cuda._sleep(0))
-        if wanted("slab_copy", "tile_gemm"):
+        if wanted("slab_copy", "tile_gemm", "smem_relayout"):
             out.update(_probe_times(prof.bound, time_both, rn, dev, wanted))
     return out
 
@@ -375,11 +415,25 @@ def _probe_times(bound, time_both, rn, dev, wanted) -> dict:
     import torch.nn.functional as F
 
     from vmg_tpu_torch.ops import probes
+    from vmg_tpu_torch.tools import exp_probe
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
     out = {}
+    for name, (shape, fields, lib, covers) in RELAYOUT_PROBES.items() \
+            if wanted("smem_relayout") else ():
+        x, layout = rn(*shape), probes.Layout(**fields)
+        got, want = probes.smem_relayout(x, layout), probes.relayout_plain(x, layout)
+        if not torch.equal(got, want):
+            raise AssertionError(f"relayout {name}: not bit-exact")
+        read = exp_probe.read_bytes(x, layout)
+        out[f"smem_relayout_{name}"] = {
+            **time_both(lambda: probes.smem_relayout(x, layout)), "max_abs_err": 0.0,
+            "library": time_both(lambda: lib(x, torch)), "probes": list(covers),
+            "after_empty": time_both(lambda: (torch.cuda._sleep(0),
+                                              probes.smem_relayout(x, layout))),
+            **bound(read + nbytes(want), 0)}
     for name, (H2, Wp, C) in SLAB_PROBES.items() if wanted("slab_copy") else ():
         x = rn(2, H2, Wp, C)
         got, want = probes.slab_copy(x), probes.slab_copy_plain(x)
@@ -478,7 +532,8 @@ def main(argv=None) -> int:
     ratios = {}
     keys = ["chain_n1", "chain_n16", "module_n1", "module_n16", "pin", "clone", axes_key(),
             "ltam_per_clip", "ltam_bwd_per_step"]
-    keys += [ffn_key(shape, G) for shape, G, _ in FFN_SHAPES]
+    keys += [ffn_key(shape, G, kind) for shape, G, _ in FFN_SHAPES
+             for kind in ("ffn", "ffn_module")]
     keys += [combine_key(shape) for shape in COMBINE_SHAPES]
     keys += [ltam_key(*case) for case in LTAM_CASES]
     keys += [ltam_key(*case, "ltam_bwd") for case in LTAM_BWD_CASES]
@@ -487,6 +542,7 @@ def main(argv=None) -> int:
     keys += [reduce_key(shape) for shape, _ in REDUCE_SHAPES]
     keys += ["reduce_per_clip", "reduce_per_clip_few", "empty_launch"]
     keys += [f"slab_copy_{name}" for name in SLAB_PROBES]
+    keys += [f"smem_relayout_{name}" for name in RELAYOUT_PROBES]
     keys += [f"tile_gemm_{name}" for name in (*MM_PROBES, *TILE_PROBES)]
     keys += [f"tile_gemm_{name}_all_sms" for name in TILE_PROBES]
     for key in (k for k in keys if all(k in r for _, r in runs)):
