@@ -80,7 +80,21 @@ Phases (any failure exits non-zero):
      phase 6's;
  6c. the trainer on FEW_LEVELS_PRESET (main path 5), B=1, T=6, 64x64
      crops: a warm-up and a timed step; finite losses, the LTAM backward
-     launched (head width 36).
+     launched (head width 36);
+ 7a. the reference checkpoint (tests/fixtures/ref_tiny_mine.pth) through
+     the port's converter: its float32 forward with the kernels on the card
+     against the plain path on CPU tensors (phase 3's tolerance);
+ 7b. evaluation (main path 6): the function of ``python -m
+     vmg_tpu_torch.eval`` with the Vid4 preset (FULL_PRESET, float32, erf
+     GELU, seeded random weights) on a synthetic Vid4 tree the phase writes
+     with the port's PNG writer -- one clip of 16 144x176 LR / 576x704 GT
+     frames, 4 tiles of 1x16x128x128 -- host-tiled, then with the tile loop
+     on the card: 16 PNGs of 576x704 read back, finite PSNR / SSIM, the two
+     tilings within phase 3's tolerance, the LTAM, FFN, axes, reduce and
+     combine kernels launched; FPS and seconds printed;
+ 7c. the same protocol over SRServer (bf16, fast-math) on that clip: its
+     error against 7b's float32 output at most KFORM_RATIO x phase 4's
+     bf16 error at 1x2x64x64, its FPS.
 Prints a {"kernels": [...]} JSON line (each kernel with its launches on
 the path that runs it -- the token form's and the probes' on their entry
 points in phases 2/2p, none on the model paths -- its times, its bound and
@@ -151,7 +165,10 @@ PIN_BEFORE_MS = 0.0187
 # and of the few-levels preset (a 128x128 tile, groups 1, mlp_ratio 2)
 FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
               ((16, 46, 80, 224), 4, 6), ((16, 23, 40, 448), 4, 6),
-              ((16, 128, 128, 144), 1, 2)]
+              ((16, 128, 128, 144), 1, 2),
+              # the evaluator's 128x128 tiles of 16 frames: stages 0/6, 1/5, 2/4, 3
+              ((16, 128, 128, 112), 4, 6), ((16, 64, 64, 224), 4, 6),
+              ((16, 32, 32, 224), 4, 6), ((16, 16, 16, 448), 4, 6)]
 # the bf16 FFN's times before its redesign (the wmma kernel it replaced), printed
 # beside this run's: PERF.md's, medians of vmg_tpu_torch/tools/
 # time_chain_pin.py --other (that tree and this one in one call, one
@@ -159,6 +176,14 @@ FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
 FFN_BEFORE_MS = {(16, 184, 320, 112): 11.129, (16, 92, 160, 224): 10.560,
                  (16, 46, 80, 224): 2.886, (16, 23, 40, 448): 3.503,
                  (16, 128, 128, 144): 4.535}
+# the FFN before its narrow-image redesign (one-row tiles above C = 224, no
+# packing; commit 8f75654): PERF.md's step 0 of that redesign
+# (time_chain_pin.py --side on that tree, the timer this script uses; H100
+# 80GB HBM3, 700 W); shape -> ms
+FFN_ROW_TILES_MS = {(16, 184, 320, 112): 2.1780, (16, 92, 160, 224): 1.9400,
+               (16, 46, 80, 224): 0.7083, (16, 23, 40, 448): 1.2056,
+               (16, 128, 128, 112): 0.6359, (16, 64, 64, 224): 0.4752,
+               (16, 32, 32, 224): 0.2425, (16, 16, 16, 448): 0.7988}
 # the combine's path shapes (N, H, W, C): FULL_PRESET's stages 0/6, 1/5, 2/4
 # and 3, and the few-levels preset's (a 128x128 tile, C = 144)
 COMBINE_SHAPES = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
@@ -438,10 +463,10 @@ def check_kernels(report):
             if not torch.equal(again, got[0]):
                 raise AssertionError(f"two runs of the FFN differ at {shape}")
             if bf16:
-                before = FFN_BEFORE_MS[shape]
                 report(f"    {flops / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.3f} of the "
-                       f"bound, {ms / module_ms:.3f} x the module form; two runs bit-equal; "
-                       + f"before the redesign {before} ms (PERF.md, same timer)")
+                       f"bound, kernel / module form {ms / module_ms:.3f}; two runs bit-equal; "
+                       f"before the redesigns: wmma {FFN_BEFORE_MS.get(shape)} ms, one-row "
+                       f"tiles {FFN_ROW_TILES_MS.get(shape)} ms (PERF.md, same timer)")
                 entries["fused_group_ffn"][f"groups{G}_" + "x".join(map(str, shape))] = {
                     "ms": ms, "module_ms": module_ms, "bound_ms": b["bound_ms"],
                     "tflop_s": flops / ms / 1e9}
@@ -961,6 +986,127 @@ def train_parity(report, preset, device="cuda", frames=5):
     return res
 
 
+# the evaluation phase's synthetic Vid4 clip: frames, LR size (4 tiles of
+# 128 with the preset's 20-pixel overlap), under the checkout's ignored
+# results/
+EVAL_T, EVAL_HW = 16, (144, 176)
+EVAL_PATH = ("fused_group_ffn", "fused_morphfc_axes", "fused_morphfc_reduce",
+             "fused_morphfc_combine", "ltam_attention_2x2")
+
+
+def eval_phases(report, err_bf16):
+    """Phases 7a-7c; returns the record for the JSON line."""
+    import os
+    import shutil
+
+    from vmg_tpu_torch.configs import EVAL_PRESETS, TINY_TEST_PRESET
+    from vmg_tpu_torch.ckpt import load_reference_checkpoint, reference_state_dict
+    from vmg_tpu_torch.eval import load_model, make_forwards, run_eval
+    from vmg_tpu_torch.eval.eval_utils import read_image
+    from vmg_tpu_torch.eval.inference import SlidingEvaluator
+    from vmg_tpu_torch.eval.png import write_png
+    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.serve import SRServer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    report("[7a] reference checkpoint tests/fixtures/ref_tiny_mine.pth through the port's "
+           "converter: f32 forward 1x4x64x64, kernels on the card vs plain versions on CPU "
+           f"tensors (tol {SLICE_TOL})")
+    sd = reference_state_dict(load_reference_checkpoint(
+        os.path.join(root, "tests", "fixtures", "ref_tiny_mine.pth")))
+    cpu_model = create_model(TINY_TEST_PRESET, device="cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(11).random((1, 4, 64, 64, 3), dtype=np.float32))
+    zero_counts()
+    with torch.inference_mode():
+        want, got = cpu_model(x), gpu_model(x.cuda()).cpu()
+    counts = read_counts()
+    err_7a = (got - want).abs().max().item()
+    report(f"    {len(sd)} tensors; max_abs_err={err_7a:.3e}; launches {counts}")
+    if not (torch.isfinite(got).all() and err_7a <= SLICE_TOL and counts["fused_group_ffn"] > 0
+            and counts["ltam_attention_2x2"] > 0):
+        raise AssertionError("the reference checkpoint's forward on the card failed")
+    del cpu_model, gpu_model
+
+    cfg = copy.deepcopy(EVAL_PRESETS["vid4"])
+    h, w = EVAL_HW
+    tree = os.path.join(root, "results", "chip_smoke_eval")
+    shutil.rmtree(tree, ignore_errors=True)
+    lr_root = os.path.join(tree, "Vid4", "LR", "X4")
+    rng = np.random.default_rng(3)
+    gt = rng.integers(30, 226, (EVAL_T, 4 * h, 4 * w, 3)).astype(np.uint8)
+    lr = gt.reshape(EVAL_T, h, 4, w, 4, 3).mean(axis=(2, 4)).round().astype(np.uint8)
+    for sub, frames in ((lr_root, lr), (os.path.join(tree, "Vid4", "GT"), gt)):
+        os.makedirs(os.path.join(sub, "clip000"))
+        for i, f in enumerate(frames):
+            write_png(os.path.join(sub, "clip000", f"{i:08d}.png"), f)
+    cfg.dataset.gt_root = None  # the name dispatch: LR/X4 -> GT
+    model = load_model(cfg, "random", "cuda")
+    results = {}
+    for tiles in ("host", "device"):
+        cfg.path.output_dir = os.path.join(tree, f"out_{tiles}")
+        report(f"[7b] eval: Vid4 preset, FULL_PRESET f32 erf "
+               f"GELU, seeded random weights, 1 clip of {EVAL_T} x {h}x{w} LR -> "
+               f"{4 * h}x{4 * w}, 4 tiles of 1x{EVAL_T}x128x128, {tiles}-tiled")
+        zero_counts()
+        t1 = time.time()
+        res = run_eval(cfg, model=model, lr_root=lr_root, device_tiles=tiles == "device")
+        dt = time.time() - t1
+        counts = read_counts()
+        pngs = sorted(os.listdir(os.path.join(cfg.path.output_dir, "clip000")))
+        outs = np.stack([read_image(os.path.join(cfg.path.output_dir, "clip000", f))
+                         for f in pngs if f.endswith(".png")])
+        psnr, psnr_y, ssim, ssim_y, fps = res["dataset"]
+        report(f"    PSNR {psnr:.4f} PSNR-Y {psnr_y:.4f} SSIM {ssim:.5f} SSIM-Y {ssim_y:.5f}; "
+               f"FPS {fps:.3f} (evaluate_fps: one timed forward of the clip); {dt:.1f} s in "
+               f"all; {outs.shape[0]} PNGs {outs.shape[1:]}; launches {counts}")
+        if outs.shape != (EVAL_T, 4 * h, 4 * w, 3) or not all(
+                np.isfinite(v) for v in res["dataset"][:4]):
+            raise AssertionError(f"eval ({tiles} tiles): bad outputs {outs.shape} or scores")
+        missing = [k for k in EVAL_PATH if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"eval ({tiles} tiles) never launched {missing}")
+        results[tiles] = {"outs": outs, "res": res, "s": dt, "launches": counts}
+    diff = np.abs(results["host"]["outs"].astype(int) - results["device"]["outs"].astype(int))
+    forward_fn, device_tiled_fn = make_forwards(model, cfg, device_tiles=True)
+    clip = lr.astype(np.float32)[None] / 255.0
+    host = SlidingEvaluator(forward_fn, spatial_wins=cfg.dataset.wins,
+                            overlapped_spatial_length=cfg.dataset.overlapped_spatial_length)
+    f32_out = host.test_image(clip)
+    err_tiles = np.abs(device_tiled_fn(clip) - f32_out).max()
+    report(f"    host vs device tiles: float max_abs_err={err_tiles:.3e} (tol {SLICE_TOL}), "
+           f"PNGs at most {diff.max()} LSB apart")
+    if not (err_tiles <= SLICE_TOL and diff.max() <= 1):
+        raise AssertionError("the device-tiled eval differs from the host-tiled one")
+
+    report("[7c] the same clip and protocol over SRServer (bf16, tanh GELU, fast flow)")
+    sd_eval = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    server = SRServer(cfg.network, sd_eval, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True)
+    ev = SlidingEvaluator(server, spatial_wins=cfg.dataset.wins,
+                          overlapped_spatial_length=cfg.dataset.overlapped_spatial_length,
+                          dataset_name=cfg.dataset.name, test_num_frames=cfg.dataset.num_frames)
+    zero_counts()
+    bf16_out = ev.test_image(clip)
+    err_7c = np.abs(bf16_out - f32_out).max()
+    _, fps_bf16 = ev.evaluate_fps(lr, gt)
+    counts = read_counts()
+    report(f"    bf16 vs 7b's f32 output: max_abs_err={err_7c:.3e} (tol {KFORM_RATIO:g} x phase "
+           f"4's bf16 error at 1x2x64x64, {err_bf16:.3e}); FPS {fps_bf16:.3f}; launches {counts}")
+    if not (np.isfinite(bf16_out).all() and err_7c <= KFORM_RATIO * err_bf16):
+        raise AssertionError("bf16 eval is further from the f32 eval than phase 4 allows")
+    del server
+    torch.cuda.empty_cache()
+    shutil.rmtree(tree, ignore_errors=True)
+    return {"eval_f32": {k: {"dataset": v["res"]["dataset"], "s": v["s"]}
+                         for k, v in results.items()},
+            "eval_tiles_max_abs_err": float(err_tiles), "eval_bf16_err": float(err_7c),
+            "eval_bf16_fps": fps_bf16, "fixture_max_abs_err": err_7a,
+            "launches": results["host"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's kernels need one",
@@ -1067,8 +1213,9 @@ def main() -> int:
     server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh",
                       fast_flow=True)
     small = server(x.numpy())
-    report(f"    bf16 vs f32 at 1x2x64x64: max_abs_diff="
-           f"{np.abs(small - got.numpy()).max():.3e} (informational)")
+    err_bf16 = float(np.abs(small - got.numpy()).max())
+    report(f"    bf16 vs f32 at 1x2x64x64: max_abs_diff={err_bf16:.3e} (informational; "
+           "phase 7c's yardstick)")
     rng = np.random.default_rng(0)
     warm = rng.random((1, T, H, W, 3), dtype=np.float32)
     clips = [rng.random((1, T, H, W, 3), dtype=np.float32) for _ in range(3)]
@@ -1277,6 +1424,8 @@ def main() -> int:
         raise AssertionError(f"few-levels training failed: losses {losses_few}, "
                              f"LTAM backward launches {few_train['ltam_attention_2x2_bwd']}")
 
+    ev = eval_phases(report, err_bf16)
+
     # each kernel's launches on the path that runs it: the LTAM backward in
     # training (phase 6), the conv chain and the norm in kernel-form serving
     # (phase 4b, 3 clips), the pin in the barrier form (phase 4b, 1 clip),
@@ -1308,6 +1457,7 @@ def main() -> int:
                         else None,
                         "launches_few_levels_serving": few_launches[name],
                         "launches_few_levels_training": few_train[name],
+                        "launches_eval": ev["launches"][name],
                         "bound_bytes": e["bound_bytes"], "bound_flops": e["bound_flops"],
                         "bound_peak": e["bound_peak"], **extra})
     print(json.dumps({"serving": {"frames_per_s": fps, "per_request_frames_per_s": per_request,
@@ -1322,6 +1472,7 @@ def main() -> int:
     print(json.dumps({"training": {**rec, "parity": parity},
                       "training_norm_kernel": rec_k, "training_few_levels": rec_few}))
     print(json.dumps({"probes": {k: entries[k]["probes"] for k in OFF_PATH[1:]}}))
+    print(json.dumps({"eval": {k: v for k, v in ev.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

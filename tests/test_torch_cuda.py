@@ -78,6 +78,59 @@ def test_group_ffn_kernel(cuda, dtype, C, groups, N, H, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,groups", [
+    (16, 23, 40, 448, 4), (16, 16, 16, 448, 4),  # packed, warpgroups split C
+    (2, 9, 128, 448, 4), (2, 9, 64, 256, 2),  # 64-column bands, split
+    (16, 46, 80, 224, 4), (2, 30, 40, 112, 4),  # packed, S = 1 and 2
+    (4, 64, 64, 144, 1), (2, 8, 128, 112, 4)])  # 64-column bands, S = 1 and 2
+def test_group_ffn_kernel_narrow_images(cuda, N, H, W, C, groups):
+    """Every branch of the bf16 kernel's plan (``group_conv.ffn_plan``):
+    sub-tiles packed across band rows where a band is narrower than 64
+    columns (stage 3, the evaluator's 16x16 stage-3 tile), one row a
+    sub-tile on 64-column bands, split and unsplit output channels, one
+    slab buffer and two; two runs bit-equal."""
+    rng = np.random.default_rng(N * H + W + C)
+    dtype, Fh = torch.bfloat16, (2 if groups == 1 else 6) * C
+    x = _randn(rng, (N, H, W, C), cuda, dtype)
+    w1 = _randn(rng, (Fh, C // groups, 3, 3), cuda, dtype, (9 * C / groups) ** -0.5)
+    b1 = _randn(rng, (Fh,), cuda, dtype, 0.1)
+    w2 = _randn(rng, (C, Fh), cuda, dtype, 0.02)
+    b2 = _randn(rng, (C,), cuda, dtype, 0.1)
+    args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, groups), b2)
+    got = group_conv.fused_group_ffn(*args, groups=groups, act="tanh")
+    _close(got, group_conv.group_ffn_plain(*args, groups=groups, act="tanh"), dtype)
+    again = group_conv.fused_group_ffn(*args, groups=groups, act="tanh")
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_device_tiled_forward(cuda):
+    """The evaluator's tile loop on the card equals the host tile loop (the
+    same forward on the same tiles), tiny model, float32."""
+    from vmg_tpu_torch.configs import TINY_TEST_PRESET
+    from vmg_tpu_torch.eval.device_tiled import make_device_tiled_forward
+    from vmg_tpu_torch.eval.inference import SlidingEvaluator
+    from vmg_tpu_torch.models.vmg import create_model
+
+    model = create_model(TINY_TEST_PRESET, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+
+    @torch.inference_mode()
+    def apply(x):
+        return model(x)
+
+    clip = np.random.default_rng(4).random((1, 4, 80, 96, 3), dtype=np.float32)
+    host = SlidingEvaluator(lambda c: apply(torch.from_numpy(c).to(cuda)).cpu().numpy(),
+                            scale=4, spatial_wins=(64, 64), overlapped_spatial_length=20)
+    want = host.test_image(clip)
+    got = make_device_tiled_forward(apply, 4, (64, 64), 20, (80, 96))(
+        torch.from_numpy(clip).to(cuda))
+    assert got.is_cuda and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("C", [16, 112, 144, 224, 448])
 @pytest.mark.parametrize("shape", [(3, 18, 12), (2, 23, 40)])

@@ -1,6 +1,7 @@
 """Host-side layouts and launch plans of the MorphFC reduce, combine and
-axes kernels (big and token forms) and the LTAM forward and backward
-kernels (``csrc/morphfc.cu``, ``csrc/ltam.cu``), on CPU.
+axes kernels (big and token forms), the LTAM forward and backward kernels
+and the grouped-conv FFN (``csrc/morphfc.cu``, ``csrc/ltam.cu``,
+``csrc/group_ffn.cu``), on CPU.
 
 The combine kernel multiplies against Pk as a wgmma B image that the
 module packs once; these tests hold the pack and its inverse to the plain
@@ -11,7 +12,11 @@ every path shape.  The bf16 axes kernels (both forms) form their token
 matrices straight from the staged slab or unit with their own index
 arithmetic: a Python model of that arithmetic is held to ``axis_tokens`` /
 ``axis_untokens``.  The reduce's and the token form's plans must cover
-every pixel (unit) once, from the shape and the SM count alone.
+every pixel (unit) once, from the shape and the SM count alone.  The
+FFN's plan (bands, slab pitch, packed sub-tiles, ring) must store
+every pixel once, give every stored position all nine taps inside its
+slab, fit shared memory, and pass the checks of the C entry point, whose
+plan fields it names in order.
 """
 
 import re
@@ -21,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from vmg_tpu_torch.ops import ltam_attention, morphfc_fused
+from vmg_tpu_torch.ops import group_conv, ltam_attention, morphfc_fused
 
 MAX_SMEM = 232_448
 SMS = 132  # NVIDIA H100 SXM
@@ -694,3 +699,104 @@ def test_token_plan_fields_match_the_entry_points_struct():
     assert _struct_fields(src, "TokPlan") == morphfc_fused.TOKEN_PLAN_FIELDS
     assert _struct_fields(src, "TokPlanBranch") == morphfc_fused.TOKEN_BRANCH_FIELDS
     assert "TokPlanBranch br[2];" in src
+
+
+# ---- the grouped-conv FFN ----------------------------------------------------
+
+# ((H, W, C), groups, hidden ratio): FULL_PRESET's four stage shapes, the
+# few-levels preset's two, the evaluator's 128x128 tiles at four stages, and
+# ragged widths (the on-card test's)
+FFN_PLAN_SHAPES = [((184, 320, 112), 4, 6), ((92, 160, 224), 4, 6), ((46, 80, 224), 4, 6),
+                   ((23, 40, 448), 4, 6), ((128, 128, 144), 1, 2), ((64, 64, 144), 1, 2),
+                   ((128, 128, 112), 4, 6), ((64, 64, 224), 4, 6), ((32, 32, 224), 4, 6),
+                   ((16, 16, 448), 4, 6), ((11, 13, 16), 4, 6), ((9, 70, 256), 2, 6),
+                   ((9, 70, 448), 4, 6), ((1, 1, 32), 1, 2), ((5, 300, 112), 4, 6)]
+
+
+def _fgp(C, G, ratio):
+    fg = ratio * C // G
+    return -(-fg // (16 if C <= 224 else 32)) * (16 if C <= 224 else 32)
+
+
+def _ffn_stores(H, W, plan):
+    """The kernel's tile walk (``ffn_tile`` and the epilogues) in numpy: the
+    times each pixel is stored, and the largest slab position a stored
+    position's taps read (tap (2, 2) of position f: f + 2P + 2)."""
+    nb, Wc, P, step, span = (plan[k] for k in ("nb", "Wc", "P", "step", "span"))
+    t = np.arange(plan["tiles"])
+    q0 = (t // nb) * span
+    y0, x0 = q0 // P, (t % nb) * Wc
+    f = ((q0 - y0 * P)[:, None, None] + np.arange(plan["ms"])[None, :, None] * step
+         + np.arange(64)[None, None, :])
+    yy, col = f // P, f % P
+    gy, gx = y0[:, None, None] + yy, x0[:, None, None] + col
+    live = (col < Wc) & (gx < W) & (gy < H)
+    seen = np.zeros((H, W), int)
+    np.add.at(seen, (gy[live], gx[live]), 1)
+    return seen, int((f + 2 * P + 2)[live].max())
+
+
+@pytest.mark.parametrize("shape,G,ratio", FFN_PLAN_SHAPES)
+def test_ffn_plan_stores_every_pixel_once(shape, G, ratio):
+    H, W, C = shape
+    plan = group_conv.ffn_plan(16, H, W, C, G, _fgp(C, G, ratio))
+    seen, last = _ffn_stores(H, W, plan)
+    assert (seen == 1).all()
+    assert last < plan["rows"] * plan["P"]  # every stored tap inside the slab's rows
+    assert plan["P"] == plan["Wc"] + 2 <= 66 and plan["nb"] * plan["Wc"] >= W
+    assert plan["smem"] <= MAX_SMEM and 2 <= plan["nst"] <= 12 and plan["nslab"] in (1, 2)
+    assert plan["step"] == (plan["P"] if plan["Wc"] == 64 else 64)
+
+
+def test_ffn_plan_at_the_narrow_shapes():
+    """Stage 3 and the eval tile's stage 3: tiles packed across rows (16 and
+    5 a frame, one-row tiles took 23 and 16) and ring slots of 28 KB (one
+    tap of 128 features, or half a warpgroup's w2 rows); 64-column bands
+    keep one row a sub-tile."""
+    fgp = _fgp(448, 4, 6)
+    p3 = group_conv.ffn_plan(16, 23, 40, 448, 4, fgp)
+    assert (p3["tiles"], p3["P"], p3["step"], p3["rows"]) == (16, 42, 64, 5)
+    assert (p3["nslab"], p3["nst"], p3["stage_bytes"]) == (1, 5, 28672)
+    assert abs(p3["live"] - 23 * 40 / (16 * 64)) < 1e-12
+    pe = group_conv.ffn_plan(16, 16, 16, 448, 4, fgp)
+    assert (pe["tiles"], pe["P"], pe["nslab"], pe["nst"]) == (5, 18, 2, 4)
+    p0 = group_conv.ffn_plan(16, 184, 320, 112, 4, _fgp(112, 4, 6))
+    assert (p0["nb"], p0["P"], p0["step"], p0["rows"], p0["tiles"]) == (5, 66, 66, 6, 230)
+    assert (p0["nslab"], p0["nst"], p0["tps"]) == (2, 4, 9)
+    # 16x32x32x224: 144 packed tiles and 256 one-row tiles both take two
+    # rounds of 132 blocks: the 64-column band wins the tie; with 150
+    # blocks the packed tiles take one round
+    p2 = group_conv.ffn_plan(16, 32, 32, 224, 4, _fgp(224, 4, 6))
+    assert (p2["Wc"], p2["step"], p2["tiles"]) == (64, 66, 16)
+    assert group_conv.ffn_plan(16, 32, 32, 224, 4, _fgp(224, 4, 6), sms=150)["Wc"] == 32
+
+
+def _ffn_entry_accepts(H, W, C, plan):
+    """``launch_ffn``'s checks of the plan, in Python."""
+    ms = 1 if C > 224 else 4 if C <= 112 else 2
+    packed = plan["step"] == 64
+    ok = (plan["nb"] >= 1 and plan["Wc"] >= 1 and plan["nb"] * plan["Wc"] >= W
+          and (plan["nb"] - 1) * plan["Wc"] < W and plan["P"] == plan["Wc"] + 2
+          and plan["P"] <= 256 and plan["rows"] <= 256
+          and plan["step"] == (64 if packed else 66) and (packed or plan["Wc"] == 64)
+          and plan["span"] == ms * plan["step"])
+    b0max = plan["P"] - 1 if packed else 0
+    ok &= (b0max + plan["span"] - 1) // plan["P"] + 3 <= plan["rows"]
+    ok &= plan["tps"] in (1, 3, 9) and plan["nslab"] in (1, 2) and 2 <= plan["nst"] <= 12
+    return ok and (plan["nslab"] == 2 or plan["nst"] >= (4 if C > 224 else 1))
+
+
+@pytest.mark.parametrize("C,G", [(16, 4), (112, 4), (144, 1), (224, 4), (256, 2), (448, 4)])
+def test_ffn_plan_passes_the_entry_points_checks(C, G):
+    for H in (1, 7, 23, 64):
+        for W in (1, 13, 40, 63, 64, 65, 130, 320):
+            plan = group_conv.ffn_plan(3, H, W, C, G, _fgp(C, G, 6 if G > 1 else 2))
+            assert _ffn_entry_accepts(H, W, C, plan), (H, W, C, plan)
+
+
+def test_ffn_plan_fields_match_the_entry_point():
+    """The plan crosses into C as ints in FFN_PLAN_FIELDS' order: the entry
+    point reads ``plan[i]`` into the field of that name."""
+    src = (Path(group_conv.__file__).parents[1] / "csrc" / "group_ffn.cu").read_text()
+    reads = dict((int(i), name) for name, i in re.findall(r"a\.(\w+) = plan\[(\d+)\]", src))
+    assert tuple(reads[i] for i in sorted(reads)) == group_conv.FFN_PLAN_FIELDS

@@ -231,6 +231,14 @@ import vmg_tpu_torch.ops.probes
 import vmg_tpu_torch.tools.exp_probe
 import vmg_tpu_torch.tools.exp_probe2
 import vmg_tpu_torch.utils.profiling
+import vmg_tpu_torch.utils.logging_utils
+import vmg_tpu_torch.ckpt
+import vmg_tpu_torch.ckpt.io
+import vmg_tpu_torch.eval
+import vmg_tpu_torch.eval.__main__
+import vmg_tpu_torch.eval.device_tiled
+import vmg_tpu_torch.eval.png
+from vmg_tpu_torch.ckpt import load_reference_checkpoint, reference_state_dict
 from vmg_tpu_torch.models.vmg import KERNEL_FORMS
 from vmg_tpu_torch.serve import SRServer
 gen = torch.Generator().manual_seed(0)
@@ -240,7 +248,10 @@ for forms in ({}, KERNEL_FORMS, {"traj_conv_impl": "barrier"}):
     with torch.no_grad():
         y = model(torch.rand(1, 4, 64, 64, 3, generator=gen))
     assert y.shape == (1, 4, 256, 256, 3) and bool(torch.isfinite(y).all())
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2", "vmg_tpu"))
+sd = reference_state_dict(load_reference_checkpoint("tests/fixtures/ref_tiny_mine.pth"))
+model.load_state_dict(sd)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL", "vmg_tpu"))
 assert not bad, bad
 print("ok")
 """

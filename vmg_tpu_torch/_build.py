@@ -34,8 +34,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # x, w, b1, b2, out, N, H, W, C, G, fgp, act, dtype, stream
-    "vmg_group_ffn": [_P] * 5 + [_I] * 8 + [_P],
+    # x, w, b1, b2, out, N, H, W, C, G, fgp, act, plan (bf16: the ints of
+    # group_conv.ffn_plan_ints; f32: null), dtype, stream
+    "vmg_group_ffn": [_P] * 5 + [_I] * 7 + [_P, _I, _P],
     # h, w, c, partial, out, N, P, C, S, per, vec, dtype, stream
     "vmg_morphfc_reduce": [_P] * 5 + [_I] * 7 + [_P],
     # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, act, nwg, ring,

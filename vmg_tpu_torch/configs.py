@@ -1,8 +1,11 @@
-"""Typed VMG network and training configuration, without YAML.
+"""Typed VMG network, training and evaluation configuration, without YAML.
 
 Mirrors the architecture fields, derived properties and presets of
-``vmg_tpu.configs.config.VMGNetworkConfig``, and the fields of its
-``TrainConfig`` that the training step reads.  ``remat`` recomputes each
+``vmg_tpu.configs.config.VMGNetworkConfig``, the fields of its
+``TrainConfig`` that the training step reads, and the evaluation
+protocol's fields of its ``DatasetConfig``, ``PathConfig`` and
+``ExperimentConfig``, with the JAX package's five evaluation presets as
+Python values (:data:`EVAL_PRESETS`).  ``remat`` recomputes each
 TAB and each trajectory step in the backward pass
 (``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``
 does.  The JAX package's TPU-only knobs (remat_policy, morph_fused,
@@ -13,7 +16,8 @@ which the GPU machine lacks).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -181,3 +185,94 @@ TINY_TEST_PRESET = VMGNetworkConfig(
     image_size=(32, 32),
     chunk_ratios=(0.25, 0.25),
 )
+
+
+@dataclass
+class DatasetConfig:
+    """The evaluation protocol's fields of the JAX package's
+    ``DatasetConfig``."""
+
+    name: str = "REDS"
+    dataset_root: Optional[str] = None  # LR root
+    gt_root: Optional[str] = None  # GT root (default: by name, see vmg_tpu_torch.eval)
+    num_frames: int = 16  # frames a test clip
+    num_out_frames: int = 100  # frames a scoring window (index_generation)
+    image_shape: Tuple[int, int, int] = (3, 720, 1280)  # GT (C, H, W)
+    use_mirrors: bool = False
+    data_enhance: bool = False
+    eval_mid_clip: bool = False
+    selected_topk: int = 1
+    overlapped_mode: str = "mid"  # small | mid | large | int
+    FLOPs: bool = False
+    flops_num_frames: int = 16
+    wins: Optional[Tuple[int, int]] = (128, 128)
+    overlapped_spatial_length: int = 20
+
+
+@dataclass
+class PathConfig:
+    strict_load: bool = True
+    output_dir: str = "./results"
+
+
+@dataclass
+class EvalConfig:
+    checkpoint_from: str = "mine"  # mine | ST | KAIR
+
+
+@dataclass
+class ExperimentConfig:
+    name: str = "VMG-REDS"
+    scale: int = 4
+    network: VMGNetworkConfig = field(default_factory=VMGNetworkConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    path: PathConfig = field(default_factory=PathConfig)
+
+
+def _eval_net(base: VMGNetworkConfig, window: int, image_size=(64, 64)) -> VMGNetworkConfig:
+    """An evaluation preset's network: ``base`` with the trajectory window
+    and clip length ``window``, no flow freeze, and the image size the
+    JAX loader derives from ``image_shape_r`` / scale."""
+    return dataclasses.replace(base, num_frames=window,
+                               traj_win=(window,) + base.traj_win[1:], flow_fix=None,
+                               image_size=image_size)
+
+
+# The JAX package's evaluation presets (vmg_tpu/configs/presets/vmg_eval_*.yml):
+# network, protocol and paths.  REDS4 scores clips of 50 frames, which the
+# trajectory window (16 or 32) does not divide: both packages refuse that
+# clip length (models/trajectory.py).
+EVAL_PRESETS = {
+    "reds4_full": ExperimentConfig(
+        name="VMG-REDS", network=_eval_net(FULL_PRESET, 16),
+        dataset=DatasetConfig(name="REDS4", dataset_root="/data/REDS/val/train_sharp_bicubic",
+                              gt_root="/data/REDS/val/train_sharp", num_frames=50,
+                              num_out_frames=100),
+        path=PathConfig(output_dir="./results_reds4")),
+    "reds4_few_levels": ExperimentConfig(
+        name="VMG-REDS-few-levels", network=_eval_net(FEW_LEVELS_PRESET, 32),
+        dataset=DatasetConfig(name="REDS4", dataset_root="/data/REDS/val/train_sharp_bicubic",
+                              gt_root="/data/REDS/val/train_sharp", num_frames=50,
+                              num_out_frames=100),
+        path=PathConfig(output_dir="./results_reds4")),
+    "vid4": ExperimentConfig(
+        name="VMG-Vid4", network=_eval_net(FULL_PRESET, 16),
+        dataset=DatasetConfig(name="Vid4", dataset_root="/data/Vid4/LR/X4",
+                              gt_root="/data/Vid4/GT", num_frames=16, num_out_frames=10000,
+                              image_shape=(3, 576, 704)),
+        path=PathConfig(output_dir="./results_vid4")),
+    "udm10": ExperimentConfig(
+        name="VMG-Udm10", network=_eval_net(FULL_PRESET, 16),
+        dataset=DatasetConfig(name="Udm10", dataset_root="/data/UDM10/LR/X4",
+                              gt_root="/data/UDM10/GT", num_frames=16, num_out_frames=32),
+        path=PathConfig(output_dir="./results_udm10")),
+    "vimeo90k": ExperimentConfig(
+        name="VMG-Vimeo90K", network=_eval_net(FULL_PRESET, 14, (64, 112)),
+        dataset=DatasetConfig(name="Vimeo90k_septuplet",
+                              dataset_root="/data/vimeo_septuplet/sequences_LR/slow_test",
+                              gt_root="/data/vimeo_septuplet/sequences/slow_test", num_frames=7,
+                              num_out_frames=7, image_shape=(3, 256, 448), use_mirrors=True,
+                              eval_mid_clip=True),
+        path=PathConfig(output_dir="./results_vimeo90k")),
+}

@@ -18,51 +18,63 @@
 //
 // * bf16 (serving): one persistent launch of a warp-specialised implicit
 //   GEMM on wgmma (csrc/wgmma.cuh), the conv chain's design
-//   (conv_chain.cu) carried over:
-//   - Tiles of 64 columns and 2S rows (S = 2, 256 positions, where the
-//     output accumulator fits a warpgroup's registers twice: C <= 112; S =
-//     1 up to C = 224) or one row (above 224); one block per SM walks them.
-//     Up to C = 224 warpgroup g of the two consumer warpgroups owns S of
-//     the tile's rows, an m64 sub-tile each, and all C output channels;
-//     one producer warp feeds them (setmaxnreg moves the producer
-//     warpgroup's registers to the consumers).
-//   - Input: per (tile, group) TMA stages the group's (rows + 2) x 66 slab
-//     from a 4-D tensor map over the NHWC input in 8-channel boxes, in
-//     no-swizzle core-matrix form; each tap's A operand is the slab's
-//     descriptor shifted by dy * 66 + dx positions (no im2col).  A box
-//     starts on 16 bytes, so group b's slab starts at channel cg * b rounded
-//     down to 8 and its channels sit at offset (cg * b) % 8 (4 for the odd
-//     groups at cg = 28); K covers cg and that offset, rounded up to 16, the
-//     other channels with zero weights: at cg = 28 (stage 0) four boxes, 32
-//     channels (+14% conv MACs; past C the tensor map fills zeros); 56 ->
-//     64 likewise; 112 and 144 are whole.  Two slab buffers where they fit
-//     (the next group's slab loads during this one's products), else one.
+//   (conv_chain.cu) carried over; the tile geometry is the host's
+//   (group_conv.ffn_plan), checked by launch_ffn:
+//   - Tiles of MS m64 sub-tiles (4 where the output accumulator fits a
+//     warpgroup's registers twice: C <= 112; 2 up to C = 224; 1 above); one
+//     block per SM walks them.  The columns are cut into bands of Wc <= 64;
+//     a slab row holds P = Wc + 2 positions.  On 64-column bands a sub-tile
+//     is one band row (PACKED false, the geometry known at compile time);
+//     on narrower bands (stage 3's W = 40, the evaluator's 16 and 32) a
+//     sub-tile is 64 consecutive band positions across rows (PACKED), so
+//     only the two pad columns a row are dead: stage 3 walks 256 tiles,
+//     not 368 one-row tiles with 40 of 64 positions live.  Up to C = 224
+//     warpgroup g of the two consumer warpgroups owns S of the sub-tiles
+//     and all C output channels; one producer warp feeds them (setmaxnreg
+//     moves the producer warpgroup's registers to the consumers).
+//   - Input: per (tile, group) TMA stages the group's slab (the tile's rows
+//     plus the halo, P positions a row) from a 4-D tensor map over the NHWC
+//     input in 8-channel boxes, in no-swizzle core-matrix form; tap (dy, dx)
+//     of a sub-tile is the slab's descriptor shifted by dy P + dx positions
+//     (no im2col; the tensor map's out-of-bounds zeros are the padding).  A
+//     box starts on 16 bytes, so group b's slab starts at channel cg * b
+//     rounded down to 8 and its channels sit at offset (cg * b) % 8; K
+//     covers cg and that offset, rounded up to 16, the other channels with
+//     zero weights (cg = 28 -> 32, 56 -> 64).  Two slab buffers where they
+//     fit (the next group's slab loads during this one's products), else
+//     one.
 //   - Weights: pack_ffn_weights lays w1 and w2 out once per parameter
 //     state as one stream in walk order, in wgmma B-image form; the producer
-//     streams it through a ring of up to 4 stages (cp.async.bulk on
-//     mbarriers): per hidden chunk its 9 taps (9, 3 or 1 per stage, <= 32
-//     KB), then its w2 rows (one stage per warpgroup above C = 224).  A
-//     256-position tile at C = 112 re-reads the 563 KB of weights from L2
-//     (~256 FLOP per L2 byte).
+//     streams it through a ring of up to 12 slots (cp.async.bulk on
+//     mbarriers): per hidden chunk its 9 taps (9, 3 or 1 a slot, <= 32 KB),
+//     then its w2 rows (above C = 224: each warpgroup's half in two slots).
 //   - Hidden on chip, never in device memory: fg (padded to 16) is walked
-//     in chunks of 48 features (the last 16 or 32 wide: 176 = 3 x 48 + 32
-//     at stage 0); the chunk's conv accumulates into f32 registers; b1,
-//     GELU and the bf16 rounding happen in registers, which then are the
-//     register-A operand of the projection's wgmma.  The projection
-//     accumulates the tile's C output channels in f32 registers across
-//     chunks and groups (2 x 56 registers a thread at C = 112).  The
-//     chunk's products run beside the next chunk's conv (one wgmma group
-//     in flight), stages released as their products complete.
+//     in chunks of 48 features (the last 16 or 32 wide); the chunk's conv
+//     accumulates into f32 registers; b1, GELU and the bf16 rounding happen
+//     in registers, which then are the register-A operand of the
+//     projection's wgmma.  The projection accumulates the tile's C output
+//     channels in f32 registers across chunks and groups (2 x 56 registers
+//     a thread at C = 112).  The chunk's products run beside the next
+//     chunk's conv (one wgmma group in flight), slots released as their
+//     products complete.
 //   - Above C = 224 (stage 3: 448) one warpgroup cannot hold the output
 //     accumulator, so the warpgroups split the output channels (half of C
-//     each, 112 registers a thread) and the work of each chunk of 64
-//     features (fg padded to 32): warpgroup g computes features 32g ..
-//     32g + 31 of the conv, rounds them and writes them into a chunk buffer
-//     in shared memory in core-matrix form (two buffers, alternating); after
-//     one consumer barrier each projects the whole chunk, as wgmma's shared
-//     A operand, onto its own output channels.  No conv is computed twice.
-//   - Epilogue: b2, one rounding, the tile staged in shared memory and
-//     written in 16-byte vectors along its rows (the chain's epilogue).
+//     each, 112 registers a thread) and the work of each chunk of 128
+//     features (fg padded to 32): warpgroup g computes features 64g ..
+//     64g + 63 of the conv (n64 products), rounds them and writes them into
+//     a chunk buffer in shared memory in core-matrix form (two buffers,
+//     alternating); after one consumer barrier each projects the whole
+//     chunk, as wgmma's shared A operand, onto its own output channels.  No
+//     conv is computed twice.
+//   - What bounds it (PERF.md §6): not the weight stream.  Without its
+//     weight copies the kernel runs as fast; without its products it keeps
+//     half its time at stage 3: the per-slot hand-offs (a barrier wait, a
+//     fence, a commit, a wait a slot) and the per-chunk drain, GELU and
+//     barrier.  Fewer, larger chunks and slots are what moved it.
+//   - Epilogue: b2, one rounding; up to C = 224 the tile staged in shared
+//     memory and written in 16-byte vectors along its positions, above
+//     from registers (16 contiguous bytes a position for 4 lanes); dead
+//     positions and columns past W store nothing.
 // * f32 (parity runs): one block per (frame, tile of output pixels), 256
 //   threads, scalar FMA in 16 x 16 register micro-tiles, the halo'd input
 //   tile in shared memory; per group the hidden features in chunks of 64
@@ -217,14 +229,12 @@ int launch_f32(const float* x, const float* w1, const float* b1,
 
 // ---- bf16: wgmma implicit GEMM on TMA slabs, hidden kept on chip --------
 
-constexpr int kTW = 64;                    // tile columns
-constexpr int kSW = kTW + 2;               // slab columns
 constexpr int kFC = 48;                    // hidden features per chunk
-constexpr int kFCS = 64;                   // the same where the warpgroups split the outputs
-constexpr int kMaxStages = 4;              // weight ring
+constexpr int kFCS = 128;                  // the same where the warpgroups split the outputs
+constexpr int kMaxStages = 12;             // weight ring slots
+constexpr int kRowPos = 66;                // slab row positions of a 64-column band
 constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kFfnThreads = kConsumers + 128;  // + the producer warpgroup
-constexpr unsigned kStageCap = 32768;      // bytes of conv taps per ring stage
 
 struct FfnArgs {
   const bf16* w;    // the weight stream (pack_ffn_weights), in walk order
@@ -232,23 +242,43 @@ struct FfnArgs {
   const bf16* b2;   // (C,)
   bf16* out;        // (N, H, W, C)
   int H, W, C, G, cg, Kp, fgp, act;
-  int one;                    // 1: the trip count of the tile body's loop (see the kernel)
-  int tiles_w, tiles, total;  // tiles per row band and frame, in all
-  int tps, nst, nslab;        // conv taps per stage, stages, slab buffers
+  int one;          // 1: the trip count of the tile body's loop (see the kernel)
+  // geometry (group_conv.ffn_plan): nb column bands of Wc columns; a slab
+  // row holds P = Wc + 2 positions (columns x0 - 1 .. x0 + Wc); a band's
+  // positions f = y P + x are cut into tiles of `span`; a tile's m64
+  // sub-tile s starts `step` positions after sub-tile s - 1 (step = P: one
+  // band row each, step = 64: packed across rows); a slab is `rows` rows
+  // (SP positions, a multiple of 8, per 8-channel box)
+  int nb, Wc, P, step, span, rows, SP;
+  int tiles, total;  // tiles per frame, in all
+  int tps, nst, nslab;  // conv taps per stage, ring slots, slab buffers
   unsigned stage_bytes;
 };
 
-// Tile rows: 2S (each warpgroup owns S rows, an m64 sub-tile each), or one
-// row that both warpgroups share (SPLIT).
-__host__ __device__ constexpr int ffn_rows(int S, bool split) { return split ? 1 : 2 * S; }
-// slab positions (a 128-byte multiple) of a tile of TR rows
-__host__ __device__ constexpr int ffn_slab_pos(int TR) { return ((TR + 2) * kSW + 7) / 8 * 8; }
-__host__ __device__ inline size_t ffn_smem(int TR, int NO, int Kp, int nslab, int nst,
-                                           unsigned stage_bytes, unsigned hidden_bytes) {
-  return 128 + (size_t)nslab * (Kp / 8) * ffn_slab_pos(TR) * 16 + (size_t)nst * stage_bytes +
-         2 * (size_t)hidden_bytes + 256 + (size_t)TR * kTW * (2 * NO + 16);
+// m64 sub-tiles a tile: 2S (each warpgroup owns S), or one that both
+// warpgroups share (SPLIT).
+__host__ __device__ constexpr int ffn_subtiles(int S, bool split) { return split ? 1 : 2 * S; }
+// slab positions a box of a 64-column band's MS + 2 rows (a 128-byte multiple)
+__host__ __device__ constexpr int ffn_row_slab_pos(int MS) { return ((MS + 2) * kRowPos + 7) / 8 * 8; }
+// shared memory: slabs, ring, hidden chunk buffers (SPLIT), barriers, the
+// staged output tile (!SPLIT: SPLIT stores from registers)
+__host__ __device__ inline size_t ffn_smem(int MS, int NO, int Kp, int SP, int nslab, int nst,
+                                           unsigned stage_bytes, unsigned hidden_bytes,
+                                           bool split) {
+  return 128 + (size_t)nslab * (Kp / 8) * SP * 16 + (size_t)nst * stage_bytes +
+         2 * (size_t)hidden_bytes + 256 + (split ? 0 : (size_t)MS * 64 * (2 * NO + 16));
 }
 
+// GELU in f32 of a value about to round to bf16 (2^-8 relative): the tanh
+// form as v sigmoid(2u) = v / (1 + e^-2u), u = sqrt(2/pi) (v + 0.044715
+// v^3), on the fast exponential and divide (errors ~1e-6 relative, far
+// below the rounding; a third of tanhf's instructions); the erf form as
+// common.cuh's.
+__device__ __forceinline__ float gelu_to_bf16(float v, int act) {
+  if (act == 0) return gelu(v, 0);
+  const float u = 0.79788456080286535588f * (v + 0.044715f * v * v * v);
+  return __fdividef(v, 1.f + __expf(-2.f * u));
+}
 __device__ __forceinline__ void ffn_consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
@@ -263,11 +293,17 @@ __device__ __forceinline__ void pin_u32(uint32_t (&a)[R][4]) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k])::"memory");
 }
-// the conv of cw hidden features (48, 32 or 16) into the first cw / 2
+// the conv of cw hidden features (64, 48, 32 or 16) into the first cw / 2
 // registers of d
 template <int R>
 __device__ __forceinline__ void conv_mma(int cw, float (&d)[R], uint64_t da, uint64_t db,
                                          int scale_d) {
+  if constexpr (R >= 32) {
+    if (cw == 64) {
+      Wgmma<64>::mma(*reinterpret_cast<float(*)[32]>(&d[0]), da, db, scale_d);
+      return;
+    }
+  }
   if constexpr (R >= 24) {
     if (cw == 48) {
       Wgmma<48>::mma(*reinterpret_cast<float(*)[24]>(&d[0]), da, db, scale_d);
@@ -290,47 +326,66 @@ struct RingPos {
   }
 };
 
+// A tile: frame n, first band row y0 (the slab starts a row above), band
+// columns from x0, its first position b0 in the slab's row 1 (0 where a
+// sub-tile is one band row).
+struct FfnTile {
+  int n, y0, x0, b0;
+};
+template <bool PACKED, int MS>
+__device__ __forceinline__ FfnTile ffn_tile(const FfnArgs& a, int tile) {
+  const int n = tile / a.tiles, t = tile % a.tiles, x0 = (t % a.nb) * a.Wc;
+  if (!PACKED) return {n, (t / a.nb) * MS, x0, 0};
+  const int q0 = (t / a.nb) * a.span, y0 = q0 / a.P;
+  return {n, y0, x0, q0 - y0 * a.P};
+}
+
 // The producer's next slab: into its buffer (shared address slab0 + i *
 // slab_bytes) once the consumers released it, channels c0 .. c0 + 8 KC8 -
-// 1 in 8-channel boxes; full / empty: the shared addresses of the slab
-// buffers' first barriers.
+// 1 in 8-channel boxes of rows x P positions; full / empty: the shared
+// addresses of the slab buffers' first barriers.
 __device__ __forceinline__ void send_slab(const CUtensorMap* map, unsigned slab0,
-                                          unsigned slab_bytes, unsigned chunk_bytes,
+                                          unsigned slab_bytes, unsigned box_bytes,
                                           unsigned full, unsigned empty, RingPos& sl, int nslab,
-                                          int c0, int x0, int y0, int n, int KC8, bool leader) {
+                                          int c0, const FfnTile& tl, int KC8, bool leader) {
   mbar_wait(empty + 8 * sl.i, sl.ph ^ 1);
   if (leader) {
     const unsigned dst = slab0 + sl.i * slab_bytes, bar = full + 8 * sl.i;
-    mbar_expect(bar, KC8 * chunk_bytes);
+    mbar_expect(bar, KC8 * box_bytes);
     for (int c = 0; c < KC8; ++c)
-      tma_load_4d(dst + c * (slab_bytes / KC8), map, c0 + 8 * c, x0 - 1, y0 - 1, n, bar);
+      tma_load_4d(dst + c * (slab_bytes / KC8), map, c0 + 8 * c, tl.x0 - 1, tl.y0 - 1, tl.n, bar);
   }
   sl.next(nslab);
 }
 
-// One launch: out = fc2(GELU(gconv3x3(x) + b1)) + b2 for every tile of TR
-// rows x 64 columns.  Walk per tile: group b, hidden chunk c: the chunk's
-// conv (9 taps, tps per weight stage) into f32 registers, bias + GELU +
-// bf16, then hidden @ w2 rows, accumulated in f32 registers over every
-// chunk and group.
-// * !SPLIT (C <= 224): warpgroup g owns tile rows g S .. g S + S - 1 (one
-//   m64 sub-tile each) and all NO = NW output channels; the rounded hidden
-//   is the projection's register-A operand.
-// * SPLIT (C > 224): one row; warpgroup g computes features g FC/2 ..
+// One launch: out = fc2(GELU(gconv3x3(x) + b1)) + b2 for every tile of MS
+// m64 sub-tiles.  Walk per tile: group b, hidden chunk c: the chunk's conv
+// (9 taps, tps per weight stage) into f32 registers, bias + GELU + bf16,
+// then hidden @ w2 rows, accumulated in f32 registers over every chunk and
+// group.  Tap (dy, dx) of sub-tile s is the slab's descriptor at position
+// b0 + s step + dy P + dx: a sub-tile packed across band rows reads the
+// two pad columns of each row it crosses as two dead positions.
+// * !SPLIT (C <= 224): warpgroup g owns sub-tiles g S .. g S + S - 1 and all
+//   NO = NW output channels; the rounded hidden is the projection's
+//   register-A operand.
+// * SPLIT (C > 224): one sub-tile; warpgroup g computes features g FC/2 ..
 //   (g + 1) FC/2 - 1 of each chunk's conv and writes them, rounded, into a
 //   shared chunk buffer in the A operand's core-matrix form (two buffers,
 //   alternating); after one consumer barrier both project the whole chunk,
 //   warpgroup g onto output channels g NW .. g NW + NW - 1 from w2 stage g.
-template <int S, int NW, bool SPLIT>
+template <int S, int NW, bool SPLIT, bool PACKED>
 __global__ void __launch_bounds__(kFfnThreads, 1)
 group_ffn_wgmma_kernel(const __grid_constant__ CUtensorMap x_map, const FfnArgs a) {
-  constexpr int TR = ffn_rows(S, SPLIT), SR = TR + 2, SP = ffn_slab_pos(TR);
+  constexpr int MS = ffn_subtiles(S, SPLIT);
   constexpr int FC = SPLIT ? kFCS : kFC;   // hidden features per chunk
   constexpr int CW = SPLIT ? FC / 2 : FC;  // of which one warpgroup's conv computes
-  constexpr int HALVES = SPLIT ? 2 : 1;    // w2 stages per chunk
+  constexpr int HALVES = SPLIT ? 2 : 1;    // w2 halves per chunk (one a warpgroup)
+  constexpr int WP = SPLIT ? 2 : 1;        // ring slots a w2 half (by feature halves)
+  // the geometry: compile-time for 64-column bands, else the plan's
+  const int P = PACKED ? a.P : kRowPos, STEP = PACKED ? a.step : kRowPos;
+  const int SP = PACKED ? a.SP : ffn_row_slab_pos(MS);
   constexpr int NO = HALVES * NW;          // output channels of a tile
-  constexpr unsigned kBoxBytes = 8 * kSW * SR * 2;
-  constexpr unsigned kHidBytes = SPLIT ? kTW * FC * 2 : 0;  // one hidden chunk buffer
+  constexpr unsigned kHidBytes = SPLIT ? 64 * FC * 2 : 0;  // one hidden chunk buffer
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
@@ -362,290 +417,334 @@ group_ffn_wgmma_kernel(const __grid_constant__ CUtensorMap x_map, const FfnArgs 
     // ---- producer warpgroup: its first warp streams the slabs (TMA) and
     // the weights (bulk copies); the group gives its registers away
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    if (threadIdx.x >= kConsumers + 32) return;
-    const bool leader = (threadIdx.x & 31) == 0;
-    // with one slab buffer the next group's first weight stages go ahead of
-    // its slab, so the ring does not drain while the slab is busy: as many
-    // as the ring holds beside the previous chunk's w2 stages, which the
-    // consumers release only once the next group's first conv runs
-    const int lead = a.nslab == 1 ? a.nst - HALVES : 0;
-    // shared addresses: the slabs, the ring, the barriers (slab full, slab
-    // empty, weights full, weights empty at 0, 16, 32, 32 + 8 kMaxStages)
-    const unsigned slab_s = su32(slabs), ring_s = su32(ring), bar_s = su32(bars);
-    const unsigned wfull_s = bar_s + 32, wempty_s = bar_s + 32 + 8 * kMaxStages;
-    RingPos q, sl;
-    for (int tile = blockIdx.x; tile < a.total; tile += gridDim.x) {
-      const int n = tile / a.tiles, t = tile % a.tiles;
-      const int y0 = (t / a.tiles_w) * TR, x0 = (t % a.tiles_w) * kTW;
-      const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(a.w);
-      for (int once = 0; once < a.one; ++once) {
-        for (int b = 0; b < a.G; ++b) {
-          int issued = 0;
-          for (int c = 0; c < nchunks; ++c) {
-            const int fcw = min(FC, a.fgp - c * FC);
-            for (int i = 0; i < nconv + HALVES; ++i, ++issued, q.next(a.nst)) {
-              if (issued == lead)
-                send_slab(&x_map, slab_s, slab_bytes, kBoxBytes, bar_s, bar_s + 16, sl, a.nslab,
-                          (a.cg * b) & ~7, x0, y0, n, KC8, leader);
-              const unsigned bytes = i < nconv ? (unsigned)(a.tps * a.Kp * fcw * 2)
-                                               : (unsigned)(fcw * NW * 2);
-              mbar_wait(wempty_s + 8 * q.i, q.ph ^ 1);
-              if (leader) {
-                mbar_expect(wfull_s + 8 * q.i, bytes);
-                bulk_load(ring_s + q.i * a.stage_bytes, wsrc, bytes, wfull_s + 8 * q.i);
+    if (threadIdx.x < kConsumers + 32) {
+      const bool leader = (threadIdx.x & 31) == 0;
+      // with one slab buffer the next group's first weight stages go ahead
+      // of its slab, so the ring does not drain while the slab is busy: as
+      // many as the ring holds beside the previous chunk's w2 stages, which
+      // the consumers release only once the next group's first conv runs
+      const int lead = a.nslab == 1 ? a.nst - HALVES * WP : 0;
+      const unsigned box_bytes = (unsigned)a.rows * P * 16;
+      // shared addresses: the slabs, the ring, the barriers (slab full, slab
+      // empty, weights full, weights empty at 0, 16, 32, 32 + 8 kMaxStages)
+      const unsigned slab_s = su32(slabs), ring_s = su32(ring), bar_s = su32(bars);
+      const unsigned wfull_s = bar_s + 32, wempty_s = bar_s + 32 + 8 * kMaxStages;
+      RingPos q, sl;
+      for (int tile = blockIdx.x; tile < a.total; tile += gridDim.x) {
+        const FfnTile tl = ffn_tile<PACKED, MS>(a, tile);
+        const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(a.w);
+        for (int once = 0; once < a.one; ++once) {
+          for (int b = 0; b < a.G; ++b) {
+            int issued = 0;
+            for (int c = 0; c < nchunks; ++c) {
+              const int fcw = min(FC, a.fgp - c * FC);
+              for (int i = 0; i < nconv + HALVES * WP; ++i, ++issued, q.next(a.nst)) {
+                if (issued == lead)
+                  send_slab(&x_map, slab_s, slab_bytes, box_bytes, bar_s, bar_s + 16, sl, a.nslab,
+                            (a.cg * b) & ~7, tl, KC8, leader);
+                const unsigned bytes = i < nconv ? (unsigned)(a.tps * a.Kp * fcw * 2)
+                                                 : (unsigned)(fcw * NW * 2 / WP);
+                mbar_wait(wempty_s + 8 * q.i, q.ph ^ 1);
+                if (leader) {
+                  mbar_expect(wfull_s + 8 * q.i, bytes);
+                  bulk_load(ring_s + q.i * a.stage_bytes, wsrc, bytes, wfull_s + 8 * q.i);
+                }
+                wsrc += bytes;
               }
-              wsrc += bytes;
             }
+            if (issued <= lead)  // fewer weight stages in the group than the lead
+              send_slab(&x_map, slab_s, slab_bytes, box_bytes, bar_s, bar_s + 16, sl, a.nslab,
+                        (a.cg * b) & ~7, tl, KC8, leader);
           }
-          if (issued <= lead)  // fewer weight stages in the group than the lead
-            send_slab(&x_map, slab_s, slab_bytes, kBoxBytes, bar_s, bar_s + 16, sl, a.nslab,
-                      (a.cg * b) & ~7, x0, y0, n, KC8, leader);
         }
       }
     }
-    return;
-  }
-
-  // ---- consumers ------------------------------------------------------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-  const int g = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const bool wg_leader = (threadIdx.x & 127) == 0;
-  const unsigned ring_a = su32(ring), hidden_a = su32(hidden);
-  float hid[S][CW / 2];
-  uint32_t afr[S][CW / 16][4];  // !SPLIT: the rounded hidden as register-A fragments
-  float acc[S][NW / 2];
-  RingPos q, sl;
-  int pend = -1;   // the ring stage of the last committed products, not yet released
-  unsigned hb = 0;  // SPLIT: the hidden buffer of the next chunk
-  for (int tile = blockIdx.x; tile < a.total; tile += gridDim.x) {
-    const int n = tile / a.tiles, t = tile % a.tiles;
-    const int y0 = (t / a.tiles_w) * TR, x0 = (t % a.tiles_w) * kTW;
-    // The tile's work sits in a loop of one trip whose count the compiler
-    // cannot see (a.one = 1), here and in the producer: ptxas then
-    // schedules the main loop so that stage 0 runs ~6% faster than without
-    // it (PERF.md); the loop does nothing else.
-    for (int once = 0; once < a.one; ++once) {
-      for (int b = 0; b < a.G; ++b, sl.next(a.nslab)) {
-        const int sb = sl.i;
-        mbar_wait(&slab_full[sb], sl.ph);
-        const unsigned slab_a = su32(slabs + (size_t)sb * slab_bytes);
-        for (int c = 0; c < nchunks; ++c) {
-          const int fcw = min(FC, a.fgp - c * FC), cw = SPLIT ? fcw / 2 : fcw, nk = fcw / 16;
-          // the chunk's conv: hid[s] = slab taps @ w1 chunk (SPLIT: this
-          // warpgroup's cw columns of it)
-          for (int i = 0; i < nconv; ++i, q.next(a.nst)) {
-            const int st = q.i;
-            mbar_wait(&wfull[st], q.ph);
-            wg_fence();
+  } else {
+    // ---- consumers ----------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int g = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const bool wg_leader = (threadIdx.x & 127) == 0;
+    const unsigned ring_a = su32(ring), hidden_a = su32(hidden), wempty_a = su32(wempty);
+    float hid[S][CW / 2];
+    uint32_t afr[S][CW / 16][4];  // !SPLIT: the rounded hidden as register-A fragments
+    float acc[S][NW / 2];
+    RingPos q, sl;
+    int pend = -1;   // the ring stage of the last committed products, not yet released
+    unsigned hb = 0;  // SPLIT: the hidden buffer of the next chunk
+    for (int tile = blockIdx.x; tile < a.total; tile += gridDim.x) {
+      const FfnTile tl = ffn_tile<PACKED, MS>(a, tile);
+      // The tile's work sits in a loop of one trip whose count the compiler
+      // cannot see (a.one = 1), here and in the producer: ptxas then
+      // schedules the main loop so that stage 0 runs ~6% faster than without
+      // it (PERF.md); the loop does nothing else.
+      for (int once = 0; once < a.one; ++once) {
+        for (int b = 0; b < a.G; ++b, sl.next(a.nslab)) {
+          const int sb = sl.i;
+          mbar_wait(&slab_full[sb], sl.ph);
+          const unsigned slab_a = su32(slabs + (size_t)sb * slab_bytes) + tl.b0 * 16;
+          for (int c = 0; c < nchunks; ++c) {
+            const int fcw = min(FC, a.fgp - c * FC), cw = SPLIT ? fcw / 2 : fcw, nk = fcw / 16;
+            // the chunk's conv: hid[s] = slab taps @ w1 chunk (SPLIT: this
+            // warpgroup's cw columns of it)
+            for (int i = 0; i < nconv; ++i, q.next(a.nst)) {
+              const int st = q.i;
+              mbar_wait(&wfull[st], q.ph);
+              wg_fence();
 #pragma unroll
-            for (int s = 0; s < S; ++s) pin_regs(hid[s]);
-            for (int u = 0; u < a.tps; ++u) {
-              const int tap = i * a.tps + u, dy = tap / 3, dx = tap % 3;
-              const unsigned b0 = ring_a + st * a.stage_bytes + u * a.Kp * fcw * 2 +
-                                  (SPLIT ? g * cw * 16 : 0);
-              for (int kc = 0; kc < a.Kp / 16; ++kc) {
-                const uint64_t db = mat_desc(b0 + kc * 2 * fcw * 16, fcw * 16, 128);
+              for (int s = 0; s < S; ++s) pin_regs(hid[s]);
+              for (int u = 0; u < a.tps; ++u) {
+                const int tap = i * a.tps + u, dy = tap / 3, dx = tap % 3;
+                const unsigned b0 = ring_a + st * a.stage_bytes + u * a.Kp * fcw * 2 +
+                                    (SPLIT ? g * cw * 16 : 0);
+                for (int kc = 0; kc < a.Kp / 16; ++kc) {
+                  const uint64_t db = mat_desc(b0 + kc * 2 * fcw * 16, fcw * 16, 128);
 #pragma unroll
-                for (int s = 0; s < S; ++s) {
-                  const int row = (SPLIT ? 0 : g * S + s) + dy;
-                  conv_mma(cw, hid[s],
-                           mat_desc(slab_a + (row * kSW + dx) * 16 + kc * 2 * SP * 16,
-                                    SP * 16, 128),
-                           db, tap | kc);
+                  for (int s = 0; s < S; ++s) {
+                    const int pos = (SPLIT ? 0 : g * S + s) * STEP + dy * P + dx;
+                    conv_mma(cw, hid[s],
+                             mat_desc(slab_a + pos * 16 + kc * 2 * SP * 16, SP * 16, 128), db,
+                             tap | kc);
+                  }
                 }
               }
+              wg_commit();
+#pragma unroll
+              for (int s = 0; s < S; ++s) pin_regs(hid[s]);
+              wg_wait<1>();  // the products committed before these are done
+              if (pend >= 0 && wg_leader) mbar_arrive(wempty_a + 8 * pend);
+              pend = st;
             }
-            wg_commit();
+            wg_wait<0>();
 #pragma unroll
-            for (int s = 0; s < S; ++s) pin_regs(hid[s]);
-            wg_wait<1>();  // the products committed before these are done
-            if (pend >= 0 && wg_leader) mbar_arrive(&wempty[pend]);
-            pend = st;
-          }
-          wg_wait<0>();
+            for (int s = 0; s < S; ++s) {
+              pin_regs(hid[s]);
+              pin_regs(acc[s]);
+            }
+            if constexpr (!SPLIT) {
+              pin_u32(afr[0]);
+              if (S > 1) pin_u32(afr[S - 1]);
+            }
+            if (wg_leader) {
+              mbar_arrive(wempty_a + 8 * pend);
+              if (c == nchunks - 1) mbar_arrive(&slab_empty[sb]);  // the group's convs are done
+            }
+            pend = -1;
+            // bias, GELU in f32, one rounding: register 4j + 2h + e of hid[s]
+            // is row 16 wq + lane / 4 + 8h and (this warpgroup's) hidden
+            // feature 8j + 2 (lane % 4) + e of the chunk
+            const bf16* b1c =
+                a.b1 + (size_t)b * a.fgp + c * FC + (SPLIT ? g * cw : 0) + 2 * (lane & 3);
+            if constexpr (!SPLIT) {
 #pragma unroll
-          for (int s = 0; s < S; ++s) {
-            pin_regs(hid[s]);
-            pin_regs(acc[s]);
-          }
-          if constexpr (!SPLIT) {
-            pin_u32(afr[0]);
-            if (S > 1) pin_u32(afr[S - 1]);
-          }
-          if (wg_leader) {
-            mbar_arrive(&wempty[pend]);
-            if (c == nchunks - 1) mbar_arrive(&slab_empty[sb]);  // the group's convs are done
-          }
-          pend = -1;
-          // bias, GELU in f32, one rounding: register 4j + 2h + e of hid[s]
-          // is row 16 wq + lane / 4 + 8h and (this warpgroup's) hidden
-          // feature 8j + 2 (lane % 4) + e of the chunk
-          const bf16* b1c =
-              a.b1 + (size_t)b * a.fgp + c * FC + (SPLIT ? g * cw : 0) + 2 * (lane & 3);
-          if constexpr (!SPLIT) {
-#pragma unroll
-            for (int kk = 0; kk < FC / 16; ++kk) {
-              if (kk >= nk) break;
-              float bias[2][2];
-#pragma unroll
-              for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                  bias[jj][e] = __bfloat162float(b1c[8 * (2 * kk + jj) + e]);
-#pragma unroll
-              for (int s = 0; s < S; ++s)
+              for (int kk = 0; kk < FC / 16; ++kk) {
+                if (kk >= nk) break;
+                float bias[2][2];
 #pragma unroll
                 for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
-                  for (int h = 0; h < 2; ++h) {
-                    const int r = 4 * (2 * kk + jj) + 2 * h;
-                    afr[s][kk][2 * jj + h] = pack_bf16x2(gelu(hid[s][r] + bias[jj][0], a.act),
-                                                         gelu(hid[s][r + 1] + bias[jj][1], a.act));
-                  }
-            }
-            // acc[s] += hidden @ w2 chunk rows
-            const int st = q.i;
-            mbar_wait(&wfull[st], q.ph);
-            wg_fence();
+                  for (int e = 0; e < 2; ++e)
+                    bias[jj][e] = __bfloat162float(b1c[8 * (2 * kk + jj) + e]);
 #pragma unroll
-            for (int s = 0; s < S; ++s) pin_regs(acc[s]);
-            const unsigned b0 = ring_a + st * a.stage_bytes;
+                for (int s = 0; s < S; ++s)
 #pragma unroll
-            for (int kk = 0; kk < FC / 16; ++kk) {
-              if (kk >= nk) break;
-              const uint64_t db = mat_desc(b0 + kk * 2 * NW * 16, NW * 16, 128);
+                  for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
-              for (int s = 0; s < S; ++s)
-                WgmmaRA<NW>::mma(acc[s], afr[s][kk], db, (b | c | kk) != 0);
-            }
-            wg_commit();
-#pragma unroll
-            for (int s = 0; s < S; ++s) pin_regs(acc[s]);
-            pend = st;
-            q.next(a.nst);
-          } else {
-            // this warpgroup's features into the chunk buffer: 8-feature
-            // column j8 of the chunk at j8 * 64 * 16 bytes, position p at p * 16
-            // (no-swizzle core matrices: the A operand of the projection)
-            unsigned char* hbuf = hidden + hb * kHidBytes;
-#pragma unroll
-            for (int j = 0; j < CW / 8; ++j) {
-              if (j >= cw / 8) break;
-              const float bias0 = __bfloat162float(b1c[8 * j]);
-              const float bias1 = __bfloat162float(b1c[8 * j + 1]);
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int r = 4 * j + 2 * h, p = 16 * wq + lane / 4 + 8 * h;
-                *reinterpret_cast<uint32_t*>(hbuf + ((g * cw / 8 + j) * kTW + p) * 16 +
-                                             4 * (lane & 3)) =
-                    pack_bf16x2(gelu(hid[0][r] + bias0, a.act), gelu(hid[0][r + 1] + bias1, a.act));
+                    for (int h = 0; h < 2; ++h) {
+                      const int r = 4 * (2 * kk + jj) + 2 * h;
+                      afr[s][kk][2 * jj + h] =
+                          pack_bf16x2(gelu_to_bf16(hid[s][r] + bias[jj][0], a.act),
+                                      gelu_to_bf16(hid[s][r + 1] + bias[jj][1], a.act));
+                    }
               }
-            }
-            fence_async_shared();  // the writes, visible to wgmma
-            ffn_consumers_sync();  // both halves of the chunk are in hbuf
-            // acc += chunk @ w2 rows of this warpgroup's output channels
-            const unsigned ha = hidden_a + hb * kHidBytes;
-            for (int h = 0; h < HALVES; ++h, q.next(a.nst)) {
+              // acc[s] += hidden @ w2 chunk rows
               const int st = q.i;
               mbar_wait(&wfull[st], q.ph);
-              if (h != g) {  // the other warpgroup's stage
-                if (wg_leader) mbar_arrive(&wempty[st]);
-                continue;
-              }
               wg_fence();
-              pin_regs(acc[0]);
+#pragma unroll
+              for (int s = 0; s < S; ++s) pin_regs(acc[s]);
               const unsigned b0 = ring_a + st * a.stage_bytes;
 #pragma unroll
               for (int kk = 0; kk < FC / 16; ++kk) {
                 if (kk >= nk) break;
-                Wgmma<NW>::mma(acc[0], mat_desc(ha + kk * 2 * kTW * 16, kTW * 16, 128),
-                               mat_desc(b0 + kk * 2 * NW * 16, NW * 16, 128), (b | c | kk) != 0);
+                const uint64_t db = mat_desc(b0 + kk * 2 * NW * 16, NW * 16, 128);
+#pragma unroll
+                for (int s = 0; s < S; ++s)
+                  WgmmaRA<NW>::mma(acc[s], afr[s][kk], db, (b | c | kk) != 0);
               }
               wg_commit();
-              pin_regs(acc[0]);
+#pragma unroll
+              for (int s = 0; s < S; ++s) pin_regs(acc[s]);
               pend = st;
+              q.next(a.nst);
+            } else {
+              // this warpgroup's features into the chunk buffer: 8-feature
+              // column j8 of the chunk at j8 * 64 * 16 bytes, position p at p * 16
+              // (no-swizzle core matrices: the A operand of the projection)
+              unsigned char* hbuf = hidden + hb * kHidBytes;
+#pragma unroll
+              for (int j = 0; j < CW / 8; ++j) {
+                if (j >= cw / 8) break;
+                const float bias0 = __bfloat162float(b1c[8 * j]);
+                const float bias1 = __bfloat162float(b1c[8 * j + 1]);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int r = 4 * j + 2 * h, p = 16 * wq + lane / 4 + 8 * h;
+                  *reinterpret_cast<uint32_t*>(hbuf + ((g * cw / 8 + j) * 64 + p) * 16 +
+                                               4 * (lane & 3)) =
+                      pack_bf16x2(gelu_to_bf16(hid[0][r] + bias0, a.act),
+                                  gelu_to_bf16(hid[0][r + 1] + bias1, a.act));
+                }
+              }
+              fence_async_shared();  // the writes, visible to wgmma
+              ffn_consumers_sync();  // both halves of the chunk are in hbuf
+              // acc += chunk @ w2 rows of this warpgroup's output channels,
+              // in WP ring slots of nk / WP k16 steps each
+              const unsigned ha = hidden_a + hb * kHidBytes;
+              const int nkp = nk / WP;
+              for (int h = 0; h < HALVES; ++h)
+                for (int p = 0; p < WP; ++p, q.next(a.nst)) {
+                  const int st = q.i;
+                  mbar_wait(&wfull[st], q.ph);
+                  if (h != g) {  // the other warpgroup's slot
+                    if (wg_leader) mbar_arrive(wempty_a + 8 * st);
+                    continue;
+                  }
+                  wg_fence();
+                  pin_regs(acc[0]);
+                  const unsigned b0 = ring_a + st * a.stage_bytes;
+#pragma unroll
+                  for (int kl = 0; kl < FC / 16 / WP; ++kl) {
+                    if (kl >= nkp) break;
+                    const int kk = p * nkp + kl;
+                    Wgmma<NW>::mma(acc[0], mat_desc(ha + kk * 2 * 64 * 16, 64 * 16, 128),
+                                   mat_desc(b0 + kl * 2 * NW * 16, NW * 16, 128),
+                                   (b | c | kk) != 0);
+                  }
+                  wg_commit();
+                  pin_regs(acc[0]);
+                  if (p > 0) {  // the slot before is done once this one is in flight
+                    wg_wait<1>();
+                    pin_regs(acc[0]);
+                    if (wg_leader) mbar_arrive(wempty_a + 8 * pend);
+                  }
+                  pend = st;
+                }
+              hb ^= 1;
             }
-            hb ^= 1;
           }
         }
-      }
-      wg_wait<0>();
+        wg_wait<0>();
 #pragma unroll
-      for (int s = 0; s < S; ++s) pin_regs(acc[s]);
-      if constexpr (!SPLIT) {
-        pin_u32(afr[0]);
-        if (S > 1) pin_u32(afr[S - 1]);
-      }
-      if (pend >= 0 && wg_leader) mbar_arrive(&wempty[pend]);
-      pend = -1;
+        for (int s = 0; s < S; ++s) pin_regs(acc[s]);
+        if constexpr (!SPLIT) {
+          pin_u32(afr[0]);
+          if (S > 1) pin_u32(afr[S - 1]);
+        }
+        if (pend >= 0 && wg_leader) mbar_arrive(wempty_a + 8 * pend);
+        pend = -1;
 
-      // epilogue: + b2, one rounding, the tile staged in shared memory
-      // (position r = 64 u + column at r * pitch), then 16-byte stores along
-      // the tile's rows, which are contiguous in the output
-      const int pitch = 2 * NO + 16, c0 = SPLIT ? g * NW : 0;
-      ffn_consumers_sync();  // the previous tile's stores are done with otile
+        // epilogue: + b2, one rounding; position p of sub-tile s is band
+        // position f = b0 + s step + p of the tile's rows, stored where it
+        // is a live column of the image
+        if constexpr (SPLIT) {
+          // from registers: lanes 4i .. 4i + 3 write one position's 16
+          // contiguous bytes an 8-channel column
+          {
 #pragma unroll
-      for (int s = 0; s < S; ++s)
+            for (int h = 0; h < 2; ++h) {
+              const int f = tl.b0 + 16 * wq + lane / 4 + 8 * h, yy = f / P, col = f - yy * P;
+              const int gy = tl.y0 + yy, gx = tl.x0 + col;
+              if (col >= a.Wc || gx >= a.W || gy >= a.H) continue;
+              bf16* orow = a.out + ((size_t)(tl.n * a.H + gy) * a.W + gx) * a.C;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          unsigned char* row = otile + (size_t)(kTW * (SPLIT ? 0 : g * S + s) + 16 * wq +
-                                                lane / 4 + 8 * h) * pitch;
+              for (int j = 0; j < NW / 8; ++j) {
+                const int ch = g * NW + 8 * j + 2 * (lane & 3);
+                if (ch >= a.C) continue;
+                *reinterpret_cast<uint32_t*>(orow + ch) =
+                    pack_bf16x2(acc[0][4 * j + 2 * h] + __bfloat162float(a.b2[ch]),
+                                acc[0][4 * j + 2 * h + 1] + __bfloat162float(a.b2[ch + 1]));
+              }
+            }
+          }
+        } else {
+          // the tile staged in shared memory (position r = 64 s + p at r *
+          // pitch), then 16-byte stores along the positions' channels
+          const int pitch = 2 * NO + 16;
+          ffn_consumers_sync();  // the previous tile's stores are done with otile
 #pragma unroll
-          for (int j = 0; j < NW / 8; ++j) {
-            const int ch = c0 + 8 * j + 2 * (lane & 3);
-            float v[2];
+          for (int s = 0; s < S; ++s)
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-              v[e] = acc[s][4 * j + 2 * h + e] +
-                     (ch + e < a.C ? __bfloat162float(a.b2[ch + e]) : 0.f);
-            *reinterpret_cast<uint32_t*>(row + 2 * ch) = pack_bf16x2(v[0], v[1]);
+            for (int h = 0; h < 2; ++h) {
+              unsigned char* row =
+                  otile + (size_t)(64 * (g * S + s) + 16 * wq + lane / 4 + 8 * h) * pitch;
+#pragma unroll
+              for (int j = 0; j < NW / 8; ++j) {
+                const int ch = 8 * j + 2 * (lane & 3);
+                float v[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  v[e] = acc[s][4 * j + 2 * h + e] +
+                         (ch + e < a.C ? __bfloat162float(a.b2[ch + e]) : 0.f);
+                *reinterpret_cast<uint32_t*>(row + 2 * ch) = pack_bf16x2(v[0], v[1]);
+              }
+            }
+          ffn_consumers_sync();
+          const int cv = a.C / 8;
+          for (int e = threadIdx.x; e < MS * 64 * cv; e += kConsumers) {
+            const int r = e / cv, v = e % cv;
+            const int f = tl.b0 + (r >> 6) * STEP + (r & 63), yy = f / P, col = f - yy * P;
+            const int gy = tl.y0 + yy, gx = tl.x0 + col;
+            if (col >= a.Wc || gx >= a.W || gy >= a.H) continue;
+            *reinterpret_cast<uint4*>(a.out + ((size_t)(tl.n * a.H + gy) * a.W + gx) * a.C +
+                                      8 * v) =
+                *reinterpret_cast<const uint4*>(otile + (size_t)r * pitch + 16 * v);
           }
         }
-      ffn_consumers_sync();
-      const int cv = a.C / 8;
-      for (int e = threadIdx.x; e < TR * kTW * cv; e += kConsumers) {
-        const int r = e / cv, v = e % cv;
-        const int gy = y0 + r / kTW, gx = x0 + r % kTW;
-        if (gy >= a.H || gx >= a.W) continue;
-        *reinterpret_cast<uint4*>(a.out + ((size_t)(n * a.H + gy) * a.W + gx) * a.C + 8 * v) =
-            *reinterpret_cast<const uint4*>(otile + (size_t)r * pitch + 16 * v);
       }
     }
   }
 }
 
-template <int S, int NW, bool SPLIT>
+// The plan (group_conv.ffn_plan) checked against what this instantiation
+// reads: the slab holds every live position's taps, the boxes and shared
+// memory fit.
+template <int S, int NW, bool SPLIT, bool PACKED>
 int launch_ffn(const bf16* x, FfnArgs a, int N, cudaStream_t s) {
-  constexpr int TR = ffn_rows(S, SPLIT), FC = SPLIT ? kFCS : kFC, NO = (SPLIT ? 2 : 1) * NW;
-  constexpr unsigned hidden_bytes = SPLIT ? kTW * FC * 2 : 0;
-  a.tiles_w = (a.W + kTW - 1) / kTW;
-  a.tiles = ((a.H + TR - 1) / TR) * a.tiles_w;
-  if ((long long)N * a.tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  constexpr int MS = ffn_subtiles(S, SPLIT), FC = SPLIT ? kFCS : kFC, NO = (SPLIT ? 2 : 1) * NW;
+  constexpr unsigned hidden_bytes = SPLIT ? 64 * FC * 2 : 0;
+  if (a.nb < 1 || a.Wc < 1 || a.nb * a.Wc < a.W || (a.nb - 1) * a.Wc >= a.W ||
+      a.P != a.Wc + 2 || a.P > 256 || a.rows > 256 ||
+      a.step != (PACKED ? 64 : kRowPos) || (!PACKED && a.Wc != 64) || a.span != MS * a.step)
+    return (int)cudaErrorInvalidValue;
+  const int b0max = a.step == 64 ? a.P - 1 : 0;
+  if ((b0max + a.span - 1) / a.P + 3 > a.rows) return (int)cudaErrorInvalidValue;
+  a.SP = (a.rows * a.P + 7) / 8 * 8;
+  const long long tiles = (long long)a.nb * (((long long)(a.H - 1) * a.P + a.Wc + a.span - 1) / a.span);
+  if ((long long)N * tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
   a.total = N * a.tiles;
   a.one = 1;
-  a.tps = 9;
-  while (a.tps > 1 && (unsigned)(a.tps * a.Kp * FC * 2) > kStageCap) a.tps /= 3;
-  a.stage_bytes = (unsigned)std::max(a.tps * a.Kp * FC * 2, FC * NW * 2);
-  // two slab buffers and four stages where they fit, else fewer
-  const int plans[5][2] = {{2, 4}, {2, 3}, {1, 4}, {1, 3}, {1, 2}};
-  size_t smem = 0;
-  for (const auto& pl : plans) {
-    a.nslab = pl[0], a.nst = pl[1];
-    smem = ffn_smem(TR, NO, a.Kp, a.nslab, a.nst, a.stage_bytes, hidden_bytes);
-    if (smem <= kMaxSmem) break;
-  }
+  // one slab buffer: the ring holds at least a chunk's w2 slots, which go
+  // ahead of the next group's slab (the producer's lead is not negative)
+  if (!(a.tps == 1 || a.tps == 3 || a.tps == 9) || a.nslab < 1 || a.nslab > 2 || a.nst < 2 ||
+      a.nst > kMaxStages || (a.nslab == 1 && a.nst < (SPLIT ? 4 : 1)))
+    return (int)cudaErrorInvalidValue;
+  a.stage_bytes = (unsigned)std::max(a.tps * a.Kp * FC * 2, FC * NW * 2 / (SPLIT ? 2 : 1));
+  const size_t smem =
+      ffn_smem(MS, NO, a.Kp, a.SP, a.nslab, a.nst, a.stage_bytes, hidden_bytes, SPLIT);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   CUtensorMap map = {};
-  int e = nhwc_box_map(&map, x, N, a.H, a.W, a.C, kSW, TR + 2);
+  int e = nhwc_box_map(&map, x, N, a.H, a.W, a.C, a.P, a.rows);
   if (e) return e;
+  auto kern = group_ffn_wgmma_kernel<S, NW, SPLIT, PACKED>;
   static bool smem_set = false;  // the largest size, once per instantiation
   if (!smem_set) {
-    e = set_smem(group_ffn_wgmma_kernel<S, NW, SPLIT>, kMaxSmem);
+    e = set_smem(kern, kMaxSmem);
     if (e) return e;
     smem_set = true;
   }
-  const int sms = sm_count(), grid = a.total < sms ? a.total : sms;
-  group_ffn_wgmma_kernel<S, NW, SPLIT><<<grid, kFfnThreads, smem, s>>>(map, a);
+  const int sms = sm_count();
+  kern<<<a.total < sms ? a.total : sms, kFfnThreads, smem, s>>>(map, a);
   return (int)cudaGetLastError();
 }
 
@@ -664,60 +763,71 @@ inline int ffn_slab_depth(int cg, int G) {
 // above 224 the two warpgroups split them, half of C rounded up to 16 each.
 inline int ffn_out_width(int C) { return C <= 224 ? C : (C / 2 + 15) / 16 * 16; }
 
+#define VMG_FFN_CASE(C, S, NW, SPLIT)                                              \
+  case C:                                                                          \
+    return a.step == 64 ? launch_ffn<S, NW, SPLIT, true>(x, a, N, s)               \
+                        : launch_ffn<S, NW, SPLIT, false>(x, a, N, s);
+
 inline int ffn_bf16(const bf16* x, FfnArgs a, int N, cudaStream_t s) {
   if (a.C > 224) {
     switch (ffn_out_width(a.C)) {
-      case 128: return launch_ffn<1, 128, true>(x, a, N, s);
-      case 144: return launch_ffn<1, 144, true>(x, a, N, s);
-      case 160: return launch_ffn<1, 160, true>(x, a, N, s);
-      case 176: return launch_ffn<1, 176, true>(x, a, N, s);
-      case 192: return launch_ffn<1, 192, true>(x, a, N, s);
-      case 208: return launch_ffn<1, 208, true>(x, a, N, s);
-      case 224: return launch_ffn<1, 224, true>(x, a, N, s);
+      VMG_FFN_CASE(128, 1, 128, true)
+      VMG_FFN_CASE(144, 1, 144, true)
+      VMG_FFN_CASE(160, 1, 160, true)
+      VMG_FFN_CASE(176, 1, 176, true)
+      VMG_FFN_CASE(192, 1, 192, true)
+      VMG_FFN_CASE(208, 1, 208, true)
+      VMG_FFN_CASE(224, 1, 224, true)
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (a.C) {
-    case 16: return launch_ffn<2, 16, false>(x, a, N, s);
-    case 32: return launch_ffn<2, 32, false>(x, a, N, s);
-    case 48: return launch_ffn<2, 48, false>(x, a, N, s);
-    case 64: return launch_ffn<2, 64, false>(x, a, N, s);
-    case 80: return launch_ffn<2, 80, false>(x, a, N, s);
-    case 96: return launch_ffn<2, 96, false>(x, a, N, s);
-    case 112: return launch_ffn<2, 112, false>(x, a, N, s);
-    case 128: return launch_ffn<1, 128, false>(x, a, N, s);
-    case 144: return launch_ffn<1, 144, false>(x, a, N, s);
-    case 160: return launch_ffn<1, 160, false>(x, a, N, s);
-    case 176: return launch_ffn<1, 176, false>(x, a, N, s);
-    case 192: return launch_ffn<1, 192, false>(x, a, N, s);
-    case 208: return launch_ffn<1, 208, false>(x, a, N, s);
-    case 224: return launch_ffn<1, 224, false>(x, a, N, s);
+    VMG_FFN_CASE(16, 2, 16, false)
+    VMG_FFN_CASE(32, 2, 32, false)
+    VMG_FFN_CASE(48, 2, 48, false)
+    VMG_FFN_CASE(64, 2, 64, false)
+    VMG_FFN_CASE(80, 2, 80, false)
+    VMG_FFN_CASE(96, 2, 96, false)
+    VMG_FFN_CASE(112, 2, 112, false)
+    VMG_FFN_CASE(128, 1, 128, false)
+    VMG_FFN_CASE(144, 1, 144, false)
+    VMG_FFN_CASE(160, 1, 160, false)
+    VMG_FFN_CASE(176, 1, 176, false)
+    VMG_FFN_CASE(192, 1, 192, false)
+    VMG_FFN_CASE(208, 1, 208, false)
+    VMG_FFN_CASE(224, 1, 224, false)
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#undef VMG_FFN_CASE
 
 }  // namespace vmg
 
 // x, out: (N, H, W, C); w: the weights of pack_ffn_weights -- bf16: the
 // weight stream (its layout follows ffn_out_width), f32: w1 (G, 9 cg, fg)
 // then w2 (G, fg, C); b1 (G * fgp,), b2 (C,); fgp the hidden features per
-// group (bf16: padded to a multiple of 16, 32 above C = 224).
+// group (bf16: padded to a multiple of 16, 32 above C = 224).  plan (bf16
+// only, group_conv.ffn_plan_ints): nb, Wc, P, step, span, rows, tps,
+// nslab, nst; the entry point checks it.
 extern "C" int vmg_group_ffn(const void* x, const void* w, const void* b1, const void* b2,
                              void* out, int N, int H, int W, int C, int G, int fgp, int act,
-                             int dtype, void* stream) {
+                             const int* plan, int dtype, void* stream) {
   if (C % 16 != 0 || G < 1 || C % G != 0 || C > 448 || N < 1 || H < 1 || W < 1 || N > 65535 ||
       fgp < 1 || act < 0 || act > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
-    if (fgp % (C > 224 ? 32 : 16) != 0 || (uintptr_t)x % 16 || (uintptr_t)w % 16 ||
-        (uintptr_t)out % 16)
+    if (plan == nullptr || fgp % (C > 224 ? 32 : 16) != 0 || (uintptr_t)x % 16 ||
+        (uintptr_t)w % 16 || (uintptr_t)out % 16)
       return (int)cudaErrorInvalidValue;
     vmg::FfnArgs a = {};
     a.w = (const vmg::bf16*)w, a.b1 = (const vmg::bf16*)b1, a.b2 = (const vmg::bf16*)b2;
     a.out = (vmg::bf16*)out;
     a.H = H, a.W = W, a.C = C, a.G = G, a.cg = C / G, a.Kp = vmg::ffn_slab_depth(C / G, G);
     a.fgp = fgp, a.act = act;
+    a.nb = plan[0], a.Wc = plan[1], a.P = plan[2], a.step = plan[3], a.span = plan[4];
+    a.rows = plan[5], a.tps = plan[6], a.nslab = plan[7], a.nst = plan[8];
     return vmg::ffn_bf16((const vmg::bf16*)x, a, N, s);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;

@@ -17,6 +17,8 @@ accumulates in f32 across groups and rounds once at the end.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -42,7 +44,7 @@ def chunk_width(C: int) -> int:
     """Hidden features per chunk of the bf16 kernel (``kFC``; ``kFCS`` where
     the warpgroups split the output channels, each computing half the
     chunk's conv)."""
-    return 48 if C <= 224 else 64
+    return 48 if C <= 224 else 128
 
 
 def slab_depth(C: int, groups: int) -> int:
@@ -56,6 +58,84 @@ def slab_depth(C: int, groups: int) -> int:
 
 def _round(n: int, align: int) -> int:
     return -(-n // align) * align
+
+
+FFN_PLAN_FIELDS = ("nb", "Wc", "P", "step", "span", "rows", "tps", "nslab", "nst")
+_MAX_SMEM = 232448  # shared memory a block may use (csrc/common.cuh kMaxSmem)
+_STAGE_CAP = 32768  # bytes of conv taps a weight stage holds at most
+_MAX_STAGES = 12  # ring slots (csrc/group_ffn.cu kMaxStages)
+
+
+def _ffn_bands(N: int, H: int, W: int, ms: int, sms: int):
+    """(nb, Wc, P, step, span, tiles a frame) of the packed bands and of
+    64-column bands, whichever takes fewer rounds of ``sms`` blocks; on a
+    tie the 64-column bands, whose geometry the kernel knows at compile
+    time (~5% faster a tile than the packed form's run-time geometry)."""
+    best = None
+    for nb, Wc in ((-(-W // 64), -(-W // -(-W // 64))), (-(-W // 64), 64)):
+        P = Wc + 2
+        step = P if Wc == 64 else 64
+        tiles = nb * -(-((H - 1) * P + Wc) // (ms * step))
+        key = (-(-N * tiles // sms), Wc != 64)
+        if best is None or key < best[0]:
+            best = (key, (nb, Wc, P, step, ms * step, tiles))
+    return best[1]
+
+
+def ffn_plan(N: int, H: int, W: int, C: int, groups: int, fgp: int, sms: int = 132):
+    """The bf16 kernel's tiles and buffers for frames of H x W x C (the C
+    side, ``launch_ffn``, checks what it is given).
+
+    The columns are cut into nb bands of Wc <= 64 (W split as evenly as
+    whole columns allow); a band's slab rows hold P = Wc + 2 positions
+    (one pad column each side, TMA's out-of-bounds zeros), and its
+    positions f = y P + x are walked in tiles of ``span``: ms m64
+    sub-tiles (4 up to C = 112, 2 up to 224, else 1), each ``step``
+    positions after the last.  Where Wc is 64 a sub-tile is one band row
+    (step = P); narrower bands pack 64 consecutive positions across rows
+    (step = 64), so only the two pad columns a row are dead: W / (W + 2)
+    of a tile is live at one band, against W / 64 for a one-row tile.
+    Packed bands are taken where they need fewer rounds of the N frames'
+    tiles over ``sms`` blocks (one block an SM).  A
+    slab is ``rows`` rows: every row a tile touches plus the halo.  Conv
+    taps go ``tps`` a weight stage (9, 3 or 1, <= 32 KB); two slab buffers
+    and four ring slots where shared memory holds them, else fewer (above
+    C = 224: as many slots as fit, up to 12, each warpgroup's w2 rows in
+    two)."""
+    split = C > 224
+    ms = 1 if split else 4 if C <= 112 else 2
+    FC, NW, Kp = chunk_width(C), out_width(C), slab_depth(C, groups)
+    nb, Wc, P, step, span, tiles = _ffn_bands(N, H, W, ms, sms)
+    b0max = P - 1 if step == 64 else 0
+    rows = (b0max + span - 1) // P + 3
+    SP = _round(rows * P, 8)
+    tps = 9
+    while tps > 1 and tps * Kp * FC * 2 > _STAGE_CAP:
+        tps //= 3
+    # a ring slot: a conv stage, or a w2 stage (split: half of one
+    # warpgroup's w2 rows, so that the ring has more, smaller slots)
+    stage = max(tps * Kp * FC * 2, FC * NW * 2 // (2 if split else 1))
+    hidden = 64 * FC * 2 if split else 0
+    out_tile = 0 if split else ms * 64 * (2 * NW + 16)
+    plans = (((2, n) for n in range(_MAX_STAGES, 3, -1)) if split
+             else ((2, 4), (2, 3), (1, 4), (1, 3), (1, 2)))
+    # one slab buffer: the ring holds at least a chunk's w2 slots (2 halves x
+    # 2 pieces, or 1), which go ahead of the next group's slab
+    w2_slots = 4 if split else 1
+    for nslab, nst in (*plans, *((1, n) for n in range(_MAX_STAGES, w2_slots - 1, -1))):
+        smem = 128 + nslab * (Kp // 8) * SP * 16 + nst * stage + 2 * hidden + 256 + out_tile
+        if smem <= _MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"no FFN plan fits shared memory at {H}x{W}x{C}")
+    return dict(nb=nb, Wc=Wc, P=P, step=step, span=span, rows=rows, tps=tps, nslab=nslab,
+                nst=nst, ms=ms, SP=SP, tiles=tiles, stage_bytes=stage, smem=smem,
+                live=H * W / (tiles * 64 * ms))
+
+
+def ffn_plan_ints(plan) -> list:
+    """A :func:`ffn_plan` as the C entry point reads it (FFN_PLAN_FIELDS)."""
+    return [int(plan[k]) for k in FFN_PLAN_FIELDS]
 
 
 def _align(C: int, dtype) -> int:
@@ -187,7 +267,8 @@ def group_ffn_plain(x, w, b1p, b2, *, groups: int, act: str = "erf"):
 def fused_group_ffn(x, w, b1p, b2, *, groups: int, act: str = "erf"):
     """x (N, H, W, C) -> (N, H, W, C), on the operands of
     :func:`pack_ffn_weights` (all in x's dtype).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch the kernel (bf16 on
+    :func:`ffn_plan`'s tiles)."""
     if x.device.type == "cpu":
         return group_ffn_plain(x, w, b1p, b2, groups=groups, act=act)
     N, H, W, C = x.shape
@@ -204,10 +285,15 @@ def fused_group_ffn(x, w, b1p, b2, *, groups: int, act: str = "erf"):
             else groups * fgp * (9 * C // groups + C))
     for name, t, shape in (("w", w, (size,)), ("b1p", b1p, (groups * fgp,)), ("b2", b2, (C,))):
         _build.require(t, name, shape=shape, dtype=x.dtype, device=x.device)
+    plan = None
+    if x.dtype == torch.bfloat16:
+        ints = ffn_plan_ints(ffn_plan(N, H, W, C, groups, fgp,
+                                      _build.sm_count(x.device.index or 0)))
+        plan = (ctypes.c_int * len(ints))(*ints)
     out = torch.empty_like(x)
     code = _build.load_library().vmg_group_ffn(
         x.data_ptr(), w.data_ptr(), b1p.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        N, H, W, C, groups, fgp, _ACTS[act], _build.DTYPE_CODES[x.dtype],
+        N, H, W, C, groups, fgp, _ACTS[act], plan, _build.DTYPE_CODES[x.dtype],
         _build.stream_of(x))
     _build.check(code, "vmg_group_ffn")
     fused_group_ffn.launches += 1

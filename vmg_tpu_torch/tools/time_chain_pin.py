@@ -73,7 +73,11 @@ _ITERS = 20
 # ((N, H, W, C), groups, hidden ratio) of the FFN's path shapes
 FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
               ((16, 46, 80, 224), 4, 6), ((16, 23, 40, 448), 4, 6),
-              ((32, 128, 128, 144), 1, 2), ((32, 64, 64, 144), 1, 2)]
+              ((32, 128, 128, 144), 1, 2), ((32, 64, 64, 144), 1, 2),
+              # the evaluator's 128x128 tiles of 16 frames: stages 0/6, 1/5,
+              # 2/4 and 3
+              ((16, 128, 128, 112), 4, 6), ((16, 64, 64, 224), 4, 6),
+              ((16, 32, 32, 224), 4, 6), ((16, 16, 16, 448), 4, 6)]
 
 
 # (N, H, W, C) of the combine: FULL_PRESET's stages 0/6, 1/5, 2/4, 3 and the
@@ -254,7 +258,9 @@ def _side(root: Path, reps: int, only=None) -> dict:
             out["pin"] = time_both(lambda: conv_chain.layout_pin(x))
             out["clone"] = time_both(lambda: x.clone())
             del x
-        for (N, h, w, C), G, ratio in FFN_SHAPES if wanted("ffn") else ():
+        for (N, h, w, C), G, ratio in FFN_SHAPES:
+            if not wanted(ffn_key((N, h, w, C), G), ffn_key((N, h, w, C), G, "ffn_module")):
+                continue
             Fh = ratio * C
             x = rn(N, h, w, C)
             w1 = rn(Fh, C // G, 3, 3, scale=(9 * C / G) ** -0.5)
