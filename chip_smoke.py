@@ -12,7 +12,11 @@ Phases (any failure exits non-zero):
      (the MorphFC axis-branch kernel also next to the 'hybrid' form it
      replaces at stages 0/6, the conv chain next to the module form's
      cuDNN convolutions, the norm and the pin next to one PyTorch call);
-     the LTAM backward at the training shape; the conv chain at both
+     the LTAM backward at the training shape; in float32 also at the
+     evaluator's 1x16x128x128 tile shapes (EVAL_TILE_SHAPES: the axes
+     kernel at stage 0/6, the reduce at stages 1/5, 2/4, 3, the combine at
+     all four, the LTAM forward at 1x128x128 at K = 1..5; the FFN at all
+     four in both dtypes); the conv chain at both
      path shapes run twice and held bit-equal (outputs and sums), with
      its TFLOP/s, share of the bound and ratio to the module form beside
      its times before the redesign (PERF.md); the FFN likewise at the four
@@ -91,7 +95,9 @@ Phases (any failure exits non-zero):
      frames, 4 tiles of 1x16x128x128 -- host-tiled, then with the tile loop
      on the card: 16 PNGs of 576x704 read back, finite PSNR / SSIM, the two
      tilings within phase 3's tolerance, the LTAM, FFN, axes, reduce and
-     combine kernels launched; FPS and seconds printed;
+     combine kernels launched; FPS and seconds printed; then one
+     1x16x128x128 tile through the evaluator's forward, kernels on the card
+     against the plain path on CPU tensors (phase 3's tolerance, TF32 off);
  7c. the same protocol over SRServer (bf16, fast-math) on that clip: its
      error against 7b's float32 output at most KFORM_RATIO x phase 4's
      bf16 error at 1x2x64x64, its FPS.
@@ -163,12 +169,16 @@ PIN_BEFORE_MS = 0.0187
 # the FFN's path shapes: ((N, H, W, C), groups, hidden ratio) of FULL_PRESET's
 # stages 0/6, 1/5, 2/4 and 3 (16 frames of a 180x320 clip padded to 184x320)
 # and of the few-levels preset (a 128x128 tile, groups 1, mlp_ratio 2)
+# the evaluator's 128x128 LR tiles of 16 frames (N, H, W, C) at FULL_PRESET's
+# stages 0/6, 1/5, 2/4 and 3: the FFN's shapes there in both dtypes, the
+# axes kernel's (stage 0/6, chunk 8), the reduce's (stages 1/5, 2/4, 3), the
+# combine's and the LTAM forward's (1x128x128, d = 28) in float32, the eval
+# command line's dtype
+EVAL_TILE_SHAPES = [(16, 128, 128, 112), (16, 64, 64, 224), (16, 32, 32, 224),
+                    (16, 16, 16, 448)]
 FFN_SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6),
               ((16, 46, 80, 224), 4, 6), ((16, 23, 40, 448), 4, 6),
-              ((16, 128, 128, 144), 1, 2),
-              # the evaluator's 128x128 tiles of 16 frames: stages 0/6, 1/5, 2/4, 3
-              ((16, 128, 128, 112), 4, 6), ((16, 64, 64, 224), 4, 6),
-              ((16, 32, 32, 224), 4, 6), ((16, 16, 16, 448), 4, 6)]
+              ((16, 128, 128, 144), 1, 2)] + [(s, 4, 6) for s in EVAL_TILE_SHAPES]
 # the bf16 FFN's times before its redesign (the wmma kernel it replaced), printed
 # beside this run's: PERF.md's, medians of vmg_tpu_torch/tools/
 # time_chain_pin.py --other (that tree and this one in one call, one
@@ -475,8 +485,9 @@ def check_kernels(report):
         # the axis-branch kernel at stages 0/6: chunk 8 along H and W; its
         # token form at stages 1/5 and 3, next to the 'hybrid' form they run
         # (XLA-form axis FCs + the reduce kernel), and against the big form
+        eval_axes = [] if dtype == torch.bfloat16 else [(EVAL_TILE_SHAPES[0], 8, "big")]
         for shape, ck, form in [((16, 184, 320, 112), 8, "big")] + [
-                (shape, ck, "token") for shape, ck in TOKEN_SHAPES]:
+                (shape, ck, "token") for shape, ck in TOKEN_SHAPES] + eval_axes:
             N, h, w, C = shape
             args = axes_args(shape, ck, dtype)
             x, xc, kh, bh, kw, bw = args
@@ -527,11 +538,13 @@ def check_kernels(report):
                 del big, token
             del x, xc, args
 
-        # the reduce at every shape it runs (bf16) and at stages 0 and 3
-        # (f32), two runs bit-equal; its sum over a clip of each preset
+        # the reduce at every shape it runs (bf16), at stages 0 and 3 and the
+        # eval tile's stages 1/5, 2/4 and 3 (f32), two runs bit-equal; its
+        # sum over a clip of each preset
         clip = {False: [0.0, 0.0], True: [0.0, 0.0]}  # few-levels? -> ms, bound
         for shape, per_clip in (REDUCE_SHAPES if bf16 else
-                                [(REDUCE_SHAPES[-1][0], 0), (REDUCE_SHAPES[2][0], 0)]):
+                                [(REDUCE_SHAPES[-1][0], 0), (REDUCE_SHAPES[2][0], 0)]
+                                + [(s, 0) for s in EVAL_TILE_SHAPES[1:]]):
             N, h, w, C = shape
             xh, xw, xc = (rn(*shape, dtype=dtype) for _ in range(3))
             terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (xh, xw, xc))
@@ -565,9 +578,11 @@ def check_kernels(report):
                     "ms": c_ms, "bound_ms": c_bound}
 
         # the combine: bf16 (the B image of Pk) at every path shape, f32 at
-        # stages 0 and 3; each gate (tanh on every preset's path)
+        # stages 0 and 3 and the eval tile's four; each gate (tanh on every
+        # preset's path)
         bf16 = dtype == torch.bfloat16
-        for shape in COMBINE_SHAPES if bf16 else (COMBINE_SHAPES[0], COMBINE_SHAPES[3]):
+        for shape in (COMBINE_SHAPES if bf16 else
+                      [COMBINE_SHAPES[0], COMBINE_SHAPES[3]] + EVAL_TILE_SHAPES):
             N, h, w, C = shape
             xh, xw, xc, x, res = (rn(*shape, dtype=dtype) for _ in range(5))
             a = torch.softmax(rn(N, 3, C), dim=1).to(dtype)
@@ -601,11 +616,15 @@ def check_kernels(report):
         # LTAM forward at the serving shape (stage 0 of a 1x16x180x320
         # clip) at every slot count a clip's steps see (a slot every third
         # step: K = 1, 1, 1, 2, ..., 5, 5, 5 in each direction of stages 0
-        # and 6); f32 arithmetic on the CUDA cores: per pixel, slot and tap
-        # a C-long logit and a C-long value sum
-        N, h, w, C, heads = 1, 184, 320, 112, 4
+        # and 6), in f32 also at the eval tile's stage 0 (1x128x128) at every
+        # slot count; f32 arithmetic on the CUDA cores: per pixel, slot and
+        # tap a C-long logit and a C-long value sum
+        C, heads = 112, 4
         clip_ms = clip_bound = 0.0
-        for K in (1, 2, 3, 4, 5) if bf16 else (5,):
+        sites = [((1, 184, 320), K) for K in ((1, 2, 3, 4, 5) if bf16 else (5,))]
+        if not bf16:
+            sites += [((1, 128, 128), K) for K in (1, 2, 3, 4, 5)]
+        for (N, h, w), K in sites:
             q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
             kv = rn(N, h, w, K * 2 * C, dtype=dtype)
             pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
@@ -1071,6 +1090,34 @@ def eval_phases(report, err_bf16):
     diff = np.abs(results["host"]["outs"].astype(int) - results["device"]["outs"].astype(int))
     forward_fn, device_tiled_fn = make_forwards(model, cfg, device_tiles=True)
     clip = lr.astype(np.float32)[None] / 255.0
+
+    # one tile of the clip at the evaluator's own shape: the model's
+    # forward as the evaluator calls it, kernels on the card (TF32 off, as
+    # phase 3) against the plain versions on CPU tensors, same weights
+    th, tw = cfg.dataset.wins
+    tile = clip[:, :, :th, :tw]
+    cpu_model = load_model(cfg, "random", "cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_fn, _ = make_forwards(cpu_model, cfg)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    zero_counts()
+    got_tile = forward_fn(tile)
+    tile_counts = read_counts()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    t1 = time.time()
+    want_tile = cpu_fn(tile)
+    t_cpu = time.time() - t1
+    err_tile = float(np.abs(got_tile - want_tile).max())
+    report(f"    one tile 1x{EVAL_T}x{th}x{tw} (f32, TF32 off), kernels on the card vs plain "
+           f"versions on CPU tensors: max_abs_err={err_tile:.3e} (tol {SLICE_TOL}); CPU plain "
+           f"path {t_cpu:.1f} s; launches {tile_counts}")
+    missing = [k for k in EVAL_PATH if tile_counts[k] <= 0]
+    if not (np.isfinite(got_tile).all() and got_tile.shape == want_tile.shape
+            and err_tile <= SLICE_TOL) or missing:
+        raise AssertionError(f"the eval tile's forward on the card failed (never launched "
+                             f"{missing})")
+    del cpu_model, cpu_fn
     host = SlidingEvaluator(forward_fn, spatial_wins=cfg.dataset.wins,
                             overlapped_spatial_length=cfg.dataset.overlapped_spatial_length)
     f32_out = host.test_image(clip)
@@ -1104,6 +1151,7 @@ def eval_phases(report, err_bf16):
                          for k, v in results.items()},
             "eval_tiles_max_abs_err": float(err_tiles), "eval_bf16_err": float(err_7c),
             "eval_bf16_fps": fps_bf16, "fixture_max_abs_err": err_7a,
+            "eval_tile_max_abs_err": err_tile, "eval_tile_cpu_s": t_cpu,
             "launches": results["host"]["launches"]}
 
 

@@ -165,3 +165,34 @@ def test_resume_equals_uninterrupted(tmp_path):
         step(batch, gen)
     for n, p in model.state_dict().items():
         assert torch.equal(p, want[n]), n
+
+
+def test_trainer_command_line_resumes(tmp_path):
+    """``python -m vmg_tpu_torch.train --ckpt-dir``: two runs of a warm-up
+    and one step, the second resumed from the first's checkpoint, end on
+    the parameters, bit for bit, of one run of a warm-up and three steps;
+    the evaluator's loader reads the directory."""
+    import copy
+    import dataclasses
+
+    from vmg_tpu_torch.configs import EVAL_PRESETS
+    from vmg_tpu_torch.eval import load_model
+    from vmg_tpu_torch.train.__main__ import main, run
+
+    kw = dict(preset="tiny", frames=4, crop=64, iters=1, device="cpu")
+    split, whole = str(tmp_path / "split"), str(tmp_path / "whole")
+    first, second = run(ckpt_dir=split, **kw), run(ckpt_dir=split, **kw)
+    assert (first["resumed_from_step"], first["saved_step"]) == (None, 2)
+    assert (second["resumed_from_step"], second["saved_step"]) == (2, 4)
+    main(["--preset", "tiny", "--frames", "4", "--iters", "3", "--device", "cpu",
+          "--ckpt-dir", whole])
+    assert latest_step(whole) == 4
+    got, want = restore_checkpoint(split), restore_checkpoint(whole)
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), k
+
+    cfg = copy.deepcopy(EVAL_PRESETS["vid4"])
+    cfg.network = dataclasses.replace(TINY_TEST_PRESET)
+    model = load_model(cfg, split, "cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, got["params"][k]), k

@@ -20,8 +20,7 @@ import numpy as np
 
 from vmg_tpu_torch.eval.eval_utils import index_generation, read_seq_images
 from vmg_tpu_torch.eval.inference import SlidingEvaluator
-from vmg_tpu_torch.eval.metrics import (calculate_psnr, psnr_exceed_check, psnr_float01,
-                                        rgb2ycbcr_matlab, structural_similarity)
+from vmg_tpu_torch.eval.metrics import calculate_psnr, rgb2ycbcr_matlab, structural_similarity
 from vmg_tpu_torch.eval.png import write_png
 
 

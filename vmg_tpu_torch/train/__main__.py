@@ -2,7 +2,7 @@
 
     python -m vmg_tpu_torch.train [--preset full|few_levels|tiny] [--batch 1]
         [--frames 16] [--crop 64] [--iters 8] [--grad-acc 1] [--no-remat]
-        [--norm-impl module|kernel] [--device cuda]
+        [--norm-impl module|kernel] [--device cuda] [--ckpt-dir DIR]
 
 The full training step (forward, backward, grouped AdamW) of a randomly
 initialised model (seed 0) on one seeded synthetic batch of B clips of T
@@ -14,8 +14,11 @@ Prints one JSON line: step ms median and range, frames/s, peak device
 bytes, the first (warm-up) and last loss, and the LTAM forward and
 backward and fused-norm kernel launches per step.  ``--norm-impl kernel``
 runs the bf16 LayerNorms through the fused norm kernel (its backward
-recomputes through the plain formulation).  The data loader is not
-ported yet.
+recomputes through the plain formulation).  ``--ckpt-dir``: resume from
+the latest trainer checkpoint there, if any (``vmg_tpu_torch.ckpt.io``:
+parameters, optimizer moments and step, the stochastic-depth generator),
+and save one after the timed steps; ``python -m vmg_tpu_torch.eval
+--checkpoint DIR`` evaluates it.  The data loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,10 +27,13 @@ import argparse
 import dataclasses
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from vmg_tpu_torch.ckpt.io import (latest_step, load_trainer_state, restore_checkpoint,
+                                   save_checkpoint, trainer_state)
 from vmg_tpu_torch.configs import (FEW_LEVELS_PRESET, FULL_PRESET, TINY_TEST_PRESET,
                                    TrainConfig)
 from vmg_tpu_torch.models.vmg import create_model
@@ -59,12 +65,17 @@ def setup(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64
 
 def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
         iters: int = 8, grad_acc: int = 1, remat: bool = True, device="cuda",
-        seed: int = 0, norm_impl: str = "module") -> dict:
-    """Warm-up step plus ``iters`` timed steps; returns the record."""
+        seed: int = 0, norm_impl: str = "module", ckpt_dir: Optional[str] = None) -> dict:
+    """Warm-up step plus ``iters`` timed steps; returns the record.  With
+    ``ckpt_dir``: first resume from its latest checkpoint, if any, and save
+    one at the end."""
     dev = torch.device(device)
     step, data, gen = setup(preset, batch, frames, crop, grad_acc, remat, dev, seed,
                             norm_impl)
     cuda = dev.type == "cuda"
+    resumed = None
+    if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
+        resumed = load_trainer_state(restore_checkpoint(ckpt_dir), step.model, step, gen)
 
     loss_first = float(step(data, gen)["loss"])
     if cuda:
@@ -81,6 +92,10 @@ def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
     med = float(np.median(times))
+    saved = None
+    if ckpt_dir is not None:
+        saved = step.optimizer.count
+        save_checkpoint(ckpt_dir, saved, trainer_state(step.model, step, gen))
     return {
         "metric": (f"train step ({preset} preset, B={batch}, T={frames}, {crop}x{crop} "
                    f"crops, grad_acc={grad_acc}, remat={remat}, norm_impl={norm_impl}, "
@@ -97,6 +112,8 @@ def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
         "ltam_fwd_launches_per_step": ltam_attention_2x2.launches / iters,
         "ltam_bwd_launches_per_step": ltam_attention_2x2.bwd_launches / iters,
         "norm_launches_per_step": fused_norm.launches / iters,
+        "resumed_from_step": resumed,
+        "saved_step": saved,
     }
 
 
@@ -113,9 +130,12 @@ def main(argv=None) -> None:
                          "and trajectory step in the backward pass")
     ap.add_argument("--norm-impl", default="module", choices=["module", "kernel"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from the latest checkpoint here, if any; save one at the end")
     args = ap.parse_args(argv)
     rec = run(args.preset, args.batch, args.frames, args.crop, args.iters,
-              args.grad_acc, not args.no_remat, args.device, norm_impl=args.norm_impl)
+              args.grad_acc, not args.no_remat, args.device, norm_impl=args.norm_impl,
+              ckpt_dir=args.ckpt_dir)
     print(json.dumps(rec))
 
 

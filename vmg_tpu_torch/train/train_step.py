@@ -74,6 +74,7 @@ def make_train_step(model, train_cfg, grad_acc: int = 1, frames_mirror: bool = F
         sync_compute(model, compute)
         return {"loss": loss, "grad_norm": grad_norm}
 
+    step.model = model
     step.optimizer = opt
     step.compute_model = compute
     return step
