@@ -12,7 +12,9 @@ Phases (any failure exits non-zero):
      (the MorphFC axis-branch kernel also next to the 'hybrid' form it
      replaces at stages 0/6, the conv chain next to the module form's
      cuDNN convolutions, the norm and the pin next to one PyTorch call);
-     the LTAM backward at the training shape; in float32 also at the
+     the LTAM backward at the training shape, and in bf16 the LTAM forward
+     and backward at phase 8's batch (4x64x64 at K = 1..5, dpe against
+     its terms over the batch); in float32 also at the
      evaluator's 1x16x128x128 tile shapes (EVAL_TILE_SHAPES: the axes
      kernel at stage 0/6, the reduce at stages 1/5, 2/4, 3, the combine at
      all four, the LTAM forward at 1x128x128 at K = 1..5; the FFN at all
@@ -100,8 +102,24 @@ Phases (any failure exits non-zero):
      against the plain path on CPU tensors (phase 3's tolerance, TF32 off);
  7c. the same protocol over SRServer (bf16, fast-math) on that clip: its
      error against 7b's float32 output at most KFORM_RATIO x phase 4's
-     bf16 error at 1x2x64x64, its FPS.
-Prints a {"kernels": [...]} JSON line (each kernel with its launches on
+     bf16 error at 1x2x64x64, its FPS;
+  8. training from data (main path 7): a seeded synthetic packed REDS tree
+     (2 clips x 100 frames of 720x1280 HR, LR by ``imresize_matlab`` on the
+     card, ~560 MiB, under the checkout's ignored results/, removed after);
+     the first loader batch from the native assembler bit-equal to the numpy
+     path's; the loader alone (batches/s): 8 one-batch epochs at the
+     preset's expand ratio, each a restart of its workers, then steady
+     batches over a longer epoch; then the function of ``python -m
+     vmg_tpu_torch.tools.train --config reds_full`` (FULL_PRESET, batch 4,
+     T = 16, 256x256 HR crops, bf16 on f32 masters, remat) for 4 steps
+     with a checkpoint at step 4 and no retries (one batch an epoch: the
+     run crosses set_epoch), then ``--resume`` for 4 more: finite losses,
+     each step's LTAM forward and backward launches equal to phase 6's per
+     step (times grad_acc), assemble_batch called, the resumed run starting
+     at step 4; step ms (median over each run's steps after its first),
+     data-wait ms a batch, frames/s, peak memory.  An out-of-memory error
+     fails the phase, naming the batch.
+Prints a {"train_loop": {...}} JSON line, a {"kernels": [...]} JSON line (each kernel with its launches on
 the path that runs it -- the token form's and the probes' on their entry
 points in phases 2/2p, none on the model paths -- its times, its bound and
 the library call, if any), the nvidia-smi line, and last {"ok": true,
@@ -116,6 +134,7 @@ import copy
 import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -323,6 +342,7 @@ def check_kernels(report):
     """Phase 2.  Returns one dict per kernel for the JSON line."""
     import torch.nn.functional as F
 
+    from vmg_tpu_torch.configs import TRAIN_PRESETS
     from vmg_tpu_torch.models.blocks import _axis_mix
     from vmg_tpu_torch.ops import conv_chain, fused_norm, group_conv, ltam_attention, morphfc_fused
     from vmg_tpu_torch.ops.decay import morphfc_decay_np
@@ -699,6 +719,32 @@ def check_kernels(report):
             entries["ltam_attention_2x2_bwd"]["per_step"] = {"ms": step_ms,
                                                              "bound_ms": step_bound}
 
+            # both LTAM kernels at the training loop's batch (phase 8: the
+            # reds_full preset's clips go into N), 64x64 at K = 1..5: the
+            # forward, then the backward from its out and denominator, dpe
+            # against the sum of its terms over all N clips
+            N = TRAIN_PRESETS["reds_full"].dataset.batch_size
+            for K in (1, 2, 3, 4, 5):
+                q = torch.nn.functional.normalize(rn(N, h, w, C), dim=-1) * (C // heads) ** -0.5
+                kv = rn(N, h, w, K * 2 * C, dtype=dtype)
+                pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
+                g = rn(N, h, w, C)
+                compare("ltam_attention_2x2", (N, h, w, C, K), dtype,
+                        lambda: ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads),
+                        lambda: ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
+                        dtype_check(torch.float32), primary=False,
+                        work=((q, kv, pe), N * h * w * K * 4 * 4 * C, "f32"))
+                out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+                dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
+                compare("ltam_attention_2x2_bwd", (N, h, w, C, K), dtype,
+                        lambda: ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g,
+                                                                      K=K, heads=heads),
+                        lambda: ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K,
+                                                                        heads=heads),
+                        bwd_check, primary=False,
+                        work=((q, kv, pe, den, out, g), N * h * w * K * 4 * 10 * C, "f32"))
+                del q, kv, out, den, g
+
         # LTAM at the wider heads: the forward at the few-levels serving
         # shape, the backward at its training crop
         for C, heads, K in LTAM_WIDTHS:
@@ -1015,7 +1061,6 @@ EVAL_PATH = ("fused_group_ffn", "fused_morphfc_axes", "fused_morphfc_reduce",
 
 def eval_phases(report, err_bf16):
     """Phases 7a-7c; returns the record for the JSON line."""
-    import os
     import shutil
 
     from vmg_tpu_torch.configs import EVAL_PRESETS, TINY_TEST_PRESET
@@ -1153,6 +1198,190 @@ def eval_phases(report, err_bf16):
             "eval_bf16_fps": fps_bf16, "fixture_max_abs_err": err_7a,
             "eval_tile_max_abs_err": err_tile, "eval_tile_cpu_s": t_cpu,
             "launches": results["host"]["launches"]}
+
+
+# phase 8: the synthetic packed REDS tree -- clips x frames of 720x1280
+# HR (REDS's frame size), LR by the port's imresize_matlab on the card --
+# under the checkout's ignored results/, removed after the phase; the
+# trainer's steps a run (the first a warm-up, outside the step median); the
+# loader alone: its one-batch epochs at the preset's expand ratio (a
+# restart each), then one epoch of LOADER_STEADY_RATIO x the clips
+TRAIN_CLIPS, TRAIN_CLIP_FRAMES, REDS_HW = 2, 100, (720, 1280)
+TRAIN_STEPS, LOADER_EPOCHS, LOADER_STEADY_RATIO = 4, 8, 16
+
+
+class _StepCounts:
+    """A trainer hook: the LTAM launches of every update, from the counters."""
+
+    def __init__(self):
+        self.per_step = []
+        self._last = (0, 0)
+
+    def after_iter(self, step, state, extras):
+        now = read_counts()
+        now = (now["ltam_attention_2x2"], now["ltam_attention_2x2_bwd"])
+        self.per_step.append((now[0] - self._last[0], now[1] - self._last[1]))
+        self._last = now
+
+
+def write_reds_tree(root):
+    """The seeded synthetic packed tree (HR uint8 noise on the card, LR =
+    imresize_matlab(HR / 255, 1/4) rounded to uint8); returns (hr, lr)."""
+    from vmg_tpu_torch.data.storage import PackedWriter
+    from vmg_tpu_torch.ops.resize import imresize_matlab
+
+    hr_root, lr_root = os.path.join(root, "hr.pack"), os.path.join(root, "lr.pack")
+    Hh, Wh = REDS_HW
+    hw = PackedWriter(hr_root, (Hh, Wh, 3))
+    lw = PackedWriter(lr_root, (Hh // 4, Wh // 4, 3))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for c in range(TRAIN_CLIPS):
+        key = f"{c:03d}"
+        for f0 in range(0, TRAIN_CLIP_FRAMES, 25):
+            hr = torch.randint(0, 256, (25, Hh, Wh, 3), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+            lr = imresize_matlab(hr.float() / 255.0, 0.25)
+            lr = (lr * 255.0).round().clamp(0, 255).to(torch.uint8)
+            for i, (h, l) in enumerate(zip(hr.cpu().numpy(), lr.cpu().numpy())):
+                hw.add(f"{key}_{f0 + i}", h, clip_key=key)
+                lw.add(f"{key}_{f0 + i}", l, clip_key=key)
+    hw.close()
+    lw.close()
+    return hr_root, lr_root
+
+
+def train_loop_phase(report, smi, kind, phase6):
+    """Phase 8 (main path 7): ``python -m vmg_tpu_torch.tools.train --config
+    reds_full``'s function on a synthetic packed tree; returns (record,
+    the kernel launches of its first run)."""
+    import shutil
+
+    from vmg_tpu_torch.configs import TRAIN_PRESETS
+    from vmg_tpu_torch.data import native
+    from vmg_tpu_torch.data.clip_dataset import create_dataset
+    from vmg_tpu_torch.data.loader import create_dataloader
+    from vmg_tpu_torch.data.sampler import IterSampler
+    from vmg_tpu_torch.tools.train import train
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                        "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t1 = time.time()
+        hr_root, lr_root = write_reds_tree(root)
+        nbytes = sum(os.path.getsize(os.path.join(d, "data.bin")) for d in (hr_root, lr_root))
+        report(f"    tree: {TRAIN_CLIPS} clips x {TRAIN_CLIP_FRAMES} frames, HR {REDS_HW[0]}x"
+               f"{REDS_HW[1]}, LR by imresize_matlab on the card, {nbytes / 2**20:.0f} MiB, "
+               f"written in {time.time() - t1:.1f} s")
+        cfg = copy.deepcopy(TRAIN_PRESETS["reds_full"])
+        cfg.dataset.dataroot_HR, cfg.dataset.dataroot_LR = hr_root, lr_root
+        cfg.dataset.cache_keys = None
+        cfg.path.experiments_root = os.path.join(root, "experiments")
+        cfg.logger.save_checkpoint_freq = TRAIN_STEPS
+        T_ = cfg.dataset.num_frames
+
+        # the first loader batch: native assembly bit-equal to the numpy path
+        dataset = create_dataset(cfg.dataset, cfg.scale)
+        loader = create_dataloader(dataset, cfg.dataset)
+        first = list(iter(loader.sampler))[: cfg.dataset.batch_size]
+        nat = dataset.get_batch(first)
+        dataset.use_native = False
+        plain = [dataset[i] for i in first]
+        bit_equal = all(np.array_equal(nat[k], np.stack([p[k] for p in plain]))
+                        for k in ("LRs", "HRs"))
+        report(f"    first batch {first}: native assembly bit-equal to the numpy path: "
+               f"{bit_equal}; LRs {nat['LRs'].shape}, HRs {nat['HRs'].shape}")
+        if not bit_equal:
+            raise AssertionError("the native batch differs from the numpy path's")
+        # the loader alone (pinned, as the trainer runs it): the preset's
+        # one-batch epochs, each a restart of its workers, then steady
+        # batches -- one epoch of LOADER_STEADY_RATIO x the clips, timed
+        # from its first batch on
+        loader = create_dataloader(create_dataset(cfg.dataset, cfg.scale), cfg.dataset,
+                                   pin_memory=True)
+        t1 = time.perf_counter()
+        n_batches = 0
+        for epoch in range(LOADER_EPOCHS):
+            loader.dataset.set_epoch(epoch)
+            loader.sampler.set_epoch(epoch)
+            n_batches += sum(1 for _ in loader)
+        restart_bps = n_batches / (time.perf_counter() - t1)
+        steady = create_dataloader(loader.dataset, cfg.dataset, pin_memory=True, sampler=IterSampler(
+            len(loader.dataset), ratio=LOADER_STEADY_RATIO, seed=cfg.dataset.pre_seed or 0))
+        n_steady = -1
+        for _ in steady:
+            if n_steady < 0:
+                t1 = time.perf_counter()
+            n_steady += 1
+        steady_bps = n_steady / (time.perf_counter() - t1)
+        report(f"    loader alone: {n_batches} one-batch epochs of {cfg.dataset.batch_size} clips "
+               f"(a restart each) {restart_bps:.2f} batches/s; steady, {n_steady} batches after "
+               f"the first of a {n_steady + 1}-batch epoch: {steady_bps:.2f} batches/s (pinned)")
+
+        batch = cfg.dataset.batch_size
+        shutil.rmtree(cfg.path.experiments_root, ignore_errors=True)
+        hook = _StepCounts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.calls = 0
+        zero_counts()
+        try:
+            rec = train(cfg, max_steps=TRAIN_STEPS, max_retries=0, device="cuda", hooks=[hook])
+        except torch.OutOfMemoryError as e:
+            raise AssertionError(f"reds_full's batch {batch} does not fit the card") from e
+        launches = read_counts()
+        assembled = native.calls
+        peak = torch.cuda.max_memory_allocated()
+        zero_counts()
+        hook2 = _StepCounts()
+        rec2 = train(cfg, resume=True, max_steps=2 * TRAIN_STEPS, max_retries=0, device="cuda",
+                     hooks=[hook2])
+        losses = rec["losses"] + rec2["losses"]
+        steps_ms = rec["step_ms"] + rec2["step_ms"]
+        timed_ms = rec["step_ms"][1:] + rec2["step_ms"][1:]  # each run's first: a warm-up
+        waits = [w * 1e3 for w in rec["data_wait_s"] + rec2["data_wait_s"]]
+        grad_acc = rec["grad_acc"]
+        per_step = hook.per_step + hook2.per_step
+        want = (phase6["ltam_fwd_launches_per_step"] * grad_acc,
+                phase6["ltam_bwd_launches_per_step"] * grad_acc)
+        med = float(np.median(timed_ms))
+        frames = batch * grad_acc * T_
+        out = {"preset": "reds_full", "batch": batch, "grad_acc": grad_acc,
+               "frames": T_, "crop": cfg.dataset.crop_size, "steps": rec["steps"] + rec2["steps"],
+               "losses": losses, "resumed_from": rec2["start_step"],
+               "epochs": [rec["epochs"], rec2["epochs"]],
+               "step_ms_median": med, "step_ms_min": min(timed_ms),
+               "step_ms_max": max(timed_ms), "step_ms": steps_ms,
+               "warmup_step_ms": [rec["step_ms"][0], rec2["step_ms"][0]],
+               "data_wait_ms_median": float(np.median(waits)), "data_wait_ms_max": max(waits),
+               "data_wait_ms": waits, "frames_per_s": frames / (med / 1e3),
+               "peak_bytes": peak, "loader_restart_batches_per_s": restart_bps,
+               "loader_steady_batches_per_s": steady_bps,
+               "assemble_batch_calls": assembled, "ltam_launches_per_step": per_step,
+               "card": smi}
+        report(f"    batch {batch}, grad_acc {grad_acc}, T={T_}, {cfg.dataset.crop_size}x"
+               f"{cfg.dataset.crop_size} HR crops: steps {out['steps']}, resumed from step "
+               f"{rec2['start_step']}; losses {[round(v, 6) for v in losses]}")
+        report(f"    step {med:.1f} ms median ({min(timed_ms):.1f}-{max(timed_ms):.1f}) over "
+               f"{len(timed_ms)} steps after each run's warm-up step ({rec['step_ms'][0]:.1f}, "
+               f"{rec2['step_ms'][0]:.1f}), data wait {out['data_wait_ms_median']:.3f} ms "
+               f"median (max {max(waits):.3f}) a batch, {out['frames_per_s']:.3f} frames/s, "
+               f"peak allocated {peak / 2**30:.2f} GiB; assemble_batch calls {assembled}; LTAM "
+               f"launches a step {per_step} (phase 6 x grad_acc: {want}); {kind}; card {smi}")
+        if not all(np.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite training-loop loss: {losses}")
+        if any(s != want for s in per_step) or len(per_step) != 2 * TRAIN_STEPS:
+            raise AssertionError(f"LTAM launches a step {per_step}, expected {want} on each")
+        if assembled <= 0:
+            raise AssertionError("the training loop never called assemble_batch")
+        if rec2["start_step"] != TRAIN_STEPS or rec2["end_step"] != 2 * TRAIN_STEPS:
+            raise AssertionError(f"resume: started at {rec2['start_step']}, ended at "
+                                 f"{rec2['end_step']}")
+        if rec["epochs"] < 2:
+            raise AssertionError("the first run did not cross an epoch")
+        return out, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1474,6 +1703,12 @@ def main() -> int:
 
     ev = eval_phases(report, err_bf16)
 
+    report(f"[8] training from data (main path 7): python -m vmg_tpu_torch.tools.train "
+           f"--config reds_full's function, FULL_PRESET bf16 + f32 masters, on a synthetic "
+           f"packed REDS tree; {TRAIN_STEPS} steps (a checkpoint at step {TRAIN_STEPS}, "
+           f"max_retries 0), then --resume for {TRAIN_STEPS} more")
+    loop, loop_launches = train_loop_phase(report, smi, kind, rec)
+
     # each kernel's launches on the path that runs it: the LTAM backward in
     # training (phase 6), the conv chain and the norm in kernel-form serving
     # (phase 4b, 3 clips), the pin in the barrier form (phase 4b, 1 clip),
@@ -1506,6 +1741,7 @@ def main() -> int:
                         "launches_few_levels_serving": few_launches[name],
                         "launches_few_levels_training": few_train[name],
                         "launches_eval": ev["launches"][name],
+                        "launches_train_loop": loop_launches[name],
                         "bound_bytes": e["bound_bytes"], "bound_flops": e["bound_flops"],
                         "bound_peak": e["bound_peak"], **extra})
     print(json.dumps({"serving": {"frames_per_s": fps, "per_request_frames_per_s": per_request,
@@ -1521,6 +1757,7 @@ def main() -> int:
                       "training_norm_kernel": rec_k, "training_few_levels": rec_few}))
     print(json.dumps({"probes": {k: entries[k]["probes"] for k in OFF_PATH[1:]}}))
     print(json.dumps({"eval": {k: v for k, v in ev.items() if k != "launches"}}))
+    print(json.dumps({"train_loop": loop}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

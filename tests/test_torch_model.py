@@ -238,6 +238,20 @@ import vmg_tpu_torch.eval
 import vmg_tpu_torch.eval.__main__
 import vmg_tpu_torch.eval.device_tiled
 import vmg_tpu_torch.eval.png
+import vmg_tpu_torch.data
+import vmg_tpu_torch.data.clip_dataset
+import vmg_tpu_torch.data.color
+import vmg_tpu_torch.data.loader
+import vmg_tpu_torch.data.native
+import vmg_tpu_torch.data.sampler
+import vmg_tpu_torch.data.storage
+import vmg_tpu_torch.edit.hooks
+import vmg_tpu_torch.tools.train
+import vmg_tpu_torch.tools.prepare_data
+import vmg_tpu_torch.tools.make_demo_data
+import vmg_tpu_torch.utils.misc
+import vmg_tpu_torch.utils.scalars
+import vmg_tpu_torch.utils.collect_env
 from vmg_tpu_torch.ckpt import load_reference_checkpoint, reference_state_dict
 from vmg_tpu_torch.models.vmg import KERNEL_FORMS
 from vmg_tpu_torch.serve import SRServer
@@ -250,6 +264,18 @@ for forms in ({}, KERNEL_FORMS, {"traj_conv_impl": "barrier"}):
     assert y.shape == (1, 4, 256, 256, 3) and bool(torch.isfinite(y).all())
 sd = reference_state_dict(load_reference_checkpoint("tests/fixtures/ref_tiny_mine.pth"))
 model.load_state_dict(sd)
+import tempfile
+from vmg_tpu_torch.configs import DatasetConfig
+with tempfile.TemporaryDirectory() as d:
+    for side, hw in (("hr", 64), ("lr", 16)):
+        w = vmg_tpu_torch.data.PackedWriter(f"{d}/{side}", (hw, hw, 3))
+        for i in range(4):
+            w.add(f"000_{i}", np.full((hw, hw, 3), i, np.uint8), clip_key="000")
+        w.close()
+    cfg = DatasetConfig(dataroot_HR=f"{d}/hr", dataroot_LR=f"{d}/lr", num_frames=2,
+                        crop_size=32, image_shape=(3, 64, 64), total_num_frames=4)
+    batch = vmg_tpu_torch.data.create_dataset(cfg).get_batch([0])
+    assert batch["HRs"].shape == (1, 2, 32, 32, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL", "vmg_tpu"))
 assert not bad, bad

@@ -146,6 +146,43 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+# the host batch assembler (``native/packbatch.cpp``, a plain C interface):
+# built with g++ beside the kernels, as the JAX package's
+# ``tools/build_native.sh`` builds its own copy
+_PACKBATCH_SRC = _PKG.parent / "native" / "packbatch.cpp"
+HOST_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
+
+
+@functools.lru_cache(maxsize=None)
+def load_packbatch() -> ctypes.CDLL:
+    """Build ``native/packbatch.cpp`` under ``_build/`` if the library for
+    this source and these flags is missing, and load it.  Raises if g++ is
+    missing or fails."""
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode() + _PACKBATCH_SRC.read_bytes())
+    so = BUILD_DIR / f"libpackbatch_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the packed-data batch assembler "
+                               f"({_PACKBATCH_SRC}) is built at first use")
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+        res = subprocess.run([gxx, *HOST_FLAGS, str(_PACKBATCH_SRC), "-o", str(tmp)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed on {_PACKBATCH_SRC}:\n{res.stdout}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))  # a CDLL call releases the GIL
+    i64, p = ctypes.c_int64, ctypes.c_void_p
+    lib.assemble_clip.restype = ctypes.c_int
+    lib.assemble_clip.argtypes = [p, i64, i64, i64, p, i64, i64, i64, i64, i64,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    lib.assemble_batch.restype = ctypes.c_int
+    lib.assemble_batch.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64, i64, p]
+    return lib
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         msg = load_library().vmg_error_string(code).decode()

@@ -1,11 +1,11 @@
 """Typed VMG network, training and evaluation configuration, without YAML.
 
 Mirrors the architecture fields, derived properties and presets of
-``vmg_tpu.configs.config.VMGNetworkConfig``, the fields of its
-``TrainConfig`` that the training step reads, and the evaluation
-protocol's fields of its ``DatasetConfig``, ``PathConfig`` and
-``ExperimentConfig``, with the JAX package's five evaluation presets as
-Python values (:data:`EVAL_PRESETS`).  ``remat`` recomputes each
+``vmg_tpu.configs.config.VMGNetworkConfig`` and the fields of its
+``DatasetConfig``, ``TrainConfig``, ``LoggerConfig``, ``PathConfig`` and
+``ExperimentConfig``, with the JAX package's five evaluation presets
+(:data:`EVAL_PRESETS`) and four training presets (:data:`TRAIN_PRESETS`)
+as Python values.  ``remat`` recomputes each
 TAB and each trajectory step in the backward pass
 (``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``
 does.  The JAX package's TPU-only knobs (remat_policy, morph_fused,
@@ -118,25 +118,42 @@ class VMGNetworkConfig:
 @dataclass
 class TrainConfig:
     """The optimizer, schedule, precision and loss settings of a training
-    step (the fields of ``vmg_tpu.configs.config.TrainConfig`` it reads)."""
+    run (``vmg_tpu.configs.config.TrainConfig``)."""
 
     lr: float = 2e-4
+    lr_scheme: str = "CosineAnnealingLR_Restart"
     beta1: float = 0.9
     beta2: float = 0.99
+    niter: int = 600000
     warmup_iter: int = -1
     T_period: Tuple[int, ...] = (600000,)
     restarts: Optional[Tuple[int, ...]] = None
     restart_weights: Tuple[float, ...] = (1.0,)
     eta_min: float = 1e-7
+    val_freq: int = 5000
+    manual_seed: int = 0
     amp: bool = False  # bf16 compute on float32 master weights
+    grad_acc: bool = True  # accumulate total_batch // batch_size loader draws an update
     if_grad_clip: bool = False
     grad_clip_up: float = 0.5
+    revise_epoch: bool = True
     pre_training: bool = True  # SPyNet group at pre_lr_ratio * lr
     pre_lr_ratio: float = 0.125
     weight_decay: Optional[float] = None  # on the mlp_blocks parameters
+    f_u_params: bool = False
     eps: float = 1e-12  # Charbonnier epsilon (inside the sqrt)
     if_aux: bool = True
     aux_ratio: float = 0.005
+    reduced_iter: Optional[int] = None
+
+    def __post_init__(self):
+        for f in ("lr", "eta_min", "eps", "aux_ratio", "pre_lr_ratio",
+                  "grad_clip_up", "beta1", "beta2"):
+            setattr(self, f, float(getattr(self, f)))
+        if self.weight_decay is not None:
+            self.weight_decay = float(self.weight_decay)
+        self.niter = int(self.niter)
+        self.val_freq = int(float(self.val_freq))
 
 
 # the defaults: the few-levels model (vmg_reds_few_levels.yml and
@@ -189,16 +206,34 @@ TINY_TEST_PRESET = VMGNetworkConfig(
 
 @dataclass
 class DatasetConfig:
-    """The evaluation protocol's fields of the JAX package's
-    ``DatasetConfig``."""
+    """A training dataset's or an evaluation protocol's settings (the JAX
+    package's ``DatasetConfig``)."""
 
     name: str = "REDS"
-    dataset_root: Optional[str] = None  # LR root
-    gt_root: Optional[str] = None  # GT root (default: by name, see vmg_tpu_torch.eval)
-    num_frames: int = 16  # frames a test clip
+    mode: str = "train"
+    dataroot_HR: Optional[str] = None  # training HR frames (packed, LMDB or PNG tree)
+    dataroot_LR: Optional[str] = None
+    cache_keys: Optional[str] = None  # pickle of {"keys": clip keys}
+    dataset_root: Optional[str] = None  # eval LR root
+    gt_root: Optional[str] = None  # eval GT root (default: by name, see vmg_tpu_torch.eval)
+    num_frames: int = 16  # frames a training sample / a test clip
     num_out_frames: int = 100  # frames a scoring window (index_generation)
-    image_shape: Tuple[int, int, int] = (3, 720, 1280)  # GT (C, H, W)
+    use_shuffle: bool = True
+    n_workers: int = 4
+    batch_size: int = 8  # clips a loader draw
+    total_batch: int = 8  # clips an update (grad_acc = total_batch // batch_size)
+    crop_size: int = 256  # HR crop
+    image_shape: Tuple[int, int, int] = (3, 720, 1280)  # HR / GT (C, H, W)
+    image_shape_r: Tuple[int, int, int] = (3, 256, 256)
+    use_hflip: bool = True
+    use_vflip: bool = True
+    use_rot: bool = True
     use_mirrors: bool = False
+    random_reverse: bool = True
+    dataset_expand_ratio: int = 2
+    total_num_frames: int = 100  # frames a training clip
+    pre_seed: int = 0
+    interval_list: Tuple[int, ...] = (1,)
     data_enhance: bool = False
     eval_mid_clip: bool = False
     selected_topk: int = 1
@@ -210,9 +245,19 @@ class DatasetConfig:
 
 
 @dataclass
+class LoggerConfig:
+    print_freq: int = 1000
+    save_checkpoint_freq: int = 10000
+    use_tb_logger: bool = False
+
+
+@dataclass
 class PathConfig:
+    pretrain_model: Optional[str] = None
     strict_load: bool = True
+    resume_state: Optional[str] = None
     output_dir: str = "./results"
+    experiments_root: str = "./experiments"
 
 
 @dataclass
@@ -226,7 +271,9 @@ class ExperimentConfig:
     scale: int = 4
     network: VMGNetworkConfig = field(default_factory=VMGNetworkConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    logger: LoggerConfig = field(default_factory=LoggerConfig)
     path: PathConfig = field(default_factory=PathConfig)
 
 
@@ -243,36 +290,99 @@ def _eval_net(base: VMGNetworkConfig, window: int, image_size=(64, 64)) -> VMGNe
 # network, protocol and paths.  REDS4 scores clips of 50 frames, which the
 # trajectory window (16 or 32) does not divide: both packages refuse that
 # clip length (models/trajectory.py).
+_REDS4 = dict(name="REDS4", mode="test", dataset_root="/data/REDS/val/train_sharp_bicubic",
+              gt_root="/data/REDS/val/train_sharp", num_frames=50, num_out_frames=100,
+              use_rot=False)
 EVAL_PRESETS = {
     "reds4_full": ExperimentConfig(
-        name="VMG-REDS", network=_eval_net(FULL_PRESET, 16),
-        dataset=DatasetConfig(name="REDS4", dataset_root="/data/REDS/val/train_sharp_bicubic",
-                              gt_root="/data/REDS/val/train_sharp", num_frames=50,
-                              num_out_frames=100),
-        path=PathConfig(output_dir="./results_reds4")),
+        name="VMG-REDS", network=_eval_net(FULL_PRESET, 16), dataset=DatasetConfig(**_REDS4),
+        path=PathConfig(pretrain_model="./experiments/VMG-REDS/ckpt",
+                        output_dir="./results_reds4")),
     "reds4_few_levels": ExperimentConfig(
         name="VMG-REDS-few-levels", network=_eval_net(FEW_LEVELS_PRESET, 32),
-        dataset=DatasetConfig(name="REDS4", dataset_root="/data/REDS/val/train_sharp_bicubic",
-                              gt_root="/data/REDS/val/train_sharp", num_frames=50,
-                              num_out_frames=100),
-        path=PathConfig(output_dir="./results_reds4")),
+        dataset=DatasetConfig(**_REDS4),
+        path=PathConfig(pretrain_model="./experiments/VMG-REDS-few-levels/ckpt",
+                        output_dir="./results_reds4")),
     "vid4": ExperimentConfig(
         name="VMG-Vid4", network=_eval_net(FULL_PRESET, 16),
-        dataset=DatasetConfig(name="Vid4", dataset_root="/data/Vid4/LR/X4",
+        dataset=DatasetConfig(name="Vid4", mode="test", dataset_root="/data/Vid4/LR/X4",
                               gt_root="/data/Vid4/GT", num_frames=16, num_out_frames=10000,
-                              image_shape=(3, 576, 704)),
-        path=PathConfig(output_dir="./results_vid4")),
+                              image_shape=(3, 576, 704), use_rot=False),
+        path=PathConfig(pretrain_model="./experiments/VMG-REDS/ckpt",
+                        output_dir="./results_vid4")),
     "udm10": ExperimentConfig(
         name="VMG-Udm10", network=_eval_net(FULL_PRESET, 16),
-        dataset=DatasetConfig(name="Udm10", dataset_root="/data/UDM10/LR/X4",
-                              gt_root="/data/UDM10/GT", num_frames=16, num_out_frames=32),
-        path=PathConfig(output_dir="./results_udm10")),
+        dataset=DatasetConfig(name="Udm10", mode="test", dataset_root="/data/UDM10/LR/X4",
+                              gt_root="/data/UDM10/GT", num_frames=16, num_out_frames=32,
+                              use_rot=False),
+        path=PathConfig(pretrain_model="./experiments/VMG-REDS/ckpt",
+                        output_dir="./results_udm10")),
     "vimeo90k": ExperimentConfig(
         name="VMG-Vimeo90K", network=_eval_net(FULL_PRESET, 14, (64, 112)),
-        dataset=DatasetConfig(name="Vimeo90k_septuplet",
+        dataset=DatasetConfig(name="Vimeo90k_septuplet", mode="test",
                               dataset_root="/data/vimeo_septuplet/sequences_LR/slow_test",
                               gt_root="/data/vimeo_septuplet/sequences/slow_test", num_frames=7,
-                              num_out_frames=7, image_shape=(3, 256, 448), use_mirrors=True,
-                              eval_mid_clip=True),
-        path=PathConfig(output_dir="./results_vimeo90k")),
+                              num_out_frames=7, image_shape=(3, 256, 448),
+                              image_shape_r=(3, 256, 448), use_hflip=False, use_vflip=False,
+                              use_rot=False, use_mirrors=True, eval_mid_clip=True),
+        path=PathConfig(pretrain_model="./experiments/VMG-REDS/ckpt",
+                        output_dir="./results_vimeo90k")),
+}
+
+
+def _tiny_train_net(width: int, traj_win: int, keyframes: int, traj_res: int,
+                    flow_fix: int, image_size) -> VMGNetworkConfig:
+    """The two small 3-stage networks of the demo training presets."""
+    return VMGNetworkConfig(
+        embed_dim=(width,) * 3, depths=(2, 2, 2), num_heads=(2, 4, 2), num_frames=traj_win,
+        window_sizes=((2, 4, 4),) * 3, flow_fix=flow_fix, traj_win=(traj_win, None),
+        traj_keyframes_n=(keyframes, None), traj_heads=(2, None),
+        traj_res_n=(traj_res, 0, traj_res), deform_groups=(4, 8, 4),
+        chunk_ratios=(0.25, 0.25), image_size=image_size)
+
+
+_REDS_TRAIN = dict(name="REDS", dataroot_HR="/data/REDS/train/reds_HR.lmdb",
+                   dataroot_LR="/data/REDS/train/reds_LR.lmdb",
+                   cache_keys="/data/REDS/train/REDS_keys.pkl")
+
+# The JAX package's training presets (vmg_tpu/configs/presets/vmg_reds_full.yml,
+# vmg_reds_few_levels.yml, vmg_tiny_demo.yml, vmg_demo_overfit.yml) as
+# ``load_config(..., is_train=True)`` reads them.  The REDS roots are the
+# reference's LMDB shards; ``python -m vmg_tpu_torch.tools.train`` overrides
+# them (``--dataroot-hr``, ``--dataroot-lr``, ``--cache-keys``), e.g. with
+# packed trees from ``vmg_tpu_torch.tools.prepare_data``.
+TRAIN_PRESETS = {
+    "reds_full": ExperimentConfig(
+        name="VMG-REDS", network=FULL_PRESET,
+        dataset=DatasetConfig(**_REDS_TRAIN, batch_size=4, total_batch=4),
+        train=TrainConfig(niter=400000, T_period=(400000,), amp=True),
+        logger=LoggerConfig(use_tb_logger=True)),
+    "reds_few_levels": ExperimentConfig(
+        name="VMG-REDS-few-levels", network=dataclasses.replace(
+            FEW_LEVELS_PRESET, traj_win=(16, None)),
+        dataset=DatasetConfig(**_REDS_TRAIN, batch_size=8, total_batch=8),
+        train=TrainConfig(niter=600000, T_period=(600000,), amp=True),
+        logger=LoggerConfig(use_tb_logger=True)),
+    "tiny_demo": ExperimentConfig(
+        name="VMG-tiny-demo", network=_tiny_train_net(32, 2, 2, 2, 5, (16, 16)),
+        dataset=DatasetConfig(dataroot_HR="/tmp/vmg_demo_data/hr",
+                              dataroot_LR="/tmp/vmg_demo_data/lr", num_frames=2, n_workers=2,
+                              batch_size=2, total_batch=2, image_shape=(3, 256, 256),
+                              total_num_frames=6),
+        train=TrainConfig(niter=20, T_period=(20,)),
+        logger=LoggerConfig(print_freq=5),
+        path=PathConfig(experiments_root="/tmp/vmg_demo_exp",
+                        output_dir="/tmp/vmg_demo_results")),
+    "demo_overfit": ExperimentConfig(
+        name="VMG-demo-overfit", network=_tiny_train_net(48, 6, 2, 3, 50, (32, 32)),
+        dataset=DatasetConfig(dataroot_HR="/tmp/vmg_demo/hr.pack",
+                              dataroot_LR="/tmp/vmg_demo/lr.pack", num_frames=6, n_workers=2,
+                              batch_size=2, total_batch=2, image_shape=(3, 256, 256),
+                              use_hflip=False, use_vflip=False, use_rot=False,
+                              random_reverse=False, dataset_expand_ratio=64,
+                              total_num_frames=30),
+        train=TrainConfig(lr=5e-4, niter=300, T_period=(300,), val_freq=50),
+        logger=LoggerConfig(print_freq=10, save_checkpoint_freq=300),
+        path=PathConfig(experiments_root="/tmp/vmg_overfit_exp",
+                        output_dir="/tmp/vmg_overfit_results")),
 }

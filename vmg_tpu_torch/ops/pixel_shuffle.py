@@ -18,3 +18,12 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     C = Cr2 // (r * r)
     y = x.reshape(-1, H, W, C, r, r).permute(0, 1, 4, 2, 5, 3)
     return y.reshape(*lead, H * r, W * r, C)
+
+
+def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(..., H*r, W*r, C) -> (..., H, W, C*r^2); the inverse of
+    :func:`pixel_shuffle`."""
+    *lead, Hr, Wr, C = x.shape
+    H, W = Hr // r, Wr // r
+    y = x.reshape(-1, H, r, W, r, C).permute(0, 1, 3, 5, 2, 4)
+    return y.reshape(*lead, H, W, C * r * r)

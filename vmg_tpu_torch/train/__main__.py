@@ -18,7 +18,9 @@ recomputes through the plain formulation).  ``--ckpt-dir``: resume from
 the latest trainer checkpoint there, if any (``vmg_tpu_torch.ckpt.io``:
 parameters, optimizer moments and step, the stochastic-depth generator),
 and save one after the timed steps; ``python -m vmg_tpu_torch.eval
---checkpoint DIR`` evaluates it.  The data loader is not ported yet.
+--checkpoint DIR`` evaluates it.  Training on a dataset (the clip
+datasets, the prefetching loader, ``tools/train.py``'s loop) is ``python
+-m vmg_tpu_torch.tools.train``.
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ import sys
 import time
 
 
-def setup_logger(name: str = "base", root: str = ".", phase: str = "train"):
-    """An INFO logger writing to ``root/<phase>_<time>.log`` and stdout; a
-    logger of this name that already has handlers is returned as it is."""
+def setup_logger(name: str = "base", root: str = ".", phase: str = "train",
+                 tofile: bool = True):
+    """An INFO logger writing to stdout and, with ``tofile``, to
+    ``root/<phase>_<time>.log``; a logger of this name that already has
+    handlers is returned as it is."""
     logger = logging.getLogger(name)
     logger.propagate = False
     if logger.handlers:
@@ -19,9 +21,12 @@ def setup_logger(name: str = "base", root: str = ".", phase: str = "train"):
     fmt = logging.Formatter("%(asctime)s.%(msecs)03d - %(levelname)s: %(message)s",
                             "%y-%m-%d %H:%M:%S")
     logger.setLevel(logging.INFO)
-    os.makedirs(root, exist_ok=True)
-    for handler in (logging.FileHandler(os.path.join(root, f"{phase}_{int(time.time())}.log"),
-                                        mode="w"), logging.StreamHandler(sys.stdout)):
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if tofile:
+        os.makedirs(root, exist_ok=True)
+        handlers.insert(0, logging.FileHandler(
+            os.path.join(root, f"{phase}_{int(time.time())}.log"), mode="w"))
+    for handler in handlers:
         handler.setFormatter(fmt)
         logger.addHandler(handler)
     return logger
