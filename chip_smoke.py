@@ -24,7 +24,11 @@ Phases (any failure exits non-zero):
      its times before the redesign (PERF.md); the FFN likewise at the four
      FULL_PRESET stage shapes and the few-levels shape (16x128x128x144,
      groups 1), next to its module form (cuDNN grouped conv, GELU,
-     F.linear); the combine with each gate (tanh, sigmoid, relu), in bf16
+     F.linear), in float32 (3xTF32 on the tensor cores) next to its module
+     form with TF32 off and with cuDNN's default TF32, its 3xTF32 and f32
+     bounds and the scalar kernel's time before the redesign; the axes
+     kernel's float32 big form likewise (two runs bit-equal, the 'hybrid'
+     form, its time before the redesign); the combine with each gate (tanh, sigmoid, relu), in bf16
      at the four FULL_PRESET stage shapes and the few-levels shape (run
      twice and held bit-equal, its share of the bound beside its time
      before the redesign); the LTAM forward at the stage-0 shape at each
@@ -213,6 +217,16 @@ FFN_ROW_TILES_MS = {(16, 184, 320, 112): 2.1780, (16, 92, 160, 224): 1.9400,
                (16, 46, 80, 224): 0.7083, (16, 23, 40, 448): 1.2056,
                (16, 128, 128, 112): 0.6359, (16, 64, 64, 224): 0.4752,
                (16, 32, 32, 224): 0.2425, (16, 16, 16, 448): 0.7988}
+# the f32 FFN's and axes kernel's times before their 3xTF32 redesign (the
+# scalar kernels they replaced), printed beside this run's: PERF.md's (the
+# previous tree's chip_smoke.py phase 2, tanh, TF32 off; H100 80GB HBM3, 700
+# W); shape -> ms
+FFN_F32_BEFORE_MS = {(16, 128, 128, 112): 10.739, (16, 64, 64, 224): 15.831,
+                     (16, 32, 32, 224): 5.048, (16, 16, 16, 448): 14.799,
+                     (16, 184, 320, 112): 37.667, (16, 92, 160, 224): 52.800,
+                     (16, 46, 80, 224): 13.752, (16, 23, 40, 448): 41.277,
+                     (16, 128, 128, 144): 23.631}
+AXES_F32_BEFORE_MS = {(16, 128, 128, 112): 1.974, (16, 184, 320, 112): 6.862}
 # the combine's path shapes (N, H, W, C): FULL_PRESET's stages 0/6, 1/5, 2/4
 # and 3, and the few-levels preset's (a 128x128 tile, C = 144)
 COMBINE_SHAPES = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
@@ -426,6 +440,9 @@ def check_kernels(report):
     def peak(dtype):  # the bf16 kernels multiply on the tensor cores
         return "bf16 tensor cores" if dtype == torch.bfloat16 else "f32"
 
+    def peak_ffn_axes(dtype):  # f32 as three TF32 products on the tensor cores
+        return "bf16 tensor cores" if dtype == torch.bfloat16 else "3xTF32 tensor cores"
+
     def axes_args(shape, ck, dtype):
         """x, c and the decay-folded axis weights and biases of a mixer."""
         N, h, w, C = shape
@@ -470,23 +487,30 @@ def check_kernels(report):
             flops = 2 * N * h * w * Fh * (9 * C // G + C)
             shape = (N, h, w, C)
             bf16 = dtype == torch.bfloat16
-            extra, keys, module_ms = "", {}, None
-            if bf16:  # the module form training runs: cuDNN grouped conv, GELU, fc2
-                xc = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
-                w1c = w1.contiguous(memory_format=torch.channels_last)
+            # the module form: cuDNN grouped conv, GELU, fc2 (what training
+            # runs); in f32 with TF32 off and with cuDNN's default TF32 on,
+            # as the evaluation command runs its convolutions
+            xc = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
+            w1c = w1.contiguous(memory_format=torch.channels_last)
 
-                def module():
-                    y = F.conv2d(xc, w1c, b1, padding=1, groups=G).permute(0, 2, 3, 1)
-                    return F.linear(group_conv.gelu(y, "tanh"), w2, b2)
+            def module():
+                y = F.conv2d(xc, w1c, b1, padding=1, groups=G).permute(0, 2, 3, 1)
+                return F.linear(group_conv.gelu(y, "tanh"), w2, b2)
 
-                module_ms = cuda_ms(module, iters=5)
-                extra, keys = f"  module form {module_ms:.3f} ms", {"module_ms": module_ms}
+            module_ms = cuda_ms(module, iters=5)
+            extra, keys = f"  module form {module_ms:.3f} ms", {"module_ms": module_ms}
+            if not bf16:
+                torch.backends.cudnn.allow_tf32 = True
+                module_tf32_ms = cuda_ms(module, iters=5)
+                torch.backends.cudnn.allow_tf32 = False
+                extra += (f" (TF32 convs {module_tf32_ms:.3f} ms), f32 bound "
+                          f"{flops / 67e9:.3f} ms")
             ms, b, got = compare(
                 "fused_group_ffn", shape, dtype,
                 lambda: group_conv.fused_group_ffn(*args, groups=G, act="tanh"),
                 lambda: group_conv.group_ffn_plain(*args, groups=G, act="tanh"),
                 dtype_check(dtype), primary=bf16 and shape == FFN_SHAPES[0][0],
-                work=((x, w1, b1, w2, b2), flops, peak(dtype)), extra=extra, keys=keys)
+                work=((x, w1, b1, w2, b2), flops, peak_ffn_axes(dtype)), extra=extra, keys=keys)
             # the result must not depend on which block took which tile
             again = group_conv.fused_group_ffn(*args, groups=G, act="tanh")
             torch.cuda.synchronize()
@@ -500,6 +524,14 @@ def check_kernels(report):
                 entries["fused_group_ffn"][f"groups{G}_" + "x".join(map(str, shape))] = {
                     "ms": ms, "module_ms": module_ms, "bound_ms": b["bound_ms"],
                     "tflop_s": flops / ms / 1e9}
+            else:
+                report(f"    {flops / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.3f} of the "
+                       f"3xTF32 bound, kernel / module form {ms / module_ms:.3f} (TF32 off), "
+                       f"{ms / module_tf32_ms:.3f} (TF32 convs); two runs bit-equal; before "
+                       f"the redesign: scalar {FFN_F32_BEFORE_MS.get(shape)} ms (PERF.md)")
+                entries["fused_group_ffn"][f"f32_groups{G}_" + "x".join(map(str, shape))] = {
+                    "ms": ms, "module_ms": module_ms, "module_tf32_ms": module_tf32_ms,
+                    "bound_ms": b["bound_ms"], "tflop_s": flops / ms / 1e9}
             del x, w1, args, got, again
 
         # the axis-branch kernel at stages 0/6: chunk 8 along H and W; its
@@ -525,7 +557,9 @@ def check_kernels(report):
                                                          form=form),
                 lambda: morphfc_fused.morphfc_axes_plain(*args, chunk_h=ck, chunk_w=ck),
                 axes_check(xc, dtype), primary=dtype == torch.bfloat16 and C in (112, 224),
-                work=(args, 2 * 2 * N * h * w * C * C, peak(dtype)),  # two C x C FCs
+                # two C x C FCs
+                work=(args, 2 * 2 * N * h * w * C * C,
+                      peak_ffn_axes(dtype) if form == "big" else peak(dtype)),
                 extra=f"  hybrid form {hybrid_ms:.3f} ms", keys={"hybrid_ms": hybrid_ms})
             # the result must not depend on which warpgroup took which tile
             again = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck, form=form)
@@ -541,6 +575,13 @@ def check_kernels(report):
                 if form == "token":
                     entries[name]["x".join(map(str, shape))] = {
                         "ms": ms, "bound_ms": b["bound_ms"], "hybrid_ms": hybrid_ms}
+            elif form == "big":
+                report(f"    {b['bound_ms'] / ms:.3f} of the bound "
+                       f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s), kernel / hybrid form "
+                       f"{ms / hybrid_ms:.3f}; two runs bit-equal; before the redesign: scalar "
+                       f"{AXES_F32_BEFORE_MS.get(shape)} ms (PERF.md)")
+                entries[name]["f32_" + "x".join(map(str, shape))] = {
+                    "ms": ms, "bound_ms": b["bound_ms"], "hybrid_ms": hybrid_ms}
             del got
             if form == "big":  # the token form on the big form's domain
                 big = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck)

@@ -105,6 +105,31 @@ def test_group_ffn_kernel_narrow_images(cuda, N, H, W, C, groups):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,groups", [
+    (2, 37, 100, 112, 4),  # cg = 28 (4 borrowed channels), W not a multiple of the band
+    (16, 16, 16, 448, 4), (3, 9, 70, 448, 4),  # output halves, packed / 64-column, one slab
+    (16, 46, 80, 224, 4), (4, 64, 64, 144, 1),  # packed C = 224; groups 1, one slab buffer
+    (16, 128, 128, 112, 4)])  # the evaluator's stage-0 tile
+def test_group_ffn_tf32_plans(cuda, N, H, W, C, groups):
+    """The f32 (3xTF32) kernel at every branch of ``ffn_tf32_plan``, with
+    the evaluator's erf GELU: within the f32 tolerance of the plain version,
+    two runs bit-equal."""
+    rng = np.random.default_rng(N * H + W + C)
+    dtype, Fh = torch.float32, (2 if groups == 1 else 6) * C
+    x = _randn(rng, (N, H, W, C), cuda, dtype)
+    w1 = _randn(rng, (Fh, C // groups, 3, 3), cuda, dtype, (9 * C / groups) ** -0.5)
+    b1 = _randn(rng, (Fh,), cuda, dtype, 0.1)
+    w2 = _randn(rng, (C, Fh), cuda, dtype, 0.02)
+    b2 = _randn(rng, (C,), cuda, dtype, 0.1)
+    args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, groups), b2)
+    got = group_conv.fused_group_ffn(*args, groups=groups, act="erf")
+    _close(got, group_conv.group_ffn_plain(*args, groups=groups, act="erf"), dtype)
+    again = group_conv.fused_group_ffn(*args, groups=groups, act="erf")
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
 def test_device_tiled_forward(cuda):
     """The evaluator's tile loop on the card equals the host tile loop (the
     same forward on the same tiles), tiny model, float32."""
@@ -372,6 +397,30 @@ def test_morphfc_axes_persistent_walk(cuda, N, H, W, C, chunk):
     assert ax.launches == before + 2
     want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk, chunk_w=chunk)
     _axes_close(got, want, c, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,chunk", [(3, 21, 44, 112, 4), (5, 20, 32, 48, 16),
+                                           (17, 184, 40, 112, 8), (2, 9, 16, 32, 8)])
+def test_morphfc_axes_f32_persistent_walk(cuda, N, H, W, C, chunk):
+    """The f32 (3xTF32) big form's walk: a ragged last W slab (44 columns
+    in 16-wide slabs) and H chunk (21, 20 rows), odd S = C / chunk (48 /
+    16), runs across frames (2,805 tiles at 17x184x40), both branches in
+    one pass where both images fit (C = 32, 48) and two at C = 112; within
+    the f32 tolerances of the plain version, two runs bit-equal."""
+    rng = np.random.default_rng(N * W + C)
+    x, c = (_randn(rng, (N, H, W, C), cuda, torch.float32) for _ in range(2))
+    kh, kw = (_randn(rng, (C, C), cuda, torch.float32, C ** -0.5) for _ in range(2))
+    bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
+    args = (x, c, kh, bh, kw, bw)
+    ax = morphfc_fused.fused_morphfc_axes
+    before = ax.launches
+    got = ax(*args, chunk_h=chunk, chunk_w=chunk)
+    again = ax(*args, chunk_h=chunk, chunk_w=chunk)
+    assert ax.launches == before + 2
+    want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk, chunk_w=chunk)
+    _axes_close(got, want, c, torch.float32)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -3,8 +3,9 @@ packing then unpacking gives back the module's weights, at every path
 width (borrowed channels at cg = 4 and 28, fg padded from 168 to 176, a
 last hidden chunk of 32, groups = 1 at the few-levels C = 144, the output
 channels split between the warpgroups above C = 224), in bf16 (the wgmma
-kernel's stream) and f32.  The kernel itself is checked on the card
-(``test_torch_cuda.py``)."""
+kernel's stream) and f32 (the 3xTF32 kernel's stream of hi and lo images,
+which sum back to the weights exactly).  The kernel itself is checked on
+the card (``test_torch_cuda.py``)."""
 
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ def _round_trip(C, groups, ratio, dtype):
     u1, u2 = group_conv.unpack_ffn_weights(w, b1p, C, groups)
     fg, cg = Fh // groups, C // groups
     fgp = b1p.numel() // groups
-    assert fgp % (1 if dtype == torch.float32 else 16 if C <= 224 else 32) == 0
+    assert fgp % (8 if dtype == torch.float32 else 16 if C <= 224 else 32) == 0
     # the module's weights: conv rows (dy, dx, ci), fc2 rows; zeros in the padding
     taps = u1.reshape(groups, 3, 3, -1, fgp)
     for b in range(groups):
@@ -46,5 +47,5 @@ def test_ffn_stream_round_trip(C, groups, ratio):
 
 @pytest.mark.parametrize("C,groups,ratio", WIDTHS)
 def test_ffn_f32_weights_round_trip(C, groups, ratio):
-    """f32: w1p then w2p, unpadded, in one buffer."""
+    """f32: the 3xTF32 kernel's stream (fg padded to 8)."""
     _round_trip(C, groups, ratio, torch.float32)

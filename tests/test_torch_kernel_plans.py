@@ -481,13 +481,17 @@ def test_axes_cpu_route_takes_the_plain_matrices():
     ("vmg::morphfc_axes_f32_kernel(float const*, float const*, float const*, float const*, "
      "float const*, float const*, float*, float*, float*, int, int, int, int, int, int)",
      "MorphFC axes kernel"),
+    ("void vmg::morphfc_axes_wgmma_kernel<7, true>(vmg::AxesMaps, vmg::AxesArgs)",
+     "MorphFC axes kernel"),
+    ("void vmg::group_ffn_tf32_kernel<112>(CUtensorMap_st, vmg::FfnTfArgs)", "FFN kernel"),
     ("vmg::morphfc_final_kernel(float const*, float*, int, int)",
      "MorphFC sums, fixed-order pass (axes, reduce)"),
 ])
 def test_profile_files_the_redesigned_kernels_under_their_names(kernel, cat):
     """profile_serving's (and profile_training's) device-time breakdown
-    counts the LTAM backward's two launches, the axes kernels and the
-    sums pass under their rows."""
+    counts the LTAM backward's two launches, the axes kernels (the f32
+    scalar kernel's name too: ``--tree`` profiles earlier trees), the f32
+    FFN and the sums pass under their rows."""
     from vmg_tpu_torch.profile_serving import category
     assert category(kernel) == cat
 

@@ -75,157 +75,30 @@
 //     memory and written in 16-byte vectors along its positions, above
 //     from registers (16 contiguous bytes a position for 4 lanes); dead
 //     positions and columns past W store nothing.
-// * f32 (parity runs): one block per (frame, tile of output pixels), 256
-//   threads, scalar FMA in 16 x 16 register micro-tiles, the halo'd input
-//   tile in shared memory; per group the hidden features in chunks of 64
-//   parked in shared memory between the conv and the projection.
-//   Operands unpadded, in one weight buffer: w1 (G, 9*cg, fg) with rows in
-//   (dy, dx, ci) order, then w2 (G, fg, C); b1 (G*fg).
+// * f32 (evaluation: the eval command's default dtype), group_ffn_tf32_kernel
+//   (notes at the kernel): the same producer / consumer walk on f32
+//   operands, every product as three TF32 products on wgmma (3xTF32: a_hi
+//   b_hi + a_hi b_lo + a_lo b_hi, about f32's accuracy; one TF32 product
+//   keeps ~3 digits and misses the f32 tolerance).  Bound: 3 x 460.9 GFLOP
+//   at 494.7 TFLOP/s, 2.795 ms at stage 0.  Tiles of two m64 sub-tiles, one
+//   a consumer warpgroup, which holds all NW output channels of its
+//   half; above C = 224 each tile runs once per output half (the conv
+//   computed twice: the split fragments leave no registers for a shared
+//   chunk).  The x slab is raw f32 by TMA (8-channel boxes); each thread
+//   reads and splits its own A fragments, KB k8 steps a commit group; the
+//   hidden goes from the accumulator through b1, the accurate GELU and the
+//   split straight into the projection's register-A fragments.  The weight
+//   stream holds every weight as its TF32 hi and its lo (pack_ffn_weights;
+//   hi + lo is the weight exactly).  The scalar kernel this replaced (one
+//   block per pixel tile, FMA in 16 x 16 register micro-tiles) ran at 0.18
+//   of its f32 bound at stage 0 and lost to the plain version at every
+//   path shape (PERF.md §6).
 #include "common.cuh"
 #include "wgmma.cuh"
 
 #include <algorithm>
 
 namespace vmg {
-
-constexpr int kFR = 4;               // hidden features per thread, phase 1
-constexpr int kFCH = 16 * kFR;       // hidden chunk width
-constexpr int kHS = kFCH + 1;        // padded row stride of the chunk
-
-// ---- f32: scalar FMA ------------------------------------------------------
-
-template <int PR, int ORMAX>
-__global__ void __launch_bounds__(kThreads)
-group_ffn_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                     const float* __restrict__ b1, const float* __restrict__ w2,
-                     const float* __restrict__ b2, float* __restrict__ out,
-                     int H, int W, int C, int G, int fg, int act, int TH,
-                     int TW, int tiles_w) {
-  extern __shared__ float smem[];
-  const int cg = C / G;
-  const int OR = C / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_w) * TH, x0 = (blockIdx.x % tiles_w) * TW;
-  const int HX = TH + 2, WX = TW + 2;
-  float* xs = smem;                   // HX * WX * cg
-  float* hs = xs + HX * WX * cg;      // (16 * PR) * kHS
-
-  int py[PR], px[PR];
-#pragma unroll
-  for (int i = 0; i < PR; ++i) {
-    py[i] = (ty + 16 * i) / TW;
-    px[i] = (ty + 16 * i) % TW;
-  }
-  float acc[PR][ORMAX];
-#pragma unroll
-  for (int i = 0; i < PR; ++i)
-#pragma unroll
-    for (int j = 0; j < ORMAX; ++j) acc[i][j] = 0.f;
-
-  for (int b = 0; b < G; ++b) {
-    __syncthreads();  // the previous group's readers are done with xs
-    for (int e = threadIdx.x; e < HX * WX * cg; e += kThreads) {
-      const int ci = e % cg, pix = e / cg;
-      const int gy = y0 + pix / WX - 1, gx = x0 + pix % WX - 1;
-      xs[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                  ? x[((size_t)(n * H + gy) * W + gx) * C + b * cg + ci]
-                  : 0.f;
-    }
-    __syncthreads();
-    const float* w1b = w1 + (size_t)b * 9 * cg * fg;
-    const float* w2b = w2 + (size_t)b * fg * C;
-
-    for (int f0 = 0; f0 < fg; f0 += kFCH) {
-      // phase 1: hidden[p][f] for p = ty + 16 i, f = f0 + tx + 16 j
-      float hacc[PR][kFR];
-#pragma unroll
-      for (int i = 0; i < PR; ++i)
-#pragma unroll
-        for (int j = 0; j < kFR; ++j) hacc[i][j] = 0.f;
-      bool fok[kFR];
-#pragma unroll
-      for (int j = 0; j < kFR; ++j) fok[j] = f0 + tx + 16 * j < fg;
-
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        const float* xr[PR];
-#pragma unroll
-        for (int i = 0; i < PR; ++i)
-          xr[i] = xs + ((py[i] + dy) * WX + (px[i] + dx)) * cg;
-        const float* wt = w1b + (size_t)tap * cg * fg + f0 + tx;
-        for (int ci = 0; ci < cg; ++ci) {
-          float wv[kFR];
-#pragma unroll
-          for (int j = 0; j < kFR; ++j)
-            wv[j] = fok[j] ? wt[(size_t)ci * fg + 16 * j] : 0.f;
-#pragma unroll
-          for (int i = 0; i < PR; ++i) {
-            const float xv = xr[i][ci];
-#pragma unroll
-            for (int j = 0; j < kFR; ++j) hacc[i][j] = fmaf(xv, wv[j], hacc[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kFR; ++j) {
-        const float bias = fok[j] ? b1[b * fg + f0 + tx + 16 * j] : 0.f;
-#pragma unroll
-        for (int i = 0; i < PR; ++i)
-          hs[(ty + 16 * i) * kHS + tx + 16 * j] =
-              fok[j] ? gelu(hacc[i][j] + bias, act) : 0.f;
-      }
-      __syncthreads();
-
-      // phase 2: acc[p][o] += sum_f hidden[p][f] * w2[b][f0 + f][o]
-      const int fl = min(kFCH, fg - f0);
-      for (int f = 0; f < fl; ++f) {
-        const float* w2r = w2b + (size_t)(f0 + f) * C + tx;
-        float hv[PR];
-#pragma unroll
-        for (int i = 0; i < PR; ++i) hv[i] = hs[(ty + 16 * i) * kHS + f];
-#pragma unroll
-        for (int j = 0; j < ORMAX; ++j) {
-          if (j < OR) {
-            const float wv = w2r[16 * j];
-#pragma unroll
-            for (int i = 0; i < PR; ++i) acc[i][j] = fmaf(hv[i], wv, acc[i][j]);
-          }
-        }
-      }
-      __syncthreads();  // hs is rewritten by the next chunk
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < PR; ++i) {
-    const int gy = y0 + py[i], gx = x0 + px[i];
-    if (gy >= H || gx >= W) continue;
-    const size_t base = ((size_t)(n * H + gy) * W + gx) * C + tx;
-#pragma unroll
-    for (int j = 0; j < ORMAX; ++j)
-      if (j < OR) out[base + 16 * j] = acc[i][j] + b2[tx + 16 * j];
-  }
-}
-
-template <int PR, int ORMAX>
-int launch_f32(const float* x, const float* w1, const float* b1,
-               const float* w2, const float* b2, float* out, int N, int H,
-               int W, int C, int G, int fg, int act, cudaStream_t stream) {
-  const int TW = 8, TH = 2 * PR;  // 16 * PR pixels per tile
-  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
-  const size_t smem =
-      sizeof(float) * ((size_t)(TH + 2) * (TW + 2) * (C / G) + 16 * PR * kHS);
-  auto kern = group_ffn_f32_kernel<PR, ORMAX>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<dim3(tiles_h * tiles_w, N), kThreads, smem, stream>>>(
-      x, w1, b1, w2, b2, out, H, W, C, G, fg, act, TH, TW, tiles_w);
-  return (int)cudaGetLastError();
-}
 
 // ---- bf16: wgmma implicit GEMM on TMA slabs, hidden kept on chip --------
 
@@ -332,8 +205,8 @@ struct RingPos {
 struct FfnTile {
   int n, y0, x0, b0;
 };
-template <bool PACKED, int MS>
-__device__ __forceinline__ FfnTile ffn_tile(const FfnArgs& a, int tile) {
+template <bool PACKED, int MS, class Args>
+__device__ __forceinline__ FfnTile ffn_tile(const Args& a, int tile) {
   const int n = tile / a.tiles, t = tile % a.tiles, x0 = (t % a.nb) * a.Wc;
   if (!PACKED) return {n, (t / a.nb) * MS, x0, 0};
   const int q0 = (t / a.nb) * a.span, y0 = q0 / a.P;
@@ -802,14 +675,378 @@ inline int ffn_bf16(const bf16* x, FfnArgs a, int N, cudaStream_t s) {
 
 #undef VMG_FFN_CASE
 
+// ---- f32: 3xTF32 on wgmma, the bf16 kernel's walk ---------------------------
+
+// Hidden features a chunk of the f32 kernel (group_conv.tf32_chunk): 48, and
+// 32 where the output accumulator (NW / 2 registers a thread) is wider than
+// 144 channels, so that it, the chunk's conv and its split fragments fit.
+__host__ __device__ constexpr int tf32_chunk(int NW) { return NW <= 144 ? 48 : 32; }
+// Conv k8 steps a commit group (group_conv.tf32_kgroup): 4 where the output
+// accumulator leaves registers for two sets of four steps' fragments, else 2.
+__host__ __device__ constexpr int tf32_kgroup(int NW) { return NW <= 112 ? 4 : 2; }
+
+struct FfnTfArgs {
+  const float* w;   // the weight stream (pack_ffn_weights), in walk order
+  const float* b1;  // (G * fgp,)
+  const float* b2;  // (C,)
+  float* out;       // (N, H, W, C)
+  int H, W, C, G, cg, Kp, fgp, act;
+  // geometry (group_conv.ffn_tf32_plan): FfnArgs', always at run time, two
+  // m64 sub-tiles a tile (one a consumer warpgroup)
+  int nb, Wc, P, step, span, rows, SP;
+  int halves;         // output halves: above C = 224 each tile runs once per half
+  int tiles, total;   // tiles per frame; in all (N x tiles x halves)
+  int kcs, kps;       // conv / projection k8 steps a ring slot
+  int nslab, nst;     // slab buffers, ring slots
+  unsigned stage_bytes;
+};
+
+// the conv of cw hidden features (8 .. 48) into the first cw / 2 registers of d
+template <int R>
+__device__ __forceinline__ void conv_tf32(int cw, float (&d)[R], const uint32_t (&a)[4],
+                                          uint64_t db, int scale_d) {
+#define VMG_CONV_TF32(N)                                                                \
+  if constexpr (R >= N / 2) {                                                           \
+    if (cw == N) {                                                                      \
+      WgmmaTF32<N>::mma(*reinterpret_cast<float(*)[N / 2]>(&d[0]), a, db, scale_d);     \
+      return;                                                                           \
+    }                                                                                   \
+  }
+  VMG_CONV_TF32(48)
+  VMG_CONV_TF32(40)
+  VMG_CONV_TF32(32)
+  VMG_CONV_TF32(24)
+  VMG_CONV_TF32(16)
+  VMG_CONV_TF32(8)
+#undef VMG_CONV_TF32
+}
+
+// One launch, the bf16 kernel's producer / consumer walk on f32 operands,
+// every product as three TF32 products (a_hi b_hi + a_hi b_lo + a_lo b_hi,
+// wgmma.h: tf32_split).  Per tile of two m64 sub-tiles, warpgroup g owns
+// sub-tile g and the NW output channels of the tile's half; per group b,
+// hidden chunk c:
+// * the conv, KB k8 steps a commit group (k8 step j: tap j / KS, slab box j
+//   % KS of 8 channels): each thread reads its A fragments from the raw f32
+//   slab (a float2 per row, channels 2 (lane % 4) and + 1 of the box: the
+//   stream orders every k8 step's B rows 0, 2, 4, 6, 1, 3, 5, 7 to match),
+//   splits them in registers, and issues each step's three products
+//   against its hi and lo B images; the groups' fragments alternate between
+//   two register sets, so one group's products run while the next group's
+//   fragments are read;
+// * b1 and GELU in f32 (common.cuh's accurate erf / tanh forms), the hidden
+//   split into register-A fragments: accumulator registers (4 j + e, 4 j +
+//   2 + e) are features 8 j + 2 (lane % 4) + e, which is k position
+//   lane % 4 (+ 4 for e = 1) of the projection's k8 step j under the same
+//   row order, so no shuffle;
+// * the projection: three products a k8 step into the f32 accumulator.
+// Ring slots hold kcs conv or kps projection k8 steps, each as its hi then
+// its lo image; a slot is released once the products after it were issued
+// and the ones reading it are done (wgmma.wait_group 1).  Every sum runs in
+// one fixed order: two runs are bit-equal.
+template <int NW>
+__global__ void __launch_bounds__(kFfnThreads, 1)
+group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs a) {
+  constexpr int FC = tf32_chunk(NW), NK = FC / 8, KB = tf32_kgroup(NW);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
+  const int KS = a.Kp / 8, nkc = 9 * KS;  // slab boxes; conv k8 steps a chunk
+  const unsigned slab_bytes = (unsigned)KS * a.SP * 32;
+  unsigned char* slabs = base;
+  unsigned char* ring = slabs + (size_t)a.nslab * slab_bytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)a.nst * a.stage_bytes);
+  uint64_t *slab_full = bars, *slab_empty = bars + 2, *wfull = bars + 4,
+           *wempty = bars + 4 + kMaxStages;
+  const int nchunks = (a.fgp + FC - 1) / FC;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.nslab; ++i) {
+      mbar_init(&slab_full[i], 1);
+      mbar_init(&slab_empty[i], 2);
+    }
+    for (int i = 0; i < a.nst; ++i) {
+      mbar_init(&wfull[i], 1);
+      mbar_init(&wempty[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer: as the bf16 kernel's; with one slab buffer the next
+    // group's first stages go ahead of its slab, as many as the ring holds
+    // beside a chunk's projection stages
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (threadIdx.x < kConsumers + 32) {
+      const bool leader = (threadIdx.x & 31) == 0;
+      const int lead = a.nslab == 1 ? a.nst - (NK + a.kps - 1) / a.kps : 0;
+      const unsigned box_bytes = (unsigned)a.rows * a.P * 32;
+      const unsigned slab_s = su32(slabs), ring_s = su32(ring), bar_s = su32(bars);
+      const unsigned wfull_s = bar_s + 32, wempty_s = bar_s + 32 + 8 * kMaxStages;
+      RingPos q, sl;
+      for (int tile = blockIdx.x; tile < a.total; tile += gridDim.x) {
+        const FfnTile tl = ffn_tile<true, 2>(a, tile / a.halves);
+        const int oh = tile % a.halves;
+        const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(a.w);
+        for (int b = 0; b < a.G; ++b) {
+          int issued = 0;
+          auto stage = [&](unsigned bytes) {
+            if (issued == lead)
+              send_slab(&x_map, slab_s, slab_bytes, box_bytes, bar_s, bar_s + 16, sl, a.nslab,
+                        (a.cg * b) & ~3, tl, KS, leader);
+            mbar_wait(wempty_s + 8 * q.i, q.ph ^ 1);
+            if (leader) {
+              mbar_expect(wfull_s + 8 * q.i, bytes);
+              bulk_load(ring_s + q.i * a.stage_bytes, wsrc, bytes, wfull_s + 8 * q.i);
+            }
+            wsrc += bytes;
+            ++issued;
+            q.next(a.nst);
+          };
+          for (int c = 0; c < nchunks; ++c) {
+            const int fcw = min(FC, a.fgp - c * FC), nk = fcw / 8;
+            for (int j = 0; j < nkc; j += a.kcs) stage((unsigned)(min(a.kcs, nkc - j) * 64 * fcw));
+            wsrc += (size_t)oh * nk * 64 * NW;  // the other half's projection rows
+            for (int j = 0; j < nk; j += a.kps) stage((unsigned)(min(a.kps, nk - j) * 64 * NW));
+            wsrc += (size_t)(a.halves - 1 - oh) * nk * 64 * NW;
+          }
+          if (issued <= lead)  // fewer weight stages in the group than the lead
+            send_slab(&x_map, slab_s, slab_bytes, box_bytes, bar_s, bar_s + 16, sl, a.nslab,
+                      (a.cg * b) & ~3, tl, KS, leader);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int g = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int t4 = lane & 3, r = 16 * wq + (lane >> 2);  // fragment column pair, row
+    const bool wg_leader = (threadIdx.x & 127) == 0;
+    const unsigned ring_a = su32(ring), wempty_a = su32(wempty);
+    float hid[FC / 2];
+    uint32_t hA[NK][4], lA[NK][4];  // the chunk's hidden, split, as register-A fragments
+    uint32_t xh0[KB][4], xl0[KB][4], xh1[KB][4], xl1[KB][4];  // the conv's A fragments, two sets
+    float acc[NW / 2];
+    RingPos q, sl;
+    int pend = -1;  // the ring slot of the last issued products, not yet released
+    // after products in `slot` were issued and all before them are done
+    auto release = [&](int slot) {
+      if (pend >= 0 && pend != slot && wg_leader) mbar_arrive(wempty_a + 8 * pend);
+      pend = slot;
+    };
+    for (int tile = blockIdx.x; tile < a.total; tile += gridDim.x) {
+      const FfnTile tl = ffn_tile<true, 2>(a, tile / a.halves);
+      const int oh = tile % a.halves;
+      for (int b = 0; b < a.G; ++b, sl.next(a.nslab)) {
+        const int sb = sl.i;
+        mbar_wait(&slab_full[sb], sl.ph);
+        // this thread's row r of sub-tile g at tap (0, 0), its column pair
+        const float* xs = reinterpret_cast<const float*>(slabs + (size_t)sb * slab_bytes) +
+                          (size_t)(tl.b0 + g * a.step + r) * 8 + 2 * t4;
+        for (int c = 0; c < nchunks; ++c) {
+          const int fcw = min(FC, a.fgp - c * FC), nk = fcw / 8;
+          // conv k8 steps j0 .. j0 + KB - 1 (those below nkc) into hid, their
+          // fragments in (xh, xl); a slot holds a whole number of groups
+          auto conv_group = [&](int j0, uint32_t(&xh)[KB][4], uint32_t(&xl)[KB][4]) {
+            const int js = j0 % a.kcs;
+            if (js == 0) {
+              if (j0 > 0) q.next(a.nst);
+              mbar_wait(&wfull[q.i], q.ph);
+            }
+#pragma unroll
+            for (int u = 0; u < KB; ++u) {
+              const int j = j0 + u;
+              if (j >= nkc) break;
+              const int tap = j / KS, kc = j - tap * KS, dy = tap / 3, dx = tap - 3 * dy;
+              const float* src = xs + ((size_t)kc * a.SP + dy * a.P + dx) * 8;
+              const float2 v0 = *reinterpret_cast<const float2*>(src);
+              const float2 v1 = *reinterpret_cast<const float2*>(src + 64);  // row r + 8
+              tf32_split(v0.x, xh[u][0], xl[u][0]);
+              tf32_split(v1.x, xh[u][1], xl[u][1]);
+              tf32_split(v0.y, xh[u][2], xl[u][2]);
+              tf32_split(v1.y, xh[u][3], xl[u][3]);
+            }
+            wg_fence();
+            pin_regs(hid);
+#pragma unroll
+            for (int u = 0; u < KB; ++u) {
+              const int j = j0 + u;
+              if (j >= nkc) break;
+              const unsigned bh = ring_a + q.i * a.stage_bytes + (js + u) * 64 * fcw;
+              const uint64_t dh = mat_desc(bh, fcw * 16, 128);
+              const uint64_t dl = mat_desc(bh + 32 * fcw, fcw * 16, 128);
+              conv_tf32(fcw, hid, xh[u], dh, j);
+              conv_tf32(fcw, hid, xh[u], dl, 1);
+              conv_tf32(fcw, hid, xl[u], dh, 1);
+            }
+            wg_commit();
+            pin_regs(hid);
+            wg_wait<1>();
+            release(q.i);
+          };
+          for (int j = 0; j < nkc; j += 2 * KB) {
+            conv_group(j, xh0, xl0);
+            if (j + KB < nkc) conv_group(j + KB, xh1, xl1);
+          }
+          q.next(a.nst);
+          wg_wait<0>();
+          pin_regs(hid);
+          pin_regs(acc);
+          if (wg_leader) {
+            mbar_arrive(wempty_a + 8 * pend);
+            if (c == nchunks - 1) mbar_arrive(&slab_empty[sb]);  // the group's convs are done
+          }
+          pend = -1;
+          // bias, GELU in f32, split: registers 4 kk + 2 h + e of hid are row
+          // r + 8 h, feature 8 kk + 2 t4 + e of the chunk
+          const float* b1c = a.b1 + (size_t)b * a.fgp + c * FC + 2 * t4;
+#pragma unroll
+          for (int kk = 0; kk < NK; ++kk) {
+            if (kk >= nk) break;
+            const float2 bias = *reinterpret_cast<const float2*>(b1c + 8 * kk);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              tf32_split(gelu(hid[4 * kk + 2 * h] + bias.x, a.act), hA[kk][h], lA[kk][h]);
+              tf32_split(gelu(hid[4 * kk + 2 * h + 1] + bias.y, a.act), hA[kk][2 + h],
+                         lA[kk][2 + h]);
+            }
+          }
+          // acc += hidden @ w2 chunk rows of this half, kps k8 steps a slot
+#pragma unroll
+          for (int kk = 0; kk < NK; ++kk) {
+            if (kk >= nk) break;
+            const int ks = kk % a.kps;
+            if (ks == 0) {
+              if (kk > 0) {
+                wg_commit();
+                pin_regs(acc);
+                wg_wait<1>();
+                release(q.i);
+                q.next(a.nst);
+              }
+              mbar_wait(&wfull[q.i], q.ph);
+              wg_fence();
+              pin_regs(acc);
+            }
+            const unsigned bh = ring_a + q.i * a.stage_bytes + ks * 64 * NW;
+            const uint64_t dh = mat_desc(bh, NW * 16, 128);
+            const uint64_t dl = mat_desc(bh + 32 * NW, NW * 16, 128);
+            WgmmaTF32<NW>::mma(acc, hA[kk], dh, (b | c | kk) != 0);
+            WgmmaTF32<NW>::mma(acc, hA[kk], dl, 1);
+            WgmmaTF32<NW>::mma(acc, lA[kk], dh, 1);
+          }
+          wg_commit();
+          pin_regs(acc);
+          wg_wait<1>();
+          release(q.i);
+          q.next(a.nst);
+        }
+      }
+      wg_wait<0>();
+      pin_regs(acc);
+      if (pend >= 0 && wg_leader) mbar_arrive(wempty_a + 8 * pend);
+      pend = -1;
+
+      // epilogue: + b2; position f of the band's rows, stored where it is a
+      // live column of the image; lanes 4i .. 4i + 3 write 32 contiguous
+      // bytes an 8-channel column
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = tl.b0 + g * a.step + r + 8 * h, yy = f / a.P, col = f - yy * a.P;
+        const int gy = tl.y0 + yy, gx = tl.x0 + col;
+        if (col >= a.Wc || gx >= a.W || gy >= a.H) continue;
+        float* orow = a.out + ((size_t)(tl.n * a.H + gy) * a.W + gx) * a.C + oh * NW;
+        const float* b2 = a.b2 + oh * NW;
+#pragma unroll
+        for (int j = 0; j < NW / 8; ++j) {
+          const int ch = 8 * j + 2 * t4;
+          if (oh * NW + ch >= a.C) continue;
+          const float2 bb = *reinterpret_cast<const float2*>(b2 + ch);
+          *reinterpret_cast<float2*>(orow + ch) =
+              make_float2(acc[4 * j + 2 * h] + bb.x, acc[4 * j + 2 * h + 1] + bb.y);
+        }
+      }
+    }
+  }
+}
+
+// The plan (group_conv.ffn_tf32_plan) checked against what the kernel reads.
+template <int NW>
+int launch_ffn_tf32(const float* x, FfnTfArgs a, int N, cudaStream_t s) {
+  constexpr int FC = tf32_chunk(NW), NK = FC / 8, KB = tf32_kgroup(NW);
+  if (a.nb < 1 || a.Wc < 1 || a.nb * a.Wc < a.W || (a.nb - 1) * a.Wc >= a.W ||
+      a.P != a.Wc + 2 || a.P > 256 || a.rows > 256 || a.step != (a.Wc == 64 ? a.P : 64) ||
+      a.span != 2 * a.step)
+    return (int)cudaErrorInvalidValue;
+  const int b0max = a.step == 64 ? a.P - 1 : 0;
+  if ((b0max + a.span - 1) / a.P + 3 > a.rows) return (int)cudaErrorInvalidValue;
+  a.SP = (a.rows * a.P + 7) / 8 * 8;
+  const long long tiles = (long long)a.nb * (((long long)(a.H - 1) * a.P + a.Wc + a.span - 1) / a.span);
+  if ((long long)N * tiles * a.halves > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  a.total = N * a.tiles * a.halves;
+  // one slab buffer: the producer's lead is not negative
+  if (a.kcs < KB || a.kcs % KB != 0 || a.kps < 1 || a.kps > NK || a.nslab < 1 || a.nslab > 2 || a.nst < 2 ||
+      a.nst > kMaxStages || (a.nslab == 1 && a.nst < (NK + a.kps - 1) / a.kps))
+    return (int)cudaErrorInvalidValue;
+  a.stage_bytes = (unsigned)std::max(a.kcs * 64 * FC, a.kps * 64 * NW);
+  const size_t smem = 128 + (size_t)a.nslab * (a.Kp / 8) * a.SP * 32 +
+                      (size_t)a.nst * a.stage_bytes + 256;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  CUtensorMap map = {};
+  int e = nhwc_box_map(&map, x, N, a.H, a.W, a.C, a.P, a.rows, 8, true);
+  if (e) return e;
+  auto kern = group_ffn_tf32_kernel<NW>;
+  static bool smem_set = false;  // the largest size, once per instantiation
+  if (!smem_set) {
+    e = set_smem(kern, kMaxSmem);
+    if (e) return e;
+    smem_set = true;
+  }
+  const int sms = sm_count();
+  kern<<<a.total < sms ? a.total : sms, kFfnThreads, smem, s>>>(map, a);
+  return (int)cudaGetLastError();
+}
+
+// K rows per tap in f32: group b's slab starts at channel (cg b) rounded
+// down to 4 (16 bytes), its channels at offset (cg b) % 4; K covers the
+// largest offset plus cg, rounded up to 8 (group_conv.slab_depth).
+inline int ffn_slab_depth_f32(int cg, int G) {
+  int off = 0;
+  for (int b = 0; b < G; ++b) off = std::max(off, (cg * b) % 4);
+  return (cg + off + 7) / 8 * 8;
+}
+
+inline int ffn_f32(const float* x, FfnTfArgs a, int N, cudaStream_t s) {
+  switch (ffn_out_width(a.C)) {
+    case 16: return launch_ffn_tf32<16>(x, a, N, s);
+    case 32: return launch_ffn_tf32<32>(x, a, N, s);
+    case 48: return launch_ffn_tf32<48>(x, a, N, s);
+    case 64: return launch_ffn_tf32<64>(x, a, N, s);
+    case 80: return launch_ffn_tf32<80>(x, a, N, s);
+    case 96: return launch_ffn_tf32<96>(x, a, N, s);
+    case 112: return launch_ffn_tf32<112>(x, a, N, s);
+    case 128: return launch_ffn_tf32<128>(x, a, N, s);
+    case 144: return launch_ffn_tf32<144>(x, a, N, s);
+    case 160: return launch_ffn_tf32<160>(x, a, N, s);
+    case 176: return launch_ffn_tf32<176>(x, a, N, s);
+    case 192: return launch_ffn_tf32<192>(x, a, N, s);
+    case 208: return launch_ffn_tf32<208>(x, a, N, s);
+    case 224: return launch_ffn_tf32<224>(x, a, N, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace vmg
 
-// x, out: (N, H, W, C); w: the weights of pack_ffn_weights -- bf16: the
-// weight stream (its layout follows ffn_out_width), f32: w1 (G, 9 cg, fg)
-// then w2 (G, fg, C); b1 (G * fgp,), b2 (C,); fgp the hidden features per
-// group (bf16: padded to a multiple of 16, 32 above C = 224).  plan (bf16
-// only, group_conv.ffn_plan_ints): nb, Wc, P, step, span, rows, tps,
-// nslab, nst; the entry point checks it.
+// x, out: (N, H, W, C); w: the weight stream of pack_ffn_weights in x's
+// dtype (its layout follows ffn_out_width); b1 (G * fgp,), b2 (C,); fgp the
+// hidden features per group (bf16: padded to a multiple of 16, 32 above C =
+// 224; f32: 8).  plan: bf16 group_conv.ffn_plan_ints (nb, Wc, P, step, span,
+// rows, tps, nslab, nst), f32 ffn_tf32_plan's (nb, Wc, P, step, span, rows,
+// kcs, kps, nslab, nst; kcs a multiple of tf32_kgroup); the entry point
+// checks it.
 extern "C" int vmg_group_ffn(const void* x, const void* w, const void* b1, const void* b2,
                              void* out, int N, int H, int W, int C, int G, int fgp, int act,
                              const int* plan, int dtype, void* stream) {
@@ -830,16 +1067,16 @@ extern "C" int vmg_group_ffn(const void* x, const void* w, const void* b1, const
     a.rows = plan[5], a.tps = plan[6], a.nslab = plan[7], a.nst = plan[8];
     return vmg::ffn_bf16((const vmg::bf16*)x, a, N, s);
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const float *xf = (const float*)x, *w1f = (const float*)w;
-  const float* w2f = w1f + (size_t)G * 9 * (C / G) * fgp;
-  const float* b1f = (const float*)b1;
-  const float* b2f = (const float*)b2;
-  float* of = (float*)out;
-  const int OR = C / 16;
-  if (OR <= 7) return vmg::launch_f32<4, 7>(xf, w1f, b1f, w2f, b2f, of, N, H, W, C, G, fgp, act, s);
-  if (OR <= 14) return vmg::launch_f32<2, 14>(xf, w1f, b1f, w2f, b2f, of, N, H, W, C, G, fgp, act, s);
-  return vmg::launch_f32<1, 28>(xf, w1f, b1f, w2f, b2f, of, N, H, W, C, G, fgp, act, s);
+  if (dtype != 0 || plan == nullptr || fgp % 8 != 0 || (uintptr_t)x % 16 || (uintptr_t)w % 16 ||
+      (uintptr_t)out % 8)
+    return (int)cudaErrorInvalidValue;
+  vmg::FfnTfArgs t = {};
+  t.w = (const float*)w, t.b1 = (const float*)b1, t.b2 = (const float*)b2, t.out = (float*)out;
+  t.H = H, t.W = W, t.C = C, t.G = G, t.cg = C / G, t.Kp = vmg::ffn_slab_depth_f32(C / G, G);
+  t.fgp = fgp, t.act = act, t.halves = C > 224 ? 2 : 1;
+  t.nb = plan[0], t.Wc = plan[1], t.P = plan[2], t.step = plan[3], t.span = plan[4];
+  t.rows = plan[5], t.kcs = plan[6], t.kps = plan[7], t.nslab = plan[8], t.nst = plan[9];
+  return vmg::ffn_f32((const float*)x, t, N, s);
 }
 
 extern "C" const char* vmg_error_string(int code) {

@@ -25,11 +25,15 @@
 //   (739 MB of L2 -> SM traffic a call), scattered the slab into shared
 //   memory two bytes at a time, round-tripped the f32 product through
 //   shared memory, read x twice and overlapped nothing: 5.3x its bound.
-// * f32 (parity runs), morphfc_axes_f32_kernel: one block per slab, the
-//   weight and tokens staged in shared memory, scalar FMAs.
-// Each writes one f32 partial per (frame, slab or walker) and channel,
-// summed in a fixed order; morphfc_final_kernel adds the partials in a
-// fixed order -- deterministic, no float atomics.
+// * f32 (evaluation), the same kernel (F32): f32 slabs, each product as
+//   three TF32 products on wgmma (3xTF32), each weight staged as its hi
+//   and lo B images (100 KB at C = 112: H and W run as two passes).  The
+//   scalar kernel this replaced (one block per slab, the weight and
+//   tokens staged in shared memory, scalar FMAs) ran at 0.10 of its f32
+//   bound and lost to the 'hybrid' form.
+// Each writes one f32 partial per (frame, walker) and channel, summed in
+// a fixed order; morphfc_final_kernel adds the partials in a fixed order
+// -- deterministic, no float atomics.
 //
 // vmg_morphfc_axes_token replaces the token form of the same call
 // (`_axes_kernel_token`, chosen where chunk * C > 1024: stages 1/5 at C =
@@ -749,157 +753,7 @@ int launch_combine_f32_any(const float* x, const float* h, const float* w, const
 
 constexpr int kVecBytes = 16;  // global loads and stores move 16 bytes
 
-// ---- f32 (parity runs): one block per slab, the weight and tokens staged --
-//
-// Shared memory of the f32 kernel: the C x C weight of the branch being
-// projected, the M x C token matrix (at the end the R x C partial sums), and
-// the M x C projection.  R = kThreads / (C / 4) position lanes per channel
-// vector.
-struct AxesSmem {
-  int R;
-  size_t k_bytes, a_bytes, total;
-  __host__ __device__ AxesSmem(int M, int C) {
-    R = kThreads / (C / 4);
-    k_bytes = ((size_t)C * C * 4 + 127) / 128 * 128;
-    const size_t tok = (size_t)M * C * 4, red = (size_t)R * C * 4;
-    a_bytes = ((tok > red ? tok : red) + 127) / 128 * 128;
-    total = k_bytes + a_bytes + (size_t)M * C * 4;
-  }
-};
-
-// Grid (ceil(W / WT), ceil(H / ch), N).  Branch H: token (w, q) is row
-// w * ch + q, feature (p, s) column p * Sh + s, p the slab row.  Branch W:
-// token (r, G, q) is row (r * kg + G) * cw + q, feature (p, s) column
-// p * Sw + s, p the column inside W chunk G.  The output feature (P, Z) of
-// a token lands at position P of its chunk, channel q * S + Z.  In the
-// epilogues thread (j, v) owns channel vector v at positions j, j + R, ...
-// and keeps its sums of h + w + c in registers to the end, so every sum has
-// one fixed order.
-__global__ void __launch_bounds__(kThreads)
-morphfc_axes_f32_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                        const float* __restrict__ kh, const float* __restrict__ bh,
-                        const float* __restrict__ kw, const float* __restrict__ bw,
-                        float* __restrict__ h_out, float* __restrict__ w_out,
-                        float* __restrict__ partial, int H, int W, int C, int ch, int cw,
-                        int WT) {
-  constexpr int VEC = 4;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int M = ch * WT, nv = C / VEC;
-  const AxesSmem sm(M, C);
-  const int R = sm.R;
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* A = reinterpret_cast<float*>(smem_raw + sm.k_bytes);
-  float* red = A;  // after the last projection
-  float* O = reinterpret_cast<float*>(smem_raw + sm.k_bytes + sm.a_bytes);
-  const int n = blockIdx.z, r0 = blockIdx.y * ch, w0 = blockIdx.x * WT;
-  const int Sh = C / ch, Sw = C / cw, kg = WT / cw;
-  const float inv_c = 1.f / C;
-  const size_t frame = (size_t)n * H * W * C;
-  auto at = [&](int r, int w) { return frame + ((size_t)(r0 + r) * W + w0 + w) * C; };
-  auto valid = [&](int r, int w) { return r0 + r < H && w0 + w < W; };
-  auto load = [&](const float* src, int r, int w, int v, float* dst) {
-    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid(r, w)) u = *reinterpret_cast<const float4*>(src + at(r, w) + v * VEC);
-    *reinterpret_cast<float4*>(dst) = u;
-  };
-  auto stage_weight = [&](const float* __restrict__ K) {
-    for (int e = threadIdx.x; e < C * nv; e += kThreads)
-      *reinterpret_cast<float4*>(Ks + e * VEC) = *reinterpret_cast<const float4*>(K + e * VEC);
-  };
-  // slab (r, w, channel vector v) -> token matrix; row(r, w, q), col(r, w, s)
-  auto fill = [&](auto row, auto col, int S) {
-    for (int e = threadIdx.x; e < M * nv; e += kThreads) {
-      const int v = e % nv, rw = e / nv, r = rw / WT, w = rw % WT;
-      alignas(16) float vals[VEC];
-      load(x, r, w, v, vals);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const int cc = v * VEC + k;
-        A[row(r, w, cc / S) * C + col(r, w, cc % S)] = vals[k];
-      }
-    }
-  };
-  auto project = [&]() {
-    for (int e = threadIdx.x; e < M * C; e += kThreads) {
-      const int t = e / C, f = e % C;
-      const float* a = A + t * C;
-      float acc = 0.f;
-      for (int k = 0; k < C; ++k) acc = fmaf(a[k], Ks[k * C + f], acc);
-      O[t * C + f] = acc;
-    }
-  };
-  const int j = threadIdx.x / nv, v = threadIdx.x % nv;  // epilogue lanes
-  float sums[VEC];
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) sums[k] = 0.f;
-  // token matrix outputs -> relu(o + b) / C -> out, summed; trow(r, w, q),
-  // feature f(r, w, Z) = P * S + Z
-  auto epilogue = [&](float* out, const float* bias, auto trow, auto feat, int S, bool add_c) {
-    if (j >= R) return;
-    for (int pos = j; pos < M; pos += R) {
-      const int r = pos / WT, w = pos % WT;
-      if (!valid(r, w)) continue;
-      alignas(16) float vals[VEC];
-      alignas(16) float cv[VEC];
-      if (add_c) load(c, r, w, v, cv);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const int cc = v * VEC + k, f = feat(r, w, cc % S);
-        const float y = fmaxf(O[trow(r, w, cc / S) * C + f] + bias[f], 0.f) * inv_c;
-        vals[k] = y;
-        sums[k] += add_c ? y + cv[k] : y;
-      }
-      *reinterpret_cast<float4*>(out + at(r, w) + v * VEC) = *reinterpret_cast<float4*>(vals);
-    }
-  };
-  auto h_row = [&](int, int w, int q) { return w * ch + q; };
-  auto h_col = [&](int r, int, int s) { return r * Sh + s; };
-  auto w_row = [&](int r, int w, int q) { return (r * kg + w / cw) * cw + q; };
-  auto w_col = [&](int, int w, int s) { return (w % cw) * Sw + s; };
-
-  stage_weight(kh);
-  fill(h_row, h_col, Sh);
-  __syncthreads();
-  project();
-  __syncthreads();
-  epilogue(h_out, bh, h_row, h_col, Sh, false);  // h(r, w): feature P = r
-  stage_weight(kw);
-  fill(w_row, w_col, Sw);
-  __syncthreads();
-  project();
-  __syncthreads();
-  epilogue(w_out, bw, w_row, w_col, Sw, true);
-  if (j < R) {
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) red[j * C + v * VEC + k] = sums[k];
-  }
-  __syncthreads();
-  const size_t blk = (size_t)n * gridDim.y * gridDim.x + blockIdx.y * gridDim.x + blockIdx.x;
-  for (int cc = threadIdx.x; cc < C; cc += kThreads) {
-    float s = 0.f;
-    for (int jj = 0; jj < R; ++jj) s += red[jj * C + cc];
-    partial[blk * C + cc] = s;
-  }
-}
-
-int launch_axes_f32(const float* x, const float* c, const float* kh, const float* bh,
-                    const float* kw, const float* bw, float* h, float* w, float* partial,
-                    float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
-                    cudaStream_t stream) {
-  if (C % 16 != 0 || C / 4 > kThreads) return (int)cudaErrorInvalidValue;
-  const size_t smem = AxesSmem(ch * WT, C).total;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // the token form's domain
-  const int e = set_smem(morphfc_axes_f32_kernel, smem);
-  if (e) return e;
-  const dim3 grid((W + WT - 1) / WT, (H + ch - 1) / ch, N);
-  morphfc_axes_f32_kernel<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w, partial,
-                                                            H, W, C, ch, cw, WT);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_final(partial, psum, N, C, grid.x * grid.y, stream);
-}
-
-// ---- bf16 (serving): persistent warpgroups, resident weights, TMA slabs ----
+// ---- persistent warpgroups, resident weights, TMA slabs --------------------
 //
 // A tile is one slab of ch rows x WT columns of a frame (WT a multiple of
 // cw, so the W chunks lie inside it; >= 64 positions,
@@ -933,6 +787,15 @@ int launch_axes_f32(const float* x, const float* c, const float* kh, const float
 // its global scratch and each channel's thread adds its positions in a
 // fixed order into the walker's per-frame partial; morphfc_final_kernel
 // adds the walkers' partials.  Deterministic, no atomics.
+//
+// F32: the same walk on f32 slabs, every product as three TF32 products
+// (a_hi b_hi + a_hi b_lo + a_lo b_hi; wgmma.cuh tf32_split): each weight
+// staged as its hi and lo B images (8 C^2 bytes: 100 KB at C = 112, so the
+// branches run in two passes, H then W), k8 steps whose B rows are in the
+// order 0, 2, 4, 6, 1, 3, 5, 7, so that a fragment register pair is the
+// bf16 kernel's channel pair; the token fragments split in registers a k8
+// step at a time, in two alternating sets (one step's products run while
+// the next step's fragments are read).
 constexpr int kAxRingMax = 4;  // slots per warpgroup
 
 struct AxesMaps {
@@ -940,7 +803,7 @@ struct AxesMaps {
 };
 
 struct AxesArgs {
-  const bf16 *kh, *kw;
+  const bf16 *kh, *kw;  // the plain (C_in, C_out) weights (f32 ones for F32)
   const float *bh, *bw;
   float *partial, *scratch;
   int N, H, W, C, ch, cw, WT, kg;
@@ -950,21 +813,25 @@ struct AxesArgs {
   unsigned slab_bytes, box_bytes;      // a slab's slot half (128-aligned); one box
 };
 
-// one slab: ch * WT positions of C bf16, 128-byte aligned
-__host__ __device__ inline unsigned axes_slab_bytes(int positions, int C) {
-  return ((unsigned)positions * C * 2 + 127) / 128 * 128;
+// one slab: ch * WT positions of C elements of esz bytes, 128-byte aligned
+__host__ __device__ inline unsigned axes_slab_bytes(int positions, int C, int esz = 2) {
+  return ((unsigned)positions * C * esz + 127) / 128 * 128;
 }
-// the rings (x and c slabs per slot), the weights (both where npass == 1),
-// the biases, the barriers (morphfc_fused.axes_smem)
-__host__ __device__ inline size_t axes_smem(int C, unsigned slab, int nwg, int ring, int npass) {
-  return (size_t)nwg * ring * 2 * slab + (size_t)(npass == 1 ? 2 : 1) * C * C * 2 +
+// the rings (x and c slabs per slot), the weights (both where npass == 1;
+// wbytes an element: bf16 2, f32 hi and lo 8), the biases, the barriers
+// (morphfc_fused.axes_smem)
+__host__ __device__ inline size_t axes_smem(int C, unsigned slab, int nwg, int ring, int npass,
+                                            int wbytes = 2) {
+  return (size_t)nwg * ring * 2 * slab + (size_t)(npass == 1 ? 2 : 1) * C * C * wbytes +
          (size_t)2 * C * 4 + (size_t)nwg * kAxRingMax * 8;
 }
 
-template <int KS>
+template <int KS, bool F32>
 __global__ void __launch_bounds__(256, 1)
 morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs a) {
   constexpr int C = 16 * KS, NJ = C / 8;  // accumulator column groups
+  typedef std::conditional_t<F32, float, bf16> T;
+  constexpr size_t WIMG = F32 ? (size_t)2 * C * C : (size_t)C * C;  // a weight's image, in T
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw;
   if ((su32(base) & 127) != 0) __trap();
@@ -973,8 +840,8 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
   const bool leader = tid == 0;  // issues the warpgroup's copies and stores
   const unsigned slot_bytes = 2 * a.slab_bytes;
   unsigned char* ring = base + (size_t)g * a.ring * slot_bytes;
-  bf16* wsm = reinterpret_cast<bf16*>(base + (size_t)a.nwg * a.ring * slot_bytes);
-  float* bias = reinterpret_cast<float*>(wsm + (size_t)(a.npass == 1 ? 2 : 1) * C * C);
+  T* wsm = reinterpret_cast<T*>(base + (size_t)a.nwg * a.ring * slot_bytes);
+  float* bias = reinterpret_cast<float*>(wsm + (a.npass == 1 ? 2 : 1) * WIMG);
   uint64_t* bars = reinterpret_cast<uint64_t*>(bias + 2 * C);
   uint64_t* full = bars + g * kAxRingMax;
   const int G = a.walkers, gw = blockIdx.x * a.nwg + g;
@@ -983,14 +850,28 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
   const float inv_c = 1.f / C;
 
   // a weight's B image: element (k, n) at ((k / 8) C + n) 8 + k % 8 (K-major
-  // 8 x 16-byte core matrices), from the plain (C_in, C_out) matrix
-  auto stage = [&](bf16* dst, const bf16* __restrict__ K) {
-    for (int it = threadIdx.x; it < C / 8 * C; it += blockDim.x) {
-      const int kg8 = it / C, nn = it - kg8 * C;
-      alignas(16) bf16 v[8];
+  // 8 x 16-byte core matrices), from the plain (C_in, C_out) matrix; f32:
+  // per k8 step j its hi then its lo image, k position 4 kb + e of column n
+  // at (kb C + n) 4 + e, holding row k = 8 j + 2 e + kb
+  auto stage = [&](T* dst, const T* __restrict__ K) {
+    if constexpr (F32) {
+      for (int it = threadIdx.x; it < C / 4 * C; it += blockDim.x) {
+        const int jk = it / C, nn = it - jk * C, j = jk >> 1, kb = jk & 1;
+        uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int ki = 0; ki < 8; ++ki) v[ki] = K[(size_t)(8 * kg8 + ki) * C + nn];
-      *reinterpret_cast<uint4*>(dst + (size_t)it * 8) = *reinterpret_cast<const uint4*>(v);
+        for (int e = 0; e < 4; ++e) tf32_split(K[(size_t)(8 * j + 2 * e + kb) * C + nn], hi[e], lo[e]);
+        float* o = dst + (size_t)j * 16 * C + (size_t)(kb * C + nn) * 4;
+        *reinterpret_cast<uint4*>(o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(o + 8 * C) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    } else {
+      for (int it = threadIdx.x; it < C / 8 * C; it += blockDim.x) {
+        const int kg8 = it / C, nn = it - kg8 * C;
+        alignas(16) bf16 v[8];
+#pragma unroll
+        for (int ki = 0; ki < 8; ++ki) v[ki] = K[(size_t)(8 * kg8 + ki) * C + nn];
+        *reinterpret_cast<uint4*>(dst + (size_t)it * 8) = *reinterpret_cast<const uint4*>(v);
+      }
     }
     fence_async_shared();  // the image, visible to wgmma
   };
@@ -999,8 +880,8 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = threadIdx.x; i < C; i += blockDim.x) bias[i] = a.bh[i], bias[C + i] = a.bw[i];
-  stage(wsm, a.kh);
-  if (a.npass == 1) stage(wsm + (size_t)C * C, a.kw);
+  stage(wsm, reinterpret_cast<const T*>(a.kh));
+  if (a.npass == 1) stage(wsm + WIMG, reinterpret_cast<const T*>(a.kw));
   __syncthreads();
 
   auto tile_at = [&](int t, int& n, int& r0, int& w0) {
@@ -1078,7 +959,7 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
   for (int pass = 0; pass < a.npass; ++pass) {
     if (pass == 1) {  // two passes: kw replaces kh
       __syncthreads();
-      stage(wsm, a.kw);
+      stage(wsm, reinterpret_cast<const T*>(a.kw));
       __syncthreads();
     }
     const bool doH = a.npass == 1 || pass == 0, doW = a.npass == 1 || pass == 1;
@@ -1105,16 +986,23 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
       }
       mbar_wait(full + u % a.ring, (u / a.ring) & 1);
       unsigned char* slot = slot_of(u);
-      bf16* xs = reinterpret_cast<bf16*>(slot);
-      bf16* cslab = reinterpret_cast<bf16*>(slot + a.slab_bytes);
+      T* xs = reinterpret_cast<T*>(slot);
+      T* cslab = reinterpret_cast<T*>(slot + a.slab_bytes);
       if (doW && jc < Rc) {  // c over the slab (zeros past the frame)
         for (int pos = jc; pos < a.ch * a.WT; pos += Rc) {
-          const uint4 v = *reinterpret_cast<const uint4*>(cslab + (size_t)pos * C + vc * 8);
-          const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+          if constexpr (F32) {
+            const float4* v = reinterpret_cast<const float4*>(cslab + (size_t)pos * C + vc * 8);
+            const float4 u0 = v[0], u1 = v[1];
+            cs[0] += u0.x, cs[1] += u0.y, cs[2] += u0.z, cs[3] += u0.w;
+            cs[4] += u1.x, cs[5] += u1.y, cs[6] += u1.z, cs[7] += u1.w;
+          } else {
+            const uint4 v = *reinterpret_cast<const uint4*>(cslab + (size_t)pos * C + vc * 8);
+            const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f2 = __bfloat1622float2(b2[k]);
-            cs[2 * k] += f2.x, cs[2 * k + 1] += f2.y;
+            for (int k = 0; k < 4; ++k) {
+              const float2 f2 = __bfloat1622float2(b2[k]);
+              cs[2 * k] += f2.x, cs[2 * k + 1] += f2.y;
+            }
           }
         }
       }
@@ -1125,9 +1013,9 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
         const int cp = 1 << (IH ? a.lchp : a.lcwp), ngroups = IH ? a.WT : a.ch * a.kg;
         const int rows = ((ngroups << (IH ? a.lchp : a.lcwp)) + 63) / 64 * 64;
         const int cstride = IH ? a.WT * C : C;
-        bf16* dst = IH ? xs : cslab;
+        T* dst = IH ? xs : cslab;
         const float* bs = bias + (IH ? 0 : C);
-        const unsigned bsm = su32(wsm + (a.npass == 1 && !IH ? (size_t)C * C : 0));
+        const unsigned bsm = su32(wsm + (a.npass == 1 && !IH ? WIMG : 0));
         for (int m0 = 0; m0 < rows; m0 += 64) {
           int rowpart[2];
           bool real[2], rvalid[2];
@@ -1145,45 +1033,88 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
               rvalid[hh] = real[hh] && r0 + rr < a.H && w0 + G2 * a.cw < a.W;
             }
           }
-          uint32_t fr[KS][4];
-          int P = P0, Z = Z0;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            int P1 = P, Z1 = Z + 1;
-            if (Z1 == S) Z1 = 0, P1 = P + 1;
-            const int c0 = P * cstride + Z, c1 = P1 * cstride + Z1;
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              uint32_t v = 0;
-              if (real[hh]) {
-                const bf16* src = xs + rowpart[hh];
-                if (even) {
-                  v = *reinterpret_cast<const uint32_t*>(src + c0);
-                } else {
-                  const unsigned short lo = *reinterpret_cast<const unsigned short*>(src + c0);
-                  const unsigned short hi = *reinterpret_cast<const unsigned short*>(src + c1);
-                  v = (uint32_t)lo | ((uint32_t)hi << 16);
-                }
-              }
-              fr[j >> 1][(j & 1) * 2 + hh] = v;
-            }
-            P += dP, Z += dZ;
-            if (Z >= S) Z -= S, ++P;
-          }
           float acc[C / 2];
-          wg_fence();
+          int P = P0, Z = Z0;
+          if constexpr (F32) {
+            // k8 step j: the fragment pair (row hh, columns c0 and c1) is k
+            // positions l4 and l4 + 4 of the step, split, against the step's
+            // hi and lo images
+            uint32_t xh[2][4], xl[2][4];
 #pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
-            WgmmaRA<C>::mma(acc, fr[ks], mat_desc(bsm + ks * 2 * C * 16, C * 16, 128), ks != 0);
-          wg_commit();
-          pin_regs(acc);
-          wg_bar(g);  // every fragment read of the slab's sub-tile (and, for W, the c sums) is done
-          wg_wait<0>();
-          pin_regs(acc);
+            for (int j = 0; j < NJ; ++j) {
+              int P1 = P, Z1 = Z + 1;
+              if (Z1 == S) Z1 = 0, P1 = P + 1;
+              const int c0 = P * cstride + Z, c1 = P1 * cstride + Z1;
 #pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
+              for (int hh = 0; hh < 2; ++hh) {
+                float v0 = 0.f, v1 = 0.f;
+                if (real[hh]) {
+                  const float* src = xs + rowpart[hh];
+                  if (even) {
+                    const float2 v = *reinterpret_cast<const float2*>(src + c0);
+                    v0 = v.x, v1 = v.y;
+                  } else {
+                    v0 = src[c0], v1 = src[c1];
+                  }
+                }
+                tf32_split(v0, xh[j & 1][hh], xl[j & 1][hh]);
+                tf32_split(v1, xh[j & 1][2 + hh], xl[j & 1][2 + hh]);
+              }
+              wg_fence();
+              pin_regs(acc);
+              const uint64_t dh = mat_desc(bsm + j * 64 * C, C * 16, 128);
+              const uint64_t dl = mat_desc(bsm + j * 64 * C + 32 * C, C * 16, 128);
+              WgmmaTF32<C>::mma(acc, xh[j & 1], dh, j != 0);
+              WgmmaTF32<C>::mma(acc, xh[j & 1], dl, 1);
+              WgmmaTF32<C>::mma(acc, xl[j & 1], dh, 1);
+              wg_commit();
+              pin_regs(acc);
+              if (j + 1 < NJ) wg_wait<1>();  // the other set is free again
+              P += dP, Z += dZ;
+              if (Z >= S) Z -= S, ++P;
+            }
+            wg_bar(g);  // every fragment read of the slab's sub-tile (and, for W, the c sums) is done
+            wg_wait<0>();
+            pin_regs(acc);
+          } else {
+            uint32_t fr[KS][4];
 #pragma unroll
-            for (int qq = 0; qq < 4; ++qq) asm volatile("" : "+r"(fr[ks][qq])::"memory");
+            for (int j = 0; j < NJ; ++j) {
+              int P1 = P, Z1 = Z + 1;
+              if (Z1 == S) Z1 = 0, P1 = P + 1;
+              const int c0 = P * cstride + Z, c1 = P1 * cstride + Z1;
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                uint32_t v = 0;
+                if (real[hh]) {
+                  const bf16* src = xs + rowpart[hh];
+                  if (even) {
+                    v = *reinterpret_cast<const uint32_t*>(src + c0);
+                  } else {
+                    const unsigned short lo = *reinterpret_cast<const unsigned short*>(src + c0);
+                    const unsigned short hi = *reinterpret_cast<const unsigned short*>(src + c1);
+                    v = (uint32_t)lo | ((uint32_t)hi << 16);
+                  }
+                }
+                fr[j >> 1][(j & 1) * 2 + hh] = v;
+              }
+              P += dP, Z += dZ;
+              if (Z >= S) Z -= S, ++P;
+            }
+            wg_fence();
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+              WgmmaRA<C>::mma(acc, fr[ks], mat_desc(bsm + ks * 2 * C * 16, C * 16, 128), ks != 0);
+            wg_commit();
+            pin_regs(acc);
+            wg_bar(g);  // every fragment read of the slab's sub-tile (and, for W, the c sums) is done
+            wg_wait<0>();
+            pin_regs(acc);
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+              for (int qq = 0; qq < 4; ++qq) asm volatile("" : "+r"(fr[ks][qq])::"memory");
+          }
           // epilogue: register 4 j + 2 hh + e is row hh, column 8 j + 2 l4 + e
           P = P0, Z = Z0;
 #pragma unroll
@@ -1203,8 +1134,15 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
                 ss[hh][j][1] += cv1 ? y1 : 0.f;
               }
               if (real[hh]) {
-                bf16* o = dst + rowpart[hh];
-                if (even) {
+                T* o = dst + rowpart[hh];
+                if constexpr (F32) {
+                  if (even) {
+                    *reinterpret_cast<float2*>(o + c0) = make_float2(y0, y1);
+                  } else {
+                    o[c0] = y0;
+                    o[c1] = y1;
+                  }
+                } else if (even) {
                   *reinterpret_cast<__nv_bfloat162*>(o + c0) = __floats2bfloat162_rn(y0, y1);
                 } else {
                   o[c0] = __float2bfloat16_rn(y0);
@@ -1237,11 +1175,11 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
   if (leader) bulk_wait<0>();  // the stores are done before the block's shared memory goes
 }
 
-template <int KS>
+template <int KS, bool F32>
 int launch_axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
-  const size_t smem = axes_smem(a.C, a.slab_bytes, a.nwg, a.ring, a.npass);
+  const size_t smem = axes_smem(a.C, a.slab_bytes, a.nwg, a.ring, a.npass, F32 ? 8 : 2);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = morphfc_axes_wgmma_kernel<KS>;
+  auto kern = morphfc_axes_wgmma_kernel<KS, F32>;
   static bool smem_set = false;  // the largest size, once per instantiation
   if (!smem_set) {
     const int e = set_smem(kern, kMaxSmem);
@@ -1252,23 +1190,24 @@ int launch_axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream
   return (int)cudaGetLastError();
 }
 
-int axes_bf16(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
+template <bool F32>
+int axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
   switch (a.C / 16) {
-    case 1: return launch_axes_wgmma<1>(m, a, grid, st);
-    case 2: return launch_axes_wgmma<2>(m, a, grid, st);
-    case 3: return launch_axes_wgmma<3>(m, a, grid, st);
-    case 4: return launch_axes_wgmma<4>(m, a, grid, st);
-    case 5: return launch_axes_wgmma<5>(m, a, grid, st);
-    case 6: return launch_axes_wgmma<6>(m, a, grid, st);
-    case 7: return launch_axes_wgmma<7>(m, a, grid, st);
-    case 8: return launch_axes_wgmma<8>(m, a, grid, st);
-    case 9: return launch_axes_wgmma<9>(m, a, grid, st);
-    case 10: return launch_axes_wgmma<10>(m, a, grid, st);
-    case 11: return launch_axes_wgmma<11>(m, a, grid, st);
-    case 12: return launch_axes_wgmma<12>(m, a, grid, st);
-    case 13: return launch_axes_wgmma<13>(m, a, grid, st);
-    case 14: return launch_axes_wgmma<14>(m, a, grid, st);
-    case 15: return launch_axes_wgmma<15>(m, a, grid, st);
+    case 1: return launch_axes_wgmma<1, F32>(m, a, grid, st);
+    case 2: return launch_axes_wgmma<2, F32>(m, a, grid, st);
+    case 3: return launch_axes_wgmma<3, F32>(m, a, grid, st);
+    case 4: return launch_axes_wgmma<4, F32>(m, a, grid, st);
+    case 5: return launch_axes_wgmma<5, F32>(m, a, grid, st);
+    case 6: return launch_axes_wgmma<6, F32>(m, a, grid, st);
+    case 7: return launch_axes_wgmma<7, F32>(m, a, grid, st);
+    case 8: return launch_axes_wgmma<8, F32>(m, a, grid, st);
+    case 9: return launch_axes_wgmma<9, F32>(m, a, grid, st);
+    case 10: return launch_axes_wgmma<10, F32>(m, a, grid, st);
+    case 11: return launch_axes_wgmma<11, F32>(m, a, grid, st);
+    case 12: return launch_axes_wgmma<12, F32>(m, a, grid, st);
+    case 13: return launch_axes_wgmma<13, F32>(m, a, grid, st);
+    case 14: return launch_axes_wgmma<14, F32>(m, a, grid, st);
+    case 15: return launch_axes_wgmma<15, F32>(m, a, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -2012,11 +1951,8 @@ extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
   for (const void* p : {x, c, kh, kw, (const void*)h, (const void*)w})
     if ((uintptr_t)p % vmg::kVecBytes != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return vmg::launch_axes_f32((const float*)x, (const float*)c, (const float*)kh, bh,
-                                (const float*)kw, bw, (float*)h, (float*)w, partial, psum, N, H,
-                                W, C, ch, cw, WT, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool f32 = dtype == 0;
   auto lg2 = [](int v) {  // log2 of the least power of two >= v
     int l = 0;
     while ((1 << l) < v) ++l;
@@ -2037,17 +1973,17 @@ extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
   a.tiles_pf = a.tiles_w * ((H + ch - 1) / ch);
   if ((long long)N * a.tiles_pf > 0x7fffffff) return (int)cudaErrorInvalidValue;
   a.tiles = N * a.tiles_pf;
-  a.box_bytes = (unsigned)(ch * WT * C * 2);
-  a.slab_bytes = vmg::axes_slab_bytes(ch * WT, C);
+  a.box_bytes = (unsigned)(ch * WT * C * (f32 ? 4 : 2));
+  a.slab_bytes = vmg::axes_slab_bytes(ch * WT, C, f32 ? 4 : 2);
   vmg::AxesMaps maps;
   memset(&maps, 0, sizeof(maps));
   const void* ts[4] = {x, c, h, w};
   CUtensorMap* ms[4] = {&maps.x, &maps.c, &maps.h, &maps.w};
   for (int i = 0; i < 4; ++i) {
-    const int e = vmg::nhwc_box_map(ms[i], ts[i], N, H, W, C, WT, ch, C);
+    const int e = vmg::nhwc_box_map(ms[i], ts[i], N, H, W, C, WT, ch, C, f32);
     if (e) return e;
   }
-  int e = vmg::axes_bf16(maps, a, grid, st);
+  int e = f32 ? vmg::axes_wgmma<true>(maps, a, grid, st) : vmg::axes_wgmma<false>(maps, a, grid, st);
   if (e) return e;
   return vmg::launch_final(partial, psum, N, C, npass * a.walkers, st);
 }

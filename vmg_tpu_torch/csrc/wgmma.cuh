@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma and bulk-copy kernels
 // (conv_chain.cu, group_ffn.cu, morphfc.cu's combine, ltam.cu's forward):
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for every N
-// the kernels take (a multiple of 16 up to 240, and 56), with A from
+// the kernels take (a multiple of 16 up to 240, and 56), and m64nNk8, f32
+// += tf32 x tf32 with the 3xTF32 split (WgmmaTF32, tf32_split), with A from
 // shared memory (Wgmma<N>; Wgmma<N>::mmaT<TA, TB> reads A and / or B
 // MN-major, "transposed") or from registers (WgmmaRA<N>) and B from shared
 // memory through matrix descriptors; mbarriers, bulk and TMA copies both
@@ -26,8 +27,11 @@
 
 namespace vmg {
 
-#define VMG_WG_OPS8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define VMG_WG_OPS4 "%0, %1, %2, %3"
+#define VMG_WG_OPS8 VMG_WG_OPS4 ", %4, %5, %6, %7"
+#define VMG_WG_OPS12 VMG_WG_OPS8 ", %8, %9, %10, %11"
 #define VMG_WG_OPS16 VMG_WG_OPS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define VMG_WG_OPS20 VMG_WG_OPS16 ", %16, %17, %18, %19"
 #define VMG_WG_OPS24 VMG_WG_OPS16 ", %16, %17, %18, %19, %20, %21, %22, %23"
 #define VMG_WG_OPS28 VMG_WG_OPS24 ", %24, %25, %26, %27"
 #define VMG_WG_OPS32 VMG_WG_OPS24 ", %24, %25, %26, %27, %28, %29, %30, %31"
@@ -46,8 +50,11 @@ namespace vmg {
 #define VMG_WG_D(i)                                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define VMG_WG_D4 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
 #define VMG_WG_D8 VMG_WG_D(0)
+#define VMG_WG_D12 VMG_WG_D8, "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
 #define VMG_WG_D16 VMG_WG_D8, VMG_WG_D(8)
+#define VMG_WG_D20 VMG_WG_D16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
 #define VMG_WG_D24 VMG_WG_D16, VMG_WG_D(16)
 #define VMG_WG_D28 VMG_WG_D24, "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
 #define VMG_WG_D32 VMG_WG_D24, VMG_WG_D(24)
@@ -121,6 +128,58 @@ VMG_WGMMA(224, 112, 113, 114, 115, 116, 117)
 VMG_WGMMA(240, 120, 121, 122, 123, 124, 125)
 
 #undef VMG_WGMMA
+
+// m64nNk8, f32 += tf32 x tf32, A from registers, B K-major from shared
+// memory (TF32 takes no transposed operand).  A register-A fragment of a k8
+// step is 4 registers of one tf32 each: (row r, k = lane % 4), (r + 8, the
+// same), (r, 4 + lane % 4), (r + 8, 4 + lane % 4), r = 16 * warp + lane / 4.
+// The unit reads the upper 19 bits of each register (sign, exponent, 10
+// mantissa bits) and ignores the low 13, so a raw float is its truncation.
+// Operands as WgmmaRA's.
+template <int N> struct WgmmaTF32;
+#define VMG_WGMMA_TF32(N, R, R1, R2, R3, R4, R5)                                       \
+  template <> struct WgmmaTF32<N> {                                                    \
+    static __device__ __forceinline__ void mma(float (&d)[R], const uint32_t (&a)[4],  \
+                                               uint64_t db, int scale_d) {             \
+      asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" #R5 ", 0;\n"                 \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {"          \
+                   VMG_WG_OPS##R "}, {%" #R ", %" #R1 ", %" #R2 ", %" #R3 "}, %" #R4    \
+                   ", p, 1, 1;\n}\n"                                                    \
+                   : VMG_WG_D##R                                                       \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+                     "r"(scale_d));                                                    \
+    }                                                                                  \
+  };
+
+VMG_WGMMA_TF32(8, 4, 5, 6, 7, 8, 9)
+VMG_WGMMA_TF32(16, 8, 9, 10, 11, 12, 13)
+VMG_WGMMA_TF32(24, 12, 13, 14, 15, 16, 17)
+VMG_WGMMA_TF32(32, 16, 17, 18, 19, 20, 21)
+VMG_WGMMA_TF32(40, 20, 21, 22, 23, 24, 25)
+VMG_WGMMA_TF32(48, 24, 25, 26, 27, 28, 29)
+VMG_WGMMA_TF32(64, 32, 33, 34, 35, 36, 37)
+VMG_WGMMA_TF32(80, 40, 41, 42, 43, 44, 45)
+VMG_WGMMA_TF32(96, 48, 49, 50, 51, 52, 53)
+VMG_WGMMA_TF32(112, 56, 57, 58, 59, 60, 61)
+VMG_WGMMA_TF32(128, 64, 65, 66, 67, 68, 69)
+VMG_WGMMA_TF32(144, 72, 73, 74, 75, 76, 77)
+VMG_WGMMA_TF32(160, 80, 81, 82, 83, 84, 85)
+VMG_WGMMA_TF32(176, 88, 89, 90, 91, 92, 93)
+VMG_WGMMA_TF32(192, 96, 97, 98, 99, 100, 101)
+VMG_WGMMA_TF32(208, 104, 105, 106, 107, 108, 109)
+VMG_WGMMA_TF32(224, 112, 113, 114, 115, 116, 117)
+VMG_WGMMA_TF32(240, 120, 121, 122, 123, 124, 125)
+
+#undef VMG_WGMMA_TF32
+
+// v = hi + lo with hi rounded to TF32 (nearest, ties away: the low 13
+// mantissa bits zero) and lo = v - hi exactly; lo goes to the tensor cores
+// raw and loses its low 13 bits there (2^-21 of |v| at most).  3xTF32:
+// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, about f32's accuracy.
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
 
 // ---- mbarriers, bulk and TMA copies, descriptors ------------------------
 
@@ -312,19 +371,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D tensor map over an (N, H, W, C) bf16 tensor: boxes of box_c (8 by
-// default) channels x box_w columns x box_h rows of one frame, no swizzle,
-// zeros out of bounds (also at negative coordinates).
+// A 4-D tensor map over an (N, H, W, C) bf16 (or, f32 true, float32)
+// tensor: boxes of box_c (8 by default) channels x box_w columns x box_h
+// rows of one frame, no swizzle, zeros out of bounds (also at negative
+// coordinates).
 inline int nhwc_box_map(CUtensorMap* map, const void* t, int N, int H, int W, int C, int box_w,
-                        int box_h, int box_c = 8) {
+                        int box_h, int box_c = 8, bool f32 = false) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t e = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * e, (cuuint64_t)W * C * e,
+                                 (cuuint64_t)H * W * C * e};
   const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w, (cuuint32_t)box_h, 1},
                    elem[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides,
+  CUresult r = enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   4, const_cast<void*>(t), dims, strides,
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

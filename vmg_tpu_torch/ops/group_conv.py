@@ -1,9 +1,10 @@
 """Grouped-conv FFN: conv3x3 (groups) + bias + GELU + dense projection.
 
 Port of ``vmg_tpu/ops/group_conv.py``.  :func:`fused_group_ffn` runs the
-hand-written CUDA kernel ``csrc/group_ffn.cu`` on CUDA tensors (bf16: a
-wgmma implicit GEMM whose hidden stays on chip; f32: scalar FMA; see the
-note at the top of that file) and :func:`group_ffn_plain` -- the JAX
+hand-written CUDA kernel ``csrc/group_ffn.cu`` on CUDA tensors (a wgmma
+implicit GEMM whose hidden stays on chip: bf16 products, or f32 as three
+TF32 products each; see the note at the top of that file) and
+:func:`group_ffn_plain` -- the JAX
 package's ``_xla_forward_ffn`` written in PyTorch -- on CPU tensors.  Both
 take the operands :func:`pack_ffn_weights` makes from ``MlpCnn``'s
 parameters (conv weight (F, C/g, 3, 3), bias (F,), projection weight
@@ -47,13 +48,27 @@ def chunk_width(C: int) -> int:
     return 48 if C <= 224 else 128
 
 
-def slab_depth(C: int, groups: int) -> int:
-    """K rows per tap of the bf16 kernel: group b's slab starts at channel
-    (cg * b) rounded down to 8 (TMA boxes start on 16 bytes), so its
-    channels sit at offset (cg * b) % 8; K covers the largest offset plus
-    cg, rounded up to 16 (csrc/group_ffn.cu ``ffn_slab_depth``)."""
+def slab_depth(C: int, groups: int, dtype=torch.bfloat16) -> int:
+    """K rows per tap of the kernel: group b's slab starts at channel
+    (cg * b) rounded down to 16 bytes (TMA boxes start there: 8 bf16 or 4
+    f32 channels), so its channels sit at offset (cg * b) % 8 (% 4); K
+    covers the largest offset plus cg, rounded up to the k step, 16 (8 in
+    f32) (csrc/group_ffn.cu ``ffn_slab_depth``, ``ffn_slab_depth_f32``)."""
     cg = C // groups
-    return -(-(cg + max((cg * b) % 8 for b in range(groups))) // 16) * 16
+    unit, k = (8, 16) if dtype == torch.bfloat16 else (4, 8)
+    return -(-(cg + max((cg * b) % unit for b in range(groups))) // k) * k
+
+
+def tf32_chunk(C: int) -> int:
+    """Hidden features per chunk of the f32 kernel (``tf32_chunk``): 48, 32
+    where a warpgroup's output accumulator is wider than 144 channels."""
+    return 48 if out_width(C) <= 144 else 32
+
+
+def tf32_kgroup(C: int) -> int:
+    """Conv k8 steps a commit group of the f32 kernel (``tf32_kgroup``): 4
+    up to 112 output channels a warpgroup, else 2 (registers)."""
+    return 4 if out_width(C) <= 112 else 2
 
 
 def _round(n: int, align: int) -> int:
@@ -138,20 +153,100 @@ def ffn_plan_ints(plan) -> list:
     return [int(plan[k]) for k in FFN_PLAN_FIELDS]
 
 
+FFN_TF32_PLAN_FIELDS = ("nb", "Wc", "P", "step", "span", "rows", "kcs", "kps", "nslab", "nst")
+_TF32_STAGE_CAPS = (28672, 20480, 14336, 8192)  # bytes a ring slot holds at most, tried in turn
+
+
+def ffn_tf32_plan(N: int, H: int, W: int, C: int, groups: int, fgp: int, sms: int = 132):
+    """The f32 kernel's tiles and buffers (the C side, ``launch_ffn_tf32``,
+    checks them): :func:`ffn_plan`'s bands with two m64 sub-tiles a tile
+    (one a consumer warpgroup: the split fragments leave no registers for
+    a second), each tile run once per output half above C = 224 (the conv
+    computed again for the second half); slabs of raw f32 in 8-channel
+    boxes (``slab_depth(..., float32)`` deep); ring slots of ``kcs`` conv
+    (whole commit groups of :func:`tf32_kgroup` steps) or ``kps``
+    projection k8 steps, each step as its TF32 hi then lo B image (64 bytes
+    a column).  Two slab buffers with at least three slots
+    where they fit, else one with at least a chunk's projection slots and
+    one more; the largest slot cap that fits."""
+    halves = 2 if C > 224 else 1
+    FC, NW, Kp = tf32_chunk(C), out_width(C), slab_depth(C, groups, torch.float32)
+    nb, Wc, P, step, span, tiles = _ffn_bands(N * halves, H, W, 2, sms)
+    b0max = P - 1 if step == 64 else 0
+    rows = (b0max + span - 1) // P + 3
+    SP = _round(rows * P, 8)
+    slab, nk, kb = Kp // 8 * SP * 32, FC // 8, tf32_kgroup(C)
+    for cap in _TF32_STAGE_CAPS:
+        kcs, kps = max(kb, cap // (64 * FC) // kb * kb), max(1, min(nk, cap // (64 * NW)))
+        stage, npj = max(kcs * 64 * FC, kps * 64 * NW), -(-nk // kps)
+        for nslab, least in ((2, 3), (1, npj + 1)):
+            nst = min(_MAX_STAGES, (_MAX_SMEM - 384 - nslab * slab) // stage)
+            if nst >= max(2, least):
+                smem = 128 + nslab * slab + nst * stage + 256
+                return dict(nb=nb, Wc=Wc, P=P, step=step, span=span, rows=rows, kcs=kcs,
+                            kps=kps, nslab=nslab, nst=nst, ms=2, SP=SP, tiles=tiles,
+                            halves=halves, stage_bytes=stage, smem=smem,
+                            live=H * W / (tiles * 128))
+    raise ValueError(f"no f32 FFN plan fits shared memory at {H}x{W}x{C}")
+
+
+def ffn_tf32_plan_ints(plan) -> list:
+    """A :func:`ffn_tf32_plan` as the C entry point reads it
+    (FFN_TF32_PLAN_FIELDS)."""
+    return [int(plan[k]) for k in FFN_TF32_PLAN_FIELDS]
+
+
 def _align(C: int, dtype) -> int:
-    """Padding of cg and fg: none in f32; bf16 (the tensor cores) to 16, fg
+    """Padding of fg (and, in bf16, cg): f32 to the k8 step; bf16 to 16, fg
     to 32 where each warpgroup computes half of a chunk (C > 224)."""
-    return 1 if dtype != torch.bfloat16 else 16 if C <= 224 else 32
+    return 8 if dtype != torch.bfloat16 else 16 if C <= 224 else 32
 
 
-def _chunks(C: int, fgp: int):
-    cw = chunk_width(C)
+def _chunks(C: int, fgp: int, dtype=torch.bfloat16):
+    cw = chunk_width(C) if dtype == torch.bfloat16 else tf32_chunk(C)
     return [(f0, min(cw, fgp - f0)) for f0 in range(0, fgp, cw)]
 
 
-def _stream_size(C: int, groups: int, fgp: int) -> int:
-    NW = out_width(C)
-    return groups * fgp * (9 * slab_depth(C, groups) + -(-C // NW) * NW)
+def _stream_size(C: int, groups: int, fgp: int, dtype=torch.bfloat16) -> int:
+    NW, hilo = out_width(C), 1 if dtype == torch.bfloat16 else 2
+    return hilo * groups * fgp * (9 * slab_depth(C, groups, dtype) + -(-C // NW) * NW)
+
+
+def split_tf32(t):
+    """(hi, lo) of a float32 tensor: hi rounded to TF32 (to nearest, ties
+    away from zero: the low 13 mantissa bits zero, as ``cvt.rna.tf32.f32``),
+    lo = t - hi, exact, so hi + lo == t.  The tensor cores read lo's upper
+    19 bits: the 3xTF32 product a_hi b_hi + a_hi b_lo + a_lo b_hi misses a b
+    by about 2^-21 of |a b|.  A float64 tensor (CPU modules only) splits
+    the same way, so that its stream too unpacks exactly."""
+    bits = t.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32).to(t.dtype)
+    return hi, t - hi
+
+
+# B row q of a TF32 k8 step holds element _KPERM[q] of the step: a thread's
+# register-A pair (k = lane % 4 and lane % 4 + 4) is then elements 2 (lane %
+# 4) and + 1, neighbours in the slab and in the conv's accumulator
+_KPERM = (0, 2, 4, 6, 1, 3, 5, 7)
+_KINV = tuple(_KPERM.index(e) for e in range(8))
+
+
+def _tf32_image(m):
+    """(8 s, n) K x N -> the f32 kernel's B images of its s k8 steps, flat:
+    per step its hi then its lo image (2, n, 4) -- K-major 8 x 16-byte core
+    matrices, k position 4 kb + e of column n at (kb n + n) 4 + e -- rows
+    in _KPERM order."""
+    s8, n = m.shape
+    img = m.reshape(s8 // 8, 8, n)[:, list(_KPERM)]
+    img = img.reshape(s8 // 8, 2, 4, n).permute(0, 1, 3, 2)
+    return torch.stack(split_tf32(img), 1).reshape(-1)
+
+
+def _tf32_unimage(v, steps: int, n: int):
+    """The (8 steps, n) matrix of :func:`_tf32_image` (hi + lo)."""
+    x = v.reshape(steps, 2, 2, n, 4)
+    m = (x[:, 0] + x[:, 1]).permute(0, 1, 3, 2).reshape(steps, 8, n)[:, list(_KINV)]
+    return m.reshape(steps * 8, n)
 
 
 def _stream(w1p, w2p):
@@ -215,34 +310,87 @@ def _unstream(w, C: int, groups: int, fgp: int):
     return w1p.reshape(groups, 9 * cgp, fgp), w2p[..., :C]
 
 
+def _stream_tf32(w1p, w2p):
+    """The f32 kernel's weights from w1p (g, 9*cg, fgp) and w2p (g, fgp, C),
+    flat, in its walk order: per group b and hidden chunk (f0, fcw) of
+    :func:`tf32_chunk`, the chunk's 9 x Kp/8 conv k8 steps (tap-major; K row
+    k is slab channel k, the group's channel k - (cg * b) % 4, zeros
+    elsewhere) as :func:`_tf32_image` images, then its w2 rows as fcw/8 steps,
+    once per output half [h*NW, h*NW + NW) (:func:`out_width`, zeros past
+    C)."""
+    G, K9, fgp = w1p.shape
+    C = w2p.shape[-1]
+    cg, Kp, NW = C // G, slab_depth(C, G, torch.float32), out_width(C)
+    halves = -(-C // NW)
+    taps = torch.zeros((G, 9, Kp, fgp), dtype=w1p.dtype, device=w1p.device)
+    for b in range(G):
+        o = (cg * b) % 4
+        taps[b, :, o:o + cg] = w1p[b].reshape(9, K9 // 9, fgp)[:, :cg]
+    w2z = F.pad(w2p, (0, halves * NW - C))
+    parts = []
+    for b in range(G):
+        for f0, fcw in _chunks(C, fgp, torch.float32):
+            parts.append(_tf32_image(taps[b, ..., f0:f0 + fcw].reshape(9 * Kp, fcw)))
+            for h in range(halves):
+                parts.append(_tf32_image(w2z[b, f0:f0 + fcw, h * NW:(h + 1) * NW]))
+    return torch.cat(parts).contiguous()
+
+
+def _unstream_tf32(w, C: int, groups: int, fgp: int):
+    """(w1p, w2p) back from an f32 weight stream (the inverse of
+    :func:`_stream_tf32`, hi + lo: exact); raises if a K row outside the
+    group's channels or a w2 column past C is not zero."""
+    cg, Kp, NW = C // groups, slab_depth(C, groups, torch.float32), out_width(C)
+    halves = -(-C // NW)
+    taps = torch.zeros((groups, 9 * Kp, fgp), dtype=w.dtype, device=w.device)
+    w2p = torch.zeros((groups, fgp, halves * NW), dtype=w.dtype, device=w.device)
+    off = 0
+    for b in range(groups):
+        for f0, fcw in _chunks(C, fgp, torch.float32):
+            n = 2 * 9 * Kp * fcw
+            taps[b, :, f0:f0 + fcw] = _tf32_unimage(w[off:off + n], 9 * Kp // 8, fcw)
+            off += n
+            for h in range(halves):
+                n = 2 * fcw * NW
+                w2p[b, f0:f0 + fcw, h * NW:(h + 1) * NW] = _tf32_unimage(
+                    w[off:off + n], fcw // 8, NW)
+                off += n
+    if off != w.numel():
+        raise ValueError(f"stream of {w.numel()} elements, layout of {off}")
+    taps = taps.reshape(groups, 9, Kp, fgp)
+    w1p = torch.zeros((groups, 9, cg, fgp), dtype=w.dtype, device=w.device)
+    for b in range(groups):
+        o = (cg * b) % 4
+        w1p[b] = taps[b, :, o:o + cg]
+        taps[b, :, o:o + cg] = 0
+    if taps.any() or w2p[..., C:].any():
+        raise ValueError("the stream has weights outside the groups' channels")
+    return w1p.reshape(groups, 9 * cg, fgp), w2p[..., :C]
+
+
 def pack_ffn_weights(w1, b1, w2, groups: int):
     """(F, cg, 3, 3) conv weight, (F,) bias, (C, F) projection weight ->
-    (w, b1p), in w1's dtype: the kernel's weights w, flat -- in bf16 the
-    weight stream of the wgmma kernel (:func:`_stream`), in f32 w1p (g,
-    9*cg, fg) with rows in (dy, dx, ci) order, then w2p (g, fg, C) -- and
-    b1p (g*fgp,).  In bf16 cg and fg are padded with zeros (:func:`_align`),
-    which adds nothing."""
+    (w, b1p), in w1's dtype: the kernel's weight stream w, flat (bf16:
+    :func:`_stream`; f32: :func:`_stream_tf32`, each weight as its TF32 hi
+    and lo), and b1p (g*fgp,).  fg (and, in bf16, cg) is padded with zeros
+    (:func:`_align`), which adds nothing."""
     Fh, cg = w1.shape[:2]
     fg, C = Fh // groups, w2.shape[0]
     align = _align(C, w1.dtype)
-    cgp, fgp = _round(cg, min(align, 16)), _round(fg, align)
+    cgp = _round(cg, min(align, 16) if w1.dtype == torch.bfloat16 else 1)
+    fgp = _round(fg, align)
     w1p = w1.reshape(groups, fg, cg, 3, 3).permute(0, 3, 4, 2, 1)
     w1p = F.pad(w1p, (0, fgp - fg, 0, cgp - cg)).reshape(groups, 9 * cgp, fgp)
     b1p = F.pad(b1.reshape(groups, fg), (0, fgp - fg)).reshape(-1).contiguous()
     w2p = F.pad(w2.t().reshape(groups, fg, -1), (0, 0, 0, fgp - fg))
-    if w1.dtype == torch.bfloat16:
-        return _stream(w1p, w2p), b1p
-    return torch.cat([w1p.reshape(-1), w2p.reshape(-1)]), b1p
+    return (_stream if w1.dtype == torch.bfloat16 else _stream_tf32)(w1p, w2p), b1p
 
 
 def unpack_ffn_weights(w, b1p, C: int, groups: int):
     """The padded operands (w1p (g, 9*cgp, fgp), w2p (g, fgp, C)) of the
     weights w of :func:`pack_ffn_weights`."""
-    fgp = b1p.numel() // groups
-    if w.dtype == torch.bfloat16:
-        return _unstream(w, C, groups, fgp)
-    n1 = groups * 9 * (C // groups) * fgp
-    return w[:n1].reshape(groups, -1, fgp), w[n1:].reshape(groups, fgp, C)
+    unstream = _unstream if w.dtype == torch.bfloat16 else _unstream_tf32
+    return unstream(w, C, groups, b1p.numel() // groups)
 
 
 def group_ffn_plain(x, w, b1p, b2, *, groups: int, act: str = "erf"):
@@ -267,8 +415,8 @@ def group_ffn_plain(x, w, b1p, b2, *, groups: int, act: str = "erf"):
 def fused_group_ffn(x, w, b1p, b2, *, groups: int, act: str = "erf"):
     """x (N, H, W, C) -> (N, H, W, C), on the operands of
     :func:`pack_ffn_weights` (all in x's dtype).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16 on
-    :func:`ffn_plan`'s tiles)."""
+    plain version; CUDA tensors launch the kernel (on :func:`ffn_plan`'s
+    tiles in bf16, :func:`ffn_tf32_plan`'s in f32)."""
     if x.device.type == "cpu":
         return group_ffn_plain(x, w, b1p, b2, groups=groups, act=act)
     N, H, W, C = x.shape
@@ -281,15 +429,13 @@ def fused_group_ffn(x, w, b1p, b2, *, groups: int, act: str = "erf"):
     if fgp % _align(C, x.dtype):
         raise ValueError(f"b1p has {fgp} features per group; {x.dtype} needs a multiple "
                          f"of {_align(C, x.dtype)}")
-    size = (_stream_size(C, groups, fgp) if x.dtype == torch.bfloat16
-            else groups * fgp * (9 * C // groups + C))
+    size = _stream_size(C, groups, fgp, x.dtype)
     for name, t, shape in (("w", w, (size,)), ("b1p", b1p, (groups * fgp,)), ("b2", b2, (C,))):
         _build.require(t, name, shape=shape, dtype=x.dtype, device=x.device)
-    plan = None
-    if x.dtype == torch.bfloat16:
-        ints = ffn_plan_ints(ffn_plan(N, H, W, C, groups, fgp,
-                                      _build.sm_count(x.device.index or 0)))
-        plan = (ctypes.c_int * len(ints))(*ints)
+    sms = _build.sm_count(x.device.index or 0)
+    ints = (ffn_plan_ints(ffn_plan(N, H, W, C, groups, fgp, sms)) if x.dtype == torch.bfloat16
+            else ffn_tf32_plan_ints(ffn_tf32_plan(N, H, W, C, groups, fgp, sms)))
+    plan = (ctypes.c_int * len(ints))(*ints)
     out = torch.empty_like(x)
     code = _build.load_library().vmg_group_ffn(
         x.data_ptr(), w.data_ptr(), b1p.data_ptr(), b2.data_ptr(), out.data_ptr(),

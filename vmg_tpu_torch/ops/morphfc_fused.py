@@ -78,18 +78,15 @@ def axes_form(C: int, chunk_h: int, chunk_w: int) -> str:
 
 def big_form_smem(M: int, C: int, dtype) -> int:
     """Bytes of shared memory the big-form kernel needs at least for slabs
-    of M positions: f32, the C x C weight, the tokens and their projection
-    (``AxesSmem`` in ``csrc/morphfc.cu``); bf16, one warpgroup with one
-    slot (the x and c slabs) and one resident weight (:func:`axes_smem`)."""
-    if dtype == torch.bfloat16:
-        return axes_smem(C, _slab_bytes(M, C), 1, 1, 2)
-    lanes = 256 // (C // 4)  # positions the epilogue's threads cover
-    return -(-C * C * 4 // 128) * 128 + -(-max(M * C, lanes * C) * 4 // 128) * 128 + M * C * 4
+    of M positions: one warpgroup with one slot (the x and c slabs) and one
+    resident weight (:func:`axes_smem`), in f32 as its TF32 hi and lo
+    images."""
+    return axes_smem(C, _slab_bytes(M, C, dtype), 1, 1, 2, dtype)
 
 
-# The bf16 big-form kernel (csrc/morphfc.cu ``morphfc_axes_wgmma_kernel``):
-# persistent blocks of 1-2 consumer warpgroups, each with a ring of up to
-# AXES_RING_MAX slots holding a tile's x and c slabs.
+# The big-form kernel (csrc/morphfc.cu ``morphfc_axes_wgmma_kernel``, bf16
+# and f32): persistent blocks of 1-2 consumer warpgroups, each with a ring
+# of up to AXES_RING_MAX slots holding a tile's x and c slabs.
 AXES_RING_MAX = 4
 
 
@@ -100,38 +97,42 @@ def _pow2(v: int) -> int:
     return p
 
 
-def _slab_bytes(positions: int, C: int) -> int:
-    return -(-positions * C * 2 // 128) * 128
+def _slab_bytes(positions: int, C: int, dtype=torch.bfloat16) -> int:
+    return -(-positions * C * (2 if dtype == torch.bfloat16 else 4) // 128) * 128
 
 
 def axes_slab_width(C: int, chunk_h: int, chunk_w: int) -> int:
-    """WT of the bf16 kernel's ch x WT slabs: the least multiple of chunk_w
+    """WT of the big-form kernel's ch x WT slabs: the least multiple of chunk_w
     that gives a slab at least 64 positions (one m64 sub-tile of tokens a
     branch at the stage-0/6 chunks, 8 x 8)."""
     return chunk_w * -(-64 // (chunk_h * chunk_w))
 
 
-def axes_smem(C: int, slab: int, nwg: int, ring: int, npass: int) -> int:
-    """Shared memory of the bf16 kernel (``axes_smem`` in the source): nwg
-    rings of ``ring`` slots of two slabs, the resident weights (both where
-    one pass runs both branches), the biases and the barriers."""
-    return (nwg * ring * 2 * slab + (2 if npass == 1 else 1) * C * C * 2 + 2 * C * 4
+def axes_smem(C: int, slab: int, nwg: int, ring: int, npass: int,
+               dtype=torch.bfloat16) -> int:
+    """Shared memory of the big-form kernel (``axes_smem`` in the source):
+    nwg rings of ``ring`` slots of two slabs, the resident weights (both
+    where one pass runs both branches; bf16, or f32 as their TF32 hi and
+    lo images), the biases and the barriers."""
+    wbytes = 2 if dtype == torch.bfloat16 else 8
+    return (nwg * ring * 2 * slab + (2 if npass == 1 else 1) * C * C * wbytes + 2 * C * 4
             + nwg * AXES_RING_MAX * 8)
 
 
-def axes_plan(C: int, chunk_h: int, chunk_w: int):
-    """(WT, npass, nwg, ring) of the bf16 kernel, or None where no plan fits
-    a block: one pass over the tiles with both weights resident where the
-    chunks are equal and they fit (else two, H then W, x read twice), two
+def axes_plan(C: int, chunk_h: int, chunk_w: int, dtype=torch.bfloat16):
+    """(WT, npass, nwg, ring) of the big-form kernel in ``dtype``, or None
+    where no plan fits a block: one pass over the tiles with both weights
+    resident where the chunks are equal and they fit (else two, H then W,
+    x read twice; in f32 at C = 112: 2 x 100 KB of images do not fit), two
     warpgroups with at least two slots each, else one with at least one,
     the most slots up to AXES_RING_MAX."""
     WT = axes_slab_width(C, chunk_h, chunk_w)
     if C > 240 or WT > 256 or chunk_h > 64 or chunk_w > 64:
         return None
-    slab = _slab_bytes(chunk_h * WT, C)
+    slab = _slab_bytes(chunk_h * WT, C, dtype)
     for npass in ((1, 2) if chunk_h == chunk_w else (2,)):
         for nwg, least in ((2, 2), (1, 1)):
-            ring = min(AXES_RING_MAX, (MAX_SMEM - axes_smem(C, slab, nwg, 0, npass))
+            ring = min(AXES_RING_MAX, (MAX_SMEM - axes_smem(C, slab, nwg, 0, npass, dtype))
                        // (nwg * 2 * slab))
             if ring >= least:
                 return WT, npass, nwg, ring
@@ -257,10 +258,14 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
     state (the JAX op folds it per call).  ``form``: "big" (the kernel
     that holds the whole C x C weight; it raises where that does not fit
     in shared memory), "token" (weight column tiles: any chunk * C) or
-    None for :func:`axes_form`.  Both forms compute one function, so CPU tensors take the same plain
-    version."""
+    None for :func:`axes_form`, or the token form where the big form's
+    plan does not fit (f32 above C = 128: the weight's TF32 hi and lo
+    images).  Both forms compute one function, so CPU tensors take the
+    same plain version."""
     if form is None:
         form = axes_form(x.shape[-1], chunk_h, chunk_w)
+        if form == "big" and axes_plan(x.shape[-1], chunk_h, chunk_w, x.dtype) is None:
+            form = "token"  # f32 above C = 128: the hi and lo images do not fit
     elif form not in FORMS:
         raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
     if x.device.type == "cpu":
@@ -279,8 +284,8 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
     h, w = torch.empty_like(x), torch.empty_like(x)
     psum = torch.empty((N, C), dtype=torch.float32, device=dev)
     sms = _build.sm_count(dev.index or 0)
-    if form == "big" and dt == torch.bfloat16:
-        plan = axes_plan(C, chunk_h, chunk_w)
+    if form == "big":
+        plan = axes_plan(C, chunk_h, chunk_w, dt)
         if plan is None:
             need = big_form_smem(chunk_h * axes_slab_width(C, chunk_h, chunk_w), C, dt)
             raise ValueError(
@@ -295,18 +300,13 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
         scratch = torch.empty((grid * nwg, (C // 2 + 8) * 128), dtype=torch.float32,
                               device=dev)
     else:
-        # f32 big form and the token form: one block per slab of whole W
-        # chunks, >= 64 tokens per branch, a multiple of 16 (the f32 slab
-        # grid; the bf16 token kernel takes its own plan below)
+        # the token form: in f32 one block per slab of whole W chunks, >= 64
+        # tokens per branch, a multiple of 16 (the bf16 token kernel takes
+        # its own plan below)
         kg = -(-64 // (chunk_h * chunk_w))
         while chunk_h * chunk_w * kg % 16:
             kg += 1
         WT = chunk_w * kg
-        if form == "big" and big_form_smem(chunk_h * WT, C, dt) > MAX_SMEM:
-            raise ValueError(
-                f"the big form needs {big_form_smem(chunk_h * WT, C, dt)} bytes of shared "
-                f"memory at C={C}, chunks ({chunk_h}, {chunk_w}); a block has {MAX_SMEM}: "
-                "use form='token'")
         S = -(-H // chunk_h) * -(-W // WT)
         scratch, nwg, ring, npass, grid = None, 0, 0, 0, 0
     # the bf16 token form: the pack, c's partials, the kernel, the sums pass

@@ -1,7 +1,7 @@
 """Where the serving forward's time goes on one CUDA card.
 
     python3 -m vmg_tpu_torch.profile_serving [--reps 5] [--forms module|kernel]
-        [--preset full|few_levels] [--json PATH]
+        [--preset full|few_levels|vid4_tile] [--tree DIR] [--json PATH]
 
 ``FULL_PRESET`` in bf16 with the serving fast-math (tanh GELU, bf16
 SPyNet convolutions), seeded random init, 1x16x180x320 clips, in the
@@ -10,13 +10,21 @@ kernel forms on (the RCAB and trajectory conv chains, the fused norm).
 ``--preset few_levels``: ``FEW_LEVELS_PRESET`` with its eval preset's
 network fields (32 frames, one 32-frame trajectory window, no flow
 freeze) on 1x32x128x128 clips, the eval preset's 128x128 tile.
+``--preset vid4_tile``: the evaluation path instead -- the Vid4 preset's
+model as ``python -m vmg_tpu_torch.eval`` loads it (FULL_PRESET, float32,
+erf GELU, seed-0 weights, cuDNN's default TF32 convolutions) on one
+1x16x128x128 tile, the evaluator's; no ``SRServer`` runs.  ``--tree DIR``
+imports ``vmg_tpu_torch`` from another checkout (e.g. an earlier commit
+unpacked with ``git archive``), so two trees profile in one call: run this
+file by path then (``python vmg_tpu_torch/profile_serving.py --tree DIR``;
+``-m`` imports this checkout first).
 Reports:
 
 * the device-resident forward per clip (input already on the card, output
   left there): CUDA-event time, median and range over ``--reps`` runs
   after a warm-up;
 * ``SRServer`` per clip (numpy in, numpy out), host clock, median and
-  range over ``--reps`` requests;
+  range over ``--reps`` requests (not for ``vid4_tile``);
 * from one profiled device-resident forward (``torch.profiler``, device
   activity only: tracing host operators slows the host's launches and
   would idle the device more than an untraced run does): device time by
@@ -36,13 +44,14 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 # preset -> (clip frames, height, width); few_levels also takes its eval
 # preset's network fields (vmg_eval_reds4_few_levels.yml)
-CLIPS = {"full": (16, 180, 320), "few_levels": (32, 128, 128)}
+CLIPS = {"full": (16, 180, 320), "few_levels": (32, 128, 128), "vid4_tile": (16, 128, 128)}
 FEW_EVAL = dict(num_frames=32, traj_win=(32, None), flow_fix=None)
 
 # (category, kernel-name pattern), first match wins
@@ -154,65 +163,89 @@ def main(argv=None) -> int:
     ap.add_argument("--forms", default="module", choices=["module", "kernel"],
                     help="'kernel': rcab_impl, traj_conv_impl and norm_impl 'kernel'")
     ap.add_argument("--preset", default="full", choices=sorted(CLIPS))
+    ap.add_argument("--tree", default=None, help="import vmg_tpu_torch from this checkout")
     ap.add_argument("--json", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     T, H, W = CLIPS[args.preset]
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device visible", file=sys.stderr)
         return 1
+    if args.tree is not None:
+        sys.path.insert(0, str(Path(args.tree).resolve()))
     from torch.profiler import ProfilerActivity, profile
 
-    from vmg_tpu_torch.configs import FEW_LEVELS_PRESET, FULL_PRESET
+    import vmg_tpu_torch
+    from vmg_tpu_torch.configs import EVAL_PRESETS, FEW_LEVELS_PRESET, FULL_PRESET
     from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
     from vmg_tpu_torch.serve import SRServer
 
+    package = str(Path(vmg_tpu_torch.__file__).resolve().parent)
     smi = card_line()
-    base = FULL_PRESET if args.preset == "full" else FEW_LEVELS_PRESET
-    preset = base if args.preset == "full" else dataclasses.replace(base, **FEW_EVAL)
-    sd = create_model(base, device="cpu",
-                      generator=torch.Generator().manual_seed(0)).state_dict()
-    forms = KERNEL_FORMS if args.forms == "kernel" else {}
-    server = SRServer(preset, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
-                      **forms)
     clip = np.random.default_rng(0).random((1, T, H, W, 3), dtype=np.float32)
     x = torch.from_numpy(clip).cuda()
+    server = None
+    if args.preset == "vid4_tile":
+        from vmg_tpu_torch.eval import load_model
+
+        cfg = EVAL_PRESETS["vid4"]
+        model = load_model(cfg, None, "cuda")
+        if cfg.dataset.use_mirrors:
+            raise RuntimeError("the Vid4 preset runs no mirrored frames")
+
+        def forward():
+            return model(x)
+    else:
+        base = FULL_PRESET if args.preset == "full" else FEW_LEVELS_PRESET
+        preset = base if args.preset == "full" else dataclasses.replace(base, **FEW_EVAL)
+        sd = create_model(base, device="cpu",
+                          generator=torch.Generator().manual_seed(0)).state_dict()
+        forms = KERNEL_FORMS if args.forms == "kernel" else {}
+        server = SRServer(preset, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
+                          **forms)
+
+        def forward():
+            return server.model(x)
 
     with torch.inference_mode():
-        server.model(x)  # warm-up: kernel build, cuDNN plans
+        forward()  # warm-up: kernel build, cuDNN plans
         torch.cuda.synchronize()
         resident = []
         for _ in range(args.reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            server.model(x)
+            forward()
             end.record()
             torch.cuda.synchronize()
             resident.append(start.elapsed_time(end) / 1e3)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            server.model(x)
+            forward()
             torch.cuda.synchronize()
     served = []
-    for _ in range(args.reps):
+    for _ in range(args.reps if server is not None else 0):
         t0 = time.time()
         server(clip)
         served.append(time.time() - t0)
 
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "preset": args.preset, "forms": args.forms, "clip": [1, T, H, W],
-        "resident_s_per_clip": spread(resident), "served_s_per_clip": spread(served),
-        "served_frames_per_s": spread([T / s for s in served]),
+        "package": package, "preset": args.preset, "forms": args.forms,
+        "clip": [1, T, H, W], "resident_s_per_clip": spread(resident),
         "trace": trace_summary(prof),
     }
+    if served:
+        result.update(served_s_per_clip=spread(served),
+                      served_frames_per_s=spread([T / s for s in served]))
 
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{args.preset} preset, 1x{T}x{H}x{W} clips, {args.forms} forms")
-    r, s = result["resident_s_per_clip"], result["served_s_per_clip"]
+          f"{args.preset} preset, 1x{T}x{H}x{W} clips, {args.forms} forms; {package}")
+    r = result["resident_s_per_clip"]
     print(f"device-resident forward: median {r['median']:.4f} s per clip "
           f"(range {r['min']:.4f}-{r['max']:.4f}, {args.reps} reps, CUDA events)")
-    print(f"SRServer: median {s['median']:.4f} s per clip (range {s['min']:.4f}-"
-          f"{s['max']:.4f}, host clock), {T / s['median']:.3f} frames/s")
+    if served:
+        s = result["served_s_per_clip"]
+        print(f"SRServer: median {s['median']:.4f} s per clip (range {s['min']:.4f}-"
+              f"{s['max']:.4f}, host clock), {T / s['median']:.3f} frames/s")
     print_trace(result["trace"], "forward")
     line = json.dumps(result)
     if args.json:

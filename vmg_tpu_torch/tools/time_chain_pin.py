@@ -56,6 +56,17 @@ limit, then one JSON line of this checkout's median over the other's for
 each timing.  ``--only reduce,token`` (key prefixes) times just those
 kernels: a quick check (``--only slab_copy,smem_relayout,tile_gemm,empty``:
 the probes).
+
+``--dtype float32`` times the float32 kernels the evaluation path runs
+instead (``f32_*`` keys, TF32 off unless named): ``fused_group_ffn`` at the
+evaluator's four 16x128x128 tile shapes, FULL_PRESET's four stage shapes
+and 16x128x128x144 at groups 1 (erf GELU, as evaluation runs it), each
+beside the module form with TF32 off (``f32_ffn_module_*``) and with
+cuDNN's default TF32 on (``f32_ffn_module_tf32_*``, as the evaluation
+command runs its convolutions), and the axes kernel's big form at
+16x128x128x112 and 16x184x320x112 (chunk 8) beside the 'hybrid' form
+(``f32_hybrid_*``); each kernel held to 5e-5 of max|plain| (the sums 1e-6
+of the sum of their terms' magnitudes).
 """
 
 from __future__ import annotations
@@ -89,6 +100,11 @@ LTAM_CASES = [(184, 320, 28, K) for K in range(1, 6)] + [(128, 128, 36, 3)]
 LTAM_BWD_CASES = [(64, 64, 28, K) for K in range(1, 6)] + [(64, 64, 36, 3)]
 # (N, H, W, C, chunk) of the axes kernel: FULL_PRESET's stages 0/6
 AXES_SHAPE = (16, 184, 320, 112, 8)
+# --dtype float32: the FFN at the evaluator's tile shapes, FULL_PRESET's
+# stage shapes and the groups-1 width; the axes at the eval tile's stage 0
+# and FULL_PRESET's
+F32_FFN_SHAPES = FFN_SHAPES[6:] + FFN_SHAPES[:4] + [((16, 128, 128, 144), 1, 2)]
+F32_AXES_SHAPES = [(16, 128, 128, 112, 8), AXES_SHAPE]
 # (N, H, W, C, chunk) of the token form: FULL_PRESET's stages 1/5 and 3
 TOKEN_SHAPES = [(16, 92, 160, 224, 16), (16, 23, 40, 448, 8)]
 # (N, H, W, C) of the reduce and its launches per clip: FULL_PRESET's
@@ -187,29 +203,28 @@ def _unfenced(fn, iters, warmup=3):
     return start.elapsed_time(end) / 1e3 / iters
 
 
-def _side(root: Path, reps: int, only=None) -> dict:
-    """Times the kernels with the package at ``root`` (those whose keys
-    start with one of ``only``, if given); raises if a kernel disagrees
-    with its plain version."""
+def _import_tree(root: Path):
+    """Imports ``vmg_tpu_torch`` from the checkout at ``root``; returns its
+    package directory.  Raises if another checkout's package was imported
+    or there is no CUDA device."""
     sys.path.insert(0, str(root))
     import torch
-    import torch.nn.functional as F
 
     import vmg_tpu_torch
-    from vmg_tpu_torch.ops import conv_chain, group_conv, ltam_attention, morphfc_fused
 
     pkg = Path(vmg_tpu_torch.__file__).resolve().parent
     if pkg != root.resolve() / "vmg_tpu_torch":
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     if not torch.cuda.is_available():
         raise RuntimeError("time_chain_pin times the card and needs a CUDA device")
-    prof = _this_profiling()
-    timed = prof.timed
-    dev, dt = torch.device("cuda"), torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(0)
+    return pkg
 
-    def rn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
+
+def _timers(reps: int, only):
+    """time_both(fn): median and range of ``reps`` timings of ``_ITERS``
+    calls with this checkout's ``timed`` and with the timer it replaced;
+    wanted(*keys): whether a key starts with one of ``only``."""
+    timed = _this_profiling().timed
 
     def time_both(fn):
         new = [timed(fn, iters=_ITERS, warmup=3) * 1e3 for _ in range(reps)]
@@ -220,6 +235,26 @@ def _side(root: Path, reps: int, only=None) -> dict:
 
     def wanted(*prefixes):
         return only is None or any(p.startswith(o) for p in prefixes for o in only)
+
+    return time_both, wanted
+
+
+def _side(root: Path, reps: int, only=None) -> dict:
+    """Times the kernels with the package at ``root`` (those whose keys
+    start with one of ``only``, if given); raises if a kernel disagrees
+    with its plain version."""
+    pkg = _import_tree(root)
+    import torch
+    import torch.nn.functional as F
+
+    from vmg_tpu_torch.ops import conv_chain, group_conv, ltam_attention, morphfc_fused
+
+    time_both, wanted = _timers(reps, only)
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
 
     out = {"tree": str(root), "package": str(pkg)}
     C, h, w = 112, 184, 320
@@ -405,7 +440,7 @@ def _side(root: Path, reps: int, only=None) -> dict:
         if wanted("empty"):  # the floor under a microsecond-scale kernel
             out["empty_launch"] = time_both(lambda: torch.cuda._sleep(0))
         if wanted("slab_copy", "tile_gemm", "smem_relayout"):
-            out.update(_probe_times(prof.bound, time_both, rn, dev, wanted))
+            out.update(_probe_times(_this_profiling().bound, time_both, rn, dev, wanted))
     return out
 
 
@@ -509,16 +544,102 @@ def _probe_times(bound, time_both, rn, dev, wanted) -> dict:
     return out
 
 
+def _side_f32(root: Path, reps: int, only=None) -> dict:
+    """The float32 timings (``--dtype float32``) with the package at
+    ``root``; raises if a kernel disagrees with its plain version."""
+    pkg = _import_tree(root)
+    import torch
+    import torch.nn.functional as F
+
+    from vmg_tpu_torch.models.blocks import _axis_mix
+    from vmg_tpu_torch.ops import group_conv, morphfc_fused
+
+    time_both, wanted = _timers(reps, only)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def held(name, got, want):
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        if not err <= 5e-5:
+            raise AssertionError(f"{name}: max_rel_err {err} against the plain version")
+        return err
+
+    out = {"tree": str(root), "package": str(pkg)}
+    with torch.no_grad():
+        for (N, h, w, C), G, ratio in F32_FFN_SHAPES:
+            key = ffn_key((N, h, w, C), G, "f32_ffn")
+            if not wanted(key, ffn_key((N, h, w, C), G, "f32_ffn_module")):
+                continue
+            Fh = ratio * C
+            x = rn(N, h, w, C)
+            w1 = rn(Fh, C // G, 3, 3, scale=(9 * C / G) ** -0.5)
+            b1, b2, w2 = rn(Fh, scale=0.1), rn(C, scale=0.1), rn(C, Fh, scale=0.02)
+            args = (x, *group_conv.pack_ffn_weights(w1, b1, w2, G), b2)
+
+            def ffn():
+                return group_conv.fused_group_ffn(*args, groups=G, act="erf")
+
+            err = held(key, ffn(), group_conv.group_ffn_plain(*args, groups=G, act="erf"))
+            out[key] = {**time_both(ffn), "max_rel_err": err}
+            xc, w1c = x.permute(0, 3, 1, 2), w1.contiguous(memory_format=torch.channels_last)
+
+            def module():
+                y = F.conv2d(xc, w1c, b1, padding=1, groups=G).permute(0, 2, 3, 1)
+                return F.linear(group_conv.gelu(y, "erf"), w2, b2)
+
+            out[ffn_key((N, h, w, C), G, "f32_ffn_module")] = time_both(module)
+            torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, the CLI's
+            out[ffn_key((N, h, w, C), G, "f32_ffn_module_tf32")] = time_both(module)
+            torch.backends.cudnn.allow_tf32 = False
+            del x, xc, w1c, args
+        for N, h, w, C, ck in F32_AXES_SHAPES:
+            key = "f32_" + token_key((N, h, w, C, ck), "axes")
+            if not wanted(key, "f32_hybrid"):
+                continue
+            x, xc = rn(N, h, w, C), rn(N, h, w, C, scale=0.01)
+            kh, kw = rn(C, C, scale=0.02), rn(C, C, scale=0.02)
+            bh, bw = rn(C, scale=0.1), rn(C, scale=0.1)
+            aargs = (x, xc, kh, bh, kw, bw)
+
+            def axes():
+                return morphfc_fused.fused_morphfc_axes(*aargs, chunk_h=ck, chunk_w=ck)
+
+            got = axes()
+            ref = morphfc_fused.morphfc_axes_plain(*aargs, chunk_h=ck, chunk_w=ck)
+            terms = sum(v.abs().sum(dim=(1, 2)) for v in (ref[0], ref[1], xc))
+            err = max(held("axes h", got[0], ref[0]), held("axes w", got[1], ref[1]))
+            serr = ((got[2] - ref[2]).abs() / terms).max().item()
+            if not serr <= 1e-6:
+                raise AssertionError(f"axes psum: off by {serr} of sum|terms|")
+            out[key] = {**time_both(axes), "max_rel_err": err, "sums_rel_err": serr}
+
+            def hybrid():
+                hb = _axis_mix(x, kh, bh, ck, 1).contiguous()
+                wb = _axis_mix(x, kw, bw, ck, 2).contiguous()
+                return morphfc_fused.fused_morphfc_reduce(hb, wb, xc)
+
+            out["f32_" + token_key((N, h, w, C, ck), "hybrid")] = time_both(hybrid)
+            del x, xc, aargs, got, ref
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="root of the other checkout")
     ap.add_argument("--side", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", help="comma-separated key prefixes to time (default: all)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="float32: the evaluation path's float32 kernels instead")
     args = ap.parse_args(argv)
     only = None if args.only is None else args.only.split(",")
     if args.side is not None:
-        print(json.dumps(_side(args.side, args.reps, only)), flush=True)
+        side = _side if args.dtype == "bfloat16" else _side_f32
+        print(json.dumps(side(args.side, args.reps, only)), flush=True)
         return 0
     if args.other is None:
         ap.error("--other is required")
@@ -526,7 +647,7 @@ def main(argv=None) -> int:
     for label, root in (("other", args.other), ("this", _ROOT), ("this", _ROOT),
                         ("other", args.other)):
         res = subprocess.run([sys.executable, __file__, "--side", str(root.resolve()),
-                              "--reps", str(args.reps)]
+                              "--reps", str(args.reps), "--dtype", args.dtype]
                              + ([] if only is None else ["--only", args.only]),
                              stdout=subprocess.PIPE, text=True, check=True, timeout=900)
         line = json.loads(res.stdout.strip().splitlines()[-1])
@@ -551,6 +672,10 @@ def main(argv=None) -> int:
     keys += [f"smem_relayout_{name}" for name in RELAYOUT_PROBES]
     keys += [f"tile_gemm_{name}" for name in (*MM_PROBES, *TILE_PROBES)]
     keys += [f"tile_gemm_{name}_all_sms" for name in TILE_PROBES]
+    keys += [ffn_key(shape, G, kind) for shape, G, _ in F32_FFN_SHAPES
+             for kind in ("f32_ffn", "f32_ffn_module", "f32_ffn_module_tf32")]
+    keys += ["f32_" + token_key(shape, kind) for shape in F32_AXES_SHAPES
+             for kind in ("axes", "hybrid")]
     for key in (k for k in keys if all(k in r for _, r in runs)):
         for timer in ("ms", "ms_unfenced"):
             med = {s: statistics.median(r[key][timer] for lab, r in runs if lab == s)

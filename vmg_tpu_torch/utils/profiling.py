@@ -47,9 +47,11 @@ def timed(fn: Callable, *args, iters: int = 3, warmup: int = 2) -> float:
 
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, and
-# FLOP/s on the bf16 tensor cores and in f32 outside them.
+# FLOP/s on the bf16 tensor cores, in f32 outside them, and of an f32
+# product as three TF32 products (3xTF32) at the TF32 rate of 494.7 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS_PER_S = {"bf16 tensor cores": 989e12, "f32": 67e12}
+PEAK_FLOPS_PER_S = {"bf16 tensor cores": 989e12, "f32": 67e12,
+                    "3xTF32 tensor cores": 494.7e12 / 3}
 
 
 def bound(nbytes: int, flops: float, peak: str = "bf16 tensor cores") -> dict:
