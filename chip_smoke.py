@@ -29,9 +29,12 @@ Phases (any failure exits non-zero):
      bounds and the scalar kernel's time before the redesign; the axes
      kernel's float32 big form likewise (two runs bit-equal, the 'hybrid'
      form, its time before the redesign); the combine with each gate (tanh, sigmoid, relu), in bf16
-     at the four FULL_PRESET stage shapes and the few-levels shape (run
+     at the four FULL_PRESET stage shapes and the few-levels shape, in
+     float32 (3xTF32) at stages 0 and 3 and the eval tile's four (tanh run
      twice and held bit-equal, its share of the bound beside its time
-     before the redesign); the LTAM forward at the stage-0 shape at each
+     before the redesign, the scalar kernel's in float32); the conv chain
+     in float32 (3xTF32) also next to its module form with cuDNN's default
+     TF32, with its f32 bound and the scalar kernel's time; the LTAM forward at the stage-0 shape at each
      slot count K = 1..5 with the sum over a clip's 60 launches, then
      forward (1x128x128) and backward (1x64x64) at head widths 36, 64 and
      144; the pin with its GB/s and
@@ -238,6 +241,14 @@ COMBINE_SHAPES = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
 COMBINE_BEFORE_MS = {(16, 184, 320, 112): 1.1593, (16, 92, 160, 224): 0.8297,
                      (16, 46, 80, 224): 0.2186, (16, 23, 40, 448): 0.3164,
                      (16, 128, 128, 144): 0.4507}
+# the f32 combine's (tanh) and conv chain's times before their 3xTF32
+# redesign (the scalar kernels they replaced), printed beside this run's:
+# PERF.md rows 6f and 8f (the previous tree's chip_smoke.py phase 2, TF32
+# off; H100 80GB HBM3, 700 W); shape -> ms, (frames, dtype) -> ms
+COMBINE_F32_BEFORE_MS = {(16, 128, 128, 112): 0.638, (16, 64, 64, 224): 1.112,
+                         (16, 32, 32, 224): 0.278, (16, 16, 16, 448): 0.828,
+                         (16, 184, 320, 112): 2.134}
+CHAIN_BEFORE_MS.update({(1, torch.float32): 5.301, (16, torch.float32): 82.072})
 LTAM_BEFORE_MS = 0.2964  # 1x184x320x112, K = 5
 # the LTAM backward's (1x64x64x112, K = 5) and the bf16 axes kernel's
 # (16x184x320x112, chunk 8) times before their redesign: PERF.md's kernel
@@ -638,9 +649,9 @@ def check_kernels(report):
                 entries["fused_morphfc_reduce"]["per_clip_few" if few else "per_clip"] = {
                     "ms": c_ms, "bound_ms": c_bound}
 
-        # the combine: bf16 (the B image of Pk) at every path shape, f32 at
-        # stages 0 and 3 and the eval tile's four; each gate (tanh on every
-        # preset's path)
+        # the combine: the kernel's B image of Pk; bf16 at every path shape,
+        # f32 (3xTF32) at stages 0 and 3 and the eval tile's four; each gate
+        # (tanh on every preset's path)
         bf16 = dtype == torch.bfloat16
         for shape in (COMBINE_SHAPES if bf16 else
                       [COMBINE_SHAPES[0], COMBINE_SHAPES[3]] + EVAL_TILE_SHAPES):
@@ -648,7 +659,7 @@ def check_kernels(report):
             xh, xw, xc, x, res = (rn(*shape, dtype=dtype) for _ in range(5))
             a = torch.softmax(rn(N, 3, C), dim=1).to(dtype)
             pk, pb = rn(C, C, scale=0.02, dtype=dtype), rn(C, scale=0.1)
-            pkk = morphfc_fused.pack_combine_weight(pk) if bf16 else pk
+            pkk = morphfc_fused.pack_combine_weight(pk)
             args, pargs = (x, xh, xw, xc, a, pkk, pb), (x, xh, xw, xc, a, pk, pb)
             for act in ("tanh", "sigmoid", "relu"):
                 # the C x C projection; the weighted sum and gate are elementwise
@@ -657,19 +668,23 @@ def check_kernels(report):
                     lambda: morphfc_fused.fused_morphfc_combine(*args, act=act, residual=res),
                     lambda: morphfc_fused.morphfc_combine_plain(*pargs, act=act, residual=res),
                     dtype_check(dtype), bf16 and shape == COMBINE_SHAPES[0] and act == "tanh",
-                    work=((x, xh, xw, xc, a, pk, pb, res), 2 * x.numel() * C, peak(dtype)))
-                if bf16 and act == "tanh":
+                    work=((x, xh, xw, xc, a, pk, pb, res), 2 * x.numel() * C,
+                          peak_ffn_axes(dtype)))
+                if act == "tanh":
                     # the result must not depend on which warpgroup took which tile
                     again = morphfc_fused.fused_morphfc_combine(*args, act=act, residual=res)
                     torch.cuda.synchronize()
                     if not torch.equal(again, got[0]):
                         raise AssertionError(f"two runs of the combine differ at {shape}")
-                    before = COMBINE_BEFORE_MS.get(shape)
-                    report(f"    {b['bound_ms'] / ms:.3f} of the bound "
-                           f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s); two runs bit-equal"
+                    before = (COMBINE_BEFORE_MS if bf16 else COMBINE_F32_BEFORE_MS).get(shape)
+                    report(f"    {b['bound_ms'] / ms:.3f} of the {'' if bf16 else '3xTF32 '}"
+                           f"bound ({b['bound_by']}; {b['bound_bytes'] / ms / 1e9:.2f} TB/s); "
+                           "two runs bit-equal"
                            + ("" if before is None else
-                              f"; before the redesign {before} ms (PERF.md)"))
-                    entries["fused_morphfc_combine"]["x".join(map(str, shape))] = {
+                              f"; before the redesign{'' if bf16 else ': scalar'} {before} ms "
+                              "(PERF.md)"))
+                    entries["fused_morphfc_combine"][
+                        ("" if bf16 else "f32_") + "x".join(map(str, shape))] = {
                         "ms": ms, "bound_ms": b["bound_ms"], "share": b["bound_ms"] / ms}
                 del got
             del xh, xw, xc, x, res, args, pargs
@@ -850,14 +865,20 @@ def check_kernels(report):
                 return res
 
             module_ms = cuda_ms(module, iters=5)
+            extra = f"  module form {module_ms:.3f} ms"
             # two 3x3 convs, C x C, per pixel
             flops = 2 * 2 * N * h * w * 9 * C * C
+            if dtype == torch.float32:  # the module form as the eval command runs it
+                torch.backends.cudnn.allow_tf32 = True
+                module_tf32_ms = cuda_ms(module, iters=5)
+                torch.backends.cudnn.allow_tf32 = False
+                extra += f" (TF32 convs {module_tf32_ms:.3f} ms), f32 bound {flops / 67e9:.3f} ms"
             ms, b, got = compare(
                 "fused_conv_chain", (N, h, w, C), dtype,
                 lambda: conv_chain.fused_conv_chain(x, *ops, **kw),
                 lambda: conv_chain.conv_chain_plain(x, *ops, **kw),
                 chain_check, primary=dtype == torch.bfloat16 and N == 1,
-                work=((x, *ops), flops, peak(dtype)), extra=f"  module form {module_ms:.3f} ms",
+                work=((x, *ops), flops, peak_ffn_axes(dtype)), extra=extra,
                 keys={"module_ms": module_ms})
             # the result must not depend on which block took which tile
             again = conv_chain.fused_conv_chain(x, *ops, **kw)
@@ -866,13 +887,17 @@ def check_kernels(report):
             if not all(torch.equal(a, g) for a, g in zip(again, got)):
                 raise AssertionError("two runs of the conv chain differ")
             before = CHAIN_BEFORE_MS.get((N, dtype))
-            report(f"    {flops / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.3f} of the bound, "
-                   f"{ms / module_ms:.3f} x the module form; two runs bit-equal"
-                   + ("" if before is None else f"; before the redesign {before} ms (PERF.md, same timer)"))
-            if dtype == torch.bfloat16:
-                entries["fused_conv_chain"][f"n{N}"] = {
-                    "ms": ms, "module_ms": module_ms, "bound_ms": b["bound_ms"],
-                    "tflop_s": flops / ms / 1e9}
+            bf16 = dtype == torch.bfloat16
+            report(f"    {flops / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.3f} of the "
+                   f"{'' if bf16 else '3xTF32 '}bound, {ms / module_ms:.3f} x the module form"
+                   + ("" if bf16 else f" (TF32 off), {ms / module_tf32_ms:.3f} x (TF32 convs)")
+                   + "; two runs bit-equal"
+                   + ("" if before is None else
+                      f"; before the redesign{'' if bf16 else ': scalar'} {before} ms (PERF.md)"))
+            entries["fused_conv_chain"][("" if bf16 else "f32_") + f"n{N}"] = {
+                "ms": ms, "module_ms": module_ms, "bound_ms": b["bound_ms"],
+                "tflop_s": flops / ms / 1e9,
+                **({} if bf16 else {"module_tf32_ms": module_tf32_ms})}
             del x, xc, ops, wc, wcl, got, again
 
         # the norm at every LayerNorm width of the serving path, each at the

@@ -65,7 +65,8 @@ def test_conv_chain_plain_matches_pallas(rng, N, H, W, Cin, Cm, kw):
 
 def test_pack_conv_taps_pads_bf16_to_the_mma_width():
     """bf16 taps pad both channel dims to a multiple of 16 with zeros (the
-    tensor-core path); float32 taps keep their widths; the bias is f32."""
+    tensor-core path); float32 taps pad the input channels to the k8 step
+    and the outputs to 16, as TF32 hi / lo images; the bias is f32."""
     w, b = torch.randn(24, 20, 3, 3), torch.randn(24)
     image, bias = conv_chain.pack_conv_taps(w.bfloat16(), b.bfloat16())
     assert image.shape == (9, 4, 32, 8) and image.dtype == torch.bfloat16
@@ -74,10 +75,14 @@ def test_pack_conv_taps_pads_bf16_to_the_mma_width():
     assert bias.shape == (32,) and bias.dtype == torch.float32
     assert not taps[:, 20:].any() and not taps[:, :, 24:].any() and not bias[24:].any()
     torch.testing.assert_close(taps[4, :20, :24], w[:, :, 1, 1].t().bfloat16())
-    taps, bias = conv_chain.pack_conv_taps(w, b)
-    assert taps.shape == (9, 20, 24) and bias.shape == (24,)
-    assert conv_chain.tap_matrices(taps) is taps
-    torch.testing.assert_close(taps[2], w[:, :, 0, 2].t())
+    image, bias = conv_chain.pack_conv_taps(w, b)
+    assert image.shape == (9, 3, 2, 2, 32, 4) and bias.shape == (32,)
+    taps = conv_chain.tap_matrices(image)
+    assert taps.shape == (9, 24, 32) and not taps[:, 20:].any() and not taps[:, :, 24:].any()
+    assert not bias[24:].any()
+    assert torch.equal(taps[2, :20, :24], w[:, :, 0, 2].t())
+    taps, _ = conv_chain.pack_conv_taps(w.double(), None)  # other dtypes: the matrices
+    assert taps.shape == (9, 20, 24) and conv_chain.tap_matrices(taps) is taps
 
 
 @pytest.mark.parametrize("cin,cout", [(16, 16), (24, 24), (112, 112), (128, 128), (24, 112),
@@ -110,7 +115,8 @@ def test_conv_chain_bf16_rounds_where_the_kernel_does(rng):
     each, and computes the residual in bf16 arithmetic -- the TPU kernel's
     rounding points."""
     x, k1, b1, k2, b2 = _case(rng, 1, 9, 11, 16, 16)
-    ops = [t.bfloat16() if t.ndim == 3 else t for t in _port_operands(k1, b1, k2, b2)]
+    ops = [conv_chain.tap_matrices(t).bfloat16() if t.ndim == 6 else t
+           for t in _port_operands(k1, b1, k2, b2)]
     xb = torch.from_numpy(x).bfloat16()
     got = conv_chain.fused_conv_chain(xb, *ops, res_scale=0.1)
     w1 = torch.from_numpy(k1.transpose(3, 2, 0, 1).copy()).bfloat16().float()
@@ -142,6 +148,7 @@ def test_wrappers_refuse_unknown_activations():
 
 @pytest.mark.parametrize("kernel,cat", [
     ("void vmg::conv3x3_wgmma_kernel<112>(CUtensorMap_st, vmg::ConvArgs)", "conv chain kernel"),
+    ("void vmg::conv3x3_tf32_kernel<112>(CUtensorMap_st, vmg::ConvTfArgs)", "conv chain kernel"),
     ("vmg::chain_psum_kernel(float const*, float*, int, int)", "conv chain kernel"),
     ("vmg::copy_vec_kernel(uint4 const*, uint4*, long long)", "layout pin kernel"),
     ("vmg::copy1_kernel(unsigned char const*, unsigned char*, long long)", "layout pin kernel"),

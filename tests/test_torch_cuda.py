@@ -163,9 +163,10 @@ def test_morphfc_kernels(cuda, dtype, C, shape):
     """The reduce, and the combine with each gate (tanh, sigmoid - 0.5,
     relu), with and without the residual; frames of 216 and 920 pixels
     (ragged last 64-pixel tiles, several frames on the persistent walk);
-    every plan: three warpgroups (16, 112), two (144), one (224, Pk
-    resident at 100 KB), two with Pk streamed in column tiles (448).  bf16 takes the
-    packed B image; two runs are bit-equal."""
+    every plan: bf16 three warpgroups (16, 112), two (144), one (224, Pk
+    resident at 100 KB), two with Pk streamed in column tiles (448); f32 (3xTF32)
+    Pk resident (16, 112), streamed a k8 step a unit (144, 224), two N-tiles
+    (448).  Both take the packed B image; two runs are bit-equal."""
     rng = np.random.default_rng(C + shape[2])
     shape = (*shape, C)
     x, h, w, c, res = (_randn(rng, shape, cuda, dtype) for _ in range(5))
@@ -175,7 +176,7 @@ def test_morphfc_kernels(cuda, dtype, C, shape):
                                morphfc_fused.morphfc_reduce_plain(h, w, c),
                                atol=1e-3, rtol=1e-5)
     pb = pb.float()
-    pkk = morphfc_fused.pack_combine_weight(pk) if dtype == torch.bfloat16 else pk
+    pkk = morphfc_fused.pack_combine_weight(pk)
     for act in ("tanh", "sigmoid", "relu"):
         for r in (None, res):
             before = morphfc_fused.fused_morphfc_combine.launches
@@ -189,9 +190,34 @@ def test_morphfc_kernels(cuda, dtype, C, shape):
                                                         residual=r, res_scale=0.5)
             torch.cuda.synchronize()
             assert torch.equal(again, got)
-    if dtype == torch.bfloat16:  # the plain matrix is not the kernel's operand
-        with pytest.raises(ValueError, match="pk has shape"):
-            morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb)
+    with pytest.raises(ValueError, match="pk has shape"):  # the plain matrix is not the operand
+        morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pk, pb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [144, 240, 448])
+@pytest.mark.parametrize("shape", [(2, 7, 9), (3, 5, 27)])
+def test_morphfc_combine_f32_odd_shapes(cuda, C, shape):
+    """The f32 (3xTF32) combine where frames are not whole 64-pixel tiles
+    (63 and 135 pixels) at the few-levels width (144: Pk streamed), at 240
+    (two N-tiles of 128, the last one's columns past C zero) and at 448 (two
+    N-tiles of 224), each gate with and without the residual, against the
+    plain version; two runs bit-equal."""
+    rng = np.random.default_rng(C + shape[2])
+    shape = (*shape, C)
+    x, h, w, c, res = (_randn(rng, shape, cuda, torch.float32) for _ in range(5))
+    a = torch.softmax(_randn(rng, (shape[0], 3, C), cuda, torch.float32), dim=1)
+    pk, pb = _randn(rng, (C, C), cuda, torch.float32, 0.02), _randn(rng, (C,), cuda, torch.float32)
+    pkk = morphfc_fused.pack_combine_weight(pk)
+    for act in ("tanh", "sigmoid", "relu"):
+        for r in (None, res):
+            kw = dict(act=act, residual=r, res_scale=0.5)
+            got = morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pkk, pb, **kw)
+            _close(got, morphfc_fused.morphfc_combine_plain(x, h, w, c, a, pk, pb, **kw),
+                   torch.float32)
+            again = morphfc_fused.fused_morphfc_combine(x, h, w, c, a, pkk, pb, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(again, got)
 
 
 @pytest.mark.cuda
@@ -812,7 +838,8 @@ def test_conv_chain_kernel(cuda, dtype, N, H, W, Cin, Cm):
     rows of 40 and 38 bytes, which TMA cannot take: the plain-load slab; 19
     output channels are stored one at a time), 16 to 128 channels and
     Cm != Cin (bf16 stages the output tile whole, in halves at 128 x 112
-    and in quarters at 128 x 128); the trajectory form (residual, res_scale
+    and in quarters at 128 x 128; f32 streams 4 k8 steps a stage up to 112
+    channels, 2 at 128, and takes 2 x 64 tiles); the trajectory form (residual, res_scale
     0.1), the RCAB form, an lrelu chain and the residual with sums, each
     against the plain version.  The sums are
     the f32 sums of the kernel's own output: held to 1e-5 of the sum of
@@ -844,6 +871,31 @@ def test_conv_chain_kernel(cuda, dtype, N, H, W, Cin, Cm):
     x.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         conv_chain.fused_conv_chain(x, *ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,Cin,Cm", [(2, 64, 64, 32, 32), (1, 9, 100, 32, 48),
+                                          (2, 15, 33, 24, 40), (3, 6, 65, 12, 24)])
+def test_conv_chain_f32_shapes(cuda, N, H, W, Cin, Cm):
+    """The f32 (3xTF32) chain at the tiny preset's 32 channels (1x2x64x64
+    as the kernel-form slice runs it), with an intermediate wider than the
+    input (48, 40: conv2's K stops short of the 16-padded scratch) and 12
+    input channels (rows of 48 bytes: TMA; 2 x 64 tiles cut at 9, 15 and 65
+    columns), each form against the plain version, the sums against the
+    output's own; two runs bit-equal."""
+    rng = np.random.default_rng(Cin + Cm + H)
+    x = _randn(rng, (N, H, W, Cin), cuda, torch.float32)
+    ops = _chain_operands(rng, Cin, Cm, cuda, torch.float32)
+    for kw in (dict(res_scale=0.1), dict(act1="lrelu"), dict(act1=None)):
+        _close(conv_chain.fused_conv_chain(x, *ops, **kw),
+               conv_chain.conv_chain_plain(x, *ops, **kw), torch.float32)
+    got, psum = conv_chain.fused_conv_chain(x, *ops, res_scale=0.1, emit_psum=True)
+    _close(got, conv_chain.conv_chain_plain(x, *ops, res_scale=0.1), torch.float32)
+    terms = got.abs().sum(dim=(1, 2))
+    assert bool(((psum - got.sum(dim=(1, 2))).abs() <= 1e-5 * terms).all())
+    again, psum_again = conv_chain.fused_conv_chain(x, *ops, res_scale=0.1, emit_psum=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got) and torch.equal(psum_again, psum)
 
 
 @pytest.mark.cuda

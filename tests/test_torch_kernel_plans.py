@@ -37,9 +37,9 @@ LTAM_PATH = [(112, 4), (144, 4), (128, 2), (144, 1), (16, 4), (32, 2)]
 
 @pytest.mark.parametrize("C", [16, 32, 112, 144, 224, 240, 448])
 def test_combine_image_round_trip(C):
-    """240 pads its last 64-column N-tile with zeros."""
+    """The bf16 image; 240 pads its last 64-column N-tile with zeros."""
     rng = np.random.default_rng(C)
-    pk = torch.from_numpy(rng.standard_normal((C, C)).astype(np.float32))
+    pk = torch.from_numpy(rng.standard_normal((C, C)).astype(np.float32)).bfloat16()
     img = morphfc_fused.pack_combine_weight(pk)
     nt = morphfc_fused.combine_tile_n(C)
     assert nt == (C if C <= 224 else 64)

@@ -1,17 +1,20 @@
-"""Host side of the float32 FFN and big-form axes kernels, which run every
-product as three TF32 products on wgmma (3xTF32: a_hi b_hi + a_hi b_lo +
-a_lo b_hi), on CPU.
+"""Host side of the float32 FFN, big-form axes, combine and conv-chain
+kernels, which run every product as three TF32 products on wgmma (3xTF32:
+a_hi b_hi + a_hi b_lo + a_lo b_hi), on CPU.
 
-Why 3xTF32: a numpy emulation at the FFN projection's depth holds it to the
-f32 tolerance the card's checks use, and one TF32 product does not meet
-it.  The split: every hi is a TF32 value and hi + lo is the weight exactly.
+Why 3xTF32: a numpy emulation at the FFN projection's depth and at the
+conv chain's holds it to the f32 tolerance the card's checks use, and one
+TF32 product does not meet it.  The split: every hi is a TF32 value and hi + lo is the weight exactly.
 The FFN's f32 plan (``group_conv.ffn_tf32_plan``) must store every pixel
 once (each tile once per output half), give every stored position its nine
 taps inside the slab, fit a block's shared memory at every path, eval-tile
 and tiny shape, and pass the C entry point's checks, whose fields it names
 in order.  The axes kernel stages each weight's hi and lo images itself: a
 model of its staging index arithmetic is held to the k order its token
-fragments assume (the FFN stream's ``_KPERM``).
+fragments assume (the FFN stream's ``_KPERM``).  The combine's Pk image and
+the chain's tap images come from the host: both round-trip bit for bit,
+their padding is zero, and both kernels' plans fit a block's shared memory
+at every width the wrappers take.
 """
 
 import re
@@ -21,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from vmg_tpu_torch.ops import group_conv, morphfc_fused
+from vmg_tpu_torch.ops import conv_chain, group_conv, morphfc_fused
 
 MAX_SMEM = 232_448
 F32 = torch.float32
@@ -65,17 +68,31 @@ def test_split_tf32_hi_is_tf32_and_hi_plus_lo_is_exact():
     assert hi[-2].item() == 1 + 2 ** -10 and hi[-1].item() == 1 + 2 ** -10
 
 
-def test_3xtf32_meets_the_f32_tolerance_and_one_tf32_pass_does_not():
-    """The projection at C = 448: K = fg * groups = 2688 hidden features
-    (GELU outputs) onto 448 outputs, 64 positions.  Against the float64
-    product, relative to its largest value: 3xTF32 (hi rounded, lo as the
-    tensor cores read it) within the card's f32 tolerance of 5e-5 (by two
-    orders of magnitude: the dropped a_lo b_lo is ~2^-22 a product), one
-    TF32 pass (both operands rounded) not."""
-    rng = np.random.default_rng(14)
+def _gelu_hidden(rng):
+    """The FFN projection's A at C = 448: 64 positions x K = fg * groups =
+    2688 hidden features (GELU outputs), B 2688 x 448."""
     v = rng.standard_normal((64, 2688))
     a = (0.5 * v * (1 + np.tanh(0.7978845608 * (v + 0.044715 * v ** 3)))).astype(np.float32)
-    b = (rng.standard_normal((2688, 448)) * 0.02).astype(np.float32)
+    return a, (rng.standard_normal((2688, 448)) * 0.02).astype(np.float32)
+
+
+def _chain_taps(rng):
+    """The conv chain's conv2 at C = 112: 64 positions x K = 9 taps x 112
+    channels = 1008 (relu'd conv1 outputs), B 1008 x 112 at the init scale."""
+    a = np.maximum(rng.standard_normal((64, 1008)), 0).astype(np.float32)
+    return a, (rng.standard_normal((1008, 112)) * 1008 ** -0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("operands", [_gelu_hidden, _chain_taps], ids=["ffn_K2688", "chain_K1008"])
+def test_3xtf32_meets_the_f32_tolerance_and_one_tf32_pass_does_not(operands):
+    """The FFN projection at C = 448 (K = 2688) and the conv chain's conv at
+    C = 112 (K = 9 x 112 = 1008).  Against the float64 product, relative to
+    its largest value: 3xTF32 (hi rounded, lo as the tensor cores read it)
+    within the card's f32 tolerance of 5e-5 (by two orders of magnitude:
+    the dropped a_lo b_lo is ~2^-22 a product), one TF32 pass (both
+    operands rounded) not."""
+    rng = np.random.default_rng(14)
+    a, b = operands(rng)
     exact = a.astype(np.float64) @ b.astype(np.float64)
     ahi, bhi = _rna(a), _rna(b)
     alo, blo = _trunc(a - ahi), _trunc(b - bhi)
@@ -248,3 +265,121 @@ def test_ffn_tf32_plan_fields_match_the_entry_point():
     assert tuple(reads[i] for i in sorted(reads)) == group_conv.FFN_TF32_PLAN_FIELDS
     assert group_conv.ffn_tf32_plan_ints(
         group_conv.ffn_tf32_plan(16, 128, 128, 112, 4, 168))[:6] == [2, 64, 66, 66, 132, 4]
+
+
+# ---- the f32 combine and conv chain (3xTF32) ---------------------------------
+
+
+def _hi_lo_checks(w, hi, lo):
+    """Every hi a TF32 value, hi + lo the weight exactly, and lo as the
+    tensor cores read it (its upper 19 bits) within 2^-20 of it."""
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(hi + lo, w)
+    seen = torch.from_numpy(_trunc(lo.numpy().copy()))
+    assert bool(((w - hi - seen).abs() <= 2.0 ** -20 * w.abs()).all())
+
+
+@pytest.mark.parametrize("C", [16, 112, 128, 144, 224, 240, 448])
+def test_combine_f32_image_round_trips_and_splits(C):
+    """The f32 Pk image: N-tiles of all C up to 224, else two of C / 2
+    rounded up to 32 (240: 128, its last 16 columns zero); per N-tile and
+    k8 step its hi then its lo image in the fragment order (``_tf32_image``);
+    back through :func:`unpack_combine_weight` bit for bit."""
+    rng = np.random.default_rng(C)
+    pk = torch.from_numpy((rng.standard_normal((C, C)) * 0.02).astype(np.float32))
+    img = morphfc_fused.pack_combine_weight(pk)
+    nt = morphfc_fused.combine_tile_n(C, F32)
+    assert nt == (C if C <= 224 else {240: 128, 448: 224}[C])
+    t = -(-C // nt)
+    assert tuple(img.shape) == morphfc_fused.combine_image_shape(C, F32) == (t, C // 8, 2, 2, nt, 4)
+    assert img.dtype == F32 and img.is_contiguous()
+    assert torch.equal(morphfc_fused.unpack_combine_weight(img), pk)
+    padded = torch.nn.functional.pad(pk, (0, t * nt - C))
+    for i in range(t):
+        assert torch.equal(img[i].reshape(-1), group_conv._tf32_image(padded[:, i * nt:(i + 1) * nt]))
+    z = torch.zeros_like(img[:, :, 0])
+    hi, lo = (torch.cat([group_conv._tf32_unimage(m.reshape(-1), C // 8, nt)
+                         for m in torch.stack(parts, 2)], 1) for parts in
+              ((img[:, :, 0], z), (z, img[:, :, 1])))
+    _hi_lo_checks(padded, hi, lo)
+    assert not hi[:, C:].any() and not lo[:, C:].any()
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (19, 19), (20, 24), (24, 40), (32, 32),
+                                      (112, 112), (128, 128), (112, 48), (12, 128)])
+def test_conv_f32_tap_images_round_trip_and_split(cin, cout):
+    """The f32 taps: K padded to the k8 step, N to 16, zeros in the padding
+    (so padded outputs come out exactly zero); per tap and k8 step its hi
+    then its lo B image in the fragment order, one stream of 9 Kp / 8 steps;
+    back through :func:`tap_matrices` bit for bit."""
+    rng = np.random.default_rng(cin * 131 + cout)
+    w = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3)) * 0.1).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    img, bias = conv_chain.pack_conv_taps(w, b)
+    kp, np_ = -(-cin // 8) * 8, -(-cout // 16) * 16
+    assert img.shape == (9, kp // 8, 2, 2, np_, 4) and img.is_contiguous()
+    assert bias.shape == (np_,) and torch.equal(bias[:cout], b) and not bias[cout:].any()
+    m = conv_chain.tap_matrices(img)
+    assert m.shape == (9, kp, np_)
+    assert torch.equal(m[:, :cin, :cout], w.permute(2, 3, 1, 0).reshape(9, cin, cout))
+    assert not m[:, cin:].any() and not m[:, :, cout:].any()
+    for tap in range(9):
+        assert torch.equal(img[tap].reshape(-1), group_conv._tf32_image(m[tap]))
+    hi, lo = group_conv.split_tf32(m)
+    _hi_lo_checks(m, hi, lo)
+    # step j of tap t starts 64 Np bytes after step j - 1: one flat stream
+    flat = img.reshape(-1)
+    assert flat.numel() == 9 * kp // 8 * 16 * np_
+
+
+@pytest.mark.parametrize("C", list(range(16, 449, 16)))
+def test_combine_f32_plan_fits(C):
+    """At every C the wrapper takes, two warpgroups (or one, for a call of
+    no more items than SMs), at least 4 slots each, within a block's shared
+    memory and the kernel's barrier space; Pk resident up to C = 128."""
+    for items, nwg in ((10_000, 2), (132, 1), (1, 1)):
+        got, ring = morphfc_fused.combine_plan(C, F32, items, 132)
+        assert got == nwg and 4 <= ring <= morphfc_fused.COMBINE_F32_RING_MAX
+        assert morphfc_fused.combine_smem(C, nwg, ring, F32) <= MAX_SMEM
+    fixed = morphfc_fused.combine_smem(C, 0, 0, F32) - morphfc_fused.COMBINE_F32_BAR_BYTES
+    assert fixed == (8 * C * C if C <= 128 else 0) + 4 * C  # the resident Pk image, pb
+
+
+def test_combine_f32_plan_at_path_shapes():
+    """The eval tile's stages (112, 224, 448: 16 x 128 x 128 to 16 x 16 x 16),
+    FULL_PRESET's stage 0, few-levels' 144, the tiny presets' 32."""
+    def plan(N, H, W, C):
+        return morphfc_fused.combine_plan(C, F32, morphfc_fused.combine_items(N, H * W, C))
+
+    assert plan(16, 128, 128, 112) == (2, 7)
+    assert plan(16, 64, 64, 224) == plan(16, 32, 32, 224) == (2, 7)
+    assert morphfc_fused.combine_items(16, 16 * 16, 448) == 128
+    assert plan(16, 16, 16, 448) == (1, 15)
+    assert plan(16, 184, 320, 112) == (2, 7)
+    assert plan(32, 128, 128, 144) == (2, 12)
+    assert plan(2, 64, 64, 32) == (1, 24)
+
+
+@pytest.mark.parametrize("ks", range(1, 17))
+@pytest.mark.parametrize("np_", range(16, 129, 16))
+def test_conv_f32_plan_fits(ks, np_):
+    """Every (input boxes, output width) the f32 chain takes (Cin, Cm up to
+    128): a plan within a block's shared memory, whole commit groups a
+    stage, at least 3 stages of 4 k8 steps up to 112 channels, and at 128 x
+    128 (1x2x64x64's and RCAB's widest) 2-step stages."""
+    kcs, nst = conv_chain.chain_tf32_plan(ks, np_)
+    assert kcs % 2 == 0 and 2 <= nst <= conv_chain.TF32_MAX_STAGES  # whole commit groups
+    assert conv_chain.chain_tf32_smem(ks, np_, kcs, nst) <= MAX_SMEM
+    if ks <= 14 and np_ <= 112:
+        assert kcs == 4 and nst >= 3
+    assert conv_chain.chain_tf32_plan(14, 112) == (4, 3)
+    assert conv_chain.chain_tf32_plan(16, 128) == (2, 5)
+
+
+def test_conv_f32_plan_ints_follow_the_packed_taps():
+    """conv1's (kcs, nst), then conv2's, from the images' step counts and
+    widths: 1x2x64x64 at the tiny preset's 32 channels, FULL_PRESET's 112."""
+    for C, want in ((32, [4, 6, 4, 6]), (112, [4, 3, 4, 3])):
+        w = torch.zeros(C, C, 3, 3)
+        ops = conv_chain.pack_conv_taps(w, None)
+        assert conv_chain.chain_tf32_plan_ints(ops[0], ops[0]) == want

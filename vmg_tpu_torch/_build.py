@@ -58,10 +58,11 @@ _SIGNATURES = {
     "vmg_fused_norm": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
     # H, W, dtype -> output tiles per frame
     "vmg_conv_chain_tiles": [_I] * 3,
-    # x, w1, b1, w2, b2, out, mid (bf16 scratch, or null), partial, psum
-    # (or both null), N, H, W, Cin, Cinp, Cm, Cout, Coutp, act, has_res,
-    # res_scale, dtype, stream
-    "vmg_conv_chain": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
+    # x, w1, b1, w2, b2, out, mid (conv1's scratch), partial, psum (or
+    # both null), N, H, W, Cin, Cinp, Cm, Cout, Coutp, act, has_res,
+    # res_scale, plan (f32: conv_chain.chain_tf32_plan_ints; bf16: null),
+    # dtype, stream
+    "vmg_conv_chain": [_P] * 9 + [_I] * 10 + [_F, _P, _I, _P],
     # x, out, bytes, stream
     "vmg_layout_pin": [_P, _P, _L, _P],
     # x, out, Wp, C, R, slabs, wpiece, stream

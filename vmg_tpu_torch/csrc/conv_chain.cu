@@ -65,15 +65,15 @@
 //     in order, and a second pass adds the tiles' partials in a fixed tree
 //     order -- deterministic, no atomics, independent of which block took
 //     a tile.
-// * f32 (parity runs): scalar FMA, one block per 8 x 8 output tile, the
-//   12 x 12 slab and the 10 x 10 intermediate in shared memory, 16 x 16
-//   register micro-tiles; unpadded weights.
+// * f32 (the evaluation command's dtype, in the kernel forms): the same two
+//   launches of an implicit-GEMM conv on wgmma with every product as three
+//   TF32 products (3xTF32), 2 x 64 tiles, the taps streamed in k8 steps
+//   (notes at conv3x3_tf32_kernel).  Bound: 3 x 26.6 GFLOP at 494.7 TFLOP/s,
+//   0.161 ms for one 184x320 frame.
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace vmg {
-
-constexpr int kMaxNT = 8;  // channels <= 128 in 16-channel tiles
 
 __device__ __forceinline__ float chain_act(float v, int act) {
   if (act == 1) return fmaxf(v, 0.f);
@@ -330,139 +330,299 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap src_map, const ConvArgs
   }
 }
 
-// ---- f32: scalar FMA ------------------------------------------------------
+// ---- f32: implicit-GEMM 3x3 conv on wgmma, 3xTF32 ---------------------------
+//
+// The bf16 kernel's two launches, walk and producer, on f32 operands; every
+// product as three TF32 products (a_hi b_hi + a_hi b_lo + a_lo b_hi,
+// wgmma.cuh tf32_split; one TF32 product keeps ~3 digits and misses the f32
+// tolerance).  What changes with f32:
+// - Shared memory: an f32 slab of the bf16 tile (6 x 66 positions x 112
+//   channels) is 177 KB and one tap's hi and lo images 100 KB, so the tile
+//   is 2 rows x 64 columns (two m64 sub-tiles, one a consumer warpgroup), its
+//   slab 4 x 66 positions in 8-channel boxes by TMA (32 bytes a position: a
+//   warp's fragment reads cover 256 contiguous bytes, no bank conflict), and
+//   the weights stream as ring stages of kcs k8 steps (across taps) rather
+//   than whole taps: 118 KB of slab and 3 x 28 KB of ring at C = 112
+//   (chain_tf32_plan in ops/conv_chain.py picks kcs and the stages).
+// - Operands: TF32 wgmma reads B K-major only, so each k8 step of a tap is a
+//   hi and a lo B image (pack_conv_taps), rows in the order 0, 2, 4, 6, 1,
+//   3, 5, 7; A comes from registers: each thread reads its fragment pair
+//   (channels 2 (lane % 4) and + 1 of the step's box) for rows r and r + 8
+//   from the raw slab, shifted by dy 66 + dx positions for tap (dy, dx),
+//   and splits them in registers.  Commit groups of KB = 2 steps (1 at 128
+//   outputs) alternate between two register sets; a group's fragments are
+//   read while the previous group's products run.
+// - Accumulation: each group's products go into a fresh accumulator, added
+//   into the tile's sum with f32 adds (round to nearest).  The tensor cores
+//   truncate as they accumulate, so one 378-product chain (C = 112) drifts
+//   toward zero by ~1e-5 of its value -- a frame's sums then miss the plain
+//   version's by ~1e-5 of their terms; a 3- or 6-product chain does not.
+// - Epilogue: from registers, bias and activation (conv1) or bias and
+//   residual (conv2) in f32, stored as float2 where rows allow; the sums per
+//   tile add each channel's 16 rows a warp by a fixed butterfly, then the 8
+//   warps in order through shared memory (deterministic, no atomics).
+// The scratch between the launches is f32 (N, H, W, Np1) and no longer sits
+// in L2 at 16 frames (422 MB each way at RCAB's shape, ~0.25 ms against a
+// 3xTF32 bound of 2.58 ms).  The scalar kernel this replaced (one block per
+// 8 x 8 tile, both convs as FMAs, the weights read from global memory for
+// every tap and channel) ran at 0.075 of its f32 bound and lost 5.3x to the
+// module form's cuDNN convolutions (PERF.md).  ptxas: 168 registers at every
+// width (the launch's share; setmaxnreg gives the consumers 224), no spill,
+// C7519 lines expected; a spill is a regression.
+constexpr int kFR = 2;                           // f32 output tile rows (one a warpgroup)
+constexpr int kFSP = (kFR + 2) * kSW;            // f32 slab positions per 8-channel box (264)
+constexpr unsigned kFBoxBytes = kFSP * 32;       // one box: 8448 bytes
+// k8 steps a commit group: 2, and 1 at 128 outputs, where the group's
+// products, the tile's sum and two fragment sets must fit the registers
+__host__ __device__ constexpr int conv_tf32_kgroup(int Np) { return Np <= 112 ? 2 : 1; }
+constexpr int kFMaxStages = 6;
 
-constexpr int kFR = 8, kFTW = 8;                 // output tile
-constexpr int kFSH = kFR + 4, kFSW = kFTW + 4;   // slab
-constexpr int kFYH = kFR + 2, kFYW = kFTW + 2;   // conv1 output
-
-__host__ __device__ inline size_t chain_smem_f32(int Cin, int Cm, int Cout) {
-  return sizeof(float) * ((size_t)kFSH * kFSW * Cin + (size_t)kFYH * kFYW * Cm + 16 * Cout);
+// slab, ring, barriers, the per-warp channel sums (chain_tf32_smem in
+// ops/conv_chain.py)
+__host__ __device__ inline size_t conv_tf32_smem(int KS, int Np, int kcs, int nst) {
+  return 128 + (size_t)KS * kFBoxBytes + (size_t)nst * kcs * 64 * Np + 128 + 8 * Np * 4;
 }
 
-__global__ void __launch_bounds__(kThreads)
-conv_chain_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                      const float* __restrict__ b1, const float* __restrict__ w2,
-                      const float* __restrict__ b2, float* __restrict__ out,
-                      float* __restrict__ partial, int H, int W, int Cin, int Cm,
-                      int Cout, int act, int has_res, float res_scale, int tiles_w) {
-  extern __shared__ float fsm[];
-  float* xs = fsm;                                // kFSH x kFSW x Cin
-  float* ys = xs + kFSH * kFSW * Cin;             // kFYH x kFYW x Cm
-  float* tps = ys + kFYH * kFYW * Cm;             // 16 x Cout sums
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n = blockIdx.y, tile = blockIdx.x;
-  const int y0 = (tile / tiles_w) * kFR, x0 = (tile % tiles_w) * kFTW;
+struct ConvTfArgs {
+  const float* src;     // (N, H, W, Cs): read by the producer warp when use_tma == 0
+  const float* w;       // 9 KS k8 steps (tap-major), each its hi then its lo B image
+  const float* bias;    // (Np,)
+  float* out;           // (N, H, W, Cout)
+  const float* res;     // (N, H, W, Cout) or null: out = res + s * y
+  float* partial;       // (N, tiles, Cout) or null
+  int H, W, Cs, KS, Cout, act, use_tma, tiles_w, tiles, total, kcs, nst;
+  float res_scale;
+};
 
-  for (int e = threadIdx.x; e < kFSH * kFSW * Cin; e += kThreads) {
-    const int ci = e % Cin, p = e / Cin;
-    const int gy = y0 + p / kFSW - 2, gx = x0 + p % kFSW - 2;
-    xs[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                ? x[((size_t)(n * H + gy) * W + gx) * Cin + ci]
-                : 0.f;
+// One 3x3 conv, SAME padding, f32, Np output channels (the template).
+// Epilogue: out = res ? res + s y : act(y), y = acc + bias; channels >=
+// Cout are not stored.  Grid: persistent, tile = blockIdx.x + i gridDim.x.
+template <int Np>
+__global__ void __launch_bounds__(kConvThreads, 1)
+conv3x3_tf32_kernel(const __grid_constant__ CUtensorMap src_map, const ConvTfArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
+  unsigned char* slab = base;
+  const unsigned stage_bytes = (unsigned)a.kcs * 64 * Np;
+  unsigned char* ring = slab + (size_t)a.KS * kFBoxBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)a.nst * stage_bytes);
+  float* sums = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(bars) + 128);
+  uint64_t *slab_full = bars, *slab_empty = bars + 1, *wfull = bars + 2,
+           *wempty = bars + 2 + kFMaxStages;
+  const int nsteps = 9 * a.KS, nstg = (nsteps + a.kcs - 1) / a.kcs;
+
+  if (threadIdx.x == 0) {
+    mbar_init(slab_full, 1);
+    mbar_init(slab_empty, 2);
+    for (int s = 0; s < a.nst; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // conv1: positions p = p0 + ty + 16 i of the kFYH x kFYW grid, channels
-  // tx + 16 j
-  for (int p0 = 0; p0 < kFYH * kFYW; p0 += 64) {
-    float acc[4][kMaxNT];
-    int pr[4], pc[4];
-    bool pv[4];
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: its first warp loads the slabs and the
+    // weight ring; the group gives its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (threadIdx.x >= kConsumers + 32) return;
+    const int lane = threadIdx.x & 31;
+    // the tile's slab goes after its first `lead` weight stages, which the
+    // ring takes while the consumers finish the previous tile
+    const int lead = min(a.nst - 1, nstg);
+    RingPos q;
+    for (int it = 0, tile = blockIdx.x; tile < a.total; ++it, tile += gridDim.x) {
+      const int n = tile / a.tiles, t = tile % a.tiles;
+      const int y0 = (t / a.tiles_w) * kFR, x0 = (t % a.tiles_w) * kTW;
+      for (int s = 0; s <= nstg; ++s) {
+        if (s == lead) {
+          mbar_wait(slab_empty, (it & 1) ^ 1);
+          if (a.use_tma) {
+            if (lane == 0) {
+              mbar_expect(slab_full, a.KS * kFBoxBytes);
+              for (int c = 0; c < a.KS; ++c)
+                tma_load_4d(slab + (size_t)c * kFBoxBytes, &src_map, 8 * c, x0 - 1, y0 - 1, n,
+                            slab_full);
+            }
+          } else {  // rows that TMA cannot describe: plain loads, zeros outside
+            for (int e = lane; e < a.KS * kFSP; e += 32) {
+              const int c = e / kFSP, p = e % kFSP;
+              const int gy = y0 - 1 + p / kSW, gx = x0 - 1 + p % kSW;
+              float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+              if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
+                const float* sp = a.src + ((size_t)(n * a.H + gy) * a.W + gx) * a.Cs;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + ty + 16 * i;
-      pv[i] = p < kFYH * kFYW;
-      pr[i] = pv[i] ? p / kFYW : 0;
-      pc[i] = pv[i] ? p % kFYW : 0;
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) acc[i][j] = 0.f;
-    }
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      for (int ci = 0; ci < Cin; ++ci) {
-        float wv[kMaxNT];
-#pragma unroll
-        for (int j = 0; j < kMaxNT; ++j) {
-          const int ch = tx + 16 * j;
-          wv[j] = ch < Cm ? w1[((size_t)tap * Cin + ci) * Cm + ch] : 0.f;
+                for (int i = 0; i < 8; ++i)
+                  if (8 * c + i < a.Cs) v[i] = sp[8 * c + i];
+              }
+              float4* d = reinterpret_cast<float4*>(slab + ((size_t)c * kFSP + p) * 32);
+              d[0] = make_float4(v[0], v[1], v[2], v[3]);
+              d[1] = make_float4(v[4], v[5], v[6], v[7]);
+            }
+            fence_async_shared();
+            __syncwarp();
+            if (lane == 0) mbar_arrive(slab_full);
+          }
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float xv = xs[((pr[i] + dy) * kFSW + pc[i] + dx) * Cin + ci];
-#pragma unroll
-          for (int j = 0; j < kMaxNT; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
+        if (s == nstg) break;
+        const int steps = min(a.kcs, nsteps - s * a.kcs);
+        mbar_wait(&wempty[q.i], q.ph ^ 1);
+        if (lane == 0) {
+          mbar_expect(&wfull[q.i], (unsigned)steps * 64 * Np);
+          bulk_load(ring + (size_t)q.i * stage_bytes, a.w + (size_t)s * a.kcs * 16 * Np,
+                    (unsigned)steps * 64 * Np, &wfull[q.i]);
         }
+        q.next(a.nst);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (!pv[i]) continue;
-      const int gy = y0 + pr[i] - 1, gx = x0 + pc[i] - 1;
-      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) {
-        const int ch = tx + 16 * j;
-        if (ch < Cm)
-          ys[(pr[i] * kFYW + pc[i]) * Cm + ch] = ok ? chain_act(acc[i][j] + b1[ch], act) : 0.f;
-      }
-    }
+    return;
   }
-  __syncthreads();
 
-  // conv2: positions ty + 16 i of the kFR x kFTW tile
-  float acc[4][kMaxNT];
+  // ---- consumers: warpgroup g computes output row y0 + g --------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  constexpr int KB = conv_tf32_kgroup(Np);
+  const int g = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int t4 = lane & 3, r = 16 * wq + (lane >> 2);  // fragment column pair, row
+  const bool wg_leader = (threadIdx.x & 127) == 0;
+  const unsigned ring_a = su32(ring);
+  float acc[Np / 2], part[Np / 2];  // the tile's sum (f32 adds); a group's products
+  uint32_t xh0[KB][4], xl0[KB][4], xh1[KB][4], xl1[KB][4];
+  RingPos q;
+  int pend = -1;  // the ring slot of the last issued products, not yet released
+  // the products issued before this point are done: add them into acc, and
+  // release their slot unless the next group reads it too
+  auto drain = [&](int slot) {
+    wg_wait<0>();
+    pin_regs(part);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < Np / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    if (pend >= 0 && pend != slot && wg_leader) mbar_arrive(&wempty[pend]);
+    pend = slot;
+  };
+  for (int it = 0, tile = blockIdx.x; tile < a.total; ++it, tile += gridDim.x) {
+    const int n = tile / a.tiles, t = tile % a.tiles;
+    const int y0 = (t / a.tiles_w) * kFR, x0 = (t % a.tiles_w) * kTW;
 #pragma unroll
-    for (int j = 0; j < kMaxNT; ++j) acc[i][j] = 0.f;
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    for (int ci = 0; ci < Cm; ++ci) {
-      float wv[kMaxNT];
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) {
-        const int ch = tx + 16 * j;
-        wv[j] = ch < Cout ? w2[((size_t)tap * Cm + ci) * Cout + ch] : 0.f;
+    for (int i = 0; i < Np / 2; ++i) acc[i] = part[i] = 0.f;
+    mbar_wait(slab_full, it & 1);
+    // this thread's row r of sub-tile g at tap (0, 0), its column pair
+    const float* xs = reinterpret_cast<const float*>(slab) + (size_t)(g * kSW + r) * 8 + 2 * t4;
+    // k8 steps j0 .. j0 + KB - 1 (those below nsteps): step j is tap j / KS,
+    // slab box j % KS; a stage holds a whole number of groups.  The
+    // fragments are read while the previous group's products run; each
+    // group's products go into a fresh `part`, added into acc once done.
+    auto group = [&](int j0, uint32_t(&xh)[KB][4], uint32_t(&xl)[KB][4]) {
+      const int js = j0 % a.kcs;
+      if (js == 0) {
+        if (j0 > 0) q.next(a.nst);
+        mbar_wait(&wfull[q.i], q.ph);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = ty + 16 * i;
-        const float yv = ys[((p / kFTW + dy) * kFYW + p % kFTW + dx) * Cm + ci];
+      for (int u = 0; u < KB; ++u) {
+        const int j = j0 + u;
+        if (j >= nsteps) break;
+        const int tap = j / a.KS, kc = j - tap * a.KS, dy = tap / 3, dx = tap - 3 * dy;
+        const float* src = xs + ((size_t)kc * kFSP + dy * kSW + dx) * 8;
+        const float2 v0 = *reinterpret_cast<const float2*>(src);
+        const float2 v1 = *reinterpret_cast<const float2*>(src + 64);  // row r + 8
+        tf32_split(v0.x, xh[u][0], xl[u][0]);
+        tf32_split(v1.x, xh[u][1], xl[u][1]);
+        tf32_split(v0.y, xh[u][2], xl[u][2]);
+        tf32_split(v1.y, xh[u][3], xl[u][3]);
+      }
+      drain(q.i);
+      wg_fence();
+      pin_regs(part);
 #pragma unroll
-        for (int j = 0; j < kMaxNT; ++j) acc[i][j] = fmaf(yv, wv[j], acc[i][j]);
+      for (int u = 0; u < KB; ++u) {
+        const int j = j0 + u;
+        if (j >= nsteps) break;
+        const unsigned bh = ring_a + q.i * stage_bytes + (js + u) * 64 * Np;
+        const uint64_t dh = mat_desc(bh, Np * 16, 128), dl = mat_desc(bh + 32 * Np, Np * 16, 128);
+        WgmmaTF32<Np>::mma(part, xh[u], dh, u != 0);
+        WgmmaTF32<Np>::mma(part, xh[u], dl, 1);
+        WgmmaTF32<Np>::mma(part, xl[u], dh, 1);
+      }
+      wg_commit();
+      pin_regs(part);
+    };
+    for (int j = 0; j < nsteps; j += 2 * KB) {
+      group(j, xh0, xl0);
+      if (j + KB < nsteps) group(j + KB, xh1, xl1);
+    }
+    q.next(a.nst);
+    drain(-1);  // releases the last stage
+    if (wg_leader) mbar_arrive(slab_empty);  // the producer loads the next slab during the epilogue
+
+    // epilogue: register 4 j + 2 hh + e is row r + 8 hh (column x0 + r + 8
+    // hh of output row y0 + g), channel 8 j + 2 t4 + e
+    const int gy = y0 + g;
+    const bool pair = (a.Cout & 1) == 0;  // float2 stores and residual reads
+    float ps[Np / 8][2];
+#pragma unroll
+    for (int j = 0; j < Np / 8; ++j) ps[j][0] = ps[j][1] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gx = x0 + r + 8 * hh;
+      const bool live = gy < a.H && gx < a.W;
+      const size_t pix = live ? ((size_t)(n * a.H + gy) * a.W + gx) * a.Cout : 0;
+#pragma unroll
+      for (int j = 0; j < Np / 8; ++j) {
+        const int ch = 8 * j + 2 * t4;
+        if (ch >= a.Cout) continue;
+        const bool two = ch + 1 < a.Cout;
+        const float2 bb = *reinterpret_cast<const float2*>(a.bias + ch);
+        float v0 = acc[4 * j + 2 * hh] + bb.x, v1 = acc[4 * j + 2 * hh + 1] + bb.y;
+        if (a.res != nullptr) {
+          if (live) {
+            float2 xv = make_float2(0.f, 0.f);
+            if (pair) {
+              xv = __ldg(reinterpret_cast<const float2*>(a.res + pix + ch));
+            } else {
+              xv.x = __ldg(a.res + pix + ch);
+              if (two) xv.y = __ldg(a.res + pix + ch + 1);
+            }
+            v0 = xv.x + a.res_scale * v0;
+            v1 = xv.y + a.res_scale * v1;
+          }
+        } else {
+          v0 = chain_act(v0, a.act);
+          v1 = chain_act(v1, a.act);
+        }
+        if (!live) continue;
+        if (pair) {
+          *reinterpret_cast<float2*>(a.out + pix + ch) = make_float2(v0, v1);
+        } else {
+          a.out[pix + ch] = v0;
+          if (two) a.out[pix + ch + 1] = v1;
+        }
+        ps[j][0] += v0;
+        ps[j][1] += two ? v1 : 0.f;
       }
     }
-  }
-  float ps[kMaxNT];
+    if (a.partial != nullptr) {
+      // per channel: the warp's 16 rows by a butterfly over the lanes of one
+      // column pair (each add commutes, so every lane holds the same sum),
+      // then the 8 warps in order
+      consumers_sync();  // the previous tile's sums are read
 #pragma unroll
-  for (int j = 0; j < kMaxNT; ++j) ps[j] = 0.f;
+      for (int j = 0; j < Np / 8; ++j)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = ty + 16 * i;
-    const int gy = y0 + p / kFTW, gx = x0 + p % kFTW;
-    if (gy >= H || gx >= W) continue;
-#pragma unroll
-    for (int j = 0; j < kMaxNT; ++j) {
-      const int co = tx + 16 * j;
-      if (co < Cout) {
-        const size_t idx = ((size_t)(n * H + gy) * W + gx) * Cout + co;
-        float v = acc[i][j] + b2[co];
-        if (has_res) v = x[idx] + res_scale * v;
-        out[idx] = v;
-        ps[j] += v;
+        for (int e = 0; e < 2; ++e) {
+          float v = ps[j][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) sums[(g * 4 + wq) * Np + 8 * j + 2 * t4 + e] = v;
+        }
+      consumers_sync();
+      if (threadIdx.x < a.Cout) {
+        float s = 0.f;
+        for (int w8 = 0; w8 < 8; ++w8) s += sums[w8 * Np + threadIdx.x];
+        a.partial[((size_t)n * a.tiles + t) * a.Cout + threadIdx.x] = s;
       }
-    }
-  }
-  if (partial != nullptr) {
-#pragma unroll
-    for (int j = 0; j < kMaxNT; ++j)
-      if (tx + 16 * j < Cout) tps[ty * Cout + tx + 16 * j] = ps[j];
-    __syncthreads();
-    for (int co = threadIdx.x; co < Cout; co += kThreads) {
-      float s = 0.f;
-      for (int t = 0; t < 16; ++t) s += tps[t * Cout + co];
-      partial[((size_t)n * gridDim.x + tile) * Cout + co] = s;
     }
   }
 }
@@ -493,8 +653,8 @@ chain_psum_kernel(const float* __restrict__ partial, float* __restrict__ psum, i
 }
 
 inline int chain_tiles(int H, int W, int dtype, int* tiles_w) {
-  const int R = dtype == 1 ? kTR : kFR, TW = dtype == 1 ? kTW : kFTW;
-  *tiles_w = (W + TW - 1) / TW;
+  const int R = dtype == 1 ? kTR : kFR;
+  *tiles_w = (W + kTW - 1) / kTW;
   return ((H + R - 1) / R) * *tiles_w;
 }
 
@@ -542,6 +702,44 @@ inline int conv_bf16(const bf16* src, ConvArgs a, int Np, int N, cudaStream_t s)
   }
 }
 
+// The f32 conv: the plan (ops/conv_chain.py chain_tf32_plan: kcs k8 steps a
+// ring stage, nst stages) checked against what the kernel reads.
+static bool tf32_smem_set[128 / 16 + 1];
+
+template <int Np>
+int launch_conv_tf32(const float* src, ConvTfArgs a, int N, cudaStream_t s) {
+  const size_t smem = conv_tf32_smem(a.KS, Np, a.kcs, a.nst);
+  if (a.kcs < 2 || a.kcs % 2 != 0 || a.nst < 2 || a.nst > kFMaxStages || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map = {};
+  if (a.use_tma) {
+    const int e = nhwc_box_map(&map, src, N, a.H, a.W, a.Cs, kSW, kFR + 2, 8, true);
+    if (e) return e;
+  }
+  if (!tf32_smem_set[Np / 16]) {  // the largest size, once per instantiation
+    const int e = set_smem(conv3x3_tf32_kernel<Np>, kMaxSmem);
+    if (e) return e;
+    tf32_smem_set[Np / 16] = true;
+  }
+  const int sms = sm_count(), grid = a.total < sms ? a.total : sms;
+  conv3x3_tf32_kernel<Np><<<grid, kConvThreads, smem, s>>>(map, a);
+  return (int)cudaGetLastError();
+}
+
+inline int conv_f32(const float* src, ConvTfArgs a, int Np, int N, cudaStream_t s) {
+  switch (Np) {
+    case 16: return launch_conv_tf32<16>(src, a, N, s);
+    case 32: return launch_conv_tf32<32>(src, a, N, s);
+    case 48: return launch_conv_tf32<48>(src, a, N, s);
+    case 64: return launch_conv_tf32<64>(src, a, N, s);
+    case 80: return launch_conv_tf32<80>(src, a, N, s);
+    case 96: return launch_conv_tf32<96>(src, a, N, s);
+    case 112: return launch_conv_tf32<112>(src, a, N, s);
+    case 128: return launch_conv_tf32<128>(src, a, N, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // ---- layout pin: identity copy ---------------------------------------------
 //
 // Bound: device memory (one read, one write).  A grid-stride copy over 4
@@ -585,16 +783,22 @@ extern "C" int vmg_conv_chain_tiles(int H, int W, int dtype) {
 // Coutp, 8), the taps' B images (pack_conv_taps); Cinp, Cm, Coutp the
 // multiples of 16 above Cin, the intermediate and Cout (<= 128), zeros in
 // the padding; mid: (N, H, W, Cm) bf16 scratch for conv1's output.  f32:
-// w1 (9, Cin, Cm), w2 (9, Cm, Cout), Cinp == Cin, Coutp == Cout, mid null.
-// b1: (Cm,) f32, b2: (Coutp,) f32; out: (N, H, W, Cout).  act: 0 none,
-// 1 relu, 2 lrelu(0.1).  has_res: out = x + res_scale * y (Cout == Cin).
-// partial (N, vmg_conv_chain_tiles(H, W, dtype), Cout) f32 scratch and psum
-// (N, Cout) f32: both null, or both set for the per-frame sums.
+// w1 (9, Cinp / 8, 2, 2, Cmp, 4) and w2 (9, Cm / 8, 2, 2, Coutp, 4), each
+// k8 step's hi and lo B images (pack_conv_taps); Cinp, Cm the multiples of 8
+// above Cin and the intermediate, Cmp and Coutp the multiples of 16 above
+// the intermediate and Cout; mid: (N, H, W, Cmp) f32 scratch; plan: the
+// four ints of chain_tf32_plan_ints (kcs, nst of conv1, then of conv2).
+// b1: (Cm,) f32 (f32: (Cmp,)), b2: (Coutp,) f32; out: (N, H, W, Cout).
+// act: 0 none, 1 relu, 2 lrelu(0.1).  has_res: out = x + res_scale * y (Cout
+// == Cin).  partial (N, vmg_conv_chain_tiles(H, W, dtype), Cout) f32
+// scratch and psum (N, Cout) f32: both null, or both set for the per-frame
+// sums.
 extern "C" int vmg_conv_chain(const void* x, const void* w1, const float* b1,
                               const void* w2, const float* b2, void* out, void* mid,
                               float* partial, float* psum, int N, int H, int W,
                               int Cin, int Cinp, int Cm, int Cout, int Coutp, int act,
-                              int has_res, float res_scale, int dtype, void* stream) {
+                              int has_res, float res_scale, const int* plan, int dtype,
+                              void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || N > 65535 || act < 0 || act > 2 ||
       (has_res && Cout != Cin) || Cout > Coutp || (partial == nullptr) != (psum == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -621,15 +825,26 @@ extern "C" int vmg_conv_chain(const void* x, const void* w1, const float* b1,
     e = vmg::conv_bf16((const bf*)mid, a, Coutp, N, s);
     if (e) return e;
   } else if (dtype == 0) {
-    if (Cinp != Cin || Coutp != Cout || Cin > 128 || Cm > 128 || Cout > 128)
+    const int Cmp = (Cm + 15) / 16 * 16;
+    if (Cinp % 8 || Cm % 8 || Coutp % 16 || Cinp < Cin || Cinp - Cin >= 8 || Cinp > 128 ||
+        Cmp > 128 || Coutp > 128 || Coutp - Cout >= 16 || plan == nullptr || mid == nullptr ||
+        (uintptr_t)x % 16 || (uintptr_t)mid % 16 || (uintptr_t)w1 % 16 || (uintptr_t)w2 % 16 ||
+        (uintptr_t)b1 % 8 || (uintptr_t)b2 % 8 || (long long)N * S > 0x7fffffff)
       return (int)cudaErrorInvalidValue;
-    const size_t smem = vmg::chain_smem_f32(Cin, Cm, Cout);
-    int e = vmg::set_smem(vmg::conv_chain_f32_kernel, smem);
+    vmg::ConvTfArgs a = {};
+    a.H = H, a.W = W, a.tiles_w = tiles_w, a.tiles = S, a.total = N * S;
+    // conv1: x -> mid = act(conv1(x) + b1), all Cmp channels (the padding zero)
+    a.src = (const float*)x, a.w = (const float*)w1, a.bias = b1, a.out = (float*)mid;
+    a.Cs = Cin, a.KS = Cinp / 8, a.Cout = Cmp, a.act = act, a.use_tma = Cin % 4 == 0;
+    a.kcs = plan[0], a.nst = plan[1];
+    int e = vmg::conv_f32((const float*)x, a, Cmp, N, s);
     if (e) return e;
-    vmg::conv_chain_f32_kernel<<<dim3(S, N), vmg::kThreads, smem, s>>>(
-        (const float*)x, (const float*)w1, b1, (const float*)w2, b2, (float*)out,
-        partial, H, W, Cin, Cm, Cout, act, has_res, res_scale, tiles_w);
-    e = (int)cudaGetLastError();
+    // conv2: mid -> out = conv2(mid) + b2 [x + s * .], sums
+    a.src = (const float*)mid, a.w = (const float*)w2, a.bias = b2, a.out = (float*)out;
+    a.res = has_res ? (const float*)x : nullptr, a.res_scale = res_scale, a.partial = partial;
+    a.Cs = Cmp, a.KS = Cm / 8, a.Cout = Cout, a.act = 0, a.use_tma = 1;
+    a.kcs = plan[2], a.nst = plan[3];
+    e = vmg::conv_f32((const float*)mid, a, Coutp, N, s);
     if (e) return e;
   } else {
     return (int)cudaErrorInvalidValue;

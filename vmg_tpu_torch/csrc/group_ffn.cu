@@ -189,16 +189,6 @@ __device__ __forceinline__ void conv_mma(int cw, float (&d)[R], uint64_t da, uin
     Wgmma<16>::mma(*reinterpret_cast<float(*)[8]>(&d[0]), da, db, scale_d);
 }
 
-// A position in a ring of n buffers: the buffer and the parity of its
-// current phase.
-struct RingPos {
-  int i = 0;
-  unsigned ph = 0;
-  __device__ __forceinline__ void next(int n) {
-    if (++i == n) i = 0, ph ^= 1;
-  }
-};
-
 // A tile: frame n, first band row y0 (the slab starts a row above), band
 // columns from x0, its first position b0 in the slab's row 1 (0 where a
 // sub-tile is one band row).

@@ -94,14 +94,20 @@
 //   pixels (0.74 GB a stage-0 call beside 1.27 GB of activations), moved
 //   2 bytes a thread with an integer divide per element, round-tripped the
 //   f32 product through shared memory and overlapped nothing.
-// * f32 (parity runs): one block per (frame, pixel tile), the weighted sums
-//   staged in shared memory, the projection as scalar FMAs in the FFN
-//   kernel's 16 x 16 register micro-tiles, Pk (C_in, C_out) read from L1/L2.
+// * f32 (evaluation), morphfc_combine_tf32_kernel (notes at the kernel):
+//   the bf16 kernel's walk on 32-channel f32 units, y formed a K chunk at a
+//   time and split into hi and lo register-A fragments, every product as
+//   three TF32 products on wgmma against Pk's hi and lo B images (resident
+//   up to C = 128, streamed a k8 step a unit above); work items of (64
+//   pixels, N-tile), two N-tiles above C = 224.  Bound: device memory, 6
+//   f32 tensors (0.2104 ms at the eval tile's 16 x 128 x 128 x 112).
 // ptxas report: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -Xptxas -v -c vmg_tpu_torch/csrc/morphfc.cu.  For the combine's wgmma
 // instantiations C7519 ("warpgroup.arrive is injected") and C7517
 // ("warpgroup.wait is injected") lines are expected; only the streamed one
-// (C > 224) spills, 36-52 bytes at 255 registers.  The bf16 axes kernel
+// (C > 224) spills, 36-52 bytes at 255 registers.  The f32 combine's
+// instantiations use 89-222 registers with no spill and carry one C7520
+// line each (their wgmma serialized; the cause is not found, PERF.md §7).  The bf16 axes kernel
 // (launch bounds 256 x 1) holds the accumulator (C / 2), the fragments (C /
 // 4) and the position sums (C / 2) a thread: no spill up to C = 96 (186-254
 // registers), 72 bytes of spill stores at C = 112 (the path) at 255, more
@@ -290,87 +296,6 @@ morphfc_final_kernel(const float* __restrict__ partial, float* __restrict__ out,
 
 inline int launch_final(const float* partial, float* out, int N, int C, int S, cudaStream_t st) {
   morphfc_final_kernel<<<dim3((C + 31) / 32, N), 256, 0, st>>>(partial, out, C, S);
-  return (int)cudaGetLastError();
-}
-
-// f32 (parity runs): the projection as scalar FMAs in 16 x 16 register
-// micro-tiles, the weighted sums staged in shared memory.
-template <int PR, int ORMAX, int ACT>
-__global__ void __launch_bounds__(kThreads)
-morphfc_combine_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                           const float* __restrict__ w, const float* __restrict__ c,
-                           const float* __restrict__ a, const float* __restrict__ pk,
-                           const float* __restrict__ pb, const float* __restrict__ res,
-                           float* __restrict__ out, int P, int C, float res_scale) {
-  extern __shared__ float ys[];  // (16 * PR) x C weighted branch sums
-  const int TP = 16 * PR;
-  const int OR = C / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n = blockIdx.y, p0 = blockIdx.x * TP;
-  const float* an = a + (size_t)n * 3 * C;
-
-  for (int e = threadIdx.x; e < TP * C; e += kThreads) {
-    const int p = e / C, ch = e % C;
-    float v = 0.f;
-    if (p0 + p < P) {
-      const size_t idx = ((size_t)n * P + p0 + p) * C + ch;
-      v = h[idx] * an[ch] + w[idx] * an[C + ch] + c[idx] * an[2 * C + ch];
-    }
-    ys[e] = v;
-  }
-  __syncthreads();
-
-  float acc[PR][ORMAX];
-#pragma unroll
-  for (int i = 0; i < PR; ++i)
-#pragma unroll
-    for (int j = 0; j < ORMAX; ++j) acc[i][j] = 0.f;
-  for (int ci = 0; ci < C; ++ci) {
-    const float* pr = pk + (size_t)ci * C + tx;
-    float yv[PR];
-#pragma unroll
-    for (int i = 0; i < PR; ++i) yv[i] = ys[(ty + 16 * i) * C + ci];
-#pragma unroll
-    for (int j = 0; j < ORMAX; ++j) {
-      if (j < OR) {
-        const float wv = pr[16 * j];
-#pragma unroll
-        for (int i = 0; i < PR; ++i) acc[i][j] = fmaf(yv[i], wv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < PR; ++i) {
-    const int p = p0 + ty + 16 * i;
-    if (p >= P) continue;
-    const size_t base = ((size_t)n * P + p) * C + tx;
-#pragma unroll
-    for (int j = 0; j < ORMAX; ++j) {
-      if (j >= OR) continue;
-      const float pv = acc[i][j] + pb[tx + 16 * j];
-      float o = (x[base + 16 * j] + pv) * symm_gate<float, ACT>(pv);
-      if (res != nullptr) o = res[base + 16 * j] + res_scale * o;
-      out[base + 16 * j] = o;
-    }
-  }
-}
-
-template <int PR, int ORMAX, int ACT>
-int launch_combine_f32(const float* x, const float* h, const float* w,
-                       const float* c, const float* a, const float* pk,
-                       const float* pb, const float* res, float* out, int N,
-                       int P, int C, float res_scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 16 * PR * C;
-  auto kern = morphfc_combine_f32_kernel<PR, ORMAX, ACT>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((P + 16 * PR - 1) / (16 * PR), N);
-  kern<<<grid, kThreads, smem, stream>>>(x, h, w, c, a, pk, pb, res, out, P, C,
-                                         res_scale);
   return (int)cudaGetLastError();
 }
 
@@ -736,17 +661,345 @@ int combine_bf16(const CombineMaps& m, const CombineArgs& a, cudaStream_t s) {
   }
 }
 
-// the f32 kernel for C's register micro-tile
-template <int ACT>
-int launch_combine_f32_any(const float* x, const float* h, const float* w, const float* c,
-                           const float* a, const float* pk, const float* pb, const float* res,
-                           float* out, int N, int P, int C, float res_scale, cudaStream_t st) {
-  const int OR = C / 16;
-  if (OR <= 7)
-    return launch_combine_f32<4, 7, ACT>(x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, st);
-  if (OR <= 14)
-    return launch_combine_f32<2, 14, ACT>(x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, st);
-  return launch_combine_f32<1, 28, ACT>(x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, st);
+// ---- f32 (evaluation): the bf16 kernel's walk in 3xTF32 -------------------
+//
+// The same persistent warpgroups, each walking its own work items through
+// its own ring of TMA units, y formed in registers at the register-A
+// fragment positions, the epilogue on the accumulator and a TMA store; every
+// product as three TF32 products (a_hi b_hi + a_hi b_lo + a_lo b_hi,
+// wgmma.cuh tf32_split).  What changes with f32:
+// - Units are boxes of 32 channels x 64 pixels (8 KB, 128-byte rows in the
+//   128-byte swizzle); y is formed a K chunk of 32 channels (four k8 steps)
+//   at a time -- h, w, c units, y = h a0 + w a1 + c a2 in f32 as the plain
+//   version computes it -- split into hi and lo fragments (two register
+//   sets, alternating by chunk) and multiplied at once, so no y is held
+//   across the K loop and the accumulator can be 224 wide.  A fragment
+//   register pair of k8 step s is channels 8 s + 2 (lane % 4) and + 1, the
+//   Pk image's B rows in the order 0, 2, 4, 6, 1, 3, 5, 7.
+// - Pk is TF32 hi and lo B images (pack_combine_weight, 8 C^2 bytes): resident
+//   in shared memory up to C = 128 (128 KB), streamed above as one unit per
+//   k8 step (64 NT bytes: 14 KB at NT = 224) between the chunk's h, w, c units.
+// - A work item is (64-pixel tile, N-tile): NT = C up to 224, else two
+//   N-tiles of C / 2 rounded up to 32 (C = 448: 224), each recomputing y --
+//   elementwise, cheap -- so the eval tile's stage 3 (64 tiles) gives 128
+//   items for 132 SMs.  Walkers are numbered across blocks first, so few
+//   items spread over all SMs.
+// - What bounds a warpgroup is its serial work a unit, not the bytes in
+//   flight (a ring twice as deep ran no faster), so a unit's path is kept
+//   short: the leader issues the next copy from an incremental cursor (no
+//   divisions), the branch weights of the item's frame and pb come from
+//   shared memory (staged once an item / a block, not loaded from L2
+//   before each unit), and every product is done before the next unit is
+//   taken -- a slot is refilled one unit behind, as in the bf16 kernel.
+// - Two consumer warpgroups a block, or one with a ring twice as deep where
+//   there are no more work items than SMs (the eval tile's stage 3).
+// The gates are the accurate tanhf / expf, chosen at run time.  The scalar kernel this
+// replaced (one block per pixel tile, FMA in register micro-tiles, Pk read
+// from global memory for every input channel) ran at 0.03-0.3 of its bound
+// and lost to its plain version at every C >= 224 (PERF.md).
+constexpr int kCFBox = 32;                       // f32 channels per TMA box (128 bytes)
+constexpr unsigned kCFBoxBytes = kCM * kCFBox * 4;  // 8 KB
+constexpr int kCFRingMax = 24;                  // unit slots per warpgroup
+constexpr int kCFWgMax = 2;                      // consumer warpgroups
+
+struct CombineF32Args {
+  const float *a, *pk, *pb;
+  float res_scale;
+  int P, C, NT, nN, nK, nX, steps;  // steps: C / 8 k8 steps
+  int stream;                       // 1: Pk streamed, one unit per k8 step
+  int ring, nwg, act, has_res;      // slots per warpgroup, consumer warpgroups
+  int tiles_pf, items;              // tiles per frame, work items
+  unsigned slot_bytes, pk_bytes;
+};
+
+// Output channels per N-tile of the f32 kernel (morphfc_fused.combine_tile_n):
+// all C up to 224, else half of C rounded up to 32 (whole x units).
+__host__ __device__ inline int combine_f32_tile_n(int C) {
+  return C <= 224 ? C : (C + 63) / 64 * 32;
+}
+__host__ __device__ inline unsigned combine_f32_slot_bytes(int C) {
+  const unsigned pkt = C <= 128 ? 0u : 64u * combine_f32_tile_n(C);
+  return pkt > kCFBoxBytes ? pkt : kCFBoxBytes;
+}
+constexpr unsigned kCFBarBytes = 8 * (1 + kCFWgMax * kCFRingMax);  // 392
+// the rings (1024-byte aligned), the resident Pk image, the barriers, pb
+// and each warpgroup's branch weights (morphfc_fused.combine_smem at float32)
+__host__ __device__ inline size_t combine_f32_smem(int C, int nwg, int ring) {
+  return (size_t)nwg * ring * combine_f32_slot_bytes(C) + (C <= 128 ? (size_t)8 * C * C : 0) +
+         kCFBarBytes + (size_t)4 * C * (1 + 3 * nwg);
+}
+
+// The float2 of a 32-channel unit slot at pixel row `row` (row % 8 == r8),
+// k8 step s of the box, columns 2 t4 and + 1: 16-byte chunk 2 s + t4 / 2
+// swizzled with the row.
+__device__ __forceinline__ float2* slot_f2(unsigned char* slot, int row, int r8, int s, int t4) {
+  return reinterpret_cast<float2*>(slot + row * 128 + (((2 * s + (t4 >> 1)) ^ r8) << 4) +
+                                   ((t4 & 1) << 3));
+}
+__device__ __forceinline__ float combine_gate_f32(float p, int act) {
+  if (act == 1) return 1.f / (1.f + expf(-p)) - 0.5f;
+  if (act == 2) return fmaxf(p, 0.f);
+  return tanhf(p);
+}
+
+// NT: output channels per N-tile (the accumulator: NT / 2 registers a thread).
+template <int NT>
+__global__ void __launch_bounds__(128 * kCFWgMax, 1)
+morphfc_combine_tf32_kernel(const __grid_constant__ CombineMaps maps, const CombineF32Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw;
+  if ((su32(base) & 1023) != 0) __trap();
+  const int g = threadIdx.x >> 7, tid = threadIdx.x & 127, wq = tid >> 5, lane = tid & 31;
+  const bool leader = tid == 0;  // issues the warpgroup's copies and stores
+  const int C = a.C;
+  unsigned char* ring = base + (size_t)g * a.ring * a.slot_bytes;
+  unsigned char* pks = base + (size_t)a.nwg * a.ring * a.slot_bytes;  // resident Pk image
+  uint64_t* pk_bar = reinterpret_cast<uint64_t*>(pks + a.pk_bytes);
+  uint64_t* full = pk_bar + 1 + g * kCFRingMax;  // this warpgroup's slots
+  // pb, then each warpgroup's branch weights of its item's frame (3 C)
+  float* pb_sm = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(pk_bar) +
+                                          kCFBarBytes);
+  float* a_sm = pb_sm + C + 3 * C * g;
+  // walker gw: warpgroup g of block b is walker g gridDim.x + b
+  const int G = gridDim.x * a.nwg, gw = g * gridDim.x + blockIdx.x;
+  const int nitems = gw < a.items ? (a.items - gw + G - 1) / G : 0;
+  const int XV = 1 + a.has_res;  // units per x chunk
+
+  if (threadIdx.x == 0) {
+    mbar_init(pk_bar, 1);
+    for (int i = 0; i < a.nwg * kCFRingMax; ++i) mbar_init(pk_bar + 1 + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < C; i += blockDim.x) pb_sm[i] = a.pb[i];
+  __syncthreads();
+  if (threadIdx.x == 0 && !a.stream) {
+    mbar_expect(pk_bar, a.pk_bytes);
+    bulk_load(pks, a.pk, a.pk_bytes, pk_bar);
+  }
+
+  // item t of this walker: its frame, first pixel row and N-tile
+  auto item_at = [&](int t, int& n, int& r0, int& nt) {
+    const int item = gw + t * G, tile = item / a.nN;
+    nt = item - tile * a.nN, n = tile / a.tiles_pf, r0 = (tile - n * a.tiles_pf) * kCM;
+  };
+  // the leader's issue cursor: the next unit's item ct (frame cn, rows cr0,
+  // N-tile cnt), K chunk ckc (nK: the x part), unit cr of its chunk, x chunk
+  // ccx, ring slot cs -- advanced a unit at a time, no divisions
+  int ct = 0, cn = 0, cr0 = 0, cnt = 0, ckc = 0, cr = 0, ccx = 0, cs = 0;
+  if (nitems > 0) item_at(0, cn, cr0, cnt);
+  // unit order of an item: per K chunk kc h, w, c (kinds 0-2) [then its Pk
+  // steps]; then per x chunk x [, res] (3, 4)
+  auto issue_next = [&]() {
+    if (ct >= nitems) return;
+    unsigned char* slot = ring + (size_t)cs * a.slot_bytes;
+    uint64_t* bar = full + cs;
+    if (++cs == a.ring) cs = 0;
+    int kind, ch0;
+    if (ckc < a.nK) {
+      const int ns = a.stream ? min(4, a.steps - 4 * ckc) : 0;
+      kind = cr, ch0 = ckc * kCFBox;
+      if (++cr == 3 + ns) cr = 0, ++ckc;
+      if (kind >= 3) {  // the N-tile's Pk rows of k8 step 4 kc + kind - 3, hi and lo
+        const unsigned bytes = 64u * NT;
+        mbar_expect(bar, bytes);
+        bulk_load(slot, a.pk + ((size_t)cnt * a.steps + 4 * (ch0 / kCFBox) + kind - 3) * 16 * NT,
+                  bytes, bar);
+        return;
+      }
+    } else {
+      kind = 3 + cr, ch0 = cnt * NT + ccx * kCFBox;
+      const int n = cn, r0 = cr0;
+      if (++cr == XV) {
+        cr = 0;
+        if (++ccx == a.nX) {
+          ccx = 0, ckc = 0;
+          if (++ct < nitems) item_at(ct, cn, cr0, cnt);
+        }
+      }
+      mbar_expect(bar, kCFBoxBytes);
+      tma_load_3d(slot, kind == 3 ? &maps.x : &maps.res, ch0, r0, n, bar);
+      return;
+    }
+    const CUtensorMap* map = kind == 0 ? &maps.h : kind == 1 ? &maps.w : &maps.c;
+    mbar_expect(bar, kCFBoxBytes);
+    tma_load_3d(slot, map, ch0, cr0, cn, bar);
+  };
+  if (leader)
+    for (int i = 0; i < a.ring - 1; ++i) issue_next();
+
+  const int t4 = lane & 3, r_lo = 16 * wq + (lane >> 2), r8 = lane >> 2;
+  RingPos q;  // the next unit to consume: its slot and phase
+  // the next unit: its slot, once its copies are in; the slot consumed
+  // before it is refilled (no products read a slot past its unit)
+  auto step = [&]() {
+    wg_bar(g);
+    if (leader) {
+      bulk_wait_read<0>();  // the last store has read its slot
+      issue_next();
+    }
+    mbar_wait(full + q.i, q.ph);
+    unsigned char* slot = ring + (size_t)q.i * a.slot_bytes;
+    q.next(a.ring);
+    return slot;
+  };
+  auto store = [&](const unsigned char* slot, int n, int r0, int ch0) {
+    fence_async_shared();
+    wg_bar(g);
+    if (leader) {
+      tma_store_3d(&maps.out, slot, ch0, r0, n);
+      bulk_commit();
+    }
+  };
+  if (!a.stream) mbar_wait(pk_bar, 0);
+  const unsigned pk_sm = su32(pks);
+  // y's hi and lo fragments of a chunk, two sets (alternating by chunk)
+  uint32_t fh0[4][4], fl0[4][4], fh1[4][4], fl1[4][4];
+  for (int t = 0; t < nitems; ++t) {
+    int n, r0, nt;
+    item_at(t, n, r0, nt);
+    const int ch0 = nt * NT;
+    // the frame's branch weights into shared memory (the previous item's
+    // readers passed a barrier since: its x units' steps)
+    for (int i = tid; i < 3 * C; i += 128) a_sm[i] = __ldg(a.a + (size_t)n * 3 * C + i);
+    wg_bar(g);
+    float acc[NT / 2];
+    // K chunk kc: y from its h, w, c units, split into (fh, fl), products;
+    // every product is done before the next unit is taken (no wgmma in
+    // flight across the leader's branch: ptxas serializes all of them then)
+    auto chunk = [&](int kc, uint32_t(&fh)[4][4], uint32_t(&fl)[4][4]) {
+      const int ns = min(4, a.steps - 4 * kc);
+      // register q of step s: row r_lo + 8 (q & 1), channel 32 kc + 8 s + 2 t4
+      // + (q >> 1)
+      float y[4][4] = {};
+#pragma unroll
+      for (int kind = 0; kind < 3; ++kind) {
+        unsigned char* slot = step();
+        const float* ak = a_sm + kind * C + 32 * kc + 2 * t4;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          if (s >= ns) continue;
+          const float2 aw = *reinterpret_cast<const float2*>(ak + 8 * s);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float2 v = *slot_f2(slot, r_lo + 8 * hh, r8, s, t4);
+            const float t0 = __fmul_rn(v.x, aw.x), t1 = __fmul_rn(v.y, aw.y);
+            y[s][hh] = kind == 0 ? t0 : __fadd_rn(y[s][hh], t0);
+            y[s][2 + hh] = kind == 0 ? t1 : __fadd_rn(y[s][2 + hh], t1);
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tf32_split(y[s][q], fh[s][q], fl[s][q]);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (s >= ns) break;
+        const unsigned bh = a.stream ? su32(step()) : pk_sm + (4 * kc + s) * 64 * NT;
+        const uint64_t dh = mat_desc(bh, NT * 16, 128), dl = mat_desc(bh + 32 * NT, NT * 16, 128);
+        wg_fence();
+        pin_regs(acc);
+        WgmmaTF32<NT>::mma(acc, fh[s], dh, (kc | s) != 0);
+        WgmmaTF32<NT>::mma(acc, fh[s], dl, 1);
+        WgmmaTF32<NT>::mma(acc, fl[s], dh, 1);
+        wg_commit();
+        pin_regs(acc);
+        if (a.stream) {
+          wg_wait<0>();
+          pin_regs(acc);
+        }
+      }
+      if (!a.stream) {
+        wg_wait<0>();
+        pin_regs(acc);
+      }
+    };
+    for (int kc = 0; kc < a.nK; kc += 2) {
+      chunk(kc, fh0, fl0);
+      if (kc + 1 < a.nK) chunk(kc + 1, fh1, fl1);
+    }
+    // the epilogue, one x chunk of 32 channels at a time: register 4 j + 2
+    // hh + e is row r_lo + 8 hh, channel ch0 + 8 j + 2 t4 + e.  With a
+    // residual, r = (x + p) g(p) goes back into the accumulator until res is in.
+    for (int cx = 0; cx < a.nX; ++cx) {
+      unsigned char* xs = step();
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        if (j < 4 * cx || j >= 4 * cx + 4) continue;
+        const int ch = ch0 + 8 * j + 2 * t4;
+        const float2 bj =
+            ch < C ? *reinterpret_cast<const float2*>(pb_sm + ch) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float2* px = slot_f2(xs, r_lo + 8 * hh, r8, j - 4 * cx, t4);
+          const float p0 = acc[4 * j + 2 * hh] + bj.x, p1 = acc[4 * j + 2 * hh + 1] + bj.y;
+          const float2 xv = *px;
+          const float o0 = (xv.x + p0) * combine_gate_f32(p0, a.act);
+          const float o1 = (xv.y + p1) * combine_gate_f32(p1, a.act);
+          if (a.has_res)
+            acc[4 * j + 2 * hh] = o0, acc[4 * j + 2 * hh + 1] = o1;
+          else
+            *px = make_float2(o0, o1);
+        }
+      }
+      if (!a.has_res) {
+        store(xs, n, r0, ch0 + 32 * cx);
+        continue;
+      }
+      unsigned char* rs = step();  // out = res + s r
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        if (j < 4 * cx || j >= 4 * cx + 4) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float2* px = slot_f2(rs, r_lo + 8 * hh, r8, j - 4 * cx, t4);
+          const float2 rv = *px;
+          *px = make_float2(rv.x + a.res_scale * acc[4 * j + 2 * hh],
+                            rv.y + a.res_scale * acc[4 * j + 2 * hh + 1]);
+        }
+      }
+      store(rs, n, r0, ch0 + 32 * cx);
+    }
+  }
+  if (leader) bulk_wait<0>();  // the stores are done before the block's shared memory goes
+}
+
+template <int NT>
+int launch_combine_tf32(const CombineMaps& maps, const CombineF32Args& a, cudaStream_t s) {
+  if (a.nwg < 1 || a.nwg > kCFWgMax || a.ring < 4 || a.ring > kCFRingMax)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = combine_f32_smem(a.C, a.nwg, a.ring);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = morphfc_combine_tf32_kernel<NT>;
+  static bool smem_set = false;  // the largest size, once per instantiation
+  if (!smem_set) {
+    const int e = set_smem(kern, kMaxSmem);
+    if (e) return e;
+    smem_set = true;
+  }
+  const int sms = sm_count();
+  kern<<<a.items < sms ? a.items : sms, 128 * a.nwg, smem, s>>>(maps, a);
+  return (int)cudaGetLastError();
+}
+
+inline int combine_f32(const CombineMaps& m, const CombineF32Args& a, cudaStream_t s) {
+  switch (a.NT) {
+    case 16: return launch_combine_tf32<16>(m, a, s);
+    case 32: return launch_combine_tf32<32>(m, a, s);
+    case 48: return launch_combine_tf32<48>(m, a, s);
+    case 64: return launch_combine_tf32<64>(m, a, s);
+    case 80: return launch_combine_tf32<80>(m, a, s);
+    case 96: return launch_combine_tf32<96>(m, a, s);
+    case 112: return launch_combine_tf32<112>(m, a, s);
+    case 128: return launch_combine_tf32<128>(m, a, s);
+    case 144: return launch_combine_tf32<144>(m, a, s);
+    case 160: return launch_combine_tf32<160>(m, a, s);
+    case 176: return launch_combine_tf32<176>(m, a, s);
+    case 192: return launch_combine_tf32<192>(m, a, s);
+    case 208: return launch_combine_tf32<208>(m, a, s);
+    case 224: return launch_combine_tf32<224>(m, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---- axes: both decayed axis branches + reweight partial sums --------------
@@ -2132,10 +2385,11 @@ extern "C" int vmg_morphfc_reduce(const void* h, const void* w, const void* c,
 }
 
 // x, h, w, c, res, out: (N, P, C); a: (N, 3, C); pb: (C,) f32; res may be
-// null; act: the gate (0 tanh, 1 sigmoid - 0.5, 2 relu).  pk: f32 (C_in,
-// C_out); bf16 the image of pack_combine_weight, (C / NT, C / 8, NT, 8) with
-// NT = combine_tile_n(C).  nwg, ring: the bf16 kernel's consumer warpgroups
-// and ring slots (morphfc_fused.combine_plan); the f32 kernel ignores them.
+// null; act: the gate (0 tanh, 1 sigmoid - 0.5, 2 relu).  pk: the image of
+// pack_combine_weight: bf16 (C / NT, C / 8, NT, 8), f32 (C / NT, C / 8, 2, 2,
+// NT, 4) (each k8 step's hi and lo B images), NT =
+// morphfc_fused.combine_tile_n(C, dtype).  nwg, ring: the kernel's consumer
+// warpgroups and ring slots (morphfc_fused.combine_plan; f32: nwg 2).
 extern "C" int vmg_morphfc_combine(const void* x, const void* h, const void* w,
                                    const void* c, const void* a, const void* pk,
                                    const float* pb, const void* res, void* out,
@@ -2175,10 +2429,30 @@ extern "C" int vmg_morphfc_combine(const void* x, const void* h, const void* w,
                                                              : vmg::combine_bf16<2>;
     return launch(maps, ca, st);
   }
-  if (dtype != 0 || N > 65535) return (int)cudaErrorInvalidValue;
-  auto launch = act == 0 ? vmg::launch_combine_f32_any<0>
-                         : act == 1 ? vmg::launch_combine_f32_any<1> : vmg::launch_combine_f32_any<2>;
-  return launch((const float*)x, (const float*)h, (const float*)w, (const float*)c,
-                (const float*)a, (const float*)pk, pb, (const float*)res, (float*)out, N, P, C,
-                res_scale, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  for (const void* p : {x, h, w, c, res, pk, (const void*)out})
+    if ((uintptr_t)p % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if ((uintptr_t)a % 8 != 0 || (uintptr_t)pb % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  vmg::CombineF32Args fa = {};
+  fa.a = (const float*)a, fa.pk = (const float*)pk, fa.pb = pb;
+  fa.res_scale = res_scale, fa.P = P, fa.C = C, fa.act = act, fa.has_res = res != nullptr;
+  fa.NT = vmg::combine_f32_tile_n(C), fa.nN = (C + fa.NT - 1) / fa.NT;
+  fa.nK = (C + vmg::kCFBox - 1) / vmg::kCFBox, fa.nX = (fa.NT + vmg::kCFBox - 1) / vmg::kCFBox;
+  fa.steps = C / 8, fa.stream = C > 128, fa.ring = ring;
+  fa.tiles_pf = (P + vmg::kCM - 1) / vmg::kCM;
+  fa.nwg = nwg;
+  if ((long long)N * fa.tiles_pf * fa.nN > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  fa.items = N * fa.tiles_pf * fa.nN;
+  fa.slot_bytes = vmg::combine_f32_slot_bytes(C);
+  fa.pk_bytes = fa.stream ? 0 : (unsigned)(8 * C * C);
+  vmg::CombineMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const void* ts[6] = {x, h, w, c, res, out};
+  CUtensorMap* ms[6] = {&maps.x, &maps.h, &maps.w, &maps.c, &maps.res, &maps.out};
+  for (int i = 0; i < 6; ++i) {
+    if (ts[i] == nullptr) continue;
+    const int e = vmg::bf16_box_map3(ms[i], ts[i], C, P, N, vmg::kCFBox, vmg::kCM, true, true);
+    if (e) return e;
+  }
+  return vmg::combine_f32(maps, fa, st);
 }

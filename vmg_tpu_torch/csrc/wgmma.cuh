@@ -183,6 +183,16 @@ __device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) 
 
 // ---- mbarriers, bulk and TMA copies, descriptors ------------------------
 
+// A position in a ring of n buffers: the buffer and the parity of its
+// current phase.
+struct RingPos {
+  int i = 0;
+  unsigned ph = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++i == n) i = 0, ph ^= 1;
+  }
+};
+
 __device__ __forceinline__ unsigned su32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
@@ -414,18 +424,21 @@ inline int nhwc_split_map(CUtensorMap* map, const void* t, int N, int H, int W, 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A 3-D tensor map over a (d2, d1, d0) bf16 tensor, d0 innermost: boxes of
-// box0 x box1 x 1, zeros out of bounds; swizzle128: the 128-byte swizzle
-// (box0 = 64: 128-byte box rows, 16-byte chunk i of row r at chunk i ^ (r %
-// 8); the box's shared memory 1024-byte aligned), else none.
+// A 3-D tensor map over a (d2, d1, d0) bf16 (or, f32 true, float32) tensor,
+// d0 innermost: boxes of box0 x box1 x 1, zeros out of bounds; swizzle128:
+// the 128-byte swizzle (128-byte box rows -- box0 = 64 bf16 or 32 f32 --,
+// 16-byte chunk i of row r at chunk i ^ (r % 8); the box's shared memory
+// 1024-byte aligned), else none.
 inline int bf16_box_map3(CUtensorMap* map, const void* t, int d0, int d1, int d2, int box0,
-                         int box1, bool swizzle128) {
+                         int box1, bool swizzle128, bool f32 = false) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t e = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d1 * d0 * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * e, (cuuint64_t)d1 * d0 * e};
   const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1}, elem[3] = {1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(t), dims, strides,
+  CUresult r = enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   3, const_cast<void*>(t), dims, strides,
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                    swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -255,7 +255,7 @@ class MorphFCDecay(PackedOperands):
         fh, fw = self.mlp_h[0], self.mlp_w[0]
         kh, kw = self._decayed()
         pk = self.proj.weight.t().contiguous()
-        if pk.is_cuda and pk.dtype == torch.bfloat16:  # the bf16 kernel's B image
+        if pk.is_cuda and pk.dtype in (torch.bfloat16, torch.float32):  # the kernel's B image
             pk = pack_combine_weight(pk)
         return dict(kh=kh.contiguous(), kw=kw.contiguous(),
                     bh=fh.bias.float().contiguous(), bw=fw.bias.float().contiguous(),

@@ -8,7 +8,7 @@ CPU tensors.  Tensors are ``(N, H, W, C)``; ``a`` holds the per-frame
 softmax branch weights ``(N, 3, C)``.  Weights come as the kernels take
 them, packed once by the module (``MorphFCDecay.operands``): matrices
 ``(C_in, C_out)`` in the tensors' dtype (the axis weights with the decay
-folded in; the combine's projection, for the bf16 kernel, as its wgmma B
+folded in; the combine's projection, on the card, as its kernel's wgmma B
 image, :func:`pack_combine_weight`), biases float32.
 """
 
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from vmg_tpu_torch import _build
+from vmg_tpu_torch.ops.group_conv import _tf32_image, _tf32_unimage
 
 
 def axis_tokens(x, chunk: int, axis: int):
@@ -441,19 +442,27 @@ def morphfc_combine_plain(x, h, w, c, a, pk, pb, *, act="tanh",
     return out
 
 
-# The bf16 combine kernel (csrc/morphfc.cu ``morphfc_combine_wgmma_kernel``):
-# 64-pixel tiles; each tensor's tile lands in a ring slot as TMA boxes of 64
-# channels x 64 pixels (8 KB); a ring of such slots per consumer warpgroup.
+# The combine kernels (csrc/morphfc.cu): 64-pixel tiles; each tensor's tile
+# lands in a ring slot as TMA boxes of 128-byte rows x 64 pixels (8 KB: 64
+# bf16 channels, ``morphfc_combine_wgmma_kernel``; 32 f32 channels,
+# ``morphfc_combine_tf32_kernel``); a ring of such slots per consumer
+# warpgroup.
 COMBINE_BOX = 64
 COMBINE_BOX_BYTES = 64 * 64 * 2
 COMBINE_RING_MAX = 8
+COMBINE_F32_RING_MAX = 24
+COMBINE_F32_BAR_BYTES = 8 * (1 + 2 * COMBINE_F32_RING_MAX)
+COMBINE_F32_RESIDENT = 128  # the f32 Pk image stays in shared memory up to this C
 
 
-def combine_tile_n(C: int) -> int:
-    """Output channels per N-tile of the bf16 kernel: all C up to 224 (the
-    Pk image stays in shared memory), else 64 -- Pk streams in column tiles
-    of that width."""
-    return C if C <= 224 else COMBINE_BOX
+def combine_tile_n(C: int, dtype=torch.bfloat16) -> int:
+    """Output channels per N-tile: all C up to 224; above, bf16 64 (Pk
+    streams in column tiles of that width), f32 half of C rounded up to 32
+    (the f32 kernel's work item is (pixel tile, N-tile): C = 448 is two
+    N-tiles of 224)."""
+    if C <= 224:
+        return C
+    return COMBINE_BOX if dtype == torch.bfloat16 else -(-C // 64) * 32
 
 
 def combine_k_width(C: int) -> int:
@@ -469,51 +478,91 @@ def combine_x_width(C: int) -> int:
     return nt if nt <= 160 else 2 * COMBINE_BOX
 
 
-def combine_image_shape(C: int):
-    """Shape of the bf16 kernel's Pk operand: ``(ceil(C / NT), C / 8, NT, 8)``
-    (columns past C, in the last N-tile above C = 224, are zeros)."""
-    nt = combine_tile_n(C)
-    return (-(-C // nt), C // 8, nt, 8)
+def combine_image_shape(C: int, dtype=torch.bfloat16):
+    """Shape of the kernel's Pk operand: bf16 ``(ceil(C / NT), C / 8, NT,
+    8)``, f32 ``(ceil(C / NT), C / 8, 2, 2, NT, 4)`` (columns past C, in the
+    last N-tile, are zeros)."""
+    nt = combine_tile_n(C, dtype)
+    if dtype == torch.bfloat16:
+        return (-(-C // nt), C // 8, nt, 8)
+    return (-(-C // nt), C // 8, 2, 2, nt, 4)
 
 
 def pack_combine_weight(pk):
-    """(C_in, C_out) projection -> the bf16 kernel's wgmma B image, per
-    N-tile t of NT output channels ``img[t, kg, n, ki] = pk[8 kg + ki, t NT
-    + n]`` (zero past C): K-major 8 x 16-byte core matrices, each N-tile
-    contiguous.  ``MorphFCDecay`` packs it once per parameter state."""
+    """(C_in, C_out) projection -> the kernel's wgmma B image in pk's dtype,
+    each N-tile t of NT output channels contiguous (zero past C).  bf16:
+    ``img[t, kg, n, ki] = pk[8 kg + ki, t NT + n]``, K-major 8 x 16-byte core
+    matrices.  float32: per k8 step s its TF32 hi then its lo image,
+    ``img[t, s, hilo, kb, n, e]`` holding row 8 s + 2 e + kb of column t NT +
+    n (``group_conv._tf32_image``; hi + lo is the entry exactly).
+    ``MorphFCDecay`` packs it once per parameter state, on the card."""
     C = pk.shape[0]
     if tuple(pk.shape) != (C, C) or C % 16:
         raise ValueError(f"pk must be (C, C) with C % 16 == 0, got {tuple(pk.shape)}")
-    t, _, nt, _ = combine_image_shape(C)
+    shape = combine_image_shape(C, pk.dtype)
+    t, nt = shape[0], shape[-2]
     pk = F.pad(pk, (0, t * nt - C))
+    if pk.dtype != torch.bfloat16:
+        return torch.stack([_tf32_image(pk[:, i * nt:(i + 1) * nt])
+                            for i in range(t)]).reshape(shape)
     return pk.reshape(C // 8, 8, t, nt).permute(2, 0, 3, 1).contiguous()
 
 
 def unpack_combine_weight(img):
     """The (C_in, C_out) projection of a :func:`pack_combine_weight` image."""
-    t, kg, nt, _ = img.shape
+    t, kg = img.shape[:2]
     C = kg * 8
+    if img.dim() == 6:  # f32: hi + lo
+        nt = img.shape[4]
+        return torch.cat([_tf32_unimage(m.reshape(-1), kg, nt) for m in img], 1)[:, :C]
+    nt = img.shape[2]
     return img.permute(1, 3, 0, 2).reshape(C, t * nt)[:, :C]
 
 
-def _combine_slot_bytes(C: int) -> int:
+def _combine_slot_bytes(C: int, dtype=torch.bfloat16) -> int:
+    if dtype != torch.bfloat16:  # a box of 32 f32 channels, or a streamed Pk step's hi and lo
+        streamed = C > COMBINE_F32_RESIDENT
+        return max(64 * 32 * 4, 64 * combine_tile_n(C, dtype) if streamed else 0)
     act = -(-combine_k_width(C) // COMBINE_BOX) * COMBINE_BOX_BYTES
     return max(act, C * COMBINE_BOX * 2 if C > 224 else 0)
 
 
-def combine_smem(C: int, nwg: int, ring: int) -> int:
-    """Shared memory of the bf16 kernel (``combine_smem`` in the source):
-    nwg rings of ``ring`` slots, the resident Pk image (C <= 224) and the
-    barriers."""
-    return nwg * ring * _combine_slot_bytes(C) + (C * C * 2 if C <= 224 else 0) + 256
+def combine_smem(C: int, nwg: int, ring: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of the kernel (``combine_smem`` / ``combine_f32_smem``
+    in the source): nwg rings of ``ring`` slots, the resident Pk image (bf16
+    C <= 224: 2 C^2 bytes; f32 C <= 128: 8 C^2) and the barriers; f32
+    also pb and each warpgroup's branch weights of its item's frame."""
+    if dtype != torch.bfloat16:
+        resident = 8 * C * C if C <= COMBINE_F32_RESIDENT else 0
+        return (nwg * ring * _combine_slot_bytes(C, dtype) + resident + COMBINE_F32_BAR_BYTES
+                + 4 * C * (1 + 3 * nwg))
+    resident = C * C * 2 if C <= 224 else 0
+    return nwg * ring * _combine_slot_bytes(C, dtype) + resident + 256
 
 
-def combine_plan(C: int):
-    """(consumer warpgroups, ring slots) of the bf16 kernel at C: the most
+def combine_items(N: int, P: int, C: int) -> int:
+    """Work items of the f32 kernel: (64-pixel tile, N-tile) pairs."""
+    return N * -(-P // 64) * -(-C // combine_tile_n(C, torch.float32))
+
+
+def combine_plan(C: int, dtype=torch.bfloat16, items=None, sms: int = 132):
+    """(consumer warpgroups, ring slots) of the kernel at C.  bf16: the most
     warpgroups (3 where their registers allow, C <= 128; else 2) whose rings
     hold 3 slots each in shared memory, else the most with 2; at most
-    ``COMBINE_RING_MAX`` slots."""
-    fixed, slot = combine_smem(C, 0, 0), _combine_slot_bytes(C)
+    ``COMBINE_RING_MAX`` slots.  float32: two warpgroups, or one where the
+    call has no more work ``items`` than the card has SMs (each block then
+    walks one item, and the second warpgroup would have none), as many
+    slots as fit (at least 4; each refilled one unit behind), at most
+    ``COMBINE_F32_RING_MAX``."""
+    slot = _combine_slot_bytes(C, dtype)
+    if dtype != torch.bfloat16:
+        nwg = 1 if items is not None and items <= sms else 2
+        ring = min(COMBINE_F32_RING_MAX,
+                   (MAX_SMEM - combine_smem(C, nwg, 0, dtype)) // (nwg * slot))
+        if ring >= 4:
+            return nwg, ring
+        raise ValueError(f"the f32 combine kernel has no plan at C={C}")
+    fixed = combine_smem(C, 0, 0)
     options = (3, 2, 1) if C <= 128 else (2, 1)
     for least in (3, 2):
         for nwg in options:
@@ -525,8 +574,8 @@ def combine_plan(C: int):
 
 def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
                           residual=None, res_scale=1.0):
-    """pb (C,) f32; pk in x's dtype: (C_in, C_out), or in bf16 on CUDA the
-    image :func:`pack_combine_weight` makes of it; ``act``: the gate,
+    """pb (C,) f32; pk in x's dtype: (C_in, C_out) on CPU, the image
+    :func:`pack_combine_weight` makes of it on CUDA; ``act``: the gate,
     ``"tanh"``, ``"sigmoid"`` (sigmoid(p) - 0.5) or ``"relu"``."""
     if x.device.type == "cpu":
         return morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act,
@@ -538,7 +587,9 @@ def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
     _build.require(x, "x")
     if C % 16 or C > 448:
         raise ValueError(f"the combine kernel takes C % 16 == 0, C <= 448; got C={C}")
-    pk_shape = combine_image_shape(C) if dt == torch.bfloat16 else (C, C)
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the combine kernel takes bf16 or float32, got {dt}")
+    pk_shape = combine_image_shape(C, dt)
     checks = [("h", h, x.shape, dt), ("w", w, x.shape, dt),
               ("c", c, x.shape, dt), ("a", a, (N, 3, C), dt),
               ("pk", pk, pk_shape, dt), ("pb", pb, (C,), torch.float32)]
@@ -546,7 +597,9 @@ def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
         checks.append(("residual", residual, x.shape, dt))
     for name, t, shape, dtype in checks:
         _build.require(t, name, shape=shape, dtype=dtype, device=dev)
-    nwg, ring = combine_plan(C) if dt == torch.bfloat16 else (1, 2)
+    nwg, ring = (combine_plan(C) if dt == torch.bfloat16 else
+                 combine_plan(C, dt, combine_items(N, H * W, C),
+                              _build.sm_count(dev.index or 0)))
     out = torch.empty_like(x)
     code = _build.load_library().vmg_morphfc_combine(
         x.data_ptr(), h.data_ptr(), w.data_ptr(), c.data_ptr(), a.data_ptr(),

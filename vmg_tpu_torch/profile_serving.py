@@ -13,7 +13,8 @@ freeze) on 1x32x128x128 clips, the eval preset's 128x128 tile.
 ``--preset vid4_tile``: the evaluation path instead -- the Vid4 preset's
 model as ``python -m vmg_tpu_torch.eval`` loads it (FULL_PRESET, float32,
 erf GELU, seed-0 weights, cuDNN's default TF32 convolutions) on one
-1x16x128x128 tile, the evaluator's; no ``SRServer`` runs.  ``--tree DIR``
+1x16x128x128 tile, the evaluator's; no ``SRServer`` runs; ``--forms
+kernel`` builds that model in the kernel forms.  ``--tree DIR``
 imports ``vmg_tpu_torch`` from another checkout (e.g. an earlier commit
 unpacked with ``git archive``), so two trees profile in one call: run this
 file by path then (``python vmg_tpu_torch/profile_serving.py --tree DIR``;
@@ -63,7 +64,7 @@ CATEGORIES = [
     ("MorphFC combine kernel", r"vmg::morphfc_combine"),
     ("LTAM backward kernels", r"vmg::ltam_bwd"),
     ("LTAM kernel", r"vmg::ltam"),
-    ("conv chain kernel", r"vmg::conv3x3_wgmma|vmg::conv_chain|vmg::chain_psum"),
+    ("conv chain kernel", r"vmg::conv3x3_(wgmma|tf32)|vmg::conv_chain|vmg::chain_psum"),
     ("fused norm kernel", r"vmg::norm_kernel"),
     ("layout pin kernel", r"vmg::copy(_vec|1)_kernel"),
     ("LayerNorm", r"layer_norm"),
@@ -184,11 +185,13 @@ def main(argv=None) -> int:
     clip = np.random.default_rng(0).random((1, T, H, W, 3), dtype=np.float32)
     x = torch.from_numpy(clip).cuda()
     server = None
+    forms = KERNEL_FORMS if args.forms == "kernel" else {}
     if args.preset == "vid4_tile":
-        from vmg_tpu_torch.eval import load_model
-
+        # as vmg_tpu_torch.eval.load_model builds it with no checkpoint,
+        # in the forms asked for
         cfg = EVAL_PRESETS["vid4"]
-        model = load_model(cfg, None, "cuda")
+        model = create_model(cfg.network, is_train=False, device="cuda", gelu="erf",
+                             generator=torch.Generator().manual_seed(0), **forms)
         if cfg.dataset.use_mirrors:
             raise RuntimeError("the Vid4 preset runs no mirrored frames")
 
@@ -199,7 +202,6 @@ def main(argv=None) -> int:
         preset = base if args.preset == "full" else dataclasses.replace(base, **FEW_EVAL)
         sd = create_model(base, device="cpu",
                           generator=torch.Generator().manual_seed(0)).state_dict()
-        forms = KERNEL_FORMS if args.forms == "kernel" else {}
         server = SRServer(preset, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
                           **forms)
 

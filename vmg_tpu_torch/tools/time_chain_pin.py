@@ -65,8 +65,14 @@ beside the module form with TF32 off (``f32_ffn_module_*``) and with
 cuDNN's default TF32 on (``f32_ffn_module_tf32_*``, as the evaluation
 command runs its convolutions), and the axes kernel's big form at
 16x128x128x112 and 16x184x320x112 (chunk 8) beside the 'hybrid' form
-(``f32_hybrid_*``); each kernel held to 5e-5 of max|plain| (the sums 1e-6
-of the sum of their terms' magnitudes).
+(``f32_hybrid_*``); the combine (tanh, folded residual) at the eval tile's
+four shapes and 16x184x320x112 beside its plain version
+(``f32_combine_plain_*``), on the Pk operand its tree's kernel takes; the
+conv chain on one resblock (1x184x320x112 and 1x128x128x112, residual
+0.1) and on the 16-frame RCAB branch with its sums (16x184x320x112)
+beside the module form with TF32 off (``f32_chain_module_*``) and with
+cuDNN's default TF32 (``f32_chain_module_tf32_*``); each kernel held to
+5e-5 of max|plain| (the sums 1e-6 of the sum of their terms' magnitudes).
 """
 
 from __future__ import annotations
@@ -105,6 +111,14 @@ AXES_SHAPE = (16, 184, 320, 112, 8)
 # and FULL_PRESET's
 F32_FFN_SHAPES = FFN_SHAPES[6:] + FFN_SHAPES[:4] + [((16, 128, 128, 144), 1, 2)]
 F32_AXES_SHAPES = [(16, 128, 128, 112, 8), AXES_SHAPE]
+# the combine at the eval tile's four stage shapes and FULL_PRESET's stage 0;
+# the chain (N, H, W, C, kwargs): one trajectory resblock at FULL_PRESET's
+# frame and at the eval tile's (residual 0.1), the 16-frame RCAB branch
+# with its sums
+F32_COMBINE_SHAPES = [s for s, _, _ in FFN_SHAPES[6:]] + [COMBINE_SHAPES[0]]
+F32_CHAIN_CASES = [("n1", (1, 184, 320, 112), dict(res_scale=0.1)),
+                   ("n1_128x128", (1, 128, 128, 112), dict(res_scale=0.1)),
+                   ("n16", (16, 184, 320, 112), dict(emit_psum=True))]
 # (N, H, W, C, chunk) of the token form: FULL_PRESET's stages 1/5 and 3
 TOKEN_SHAPES = [(16, 92, 160, 224, 16), (16, 23, 40, 448, 8)]
 # (N, H, W, C) of the reduce and its launches per clip: FULL_PRESET's
@@ -552,7 +566,7 @@ def _side_f32(root: Path, reps: int, only=None) -> dict:
     import torch.nn.functional as F
 
     from vmg_tpu_torch.models.blocks import _axis_mix
-    from vmg_tpu_torch.ops import group_conv, morphfc_fused
+    from vmg_tpu_torch.ops import conv_chain, group_conv, morphfc_fused
 
     time_both, wanted = _timers(reps, only)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -624,6 +638,65 @@ def _side_f32(root: Path, reps: int, only=None) -> dict:
 
             out["f32_" + token_key((N, h, w, C, ck), "hybrid")] = time_both(hybrid)
             del x, xc, aargs, got, ref
+        # the combine (tanh, folded residual) on the Pk operand its tree's f32
+        # kernel takes: the packed image where combine_image_shape takes the
+        # dtype, else the plain matrix
+        try:
+            morphfc_fused.combine_image_shape(16, torch.float32)
+            pack = morphfc_fused.pack_combine_weight
+        except TypeError:
+            def pack(pk):
+                return pk
+        for shape in F32_COMBINE_SHAPES:
+            key = "f32_" + combine_key(shape)
+            if not wanted(key, "f32_combine_plain"):
+                continue
+            N, hc, wc, C = shape
+            x, xh, xw, xc, res = (rn(*shape) for _ in range(5))
+            a = torch.softmax(rn(N, 3, C), dim=1)
+            pk, pb = rn(C, C, scale=0.02), rn(C, scale=0.1)
+            cargs, pargs = (x, xh, xw, xc, a, pack(pk), pb), (x, xh, xw, xc, a, pk, pb)
+
+            def combine():
+                return morphfc_fused.fused_morphfc_combine(*cargs, residual=res)
+
+            def plain():
+                return morphfc_fused.morphfc_combine_plain(*pargs, residual=res)
+
+            err = held(key, combine(), plain())
+            out[key] = {**time_both(combine), "max_rel_err": err}
+            out["f32_combine_plain_" + "x".join(map(str, shape))] = time_both(plain)
+            del x, xh, xw, xc, res, cargs, pargs
+        # the chain on its tree's packed taps, beside the module form's two
+        # cuDNN convolutions with TF32 off and with cuDNN's default TF32
+        for label, (N, hc, wc, C), kw in F32_CHAIN_CASES:
+            key = f"f32_chain_{label}"
+            if not wanted(key, f"f32_chain_module_{label}"):
+                continue
+            x = rn(N, hc, wc, C)
+            wts = [rn(C, C, 3, 3, scale=(9 * C) ** -0.5) for _ in range(2)]
+            bc = [rn(C, scale=0.1) for _ in range(2)]
+            ops = (*conv_chain.pack_conv_taps(wts[0], bc[0]),
+                   *conv_chain.pack_conv_taps(wts[1], bc[1]))
+            wcl = [t.contiguous(memory_format=torch.channels_last) for t in wts]
+            xcl = x.permute(0, 3, 1, 2)
+
+            def chain():
+                return conv_chain.fused_conv_chain(x, *ops, **kw)
+
+            def module():
+                y = F.conv2d(F.relu(F.conv2d(xcl, wcl[0], bc[0], padding=1)), wcl[1], bc[1],
+                             padding=1).permute(0, 2, 3, 1)
+                return x + 0.1 * y if "res_scale" in kw else y
+
+            got, want = chain(), conv_chain.conv_chain_plain(x, *ops, **kw)
+            err = held(key, got[0] if N > 1 else got, want[0] if N > 1 else want)
+            out[key] = {**time_both(chain), "max_rel_err": err}
+            out[f"f32_chain_module_{label}"] = time_both(module)
+            torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, the CLI's
+            out[f"f32_chain_module_tf32_{label}"] = time_both(module)
+            torch.backends.cudnn.allow_tf32 = False
+            del x, xcl, ops, wts, wcl, got, want
     return out
 
 
@@ -676,6 +749,10 @@ def main(argv=None) -> int:
              for kind in ("f32_ffn", "f32_ffn_module", "f32_ffn_module_tf32")]
     keys += ["f32_" + token_key(shape, kind) for shape in F32_AXES_SHAPES
              for kind in ("axes", "hybrid")]
+    keys += [f"f32_{kind}_" + "x".join(map(str, shape)) for shape in F32_COMBINE_SHAPES
+             for kind in ("combine", "combine_plain")]
+    keys += [f"f32_chain_{kind}{label}" for label, _, _ in F32_CHAIN_CASES
+             for kind in ("", "module_", "module_tf32_")]
     for key in (k for k in keys if all(k in r for _, r in runs)):
         for timer in ("ms", "ms_unfenced"):
             med = {s: statistics.median(r[key][timer] for lab, r in runs if lab == s)
