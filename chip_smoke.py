@@ -363,6 +363,255 @@ def ltam_dpe_terms(q, kv, pe, g, K, heads):
     return terms
 
 
+def ffn_f64_sums(x, w1, b1, w2, b2, groups, act):
+    """The FFN's per-(frame, channel) output sums (N, C) in float64 from the
+    unpacked weights, and the sum of their terms' magnitudes: H W |b2| +
+    sum over hidden features f of (sum over pixels of |gelu(conv)_f|) |w2_f|."""
+    import torch.nn.functional as F
+
+    from vmg_tpu_torch.ops.group_conv import gelu
+
+    N, H, W, C = x.shape
+    y = F.conv2d(x.double().permute(0, 3, 1, 2), w1.double(), b1.double(), padding=1,
+                 groups=groups)
+    y = gelu(y, act).flatten(2)  # (N, F, H W)
+    w2d = w2.double()
+    sums = y.sum(-1) @ w2d.t() + H * W * b2.double()
+    terms = y.abs().sum(-1) @ w2d.abs().t() + H * W * b2.double().abs()
+    return sums, terms
+
+
+def ffn_sum_errors(got, sums, terms):
+    """The kernel output's (N, H, W, C) per-(frame, channel) sums against the
+    float64 ``sums``: (max |error| / terms, mean signed error / terms, mean
+    error toward zero / terms -- positive where the kernel's sums are
+    smaller in magnitude than the exact ones)."""
+    err = got.double().sum(dim=(1, 2)) - sums
+    rel = err / terms
+    return (rel.abs().max().item(), rel.mean().item(),
+            (-torch.sign(sums) * err / terms).mean().item())
+
+
+# the FFN's output-sum check (phase 2): the f32 kernel at the eval tile's
+# four shapes and at stage 0 of a served clip, the bf16 kernel (a record, not
+# held) at FULL_PRESET's four serving shapes; groups 4, hidden 6C
+FFN_SUM_SHAPES = {torch.float32: EVAL_TILE_SHAPES + [(16, 184, 320, 112)],
+                  torch.bfloat16: [s for s, _, _ in FFN_SHAPES[:4]]}
+
+
+def ffn_sums_check(report):
+    """Phase 2's FFN sums: each kernel output's per-(frame, channel) sums
+    against a float64 version, erf and tanh; f32 held to SUM_TOL of the sum
+    of |terms|.  Returns {dtype shape act: (max, mean signed, toward zero)}."""
+    from vmg_tpu_torch.ops import group_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev, G, out = torch.device("cuda"), 4, {}
+    for dtype, shapes in FFN_SUM_SHAPES.items():
+        for shape in shapes:
+            N, h, w, C = shape
+            Fh = 6 * C
+
+            def rn(*s, scale=1.0):
+                return (torch.randn(*s, generator=gen, device=dev) * scale).to(dtype)
+
+            x = rn(N, h, w, C)
+            w1 = rn(Fh, C // G, 3, 3, scale=(9 * C / G) ** -0.5)
+            b1, b2, w2 = rn(Fh, scale=0.1), rn(C, scale=0.1), rn(C, Fh, scale=0.02)
+            packed = group_conv.pack_ffn_weights(w1, b1, w2, G)
+            for act in ("erf", "tanh"):
+                got = group_conv.fused_group_ffn(x, *packed, b2, groups=G, act=act)
+                sums, terms = ffn_f64_sums(x, w1, b1, w2, b2, G, act)
+                worst, signed, toward = ffn_sum_errors(got, sums, terms)
+                held = dtype == torch.float32
+                ok = worst <= SUM_TOL or not held
+                report(f"  fused_group_ffn sums {str(dtype):15s} {str(shape):22s} {act:4s}: "
+                       f"max {worst:.3e}, mean signed {signed:+.3e}, toward zero "
+                       f"{toward:+.3e} of sum|terms| "
+                       f"({f'tol {SUM_TOL:g}' if held else 'record only'}) "
+                       f"{'ok' if ok else 'FAIL'}")
+                out[f"{dtype} {shape} {act}"] = (worst, signed, toward)
+                if not ok:
+                    raise AssertionError(f"the f32 FFN's output sums drift at {shape} {act}")
+                del got, sums, terms
+            del x, w1, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def spynet_ms(model, T_, H_, W_, reps=5) -> float:
+    """Device ms of the model's flow pyramid (``_compute_flows``, SPyNet and
+    its pooling) on a seeded 1 x T x H x W clip already padded to the
+    model's multiple: median of ``reps`` after a warm-up (CUDA events)."""
+    s = model.cfg.scale_factor
+    Hp, Wp = -(-H_ // s) * s, -(-W_ // s) * s
+    xp = torch.rand((1, T_, Hp, Wp, 3), generator=torch.Generator().manual_seed(4)).cuda()
+    times = []
+    with torch.inference_mode():
+        model._compute_flows(xp, False)
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model._compute_flows(xp, False)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# phase 9: the eager kernel counter of each vmg:: operator node an exported
+# program holds (the axes node counts both forms' launches)
+EXPORT_NODES = {"group_ffn": ("fused_group_ffn",),
+                "morphfc_axes": ("fused_morphfc_axes", "fused_morphfc_axes_token"),
+                "morphfc_reduce": ("fused_morphfc_reduce",),
+                "morphfc_combine": ("fused_morphfc_combine",),
+                "ltam_fwd": ("ltam_attention_2x2",), "conv_chain": ("fused_conv_chain",),
+                "fused_norm": ("fused_norm",), "layout_pin": ("layout_pin",)}
+
+
+def export_phase(report, sd, smi, kind):
+    """Phase 9: FULL_PRESET bf16 served at 1x16x180x320, exported
+    (``ckpt.export.export_program``) in the default and kernel forms, saved,
+    loaded and run: its output against the eager forward's, its vmg:: nodes
+    against the eager launch counts, its own launches, the export's wall
+    time and the loaded program's frames/s beside the eager model's (host
+    clock, device-resident clip, 3 calls after a warm-up)."""
+    import shutil
+
+    from vmg_tpu_torch.ckpt.export import export_program, load_program, operator_counts
+    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.models.vmg import KERNEL_FORMS
+    from vmg_tpu_torch.serve import SRServer
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                        "chip_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    clip = torch.from_numpy(np.random.default_rng(9).random((1, T, H, W, 3),
+                                                            dtype=np.float32)).cuda()
+
+    def fps_of(fn):
+        fn(clip)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        for _ in range(3):
+            fn(clip)
+        torch.cuda.synchronize()
+        return 3 * T / (time.time() - t1)
+
+    out = {}
+    try:
+        for label, forms in (("default", {}), ("kernel", KERNEL_FORMS)):
+            server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh",
+                              fast_flow=True, **forms)
+            zero_counts()
+            with torch.no_grad():
+                eager = server.model(clip)
+            torch.cuda.synchronize()
+            eager_counts = read_counts()
+            path = os.path.join(root, f"vmg_{label}.pt2")
+            t1 = time.time()
+            program = export_program(server, tuple(clip.shape), path)
+            t_export = time.time() - t1
+            nodes = operator_counts(program)
+            t1 = time.time()
+            fn = load_program(path)
+            t_load = time.time() - t1
+            zero_counts()
+            with torch.no_grad():
+                got = fn(clip)
+            torch.cuda.synchronize()
+            loaded_counts = read_counts()
+            diff = (got.float() - eager.float()).abs().max().item()
+            bit_equal = bool(torch.equal(got, eager))
+            with torch.no_grad():
+                fps_loaded, fps_eager = fps_of(fn), fps_of(server.model)
+            want_nodes = {op: sum(eager_counts[k] for k in names)
+                          for op, names in EXPORT_NODES.items()
+                          if sum(eager_counts[k] for k in names)}
+            report(f"    {label} forms: export {t_export:.1f} s, load {t_load:.1f} s, "
+                   f"{os.path.getsize(path) / 2**20:.1f} MiB; output vs eager: bit-equal "
+                   f"{bit_equal}, max_abs_diff={diff:.3e}; vmg:: nodes {dict(nodes)} (eager "
+                   f"launches {want_nodes}); the loaded program's launches {loaded_counts}; "
+                   f"{fps_loaded:.3f} frames/s loaded, {fps_eager:.3f} eager (device-resident "
+                   f"clip, host clock); {kind}; card {smi}")
+            if got.shape != eager.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"the exported {label} program gave {tuple(got.shape)}")
+            if dict(nodes) != want_nodes:
+                raise AssertionError(f"the {label} program's vmg:: nodes {dict(nodes)} differ "
+                                     f"from the eager launches {want_nodes}")
+            if loaded_counts != eager_counts:
+                raise AssertionError(f"the loaded {label} program launched {loaded_counts}, "
+                                     f"eager {eager_counts}")
+            # the same kernels and library calls on the same weights: bit-equal
+            # unless a library picks other algorithms for the loaded weights'
+            # layout; held at the bf16 tolerance, the difference reported
+            if diff > REL_TOL[torch.bfloat16] * eager.float().abs().max().item():
+                raise AssertionError(f"the exported {label} program differs from eager by "
+                                     f"{diff}")
+            out[label] = {"export_s": t_export, "load_s": t_load, "bit_equal": bit_equal,
+                          "max_abs_diff": diff, "nodes": dict(nodes),
+                          "frames_per_s_loaded": fps_loaded, "frames_per_s_eager": fps_eager,
+                          "bytes": os.path.getsize(path)}
+            del server, program, fn, eager, got
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# phase 8b: losses of the one-process NCCL run against phase 8's, relative:
+# the same seeds, data and arithmetic (an all_reduce over one process is
+# exact); the tolerance only covers cuDNN's run-to-run backward orders
+MULTIHOST_LOSS_TOL = 1e-3
+
+
+def multihost_phase(report, cfg, root, want, smi, kind):
+    """Phase 8b: ``python -m vmg_tpu_torch.tools.train --multihost``'s
+    function on phase 8's config and tree, in a one-process NCCL group
+    (``tools.train.join_process_group``, from the usual environment), for
+    as many steps as phase 8's first run; its losses against those."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vmg_tpu_torch.tools.train import join_process_group, train
+
+    cfg = copy.deepcopy(cfg)
+    cfg.path.experiments_root = os.path.join(root, "experiments_multihost")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        join_process_group(cfg, "cuda")
+        backend = dist.get_backend()
+        rec = train(cfg, max_steps=len(want), max_retries=0, device="cuda")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    losses = rec["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    report(f"    {backend} group of {rec['processes']} process(es), mesh {cfg.mesh_shape}: losses "
+           f"{[round(v, 6) for v in losses]}; phase 8's {[round(v, 6) for v in want]}: "
+           f"bit-equal {losses == want}, max relative difference {rel:.3e} (tol "
+           f"{MULTIHOST_LOSS_TOL:g}); step ms {[round(v, 1) for v in rec['step_ms']]}; {kind}; "
+           f"card {smi}")
+    if backend != "nccl" or rec["processes"] != 1 or len(losses) != len(want) or not (
+            rel <= MULTIHOST_LOSS_TOL):
+        raise AssertionError(f"--multihost training differs from phase 8: {losses} vs {want}")
+    return {"backend": backend, "losses": losses, "bit_equal": losses == want,
+            "max_rel_diff": rel, "step_ms": rec["step_ms"]}
+
+
 def check_kernels(report):
     """Phase 2.  Returns one dict per kernel for the JSON line."""
     import torch.nn.functional as F
@@ -742,7 +991,7 @@ def check_kernels(report):
             kv = rn(N, h, w, K * 2 * C, dtype=dtype)
             pe = torch.exp(rn(K, 4, 4, heads, scale=0.02))
             g = rn(N, h, w, C)
-            out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+            out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
             dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
             # per pixel, slot and tap: logit, g.v and dq, C-long each; dval
             # and dkey, C-long each
@@ -790,7 +1039,7 @@ def check_kernels(report):
                         lambda: ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
                         dtype_check(torch.float32), primary=False,
                         work=((q, kv, pe), N * h * w * K * 4 * 4 * C, "f32"))
-                out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+                out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
                 dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
                 compare("ltam_attention_2x2_bwd", (N, h, w, C, K), dtype,
                         lambda: ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g,
@@ -818,7 +1067,7 @@ def check_kernels(report):
                         work=((q, kv, pe), N * h * w * K * 4 * 4 * C, "f32"))
                 else:
                     g = rn(N, h, w, C)
-                    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+                    out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
                     dpe_terms = ltam_dpe_terms(q, kv, pe, g, K, heads)
                     ms, _, _ = compare(
                         "ltam_attention_2x2_bwd", (N, h, w, C, K, f"d={d}"), dtype,
@@ -1445,6 +1694,9 @@ def train_loop_phase(report, smi, kind, phase6):
                                  f"{rec2['end_step']}")
         if rec["epochs"] < 2:
             raise AssertionError("the first run did not cross an epoch")
+        report(f"[8b] python -m vmg_tpu_torch.tools.train --multihost's function: phase 8's "
+               f"first {TRAIN_STEPS} steps in a one-process NCCL group")
+        out["multihost"] = multihost_phase(report, cfg, root, rec["losses"], smi, kind)
         return out, launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1480,6 +1732,9 @@ def main() -> int:
            f"{REL_TOL[torch.float32]}, bf16 {REL_TOL[torch.bfloat16]} of max|plain|; "
            f"f32 sums {SUM_TOL:g} of the sum of |terms|)")
     entries = check_kernels(report)
+    report(f"[2] the FFN's per-(frame, channel) output sums vs float64 (f32 held to {SUM_TOL:g} "
+           "of sum|terms|; bf16 a record)")
+    entries["fused_group_ffn"]["output_sums"] = ffn_sums_check(report)
     report("[2p] probes: both probe tools' kernels vs plain versions on the card (copies "
            "bit-exact, products within 1 bf16 ulp of max|plain|)")
     check_probes(report, entries)
@@ -1600,6 +1855,50 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
     if any(serving_launches[k] for k in OPT_IN) or off_path_launched(serving_launches):
         raise AssertionError("the default serving forms launched an opt-in or off-path kernel")
+    spynet_per_level = spynet_ms(server.model, T, H, W)
+    del server
+    torch.cuda.empty_cache()
+
+    report("[4d] serving with flow_levels='shared' (SPyNet at level 0 only, its flow pooled "
+           f"down): phase 3's f32 1x2x64x64 parity (tol {SLICE_TOL}), then SRServer FULL_PRESET "
+           f"bf16 at 1x{T}x{H}x{W} beside phase 4")
+    shared_cfg = dataclasses.replace(FULL_PRESET, flow_levels="shared")
+    cpu_model = create_model(shared_cfg, device="cpu")
+    cpu_model.load_state_dict(sd)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    with torch.inference_mode():
+        want_sh = cpu_model(x)
+        got_sh = gpu_model(x.cuda()).cpu()
+    err_sh = (got_sh - want_sh).abs().max().item()
+    report(f"    f32 1x2x64x64 kernels on the card vs the plain path on CPU tensors: "
+           f"max_abs_err={err_sh:.3e} (tol {SLICE_TOL}); per_level's phase 3 {err:.3e}")
+    if not (torch.isfinite(got_sh).all() and err_sh <= SLICE_TOL):
+        raise AssertionError("flow_levels='shared' slice parity failed")
+    del cpu_model, gpu_model
+    server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
+                      flow_levels="shared")
+    out = server(warm)
+    zero_counts()
+    per_request_sh = []
+    t1 = time.time()
+    for c in clips:
+        t2 = time.time()
+        out = server(c)
+        per_request_sh.append(T / (time.time() - t2))
+    dt_sh = time.time() - t1
+    shared_launches = read_counts()
+    fps_sh = T * len(clips) / dt_sh
+    spynet_shared = spynet_ms(server.model, T, H, W)
+    report(f"    {fps_sh:.3f} frames/s ({dt_sh / len(clips):.3f} s per clip, host clock, numpy "
+           f"in/out; per_level {fps:.3f}); per request {[round(v, 3) for v in per_request_sh]}; "
+           f"flow pyramid device ms: shared {spynet_shared:.3f}, per_level {spynet_per_level:.3f} "
+           f"(CUDA events, median of 5); launches {shared_launches}; {kind}; card {smi}")
+    if out.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"bad flow_levels='shared' serving output {out.shape}")
+    missing = [k for k, v in shared_launches.items()
+               if v <= 0 and k != "ltam_attention_2x2_bwd" and k not in OPT_IN + OFF_PATH]
+    if missing:
+        raise AssertionError(f"kernels never launched serving flow_levels='shared': {missing}")
     del server
     torch.cuda.empty_cache()
 
@@ -1775,6 +2074,11 @@ def main() -> int:
            f"max_retries 0), then --resume for {TRAIN_STEPS} more")
     loop, loop_launches = train_loop_phase(report, smi, kind, rec)
 
+    report(f"[9] export: FULL_PRESET bf16 served at 1x{T}x{H}x{W}, torch.export of the serving "
+           "forward (ckpt.export.export_program) in the default and kernel forms, saved, loaded "
+           "and run against the eager forward")
+    exported = export_phase(report, sd, smi, kind)
+
     # each kernel's launches on the path that runs it: the LTAM backward in
     # training (phase 6), the conv chain and the norm in kernel-form serving
     # (phase 4b, 3 clips), the pin in the barrier form (phase 4b, 1 clip),
@@ -1816,6 +2120,10 @@ def main() -> int:
                           "frames_per_s": fps_k, "per_request_frames_per_s": per_request_k,
                           "peak_bytes": peak_k, "bf16_err_64": float(err_kernel),
                           "bf16_err_64_default": float(err_default)},
+                      "serving_flow_levels_shared": {
+                          "frames_per_s": fps_sh, "per_request_frames_per_s": per_request_sh,
+                          "slice_max_abs_err": err_sh, "spynet_ms_shared": spynet_shared,
+                          "spynet_ms_per_level": spynet_per_level},
                       "serving_few_levels": {
                           "frames_per_s": fps_few, "per_request_frames_per_s": per_request_few,
                           "peak_bytes": peak_few, "slice_max_abs_err": err_few}}))
@@ -1824,6 +2132,7 @@ def main() -> int:
     print(json.dumps({"probes": {k: entries[k]["probes"] for k in OFF_PATH[1:]}}))
     print(json.dumps({"eval": {k: v for k, v in ev.items() if k != "launches"}}))
     print(json.dumps({"train_loop": loop}))
+    print(json.dumps({"export": exported}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

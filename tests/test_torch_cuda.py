@@ -676,7 +676,7 @@ def test_ltam_kernel(cuda, dtype, K, C, heads, h, w):
     got = ltam_attention.ltam_attention_2x2(q, kv, pe, K=K, heads=heads)
     _close(got, ltam_attention.ltam_attention_plain(q, kv, pe, K=K, heads=heads),
            torch.float32)
-    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+    out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
     torch.cuda.synchronize()
     assert torch.equal(out, got)
     # den: the unclamped softmax denominator per (pixel, head)
@@ -720,7 +720,7 @@ def test_ltam_bwd_kernel(cuda, dtype, K, C, heads):
 
     ref = ltam_attention.ltam_attention_2x2
     f0, b0 = ref.launches, ref.bwd_launches
-    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+    out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
     check(ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g, K=K, heads=heads))
     leaves = [t.clone().requires_grad_() for t in (q, kv, pe)]
     y = ltam_attention.ltam_attention_2x2(*leaves, K=K, heads=heads)
@@ -744,7 +744,7 @@ def test_ltam_bwd_kernel_training_shape(cuda, dtype, K, C, heads):
     pe = torch.exp(_randn(rng, (K, 4, 4, heads), cuda, torch.float32, 0.5))
     g = _randn(rng, (n, h, w, C), cuda, torch.float32)
     want = ltam_attention.ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
-    out, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+    out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
     got = ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g, K=K, heads=heads)
     again = ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, out, g, K=K, heads=heads)
     _close(got[0], want[0], torch.float32)
@@ -942,3 +942,52 @@ def test_layout_pin_kernel(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert torch.equal(y, x) and y.is_contiguous() and y.data_ptr() != x.data_ptr()
     assert conv_chain.layout_pin.launches == before + 1
+
+
+def _opcheck_cases(dev):
+    """Small CUDA cases of every ``vmg::`` operator (float32; the combine's
+    projection as its kernel's B image)."""
+    rng = np.random.default_rng(21)
+
+    def t(*shape, scale=1.0):
+        return _randn(rng, shape, dev, torch.float32, scale)
+
+    x = t(1, 4, 8, 16)
+    w, b1p = group_conv.pack_ffn_weights(t(32, 4, 3, 3, scale=0.2), t(32), t(16, 32, scale=0.1),
+                                         4)
+    c, kh, kw = t(1, 4, 8, 16, scale=0.1), t(16, 16, scale=0.2), t(16, 16, scale=0.2)
+    h, wb = t(1, 4, 8, 16), t(1, 4, 8, 16)
+    a = torch.softmax(t(1, 3, 16), dim=1)
+    pk = morphfc_fused.pack_combine_weight(t(16, 16, scale=0.1))
+    taps = (*conv_chain.pack_conv_taps(t(16, 16, 3, 3, scale=0.1), t(16)),
+            *conv_chain.pack_conv_taps(t(16, 16, 3, 3, scale=0.1), t(16)))
+    K, heads = 2, 2
+    q, kv = t(1, 4, 6, 16, scale=0.3), t(1, 4, 6, K * 32)
+    pe, g = torch.rand(K, 4, 4, heads, device=dev) + 0.5, t(1, 4, 6, 16)
+    out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
+    return {
+        "group_ffn": [(x, w, b1p, t(16), 4, act) for act in ("erf", "tanh")],
+        "morphfc_axes": [(x, c, kh, t(16), kw, t(16), 4, 4, form) for form in ("big", "token")],
+        "morphfc_reduce": [(h, wb, c)],
+        "morphfc_combine": [(x, h, wb, c, a, pk, t(16), "tanh", res, 0.5)
+                            for res in (None, t(1, 4, 8, 16))],
+        "fused_norm": [(t(2, 3, 16).requires_grad_(), t(16).requires_grad_(), bias, 1e-5, rms)
+                       for bias, rms in ((t(16).requires_grad_(), False), (None, True))],
+        "conv_chain": [(x, *taps, "relu", res, psum) for res, psum in ((None, False), (0.1, True))],
+        "layout_pin": [(x,)],
+        "ltam_fwd": [(q, kv, pe, K, heads, False),
+                     (q.clone().requires_grad_(), kv.clone().requires_grad_(), pe, K, heads,
+                      True)],
+        "ltam_bwd": [(q, kv, pe, den, out, g, K, heads)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["group_ffn", "morphfc_axes", "morphfc_reduce",
+                                  "morphfc_combine", "fused_norm", "conv_chain", "layout_pin",
+                                  "ltam_fwd", "ltam_bwd"])
+def test_operators_opcheck(cuda, name):
+    """``torch.library.opcheck`` of each ``vmg::`` operator on CUDA tensors:
+    its schema, fake implementation, autograd registration and the
+    operator through AOT autograd, the kernels launching."""
+    for args in _opcheck_cases(cuda)[name]:
+        torch.library.opcheck(getattr(torch.ops.vmg, name).default, args)

@@ -127,17 +127,21 @@ def test_axes_form_matches_jax_selection(C, chunk):
 
 def test_axes_form_argument():
     """An unknown form raises; the forms' launch counters are separate and
-    a non-CUDA tensor reaches neither kernel; the big form's shared-memory
-    size (the kernel's own arithmetic) fits at the stage-0 shape and not at
-    the stage-1 and stage-3 shapes, where the token form is the only one."""
+    a non-CUDA tensor reaches neither kernel (a meta tensor takes the
+    operator's fake implementation; the CUDA implementation refuses it);
+    the big form's shared-memory size (the kernel's own arithmetic) fits at
+    the stage-0 shape and not at the stage-1 and stage-3 shapes, where the
+    token form is the only one."""
     m = torch.empty((1, 16, 16, 16), device="meta")
     k, b = torch.empty(16, 16, device="meta"), torch.empty(16, device="meta")
     ax = morphfc_fused.fused_morphfc_axes
     with pytest.raises(ValueError, match="form"):
         ax(m, m, k, b, k, b, chunk_h=4, chunk_w=4, form="wide")
     before = (ax.launches, ax.token_launches)
+    h, w, psum = ax(m, m, k, b, k, b, chunk_h=4, chunk_w=4, form="token")
+    assert h.is_meta and h.shape == m.shape and psum.shape == (1, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        ax(m, m, k, b, k, b, chunk_h=4, chunk_w=4, form="token")
+        morphfc_fused._axes_cuda(m, m, k, b, k, b, 4, 4, "token")
     assert (ax.launches, ax.token_launches) == before
     fits = morphfc_fused.big_form_smem
     assert fits(64, 112, torch.bfloat16) <= morphfc_fused.MAX_SMEM
@@ -208,35 +212,37 @@ def test_ltam_plain_matches_pallas(rng, C, heads):
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
-    """Only a CPU tensor selects the plain version; any other device goes to
-    the kernel path, which validates and raises instead of falling back."""
+    """Only a CPU tensor selects the plain version: a meta tensor takes each
+    operator's fake implementation (output shapes and dtypes, no plain
+    version, no launch), and each CUDA implementation, handed anything but
+    CUDA tensors, validates and raises instead of falling back."""
     m = torch.empty((1, 4, 4, 16), device="meta")
     wrappers = (group_conv.fused_group_ffn, morphfc_fused.fused_morphfc_axes,
                 morphfc_fused.fused_morphfc_reduce, morphfc_fused.fused_morphfc_combine,
                 ltam_attention.ltam_attention_2x2)
     before = [f.launches for f in wrappers]
-    with pytest.raises(ValueError, match="CUDA"):
-        group_conv.fused_group_ffn(m, torch.empty(4 * 24 * (36 + 16), device="meta"),
-                                   torch.empty(96, device="meta"),
-                                   torch.empty(16, device="meta"), groups=4)
-    with pytest.raises(ValueError, match="CUDA"):
-        k, b = torch.empty(16, 16, device="meta"), torch.empty(16, device="meta")
-        morphfc_fused.fused_morphfc_axes(m, m, k, b, k, b, chunk_h=4, chunk_w=4)
-    with pytest.raises(ValueError, match="CUDA"):
-        morphfc_fused.fused_morphfc_reduce(m, m, m)
-    with pytest.raises(ValueError, match="CUDA"):
-        morphfc_fused.fused_morphfc_combine(m, m, m, m, torch.empty(1, 3, 16, device="meta"),
-                                            torch.empty(16, 16, device="meta"),
-                                            torch.empty(16, device="meta"))
-    with pytest.raises(ValueError, match="CUDA"):
-        ltam_attention.ltam_attention_2x2(m, torch.empty(1, 4, 4, 32, device="meta"),
-                                          torch.empty(1, 4, 4, 4, device="meta"),
-                                          K=1, heads=4)
+    ffn_args = (m, torch.empty(4 * 24 * (36 + 16), device="meta"),
+                torch.empty(96, device="meta"), torch.empty(16, device="meta"))
+    k, b = torch.empty(16, 16, device="meta"), torch.empty(16, device="meta")
+    a = torch.empty(1, 3, 16, device="meta")
+    kv, pe = torch.empty(1, 4, 4, 32, device="meta"), torch.empty(1, 4, 4, 4, device="meta")
+    outs = [group_conv.fused_group_ffn(*ffn_args, groups=4),
+            *morphfc_fused.fused_morphfc_axes(m, m, k, b, k, b, chunk_h=4, chunk_w=4)[:2],
+            morphfc_fused.fused_morphfc_combine(m, m, m, m, a, k, b),
+            ltam_attention.ltam_attention_2x2(m, kv, pe, K=1, heads=4)]
+    assert all(o.is_meta and o.shape == m.shape for o in outs)
+    assert morphfc_fused.fused_morphfc_reduce(m, m, m).shape == (1, 16)
+    for cuda_impl, args in ((group_conv._ffn_cuda, (*ffn_args, 4, "erf")),
+                            (morphfc_fused._axes_cuda, (m, m, k, b, k, b, 4, 4, "big")),
+                            (morphfc_fused._reduce_cuda, (m, m, m)),
+                            (morphfc_fused._combine_cuda, (m, m, m, m, a, k, b, "tanh", None,
+                                                           1.0)),
+                            (ltam_attention._fwd_cuda, (m, kv, pe, 1, 4, False))):
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_impl(*args)
     bwd_before = ltam_attention.ltam_attention_2x2.bwd_launches
     with pytest.raises(ValueError, match="CUDA"):
-        ltam_attention.ltam_attention_2x2_bwd(
-            m, torch.empty(1, 4, 4, 32, device="meta"), torch.empty(1, 4, 4, 4, device="meta"),
-            torch.empty(1, 4, 4, 4, device="meta"), m, m, K=1, heads=4)
+        ltam_attention._bwd_cuda(m, kv, pe, torch.empty(1, 4, 4, 4, device="meta"), m, m, 1, 4)
     assert [f.launches for f in wrappers] == before
     assert ltam_attention.ltam_attention_2x2.bwd_launches == bwd_before
 

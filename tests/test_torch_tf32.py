@@ -214,7 +214,7 @@ def _entry_accepts(H, W, C, plan):
     ok &= (plan["kcs"] >= kb and plan["kcs"] % kb == 0 and 1 <= plan["kps"] <= nk
            and plan["nslab"] in (1, 2)
            and 2 <= plan["nst"] <= 12)
-    ok &= plan["nslab"] == 2 or plan["nst"] >= -(-nk // plan["kps"])
+    ok &= plan["nst"] >= -(-nk // plan["kps"])
     Kp = group_conv.slab_depth(C, 1 if C == 32 else 4, F32)  # only the check's form
     stage = max(plan["kcs"] * 64 * group_conv.tf32_chunk(C), plan["kps"] * 64 * NW)
     ok &= stage == plan["stage_bytes"] and plan["smem"] <= MAX_SMEM

@@ -1,6 +1,6 @@
-"""Reference (PyTorch) checkpoints -> the port's ``state_dict``.
+"""Reference (PyTorch) checkpoints -> the port's ``state_dict``, and back.
 
-Port of ``vmg_tpu/ckpt/torch_convert.py:30-220`` (its own copy of the
+Port of ``vmg_tpu/ckpt/torch_convert.py`` (its own copy of the
 rules: the port reads nothing of the JAX package).  The reference can
 save three containers ('mine', 'ST', 'KAIR'; :func:`normalize_torch_checkpoint`)
 and DataParallel ``module.`` prefixes.  :func:`convert_torch_state_dict`
@@ -11,7 +11,12 @@ SPyNet mean/std, LTAM decay_v, MorphFC gamma_* -- dropped, as constants
 recomputed here); :func:`reference_state_dict` composes it with
 :func:`vmg_tpu_torch.weights.state_dict_from_jax`, so a user's ``.pth``
 reaches the port exactly as the JAX converter followed by
-``state_dict_from_jax`` would bring it.
+``state_dict_from_jax`` would bring it.  The other way,
+:func:`export_torch_state_dict` writes the port's weights under the
+reference's names and layouts (:func:`save_reference_checkpoint` as a
+``.pth``), which the reference tester -- and this module's loader -- read
+back exactly.  :func:`remap_ttvsr_pretrain` is the reference's TTVSR
+partial-pretraining key surgery, :func:`verify_against` a diagnostic.
 
 MorphFC decay: the reference multiplies ``mlp_h``/``mlp_w`` by the decay
 matrix in place at every forward, so its checkpoint holds decayed
@@ -218,6 +223,121 @@ def _insert(tree: Dict, path: str, value: np.ndarray):
     for p in parts[:-1]:
         node = node.setdefault(p, {})
     node[parts[-1]] = value
+
+
+def remap_ttvsr_pretrain(
+    sd: Mapping[str, "np.ndarray"], target_keys
+) -> Dict[str, np.ndarray]:
+    """TTVSR partial-pretraining key surgery (reference
+    ``tools/Trainer.py:317-353`` load_model_with_pretraining).
+
+    Given a TTVSR checkpoint state_dict, rename ``backbone.*`` ->
+    ``align_t_down.*`` and keep only keys present in ``target_keys`` (the
+    model's trajectory-alignment params, ``Trainer.py:36-44``); for stage-2
+    entries the source sub-index remaps 0->4 / 1->5, and every accepted
+    key is duplicated to the mirror ``align_t_up.*`` path.  Triggered in
+    the reference when ``spynet is None`` and a pretrain_model is set
+    (``Trainer.py:35,228``).
+
+    The reference's VMG has no ``align_t_*`` modules, so against its
+    models ``target_keys`` is empty and this returns {} -- the reference's
+    runtime behaviour.  The surgery is kept for checkpoints of the older
+    TTVSR-derived architecture.
+    """
+    sd = strip_module_prefix({k: _np(v) for k, v in sd.items()})
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    target = set(target_keys)
+    out: Dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.startswith("backbone"):
+            k = k.replace("backbone", "align_t_down", 1)
+        if k not in target:
+            continue
+        k_l = k.split(".")
+        if len(k_l) > 4 and "2" in k_l[2]:
+            if "0" in k_l[4]:
+                k_l[4] = "4"
+            elif "1" in k_l[4]:
+                k_l[4] = "5"
+            else:
+                continue
+            src = ".".join(k_l).replace("align_t_down", "backbone", 1)
+            if src not in sd:
+                continue
+            v = sd[src]
+            out[k] = v
+            out[k.replace("align_t_down", "align_t_up", 1)] = v
+        elif len(k_l) > 2 and ("0" in k_l[2] or "1" in k_l[2]):
+            out[k] = v
+            out[k.replace("align_t_down", "align_t_up", 1)] = v
+        else:
+            out[k] = v
+    return out
+
+
+def export_torch_state_dict(state_dict: Mapping, non_linear: bool = True,
+                            channel_mixer: str = "rcab") -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` (any dtype, any device) -> the
+    reference-named torch-style state dict as float32 numpy arrays, so
+    models trained here can be consumed by the reference ecosystem (the
+    JAX package's ``export_torch_state_dict`` of its param tree).  The
+    port's parameter names and layouts are the reference's (Linear (out,
+    in), Conv2d OIHW, norm weight), and its buffers (SPyNet mean / std,
+    the MorphFC decay) are constants the reference recomputes, so the
+    export is the parameters themselves; every key is checked against the
+    loader's rules (a key no rule maps raises ``KeyError``), so
+    :func:`reference_state_dict` reads the result back exactly.  The port
+    builds non-linear axis FCs and the RCAB channel mixer only, whose key
+    layout ``non_linear`` and ``channel_mixer`` name in the JAX export."""
+    if not non_linear or channel_mixer != "rcab":
+        raise ValueError("the port's models have non-linear axis FCs and the RCAB channel "
+                         f"mixer; got non_linear={non_linear}, channel_mixer={channel_mixer!r}")
+    out: Dict[str, np.ndarray] = {}
+    for key, v in strip_module_prefix(state_dict).items():
+        if _SKIP.search(key):
+            continue
+        path = _apply_rules(key, _TOP_RULES)
+        m = re.match(r"^(encoder|decoder)_layers\.(\d+)\.(.+)$", key)
+        if path is None and m:
+            path = _apply_rules(m.group(3), _STAGE_RULES)
+        if path is None:
+            raise KeyError(f"no export rule for the port's parameter {key}")
+        out[key] = _np(v).astype(np.float32)
+    return out
+
+
+def save_reference_checkpoint(state_dict: Mapping, path: str) -> None:
+    """Write :func:`export_torch_state_dict` of ``state_dict`` as a
+    reference ('mine') ``.pth``: a plain dict of float32 CPU tensors."""
+    import torch
+
+    sd = export_torch_state_dict(state_dict)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
+
+
+def verify_against(params, converted, prefix="") -> Tuple[list, list]:
+    """Returns (missing_in_converted, shape_mismatches) for diagnostics:
+    the leaves of the tree ``params`` (nested mappings, optionally under
+    'params'; a flat state dict is a tree of depth one) that ``converted``
+    lacks, and those whose shapes differ."""
+    missing, bad = [], []
+
+    def walk(p, c, pre):
+        for k, v in p.items():
+            if isinstance(v, Mapping):
+                if k not in c:
+                    missing.append(pre + k)
+                else:
+                    walk(v, c[k], pre + k + "/")
+            else:
+                if k not in c:
+                    missing.append(pre + k)
+                elif tuple(np.shape(c[k])) != tuple(np.shape(v)):
+                    bad.append((pre + k, np.shape(c[k]), np.shape(v)))
+
+    walk(params.get("params", params), converted.get("params", converted), prefix)
+    return missing, bad
 
 
 def load_reference_checkpoint(path: str, source: str = "mine"):

@@ -8,9 +8,11 @@ Mirrors the architecture fields, derived properties and presets of
 as Python values.  ``remat`` recomputes each
 TAB and each trajectory step in the backward pass
 (``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``
-does.  The JAX package's TPU-only knobs (remat_policy, morph_fused,
-stage_barrier, flow_levels) have no meaning in the PyTorch port and are
-left out; the YAML loader stays in the JAX package (it imports ``yaml``,
+does.  ``flow_levels`` is the serving mode of the flow pyramid:
+``'per_level'`` reruns SPyNet on every level, ``'shared'`` runs it at
+level 0 only and average-pools that flow down.  The JAX package's
+TPU-only knobs (remat_policy, morph_fused, stage_barrier) have no meaning
+in the PyTorch port and are left out; the YAML loader stays in the JAX package (it imports ``yaml``,
 which the GPU machine lacks).
 """
 
@@ -19,6 +21,9 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+FLOW_LEVELS = ("per_level", "shared")
 
 
 @dataclass
@@ -38,6 +43,11 @@ class VMGNetworkConfig:
     back_RBs: int = 0
     spynet: Optional[str] = "spynet"  # None disables flow entirely
     flow_fix: Optional[int] = 5000
+    # 'per_level' reruns SPyNet on every pyramid level (the reference's
+    # semantics); 'shared' computes the level-0 flow once and average-pools
+    # it down, halving the flow values a level (fewer SPyNet runs, near-
+    # identical fields) -- opt-in
+    flow_levels: str = "per_level"
     image_size: Tuple[int, int] = (64, 64)
     # temporal mixing per *encoder* stage (index i also covers mirror stage)
     ltam: bool = True
@@ -96,6 +106,9 @@ class VMGNetworkConfig:
         n_enc = len(self.depths) // 2 + 1
         if len(self.chunk_ratios) < n_enc:
             raise ValueError(f"need {n_enc} chunk_ratios, got {len(self.chunk_ratios)}")
+        if self.flow_levels not in FLOW_LEVELS:
+            raise ValueError(f"flow_levels must be one of {FLOW_LEVELS}, got "
+                             f"{self.flow_levels!r}")
 
     @property
     def num_layers(self) -> int:
@@ -275,6 +288,9 @@ class ExperimentConfig:
     eval: EvalConfig = field(default_factory=EvalConfig)
     logger: LoggerConfig = field(default_factory=LoggerConfig)
     path: PathConfig = field(default_factory=PathConfig)
+    # parallelism: the (data, tensor) process mesh (parallel/mesh.py); a
+    # tensor axis above 1 is not ported
+    mesh_shape: Tuple[int, int] = (1, 1)
 
 
 def _eval_net(base: VMGNetworkConfig, window: int, image_size=(64, 64)) -> VMGNetworkConfig:

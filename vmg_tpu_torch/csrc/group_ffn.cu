@@ -89,7 +89,13 @@
 //   hidden goes from the accumulator through b1, the accurate GELU and the
 //   split straight into the projection's register-A fragments.  The weight
 //   stream holds every weight as its TF32 hi and its lo (pack_ffn_weights;
-//   hi + lo is the weight exactly).  The scalar kernel this replaced (one
+//   hi + lo is the weight exactly).  Sums: the tensor cores truncate as they
+//   accumulate, so one long chain of products into one register tile
+//   drifts toward zero (chip_smoke.py phase 2 read the output sums ~3e-7 of
+//   their terms' magnitudes below the exact ones, 1.4e-6 at C = 448); each
+//   ring slot's conv products and each chunk's projection piece go into a
+//   fresh tile, added into its sum with f32 adds (round to nearest), as in
+//   the conv chain's f32 kernel.  The scalar kernel this replaced (one
 //   block per pixel tile, FMA in 16 x 16 register micro-tiles) ran at 0.18
 //   of its f32 bound at stage 0 and lost to the plain version at every
 //   path shape (PERF.md §6).
@@ -674,6 +680,15 @@ __host__ __device__ constexpr int tf32_chunk(int NW) { return NW <= 144 ? 48 : 3
 // Conv k8 steps a commit group (group_conv.tf32_kgroup): 4 where the output
 // accumulator leaves registers for two sets of four steps' fragments, else 2.
 __host__ __device__ constexpr int tf32_kgroup(int NW) { return NW <= 112 ? 4 : 2; }
+// Output columns a projection piece of the f32 kernel: the widest multiple of
+// 8 that divides NW, up to 56 (a fresh tile of 28 registers) where NW <=
+// 144, else up to 32 (16 registers: beside the 112 accumulator registers and
+// the hidden's fragments at NW = 224, 56 spilled more and ran ~5% slower).
+__host__ __device__ constexpr int tf32_piece(int NW) {
+  int n = NW <= 144 ? 56 : 32;
+  while (n > 8 && NW % n) n -= 8;
+  return n;
+}
 
 struct FfnTfArgs {
   const float* w;   // the weight stream (pack_ffn_weights), in walk order
@@ -729,15 +744,22 @@ __device__ __forceinline__ void conv_tf32(int cw, float (&d)[R], const uint32_t 
 //   2 + e) are features 8 j + 2 (lane % 4) + e, which is k position
 //   lane % 4 (+ 4 for e = 1) of the projection's k8 step j under the same
 //   row order, so no shuffle;
-// * the projection: three products a k8 step into the f32 accumulator.
-// Ring slots hold kcs conv or kps projection k8 steps, each as its hi then
-// its lo image; a slot is released once the products after it were issued
-// and the ones reading it are done (wgmma.wait_group 1).  Every sum runs in
-// one fixed order: two runs are bit-equal.
+// * the projection: per piece of tf32_piece(NW) output columns, the chunk's
+//   three products a k8 step into a fresh register tile, then added into
+//   the f32 accumulator; the chunk's projection slots stay until its last
+//   piece is done (the ring holds them all: the plan's nst >= their count).
+// A conv ring slot's products likewise go into a fresh tile hp, added into
+// hid once the slot is done: long chains into one tile drift toward zero
+// (the tensor cores truncate as they accumulate); the f32 adds round to
+// nearest.  Ring slots hold kcs conv or kps projection k8 steps, each as
+// its hi then its lo image; a conv slot is released once the products
+// after it were issued and the ones reading it are done (wgmma.wait_group
+// 1).  Every sum runs in one fixed order: two runs are bit-equal.
 template <int NW>
 __global__ void __launch_bounds__(kFfnThreads, 1)
 group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs a) {
   constexpr int FC = tf32_chunk(NW), NK = FC / 8, KB = tf32_kgroup(NW);
+  constexpr int NP = tf32_piece(NW), NQ = NW / NP;  // projection piece columns, pieces
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
@@ -815,9 +837,11 @@ group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs
     const bool wg_leader = (threadIdx.x & 127) == 0;
     const unsigned ring_a = su32(ring), wempty_a = su32(wempty);
     float hid[FC / 2];
+    float hp[FC / 2];  // a conv ring slot's products
     uint32_t hA[NK][4], lA[NK][4];  // the chunk's hidden, split, as register-A fragments
     uint32_t xh0[KB][4], xl0[KB][4], xh1[KB][4], xl1[KB][4];  // the conv's A fragments, two sets
     float acc[NW / 2];
+    float pp[NP / 2];  // a projection piece's products
     RingPos q, sl;
     int pend = -1;  // the ring slot of the last issued products, not yet released
     // after products in `slot` were issued and all before them are done
@@ -825,9 +849,17 @@ group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs
       if (pend >= 0 && pend != slot && wg_leader) mbar_arrive(wempty_a + 8 * pend);
       pend = slot;
     };
+    // d += e, f32 adds (round to nearest)
+    auto add = [](auto& d, auto& e, int off) {
+#pragma unroll
+      for (int i = 0; i < (int)(sizeof(e) / sizeof(float)); ++i)
+        d[off + i] = __fadd_rn(d[off + i], e[i]);
+    };
     for (int tile = blockIdx.x; tile < a.total; tile += gridDim.x) {
       const FfnTile tl = ffn_tile<true, 2>(a, tile / a.halves);
       const int oh = tile % a.halves;
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
       for (int b = 0; b < a.G; ++b, sl.next(a.nslab)) {
         const int sb = sl.i;
         mbar_wait(&slab_full[sb], sl.ph);
@@ -836,14 +868,12 @@ group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs
                           (size_t)(tl.b0 + g * a.step + r) * 8 + 2 * t4;
         for (int c = 0; c < nchunks; ++c) {
           const int fcw = min(FC, a.fgp - c * FC), nk = fcw / 8;
-          // conv k8 steps j0 .. j0 + KB - 1 (those below nkc) into hid, their
-          // fragments in (xh, xl); a slot holds a whole number of groups
+          // conv k8 steps j0 .. j0 + KB - 1 (those below nkc) into hp, their
+          // fragments in (xh, xl); a slot holds a whole number of groups, its
+          // first group starts hp afresh once the previous slot's products
+          // are done and added into hid
           auto conv_group = [&](int j0, uint32_t(&xh)[KB][4], uint32_t(&xl)[KB][4]) {
             const int js = j0 % a.kcs;
-            if (js == 0) {
-              if (j0 > 0) q.next(a.nst);
-              mbar_wait(&wfull[q.i], q.ph);
-            }
 #pragma unroll
             for (int u = 0; u < KB; ++u) {
               const int j = j0 + u;
@@ -857,8 +887,17 @@ group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs
               tf32_split(v0.y, xh[u][2], xl[u][2]);
               tf32_split(v1.y, xh[u][3], xl[u][3]);
             }
+            if (js == 0) {
+              if (j0 > 0) {
+                wg_wait<0>();
+                pin_regs(hp);
+                add(hid, hp, 0);
+                q.next(a.nst);
+              }
+              mbar_wait(&wfull[q.i], q.ph);
+            }
             wg_fence();
-            pin_regs(hid);
+            pin_regs(hp);
 #pragma unroll
             for (int u = 0; u < KB; ++u) {
               const int j = j0 + u;
@@ -866,21 +905,25 @@ group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs
               const unsigned bh = ring_a + q.i * a.stage_bytes + (js + u) * 64 * fcw;
               const uint64_t dh = mat_desc(bh, fcw * 16, 128);
               const uint64_t dl = mat_desc(bh + 32 * fcw, fcw * 16, 128);
-              conv_tf32(fcw, hid, xh[u], dh, j);
-              conv_tf32(fcw, hid, xh[u], dl, 1);
-              conv_tf32(fcw, hid, xl[u], dh, 1);
+              conv_tf32(fcw, hp, xh[u], dh, js + u);
+              conv_tf32(fcw, hp, xh[u], dl, 1);
+              conv_tf32(fcw, hp, xl[u], dh, 1);
             }
             wg_commit();
-            pin_regs(hid);
+            pin_regs(hp);
             wg_wait<1>();
             release(q.i);
           };
+#pragma unroll
+          for (int i = 0; i < FC / 2; ++i) hid[i] = 0.f;
           for (int j = 0; j < nkc; j += 2 * KB) {
             conv_group(j, xh0, xl0);
             if (j + KB < nkc) conv_group(j + KB, xh1, xl1);
           }
           q.next(a.nst);
           wg_wait<0>();
+          pin_regs(hp);
+          add(hid, hp, 0);  // the last slot's products
           pin_regs(hid);
           pin_regs(acc);
           if (wg_leader) {
@@ -902,34 +945,44 @@ group_ffn_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const FfnTfArgs
                          lA[kk][2 + h]);
             }
           }
-          // acc += hidden @ w2 chunk rows of this half, kps k8 steps a slot
+          // acc += hidden @ w2 chunk rows of this half, kps k8 steps a slot:
+          // piece p (columns p NP .. p NP + NP - 1, the B images' columns
+          // from p NP on) over all the chunk's k8 steps into the fresh tile
+          // pp, added into its registers of acc; the slots are walked once a
+          // piece and released after the last
+          const RingPos q0 = q;
 #pragma unroll
-          for (int kk = 0; kk < NK; ++kk) {
-            if (kk >= nk) break;
-            const int ks = kk % a.kps;
-            if (ks == 0) {
-              if (kk > 0) {
-                wg_commit();
-                pin_regs(acc);
-                wg_wait<1>();
-                release(q.i);
-                q.next(a.nst);
+          for (int p = 0; p < NQ; ++p) {
+            q = q0;
+#pragma unroll
+            for (int kk = 0; kk < NK; ++kk) {
+              if (kk >= nk) break;
+              const int ks = kk % a.kps;
+              if (ks == 0) {
+                if (kk > 0) q.next(a.nst);
+                if (p == 0) mbar_wait(&wfull[q.i], q.ph);
               }
-              mbar_wait(&wfull[q.i], q.ph);
-              wg_fence();
-              pin_regs(acc);
+              const unsigned bh = ring_a + q.i * a.stage_bytes + ks * 64 * NW + p * NP * 16;
+              const uint64_t dh = mat_desc(bh, NW * 16, 128);
+              const uint64_t dl = mat_desc(bh + 32 * NW, NW * 16, 128);
+              if (kk == 0) {
+                wg_fence();
+                pin_regs(pp);
+              }
+              WgmmaTF32<NP>::mma(pp, hA[kk], dh, kk != 0);
+              WgmmaTF32<NP>::mma(pp, hA[kk], dl, 1);
+              WgmmaTF32<NP>::mma(pp, lA[kk], dh, 1);
             }
-            const unsigned bh = ring_a + q.i * a.stage_bytes + ks * 64 * NW;
-            const uint64_t dh = mat_desc(bh, NW * 16, 128);
-            const uint64_t dl = mat_desc(bh + 32 * NW, NW * 16, 128);
-            WgmmaTF32<NW>::mma(acc, hA[kk], dh, (b | c | kk) != 0);
-            WgmmaTF32<NW>::mma(acc, hA[kk], dl, 1);
-            WgmmaTF32<NW>::mma(acc, lA[kk], dh, 1);
+            wg_commit();
+            wg_wait<0>();
+            pin_regs(pp);
+            add(acc, pp, p * (NP / 2));
           }
-          wg_commit();
+          if (wg_leader) {
+            RingPos r = q0;
+            for (int k0 = 0; k0 < nk; k0 += a.kps, r.next(a.nst)) mbar_arrive(wempty_a + 8 * r.i);
+          }
           pin_regs(acc);
-          wg_wait<1>();
-          release(q.i);
           q.next(a.nst);
         }
       }
@@ -976,9 +1029,11 @@ int launch_ffn_tf32(const float* x, FfnTfArgs a, int N, cudaStream_t s) {
   if ((long long)N * tiles * a.halves > 0x7fffffff) return (int)cudaErrorInvalidValue;
   a.tiles = (int)tiles;
   a.total = N * a.tiles * a.halves;
-  // one slab buffer: the producer's lead is not negative
+  // the ring holds a chunk's projection slots (the consumers keep them
+  // until its last piece; one slab buffer: the producer's lead is not
+  // negative)
   if (a.kcs < KB || a.kcs % KB != 0 || a.kps < 1 || a.kps > NK || a.nslab < 1 || a.nslab > 2 || a.nst < 2 ||
-      a.nst > kMaxStages || (a.nslab == 1 && a.nst < (NK + a.kps - 1) / a.kps))
+      a.nst > kMaxStages || a.nst < (NK + a.kps - 1) / a.kps)
     return (int)cudaErrorInvalidValue;
   a.stage_bytes = (unsigned)std::max(a.kcs * 64 * FC, a.kps * 64 * NW);
   const size_t smem = 128 + (size_t)a.nslab * (a.Kp / 8) * a.SP * 32 +

@@ -157,6 +157,7 @@ VMG_WGMMA_TF32(24, 12, 13, 14, 15, 16, 17)
 VMG_WGMMA_TF32(32, 16, 17, 18, 19, 20, 21)
 VMG_WGMMA_TF32(40, 20, 21, 22, 23, 24, 25)
 VMG_WGMMA_TF32(48, 24, 25, 26, 27, 28, 29)
+VMG_WGMMA_TF32(56, 28, 29, 30, 31, 32, 33)
 VMG_WGMMA_TF32(64, 32, 33, 34, 35, 36, 37)
 VMG_WGMMA_TF32(80, 40, 41, 42, 43, 44, 45)
 VMG_WGMMA_TF32(96, 48, 49, 50, 51, 52, 53)

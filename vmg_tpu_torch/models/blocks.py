@@ -34,6 +34,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils._pytree import tree_map
 
 from vmg_tpu_torch.models.norms import TorchLayerNorm
 from vmg_tpu_torch.ops.conv_chain import fused_conv_chain, pack_conv_taps
@@ -70,7 +72,15 @@ class PackedOperands(nn.Module):
     counters and made again once any of them changed in place (an
     optimizer step, ``load_state_dict``), and dropped when the parameters
     are converted (``.to``, ``.cuda``, dtype casts).  So each parameter
-    state is packed once, and a later forward pays one tuple compare."""
+    state is packed once, and a later forward pays one tuple compare.
+
+    Under ``torch.export`` (``ckpt/export.py``) the parameters are fake
+    tensors: the operands packed from the real parameters by an eager
+    forward are used as they are, and the export lifts them as constants
+    of the program, with the weights baked in as the JAX package bakes
+    ``params`` into its exported serving forward.  Packing inside the
+    traced graph instead would run the packers' small ops (reshapes,
+    pads, the TF32 split) in every call of the program."""
 
     _ops = None
     _ops_key = None
@@ -82,10 +92,22 @@ class PackedOperands(nn.Module):
         raise NotImplementedError
 
     def operands(self):
-        key = tuple(t._version for t in self._sources())
+        sources = self._sources()
+        if torch.compiler.is_compiling() or any(is_fake(t) for t in sources):
+            if self._ops is None:
+                raise RuntimeError(f"{type(self).__name__}: no packed operands to trace; run "
+                                   "the model eagerly once before exporting it")
+            return self._ops
+        key = tuple(t._version for t in sources)
         if self._ops is None or key != self._ops_key:
             with torch.no_grad():
-                self._ops = self._pack()
+                # an operand that is a source tensor itself (a float32 bias)
+                # is copied: the operands own their storage, as the
+                # constants of an exported program must
+                storages = {t.untyped_storage().data_ptr() for t in sources}
+                self._ops = tree_map(
+                    lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    and t.untyped_storage().data_ptr() in storages else t, self._pack())
             self._ops_key = key
         return self._ops
 
@@ -335,15 +357,18 @@ class TAB(nn.Module):
         self.channel_mixing = MlpCnn(dim, mlp_ratio, n_groups,
                                      gelu_act=gelu_act, device=device)
 
-    def drop_masks(self, batch: int, device, generator=None):
+    def drop_masks(self, batch: int, device, generator=None, rows=None):
         """(2, batch) bool keep masks on ``device`` for the mixer and FFN
         branches, drawn from ``generator`` (the default generator if None),
         or None when this block drops nothing.  Drawn outside the block so
-        a recomputed (checkpointed) forward reuses them."""
+        a recomputed (checkpointed) forward reuses them.  ``rows``: (total,
+        first): draw the masks of ``total`` rows and keep rows first ..
+        first + batch - 1 (one process's share of a data-parallel batch)."""
         if not self.training or self.drop_path == 0.0:
             return None
+        total, first = (batch, 0) if rows is None else rows
         dev = generator.device if generator is not None else device
-        u = torch.rand((2, batch), generator=generator, device=dev)
+        u = torch.rand((2, total), generator=generator, device=dev)[:, first:first + batch]
         return (u < 1.0 - self.drop_path).to(device)
 
     def forward(self, x, keep=None):

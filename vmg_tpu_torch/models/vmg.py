@@ -28,6 +28,7 @@ the module forms:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -176,11 +177,11 @@ class MlpEncoderStage(nn.Module):
                 traj_win=sp(cfg.traj_win), remat=cfg.remat,
                 traj_conv_impl=traj_conv_impl, device=device)
 
-    def forward(self, x, flow_forward, flow_backward, generator=None):
+    def forward(self, x, flow_forward, flow_backward, generator=None, drop_rows=None):
         shortcut = x
         remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for blk in self.mlp_blocks:
-            keep = blk.drop_masks(x.shape[0], x.device, generator)
+            keep = blk.drop_masks(x.shape[0], x.device, generator, rows=drop_rows)
             if remat:  # masks drawn outside: the recompute reuses them
                 x = checkpoint(blk, x, keep, use_reentrant=False,
                                preserve_rng_state=False)
@@ -261,12 +262,16 @@ class VMG(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.input_proj.proj[0].weight.dtype
 
-    def forward(self, x, *, frames_mirror: bool = False, generator=None):
+    def forward(self, x, *, frames_mirror: bool = False, generator=None, drop_rows=None):
         """x: (B, T, H, W, 3) -> (B, T, 4H, 4W, 3) float32.
         ``frames_mirror``: the clip is a mirrored sequence (the dataset's
         ``use_mirrors``), so the backward flows are the forward flows
         reversed in time, and SPyNet runs once per level instead of twice.
-        ``generator``: source of the stochastic-depth masks in training."""
+        ``generator``: source of the stochastic-depth masks in training.
+        ``drop_rows``: (rows, first): these B rows are rows first .. first +
+        B - 1 of a batch of ``rows``, whose masks the generator draws (a
+        data-parallel process's share of the global batch); None: the B
+        rows are the batch."""
         cfg = self.cfg
         B, T, H, W, _ = x.shape
         if H < 64 or W < 64:
@@ -281,7 +286,7 @@ class VMG(nn.Module):
 
         ff, fb = self._compute_flows(xp, frames_mirror)
         feat = self.input_proj(xp.to(self.dtype))
-        stages = [functools.partial(m, generator=generator)
+        stages = [functools.partial(m, generator=generator, drop_rows=drop_rows)
                   for m in (*self.encoder_layers, *self.decoder_layers)]
         if cfg.num_layers > 3:
             y = self._forward_multi(stages, feat, ff, fb)
@@ -299,11 +304,19 @@ class VMG(nn.Module):
         return out.reshape(Bf, Tf, 4 * Hf, 4 * Wf, 3).float() + upsample_x
 
     def _compute_flows(self, xp, frames_mirror: bool):
-        """Per-stage flow pyramid: SPyNet rerun on every level."""
+        """Per-stage flow pyramid: SPyNet on every level (``'per_level'``),
+        or at level 0 only, whose flows are average-pooled down to level i
+        and scaled by 0.5**i, the flow values halving with the resolution
+        (``'shared'``)."""
         B, T, Hp, Wp, C = xp.shape
+        shared = self.cfg.flow_levels == "shared"
         flows_f, flows_b = [], []
         for i in range(self.cfg.num_enc_layers):
             h, w = Hp // (2 ** i), Wp // (2 ** i)
+            if shared and i > 0:
+                flows_f.append(self._pool_flow(flows_f[0], h, w, 0.5 ** i))
+                flows_b.append(self._pool_flow(flows_b[0], h, w, 0.5 ** i))
+                continue
             lv = adaptive_avg_pool2d(xp.reshape(B * T, Hp, Wp, C), h, w)
             lv = lv.reshape(B, T, h, w, C)
             src_fwd = lv[:, :-1].reshape(B * (T - 1), h, w, C)
@@ -313,6 +326,13 @@ class VMG(nn.Module):
             flows_b.append(fwd.flip(1) if frames_mirror else
                            self.spynet(src_fwd, src_bwd).reshape(B, T - 1, h, w, 2))
         return flows_f, flows_b
+
+    @staticmethod
+    def _pool_flow(flow, h: int, w: int, scale: float):
+        """(B, T-1, H, W, 2) -> (B, T-1, h, w, 2), pooled and scaled."""
+        B, S = flow.shape[:2]
+        p = adaptive_avg_pool2d(flow.reshape(B * S, *flow.shape[2:]), h, w) * scale
+        return p.reshape(B, S, h, w, 2)
 
     def _mdsc(self, seq, x, div=4):
         B, T, H, W, C = x.shape
@@ -384,7 +404,7 @@ def create_model(cfg: VMGNetworkConfig, *, is_train: bool = False,
                  fast_flow: bool = False,
                  generator: torch.Generator | None = None,
                  rcab_impl: str = "module", traj_conv_impl: str = "module",
-                 norm_impl: str = "module") -> VMG:
+                 norm_impl: str = "module", flow_levels: str | None = None) -> VMG:
     """Build the model on ``device`` (the card unless the caller passes
     "cpu"; without CUDA the default raises) in ``dtype`` (SPyNet stays
     float32), in training mode with its stochastic-depth schedule when
@@ -394,7 +414,10 @@ def create_model(cfg: VMGNetworkConfig, *, is_train: bool = False,
     torch's default init, to be overwritten by a state dict.  ``gelu``:
     'erf' (exact) or 'tanh' (serving fast-math); ``fast_flow``: bf16
     SPyNet convs; ``rcab_impl``, ``traj_conv_impl``, ``norm_impl``: the
-    kernel form switches (see the module's docstring)."""
+    kernel form switches (see the module's docstring); ``flow_levels``, if
+    given, replaces ``cfg.flow_levels`` ('per_level' or 'shared')."""
+    if flow_levels is not None:
+        cfg = dataclasses.replace(cfg, flow_levels=flow_levels)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("create_model: no CUDA device visible; pass "

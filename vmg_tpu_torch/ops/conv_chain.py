@@ -6,7 +6,7 @@ result]: the CUDA kernels of ``csrc/conv_chain.cu`` on CUDA tensors (bf16:
 two launches of one wgmma implicit-GEMM conv through an (N, H, W, Cm)
 scratch; f32: the same two launches with every product as three TF32
 products on wgmma; design notes there), :func:`conv_chain_plain` on CPU
-tensors.
+tensors, through the operator ``vmg::conv_chain`` (``ops/library.py``).
 The weights come packed by :func:`pack_conv_taps`, once per parameter
 state (the consumers are ``PackedOperands``).  Serving only: no backward.
 
@@ -20,7 +20,7 @@ are f32 sums of the rounded result over (H, W).
 :func:`layout_pin` is the TPU's identity pass that pinned a tensor's
 layout inside the trajectory scan.  On the card it pins nothing (PyTorch
 tensors have one layout), but it is the same function at the same cost:
-one read and one write into a fresh tensor.
+one read and one write into a fresh tensor (``vmg::layout_pin``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from vmg_tpu_torch import _build
+from vmg_tpu_torch.ops import library
 from vmg_tpu_torch.ops.group_conv import _tf32_image, _tf32_unimage
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
@@ -151,15 +152,19 @@ def fused_conv_chain(x, w1, b1, w2, b2, *, act1="relu", res_scale=None,
     sums over (H, W).  ``res_scale``: return ``x + res_scale * chain(x)``.
     Operands from :func:`pack_conv_taps`; channels up to 128.  CPU tensors
     take the plain version; CUDA tensors launch the kernel, which has no
-    backward."""
+    backward (``vmg::conv_chain``, serving only)."""
     if act1 not in _ACTS:
         raise ValueError(f"unknown act {act1!r}")
-    if x.device.type == "cpu":
-        return conv_chain_plain(x, w1, b1, w2, b2, act1=act1, res_scale=res_scale,
-                                emit_psum=emit_psum)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+    if (x.device.type != "cpu" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, w1, b1, w2, b2))):
         raise RuntimeError("fused_conv_chain has no backward: call it under "
                            "torch.no_grad() or on tensors that need no gradient")
+    out, psum = _conv_chain(x, w1, b1, w2, b2, act1,
+                            None if res_scale is None else float(res_scale), emit_psum)
+    return (out, psum) if emit_psum else out
+
+
+def _chain_cuda(x, w1, b1, w2, b2, act1, res_scale, emit_psum: bool):
     N, H, W, C = x.shape
     dt, dev = x.dtype, x.device
     if dt not in (torch.bfloat16, torch.float32):
@@ -192,21 +197,41 @@ def fused_conv_chain(x, w1, b1, w2, b2, *, act1="relu", res_scale=None,
     mid = torch.empty((N, H, W, cm), dtype=dt, device=dev)
     ints = [] if bf16 else chain_tf32_plan_ints(w1, w2)
     plan = (ctypes.c_int * len(ints))(*ints) if ints else None
-    partial = psum = None
+    partial = None
+    psum = torch.empty(_psum_shape(x, emit_psum), dtype=torch.float32, device=dev)
     if emit_psum:
         rows = lib.vmg_conv_chain_tiles(H, W, code)  # partial sums per frame
         partial = torch.empty((N, rows, C), dtype=torch.float32, device=dev)
-        psum = torch.empty((N, C), dtype=torch.float32, device=dev)
     err = lib.vmg_conv_chain(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), mid.data_ptr(), _build.ptr(partial), _build.ptr(psum), N, H, W, C,
+        out.data_ptr(), mid.data_ptr(), _build.ptr(partial),
+        psum.data_ptr() if emit_psum else None, N, H, W, C,
         cp, k2, C, coutp, _ACTS[act1], int(res_scale is not None),
         float(res_scale or 0.0), plan, code, _build.stream_of(x))
     _build.check(err, "vmg_conv_chain")
     fused_conv_chain.launches += 1
-    return (out, psum) if emit_psum else out
+    return out, psum
 
 
+def _psum_shape(x, emit_psum: bool):
+    """The (N, C) sums, or an empty tensor where none are asked for."""
+    return (x.shape[0], x.shape[-1]) if emit_psum else (0,)
+
+
+def _chain_cpu(x, w1, b1, w2, b2, act1, res_scale, emit_psum: bool):
+    out, psum = conv_chain_plain(x, w1, b1, w2, b2, act1=act1, res_scale=res_scale,
+                                 emit_psum=True)
+    return out, psum if emit_psum else psum.new_empty((0,))
+
+
+def _chain_fake(x, w1, b1, w2, b2, act1, res_scale, emit_psum: bool):
+    return library.empty(x), library.empty(x, _psum_shape(x, emit_psum), torch.float32)
+
+
+_conv_chain = library.define(
+    "conv_chain", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, str? act1, "
+    "float? res_scale, bool emit_psum) -> (Tensor, Tensor)",
+    cpu=_chain_cpu, cuda=_chain_cuda, fake=_chain_fake)
 fused_conv_chain.launches = 0
 
 
@@ -215,11 +240,7 @@ def layout_pin_plain(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def layout_pin(x):
-    """x -> an equal, contiguous tensor that is not an alias of x (one read
-    and one write).  CPU tensors take the plain version."""
-    if x.device.type == "cpu":
-        return layout_pin_plain(x)
+def _pin_cuda(x):
     _build.require(x, "x", dtype=x.dtype)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     code = _build.load_library().vmg_layout_pin(
@@ -227,6 +248,17 @@ def layout_pin(x):
     _build.check(code, "vmg_layout_pin")
     layout_pin.launches += 1
     return out
+
+
+_layout_pin = library.define("layout_pin", "(Tensor x) -> Tensor", cpu=layout_pin_plain,
+                             cuda=_pin_cuda, fake=library.empty)
+
+
+def layout_pin(x):
+    """x -> an equal, contiguous tensor that is not an alias of x (one read
+    and one write): ``vmg::layout_pin``, the plain version on CPU
+    tensors."""
+    return _layout_pin(x)
 
 
 layout_pin.launches = 0

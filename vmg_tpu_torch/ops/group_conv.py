@@ -1,11 +1,12 @@
 """Grouped-conv FFN: conv3x3 (groups) + bias + GELU + dense projection.
 
-Port of ``vmg_tpu/ops/group_conv.py``.  :func:`fused_group_ffn` runs the
-hand-written CUDA kernel ``csrc/group_ffn.cu`` on CUDA tensors (a wgmma
-implicit GEMM whose hidden stays on chip: bf16 products, or f32 as three
-TF32 products each; see the note at the top of that file) and
-:func:`group_ffn_plain` -- the JAX
-package's ``_xla_forward_ffn`` written in PyTorch -- on CPU tensors.  Both
+Port of ``vmg_tpu/ops/group_conv.py``.  :func:`fused_group_ffn` calls
+the operator ``vmg::group_ffn`` (``ops/library.py``): the hand-written
+CUDA kernel ``csrc/group_ffn.cu`` on CUDA tensors (a wgmma implicit GEMM
+whose hidden stays on chip: bf16 products, or f32 as three TF32 products
+each; see the note at the top of that file) and :func:`group_ffn_plain`
+-- the JAX package's ``_xla_forward_ffn`` written in PyTorch -- on CPU
+tensors.  Both
 take the operands :func:`pack_ffn_weights` makes from ``MlpCnn``'s
 parameters (conv weight (F, C/g, 3, 3), bias (F,), projection weight
 (C, F)): one weight buffer in the kernel's layout for the dtype, and the
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from vmg_tpu_torch import _build
+from vmg_tpu_torch.ops import library
 
 _ACTS = {"erf": 0, "tanh": 1}
 
@@ -166,9 +168,10 @@ def ffn_tf32_plan(N: int, H: int, W: int, C: int, groups: int, fgp: int, sms: in
     boxes (``slab_depth(..., float32)`` deep); ring slots of ``kcs`` conv
     (whole commit groups of :func:`tf32_kgroup` steps) or ``kps``
     projection k8 steps, each step as its TF32 hi then lo B image (64 bytes
-    a column).  Two slab buffers with at least three slots
-    where they fit, else one with at least a chunk's projection slots and
-    one more; the largest slot cap that fits."""
+    a column).  Two slab buffers with at least three slots, and at least a
+    chunk's projection slots (the kernel keeps them until the chunk's last
+    output piece), where they fit, else one with a chunk's projection slots
+    and one more; the largest slot cap that fits."""
     halves = 2 if C > 224 else 1
     FC, NW, Kp = tf32_chunk(C), out_width(C), slab_depth(C, groups, torch.float32)
     nb, Wc, P, step, span, tiles = _ffn_bands(N * halves, H, W, 2, sms)
@@ -179,7 +182,7 @@ def ffn_tf32_plan(N: int, H: int, W: int, C: int, groups: int, fgp: int, sms: in
     for cap in _TF32_STAGE_CAPS:
         kcs, kps = max(kb, cap // (64 * FC) // kb * kb), max(1, min(nk, cap // (64 * NW)))
         stage, npj = max(kcs * 64 * FC, kps * 64 * NW), -(-nk // kps)
-        for nslab, least in ((2, 3), (1, npj + 1)):
+        for nslab, least in ((2, max(3, npj)), (1, npj + 1)):
             nst = min(_MAX_STAGES, (_MAX_SMEM - 384 - nslab * slab) // stage)
             if nst >= max(2, least):
                 smem = 128 + nslab * slab + nst * stage + 256
@@ -412,13 +415,7 @@ def group_ffn_plain(x, w, b1p, b2, *, groups: int, act: str = "erf"):
     return (out + b2.float()).to(x.dtype)
 
 
-def fused_group_ffn(x, w, b1p, b2, *, groups: int, act: str = "erf"):
-    """x (N, H, W, C) -> (N, H, W, C), on the operands of
-    :func:`pack_ffn_weights` (all in x's dtype).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (on :func:`ffn_plan`'s
-    tiles in bf16, :func:`ffn_tf32_plan`'s in f32)."""
-    if x.device.type == "cpu":
-        return group_ffn_plain(x, w, b1p, b2, groups=groups, act=act)
+def _ffn_cuda(x, w, b1p, b2, groups: int, act: str):
     N, H, W, C = x.shape
     if C % groups:
         raise ValueError(f"C={C} not divisible by groups={groups}")
@@ -444,6 +441,23 @@ def fused_group_ffn(x, w, b1p, b2, *, groups: int, act: str = "erf"):
     _build.check(code, "vmg_group_ffn")
     fused_group_ffn.launches += 1
     return out
+
+
+def _ffn_cpu(x, w, b1p, b2, groups: int, act: str):
+    return group_ffn_plain(x, w, b1p, b2, groups=groups, act=act)
+
+
+_group_ffn = library.define(
+    "group_ffn", "(Tensor x, Tensor w, Tensor b1p, Tensor b2, int groups, str act) -> Tensor",
+    cpu=_ffn_cpu, cuda=_ffn_cuda, fake=lambda x, w, b1p, b2, groups, act: library.empty(x))
+
+
+def fused_group_ffn(x, w, b1p, b2, *, groups: int, act: str = "erf"):
+    """x (N, H, W, C) -> (N, H, W, C), on the operands of
+    :func:`pack_ffn_weights` (all in x's dtype): ``vmg::group_ffn``.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (on
+    :func:`ffn_plan`'s tiles in bf16, :func:`ffn_tf32_plan`'s in f32)."""
+    return _group_ffn(x, w, b1p, b2, groups, act)
 
 
 fused_group_ffn.launches = 0

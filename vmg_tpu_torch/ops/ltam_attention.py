@@ -1,12 +1,14 @@
 """LTAM 2x2-window trajectory attention, forward and backward.
 
 Port of ``ltam_attention_2x2`` of ``vmg_tpu/ops/ltam_attention.py`` and of
-its custom VJP.  On CUDA tensors the wrapper launches the kernels of
-``csrc/ltam.cu`` (design notes there): a forward that, when a gradient is
-needed, also writes the softmax denominator, and a backward kernel (with
-a second launch that sums the dpe partials), bound together by a
-``torch.autograd.Function``.  On CPU tensors it takes
-:func:`ltam_attention_plain`, which autograd differentiates.
+its custom VJP, as two operators (``ops/library.py``): ``vmg::ltam_fwd``
+-- on CUDA tensors the forward kernel of ``csrc/ltam.cu`` (design notes
+there), which, when a gradient is needed, also writes the softmax
+denominator; on CPU tensors :func:`ltam_attention_plain` -- and
+``vmg::ltam_bwd`` -- the backward kernel (with a second launch that sums
+the dpe partials), or :func:`ltam_attention_bwd_plain` -- bound together
+by ``register_autograd`` (the custom VJP of
+``vmg_tpu/ops/ltam_attention.py:344-362``).
 
 Layout (the port's own; the TPU kernel padded every slot to 128 lanes):
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from vmg_tpu_torch import _build
+from vmg_tpu_torch.ops import library
 
 # the largest head width C / heads the kernels take (csrc/ltam.cu: up to
 # 32 lanes of 32 registers per (pixel, head)); every preset is below it
@@ -37,35 +40,84 @@ def _tap(v: torch.Tensor, ki: int, kj: int) -> torch.Tensor:
     return s.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
-def ltam_attention_plain(q, kv, pe, *, K: int, heads: int):
+def _untap(g: torch.Tensor) -> torch.Tensor:
+    """The adjoint of :func:`_tap`'s repeat: (N, H, W, ...) -> (N, H/2, W/2,
+    ...), each window's four pixels summed."""
+    N, H, W = g.shape[:3]
+    return g.reshape(N, H // 2, 2, W // 2, 2, *g.shape[3:]).sum(dim=(2, 4))
+
+
+def _positions(H: int, W: int, device):
+    """(H, W) in-window query position 2 (r % 2) + c % 2 of each pixel."""
+    r = torch.arange(H, device=device) % 2
+    c = torch.arange(W, device=device) % 2
+    return 2 * r[:, None] + c[None, :]
+
+
+def _taps(q, kv, pe, K: int, heads: int):
+    """Per slot k and tap t: (val, key, s = exp(q . key), e = s pe) at every
+    pixel, f32, by head."""
     N, H, W, C = q.shape
     d = C // heads
     kv6 = kv.reshape(N, H, W, K, 2, C)
     qh = q.reshape(N, H, W, heads, d)
-    r = torch.arange(H, device=q.device) % 2
-    c = torch.arange(W, device=q.device) % 2
-    pos = 2 * r[:, None] + c[None, :]  # (H, W)
-    num = torch.zeros((N, H, W, heads, d), dtype=torch.float32, device=q.device)
-    den = torch.zeros((N, H, W, heads), dtype=torch.float32, device=q.device)
+    pos = _positions(H, W, q.device)
     for k in range(K):
         for t in range(4):
             ki, kj = divmod(t, 2)
             val = _tap(kv6[:, :, :, k, 0], ki, kj).float().reshape(N, H, W, heads, d)
             key = _tap(kv6[:, :, :, k, 1], ki, kj).float().reshape(N, H, W, heads, d)
-            e = torch.exp((qh * key).sum(-1)) * pe[k, t][pos]
-            den = den + e
-            num = num + e[..., None] * val
-    return (num / den.clamp_min(1e-30)[..., None]).reshape(N, H, W, C)
+            s = torch.exp((qh * key).sum(-1))
+            yield k, t, val, key, s, s * pe[k, t][pos]
+
+
+def _plain_forward(q, kv, pe, K: int, heads: int):
+    """(out (N, H, W, C), den (N, H, W, heads)) f32: den is the unclamped
+    softmax denominator the backward kernel reads."""
+    N, H, W, C = q.shape
+    num = torch.zeros((N, H, W, heads, C // heads), dtype=torch.float32, device=q.device)
+    den = torch.zeros((N, H, W, heads), dtype=torch.float32, device=q.device)
+    for _, _, val, _, _, e in _taps(q, kv, pe, K, heads):
+        den = den + e
+        num = num + e[..., None] * val
+    return (num / den.clamp_min(1e-30)[..., None]).reshape(N, H, W, C), den
+
+
+def ltam_attention_plain(q, kv, pe, *, K: int, heads: int):
+    return _plain_forward(q, kv, pe, K, heads)[0]
 
 
 def ltam_attention_bwd_plain(q, kv, pe, g, *, K: int, heads: int):
     """Gradients (dq, dkv, dpe) of ``sum(ltam_attention_plain(q, kv, pe) *
-    g)`` by autograd, each in its input's dtype: the plain version of the
-    backward kernel."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (q, kv, pe)]
-        out = ltam_attention_plain(*leaves, K=K, heads=heads)
-        return torch.autograd.grad(out, leaves, g)
+    g)``, each in its input's dtype, written out (the plain version of the
+    backward kernel; autograd of :func:`ltam_attention_plain` gives the
+    same up to f32 rounding).  With p = e / den and out = sum p val, a tap's
+    logit gradient is p (g . val - g . out): dq sums it times the key, each
+    source pixel's dkey its queries' times q and its dval their p g, and
+    dpe[k, t, pos] the pixels' (g . val - g . out) s / den."""
+    N, H, W, C = q.shape
+    d = C // heads
+    out, den = _plain_forward(q, kv, pe, K, heads)
+    den = den.clamp_min(1e-30)
+    gh = g.float().reshape(N, H, W, heads, d)
+    qh = q.float().reshape(N, H, W, heads, d)
+    go = (gh * out.reshape(N, H, W, heads, d)).sum(-1)
+    pos = _positions(H, W, q.device)
+    dq = torch.zeros_like(qh)
+    dkv = torch.zeros((N, H, W, K, 2, heads, d), dtype=torch.float32, device=q.device)
+    dpe = torch.zeros((K, 4, 4, heads), dtype=torch.float32, device=q.device)
+    for k, t, val, key, s, e in _taps(q, kv, pe, K, heads):
+        ki, kj = divmod(t, 2)
+        de = ((gh * val).sum(-1) - go) / den
+        dlogit = de * e
+        dq = dq + dlogit[..., None] * key
+        dkv[:, ki::2, kj::2, k, 1] += _untap(dlogit[..., None] * qh)
+        dkv[:, ki::2, kj::2, k, 0] += _untap((e / den)[..., None] * gh)
+        ds = de * s
+        for p in range(4):
+            dpe[k, t, p] = ds[:, pos == p].sum(dim=(0, 1))
+    return (dq.reshape(q.shape).to(q.dtype), dkv.reshape(kv.shape).to(kv.dtype),
+            dpe.to(pe.dtype))
 
 
 def _check(q, kv, pe, K, heads):
@@ -125,22 +177,40 @@ def fwd_plan(C: int, heads: int):
     return 2 * (32 // (HB * L)), HB
 
 
-def _forward_kernel(q, kv, pe, K, heads, with_den: bool):
+def _den_shape(q, heads: int, with_den: bool):
+    return (*q.shape[:3], heads) if with_den else (0,)
+
+
+def _fwd_cuda(q, kv, pe, K: int, heads: int, with_den: bool):
     """Launch the forward kernel: out, and den (N, H, W, heads) f32 (the
-    unclamped softmax denominator) when ``with_den``."""
+    unclamped softmax denominator; empty unless ``with_den``)."""
     _check(q, kv, pe, K, heads)
     N, H, W, C = q.shape
     out = torch.empty_like(q)
-    den = (torch.empty((N, H, W, heads), dtype=torch.float32, device=q.device)
-           if with_den else None)
+    den = torch.empty(_den_shape(q, heads, with_den), dtype=torch.float32, device=q.device)
     Wt, HB = fwd_plan(C, heads)
     code = _build.load_library().vmg_ltam_fwd(
         q.data_ptr(), kv.data_ptr(), pe.data_ptr(), out.data_ptr(),
-        _build.ptr(den), N, H, W, C, K, heads, Wt, HB, _build.DTYPE_CODES[kv.dtype],
-        _build.stream_of(q))
+        den.data_ptr() if with_den else None, N, H, W, C, K, heads, Wt, HB,
+        _build.DTYPE_CODES[kv.dtype], _build.stream_of(q))
     _build.check(code, "vmg_ltam_fwd")
     ltam_attention_2x2.launches += 1
     return out, den
+
+
+def _fwd_cpu(q, kv, pe, K: int, heads: int, with_den: bool):
+    out, den = _plain_forward(q, kv, pe, K, heads)
+    return out, den if with_den else den.new_empty((0,))
+
+
+def _fwd_fake(q, kv, pe, K: int, heads: int, with_den: bool):
+    return (library.empty(q, dtype=torch.float32),
+            library.empty(q, _den_shape(q, heads, with_den), torch.float32))
+
+
+_ltam_fwd = library.define(
+    "ltam_fwd", "(Tensor q, Tensor kv, Tensor pe, int K, int heads, bool with_den) "
+    "-> (Tensor, Tensor)", cpu=_fwd_cpu, cuda=_fwd_cuda, fake=_fwd_fake)
 
 
 # threads of the backward kernel's block (``kLtamBwdThreads``); shared memory
@@ -188,16 +258,13 @@ def bwd_plan(C: int, heads: int, K: int, dtype):
     return Wt, HB, nbuf
 
 
-def ltam_attention_2x2_bwd(q, kv, pe, den, out, g, *, K: int, heads: int):
-    """Gradients (dq f32, dkv in kv's dtype, dpe f32) of the attention from
-    the forward's saved q, kv, pe, den (unclamped), out and the f32
-    cotangent g.  CPU tensors take :func:`ltam_attention_bwd_plain`."""
-    if q.device.type == "cpu":
-        return ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
+def _bwd_cuda(q, kv, pe, den, out, g, K: int, heads: int):
     _check(q, kv, pe, K, heads)
     N, H, W, C = q.shape
     for name, t, shape in (("den", den, (N, H, W, heads)), ("out", out, q.shape),
                            ("g", g, q.shape)):
+        if t is None:
+            raise ValueError(f"the backward kernel reads the forward's {name}")
         _build.require(t, name, shape=shape, dtype=torch.float32, device=q.device)
     Wt, HB, nbuf = bwd_plan(C, heads, K, kv.dtype)
     dq = torch.empty_like(q)
@@ -217,36 +284,57 @@ def ltam_attention_2x2_bwd(q, kv, pe, den, out, g, *, K: int, heads: int):
     return dq, dkv, dpe
 
 
-class _LtamAttention(torch.autograd.Function):
-    """The kernel pair under autograd: the forward saves q, kv, pe, den and
-    out, the backward launches the backward kernel (the custom VJP of
-    ``vmg_tpu/ops/ltam_attention.py:344-362``)."""
+def _bwd_cpu(q, kv, pe, den, out, g, K: int, heads: int):
+    return ltam_attention_bwd_plain(q, kv, pe, g, K=K, heads=heads)
 
-    @staticmethod
-    def forward(ctx, q, kv, pe, K, heads):
-        out, den = _forward_kernel(q, kv, pe, K, heads, with_den=True)
-        ctx.save_for_backward(q, kv, pe, den, out)
-        ctx.K, ctx.heads = K, heads
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, kv, pe, den, out = ctx.saved_tensors
-        dq, dkv, dpe = ltam_attention_2x2_bwd(
-            q, kv, pe, den, out, g.float().contiguous(), K=ctx.K, heads=ctx.heads)
-        return dq, dkv, dpe, None, None
+def _bwd_fake(q, kv, pe, den, out, g, K: int, heads: int):
+    return library.empty(q), library.empty(kv), library.empty(pe)
+
+
+_ltam_bwd = library.define(
+    "ltam_bwd", "(Tensor q, Tensor kv, Tensor pe, Tensor? den, Tensor? out, Tensor g, int K, "
+    "int heads) -> (Tensor, Tensor, Tensor)", cpu=_bwd_cpu, cuda=_bwd_cuda, fake=_bwd_fake)
+
+
+def ltam_attention_2x2_bwd(q, kv, pe, den, out, g, *, K: int, heads: int):
+    """Gradients (dq f32, dkv in kv's dtype, dpe f32) of the attention from
+    the forward's saved q, kv, pe, den (unclamped), out and the f32
+    cotangent g (``vmg::ltam_bwd``: the backward kernel on CUDA tensors,
+    :func:`ltam_attention_bwd_plain` on CPU tensors)."""
+    return _ltam_bwd(q, kv, pe, den, out, g, K, heads)
+
+
+def _setup_context(ctx, inputs, output):
+    q, kv, pe, K, heads, with_den = inputs
+    ctx.save_for_backward(q, kv, pe, output[1], output[0])
+    ctx.K, ctx.heads, ctx.with_den = K, heads, with_den
+
+
+def _backward(ctx, g, _g_den):
+    if not ctx.with_den:
+        raise RuntimeError("ltam_fwd ran without the denominator its backward reads: "
+                           "call it through ltam_attention_2x2")
+    q, kv, pe, den, out = ctx.saved_tensors
+    dq, dkv, dpe = _ltam_bwd(q, kv, pe, den, out, g.float().contiguous(), ctx.K, ctx.heads)
+    return dq, dkv, dpe, None, None, None
+
+
+library.register_autograd(_ltam_fwd, _backward, _setup_context)
+
+
+def ltam_fwd(q, kv, pe, *, K: int, heads: int, with_den: bool = False):
+    """``vmg::ltam_fwd`` itself: (out, den), den empty unless ``with_den``."""
+    return _ltam_fwd(q, kv, pe, K, heads, with_den)
 
 
 def ltam_attention_2x2(q, kv, pe, *, K: int, heads: int):
-    """See the module docstring.  CPU tensors take the plain version; on
-    CUDA tensors the forward kernel runs, through the autograd Function
-    (which also writes the denominator) when a gradient is needed."""
-    if q.device.type == "cpu":
-        return ltam_attention_plain(q, kv, pe, K=K, heads=heads)
-    if torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad
-                                    or pe.requires_grad):
-        return _LtamAttention.apply(q, kv, pe, K, heads)
-    return _forward_kernel(q, kv, pe, K, heads, with_den=False)[0]
+    """See the module docstring: ``vmg::ltam_fwd``, the forward kernel on
+    CUDA tensors, the plain version on CPU tensors; it also writes the
+    denominator (for the backward) when a gradient is needed."""
+    with_den = torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad
+                                            or pe.requires_grad)
+    return _ltam_fwd(q, kv, pe, K, heads, with_den)[0]
 
 
 ltam_attention_2x2.launches = 0

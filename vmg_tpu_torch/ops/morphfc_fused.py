@@ -2,9 +2,10 @@
 
 Port of ``fused_morphfc_axes``, ``fused_morphfc_reduce`` and
 ``fused_morphfc_combine`` of ``vmg_tpu/ops/morphfc_fused.py``.  The
-wrappers launch the CUDA kernels of ``csrc/morphfc.cu`` on CUDA tensors
-(design notes there) and take the plain PyTorch versions beside them on
-CPU tensors.  Tensors are ``(N, H, W, C)``; ``a`` holds the per-frame
+wrappers call the operators ``vmg::morphfc_axes``, ``vmg::morphfc_reduce``
+and ``vmg::morphfc_combine`` (``ops/library.py``), which launch the CUDA
+kernels of ``csrc/morphfc.cu`` on CUDA tensors (design notes there) and
+take the plain PyTorch versions beside them on CPU tensors.  Tensors are ``(N, H, W, C)``; ``a`` holds the per-frame
 softmax branch weights ``(N, 3, C)``.  Weights come as the kernels take
 them, packed once by the module (``MorphFCDecay.operands``): matrices
 ``(C_in, C_out)`` in the tensors' dtype (the axis weights with the decay
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from vmg_tpu_torch import _build
+from vmg_tpu_torch.ops import library
 from vmg_tpu_torch.ops.group_conv import _tf32_image, _tf32_unimage
 
 
@@ -262,16 +264,18 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
     None for :func:`axes_form`, or the token form where the big form's
     plan does not fit (f32 above C = 128: the weight's TF32 hi and lo
     images).  Both forms compute one function, so CPU tensors take the
-    same plain version."""
+    same plain version.  ``vmg::morphfc_axes``, with the form resolved
+    here."""
     if form is None:
         form = axes_form(x.shape[-1], chunk_h, chunk_w)
         if form == "big" and axes_plan(x.shape[-1], chunk_h, chunk_w, x.dtype) is None:
             form = "token"  # f32 above C = 128: the hi and lo images do not fit
     elif form not in FORMS:
         raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
-    if x.device.type == "cpu":
-        return morphfc_axes_plain(x, c, kh, bh, kw, bw, chunk_h=chunk_h,
-                                  chunk_w=chunk_w)
+    return _morphfc_axes(x, c, kh, bh, kw, bw, chunk_h, chunk_w, form)
+
+
+def _axes_cuda(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str):
     N, H, W, C = x.shape
     dt, dev = x.dtype, x.device
     if C % chunk_h or C % chunk_w or W % chunk_w:
@@ -343,6 +347,19 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
     return h, w, psum
 
 
+def _axes_cpu(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str):
+    return morphfc_axes_plain(x, c, kh, bh, kw, bw, chunk_h=chunk_h, chunk_w=chunk_w)
+
+
+def _axes_fake(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str):
+    return (library.empty(x), library.empty(x),
+            library.empty(x, (x.shape[0], x.shape[-1]), torch.float32))
+
+
+_morphfc_axes = library.define(
+    "morphfc_axes", "(Tensor x, Tensor c, Tensor kh, Tensor bh, Tensor kw, Tensor bw, "
+    "int chunk_h, int chunk_w, str form) -> (Tensor, Tensor, Tensor)",
+    cpu=_axes_cpu, cuda=_axes_cuda, fake=_axes_fake)
 fused_morphfc_axes.launches = 0  # the big form's kernel
 fused_morphfc_axes.token_launches = 0  # the token form's kernel
 
@@ -390,9 +407,7 @@ def reduce_plan(N: int, P: int, C: int, vec: int, sms: int):
     return -(-P // per), per
 
 
-def fused_morphfc_reduce(h, w, c):
-    if h.device.type == "cpu":
-        return morphfc_reduce_plain(h, w, c)
+def _reduce_cuda(h, w, c):
     N, H, W, C = h.shape
     _build.require(h, "h")
     for name, t in (("w", w), ("c", c)):
@@ -409,6 +424,20 @@ def fused_morphfc_reduce(h, w, c):
     _build.check(code, "vmg_morphfc_reduce")
     fused_morphfc_reduce.launches += 1
     return out
+
+
+_morphfc_reduce = library.define(
+    "morphfc_reduce", "(Tensor h, Tensor w, Tensor c) -> Tensor",
+    cpu=morphfc_reduce_plain, cuda=_reduce_cuda,
+    fake=lambda h, w, c: library.empty(h, (h.shape[0], h.shape[-1]), torch.float32))
+
+
+def fused_morphfc_reduce(h, w, c):
+    """f32 per-frame sums of h + w + c, (N, H, W, C) x3 -> (N, C):
+    ``vmg::morphfc_reduce``, the kernel on CUDA tensors (its load width
+    from the pointers' alignment, :func:`reduce_vec`), the plain version on
+    CPU tensors."""
+    return _morphfc_reduce(h, w, c)
 
 
 fused_morphfc_reduce.launches = 0
@@ -572,14 +601,7 @@ def combine_plan(C: int, dtype=torch.bfloat16, items=None, sms: int = 132):
     raise ValueError(f"the combine kernel has no plan at C={C}")
 
 
-def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
-                          residual=None, res_scale=1.0):
-    """pb (C,) f32; pk in x's dtype: (C_in, C_out) on CPU, the image
-    :func:`pack_combine_weight` makes of it on CUDA; ``act``: the gate,
-    ``"tanh"``, ``"sigmoid"`` (sigmoid(p) - 0.5) or ``"relu"``."""
-    if x.device.type == "cpu":
-        return morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act,
-                                     residual=residual, res_scale=res_scale)
+def _combine_cuda(x, h, w, c, a, pk, pb, act: str, residual, res_scale: float):
     if act not in _GATES:
         raise ValueError(f"unsupported gate act {act!r}")
     N, H, W, C = x.shape
@@ -609,6 +631,27 @@ def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
     _build.check(code, "vmg_morphfc_combine")
     fused_morphfc_combine.launches += 1
     return out
+
+
+def _combine_cpu(x, h, w, c, a, pk, pb, act: str, residual, res_scale: float):
+    return morphfc_combine_plain(x, h, w, c, a, pk, pb, act=act, residual=residual,
+                                 res_scale=res_scale)
+
+
+_morphfc_combine = library.define(
+    "morphfc_combine", "(Tensor x, Tensor h, Tensor w, Tensor c, Tensor a, Tensor pk, "
+    "Tensor pb, str act, Tensor? residual, float res_scale) -> Tensor",
+    cpu=_combine_cpu, cuda=_combine_cuda,
+    fake=lambda x, h, w, c, a, pk, pb, act, residual, res_scale: library.empty(x))
+
+
+def fused_morphfc_combine(x, h, w, c, a, pk, pb, *, act="tanh",
+                          residual=None, res_scale=1.0):
+    """pb (C,) f32; pk in x's dtype: (C_in, C_out) on CPU, the image
+    :func:`pack_combine_weight` makes of it on CUDA; ``act``: the gate,
+    ``"tanh"``, ``"sigmoid"`` (sigmoid(p) - 0.5) or ``"relu"``:
+    ``vmg::morphfc_combine``."""
+    return _morphfc_combine(x, h, w, c, a, pk, pb, act, residual, float(res_scale))
 
 
 fused_morphfc_combine.launches = 0

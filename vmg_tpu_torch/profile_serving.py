@@ -1,7 +1,8 @@
 """Where the serving forward's time goes on one CUDA card.
 
     python3 -m vmg_tpu_torch.profile_serving [--reps 5] [--forms module|kernel]
-        [--preset full|few_levels|vid4_tile] [--tree DIR] [--json PATH]
+        [--preset full|few_levels|vid4_tile] [--flow-levels per_level|shared]
+        [--tree DIR] [--json PATH]
 
 ``FULL_PRESET`` in bf16 with the serving fast-math (tanh GELU, bf16
 SPyNet convolutions), seeded random init, 1x16x180x320 clips, in the
@@ -14,7 +15,9 @@ freeze) on 1x32x128x128 clips, the eval preset's 128x128 tile.
 model as ``python -m vmg_tpu_torch.eval`` loads it (FULL_PRESET, float32,
 erf GELU, seed-0 weights, cuDNN's default TF32 convolutions) on one
 1x16x128x128 tile, the evaluator's; no ``SRServer`` runs; ``--forms
-kernel`` builds that model in the kernel forms.  ``--tree DIR``
+kernel`` builds that model in the kernel forms.  ``--flow-levels
+shared`` runs SPyNet at the finest level only and pools its flow down
+(the config's ``flow_levels``; default ``per_level``).  ``--tree DIR``
 imports ``vmg_tpu_torch`` from another checkout (e.g. an earlier commit
 unpacked with ``git archive``), so two trees profile in one call: run this
 file by path then (``python vmg_tpu_torch/profile_serving.py --tree DIR``;
@@ -164,6 +167,8 @@ def main(argv=None) -> int:
     ap.add_argument("--forms", default="module", choices=["module", "kernel"],
                     help="'kernel': rcab_impl, traj_conv_impl and norm_impl 'kernel'")
     ap.add_argument("--preset", default="full", choices=sorted(CLIPS))
+    ap.add_argument("--flow-levels", default="per_level", choices=["per_level", "shared"],
+                    help="'shared': SPyNet at level 0 only, its flow pooled down")
     ap.add_argument("--tree", default=None, help="import vmg_tpu_torch from this checkout")
     ap.add_argument("--json", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -186,12 +191,14 @@ def main(argv=None) -> int:
     x = torch.from_numpy(clip).cuda()
     server = None
     forms = KERNEL_FORMS if args.forms == "kernel" else {}
+    # only when asked: a tree from before the field keeps working
+    levels = {} if args.flow_levels == "per_level" else {"flow_levels": args.flow_levels}
     if args.preset == "vid4_tile":
         # as vmg_tpu_torch.eval.load_model builds it with no checkpoint,
         # in the forms asked for
         cfg = EVAL_PRESETS["vid4"]
         model = create_model(cfg.network, is_train=False, device="cuda", gelu="erf",
-                             generator=torch.Generator().manual_seed(0), **forms)
+                             generator=torch.Generator().manual_seed(0), **forms, **levels)
         if cfg.dataset.use_mirrors:
             raise RuntimeError("the Vid4 preset runs no mirrored frames")
 
@@ -203,7 +210,7 @@ def main(argv=None) -> int:
         sd = create_model(base, device="cpu",
                           generator=torch.Generator().manual_seed(0)).state_dict()
         server = SRServer(preset, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
-                          **forms)
+                          **forms, **levels)
 
         def forward():
             return server.model(x)
@@ -232,6 +239,7 @@ def main(argv=None) -> int:
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "package": package, "preset": args.preset, "forms": args.forms,
+        "flow_levels": args.flow_levels,
         "clip": [1, T, H, W], "resident_s_per_clip": spread(resident),
         "trace": trace_summary(prof),
     }
@@ -240,7 +248,8 @@ def main(argv=None) -> int:
                       served_frames_per_s=spread([T / s for s in served]))
 
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{args.preset} preset, 1x{T}x{H}x{W} clips, {args.forms} forms; {package}")
+          f"{args.preset} preset, 1x{T}x{H}x{W} clips, {args.forms} forms, flow_levels "
+          f"{args.flow_levels}; {package}")
     r = result["resident_s_per_clip"]
     print(f"device-resident forward: median {r['median']:.4f} s per clip "
           f"(range {r['min']:.4f}-{r['max']:.4f}, {args.reps} reps, CUDA events)")

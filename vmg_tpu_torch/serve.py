@@ -8,11 +8,14 @@ out.  The model runs on ``device`` (the card unless the caller passes
 the serving fast-math of the JAX package's bench protocol: tanh GELU and
 bf16 SPyNet convolutions.  ``rcab_impl``, ``traj_conv_impl`` and
 ``norm_impl`` select the JAX package's opt-in kernel forms (module forms
-by default; see ``vmg_tpu_torch.models.vmg``).
+by default; see ``vmg_tpu_torch.models.vmg``).  ``flow_levels``, if given,
+replaces the config's: ``'shared'`` runs SPyNet at the finest level only
+and pools its flow down to the coarser ones.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -26,7 +29,10 @@ class SRServer:
     def __init__(self, cfg: VMGNetworkConfig, state_dict: Mapping[str, torch.Tensor],
                  device="cuda", dtype: torch.dtype = torch.bfloat16, *,
                  gelu: str = "tanh", fast_flow: bool = True, rcab_impl: str = "module",
-                 traj_conv_impl: str = "module", norm_impl: str = "module"):
+                 traj_conv_impl: str = "module", norm_impl: str = "module",
+                 flow_levels: str | None = None):
+        if flow_levels is not None:
+            cfg = dataclasses.replace(cfg, flow_levels=flow_levels)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SRServer: no CUDA device visible; pass "

@@ -432,7 +432,7 @@ def _side(root: Path, reps: int, only=None) -> dict:
                         "max_rel_err": err}
                     continue
                 g = torch.randn(1, hh, ww, C, generator=gen, device=dev)
-                o, den = ltam_attention._forward_kernel(q, kv, pe, K, heads, with_den=True)
+                o, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
 
                 def bwd():
                     return ltam_attention.ltam_attention_2x2_bwd(q, kv, pe, den, o, g, K=K,

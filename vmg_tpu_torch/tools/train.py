@@ -4,7 +4,7 @@
         [--dataroot-hr DIR --dataroot-lr DIR] [--cache-keys PKL] \\
         [--experiments-root DIR] [--resume] [--batchsize B] [--max-steps N] \\
         [--max-retries R] [--val-lr-root DIR --val-gt-root DIR --val-clips K] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--multihost]
 
 ``--config`` names one of the JAX package's training configs
 (``configs.TRAIN_PRESETS``: reds_full, reds_few_levels, tiny_demo,
@@ -22,8 +22,21 @@ the JAX loop's does.  ``--max-retries``: a step that raises a device
 error (out of memory, an accelerator fault) restores the latest
 checkpoint, or the host snapshot taken at the start and every 1000 steps,
 and goes on; past the retries the error is raised.  Runs on the card
-unless ``--device cpu``; without a card it raises.  ``--multihost`` is
-not ported.
+unless ``--device cpu``; without a card it raises.
+
+``--multihost``: data parallelism over processes (``parallel/``), one card
+each.  Each process joins the process group from the usual environment
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; NCCL on the
+card, gloo with ``--device cpu``), the config's ``mesh_shape`` puts every
+process on the data axis, each loads its share of the global batch
+(``batch_size`` is global), the step averages the gradients over the
+processes, and process 0 alone logs, validates and writes checkpoints.
+Two processes on the CPU:
+
+    MASTER_ADDR=localhost MASTER_PORT=29512 WORLD_SIZE=2 RANK=0 \\
+        python -m vmg_tpu_torch.tools.train --config tiny_demo --device cpu --multihost ... &
+    MASTER_ADDR=localhost MASTER_PORT=29512 WORLD_SIZE=2 RANK=1 \\
+        python -m vmg_tpu_torch.tools.train --config tiny_demo --device cpu --multihost ...
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vmg_tpu_torch.ckpt.io import (latest_step, load_trainer_state, restore_checkpoint,
                                    save_checkpoint, trainer_state)
@@ -44,6 +58,7 @@ from vmg_tpu_torch.configs import TRAIN_PRESETS, ExperimentConfig
 from vmg_tpu_torch.data.clip_dataset import create_dataset
 from vmg_tpu_torch.data.loader import DeviceFeed, accumulate_batches, create_dataloader
 from vmg_tpu_torch.models.vmg import create_model
+from vmg_tpu_torch.parallel import initialize_distributed, make_mesh
 from vmg_tpu_torch.train.schedule import main_lr_schedule
 from vmg_tpu_torch.train.train_step import make_train_step
 from vmg_tpu_torch.utils.collect_env import collect_env
@@ -114,20 +129,25 @@ def train(cfg: ExperimentConfig, *, resume: bool = False, max_steps: Optional[in
                            "to train on the CPU")
     exp_root = os.path.join(cfg.path.experiments_root, cfg.name)
     ckpt_dir = os.path.join(exp_root, "ckpt")
-    logger = setup_logger(f"vmg_tpu_torch.train:{os.path.abspath(exp_root)}", exp_root, "train")
-    scalars = make_scalar_logger(exp_root, cfg.logger.use_tb_logger)
+    # over a process group: the data-parallel mesh; process 0 alone logs
+    mesh = make_mesh(cfg.mesh_shape) if dist.is_initialized() else None
+    lead = mesh is None or mesh.rank == 0
+    logger = setup_logger(f"vmg_tpu_torch.train:{os.path.abspath(exp_root)}", exp_root, "train",
+                          tofile=lead)
+    scalars = make_scalar_logger(exp_root, cfg.logger.use_tb_logger, enabled=lead)
     try:
         return _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries,
-                      val_lr_root, val_gt_root, val_clips, init_state, hooks)
+                      val_lr_root, val_gt_root, val_clips, init_state, hooks, mesh)
     finally:
-        scalars.close()
+        if scalars is not None:
+            scalars.close()
         for h in list(logger.handlers):
             logger.removeHandler(h)
             h.close()
 
 
 def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, val_lr_root,
-           val_gt_root, val_clips, init_state, hooks) -> dict:
+           val_gt_root, val_clips, init_state, hooks, mesh) -> dict:
     seed = cfg.train.manual_seed
     set_random_seed(seed)
     lr_of = main_lr_schedule(cfg.train)
@@ -143,7 +163,14 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
     ds = cfg.dataset
     grad_acc = max(1, ds.total_batch // ds.batch_size) if cfg.train.grad_acc else 1
     step_fn = make_train_step(model, cfg.train, grad_acc=grad_acc,
-                              frames_mirror=ds.use_mirrors)
+                              frames_mirror=ds.use_mirrors, mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
+
+    def save(step):  # process 0 writes; the others wait for the file
+        if lead:
+            save_checkpoint(ckpt_dir, step, trainer_state(model, step_fn, gen))
+        if mesh is not None:
+            dist.barrier()
     gen = torch.Generator(device=dev).manual_seed(seed + 777)
     start_step = 0
     if resume and latest_step(ckpt_dir) is not None:
@@ -151,9 +178,11 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
         logger.info(f"resumed from step {start_step}")
 
     dataset = create_dataset(ds, cfg.scale)
-    loader = create_dataloader(dataset, ds, pin_memory=dev.type == "cuda")
+    loader = create_dataloader(dataset, ds, num_replicas=1 if mesh is None else mesh.data,
+                               rank=0 if mesh is None else mesh.rank,
+                               pin_memory=dev.type == "cuda")
     val_hook = None
-    if val_lr_root:
+    if val_lr_root and lead:
         from vmg_tpu_torch.edit.hooks import EvalIterHook
 
         val_hook = EvalIterHook(_eval_fn(cfg, dev, val_lr_root, val_gt_root, val_clips),
@@ -164,7 +193,7 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
     step, epoch = start_step, 0
     rec = {"start_step": start_step, "steps": [], "losses": [], "grad_norms": [],
            "step_ms": [], "data_wait_s": [], "epochs": 0, "retries": 0,
-           "grad_acc": grad_acc}
+           "grad_acc": grad_acc, "processes": 1 if mesh is None else mesh.data}
     t_log = time.time()
     # failure recovery: a host copy to restore from while no checkpoint is newer
     host_snapshot, snapshot_step = _host_copy(trainer_state(model, step_fn, gen)), step
@@ -211,7 +240,7 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
                 val_hook.after_iter(step, model, {})
                 if val_hook.latest and step % val_hook.interval == 0:
                     scalars.log(step, **val_hook.latest)
-            if step % cfg.logger.print_freq == 0:
+            if step % cfg.logger.print_freq == 0 and lead:
                 dt = time.time() - t_log
                 logger.info(f"step {step}/{niter} epoch {epoch} loss {meter.average():.5f} "
                             f"({cfg.logger.print_freq / dt:.2f} it/s)")
@@ -221,12 +250,12 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
                 meter.reset()
                 t_log = time.time()
             if step % cfg.logger.save_checkpoint_freq == 0:
-                save_checkpoint(ckpt_dir, step, trainer_state(model, step_fn, gen))
+                save(step)
                 logger.info(f"checkpoint saved at step {step}")
         rec["data_wait_s"].extend(feed.waits)
         epoch += 1
         rec["epochs"] = epoch
-    save_checkpoint(ckpt_dir, step, trainer_state(model, step_fn, gen))
+    save(step)
     logger.info(f"final checkpoint at step {step}")
     rec["end_step"] = step
     rec["ckpt_dir"] = ckpt_dir
@@ -244,6 +273,14 @@ def config_from_args(args) -> ExperimentConfig:
     if args.experiments_root:
         cfg.path.experiments_root = args.experiments_root
     return cfg
+
+
+def join_process_group(cfg: ExperimentConfig, device) -> None:
+    """``--multihost``: join the process group from the environment (NCCL
+    on the card, gloo on the CPU) and put every process on the data axis
+    of ``cfg.mesh_shape``."""
+    initialize_distributed("gloo" if torch.device(device).type == "cpu" else "nccl")
+    cfg.mesh_shape = (0, cfg.mesh_shape[1])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -266,6 +303,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--experiments-root", default=None,
                    help="override the root of the log, scalars and checkpoints")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="data parallelism over processes: join the process group from the "
+                        "environment first (NCCL on the card, gloo on the CPU)")
     return p
 
 
@@ -273,9 +313,16 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.val_lr_root and not args.val_gt_root:
         raise SystemExit("--val-lr-root needs --val-gt-root")
-    train(config_from_args(args), resume=args.resume, max_steps=args.max_steps,
-          max_retries=args.max_retries, val_lr_root=args.val_lr_root,
-          val_gt_root=args.val_gt_root, val_clips=args.val_clips, device=args.device)
+    cfg = config_from_args(args)
+    if args.multihost:
+        join_process_group(cfg, args.device)
+    try:
+        train(cfg, resume=args.resume, max_steps=args.max_steps,
+              max_retries=args.max_retries, val_lr_root=args.val_lr_root,
+              val_gt_root=args.val_gt_root, val_clips=args.val_clips, device=args.device)
+    finally:
+        if args.multihost:
+            dist.destroy_process_group()
     return 0
 
 
