@@ -126,6 +126,21 @@ Phases (any failure exits non-zero):
      at step 4; step ms (median over each run's steps after its first),
      data-wait ms a batch, frames/s, peak memory.  An out-of-memory error
      fails the phase, naming the batch.
+ 8b. ``tools.train --multihost``'s function in a one-process NCCL group on
+     phase 8's config and tree: its losses against phase 8's;
+  9. export: FULL_PRESET bf16 at 1x16x180x320 through
+     ``ckpt.export.export_program`` in the default forms at full depth and
+     in the kernel forms at depth 1 a stage (EXPORT_KERNEL_DEPTH), saved,
+     loaded and run against the eager forward;
+ 10. the other tails at full width (VARIANT: FULL_PRESET with trajectory
+     tails at stages 0/6, the flow-guided DCN at 1/5, the 3D window
+     attention at 2/4 and 3, linear bias-free axis FCs): f32 parity at
+     1x2x64x64 against the plain path on CPU tensors (phase 3's tolerance),
+     SRServer bf16 at 1x16x180x320 in the default and kernel forms (frames/s,
+     peak memory, the LTAM, FFN, axes, reduce and combine kernels
+     launched), one bf16 training step at phase 6's size; phase 2 holds the
+     four axes instantiations in these forms (AXES_OPTIONS) to their plain
+     versions.
 Prints a {"train_loop": {...}} JSON line, a {"kernels": [...]} JSON line (each kernel with its launches on
 the path that runs it -- the token form's and the probes' on their entry
 points in phases 2/2p, none on the model paths -- its times, its bound and
@@ -262,6 +277,15 @@ LTAM_STEPS_PER_K = 12
 # the few-levels preset's 36, 64, and one head of 144 -- at the few-levels
 # serving shape (1x128x128) and training crop (1x64x64), ragged slot counts
 LTAM_WIDTHS = [(144, 4, 3), (128, 2, 4), (144, 1, 5)]
+# the axes kernels' run-time options checked in phase 2 ((non_linear, bias):
+# linear with biases, relu without, linear without -- phase 10's form) and
+# the path shape each instantiation runs them at: the big form at stage 0/6
+# (bf16 serving) and the eval tile's stage 0/6 (f32), the token form at
+# stage 3 (bf16: its compile-time shape) and stage 1/5 (f32)
+AXES_OPTIONS = [(False, True), (True, False), (False, False)]
+AXES_OPTION_SHAPES = {
+    torch.bfloat16: [((16, 184, 320, 112), 8, "big"), ((16, 23, 40, 448), 8, "token")],
+    torch.float32: [((16, 128, 128, 112), 8, "big"), ((16, 92, 160, 224), 16, "token")]}
 # the axis branches' token form: (N, H, W, C) and chunk of stages 1/5 and 3
 TOKEN_SHAPES = [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)]
 # the reduce's shapes (N, H, W, C) and launches per clip: FULL_PRESET's
@@ -471,16 +495,17 @@ EXPORT_NODES = {"group_ffn": ("fused_group_ffn",),
 
 def export_phase(report, sd, smi, kind):
     """Phase 9: FULL_PRESET bf16 served at 1x16x180x320, exported
-    (``ckpt.export.export_program``) in the default and kernel forms, saved,
-    loaded and run: its output against the eager forward's, its vmg:: nodes
-    against the eager launch counts, its own launches, the export's wall
-    time and the loaded program's frames/s beside the eager model's (host
-    clock, device-resident clip, 3 calls after a warm-up)."""
+    (``ckpt.export.export_program``) in the default forms at full depth and
+    in the kernel forms at EXPORT_KERNEL_DEPTH (its own seeded weights),
+    saved, loaded and run: its output against the eager forward's, its
+    vmg:: nodes against the eager launch counts, its own launches, the
+    export's wall time and the loaded program's frames/s beside the eager
+    model's (host clock, device-resident clip, 3 calls after a warm-up)."""
     import shutil
 
     from vmg_tpu_torch.ckpt.export import export_program, load_program, operator_counts
     from vmg_tpu_torch.configs import FULL_PRESET
-    from vmg_tpu_torch.models.vmg import KERNEL_FORMS
+    from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
     from vmg_tpu_torch.serve import SRServer
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
@@ -501,8 +526,12 @@ def export_phase(report, sd, smi, kind):
 
     out = {}
     try:
-        for label, forms in (("default", {}), ("kernel", KERNEL_FORMS)):
-            server = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh",
+        shallow = dataclasses.replace(FULL_PRESET, **EXPORT_KERNEL_DEPTH)
+        sd_shallow = create_model(shallow, device="cpu",
+                                  generator=torch.Generator().manual_seed(0)).state_dict()
+        for label, cfg, weights, forms in (("default", FULL_PRESET, sd, {}),
+                                           ("kernel", shallow, sd_shallow, KERNEL_FORMS)):
+            server = SRServer(cfg, weights, "cuda", torch.bfloat16, gelu="tanh",
                               fast_flow=True, **forms)
             zero_counts()
             with torch.no_grad():
@@ -549,7 +578,8 @@ def export_phase(report, sd, smi, kind):
             if diff > REL_TOL[torch.bfloat16] * eager.float().abs().max().item():
                 raise AssertionError(f"the exported {label} program differs from eager by "
                                      f"{diff}")
-            out[label] = {"export_s": t_export, "load_s": t_load, "bit_equal": bit_equal,
+            out[label] = {"depths": cfg.depths, "traj_res_n": cfg.traj_res_n,
+                          "export_s": t_export, "load_s": t_load, "bit_equal": bit_equal,
                           "max_abs_diff": diff, "nodes": dict(nodes),
                           "frames_per_s_loaded": fps_loaded, "frames_per_s_eager": fps_eager,
                           "bytes": os.path.getsize(path)}
@@ -557,6 +587,112 @@ def export_phase(report, sd, smi, kind):
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# phase 9's kernel-form export at depth 1 a stage and 5 residual blocks a
+# trajectory step (FULL_PRESET: 4/4/2/2/2/4/4 and 15): the export's time
+# grows with the graph, and the run keeps its margin under its time limit
+EXPORT_KERNEL_DEPTH = dict(depths=(1,) * 7, traj_res_n=(5, 0, 0, 0, 0, 0, 5))
+
+# phase 10: FULL_PRESET's widths and depths with every tail -- trajectory at
+# stages 0/6, DCN at 1/5, 3D window attention at 2/4 and 3 -- and the axis
+# FCs linear and bias-free; the kernels its serving path must launch
+VARIANT = dict(temporal_type=(False, True, None, None), temporal_empty=False,
+               non_linear=False, qkv_bias=False)
+VARIANT_PATH = ("ltam_attention_2x2", "fused_group_ffn", "fused_morphfc_axes",
+                "fused_morphfc_reduce", "fused_morphfc_combine")
+
+
+def variant_phase(report, smi, kind):
+    """Phase 10: the VARIANT configuration at FULL_PRESET's widths and
+    depths.  f32 parity at 1x2x64x64 (kernels on the card against the plain
+    path on CPU tensors, phase 3's tolerance; the DCN's zero-initialised
+    offset head perturbed so that its offsets and masks vary); SRServer in
+    bf16 at 1x16x180x320 in the default and kernel forms (a warm-up request,
+    then 2 clips: frames/s, peak memory, launches); one bf16 training step
+    at phase 6's size (B=1, T=16, 64x64 crops) after a warm-up step."""
+    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.models.vmg import KERNEL_FORMS, create_model
+    from vmg_tpu_torch.serve import SRServer
+    from vmg_tpu_torch.train.__main__ import run as train_run
+
+    cfg = dataclasses.replace(FULL_PRESET, **VARIANT)
+    cpu_model = create_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if "pa_deform.conv_offset.6" in name:
+                p.copy_(0.01 * torch.randn(p.shape, generator=gen))
+    sd = cpu_model.state_dict()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(1).random((1, 2, 64, 64, 3), dtype=np.float32))
+    zero_counts()
+    with torch.inference_mode():
+        t1 = time.time()
+        want = cpu_model(x)
+        t_cpu = time.time() - t1
+        got = gpu_model(x.cuda()).cpu()
+    parity_launches = read_counts()
+    err = (got - want).abs().max().item()
+    report(f"    f32 1x2x64x64: max_abs_err={err:.3e} (tol {SLICE_TOL}); CPU plain path "
+           f"{t_cpu:.1f} s; launches {parity_launches}")
+    if not (torch.isfinite(got).all() and err <= SLICE_TOL):
+        raise AssertionError("phase 10 slice parity failed")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(10)
+    warm = rng.random((1, T, H, W, 3), dtype=np.float32)
+    clips = [rng.random((1, T, H, W, 3), dtype=np.float32) for _ in range(2)]
+    out = {"slice_max_abs_err": err}
+    for label, forms in (("default", {}), ("kernel", KERNEL_FORMS)):
+        server = SRServer(cfg, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True,
+                          **forms)
+        t1 = time.time()
+        res = server(warm)
+        t_warm = time.time() - t1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        per_request = []
+        t1 = time.time()
+        for c in clips:
+            t2 = time.time()
+            res = server(c)
+            per_request.append(T / (time.time() - t2))
+        fps = T * len(clips) / (time.time() - t1)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        report(f"    {label} forms: {fps:.3f} frames/s (host clock, numpy in/out; per request "
+               f"{[round(v, 3) for v in per_request]}; warm-up {t_warm:.2f} s); peak allocated "
+               f"{peak / 2**30:.2f} GiB; {kind}; card {smi}")
+        report(f"    launches over the {len(clips)} clips: {launches}")
+        if res.shape != (1, T, 4 * H, 4 * W, 3) or not np.isfinite(res).all():
+            raise AssertionError(f"bad phase 10 serving output {res.shape}")
+        missing = [k for k in VARIANT_PATH if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched serving phase 10's model: {missing}")
+        if (not forms and any(launches[k] for k in OPT_IN)) or off_path_launched(launches):
+            raise AssertionError(f"phase 10 {label} serving launched an opt-in or off-path "
+                                 "kernel")
+        out[label] = {"frames_per_s": fps, "per_request_frames_per_s": per_request,
+                      "peak_bytes": peak, "launches": launches}
+        del server
+        torch.cuda.empty_cache()
+
+    zero_counts()
+    rec = train_run(batch=1, frames=16, crop=64, iters=1, grad_acc=1, remat=True,
+                    device="cuda", network=cfg)
+    train_launches = read_counts()
+    losses = [rec["loss_first"], *rec["losses"]]
+    report(f"    training (bf16 on f32 masters, B=1 T=16 64x64, remat): step "
+           f"{rec['step_ms_median']:.1f} ms, peak allocated {rec['peak_bytes'] / 2**30:.2f} "
+           f"GiB, losses {[round(v, 6) for v in losses]}; launches {train_launches}")
+    if not all(np.isfinite(v) for v in losses) or train_launches["ltam_attention_2x2_bwd"] <= 0:
+        raise AssertionError(f"phase 10 training failed: losses {losses}")
+    out["training"] = {**rec, "launches": train_launches}
+    out["launches"] = out["default"]["launches"]
     return out
 
 
@@ -661,6 +797,8 @@ def check_kernels(report):
     # pin's x.clone().
     for e in entries.values():
         e.update(route="cuda", max_abs_err=0.0, library_ms=None)
+    for name in ("fused_morphfc_axes", "fused_morphfc_axes_token"):
+        entries[name]["options"] = {}
 
     def compare(name, shape, dtype, kernel, plain, check, primary, work, extra="",
                 library=None, keys=None):
@@ -858,6 +996,37 @@ def check_kernels(report):
                     raise AssertionError("the token form disagrees with the big form")
                 del big, token
             del x, xc, args
+
+        # the axes kernels' linear and bias-free forms (non_linear off, no
+        # biases: phase 10's mixers), each instantiation at one path shape,
+        # against the plain version (the sums to SUM_TOL of their terms),
+        # timed beside the default form
+        for shape, ck, form in AXES_OPTION_SHAPES[dtype]:
+            N, h, w, C = shape
+            x, xc, kh, bh, kw, bw = axes_args(shape, ck, dtype)
+            name = "fused_morphfc_axes" if form == "big" else "fused_morphfc_axes_token"
+            default_ms = cuda_ms(lambda: morphfc_fused.fused_morphfc_axes(
+                x, xc, kh, bh, kw, bw, chunk_h=ck, chunk_w=ck, form=form), iters=5)
+            for nl, bias in AXES_OPTIONS:
+                b1, b2 = (bh, bw) if bias else (None, None)
+                ms, b, got = compare(
+                    name, (N, h, w, C, ck, f"non_linear={nl}", f"bias={bias}"), dtype,
+                    lambda: morphfc_fused.fused_morphfc_axes(
+                        x, xc, kh, b1, kw, b2, chunk_h=ck, chunk_w=ck, form=form,
+                        non_linear=nl),
+                    lambda: morphfc_fused.morphfc_axes_plain(
+                        x, xc, kh, b1, kw, b2, chunk_h=ck, chunk_w=ck, non_linear=nl),
+                    axes_check(xc, dtype), primary=False,
+                    work=((x, xc, kh, kw), 2 * 2 * N * h * w * C * C,
+                          peak_ffn_axes(dtype) if form == "big" else peak(dtype)),
+                    extra=f"  default form {default_ms:.3f} ms")
+                if bool((got[0] < 0).any()) == nl:  # the relu ran, or did not
+                    raise AssertionError(f"the axes kernel ({form}, {dtype}) took "
+                                         f"non_linear={nl} as {not nl}")
+                entries[name]["options"][f"{dtype} {shape} non_linear={nl} bias={bias}"] = {
+                    "ms": ms, "default_ms": default_ms, "bound_ms": b["bound_ms"]}
+                del got
+            del x, xc, kh, kw
 
         # the reduce at every shape it runs (bf16), at stages 0 and 3 and the
         # eval tile's stages 1/5, 2/4 and 3 (f32), two runs bit-equal; its
@@ -2075,9 +2244,15 @@ def main() -> int:
     loop, loop_launches = train_loop_phase(report, smi, kind, rec)
 
     report(f"[9] export: FULL_PRESET bf16 served at 1x{T}x{H}x{W}, torch.export of the serving "
-           "forward (ckpt.export.export_program) in the default and kernel forms, saved, loaded "
-           "and run against the eager forward")
+           "forward (ckpt.export.export_program) in the default forms and in the kernel forms "
+           f"at {EXPORT_KERNEL_DEPTH}, saved, loaded and run against the eager forward")
     exported = export_phase(report, sd, smi, kind)
+
+    report(f"[10] the other tails at full width: FULL_PRESET with {VARIANT} (trajectory at "
+           "stages 0/6, DCN at 1/5, 3D window attention at 2/4 and 3; linear, bias-free axis "
+           f"FCs): f32 parity at 1x2x64x64, bf16 serving at 1x{T}x{H}x{W} in both forms, one "
+           "bf16 training step")
+    variant = variant_phase(report, smi, kind)
 
     # each kernel's launches on the path that runs it: the LTAM backward in
     # training (phase 6), the conv chain and the norm in kernel-form serving
@@ -2094,7 +2269,8 @@ def main() -> int:
     kernels = []
     for name, e in entries.items():
         path, counts = paths.get(name, ("serving", serving_launches))
-        extra = {k: v for k, v in e.items() if k in ("module_ms", "hybrid_ms", "n1", "n16")
+        extra = {k: v for k, v in e.items()
+                 if k in ("module_ms", "hybrid_ms", "n1", "n16", "options")
                  or k.startswith(("groups", "d"))}
         kernels.append({"name": name, "route": e["route"], "source": e["source"],
                         "replaces": e["replaces"], "launches": counts[name],
@@ -2112,6 +2288,7 @@ def main() -> int:
                         "launches_few_levels_training": few_train[name],
                         "launches_eval": ev["launches"][name],
                         "launches_train_loop": loop_launches[name],
+                        "launches_phase10": variant["launches"][name],
                         "bound_bytes": e["bound_bytes"], "bound_flops": e["bound_flops"],
                         "bound_peak": e["bound_peak"], **extra})
     print(json.dumps({"serving": {"frames_per_s": fps, "per_request_frames_per_s": per_request,
@@ -2133,6 +2310,7 @@ def main() -> int:
     print(json.dumps({"eval": {k: v for k, v in ev.items() if k != "launches"}}))
     print(json.dumps({"train_loop": loop}))
     print(json.dumps({"export": exported}))
+    print(json.dumps({"phase10": {k: v for k, v in variant.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,7 @@ from vmg_tpu.ckpt.torch_convert import convert_torch_state_dict as j_convert
 from vmg_tpu.ckpt.torch_convert import normalize_torch_checkpoint as j_normalize
 from vmg_tpu.configs import TINY_TEST_PRESET as J_TINY
 from vmg_tpu.models import create_model as j_create_model
-from vmg_tpu_torch.ckpt import (convert_spynet_state_dict, latest_step, load_reference_checkpoint,
-                                load_trainer_state, reference_state_dict, restore_checkpoint,
-                                save_checkpoint, trainer_state)
+from vmg_tpu_torch.ckpt import (convert_spynet_state_dict, load_reference_checkpoint, reference_state_dict)
 from vmg_tpu_torch.configs import TINY_TEST_PRESET, TrainConfig
 from vmg_tpu_torch.models.vmg import create_model
 from vmg_tpu_torch.train.train_step import make_train_step
@@ -83,18 +81,6 @@ def test_spynet_converter_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
-def test_forward_from_the_file_matches_jax():
-    sd = load_reference_checkpoint(FIXTURE)
-    model = create_model(TINY_TEST_PRESET, device="cpu")
-    model.load_state_dict(reference_state_dict(sd), strict=True)
-    params = jax.tree.map(jnp.asarray, j_convert({k: v.float() for k, v in sd.items()}))
-    x = np.random.default_rng(11).random((1, 4, 64, 64, 3), dtype=np.float32)
-    with torch.no_grad():
-        got = model.eval()(torch.from_numpy(x)).numpy()
-    want = np.asarray(jax.jit(j_create_model(J_TINY, is_train=False).apply)(params, jnp.asarray(x)))
-    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
-
-
 def test_strict_refuses_extra_and_missing_keys():
     sd = load_reference_checkpoint(FIXTURE)
     extra = {**sd, "encoder_layers.0.not_a_layer.weight": torch.zeros(3)}
@@ -127,72 +113,3 @@ def _batch():
     rng = np.random.default_rng(2)
     return {"LRs": torch.from_numpy(rng.random((1, 4, 64, 64, 3), dtype=np.float32)),
             "HRs": torch.from_numpy(rng.random((1, 4, 256, 256, 3), dtype=np.float32))}
-
-
-def test_save_restore_round_trip(tmp_path):
-    model, step, gen = _trainer()
-    step(_batch(), gen)
-    state = trainer_state(model, step, gen)
-    for s in (1, 2, 3):
-        save_checkpoint(str(tmp_path), s, state, max_to_keep=2)
-    assert latest_step(str(tmp_path)) == 3
-    assert sorted(os.listdir(tmp_path)) == ["2", "3"]
-    back = restore_checkpoint(str(tmp_path))
-    assert back["step"] == state["step"] == 1
-    for k, v in state["params"].items():
-        assert torch.equal(back["params"][k], v), k
-    for a, b in zip(back["opt"]["mu"] + back["opt"]["nu"], state["opt"]["mu"] + state["opt"]["nu"]):
-        assert torch.equal(a, b)
-    assert torch.equal(back["generator"], state["generator"])
-    assert latest_step(str(tmp_path / "none")) is None
-
-
-def test_resume_equals_uninterrupted(tmp_path):
-    N, k = 3, 1
-    batch = _batch()
-    model, step, gen = _trainer()
-    for _ in range(N):
-        step(batch, gen)
-    want = {n: p.detach().clone() for n, p in model.state_dict().items()}
-
-    model, step, gen = _trainer()
-    for _ in range(k):
-        step(batch, gen)
-    save_checkpoint(str(tmp_path), k, trainer_state(model, step, gen))
-    model, step, gen = _trainer(seed=1)  # a fresh trainer, other weights
-    assert load_trainer_state(restore_checkpoint(str(tmp_path)), model, step, gen) == k
-    for _ in range(N - k):
-        step(batch, gen)
-    for n, p in model.state_dict().items():
-        assert torch.equal(p, want[n]), n
-
-
-def test_trainer_command_line_resumes(tmp_path):
-    """``python -m vmg_tpu_torch.train --ckpt-dir``: two runs of a warm-up
-    and one step, the second resumed from the first's checkpoint, end on
-    the parameters, bit for bit, of one run of a warm-up and three steps;
-    the evaluator's loader reads the directory."""
-    import copy
-    import dataclasses
-
-    from vmg_tpu_torch.configs import EVAL_PRESETS
-    from vmg_tpu_torch.eval import load_model
-    from vmg_tpu_torch.train.__main__ import main, run
-
-    kw = dict(preset="tiny", frames=4, crop=64, iters=1, device="cpu")
-    split, whole = str(tmp_path / "split"), str(tmp_path / "whole")
-    first, second = run(ckpt_dir=split, **kw), run(ckpt_dir=split, **kw)
-    assert (first["resumed_from_step"], first["saved_step"]) == (None, 2)
-    assert (second["resumed_from_step"], second["saved_step"]) == (2, 4)
-    main(["--preset", "tiny", "--frames", "4", "--iters", "3", "--device", "cpu",
-          "--ckpt-dir", whole])
-    assert latest_step(whole) == 4
-    got, want = restore_checkpoint(split), restore_checkpoint(whole)
-    for k, v in want["params"].items():
-        assert torch.equal(got["params"][k], v), k
-
-    cfg = copy.deepcopy(EVAL_PRESETS["vid4"])
-    cfg.network = dataclasses.replace(TINY_TEST_PRESET)
-    model = load_model(cfg, split, "cpu")
-    for k, v in model.state_dict().items():
-        assert torch.equal(v, got["params"][k]), k

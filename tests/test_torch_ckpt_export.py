@@ -51,8 +51,8 @@ def test_export_matches_jax(model):
 
 
 def test_export_refuses_what_the_port_lacks(model):
-    with pytest.raises(ValueError, match="channel_mixer"):
-        conv.export_torch_state_dict(model.state_dict(), channel_mixer="mlp")
+    with pytest.raises(ValueError, match="non_linear=False"):
+        conv.export_torch_state_dict(model.state_dict(), non_linear=False)
     with pytest.raises(KeyError, match="no export rule"):
         conv.export_torch_state_dict({"head.weight": torch.zeros(2)})
 

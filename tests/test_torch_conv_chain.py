@@ -20,6 +20,16 @@ from vmg_tpu_torch.ops import conv_chain
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _mk(rng, shape):
     return (rng.standard_normal(shape) * 0.1).astype(np.float32)
 

@@ -338,6 +338,37 @@ def test_morphfc_axes_token_against_big(cuda, dtype):
         morphfc_fused.fused_morphfc_axes(*wide, chunk_h=16, chunk_w=16, form="big")
 
 
+# (dtype, form, H, W, C, chunk): the four axes kernels -- bf16 and f32 big
+# form (stage 0's channels and chunks), bf16 token form at stage 3's
+# compile-time shape and at a generic one, f32 token form
+AXES_FORMS = [(torch.bfloat16, "big", 18, 24, 112, 8), (torch.float32, "big", 18, 24, 112, 8),
+              (torch.bfloat16, "token", 9, 16, 448, 8), (torch.bfloat16, "token", 18, 32, 96, 16),
+              (torch.float32, "token", 11, 16, 160, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,form,H,W,C,chunk", AXES_FORMS)
+@pytest.mark.parametrize("non_linear,bias", [(True, False), (False, True), (False, False)])
+def test_morphfc_axes_kernel_options(cuda, dtype, form, H, W, C, chunk, non_linear, bias):
+    """Each axes instantiation in its linear (``non_linear`` off) and
+    bias-free forms against the plain version: the kernels take the
+    options, none gives way to its plain version (the launch counted), and
+    the linear form keeps negative values."""
+    rng = np.random.default_rng(C + H + 3)
+    x, c, kh, bh, kw, bw = _axes_case(rng, H, W, C, cuda, dtype)
+    if not bias:
+        bh = bw = None
+    ax = morphfc_fused.fused_morphfc_axes
+    before = ax.launches + ax.token_launches
+    got = ax(x, c, kh, bh, kw, bw, chunk_h=chunk, chunk_w=chunk, form=form,
+             non_linear=non_linear)
+    assert ax.launches + ax.token_launches == before + 1
+    want = morphfc_fused.morphfc_axes_plain(x, c, kh, bh, kw, bw, chunk_h=chunk, chunk_w=chunk,
+                                            non_linear=non_linear)
+    _axes_close(got, want, c, dtype)
+    assert bool((got[0] < 0).any()) == (not non_linear)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,chunk", [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)])
 def test_morphfc_axes_token_path_shapes(cuda, shape, chunk):
@@ -967,7 +998,8 @@ def _opcheck_cases(dev):
     out, den = ltam_attention.ltam_fwd(q, kv, pe, K=K, heads=heads, with_den=True)
     return {
         "group_ffn": [(x, w, b1p, t(16), 4, act) for act in ("erf", "tanh")],
-        "morphfc_axes": [(x, c, kh, t(16), kw, t(16), 4, 4, form) for form in ("big", "token")],
+        "morphfc_axes": [(x, c, kh, b, kw, b if b is None else t(16), 4, 4, form, nl)
+                         for form in ("big", "token") for b, nl in ((t(16), True), (None, False))],
         "morphfc_reduce": [(h, wb, c)],
         "morphfc_combine": [(x, h, wb, c, a, pk, t(16), "tanh", res, 0.5)
                             for res in (None, t(1, 4, 8, 16))],

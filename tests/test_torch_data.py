@@ -51,6 +51,16 @@ PRESETS = os.path.join(os.path.dirname(__file__), os.pardir, "vmg_tpu", "configs
 HR, LR = (48, 64), (12, 16)
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _write_tree(root, writer_cls, clips, frames, first=0, seed=0):
     """HR and LR packed trees of random frames; keys '<clip>_<frame>'."""
     rng = np.random.default_rng(seed)

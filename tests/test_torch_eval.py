@@ -27,28 +27,22 @@ and ``tools/eval.py`` on CPU.
 
 import copy
 import dataclasses
-import importlib
 import os
 import struct
-import sys
 import zlib
 
 import cv2
 import numpy as np
 import pytest
 import torch
-import yaml
 
 from vmg_tpu.configs import load_config
 from vmg_tpu.eval import eval_utils as j_utils
 from vmg_tpu.eval import metrics as j_metrics
 from vmg_tpu.eval.inference import SlidingEvaluator as JEvaluator
-from vmg_tpu_torch.configs import (EVAL_PRESETS, TINY_TEST_PRESET, DatasetConfig,
-                                   ExperimentConfig, PathConfig)
+from vmg_tpu_torch.configs import EVAL_PRESETS
 from vmg_tpu_torch.eval import eval_utils, metrics, png, run_eval
-from vmg_tpu_torch.eval.device_tiled import make_device_tiled_forward
 from vmg_tpu_torch.eval.inference import SlidingEvaluator
-from vmg_tpu_torch.models.vmg import create_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = os.path.join(REPO, "vmg_tpu", "configs", "presets")
@@ -234,22 +228,6 @@ def test_sliding_evaluator_matches(fn, dataset, enhance, wins, mode):
 
 # ---- the tiled forward on the device ---------------------------------------
 
-def test_device_tiled_equals_host_tiling():
-    model = create_model(TINY_TEST_PRESET, device="cpu", generator=torch.Generator().manual_seed(0))
-
-    @torch.inference_mode()
-    def apply(x):
-        return model(x)
-
-    # 2 x 2 tiles of 64 (the model's least size), overlaps trimmed on each side
-    clip = np.random.default_rng(4).random((1, 4, 80, 96, 3), dtype=np.float32)
-    host = SlidingEvaluator(lambda c: apply(torch.from_numpy(c)).numpy(), scale=4,
-                            spatial_wins=(64, 64), overlapped_spatial_length=20)
-    want = host.test_image(clip)
-    got = make_device_tiled_forward(apply, 4, (64, 64), 20, (80, 96))(torch.from_numpy(clip))
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
-
 
 # ---- presets and the clip-length refusal -------------------------------------
 
@@ -267,29 +245,6 @@ def test_eval_presets_match_yaml(name):
         for f in dataclasses.fields(getattr(got, section)):
             g, w = getattr(getattr(got, section), f.name), getattr(getattr(want, section), f.name)
             assert g == (tuple(w) if isinstance(w, list) else w), (section, f.name, g, w)
-
-
-def test_clip_length_refused_in_both_packages():
-    """REDS4 evaluates clips of 50 frames with trajectory windows of 16 and
-    32: neither divides 50, and both packages refuse such a clip (here a
-    window of 4 and a clip of 6)."""
-    import jax
-    import jax.numpy as jnp
-    from vmg_tpu.configs import TINY_TEST_PRESET as J_TINY
-    from vmg_tpu.models import create_model as j_create_model
-
-    for preset in ("reds4_full", "reds4_few_levels"):
-        cfg = EVAL_PRESETS[preset]
-        assert cfg.dataset.num_frames % cfg.network.traj_win[0]
-    x = np.random.default_rng(0).random((1, 6, 64, 64, 3), dtype=np.float32)
-    model = create_model(TINY_TEST_PRESET, device="cpu", generator=torch.Generator().manual_seed(0))
-    with torch.no_grad(), pytest.raises(ValueError, match="must divide the clip length"):
-        model(torch.from_numpy(x))
-    jm = j_create_model(J_TINY, is_train=False)
-    params = jax.eval_shape(jm.init, jax.random.key(0),
-                            jax.ShapeDtypeStruct((1, 4, 64, 64, 3), jnp.float32))
-    with pytest.raises(ValueError, match="must divide the clip length"):
-        jax.eval_shape(jm.apply, params, jax.ShapeDtypeStruct(x.shape, jnp.float32))
 
 
 def test_run_eval_refuses_flops_and_a_missing_card(tmp_path):
@@ -317,53 +272,3 @@ def _write_tree(root, T, h, w):
                 img = np.clip(base + rng.integers(-30, 31, base.shape), 0, 255).astype(np.uint8)
                 cv2.imwrite(os.path.join(sub, clip, f"{i:08d}.png"), img)
     return lr_root
-
-
-def test_eval_cli_matches_jax_cli(tmp_path, monkeypatch):
-    T, h, w = 4, 80, 80  # 2 x 2 tiles of 64 a clip
-    lr_root = _write_tree(str(tmp_path), T, h, w)
-    net = {f.name: getattr(TINY_TEST_PRESET, f.name) for f in dataclasses.fields(TINY_TEST_PRESET)}
-    net = {k: [list(x) if isinstance(x, tuple) else x for x in v] if isinstance(v, tuple) else v
-           for k, v in net.items()}
-    raw = yaml.safe_load(open(os.path.join(PRESETS, "vmg_eval_vid4.yml")))
-    raw["network"] = net
-    raw["dataset"].update(dataset_root=lr_root, gt_root=None, num_frames=T,
-                          image_shape=[3, 4 * h, 4 * w], wins=[64, 64],
-                          overlapped_spatial_length=20)
-    raw["path"]["output_dir"] = str(tmp_path / "jax")
-    cfg_path = str(tmp_path / "vid4_tiny.yml")
-    yaml.safe_dump(raw, open(cfg_path, "w"))
-    # the fixture holds float16 tensors, which the JAX command line passes to
-    # its convolutions as they are (a dtype error there); it gets the same
-    # file in float32 (exact), the port the committed file
-    ck = torch.load(FIXTURE, map_location="cpu", weights_only=True)
-    f32 = str(tmp_path / "ref_tiny_mine_f32.pth")
-    torch.save({**ck, "state_dict": {k: v.float() for k, v in ck["state_dict"].items()}}, f32)
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    eval_mod = importlib.import_module("eval")
-    monkeypatch.setattr(sys, "argv", ["eval.py", "--config", cfg_path, "--checkpoint", f32,
-                                      "--topk", "1"])
-    eval_mod.main()
-
-    cfg = ExperimentConfig(
-        name="VMG-Vid4", network=TINY_TEST_PRESET,
-        dataset=DatasetConfig(name="Vid4", dataset_root=lr_root, num_frames=T,
-                              num_out_frames=10000, image_shape=(3, 4 * h, 4 * w), wins=(64, 64),
-                              overlapped_spatial_length=20),
-        path=PathConfig(output_dir=str(tmp_path / "port")))
-    res = run_eval(cfg, checkpoint=FIXTURE, topk=1, device="cpu")
-    assert len(res["frames"]) == 2 * T and len(res["topk"]) == 1
-    for clip, idx, psnr, psnr_y, ssim, ssim_y in res["frames"]:
-        name = f"VMG-Vid4-{idx + 1:08d}.png"
-        mine = cv2.imread(str(tmp_path / "port" / clip / name))[..., ::-1]
-        ref = cv2.imread(str(tmp_path / "jax" / clip / name))[..., ::-1]
-        assert mine.shape == (4 * h, 4 * w, 3)
-        assert np.abs(mine.astype(int) - ref.astype(int)).max() <= 1
-        gt = j_utils.read_image(os.path.join(lr_root.replace("LR/X4", "GT"), clip,
-                                             f"{idx:08d}.png"))
-        ry, gy = (j_metrics.rgb2ycbcr_matlab(v)[..., 0] for v in (ref, gt))
-        assert abs(psnr - j_metrics.calculate_psnr(ref, gt)) <= 1e-3
-        assert abs(psnr_y - j_metrics.calculate_psnr(ry, gy)) <= 1e-3
-        assert abs(ssim - j_metrics.structural_similarity(ref, gt)) <= 1e-5
-        assert abs(ssim_y - j_metrics.structural_similarity(ry, gy)) <= 1e-5
-    assert all(np.isfinite(v) for v in res["dataset"])

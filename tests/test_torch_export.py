@@ -67,3 +67,29 @@ def test_exported_program_equals_eager(tmp_path):
     with pytest.raises(ValueError, match="eval mode"):
         export_program(vmg_tpu_torch.create_model(TINY_TEST_PRESET, device="cpu",
                                                   is_train=True), tuple(x.shape))
+
+
+def test_variant_tails_export(tmp_path):
+    """The tiny model (one TAB a stage) without a flow network, with the 3D
+    window attention at every stage and linear, bias-free axis FCs, exports
+    the same way: the tail is plain tensor code in the graph, the axes op's
+    options ride on its node."""
+    import dataclasses
+
+    cfg = dataclasses.replace(TINY_TEST_PRESET, spynet=None, temporal_type=(None, None),
+                              temporal_empty=False, non_linear=False, qkv_bias=False,
+                              depths=(1, 1, 1))
+    sd = vmg_tpu_torch.create_model(cfg, device="cpu",
+                                    generator=torch.Generator().manual_seed(0)).state_dict()
+    server = SRServer(cfg, sd, "cpu", torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(2).random((1, 2, 64, 64, 3), dtype=np.float32))
+    path = tmp_path / "variant.pt2"
+    program = export_program(server, tuple(x.shape), path)
+    forward = load_program(path)
+    with torch.no_grad():
+        with _CountOperators() as eager:
+            want = server.model(x)
+        got = forward(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert eager.counts["morphfc_axes"] > 0
+    assert operator_counts(program) == operator_counts(forward) == eager.counts

@@ -17,6 +17,16 @@ from vmg_tpu_torch.ops import group_conv
 WIDTHS = [(16, 4, 6), (112, 4, 6), (144, 1, 2), (448, 4, 6), (256, 2, 6)]
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _round_trip(C, groups, ratio, dtype):
     rng = np.random.default_rng(C)
     Fh = ratio * C

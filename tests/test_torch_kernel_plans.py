@@ -35,6 +35,16 @@ SMS = 132  # NVIDIA H100 SXM
 LTAM_PATH = [(112, 4), (144, 4), (128, 2), (144, 1), (16, 4), (32, 2)]
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("C", [16, 32, 112, 144, 224, 240, 448])
 def test_combine_image_round_trip(C):
     """The bf16 image; 240 pads its last 64-column N-tile with zeros."""

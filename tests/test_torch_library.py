@@ -49,7 +49,8 @@ def _cases():
                                          _t(rng, 16, 32, scale=0.1), 4)
     ffn = [(x, w, b1p, _t(rng, 16), 4, act) for act in ("erf", "tanh")]
     c, kh, kw = _t(rng, 1, 4, 8, 16, scale=0.1), _t(rng, 16, 16, scale=0.2), _t(rng, 16, 16)
-    axes = [(x, c, kh, _t(rng, 16), kw, _t(rng, 16), 4, 4, form) for form in ("big", "token")]
+    axes = [(x, c, kh, b, kw, b if b is None else _t(rng, 16), 4, 4, form, nl)
+            for form in ("big", "token") for b, nl in ((_t(rng, 16), True), (None, False))]
     h, wb = _t(rng, 1, 4, 8, 16), _t(rng, 1, 4, 8, 16)
     a = torch.softmax(_t(rng, 1, 3, 16), dim=1)
     combine = [(x, h, wb, c, a, kh, _t(rng, 16), "tanh", res, 0.5)

@@ -26,6 +26,16 @@ WIDTHS = [56, 112, 224, 448, 896]
 TOL = {"f32": dict(atol=1e-5, rtol=1e-5), "bf16": dict(atol=1e-2, rtol=8e-3)}
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(C, seed=0, shape=(2, 4, 8)):
     """x with a non-zero mean (the one-pass variance's cancellation), scale
     and bias around 1 and 0, all representable in bf16."""

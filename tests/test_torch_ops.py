@@ -20,6 +20,16 @@ from vmg_tpu.ops import warp as jwarp
 from vmg_tpu_torch.ops import decay, pixel_shuffle, resize, warp
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -4,7 +4,9 @@ after ``tests/test_parallel_mesh.py``.
 Two processes of a gloo group (``torch.multiprocessing``, spawned, two
 threads each; ``tests/_dp_worker.py``) each take their rows of the global
 batch and run ``make_sharded_train_step``; the multihost helpers are
-checked inside them.  ``TINY_TEST_PRESET``, float32:
+checked inside them.  ``TINY_TEST_PRESET`` at one TAB and one residual
+block a stage (``NET``: the JAX step's compile and the processes' CPU time
+grow with the depth; every module stays), float32:
 
 * a batch of 2, drop_path 0: the two processes' step equals the
   one-process step on the whole batch and the JAX package's single-device
@@ -42,6 +44,7 @@ import _dp_worker
 
 TRAIN = dict(lr=1e-3, T_period=(1000,), if_aux=True, weight_decay=0.05,
              if_grad_clip=True, grad_clip_up=0.005)
+NET = dict(depths=(1, 1, 1), traj_res_n=(1, 0, 1))
 
 
 @pytest.fixture(autouse=True)
@@ -86,7 +89,8 @@ def _close(got, want):
 def jax_step():
     """(initial JAX params, batch of 2, loss, grad norm, params) of one JAX
     training step, drop_path 0."""
-    model = j_create_model(dataclasses.replace(J_TINY, drop_path_rate=0.0), is_train=True)
+    model = j_create_model(dataclasses.replace(J_TINY, drop_path_rate=0.0, **NET),
+                           is_train=True)
     batch = _batch(2, 0)
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
     params = jax.jit(model.init)(jax.random.key(0), jbatch["LRs"][:1])
@@ -99,10 +103,10 @@ def jax_step():
 def test_two_processes_equal_one_and_jax(jax_step, tmp_path):
     params, batch, loss, norm, after = jax_step
     state = state_dict_from_jax(params)
-    cases = [dict(cfg=dataclasses.replace(TINY_TEST_PRESET, drop_path_rate=0.0), state=state,
-                  train=TRAIN, grad_acc=1, seed=0, **batch),
-             dict(cfg=TINY_TEST_PRESET, state=state, train=TRAIN, grad_acc=2, seed=5,
-                  **_batch(4, 1))]
+    cases = [dict(cfg=dataclasses.replace(TINY_TEST_PRESET, drop_path_rate=0.0, **NET),
+                  state=state, train=TRAIN, grad_acc=1, seed=0, **batch),
+             dict(cfg=dataclasses.replace(TINY_TEST_PRESET, **NET), state=state, train=TRAIN,
+                  grad_acc=2, seed=5, **_batch(4, 1))]
     ctx = mp.get_context("spawn")
     port = _free_port()
     procs = [ctx.Process(target=_dp_worker.run, args=(r, 2, port, cases, str(tmp_path)))
@@ -110,7 +114,7 @@ def test_two_processes_equal_one_and_jax(jax_step, tmp_path):
     for p in procs:
         p.start()
     for p in procs:
-        p.join(timeout=600)
+        p.join(timeout=300)
     for p in procs:
         if p.is_alive():
             p.kill()

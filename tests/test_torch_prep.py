@@ -24,6 +24,16 @@ from vmg_tpu_torch.tools import make_demo_data, prepare_data
 TOOLS = os.path.join(os.path.dirname(__file__), os.pardir, "tools")
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_tool(name):
     spec = importlib.util.spec_from_file_location(f"jax_{name}", os.path.join(TOOLS, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)

@@ -28,6 +28,16 @@ REPO = os.path.join(os.path.dirname(__file__), os.pardir)
 ULP = 8e-3
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(shape, seed=0, scale=None):
     rng = np.random.default_rng(seed)
     a = (rng.random(shape, np.float32) if scale is None

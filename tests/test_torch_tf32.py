@@ -39,6 +39,16 @@ SHAPES = [((16, 184, 320, 112), 4, 6), ((16, 92, 160, 224), 4, 6), ((16, 46, 80,
           ((1, 4, 32, 32), 4, 2), ((2, 5, 7, 48), 4, 6), ((2, 5, 7, 80), 4, 6)]
 
 
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch at full
+    width in each of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _fgp(C, G, ratio):
     return -(-(ratio * C // G) // 8) * 8
 

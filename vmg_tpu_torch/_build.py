@@ -1,15 +1,16 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
 ``csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
-per source, all started together, and link into one shared library with a
-plain C interface, at first use, under ``_build/`` (listed in
-``.gitignore``).  The library's file name carries a hash of the
-sources and flags, so an edited kernel is rebuilt and a stale one is never
-loaded.  Each C entry point launches on the stream it is given and
-returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
-an exception.  The library links only the CUDA runtime: the conv chain's
-TMA tensor maps come from ``cuTensorMapEncodeTiled``, which it looks up
-at run time through ``cudaGetDriverEntryPoint`` (no ``-lcuda``).
+per source (three for ``morphfc.cu``, :data:`SPLITS`), all started
+together, and link into one shared library with a plain C interface, at
+first use, under ``_build/`` (listed in ``.gitignore``).  The library's
+file name carries a hash of the sources and flags, so an edited kernel
+is rebuilt and a stale one is never loaded.  Each C entry point launches
+on the stream it is given and returns ``cudaGetLastError()``;
+:func:`check` turns a non-zero code into an exception.  The library
+links only the CUDA runtime: the conv chain's TMA tensor maps come from
+``cuTensorMapEncodeTiled``, which it looks up at run time through
+``cudaGetDriverEntryPoint`` (no ``-lcuda``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# sources compiled more than once, one object per set of extra flags (their
+# parts compile in parallel; see the note above the entry points in the source)
+SPLITS = {"morphfc.cu": (("-DVMG_MORPHFC_PART=1",),
+                         ("-DVMG_MORPHFC_PART=2", "-Dvmg=vmg_part2"),
+                         ("-DVMG_MORPHFC_PART=3", "-Dvmg=vmg_part3"))}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,12 +48,13 @@ _SIGNATURES = {
     # x, h, w, c, a, pk, pb, res, out, N, P, C, res_scale, act, nwg, ring,
     # dtype, stream
     "vmg_morphfc_combine": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
-    # x, c, kh, bh, kw, bw, h, w, partial, psum, scratch (or null), N, H, W,
-    # C, ch, cw, WT, nwg, ring, npass, grid, dtype, stream
-    "vmg_morphfc_axes": [_P] * 11 + [_I] * 12 + [_P],
+    # x, c, kh, bh, kw, bw (both null: no bias), h, w, partial, psum, scratch
+    # (or null), N, H, W, C, ch, cw, WT, nwg, ring, npass, grid, relu, dtype,
+    # stream
+    "vmg_morphfc_axes": [_P] * 11 + [_I] * 13 + [_P],
     # x, c, kh, bh, kw, bw, h, w, img, bimg, partial, psum, plan (or null),
-    # N, H, W, C, ch, cw, WT, dtype, stream (the token form)
-    "vmg_morphfc_axes_token": [_P] * 13 + [_I] * 8 + [_P],
+    # N, H, W, C, ch, cw, WT, relu, dtype, stream (the token form)
+    "vmg_morphfc_axes_token": [_P] * 13 + [_I] * 9 + [_P],
     # q, kv, pe, out, den (or null), N, H, W, C, K, heads, Wt, HB, dtype,
     # stream
     "vmg_ltam_fwd": [_P] * 5 + [_I] * 9 + [_P],
@@ -94,7 +101,7 @@ def _sources():
 
 def _library_path() -> Path:
     cu, cuh = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(SPLITS.items()))).encode())
     for p in cu + cuh:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
@@ -110,11 +117,12 @@ def build() -> Path:
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
     cu, _ = _sources()
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    units = [(src, flags) for src in cu for flags in SPLITS.get(src.name, ((),))]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.{i}.o") for i, (src, _) in enumerate(units)]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True, cwd=_CSRC)
-             for src, obj in zip(cu, objs)]
+             for (src, flags), obj in zip(units, objs)]
     logs = [p.communicate()[0] for p in procs]
     link = None
     if all(p.returncode == 0 for p in procs):
@@ -126,7 +134,8 @@ def build() -> Path:
     for obj in objs:
         obj.unlink(missing_ok=True)
     if link is None or link.returncode != 0:
-        failed = [str(src) for src, p in zip(cu, procs) if p.returncode] or ["link"]
+        failed = [" ".join((str(src), *flags)) for (src, flags), p in zip(units, procs)
+                  if p.returncode] or ["link"]
         raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "".join(logs))
     os.replace(tmp, so)
     text = "".join(logs).strip()

@@ -286,17 +286,22 @@ def export_torch_state_dict(state_dict: Mapping, non_linear: bool = True,
     in), Conv2d OIHW, norm weight), and its buffers (SPyNet mean / std,
     the MorphFC decay) are constants the reference recomputes, so the
     export is the parameters themselves; every key is checked against the
-    loader's rules (a key no rule maps raises ``KeyError``), so
-    :func:`reference_state_dict` reads the result back exactly.  The port
-    builds non-linear axis FCs and the RCAB channel mixer only, whose key
-    layout ``non_linear`` and ``channel_mixer`` name in the JAX export."""
-    if not non_linear or channel_mixer != "rcab":
-        raise ValueError("the port's models have non-linear axis FCs and the RCAB channel "
-                         f"mixer; got non_linear={non_linear}, channel_mixer={channel_mixer!r}")
+    loader's rules (a key no rule maps raises ``KeyError``: the MBConv
+    mixer's, as in the JAX package), so :func:`reference_state_dict` reads
+    the result back exactly.  ``non_linear`` and ``channel_mixer`` name the
+    axis and channel FCs' key layout in the JAX export; the port's modules
+    take that layout from the model's own switches, so the keys are written
+    as they are, and a layout they contradict raises ``ValueError``."""
     out: Dict[str, np.ndarray] = {}
     for key, v in strip_module_prefix(state_dict).items():
         if _SKIP.search(key):
             continue
+        m = re.search(r"\.spatial_mixing\.mlp_([hwc])(\.0)?\.(weight|bias)$", key)
+        if m:
+            wrapped = non_linear and (m.group(1) != "c" or channel_mixer != "rcab")
+            if wrapped != bool(m.group(2)):
+                raise ValueError(f"{key}: the key layout of non_linear={non_linear}, "
+                                 f"channel_mixer={channel_mixer!r} does not match the model's")
         path = _apply_rules(key, _TOP_RULES)
         m = re.match(r"^(encoder|decoder)_layers\.(\d+)\.(.+)$", key)
         if path is None and m:

@@ -85,6 +85,9 @@ class VMGNetworkConfig:
     m_scaling: float = 1.0
     if_local_fuse: bool = True
     channel_mixer: str = "rcab"
+    # the axis FCs' formulation in the JAX package (block-diagonal matmul or
+    # token reshape): one function; the port computes the token form
+    morph_fused: bool = True
     # training only: checkpoint each TAB and each trajectory step
     remat: bool = True
 

@@ -5,7 +5,15 @@
 // `fused_morphfc_axes` in its big form (`_axes_kernel`, chunk * C <= 1024):
 // both decayed axis-FC branches, relu(acc + b) / C rounded once to the input
 // dtype, and the f32 per-frame sums of h + w + c from the unrounded
-// branch values.  A token is channel segment q (S = C / chunk channels) of
+// branch values.  Two run-time options of the TPU kernel reach every axes
+// kernel here as they reach it (`non_linear`, `bh_raw=None`): relu == 0
+// drops the epilogue's ReLU -- in the big form a template argument (RELU:
+// both a branch and a floor parameter held one more register there and
+// spilled 250 more bytes at C = 112), in the token forms max(acc + b,
+// floor) with the floor a parameter, 0 or -inf (a NaN then ends as -inf, as
+// the relu form's ends as 0) -- and null bias pointers (qkv_bias off) skip
+// the bias loads from device memory: the big form zero-fills its shared
+// bias rows instead, the token forms add no bias.  A token is channel segment q (S = C / chunk channels) of
 // a chunk of `chunk` positions along the axis, its C features (p, s); each
 // branch is then a (tokens x C) @ (C x C) matmul with the decayed weight
 // -- the TPU kernel's block-diagonal big matrix without its zero blocks,
@@ -129,6 +137,7 @@
 #include "wgmma.cuh"
 
 #include <algorithm>
+#include <cmath>
 #include <cstring>
 
 namespace vmg {
@@ -1057,7 +1066,7 @@ struct AxesMaps {
 
 struct AxesArgs {
   const bf16 *kh, *kw;  // the plain (C_in, C_out) weights (f32 ones for F32)
-  const float *bh, *bw;
+  const float *bh, *bw;  // both null: no bias
   float *partial, *scratch;
   int N, H, W, C, ch, cw, WT, kg;
   int lchp, lcwp;                      // log2 of the padded group sizes
@@ -1079,7 +1088,7 @@ __host__ __device__ inline size_t axes_smem(int C, unsigned slab, int nwg, int r
          (size_t)2 * C * 4 + (size_t)nwg * kAxRingMax * 8;
 }
 
-template <int KS, bool F32>
+template <int KS, bool F32, bool RELU = true>
 __global__ void __launch_bounds__(256, 1)
 morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs a) {
   constexpr int C = 16 * KS, NJ = C / 8;  // accumulator column groups
@@ -1132,7 +1141,8 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
     for (int i = 0; i < a.nwg * kAxRingMax; ++i) mbar_init(bars + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = threadIdx.x; i < C; i += blockDim.x) bias[i] = a.bh[i], bias[C + i] = a.bw[i];
+  for (int i = threadIdx.x; i < C; i += blockDim.x)  // no bias: zero rows, no load
+    bias[i] = a.bh != nullptr ? a.bh[i] : 0.f, bias[C + i] = a.bw != nullptr ? a.bw[i] : 0.f;
   stage(wsm, reinterpret_cast<const T*>(a.kh));
   if (a.npass == 1) stage(wsm + WIMG, reinterpret_cast<const T*>(a.kw));
   __syncthreads();
@@ -1380,8 +1390,10 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
             const bool cv0 = !IH || r0 + P < a.H, cv1 = !IH || r0 + P1 < a.H;
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
-              const float y0 = fmaxf(acc[4 * j + 2 * hh] + bj.x, 0.f) * inv_c;
-              const float y1 = fmaxf(acc[4 * j + 2 * hh + 1] + bj.y, 0.f) * inv_c;
+              const float y0 = (RELU ? fmaxf(acc[4 * j + 2 * hh] + bj.x, 0.f)
+                                     : acc[4 * j + 2 * hh] + bj.x) * inv_c;
+              const float y1 = (RELU ? fmaxf(acc[4 * j + 2 * hh + 1] + bj.y, 0.f)
+                                     : acc[4 * j + 2 * hh + 1] + bj.y) * inv_c;
               if (rvalid[hh]) {
                 ss[hh][j][0] += cv0 ? y0 : 0.f;
                 ss[hh][j][1] += cv1 ? y1 : 0.f;
@@ -1428,11 +1440,11 @@ morphfc_axes_wgmma_kernel(const __grid_constant__ AxesMaps maps, const AxesArgs 
   if (leader) bulk_wait<0>();  // the stores are done before the block's shared memory goes
 }
 
-template <int KS, bool F32>
+template <int KS, bool F32, bool RELU>
 int launch_axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
   const size_t smem = axes_smem(a.C, a.slab_bytes, a.nwg, a.ring, a.npass, F32 ? 8 : 2);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = morphfc_axes_wgmma_kernel<KS, F32>;
+  auto kern = morphfc_axes_wgmma_kernel<KS, F32, RELU>;
   static bool smem_set = false;  // the largest size, once per instantiation
   if (!smem_set) {
     const int e = set_smem(kern, kMaxSmem);
@@ -1443,24 +1455,24 @@ int launch_axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream
   return (int)cudaGetLastError();
 }
 
-template <bool F32>
+template <bool F32, bool RELU>
 int axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) {
   switch (a.C / 16) {
-    case 1: return launch_axes_wgmma<1, F32>(m, a, grid, st);
-    case 2: return launch_axes_wgmma<2, F32>(m, a, grid, st);
-    case 3: return launch_axes_wgmma<3, F32>(m, a, grid, st);
-    case 4: return launch_axes_wgmma<4, F32>(m, a, grid, st);
-    case 5: return launch_axes_wgmma<5, F32>(m, a, grid, st);
-    case 6: return launch_axes_wgmma<6, F32>(m, a, grid, st);
-    case 7: return launch_axes_wgmma<7, F32>(m, a, grid, st);
-    case 8: return launch_axes_wgmma<8, F32>(m, a, grid, st);
-    case 9: return launch_axes_wgmma<9, F32>(m, a, grid, st);
-    case 10: return launch_axes_wgmma<10, F32>(m, a, grid, st);
-    case 11: return launch_axes_wgmma<11, F32>(m, a, grid, st);
-    case 12: return launch_axes_wgmma<12, F32>(m, a, grid, st);
-    case 13: return launch_axes_wgmma<13, F32>(m, a, grid, st);
-    case 14: return launch_axes_wgmma<14, F32>(m, a, grid, st);
-    case 15: return launch_axes_wgmma<15, F32>(m, a, grid, st);
+    case 1: return launch_axes_wgmma<1, F32, RELU>(m, a, grid, st);
+    case 2: return launch_axes_wgmma<2, F32, RELU>(m, a, grid, st);
+    case 3: return launch_axes_wgmma<3, F32, RELU>(m, a, grid, st);
+    case 4: return launch_axes_wgmma<4, F32, RELU>(m, a, grid, st);
+    case 5: return launch_axes_wgmma<5, F32, RELU>(m, a, grid, st);
+    case 6: return launch_axes_wgmma<6, F32, RELU>(m, a, grid, st);
+    case 7: return launch_axes_wgmma<7, F32, RELU>(m, a, grid, st);
+    case 8: return launch_axes_wgmma<8, F32, RELU>(m, a, grid, st);
+    case 9: return launch_axes_wgmma<9, F32, RELU>(m, a, grid, st);
+    case 10: return launch_axes_wgmma<10, F32, RELU>(m, a, grid, st);
+    case 11: return launch_axes_wgmma<11, F32, RELU>(m, a, grid, st);
+    case 12: return launch_axes_wgmma<12, F32, RELU>(m, a, grid, st);
+    case 13: return launch_axes_wgmma<13, F32, RELU>(m, a, grid, st);
+    case 14: return launch_axes_wgmma<14, F32, RELU>(m, a, grid, st);
+    case 15: return launch_axes_wgmma<15, F32, RELU>(m, a, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1518,7 +1530,7 @@ morphfc_axes_token_f32_kernel(const float* __restrict__ x, const float* __restri
                               const float* __restrict__ kw, const float* __restrict__ bw,
                               float* __restrict__ h_out, float* __restrict__ w_out,
                               float* __restrict__ partial, int H, int W, int C, int ch, int cw,
-                              int WT, int mt, int nt) {
+                              int WT, int mt, int nt, float floor) {
   constexpr int VEC = 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const TokSmemF32 sm(mt, C, nt);
@@ -1589,7 +1601,9 @@ morphfc_axes_token_f32_kernel(const float* __restrict__ x, const float* __restri
               int r, w;
               pos(t, P, r, w);
               if (!valid(r, w)) continue;
-              const float y = fmaxf(O[orow + P * S] + bias[P * S + Z], 0.f) * inv_c;
+              float y = O[orow + P * S];
+              if (bias != nullptr) y += bias[P * S + Z];
+              y = fmaxf(y, floor) * inv_c;
               out[at(r, w) + cc] = y;
               sums[k] += y;
             }
@@ -1635,7 +1649,7 @@ morphfc_axes_token_f32_kernel(const float* __restrict__ x, const float* __restri
 int launch_axes_token_f32(const float* x, const float* c, const float* kh, const float* bh,
                           const float* kw, const float* bw, float* h, float* w, float* partial,
                           float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
-                          cudaStream_t stream) {
+                          float floor, cudaStream_t stream) {
   if (C % 16 != 0 || C > 2 * kThreads || N > 65535 || (H + ch - 1) / ch > 65535)
     return (int)cudaErrorInvalidValue;
   const int kg = WT / cw;
@@ -1651,7 +1665,7 @@ int launch_axes_token_f32(const float* x, const float* c, const float* kh, const
   const dim3 grid((W + WT - 1) / WT, (H + ch - 1) / ch, N);
   morphfc_axes_token_f32_kernel<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w,
                                                                   partial, H, W, C, ch, cw, WT,
-                                                                  mt, nt);
+                                                                  mt, nt, floor);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_final(partial, psum, N, C, grid.x * grid.y, stream);
@@ -1745,7 +1759,7 @@ struct TokMaps {
 
 struct TokBranch {
   const bf16* img;            // B image: ntiles x (C / 8) x NT x 8
-  const float* bias;          // its bias, ntiles x NT
+  const float* bias;          // its bias, ntiles x NT; null: no bias
   int L, S, lgu, tpz;         // chunk, C / L, log2 of groups a unit (64 / cp), tiles a zb
   int ucols, upf, ntiles;     // units a unit row, a frame; column tiles
   unsigned box_bytes;         // a unit's x box (Gu x L positions of C channels)
@@ -1757,6 +1771,7 @@ struct TokArgs {
   TokBranch br[2];
   float* partial;
   int N, H, W, C, KS, stot;
+  float floor;  // the epilogue's relu floor: 0, or -inf (non_linear off)
   int ring, resident, wring, nws;
   unsigned slot_bytes, tile_bytes;
   unsigned off_w, off_sum, off_bar;
@@ -1776,10 +1791,10 @@ struct TokLayout {
   }
 };
 
-// the pack launch: each branch's B image and bias image
+// the pack launch: each branch's B image and bias image (none without a bias)
 struct TokPack {
   const bf16* k[2];
-  const float* b[2];
+  const float* b[2];  // null: no bias
   bf16* img[2];
   float* bimg[2];
   int L[2], S[2], tpz[2];
@@ -1804,7 +1819,7 @@ morphfc_axes_token_pack_kernel(const TokPack p) {
   for (int ki = 0; ki < 8; ++ki)
     v[ki] = real ? p.k[br][(size_t)(8 * kg + ki) * C + f] : __float2bfloat16_rn(0.f);
   *reinterpret_cast<uint4*>(p.img[br] + (size_t)e * 8) = *reinterpret_cast<const uint4*>(v);
-  if (kg == 0) p.bimg[br][t * NT + nn] = real ? p.b[br][f] : 0.f;
+  if (kg == 0 && p.b[br] != nullptr) p.bimg[br][t * NT + nn] = real ? p.b[br][f] : 0.f;
 }
 
 // KSMAX: k-steps of the fragments (an upper bound of the run-time C / 16);
@@ -2089,7 +2104,9 @@ morphfc_axes_token_wgmma_kernel(const __grid_constant__ TokMaps maps,
       float2 bj[NG];
 #pragma unroll
       for (int j = 0; j < NG; ++j)
-        bj[j] = __ldg(reinterpret_cast<const float2*>(B.bias + t * NT + 8 * j + 2 * l4));
+        bj[j] = B.bias != nullptr
+                    ? __ldg(reinterpret_cast<const float2*>(B.bias + t * NT + 8 * j + 2 * l4))
+                    : make_float2(0.f, 0.f);
       float acc[NT / 2];
       wg_fence();
 #pragma unroll
@@ -2127,8 +2144,8 @@ morphfc_axes_token_wgmma_kernel(const __grid_constant__ TokMaps maps,
           const bool in = P < prow;
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            const float y0v = fmaxf(acc[4 * j + 2 * hh] + bj[j].x, 0.f) * inv_c;
-            const float y1v = fmaxf(acc[4 * j + 2 * hh + 1] + bj[j].y, 0.f) * inv_c;
+            const float y0v = fmaxf(acc[4 * j + 2 * hh] + bj[j].x, a.floor) * inv_c;
+            const float y1v = fmaxf(acc[4 * j + 2 * hh + 1] + bj[j].y, a.floor) * inv_c;
             bf16* o = ob[hh] + j * cstride;
             if (EV) {
               if (st[hh]) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0v, y1v);
@@ -2186,9 +2203,33 @@ int launch_axes_token_wgmma(const TokMaps& m, const TokArgs& a, unsigned smem, c
 
 }  // namespace vmg
 
+// The build compiles this file three times (vmg_tpu_torch/_build.py), once
+// per part, so that its kernels' instantiations compile in parallel: part 1
+// defines the axes entry points (the bf16 big form, both token forms), part
+// 3 the f32 big form they call through vmg_morphfc_axes_f32_big, part 2 the
+// reduce and combine entry points.  The build renames parts 2 and 3's
+// namespace, so the objects share no symbol but the C ones.  Undefined:
+// all three parts.
+extern "C" int vmg_morphfc_axes_f32_big(const void* maps, const void* args, int grid, int relu,
+                                        void* stream);
+
+#if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 3
+// the f32 big form's launch (maps, args: the caller's AxesMaps, AxesArgs)
+extern "C" int vmg_morphfc_axes_f32_big(const void* maps, const void* args, int grid, int relu,
+                                        void* stream) {
+  const vmg::AxesMaps& m = *static_cast<const vmg::AxesMaps*>(maps);
+  const vmg::AxesArgs& a = *static_cast<const vmg::AxesArgs*>(args);
+  cudaStream_t st = (cudaStream_t)stream;
+  return relu ? vmg::axes_wgmma<true, true>(m, a, grid, st)
+              : vmg::axes_wgmma<true, false>(m, a, grid, st);
+}
+#endif  // part 3
+
+#if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 1
 // x, c, h, w: (N, H, W, C); kh, kw: (C_in, C_out) decayed axis weights;
-// bh, bw: (C,) f32; psum: (N, C) f32.  C % 16 == C % ch == C % cw == W % cw
-// == 0, WT % cw == 0.  f32: one block per slab of ch x WT; partial: (N,
+// bh, bw: (C,) f32, both null for no bias; relu: the epilogue's ReLU (0:
+// none); psum: (N, C) f32.  C % 16 == C % ch == C % cw == W % cw == 0, WT %
+// cw == 0.  f32: one block per slab of ch x WT; partial: (N,
 // ceil(H/ch) * ceil(W/WT), C) f32; scratch, nwg, ring, npass and grid
 // unused.  bf16: the persistent kernel with the plan of
 // morphfc_fused.axes_plan (WT, npass, nwg, ring) on grid blocks; partial:
@@ -2197,9 +2238,10 @@ extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
                                 const float* bh, const void* kw, const float* bw,
                                 void* h, void* w, float* partial, float* psum, float* scratch,
                                 int N, int H, int W, int C, int ch, int cw, int WT, int nwg,
-                                int ring, int npass, int grid, int dtype, void* stream) {
+                                int ring, int npass, int grid, int relu, int dtype,
+                                void* stream) {
   if (ch < 1 || cw < 1 || C % ch != 0 || C % cw != 0 || W % cw != 0 || WT % cw != 0 ||
-      N > 65535 || (H + ch - 1) / ch > 65535)
+      N > 65535 || (H + ch - 1) / ch > 65535 || (bh == nullptr) != (bw == nullptr))
     return (int)cudaErrorInvalidValue;
   for (const void* p : {x, c, kh, kw, (const void*)h, (const void*)w})
     if ((uintptr_t)p % vmg::kVecBytes != 0) return (int)cudaErrorMisalignedAddress;
@@ -2236,7 +2278,9 @@ extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
     const int e = vmg::nhwc_box_map(ms[i], ts[i], N, H, W, C, WT, ch, C, f32);
     if (e) return e;
   }
-  int e = f32 ? vmg::axes_wgmma<true>(maps, a, grid, st) : vmg::axes_wgmma<false>(maps, a, grid, st);
+  int e = f32 ? vmg_morphfc_axes_f32_big(&maps, &a, grid, relu, st)
+              : (relu ? vmg::axes_wgmma<false, true>(maps, a, grid, st)
+                      : vmg::axes_wgmma<false, false>(maps, a, grid, st));
   if (e) return e;
   return vmg::launch_final(partial, psum, N, C, npass * a.walkers, st);
 }
@@ -2251,9 +2295,10 @@ extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* 
                                       const float* bh, const void* kw, const float* bw,
                                       void* h, void* w, void* img, float* bimg, float* partial,
                                       float* psum, const vmg::TokPlan* plan, int N, int H, int W,
-                                      int C, int ch, int cw, int WT, int dtype, void* stream) {
+                                      int C, int ch, int cw, int WT, int relu, int dtype,
+                                      void* stream) {
   if (ch < 1 || cw < 1 || C % ch != 0 || C % cw != 0 || W % cw != 0 || WT % cw != 0 ||
-      C % 16 != 0 || C > 512 || N < 1 || H < 1)
+      C % 16 != 0 || C > 512 || N < 1 || H < 1 || (bh == nullptr) != (bw == nullptr))
     return (int)cudaErrorInvalidValue;
   for (const void* p : {x, c, kh, kw, (const void*)h, (const void*)w})
     if ((uintptr_t)p % vmg::kVecBytes != 0) return (int)cudaErrorMisalignedAddress;
@@ -2261,9 +2306,10 @@ extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* 
   if (dtype == 0)
     return vmg::launch_axes_token_f32((const float*)x, (const float*)c, (const float*)kh, bh,
                                       (const float*)kw, bw, (float*)h, (float*)w, partial, psum,
-                                      N, H, W, C, ch, cw, WT, st);
-  if (dtype != 1 || plan == nullptr || img == nullptr || bimg == nullptr ||
-      (uintptr_t)img % 16 != 0 || (uintptr_t)bimg % 16 != 0)
+                                      N, H, W, C, ch, cw, WT, relu ? 0.f : -INFINITY, st);
+  if (dtype != 1 || plan == nullptr || img == nullptr ||
+      (bh != nullptr && (bimg == nullptr || (uintptr_t)bimg % 16 != 0)) ||
+      (uintptr_t)img % 16 != 0)
     return (int)cudaErrorInvalidValue;
   using vmg::bf16;
   const vmg::TokPlan& p = *plan;
@@ -2314,7 +2360,7 @@ extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* 
     ntmax = std::max(ntmax, B.ntiles);
     pk.k[br] = (const bf16*)ks[br], pk.b[br] = bs[br];
     pk.img[br] = (bf16*)img + (br == 0 ? 0 : (size_t)a.br[0].ntiles * C * NT);
-    pk.bimg[br] = bimg + (br == 0 ? 0 : a.br[0].ntiles * NT);
+    pk.bimg[br] = bs[br] == nullptr ? nullptr : bimg + (br == 0 ? 0 : a.br[0].ntiles * NT);
     pk.L[br] = L, pk.S[br] = B.S, pk.tpz[br] = B.tpz;
     B.img = pk.img[br], B.bias = pk.bimg[br];
   }
@@ -2324,6 +2370,7 @@ extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* 
   if (lay.total > vmg::kMaxSmem) return (int)cudaErrorInvalidValue;
   a.partial = partial;
   a.N = N, a.H = H, a.W = W, a.C = C, a.KS = C / 16, a.stot = p.stot;
+  a.floor = relu ? 0.f : -INFINITY;
   a.ring = p.ring, a.resident = p.resident, a.wring = p.wring, a.nws = p.nws;
   a.slot_bytes = lay.slot, a.tile_bytes = (unsigned)C * NT * 2;
   a.off_w = lay.off_w, a.off_sum = lay.off_sum, a.off_bar = lay.off_bar;
@@ -2366,6 +2413,9 @@ extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* 
   return vmg::launch_final(partial, psum, N, C, p.stot, st);
 }
 
+#endif  // part 1
+
+#if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 2
 // h, w, c: (N, P, C) with P = H*W pixels per frame; partial: (N, S, C) f32
 // scratch; out: (N, C) f32.  The plan of morphfc_fused.reduce_plan: S
 // slices of per pixels, vec channels a load.
@@ -2456,3 +2506,4 @@ extern "C" int vmg_morphfc_combine(const void* x, const void* h, const void* w,
   }
   return vmg::combine_f32(maps, fa, st);
 }
+#endif  // part 2

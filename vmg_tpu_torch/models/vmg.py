@@ -6,10 +6,13 @@ deterministic path, on the kernels); training mode is its
 ``deterministic=False`` path: module forms of the TABs, stochastic depth
 on the linear schedule a model built with ``is_train`` carries, and, with
 ``cfg.remat``, each TAB and trajectory step recomputed in the backward
-pass.  Stage tails: trajectory recurrence where ``temporal_type`` is
-False, identity where it is None.  Module attribute names follow the
-reference state-dict keys (see ``vmg_tpu_torch.weights``).  Settings
-outside the ported slice raise (see :func:`check_supported`).
+pass.  Stage tails by ``temporal_type``: False, the trajectory recurrence;
+True, flow-guided deformable alignment (:class:`DCNv2PackFlowGuided`);
+None, 3D shifted-window attention (``models/swin3d``), or the identity
+with ``temporal_empty``.  Every ``VMGNetworkConfig`` the JAX package's
+model builds is built here; :func:`check_supported` refuses what it
+cannot run.  Module attribute names follow the reference state-dict keys
+(see ``vmg_tpu_torch.weights``).
 
 Three switches select the JAX package's opt-in kernel forms
 (:data:`KERNEL_FORMS` turns all three on); the defaults are its defaults,
@@ -42,9 +45,13 @@ from vmg_tpu_torch.configs import VMGNetworkConfig
 from vmg_tpu_torch.models.blocks import TAB, conv_cl, conv_frames
 from vmg_tpu_torch.models.norms import TorchLayerNorm
 from vmg_tpu_torch.models.spynet import SPyNet
-from vmg_tpu_torch.models.trajectory import TrajectoryMultiHead
+from vmg_tpu_torch.models.swin3d import DecoderLayer
+from vmg_tpu_torch.models.trajectory import (ResidualBlockNoBN, ResidualBlocksWithInputConv,
+                                             TrajectoryMultiHead)
+from vmg_tpu_torch.ops.deform import modulated_deform_conv2d
 from vmg_tpu_torch.ops.ltam_attention import MAX_HEAD_WIDTH
 from vmg_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+from vmg_tpu_torch.ops.warp import flow_warp
 from vmg_tpu_torch.ops.resize import (
     adaptive_avg_pool2d,
     adaptive_max_pool2d,
@@ -55,39 +62,30 @@ from vmg_tpu_torch.ops.resize import (
 # the three opt-in forms of the JAX package, all on (see the module docstring)
 KERNEL_FORMS = dict(rcab_impl="kernel", traj_conv_impl="kernel", norm_impl="kernel")
 
-# settings the ported slice implements; other values are not ported yet
-# (DCN and 3D window-attention tails, the FFN zoo and mixer variants, ...)
-_SLICE = dict(back_RBs=0, if_concat=False, temporal_empty=True, ret_decay=True,
-              non_linear=True, gating=True, if_symm=True, relu_scale=True,
-              relu_scale_norm=False, ffn_type="ffn_cnn", traj_mode="wins",
-              twins=(2, 2), traj_scale=True, if_local_fuse=True,
-              channel_mixer="rcab", qkv_bias=True, ltam=True, flow_smooth=True)
+def _stage_list(cfg: VMGNetworkConfig, li: int, lst):
+    """Entry of a per-encoder-stage list for stage ``li``: encoder i ->
+    lst[i], decoder j -> lst[-j-2] (the reference's indexing)."""
+    n_enc = cfg.num_enc_layers
+    return lst[li] if li < n_enc else lst[-(li - n_enc) - 2]
 
 
 def check_supported(cfg: VMGNetworkConfig) -> None:
-    bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _SLICE.items()
-           if getattr(cfg, k) != v]
-    if cfg.spynet is None:
-        bad.append("spynet=None")
-    if any(t is True for t in cfg.temporal_type):
-        bad.append(f"temporal_type={cfg.temporal_type}")
-    if any(m != "mlps" for m in cfg.mixer_type):
-        bad.append(f"mixer_type={cfg.mixer_type}")
-    if cfg.symm_act not in ("tanh", "sigmoid", "relu"):
-        bad.append(f"symm_act={cfg.symm_act!r}")
-    if cfg.num_layers > 3 and not cfg.use_mdsc:
-        bad.append("use_mdsc=False")
-    n_enc = cfg.num_enc_layers
+    """Refuse, before a forward starts, what the JAX package's model cannot
+    run either: a stage tail that needs flows without a flow network
+    (``spynet=None``), and an LTAM head width the kernel does not take on
+    a stage where the kernel runs."""
+    bad = []
+    if cfg.spynet is None and any(t is not None for t in cfg.temporal_type):
+        bad.append(f"spynet=None with temporal_type={cfg.temporal_type} (the trajectory "
+                   "and DCN tails need flows)")
+    kernel = cfg.traj_mode == "wins" and tuple(cfg.twins) == (2, 2) and cfg.ltam
     for li, C in enumerate(cfg.embed_dim):
-        # the trajectory stages' LTAM head width: the kernel takes any d up
-        # to MAX_HEAD_WIDTH (refused here, before a forward starts); stage
-        # li reads entry i of the per-encoder-stage lists (MlpEncoderStage)
-        i = li if li < n_enc else -(li - n_enc) - 2
-        heads = cfg.traj_heads[i] or 4
-        if cfg.temporal_type[i] is False and (C % heads or C // heads > MAX_HEAD_WIDTH):
+        heads = _stage_list(cfg, li, cfg.traj_heads) or 4
+        if kernel and _stage_list(cfg, li, cfg.temporal_type) is False and \
+                (C % heads or C // heads > MAX_HEAD_WIDTH):
             bad.append(f"traj_heads={cfg.traj_heads} at C={C}")
     if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        raise NotImplementedError(f"not supported: {', '.join(bad)}")
 
 
 class InputProj(nn.Module):
@@ -142,9 +140,55 @@ def _flow_smoothing(flow, region_range: int):
     return f.reshape(B, T, H, W, C2)
 
 
+class DCNv2PackFlowGuided(nn.Module):
+    """Flow-guided modulated deformable alignment (the reference's pa_frames
+    = 2 path): offsets and masks from [warped, current, flow] through four
+    3x3 convs (the last zero-initialised), the offsets a bounded residual
+    (``max_residue_magnitude`` tanh) on the flow, then
+    ``ops/deform.modulated_deform_conv2d`` with ``weight`` (C, C, 3, 3).
+    The offset convs run in float32 whatever the model's dtype (the JAX
+    package's concatenation with the float32 flow promotes them); the
+    sampling and the product in the features' dtype."""
+
+    def __init__(self, dim, deformable_groups, max_residue_magnitude=10.0, device=None):
+        super().__init__()
+        self.groups = deformable_groups
+        self.max_residue_magnitude = max_residue_magnitude
+        self.conv_offset = nn.Sequential(
+            nn.Conv2d(2 * dim + 2, dim, 3, padding=1, device=device), nn.LeakyReLU(0.1),
+            nn.Conv2d(dim, dim, 3, padding=1, device=device), nn.LeakyReLU(0.1),
+            nn.Conv2d(dim, dim, 3, padding=1, device=device), nn.LeakyReLU(0.1),
+            nn.Conv2d(dim, 27 * deformable_groups, 3, padding=1, device=device))
+        self.weight = nn.Parameter(torch.zeros(dim, dim, 3, 3, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x, x_warped, x_current, flow):
+        """x, x_warped, x_current: (N, H, W, C); flow: (N, H, W, 2) (x, y)."""
+        N, H, W, C = x.shape
+        G = self.groups
+        y = torch.cat([x_warped.float(), x_current.float(), flow.float()], dim=-1)
+        y = y.permute(0, 3, 1, 2)
+        for i in range(0, 7, 2):
+            conv = self.conv_offset[i]
+            y = F.conv2d(y, conv.weight.float(), conv.bias.float(), padding=1)
+            if i < 6:
+                y = F.leaky_relu(y, 0.1)
+        o1, o2, mask = y.permute(0, 2, 3, 1).chunk(3, dim=-1)
+        # channel (g * 9 + k) * 2 + j of the offsets, j: 0 = dy, 1 = dx
+        offset = self.max_residue_magnitude * torch.tanh(torch.cat([o1, o2], dim=-1))
+        flow_yx = torch.stack([flow[..., 1], flow[..., 0]], dim=-1).float()
+        offset = offset.reshape(N, H, W, G, 9, 2) + flow_yx[:, :, :, None, None, :]
+        mask = torch.sigmoid(mask).reshape(N, H, W, G, 9)
+        weight = self.weight.permute(2, 3, 1, 0).reshape(9, C, C)
+        return modulated_deform_conv2d(x, offset, mask, weight, self.bias)
+
+
 class MlpEncoderStage(nn.Module):
-    """One U-Net stage: TAB stack + local fuse + temporal tail.
-    ``drop_path``: the stochastic-depth rate of each TAB."""
+    """One U-Net stage: TAB stack, local fuse (``if_local_fuse``), temporal
+    tail by ``temporal_type``: the trajectory recurrence (False), the
+    flow-guided DCN alignment (True), the 3D window attention (None, unless
+    ``temporal_empty``).  ``drop_path``: the stochastic-depth rate of each
+    TAB."""
 
     def __init__(self, cfg: VMGNetworkConfig, layer_idx: int, *,
                  gelu_act="erf", drop_path=(), rcab_impl="module",
@@ -152,30 +196,48 @@ class MlpEncoderStage(nn.Module):
         super().__init__()
         self.cfg = cfg
         li = layer_idx
-        n_enc = cfg.num_enc_layers
 
         def sp(lst):
-            # encoder i -> lst[i], decoder j -> lst[-j-2]
-            return lst[li] if li < n_enc else lst[-(li - n_enc) - 2]
+            return _stage_list(cfg, li, lst)
 
         C = cfg.embed_dim[li]
         chunk_h = max(1, int(cfg.image_size[0] * sp(cfg.chunk_ratios)))
         chunk_w = max(1, int(cfg.image_size[1] * sp(cfg.chunk_ratios)))
         self.mlp_blocks = nn.ModuleList(
             TAB(C, chunk_h, chunk_w, cfg.mlp_ratio, cfg.n_groups,
-                symm_act=cfg.symm_act, mixer_scaling=cfg.m_scaling,
+                qkv_bias=cfg.qkv_bias, if_decay=cfg.ret_decay, non_linear=cfg.non_linear,
+                gating=cfg.gating, symm=cfg.if_symm, symm_act=cfg.symm_act,
+                relu_scale=cfg.relu_scale, relu_scale_norm=cfg.relu_scale_norm,
+                ffn_type=cfg.ffn_type, mixer_type=sp(cfg.mixer_type), mixer_n=sp(cfg.mixer_n),
+                channel_mixer=cfg.channel_mixer, mixer_scaling=cfg.m_scaling,
                 gelu_act=gelu_act,
                 drop_path=drop_path[b] if b < len(drop_path) else 0.0,
                 rcab_impl=rcab_impl, norm_impl=norm_impl, device=device)
             for b in range(cfg.depths[li]))
-        self.local_cnn = nn.Conv2d(C, C, 3, padding=1, device=device)
-        if sp(cfg.temporal_type) is False:
+        if cfg.if_local_fuse:
+            self.local_cnn = nn.Conv2d(C, C, 3, padding=1, device=device)
+        self.tail = sp(cfg.temporal_type)
+        if self.tail is False:
             self.traj_mixing = TrajectoryMultiHead(
                 C, num_blocks=cfg.traj_res_n[li],
                 keyframe_stride=sp(cfg.traj_keyframes_n) or 3,
                 head=sp(cfg.traj_heads) or 4, r_scaling=cfg.r_scaling,
                 traj_win=sp(cfg.traj_win), remat=cfg.remat,
-                traj_conv_impl=traj_conv_impl, device=device)
+                traj_conv_impl=traj_conv_impl, mode=cfg.traj_mode,
+                head_scale=cfg.traj_scale, twins=tuple(cfg.twins), ltam=cfg.ltam,
+                device=device)
+        elif self.tail is True:
+            # deform_groups and max_res_scale by the same raw-list indexing,
+            # not by the encoder stage a decoder stage mirrors (they differ
+            # where a list has num_layers entries)
+            self.pa_deform = DCNv2PackFlowGuided(
+                C, sp(cfg.deform_groups), 10.0 / sp(cfg.max_res_scale), device=device)
+            self.pa_fuse = ResidualBlocksWithInputConv(3 * C, C, cfg.traj_res_n[li],
+                                                       device=device)
+        elif not cfg.temporal_empty:
+            self.traj_mixing = DecoderLayer(
+                C, 2, cfg.num_heads[li], tuple(cfg.window_sizes[li]), cfg.mlp_ratio,
+                cfg.qkv_bias, gelu_act=gelu_act, norm_impl=norm_impl, device=device)
 
     def forward(self, x, flow_forward, flow_backward, generator=None, drop_rows=None):
         shortcut = x
@@ -187,12 +249,38 @@ class MlpEncoderStage(nn.Module):
                                preserve_rng_state=False)
             else:
                 x = blk(x, keep)
-        x = shortcut + conv_frames(self.local_cnn, x)
-        if hasattr(self, "traj_mixing"):
+        if self.cfg.if_local_fuse:
+            x = shortcut + conv_frames(self.local_cnn, x)
+        if self.tail is not None and self.cfg.flow_smooth:
             r = self.cfg.smooth_region_range
-            x = self.traj_mixing(x, _flow_smoothing(flow_forward, r),
-                                 _flow_smoothing(flow_backward, r))
+            flow_forward = _flow_smoothing(flow_forward, r)
+            flow_backward = _flow_smoothing(flow_backward, r)
+        if self.tail is False:
+            return self.traj_mixing(x, flow_forward, flow_backward)
+        if self.tail is True:
+            return self._dcn_alignment(x, flow_forward, flow_backward)
+        if hasattr(self, "traj_mixing"):
+            return self.traj_mixing(x)
         return x
+
+    def _dcn_alignment(self, x, flow_forward, flow_backward):
+        """Both neighbours aligned to every frame by the DCN (frame i + 1 ->
+        i backward, i - 1 -> i forward; zeros at the ends), fused with it by
+        ``pa_fuse``."""
+        B, T, H, W, C = x.shape
+        zeros = x.new_zeros((B, 1, H, W, C))
+
+        def align(src, cur, flow):
+            src = src.reshape(B * (T - 1), H, W, C)
+            flow = flow.reshape(B * (T - 1), H, W, 2)
+            warped = flow_warp(src, flow, "bilinear", "zeros")
+            out = self.pa_deform(src, warped, cur.reshape(src.shape), flow)
+            return out.reshape(B, T - 1, H, W, C)
+
+        x_backward = torch.cat([align(x[:, 1:], x[:, :-1], flow_backward), zeros], dim=1)
+        x_forward = torch.cat([zeros, align(x[:, :-1], x[:, 1:], flow_forward)], dim=1)
+        fused = torch.cat([x, x_backward, x_forward], dim=-1)
+        return self.pa_fuse(fused.reshape(B * T, H, W, 3 * C)).reshape(B, T, H, W, C)
 
 
 def drop_path_schedule(cfg: VMGNetworkConfig):
@@ -211,10 +299,13 @@ def drop_path_schedule(cfg: VMGNetworkConfig):
 
 
 class VMG(nn.Module):
-    """U-Net over frames with trajectory temporal mixing and a PixelShuffle
-    x4 reconstruction head.  ``is_train`` gives the TABs their
-    stochastic-depth rates (applied in training mode only).  The kernel
-    form switches are described at the top of this module."""
+    """U-Net over frames with per-stage temporal tails and a PixelShuffle
+    x4 reconstruction head (after ``back_RBs`` residual blocks).  Skips add,
+    or with ``if_concat`` concatenate and reduce by a 1x1 conv; with
+    ``use_mdsc`` (more than 3 stages) the multi-scale shortcuts feed stages
+    3 and 4.  ``spynet=None`` computes no flows.  ``is_train`` gives the
+    TABs their stochastic-depth rates (applied in training mode only).  The
+    kernel form switches are described at the top of this module."""
 
     def __init__(self, cfg: VMGNetworkConfig, *, gelu="erf", fast_flow=False,
                  is_train=False, rcab_impl="module", traj_conv_impl="module",
@@ -227,7 +318,8 @@ class VMG(nn.Module):
         dpr = drop_path_schedule(cfg) if is_train else [()] * cfg.num_layers
         forms = dict(rcab_impl=rcab_impl, traj_conv_impl=traj_conv_impl,
                      norm_impl=norm_impl)
-        self.spynet = SPyNet(fast_flow=fast_flow, device=device)
+        if cfg.spynet is not None:
+            self.spynet = SPyNet(fast_flow=fast_flow, device=device)
         self.input_proj = InputProj(cfg.in_chans, E[0], device)
         self.encoder_layers = nn.ModuleList(
             MlpEncoderStage(cfg, i, gelu_act=gelu, drop_path=dpr[i], **forms,
@@ -244,15 +336,24 @@ class VMG(nn.Module):
             UpdownSampling(E[n_enc - 1 + i], E[n_enc + i], "up", norm_impl=norm_impl,
                            device=device)
             for i in range(cfg.num_dec_layers))
-        if cfg.num_layers > 3:
+        if cfg.num_layers > 3 and cfg.use_mdsc:
             self.sc_64_16 = nn.Sequential(
                 nn.Conv2d(E[0], E[2], 1, device=device),
                 nn.GroupNorm(1, E[2], eps=1e-5, device=device))
             self.sc_32_8 = nn.Sequential(
                 nn.Conv2d(E[1], E[3], 1, device=device),
                 nn.GroupNorm(1, E[3], eps=1e-5, device=device))
-        self.local_cnn = nn.Conv2d(E[-1], E[-1], 3, padding=1, device=device)
+        if cfg.num_layers > 3 and cfg.if_concat:
+            # reduce<i>: [skip of encoder stage i, decoder stage 6 - i] -> C
+            self.reduce0, self.reduce1, self.reduce2 = (
+                nn.Conv2d(E[i] + E[6 - i], E[6 - i], 1, device=device) for i in range(3))
+        if cfg.if_local_fuse:
+            self.local_cnn = nn.Conv2d(E[-1], E[-1], 3, padding=1, device=device)
         Cf = E[-1]
+        # the reference's residual trunk before the reconstruction (its
+        # convs initialised at 0.1 x the default scale)
+        self.recon_trunk = nn.ModuleList(
+            ResidualBlockNoBN(Cf, device=device) for _ in range(cfg.back_RBs))
         self.upconv1 = nn.Conv2d(Cf, Cf * 4, 3, padding=1, device=device)
         self.upconv2 = nn.Conv2d(Cf, 64 * 4, 3, padding=1, device=device)
         self.HRconv = nn.Conv2d(64, 64, 3, padding=1, device=device)
@@ -284,7 +385,10 @@ class VMG(nn.Module):
                    (0, Wp - W, 0, Hp - H), mode="replicate")
         xp = xp.permute(0, 2, 3, 1).reshape(B, T, Hp, Wp, 3)
 
-        ff, fb = self._compute_flows(xp, frames_mirror)
+        if cfg.spynet is not None:
+            ff, fb = self._compute_flows(xp, frames_mirror)
+        else:
+            ff = fb = [None] * cfg.num_enc_layers
         feat = self.input_proj(xp.to(self.dtype))
         stages = [functools.partial(m, generator=generator, drop_rows=drop_rows)
                   for m in (*self.encoder_layers, *self.decoder_layers)]
@@ -292,11 +396,14 @@ class VMG(nn.Module):
             y = self._forward_multi(stages, feat, ff, fb)
         else:
             y = self._forward_few(stages, feat, ff, fb)
-        y = feat + conv_frames(self.local_cnn, y)
+        if cfg.if_local_fuse:
+            y = feat + conv_frames(self.local_cnn, y)
 
         y = y[:, :, :H, :W]
         Bf, Tf, Hf, Wf, Cf = y.shape
         out = y.reshape(Bf * Tf, Hf, Wf, Cf)
+        for block in self.recon_trunk:
+            out = block(out)
         out = F.leaky_relu(pixel_shuffle(conv_cl(self.upconv1, out), 2), 0.1)
         out = F.leaky_relu(pixel_shuffle(conv_cl(self.upconv2, out), 2), 0.1)
         out = F.leaky_relu(conv_cl(self.HRconv, out), 0.1)
@@ -341,17 +448,25 @@ class VMG(nn.Module):
         p = F.relu(seq[1](p)).permute(0, 2, 3, 1)
         return p.reshape(B, T, *p.shape[1:])
 
+    def _merge(self, skip, dec, idx: int):
+        if not self.cfg.if_concat:
+            return dec + skip
+        reduce = getattr(self, f"reduce{idx}")
+        return conv_frames(reduce, torch.cat([skip, dec], dim=-1))
+
     def _forward_multi(self, stages, x, ff, fb):
         enc, dec = stages[:4], stages[4:]
+        mdsc = self.cfg.use_mdsc
         x1 = enc[0](x, ff[0], fb[0])
         x2 = enc[1](self.downsample[0](x1), ff[1], fb[1])
         x3 = enc[2](self.downsample[1](x2), ff[2], fb[2])
-        x4 = enc[3](self.downsample[2](x3 + self._mdsc(self.sc_64_16, x1)), ff[3], fb[3])
-        x4_ = self.upsample[0](x4 + self._mdsc(self.sc_32_8, x2))
+        x4 = enc[3](self.downsample[2](x3 + self._mdsc(self.sc_64_16, x1) if mdsc else x3),
+                    ff[3], fb[3])
+        x4_ = self.upsample[0](x4 + self._mdsc(self.sc_32_8, x2) if mdsc else x4)
         x5 = dec[0](x4_, ff[2], fb[2])
-        x6 = dec[1](self.upsample[1](x5 + x3), ff[1], fb[1])
-        x7 = dec[2](self.upsample[2](x6 + x2), ff[0], fb[0])
-        return x7 + x1
+        x6 = dec[1](self.upsample[1](self._merge(x3, x5, 2)), ff[1], fb[1])
+        x7 = dec[2](self.upsample[2](self._merge(x2, x6, 1)), ff[0], fb[0])
+        return self._merge(x1, x7, 0)
 
     def _forward_few(self, stages, x, ff, fb):
         x1 = stages[0](x, ff[0], fb[0])
@@ -368,8 +483,12 @@ def _trunc_normal_(t, std, generator):
 def init_weights(model: VMG, generator: torch.Generator) -> None:
     """Initialise like the JAX package: convs U(+-1/sqrt(fan_in)) (SPyNet's
     convs lecun-normal, flax's default), linears and the LTAM relative
-    position table trunc_normal(0.02), biases zero, norms ones/zeros."""
-    spy = set(model.spynet.modules())
+    position table trunc_normal(0.02), biases zero, norms ones/zeros; the
+    window attention's bias table trunc_normal(0.02), the DCN's weight as a
+    conv's and its offset head's last conv zero, the reconstruction
+    trunk's convs at 0.1 x the default scale."""
+    spy = set(model.spynet.modules()) if hasattr(model, "spynet") else set()
+    trunk = {c for b in model.recon_trunk for c in (b.conv1, b.conv2)}
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.weight[0].numel()
@@ -378,24 +497,36 @@ def init_weights(model: VMG, generator: torch.Generator) -> None:
                 _trunc_normal_(m.weight, 1.0 / math.sqrt(fan_in) / 0.87962566103423978,
                                generator)
             else:
-                bound = 1.0 / math.sqrt(fan_in)
+                bound = (0.1 if m in trunk else 1.0) / math.sqrt(fan_in)
                 nn.init.uniform_(m.weight, -bound, bound, generator=generator)
             nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Linear):
             _trunc_normal_(m.weight, 0.02, generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
         elif hasattr(m, "relative_pos_encoding"):
             _trunc_normal_(m.relative_pos_encoding, 0.02, generator)
+        elif hasattr(m, "relative_position_bias_table"):
+            _trunc_normal_(m.relative_position_bias_table, 0.02, generator)
+        elif isinstance(m, DCNv2PackFlowGuided):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            nn.init.uniform_(m.weight, -bound, bound, generator=generator)
+            nn.init.zeros_(m.bias)
+    for m in model.modules():
+        if isinstance(m, DCNv2PackFlowGuided):
+            nn.init.zeros_(m.conv_offset[6].weight)
+            nn.init.zeros_(m.conv_offset[6].bias)
 
 
 def cast_for_compute(model: VMG, dtype: torch.dtype) -> VMG:
     """Precision policy: every float parameter in ``dtype`` except the
     SPyNet subtree, which stays float32."""
     model.to(dtype)
-    model.spynet.float()
+    if hasattr(model, "spynet"):
+        model.spynet.float()
     return model
 
 

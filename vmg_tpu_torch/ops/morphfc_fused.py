@@ -51,15 +51,21 @@ def axis_untokens(y, shape, chunk: int, axis: int):
     return y.transpose(1, 2) if axis == 1 else y
 
 
-def morphfc_axes_plain(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int):
+def morphfc_axes_plain(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
+                       non_linear: bool = True):
     """Both decayed axis branches, relu(tokens @ k + b) / C in f32 rounded
     once to x's dtype, and the f32 per-frame sums of h + w + c taken from
-    the unrounded branches.  Returns (h, w, psum (N, C) f32)."""
+    the unrounded branches.  ``bh`` and ``bw`` None: no bias;
+    ``non_linear`` False: no relu.  Returns (h, w, psum (N, C) f32)."""
     C = x.shape[-1]
 
     def branch(k, b, chunk, axis):
-        y = torch.relu(axis_tokens(x, chunk, axis).float() @ k.float() + b) * (1.0 / C)
-        return axis_untokens(y, x.shape, chunk, axis)
+        y = axis_tokens(x, chunk, axis).float() @ k.float()
+        if b is not None:
+            y = y + b
+        if non_linear:
+            y = torch.relu(y)
+        return axis_untokens(y * (1.0 / C), x.shape, chunk, axis)
 
     h = branch(kh, bh, chunk_h, 1)
     w = branch(kw, bw, chunk_w, 2)
@@ -254,11 +260,14 @@ def token_plan_ints(plan) -> list:
 
 
 def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
-                       form: str | None = None):
+                       form: str | None = None, non_linear: bool = True):
     """x, c (N, H, W, C) -> (h, w, psum); needs C % chunk_h == C % chunk_w
     == W % chunk_w == 0.  kh, kw are the axis weights with the decay
     already folded in, as ``MorphFCDecay`` packs them once per parameter
-    state (the JAX op folds it per call).  ``form``: "big" (the kernel
+    state (the JAX op folds it per call).  ``bh`` and ``bw``: the (C,) f32
+    biases, or both None (``qkv_bias`` off: the kernels then load no
+    bias); ``non_linear`` False drops the relu, as the JAX op's
+    ``non_linear`` does.  ``form``: "big" (the kernel
     that holds the whole C x C weight; it raises where that does not fit
     in shared memory), "token" (weight column tiles: any chunk * C) or
     None for :func:`axes_form`, or the token form where the big form's
@@ -272,19 +281,22 @@ def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
             form = "token"  # f32 above C = 128: the hi and lo images do not fit
     elif form not in FORMS:
         raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
-    return _morphfc_axes(x, c, kh, bh, kw, bw, chunk_h, chunk_w, form)
+    if (bh is None) != (bw is None):
+        raise ValueError("bh and bw: both biases or neither")
+    return _morphfc_axes(x, c, kh, bh, kw, bw, chunk_h, chunk_w, form, bool(non_linear))
 
 
-def _axes_cuda(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str):
+def _axes_cuda(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str,
+               non_linear: bool):
     N, H, W, C = x.shape
     dt, dev = x.dtype, x.device
     if C % chunk_h or C % chunk_w or W % chunk_w:
         raise ValueError(f"chunks ({chunk_h}, {chunk_w}) do not divide C={C}, W={W}")
     _build.require(x, "x")
-    for name, t, shape, dtype in (("c", c, x.shape, dt), ("kh", kh, (C, C), dt),
-                                  ("bh", bh, (C,), torch.float32),
-                                  ("kw", kw, (C, C), dt),
-                                  ("bw", bw, (C,), torch.float32)):
+    checks = [("c", c, x.shape, dt), ("kh", kh, (C, C), dt), ("kw", kw, (C, C), dt)]
+    if bh is not None:
+        checks += [("bh", bh, (C,), torch.float32), ("bw", bw, (C,), torch.float32)]
+    for name, t, shape, dtype in checks:
         _build.require(t, name, shape=shape, dtype=dtype, device=dev)
     h, w = torch.empty_like(x), torch.empty_like(x)
     psum = torch.empty((N, C), dtype=torch.float32, device=dev)
@@ -323,42 +335,47 @@ def _axes_cuda(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str):
                              f"in bf16; got C={C}, chunks ({chunk_h}, {chunk_w})")
         tiles = sum(b["ntiles"] for b in tp["branches"])  # both images, back to back
         img = torch.empty(tiles * C * tp["nt"], dtype=dt, device=dev)
-        bimg = torch.empty(tiles * tp["nt"], dtype=torch.float32, device=dev)
+        if bh is not None:  # no bias: no bias image
+            bimg = torch.empty(tiles * tp["nt"], dtype=torch.float32, device=dev)
         S = tp["stot"]
         ints = token_plan_ints(tp)
         plan_ints = (ctypes.c_int * len(ints))(*ints)
     partial = torch.empty((N, S, C), dtype=torch.float32, device=dev)
-    pointers = (x.data_ptr(), c.data_ptr(), kh.data_ptr(), bh.data_ptr(), kw.data_ptr(),
-                bw.data_ptr(), h.data_ptr(), w.data_ptr())
+    pointers = (x.data_ptr(), c.data_ptr(), kh.data_ptr(), _build.ptr(bh), kw.data_ptr(),
+                _build.ptr(bw), h.data_ptr(), w.data_ptr())
+    relu = int(non_linear)
     if form == "big":
         code = _build.load_library().vmg_morphfc_axes(
             *pointers, partial.data_ptr(), psum.data_ptr(), _build.ptr(scratch), N, H, W, C,
-            chunk_h, chunk_w, WT, nwg, ring, npass, grid, _build.DTYPE_CODES[dt],
+            chunk_h, chunk_w, WT, nwg, ring, npass, grid, relu, _build.DTYPE_CODES[dt],
             _build.stream_of(x))
         _build.check(code, "vmg_morphfc_axes")
         fused_morphfc_axes.launches += 1
     else:
         code = _build.load_library().vmg_morphfc_axes_token(
             *pointers, _build.ptr(img), _build.ptr(bimg), partial.data_ptr(),
-            psum.data_ptr(), plan_ints, N, H, W, C, chunk_h, chunk_w, WT,
+            psum.data_ptr(), plan_ints, N, H, W, C, chunk_h, chunk_w, WT, relu,
             _build.DTYPE_CODES[dt], _build.stream_of(x))
         _build.check(code, "vmg_morphfc_axes_token")
         fused_morphfc_axes.token_launches += 1
     return h, w, psum
 
 
-def _axes_cpu(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str):
-    return morphfc_axes_plain(x, c, kh, bh, kw, bw, chunk_h=chunk_h, chunk_w=chunk_w)
+def _axes_cpu(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str,
+              non_linear: bool):
+    return morphfc_axes_plain(x, c, kh, bh, kw, bw, chunk_h=chunk_h, chunk_w=chunk_w,
+                              non_linear=non_linear)
 
 
-def _axes_fake(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str):
+def _axes_fake(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str,
+               non_linear: bool):
     return (library.empty(x), library.empty(x),
             library.empty(x, (x.shape[0], x.shape[-1]), torch.float32))
 
 
 _morphfc_axes = library.define(
-    "morphfc_axes", "(Tensor x, Tensor c, Tensor kh, Tensor bh, Tensor kw, Tensor bw, "
-    "int chunk_h, int chunk_w, str form) -> (Tensor, Tensor, Tensor)",
+    "morphfc_axes", "(Tensor x, Tensor c, Tensor kh, Tensor? bh, Tensor kw, Tensor? bw, "
+    "int chunk_h, int chunk_w, str form, bool non_linear) -> (Tensor, Tensor, Tensor)",
     cpu=_axes_cpu, cuda=_axes_cuda, fake=_axes_fake)
 fused_morphfc_axes.launches = 0  # the big form's kernel
 fused_morphfc_axes.token_launches = 0  # the token form's kernel

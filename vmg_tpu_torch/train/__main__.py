@@ -48,11 +48,12 @@ PRESETS = {"full": FULL_PRESET, "few_levels": FEW_LEVELS_PRESET, "tiny": TINY_TE
 
 def setup(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
           grad_acc: int = 1, remat: bool = True, device="cuda", seed: int = 0,
-          norm_impl: str = "module"):
+          norm_impl: str = "module", network=None):
     """The protocol's step function, its seeded batch on ``device`` and the
-    stochastic-depth generator: (step, batch, generator)."""
+    stochastic-depth generator: (step, batch, generator).  ``network``: a
+    ``VMGNetworkConfig`` in place of the preset's."""
     dev = torch.device(device)
-    cfg = dataclasses.replace(PRESETS[preset], remat=remat)
+    cfg = dataclasses.replace(PRESETS[preset] if network is None else network, remat=remat)
     tcfg = TrainConfig(lr=2e-4, T_period=(400000,), if_aux=True, amp=True)
     model = create_model(cfg, is_train=True, device=dev,
                          generator=torch.Generator().manual_seed(seed),
@@ -67,13 +68,14 @@ def setup(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64
 
 def run(preset: str = "full", batch: int = 1, frames: int = 16, crop: int = 64,
         iters: int = 8, grad_acc: int = 1, remat: bool = True, device="cuda",
-        seed: int = 0, norm_impl: str = "module", ckpt_dir: Optional[str] = None) -> dict:
+        seed: int = 0, norm_impl: str = "module", ckpt_dir: Optional[str] = None,
+        network=None) -> dict:
     """Warm-up step plus ``iters`` timed steps; returns the record.  With
     ``ckpt_dir``: first resume from its latest checkpoint, if any, and save
-    one at the end."""
+    one at the end.  ``network``: see :func:`setup`."""
     dev = torch.device(device)
     step, data, gen = setup(preset, batch, frames, crop, grad_acc, remat, dev, seed,
-                            norm_impl)
+                            norm_impl, network)
     cuda = dev.type == "cuda"
     resumed = None
     if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
