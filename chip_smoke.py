@@ -245,6 +245,10 @@ FFN_F32_BEFORE_MS = {(16, 128, 128, 112): 10.739, (16, 64, 64, 224): 15.831,
                      (16, 46, 80, 224): 13.752, (16, 23, 40, 448): 41.277,
                      (16, 128, 128, 144): 23.631}
 AXES_F32_BEFORE_MS = {(16, 128, 128, 112): 1.974, (16, 184, 320, 112): 6.862}
+# the f32 token form's times before its 3xTF32 redesign (the scalar kernel
+# it replaced), printed beside this run's: PERF.md row 4bf (the previous
+# tree's chip_smoke.py phase 2, TF32 off; H100 80GB HBM3, 700 W); shape -> ms
+TOKEN_F32_BEFORE_MS = {(16, 92, 160, 224): 9.162, (16, 23, 40, 448): 3.138}
 # the combine's path shapes (N, H, W, C): FULL_PRESET's stages 0/6, 1/5, 2/4
 # and 3, and the few-levels preset's (a 128x128 tile, C = 144)
 COMBINE_SHAPES = [(16, 184, 320, 112), (16, 92, 160, 224), (16, 46, 80, 224),
@@ -405,15 +409,32 @@ def ffn_f64_sums(x, w1, b1, w2, b2, groups, act):
     return sums, terms
 
 
-def ffn_sum_errors(got, sums, terms):
-    """The kernel output's (N, H, W, C) per-(frame, channel) sums against the
-    float64 ``sums``: (max |error| / terms, mean signed error / terms, mean
-    error toward zero / terms -- positive where the kernel's sums are
-    smaller in magnitude than the exact ones)."""
-    err = got.double().sum(dim=(1, 2)) - sums
+def sum_errors(got_sums, sums, terms):
+    """A kernel's per-(frame, channel) sums (N, C) against the float64
+    ``sums``: (max |error| / terms, mean signed error / terms, mean error
+    toward zero / terms -- positive where the kernel's sums are smaller in
+    magnitude than the exact ones)."""
+    err = got_sums.double() - sums
     rel = err / terms
     return (rel.abs().max().item(), rel.mean().item(),
             (-torch.sign(sums) * err / terms).mean().item())
+
+
+def axes_f64_sums(x, c, kh, bh, kw, bw, ck):
+    """The axes op's per-(frame, channel) sums of h + w + c (N, C) in
+    float64 (the plain function's arithmetic, relu and biases), and the sum
+    of their terms' magnitudes."""
+    from vmg_tpu_torch.ops.morphfc_fused import axis_tokens, axis_untokens
+
+    C = x.shape[-1]
+    cd = c.double()
+    sums, terms = cd.sum(dim=(1, 2)), cd.abs().sum(dim=(1, 2))
+    for k, b, axis in ((kh, bh, 1), (kw, bw, 2)):
+        y = torch.relu(axis_tokens(x.double(), ck, axis) @ k.double() + b.double()) / C
+        y = axis_untokens(y, x.shape, ck, axis)
+        sums, terms = sums + y.sum(dim=(1, 2)), terms + y.abs().sum(dim=(1, 2))
+        del y
+    return sums, terms
 
 
 # the FFN's output-sum check (phase 2): the f32 kernel at the eval tile's
@@ -446,7 +467,7 @@ def ffn_sums_check(report):
             for act in ("erf", "tanh"):
                 got = group_conv.fused_group_ffn(x, *packed, b2, groups=G, act=act)
                 sums, terms = ffn_f64_sums(x, w1, b1, w2, b2, G, act)
-                worst, signed, toward = ffn_sum_errors(got, sums, terms)
+                worst, signed, toward = sum_errors(got.double().sum(dim=(1, 2)), sums, terms)
                 held = dtype == torch.float32
                 ok = worst <= SUM_TOL or not held
                 report(f"  fused_group_ffn sums {str(dtype):15s} {str(shape):22s} {act:4s}: "
@@ -835,9 +856,6 @@ def check_kernels(report):
     def dtype_check(dtype):
         return lambda got, want: [within_max(got[0], want[0], REL_TOL[dtype])]
 
-    def peak(dtype):  # the bf16 kernels multiply on the tensor cores
-        return "bf16 tensor cores" if dtype == torch.bfloat16 else "f32"
-
     def peak_ffn_axes(dtype):  # f32 as three TF32 products on the tensor cores
         return "bf16 tensor cores" if dtype == torch.bfloat16 else "3xTF32 tensor cores"
 
@@ -955,9 +973,8 @@ def check_kernels(report):
                                                          form=form),
                 lambda: morphfc_fused.morphfc_axes_plain(*args, chunk_h=ck, chunk_w=ck),
                 axes_check(xc, dtype), primary=dtype == torch.bfloat16 and C in (112, 224),
-                # two C x C FCs
-                work=(args, 2 * 2 * N * h * w * C * C,
-                      peak_ffn_axes(dtype) if form == "big" else peak(dtype)),
+                # two C x C FCs (f32: three TF32 products each)
+                work=(args, 2 * 2 * N * h * w * C * C, peak_ffn_axes(dtype)),
                 extra=f"  hybrid form {hybrid_ms:.3f} ms", keys={"hybrid_ms": hybrid_ms})
             # the result must not depend on which warpgroup took which tile
             again = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck, form=form)
@@ -973,13 +990,28 @@ def check_kernels(report):
                 if form == "token":
                     entries[name]["x".join(map(str, shape))] = {
                         "ms": ms, "bound_ms": b["bound_ms"], "hybrid_ms": hybrid_ms}
-            elif form == "big":
-                report(f"    {b['bound_ms'] / ms:.3f} of the bound "
-                       f"({b['bound_bytes'] / ms / 1e9:.2f} TB/s), kernel / hybrid form "
-                       f"{ms / hybrid_ms:.3f}; two runs bit-equal; before the redesign: scalar "
-                       f"{AXES_F32_BEFORE_MS.get(shape)} ms (PERF.md)")
-                entries[name]["f32_" + "x".join(map(str, shape))] = {
-                    "ms": ms, "bound_ms": b["bound_ms"], "hybrid_ms": hybrid_ms}
+            else:
+                before = (AXES_F32_BEFORE_MS if form == "big" else TOKEN_F32_BEFORE_MS).get(shape)
+                report(f"    {b['bound_ms'] / ms:.3f} of the 3xTF32 bound "
+                       f"({b['bound_by']}; {b['bound_bytes'] / ms / 1e9:.2f} TB/s), kernel / "
+                       f"hybrid form {ms / hybrid_ms:.3f}; two runs bit-equal; before the "
+                       f"redesign: scalar {before} ms (PERF.md)")
+                key = "f32_" + "x".join(map(str, shape))
+                entries[name][key] = {"ms": ms, "bound_ms": b["bound_ms"],
+                                      "hybrid_ms": hybrid_ms}
+                if form == "token":  # the 3xTF32 chains' drift, as the FFN's (SUM_TOL)
+                    sums, terms = axes_f64_sums(*args, ck)
+                    own = (got[0].double() + got[1].double() + xc.double()).sum(dim=(1, 2))
+                    for label, v in (("psum", got[2]), ("outputs", own)):
+                        worst, signed, toward = sum_errors(v, sums, terms)
+                        ok = worst <= SUM_TOL
+                        report(f"    sums ({label}) against float64: max {worst:.3e}, mean "
+                               f"signed {signed:+.3e}, toward zero {toward:+.3e} of sum|terms| "
+                               f"(tol {SUM_TOL:g}) {'ok' if ok else 'FAIL'}")
+                        entries[name][key][f"{label}_sums"] = (worst, signed, toward)
+                        if not ok:
+                            raise AssertionError(f"the f32 token form's sums drift at {shape}")
+                    del sums, terms
             del got
             if form == "big":  # the token form on the big form's domain
                 big = morphfc_fused.fused_morphfc_axes(*args, chunk_h=ck, chunk_w=ck)
@@ -1017,8 +1049,7 @@ def check_kernels(report):
                     lambda: morphfc_fused.morphfc_axes_plain(
                         x, xc, kh, b1, kw, b2, chunk_h=ck, chunk_w=ck, non_linear=nl),
                     axes_check(xc, dtype), primary=False,
-                    work=((x, xc, kh, kw), 2 * 2 * N * h * w * C * C,
-                          peak_ffn_axes(dtype) if form == "big" else peak(dtype)),
+                    work=((x, xc, kh, kw), 2 * 2 * N * h * w * C * C, peak_ffn_axes(dtype)),
                     extra=f"  default form {default_ms:.3f} ms")
                 if bool((got[0] < 0).any()) == nl:  # the relu ran, or did not
                     raise AssertionError(f"the axes kernel ({form}, {dtype}) took "

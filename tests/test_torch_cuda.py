@@ -308,10 +308,12 @@ def test_morphfc_axes_kernel(cuda, dtype, H, W, C, chunk_h, chunk_w):
     (18, 24, 96, 4, 4), (14, 32, 64, 2, 8)])
 def test_morphfc_axes_token_kernel(cuda, dtype, H, W, C, chunk_h, chunk_w):
     """The token form against the plain version: ragged last H-chunks, a
-    ragged W slab (24 columns in 16-wide slabs), C = 96/160/224/448 with
-    chunk * C > 1024 (two M-tiles at 224, a partial weight column tile at
-    96, 160 and 224), the token form forced below 1024 and unequal chunks.
-    Tolerances as the big form's."""
+    ragged last unit column (24 columns), C = 96/160/224/448 with chunk * C
+    > 1024 (generic tile widths at 96 and 160, the compile-time path
+    instantiations at 224 / chunk 16 and 448 / chunk 8; in f32 each
+    warpgroup on its own units up to C = 336 and both on one above), the
+    token form forced below 1024 and unequal chunks. Tolerances as the
+    big form's."""
     rng = np.random.default_rng(C + H)
     args = _axes_case(rng, H, W, C, cuda, dtype)
     ax = morphfc_fused.fused_morphfc_axes
@@ -340,10 +342,12 @@ def test_morphfc_axes_token_against_big(cuda, dtype):
 
 # (dtype, form, H, W, C, chunk): the four axes kernels -- bf16 and f32 big
 # form (stage 0's channels and chunks), bf16 token form at stage 3's
-# compile-time shape and at a generic one, f32 token form
+# compile-time shape and at a generic one, f32 token form at a generic
+# shape and at both compile-time ones (stages 1/5 and 3)
 AXES_FORMS = [(torch.bfloat16, "big", 18, 24, 112, 8), (torch.float32, "big", 18, 24, 112, 8),
               (torch.bfloat16, "token", 9, 16, 448, 8), (torch.bfloat16, "token", 18, 32, 96, 16),
-              (torch.float32, "token", 11, 16, 160, 8)]
+              (torch.float32, "token", 11, 16, 160, 8), (torch.float32, "token", 21, 32, 224, 16),
+              (torch.float32, "token", 9, 16, 448, 8)]
 
 
 @pytest.mark.cuda
@@ -369,52 +373,67 @@ def test_morphfc_axes_kernel_options(cuda, dtype, form, H, W, C, chunk, non_line
     assert bool((got[0] < 0).any()) == (not non_linear)
 
 
+# the token form's h and w against the plain version, relative to their
+# largest value: phase 2's (bf16 1e-2; f32 the f32 kernels' 1e-4, TF32 off)
+_TOKEN_TOL = {torch.bfloat16: 1e-2, torch.float32: _TOL[torch.float32]}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,chunk", [((16, 92, 160, 224), 16), ((16, 23, 40, 448), 8)])
-def test_morphfc_axes_token_path_shapes(cuda, shape, chunk):
-    """The bf16 token form at the stage-1/5 and stage-3 shapes (the ragged
-    last H chunk at 92 and 23 rows) against the plain version, within
-    phase 2's tolerances (h and w 1e-2 of their largest value, the sums
-    1e-6 of the sum of |h| + |w| + |c|); two runs bit-equal (resident
-    weight tiles at stage 1/5, streamed at stage 3)."""
+def test_morphfc_axes_token_path_shapes(cuda, dtype, shape, chunk):
+    """The token form at the stage-1/5 and stage-3 shapes (the ragged last
+    H chunk at 92 and 23 rows) against the plain version, within phase 2's
+    tolerances (h and w 1e-2 of their largest value in bf16, 1e-4 in f32;
+    the sums 1e-6 of the sum of |h| + |w| + |c|); two runs bit-equal
+    (bf16: resident weight tiles at stage 1/5, streamed at stage 3; f32:
+    each warpgroup on its own units at stage 1/5, both on one at stage 3,
+    the weight streamed at both)."""
     N, H, W, C = shape
     rng = np.random.default_rng(C + H)
-    x = _randn(rng, shape, cuda, torch.bfloat16)
-    c = _randn(rng, shape, cuda, torch.bfloat16, 0.01)
-    kh, kw = (_randn(rng, (C, C), cuda, torch.bfloat16, 0.02) for _ in range(2))
+    x = _randn(rng, shape, cuda, dtype)
+    c = _randn(rng, shape, cuda, dtype, 0.01)
+    kh, kw = (_randn(rng, (C, C), cuda, dtype, 0.02) for _ in range(2))
     bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
     args = (x, c, kh, bh, kw, bw)
     ax = morphfc_fused.fused_morphfc_axes
+    before = ax.token_launches
     got = ax(*args, chunk_h=chunk, chunk_w=chunk, form="token")
     again = ax(*args, chunk_h=chunk, chunk_w=chunk, form="token")
+    assert ax.token_launches == before + 2
     want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk, chunk_w=chunk)
     torch.cuda.synchronize()
     for g, wnt in zip(got[:2], want[:2]):
-        assert (g.float() - wnt.float()).abs().max().item() <= 1e-2 * wnt.float().abs().max().item()
+        err = (g.float() - wnt.float()).abs().max().item()
+        assert err <= _TOKEN_TOL[dtype] * wnt.float().abs().max().item(), err
     terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (want[0], want[1], c))
     assert bool(((got[2] - want[2]).abs() <= 1e-6 * terms).all())
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,H,W,C,chunk", [(16, 23, 40, 448, 8), (4, 46, 80, 224, 16),
-                                           (3, 21, 32, 448, 16), (2, 16, 64, 512, 16),
-                                           (5, 20, 32, 160, 8), (3, 14, 32, 64, 2)])
-def test_morphfc_axes_token_back_to_back(cuda, N, H, W, C, chunk):
-    """The bf16 token form in 5 rounds of 40 calls queued with no
+@pytest.mark.parametrize("dtype,N,H,W,C,chunk", [
+    (torch.bfloat16, 16, 23, 40, 448, 8), (torch.bfloat16, 4, 46, 80, 224, 16),
+    (torch.bfloat16, 3, 21, 32, 448, 16), (torch.bfloat16, 2, 16, 64, 512, 16),
+    (torch.bfloat16, 5, 20, 32, 160, 8), (torch.bfloat16, 3, 14, 32, 64, 2),
+    (torch.float32, 16, 92, 160, 224, 16), (torch.float32, 16, 23, 40, 448, 8)])
+def test_morphfc_axes_token_back_to_back(cuda, dtype, N, H, W, C, chunk):
+    """The token form in 5 rounds of 40 calls queued with no
     synchronisation between (the pack, c's sums, the kernel and the sums
-    pass of one call behind the last call's), at both compile-time path
-    shapes and in the generic instantiations (tile widths 16, 32 and 64;
-    weight tiles resident, and streamed at C = 448 and 512; a channel
-    array a warp at chunk 2): every call's output bit-equal to the first,
-    which the plain version holds within phase 2's tolerances.  A weight
-    producer whose lane 0 waited alone on the other warpgroup trapped at
-    the stage-3 shape within 200 such calls."""
+    pass of one call behind the last call's), bf16 at both compile-time
+    path shapes and in the generic instantiations (tile widths 16, 32 and
+    64; weight tiles resident, and streamed at C = 448 and 512; a channel
+    array a warp at chunk 2), f32 at both path shapes (each warpgroup on
+    its own units at stage 1/5, both on one at stage 3): every call's
+    output bit-equal to the first, which the plain version holds within
+    phase 2's tolerances.  A weight producer whose lane 0 waited alone on
+    the other warpgroup trapped at the stage-3 shape within 200 such
+    calls."""
     rng = np.random.default_rng(C + H + chunk)
     shape = (N, H, W, C)
-    x = _randn(rng, shape, cuda, torch.bfloat16)
-    c = _randn(rng, shape, cuda, torch.bfloat16, 0.01)
-    kh, kw = (_randn(rng, (C, C), cuda, torch.bfloat16, 0.02) for _ in range(2))
+    x = _randn(rng, shape, cuda, dtype)
+    c = _randn(rng, shape, cuda, dtype, 0.01)
+    kh, kw = (_randn(rng, (C, C), cuda, dtype, 0.02) for _ in range(2))
     bh, bw = (_randn(rng, (C,), cuda, torch.float32, 0.1) for _ in range(2))
     args = (x, c, kh, bh, kw, bw)
     first = None
@@ -428,7 +447,8 @@ def test_morphfc_axes_token_back_to_back(cuda, N, H, W, C, chunk):
     want = morphfc_fused.morphfc_axes_plain(*args, chunk_h=chunk, chunk_w=chunk)
     torch.cuda.synchronize()
     for g, wnt in zip(first[:2], want[:2]):
-        assert (g.float() - wnt.float()).abs().max().item() <= 1e-2 * wnt.float().abs().max().item()
+        err = (g.float() - wnt.float()).abs().max().item()
+        assert err <= _TOKEN_TOL[dtype] * wnt.float().abs().max().item(), err
     terms = sum(v.float().abs().sum(dim=(1, 2)) for v in (want[0], want[1], c))
     assert bool(((first[2] - want[2]).abs() <= 1e-6 * terms).all())
 

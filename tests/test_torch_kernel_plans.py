@@ -496,12 +496,26 @@ def test_axes_cpu_route_takes_the_plain_matrices():
     ("void vmg::group_ffn_tf32_kernel<112>(CUtensorMap_st, vmg::FfnTfArgs)", "FFN kernel"),
     ("vmg::morphfc_final_kernel(float const*, float*, int, int)",
      "MorphFC sums, fixed-order pass (axes, reduce)"),
+    # the other parts of morphfc.cu (their namespace renamed)
+    ("void vmg_part4::morphfc_axes_token_tf32_kernel<128, 224, 16>(vmg_part4::TokMaps, "
+     "vmg_part4::TokF32Args)", "MorphFC axes kernel"),
+    ("vmg_part4::morphfc_axes_token_pack_tf32_kernel(vmg_part4::TokPackF32)",
+     "MorphFC axes kernel"),
+    ("void vmg_part3::morphfc_axes_wgmma_kernel<7, true, true>(vmg_part3::AxesMaps, "
+     "vmg_part3::AxesArgs)", "MorphFC axes kernel"),
+    ("void vmg_part2::morphfc_partial_kernel<float, 4, 3>(float const*, float const*, "
+     "float const*, float*, int, int, int, int, int)", "MorphFC reduce kernel (pass 1)"),
+    ("void vmg_part2::morphfc_combine_tf32_kernel<112>(vmg_part2::CombineMaps, "
+     "vmg_part2::CombineF32Args)", "MorphFC combine kernel"),
+    ("vmg_part4::morphfc_final_kernel(float const*, float*, int, int)",
+     "MorphFC sums, fixed-order pass (axes, reduce)"),
 ])
 def test_profile_files_the_redesigned_kernels_under_their_names(kernel, cat):
     """profile_serving's (and profile_training's) device-time breakdown
     counts the LTAM backward's two launches, the axes kernels (the f32
     scalar kernel's name too: ``--tree`` profiles earlier trees), the f32
-    FFN and the sums pass under their rows."""
+    FFN and the sums pass under their rows, whichever part of
+    ``morphfc.cu`` (namespace vmg_partN) compiled them."""
     from vmg_tpu_torch.profile_serving import category
     assert category(kernel) == cat
 

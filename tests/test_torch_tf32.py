@@ -393,3 +393,209 @@ def test_conv_f32_plan_ints_follow_the_packed_taps():
         w = torch.zeros(C, C, 3, 3)
         ops = conv_chain.pack_conv_taps(w, None)
         assert conv_chain.chain_tf32_plan_ints(ops[0], ops[0]) == want
+
+
+# ---- the f32 token form (3xTF32) ---------------------------------------------
+
+
+def _token_column(C, L, nt, t, n):
+    """Plain column of column n of tile t in the token kernels' images (the
+    pack kernels' index arithmetic): channel Z = 8 (t / tpz) + n % 8 at chunk
+    position P = (t % tpz) nt / 8 + n / 8, column P S + Z; None past S or the
+    chunk."""
+    S, tpz = C // L, -(-L // (nt // 8))
+    Z, P = 8 * (t // tpz) + n % 8, (t % tpz) * (nt // 8) + n // 8
+    return P * S + Z if Z < S and P < L else None
+
+
+def _token_pack_bf16(K, L, nt):
+    """``morphfc_axes_token_pack_kernel`` in numpy: item e = (t C / 8 + kg)
+    nt + n holds rows 8 kg .. 8 kg + 7 of its column; (ntiles, C / 8, nt, 8)."""
+    C = K.shape[0]
+    ntiles = -(-(C // L) // 8) * -(-L // (nt // 8))
+    img = np.zeros((ntiles * (C // 8) * nt, 8), K.dtype)
+    for e in range(img.shape[0]):
+        n, rest = e % nt, e // nt
+        kg, t = rest % (C // 8), rest // (C // 8)
+        f = _token_column(C, L, nt, t, n)
+        if f is not None:
+            img[e] = K[8 * kg:8 * kg + 8, f]
+    return img.reshape(ntiles, C // 8, nt, 8)
+
+
+def _token_pack_f32(K, L, nt):
+    """``morphfc_axes_token_pack_tf32_kernel`` in numpy: item e = ((t C / 8
+    + s) 2 + kb) nt + n holds rows 8 s + 2 q + kb of its column, q < 4, hi
+    at ((t C / 8 + s) 16 nt + (kb nt + n) 4 + q) and lo 8 nt further; (ntiles,
+    C / 8, hi / lo, kb, nt, 4)."""
+    C = K.shape[0]
+    ntiles = -(-(C // L) // 8) * -(-L // (nt // 8))
+    out = np.zeros(ntiles * (C // 8) * 16 * nt, np.float32)
+    for e in range(ntiles * (C // 8) * 2 * nt):
+        n, rest = e % nt, e // nt
+        kb, s, t = rest & 1, (rest >> 1) % (C // 8), (rest >> 1) // (C // 8)
+        f = _token_column(C, L, nt, t, n)
+        v = K[8 * s + 2 * np.arange(4) + kb, f] if f is not None else np.zeros(4, np.float32)
+        hi = _rna(v.copy())
+        o = (t * (C // 8) + s) * 16 * nt + (kb * nt + n) * 4
+        out[o:o + 4], out[o + 8 * nt:o + 8 * nt + 4] = hi, v - hi
+    return out.reshape(ntiles, C // 8, 2, 2, nt, 4)
+
+
+@pytest.mark.parametrize("C,L,nt", [(224, 16, 128), (448, 8, 64), (96, 16, 64), (160, 8, 64),
+                                    (48, 16, 32), (64, 2, 16), (96, 4, 32), (16, 1, 16)])
+def test_token_f32_images_round_trip_in_the_bf16_column_order(C, L, nt):
+    """The f32 token kernel's hi and lo images (its pack launch's index
+    arithmetic, in numpy) hold, tile by tile, :func:`_tf32_image` of the
+    same columns as the bf16 image (the bf16 pack's arithmetic): every
+    plain column once, zeros past S and the chunk; hi + lo gives the weight
+    back bit for bit and every hi is a TF32 value.  At the path shapes
+    (stages 1/5 and 3) and the generic tile widths."""
+    rng = np.random.default_rng(C + L)
+    K = (rng.standard_normal((C, C)) * 0.02).astype(np.float32)
+    f32 = _token_pack_f32(K, L, nt)
+    bf = _token_pack_bf16(K, L, nt)
+    assert f32.shape[0] == bf.shape[0] and f32.shape[1] == bf.shape[1] == C // 8
+    back = np.full((C, C), np.nan, np.float32)
+    seen = np.zeros(C, int)
+    for t in range(f32.shape[0]):
+        m = group_conv._tf32_unimage(torch.from_numpy(f32[t].reshape(-1)), C // 8, nt).numpy()
+        # the bf16 image names the same columns: its rows k, column n
+        assert np.array_equal(bf[t].transpose(0, 2, 1).reshape(C, nt), m)
+        img = group_conv._tf32_image(torch.from_numpy(m))
+        assert torch.equal(img, torch.from_numpy(f32[t].reshape(-1)))
+        hi, lo = torch.from_numpy(f32[t, :, 0]), torch.from_numpy(f32[t, :, 1])
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+        for n in range(nt):
+            f = _token_column(C, L, nt, t, n)
+            if f is None:
+                assert not m[:, n].any()
+            else:
+                back[:, f] = m[:, n]
+                seen[f] += 1
+    assert (seen == 1).all() and np.array_equal(back, K)
+
+
+def _token_f32_walkers(N, b, wpb):
+    """The f32 token kernel's walkers (``range`` in
+    morphfc_axes_token_tf32_kernel): walker k -> (units [u0, u1), partial
+    row in its frame); wpb walkers a block (2 solo, 1 shared)."""
+    out = []
+    for k in range(wpb * b["blocks"]):
+        upf = b["upf"]
+        if b["fpw"] == 0:
+            if k >= N * b["wpf"]:
+                out.append((0, 0, 0))
+                continue
+            f, sub = divmod(k, b["wpf"])
+            out.append((f * upf + sub * upf // b["wpf"], f * upf + (sub + 1) * upf // b["wpf"],
+                        sub))
+        else:
+            f0 = min(N, k * b["fpw"])
+            out.append((f0 * upf, min(N, f0 + b["fpw"]) * upf, 0))
+    return out
+
+
+def _token_f32_entry_accepts(plan, N, H, W, C, ch, cw):
+    """The checks ``vmg_morphfc_axes_token_f32`` makes of a plan before it
+    launches, in Python."""
+    nt, exact, nws, shared = plan["nt"], plan["exact"], plan["nws"], plan["shared"]
+    if exact:
+        ok = (C, ch, cw, nt) in ((224, 16, 16, 128), (448, 8, 8, 64)) and nws == 0
+    else:
+        ok = nt in (16, 32, 64) and nws in (1, 4)
+    ok &= (plan["ring"] in (1, 2) and 2 <= plan["nst"] <= morphfc_fused.TOKEN_F32_STAGES
+           and plan["kcs"] >= 2 and plan["kcs"] % 2 == 0 and plan["kcs"] <= C // 8)
+    wpb = 1 if shared else morphfc_fused.TOKEN_WG
+    slots = 0
+    for b, L, axis in zip(plan["branches"], (ch, cw), (1, 2)):
+        gu = 1 << b["lgu"]
+        bw, bh = (gu, L) if axis == 1 else (L, gu)
+        G = wpb * b["blocks"]
+        ok &= (b["L"] == L and b["S"] == C // L and gu * morphfc_fused._pow2(L) == 64
+               and not (gu >= 32 and not exact and nws != 4)
+               and b["tpz"] * nt // 8 >= L and not (exact and b["tpz"] != 1)
+               and b["ntiles"] == -(-b["S"] // 8) * b["tpz"] and not (shared and b["ntiles"] < 2)
+               and b["ucols"] * bw >= W and b["upf"] % b["ucols"] == 0
+               and b["upf"] // b["ucols"] * bh >= H and b["blocks"] >= 1)
+        ok &= (1 <= b["wpf"] <= b["upf"] and N * b["wpf"] <= G if b["fpw"] == 0
+               else b["wpf"] == 1 and b["fpw"] * G >= N)
+        slots += (b["wpf"] if b["fpw"] == 0 else 1) * (2 if shared else 1)
+    ok &= plan["stot"] == slots + plan["sc"]
+    return ok and morphfc_fused.token_f32_smem(
+        C, nt, shared, plan["ring"], plan["kcs"], plan["nst"], nws) <= MAX_SMEM
+
+
+def _token_f32_check(N, H, W, C, ch, cw):
+    """A plan exists, the entry point takes it, its walkers cover every
+    unit of each branch once and write each frame's partial rows once (a
+    row a warpgroup where shared)."""
+    plan = morphfc_fused.token_f32_plan(N, H, W, C, ch, cw, 132)
+    assert plan is not None and _token_f32_entry_accepts(plan, N, H, W, C, ch, cw), plan
+    wpb = 1 if plan["shared"] else morphfc_fused.TOKEN_WG
+    rows = 0
+    for b in plan["branches"]:
+        cover = np.zeros(N * b["upf"], dtype=np.int64)
+        written = np.zeros((N, b["wpf"] if b["fpw"] == 0 else 1), dtype=np.int64)
+        for u0, u1, slot in _token_f32_walkers(N, b, wpb):
+            cover[u0:u1] += 1
+            for f in sorted({u // b["upf"] for u in range(u0, u1)}):
+                written[f, slot] += 1
+        assert (cover == 1).all() and (written == 1).all()
+        rows += written.shape[1] * (2 if plan["shared"] else 1)
+    assert plan["stot"] == rows + plan["sc"]
+    return plan
+
+
+@pytest.mark.parametrize("C", list(range(16, 513, 16)))
+def test_token_f32_plan_fits_every_width_and_chunk(C):
+    """At every C the token form takes (C % 16 == 0, C <= 512), with equal
+    chunks dividing C up to 64 and some unequal pairs, over ragged frames:
+    a plan within a block's shared memory that the entry point accepts,
+    its walkers covering every unit once.  Each warpgroup walks its own
+    units up to C = 336; above, both share each unit (a partial row each)."""
+    divisors = [d for d in range(1, 65) if C % d == 0]
+    pairs = [(d, d) for d in divisors] + [(a, b) for a, b in ((2, 8), (16, 4), (1, 64))
+                                          if C % a == 0 and C % b == 0]
+    for ch, cw in pairs:
+        plan = _token_f32_check(3, 2 * ch + 3, 3 * cw, C, ch, cw)
+        assert plan["shared"] == (C > 336), (C, ch, cw)
+        assert plan["nst"] >= (3 if C <= 464 else 2)
+
+
+def test_token_f32_plan_at_the_path_shapes():
+    """Stage 1/5 (16x92x160x224, chunk 16): tiles of 128 columns (an
+    8-channel block at all 16 positions; two a branch), each warpgroup its
+    own 57 KB slot, three 32 KB stages of four k8 steps; stage 3
+    (16x23x40x448, chunk 8): one 115 KB slot a block shared by both
+    warpgroups, seven 64-column tiles (four and three), three 16 KB stages
+    a warpgroup.  The sums in registers at both."""
+    p1 = _token_f32_check(16, 92, 160, 224, 16, 16)
+    assert (p1["nt"], p1["shared"], p1["ring"], p1["kcs"], p1["nst"], p1["nws"]) == \
+        (128, False, 1, 4, 3, 0)
+    assert [b["ntiles"] for b in p1["branches"]] == [2, 2]
+    p3 = _token_f32_check(16, 23, 40, 448, 8, 8)
+    assert (p3["nt"], p3["shared"], p3["ring"], p3["kcs"], p3["nst"], p3["nws"]) == \
+        (64, True, 1, 4, 3, 0)
+    assert [b["ntiles"] for b in p3["branches"]] == [7, 7]
+    for p in (p1, p3):
+        assert sum(b["blocks"] for b in p["branches"]) <= 132
+        assert morphfc_fused.token_f32_smem(224 if p is p1 else 448, p["nt"], p["shared"],
+                                            p["ring"], p["kcs"], p["nst"], 0) <= MAX_SMEM
+    assert morphfc_fused.token_f32_plan(2, 8, 8, 528, 8, 8, 132) is None
+    assert morphfc_fused.token_f32_plan(2, 8, 8, 40, 8, 8, 132) is None
+
+
+def test_token_f32_plan_fields_match_the_entry_points_struct():
+    """The f32 plan crosses into C as ints in the order of ``TokF32Plan``
+    (then ``TokPlanBranch`` a branch) in ``csrc/morphfc.cu``."""
+    src = (Path(morphfc_fused.__file__).parents[1] / "csrc" / "morphfc.cu").read_text()
+    body = re.search(r"struct TokF32Plan \{(.*?)\};", src, re.S).group(1)
+    fields = tuple(f.strip() for line in body.split(";") if line.strip().startswith("int ")
+                   for f in line.strip()[4:].split(","))
+    assert fields == morphfc_fused.TOKEN_F32_PLAN_FIELDS
+    assert "TokPlanBranch br[2];" in body
+    ints = morphfc_fused.token_plan_ints(morphfc_fused.token_f32_plan(16, 92, 160, 224, 16, 16,
+                                                                      132),
+                                         morphfc_fused.TOKEN_F32_PLAN_FIELDS)
+    assert ints[:6] == [128, 1, 0, 1, 4, 3] and all(type(v) is int for v in ints)

@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
 ``csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
-per source (three for ``morphfc.cu``, :data:`SPLITS`), all started
+per source (four for ``morphfc.cu``, :data:`SPLITS`), all started
 together, and link into one shared library with a plain C interface, at
 first use, under ``_build/`` (listed in ``.gitignore``).  The library's
 file name carries a hash of the sources and flags, so an edited kernel
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # parts compile in parallel; see the note above the entry points in the source)
 SPLITS = {"morphfc.cu": (("-DVMG_MORPHFC_PART=1",),
                          ("-DVMG_MORPHFC_PART=2", "-Dvmg=vmg_part2"),
-                         ("-DVMG_MORPHFC_PART=3", "-Dvmg=vmg_part3"))}
+                         ("-DVMG_MORPHFC_PART=3", "-Dvmg=vmg_part3"),
+                         ("-DVMG_MORPHFC_PART=4", "-Dvmg=vmg_part4"))}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

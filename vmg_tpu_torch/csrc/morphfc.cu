@@ -62,9 +62,20 @@
 //   the tokens two bytes at a time, re-staged the whole weight from L2 per
 //   slab with cp.async and round-tripped the f32 product through shared
 //   memory: 10x (stage 1) and 23x (stage 3) its bound.
-// * f32 (parity runs), morphfc_axes_token_f32_kernel: the first port's design, kept
-//   (one block per slab, tokens and weight column tiles in shared memory,
-//   scalar FMAs).
+// * f32 (evaluation), morphfc_axes_token_tf32_kernel (notes at the kernel):
+//   the bf16 kernel's units and walk on f32 units, every product as three
+//   TF32 products on wgmma against each weight's hi and lo B images (the
+//   same pack launch, the same column order), streamed in stages of a few
+//   k8 steps of a column tile and shared by both consumer warpgroups (each
+//   with its own units up to C = 336; above, both on one unit, each with
+//   half of its column tiles); token fragments formed from the raw f32
+//   unit a k8 step at a time and split in registers; the output stored
+//   from the accumulator.  Bound: the tensor cores at the 3xTF32 rate
+//   (0.287 ms at stage 1/5, 0.072 ms at stage 3).  The scalar kernel this
+//   replaced (one block per slab, tokens scattered into shared memory a
+//   float at a time, the weight from L2 for every 32 token rows, scalar
+//   FMAs on two shared loads) ran at 0.077 / 0.056 of its f32-FMA bound and
+//   lost 2.3-4.5x to the 'hybrid' form.
 //
 // vmg_morphfc_reduce replaces `fused_morphfc_reduce` (`_reduce_kernel`):
 // psum[n, c] = sum over the frame's pixels of (h + w + c) in f32.  Bound on
@@ -125,8 +136,13 @@
 // kernel spills nothing: 195 registers at C = 224 chunk 16 and 234 at C =
 // 448 chunk 8 (the compile-time instantiations, no C7519 line), 195-234 in
 // the generic ones (33 C7519 lines each: a fence a guarded k-step); a
-// spill in either compile-time instantiation is a regression.  The
-// reduce's first pass: 32-79 registers (3 blocks an SM), no spill.  Traps:
+// spill in either compile-time instantiation is a regression.  The f32
+// token kernel (part 4: -DVMG_MORPHFC_PART=4 -Dvmg=vmg_part4): 243
+// registers at C = 224 chunk 16 and 193 at C = 448 chunk 8, 119-182 in the
+// generic ones, no spill and no C75xx line; a C7513 / C7514 / C7520 line,
+// or a WARPGROUP.DEPBAR after every HGMMA in `cuobjdump -sass`, means its
+// products run one at a time (notes at the kernel) and is a regression.
+// The reduce's first pass: 32-79 registers (3 blocks an SM), no spill.  Traps:
 // a box in the 128-byte swizzle must start 1024-byte aligned in shared
 // memory (the kernel traps if the dynamic base is not); a 64-channel box
 // past C loads zeros and its store writes nothing there, which covers C =
@@ -991,6 +1007,9 @@ int launch_combine_tf32(const CombineMaps& maps, const CombineF32Args& a, cudaSt
   return (int)cudaGetLastError();
 }
 
+#if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 2
+// part 2's alone: a function that is no template instantiates its kernels
+// in every part that sees it
 inline int combine_f32(const CombineMaps& m, const CombineF32Args& a, cudaStream_t s) {
   switch (a.NT) {
     case 16: return launch_combine_tf32<16>(m, a, s);
@@ -1010,6 +1029,7 @@ inline int combine_f32(const CombineMaps& m, const CombineF32Args& a, cudaStream
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif  // part 2
 
 // ---- axes: both decayed axis branches + reweight partial sums --------------
 
@@ -1479,197 +1499,16 @@ int axes_wgmma(const AxesMaps& m, const AxesArgs& a, int grid, cudaStream_t st) 
 
 // ---- axes, token form: the same function where the weights do not fit ---
 //
-// f32 (parity runs): morphfc_axes_token_f32_kernel, the first port's design --
-// one block per slab of whole W chunks, the tokens in shared memory in
-// M-tiles of whole token groups (at most 32 rows), the weight in C x 32
-// column tiles double-buffered with cp.async, scalar FMAs, the epilogue
-// per (M-tile, column tile); channel-owned sums in a fixed order.
-//
 // bf16 (the serving dtype): morphfc_axes_token_wgmma_kernel (notes at the
 // kernel), after a pack launch (the weights as wgmma B images) and a
 // reduce launch (c's per-frame partials, morphfc_partial_kernel).
-
-// Shared memory of the f32 kernel: the M-tile of tokens (mt x C), two C x
-// nt weight tiles, the mt x nt product.
-struct TokSmemF32 {
-  size_t a_bytes, w_bytes, total;
-  __host__ __device__ TokSmemF32(int mt, int C, int nt) {
-    a_bytes = ((size_t)mt * C * 4 + 127) / 128 * 128;
-    w_bytes = ((size_t)C * nt * 4 + 127) / 128 * 128;
-    total = a_bytes + 2 * w_bytes + (size_t)mt * nt * 4;
-  }
-};
-
-constexpr int kTokMTF32 = 32;  // token rows of an f32 M-tile: whole groups, at least one
-
-__host__ __device__ inline int tok_groups_f32(int L, int G) {
-  const int g = kTokMTF32 / L > 1 ? kTokMTF32 / L : 1;
-  return g < G ? g : G;
-}
-
-// Start copying columns f0 .. f0 + nw of K (C x C) into Ws (rows nt apart).
-__device__ __forceinline__ void tok_stage_weight(float* Ws, int nt, const float* __restrict__ K,
-                                                 int C, int f0, int nw) {
-  const int cv = nw / 4;
-  for (int e = threadIdx.x; e < C * cv; e += kThreads) {
-    const int k = e / cv, q = e % cv;
-    cp_async16(Ws + k * nt + q * 4, K + (size_t)k * C + f0 + q * 4);
-  }
-  cp_async_commit();
-}
-
-// Grid (ceil(W / WT), ceil(H / ch), N), the big form's slabs.  A branch's
-// tokens come in groups of L (= its chunk): group t holds tokens t * L + q,
-// q < L, whose feature (P, Z) (column P * S + Z, S = C / L) is channel
-// q * S + Z of position pos(t, P).  Branch H: L = ch, groups t < WT,
-// pos = (P, t).  Branch W: L = cw, groups t < ch * kg, pos = (t / kg,
-// (t % kg) * cw + P).
-__global__ void __launch_bounds__(kThreads)
-morphfc_axes_token_f32_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                              const float* __restrict__ kh, const float* __restrict__ bh,
-                              const float* __restrict__ kw, const float* __restrict__ bw,
-                              float* __restrict__ h_out, float* __restrict__ w_out,
-                              float* __restrict__ partial, int H, int W, int C, int ch, int cw,
-                              int WT, int mt, int nt, float floor) {
-  constexpr int VEC = 4;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const TokSmemF32 sm(mt, C, nt);
-  const int nv = C / VEC;
-  float* A = reinterpret_cast<float*>(smem_raw);
-  float* Wbuf[2] = {reinterpret_cast<float*>(smem_raw + sm.a_bytes),
-                    reinterpret_cast<float*>(smem_raw + sm.a_bytes + sm.w_bytes)};
-  float* O = reinterpret_cast<float*>(smem_raw + sm.a_bytes + 2 * sm.w_bytes);
-  const int n = blockIdx.z, r0 = blockIdx.y * ch, w0 = blockIdx.x * WT, kg = WT / cw;
-  const float inv_c = 1.f / C;
-  const size_t frame = (size_t)n * H * W * C;
-  auto at = [&](int r, int w) { return frame + ((size_t)(r0 + r) * W + w0 + w) * C; };
-  auto valid = [&](int r, int w) { return r0 + r < H && w0 + w < W; };
-  float sums[2] = {0.f, 0.f};  // channels threadIdx.x and threadIdx.x + kThreads
-
-  auto branch = [&](const float* __restrict__ K, const float* __restrict__ bias,
-                    float* __restrict__ out, int L, int G, auto pos) {
-    const int S = C / L, GT = tok_groups_f32(L, G);
-    for (int g0 = 0; g0 < G; g0 += GT) {
-      const int ng = min(GT, G - g0), rows = ng * L;
-      // gather the tile: position (t, P), channel vector v -> token rows
-      for (int e = threadIdx.x; e < rows * nv; e += kThreads) {
-        const int v = e % nv, tp = e / nv, t = g0 + tp / L, P = tp % L;
-        int r, w;
-        pos(t, P, r, w);
-        float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (valid(r, w)) u = *reinterpret_cast<const float4*>(x + at(r, w) + v * VEC);
-        const float vals[VEC] = {u.x, u.y, u.z, u.w};
-        int q = v * VEC / S, z = v * VEC % S;  // channel v * VEC + k = (q, z)
-        float* row = A + ((t - g0) * L) * C + P * S;
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          row[q * C + z] = vals[k];
-          if (++z == S) z = 0, ++q;
-        }
-      }
-      tok_stage_weight(Wbuf[0], nt, K, C, 0, min(nt, C));
-      for (int f0 = 0, it = 0; f0 < C; f0 += nt, ++it) {
-        const int nw = min(nt, C - f0);
-        if (f0 + nt < C) {
-          tok_stage_weight(Wbuf[(it + 1) & 1], nt, K, C, f0 + nt, min(nt, C - f0 - nt));
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();  // tokens and weight tile in; the last epilogue is done with O
-        const float* Ws = Wbuf[it & 1];
-        for (int e = threadIdx.x; e < rows * nw; e += kThreads) {
-          const int row = e / nw, col = e % nw;
-          const float* a = A + row * C;
-          float acc = 0.f;
-          for (int k = 0; k < C; ++k) acc = fmaf(a[k], Ws[k * nt + col], acc);
-          O[row * nt + col] = acc;
-        }
-        __syncthreads();  // the product tile is in O; the weight buffer is free
-        // epilogue: channel cc = (q, Z) takes features P * S + Z of this tile
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int cc = threadIdx.x + k * kThreads;
-          if (cc >= C) continue;
-          const int q = cc / S, Z = cc % S;
-          if (Z > f0 + nw - 1) continue;  // no feature of this channel in the tile
-          const int p_lo = f0 > Z ? (f0 - Z + S - 1) / S : 0;
-          const int p_hi = min(L - 1, (f0 + nw - 1 - Z) / S);
-          for (int t = g0; t < g0 + ng; ++t) {
-            const int orow = ((t - g0) * L + q) * nt + Z - f0;  // + P * S >= 0
-            for (int P = p_lo; P <= p_hi; ++P) {
-              int r, w;
-              pos(t, P, r, w);
-              if (!valid(r, w)) continue;
-              float y = O[orow + P * S];
-              if (bias != nullptr) y += bias[P * S + Z];
-              y = fmaxf(y, floor) * inv_c;
-              out[at(r, w) + cc] = y;
-              sums[k] += y;
-            }
-          }
-        }
-      }
-    }
-  };
-
-  branch(kh, bh, h_out, ch, WT, [&](int t, int P, int& r, int& w) { r = P; w = t; });
-  branch(kw, bw, w_out, cw, ch * kg,
-         [&](int t, int P, int& r, int& w) { r = t / kg; w = (t % kg) * cw + P; });
-  // c over the slab: thread (j, v) adds channel vector v at positions j,
-  // j + R, ... (16-byte loads); then each channel's owner adds the R lane
-  // sums in order.  The tokens' space is free after the last product.
-  const int R = kThreads / nv, j = threadIdx.x / nv, v = threadIdx.x % nv;
-  float* red = reinterpret_cast<float*>(smem_raw);  // R x C
-  if (j < R) {
-    float cs[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) cs[k] = 0.f;
-#pragma unroll 4
-    for (int pos = j; pos < ch * WT; pos += R) {
-      const int r = pos / WT, w = pos % WT;
-      if (!valid(r, w)) continue;
-      const float4 cv = *reinterpret_cast<const float4*>(c + at(r, w) + v * VEC);
-      cs[0] += cv.x, cs[1] += cv.y, cs[2] += cv.z, cs[3] += cv.w;
-    }
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) red[j * C + v * VEC + k] = cs[k];
-  }
-  __syncthreads();
-  const size_t blk = (size_t)n * gridDim.y * gridDim.x + blockIdx.y * gridDim.x + blockIdx.x;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int cc = threadIdx.x + k * kThreads;
-    if (cc >= C) continue;
-    for (int jj = 0; jj < R; ++jj) sums[k] += red[jj * C + cc];
-    partial[blk * C + cc] = sums[k];
-  }
-}
-
-int launch_axes_token_f32(const float* x, const float* c, const float* kh, const float* bh,
-                          const float* kw, const float* bw, float* h, float* w, float* partial,
-                          float* psum, int N, int H, int W, int C, int ch, int cw, int WT,
-                          float floor, cudaStream_t stream) {
-  if (C % 16 != 0 || C > 2 * kThreads || N > 65535 || (H + ch - 1) / ch > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int kg = WT / cw;
-  const int mh = tok_groups_f32(ch, WT) * ch, mw = tok_groups_f32(cw, ch * kg) * cw;
-  const int mt = mh > mw ? mh : mw;
-  int nt = 32;
-  while (nt > 16 && TokSmemF32(mt, C, nt).total > kMaxSmem) nt /= 2;
-  const size_t red = (size_t)(kThreads / (C / 4)) * C * sizeof(float);  // the c sums' lanes
-  const size_t smem = std::max(TokSmemF32(mt, C, nt).total, red);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int e = set_smem(morphfc_axes_token_f32_kernel, smem);
-  if (e) return e;
-  const dim3 grid((W + WT - 1) / WT, (H + ch - 1) / ch, N);
-  morphfc_axes_token_f32_kernel<<<grid, kThreads, smem, stream>>>(x, c, kh, bh, kw, bw, h, w,
-                                                                  partial, H, W, C, ch, cw, WT,
-                                                                  mt, nt, floor);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_final(partial, psum, N, C, grid.x * grid.y, stream);
-}
+//
+// f32 (the evaluation dtype): morphfc_axes_token_tf32_kernel (notes at the
+// kernel, below the bf16 one): the bf16 kernel's units, walkers, image
+// column order and sums on 3xTF32 wgmma, the images' hi and lo halves
+// streamed in k8-step stages of a column tile, the token fragments formed
+// from the raw f32 unit a k8 step at a time, the output stored from
+// registers; the same three launches around it.
 
 // ---- bf16: persistent warpgroups, weight column tiles, TMA units ----------
 //
@@ -2201,17 +2040,590 @@ int launch_axes_token_wgmma(const TokMaps& m, const TokArgs& a, unsigned smem, c
   return (int)cudaGetLastError();
 }
 
+#if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 4
+// ---- f32: the same walk on 3xTF32 wgmma, the weight streamed in stages -----
+//
+// Bound: the tensor cores at the 3xTF32 rate (every product three TF32
+// products): at stage 1/5 (16 x 92 x 160 x 224, chunk 16) 3 x 47.27 GFLOP,
+// 0.287 ms, against 844.2 MB of x, c in and h, w out (0.252 ms); at stage
+// 3 (16 x 23 x 40 x 448, chunk 8) 0.072 ms against 0.032 ms.  The bf16
+// kernel's units (64 tokens of one branch by one 5-D TMA box), walkers,
+// token rows, image column order (8-channel blocks) and sums, with what
+// f32 changes:
+// - Shared memory: a unit is 57 KB at C = 224 and 115 KB at 448, and one
+//   C x NT tile's hi and lo images 229 KB at NT = 128, so neither the image
+//   nor two units a warpgroup fit.  The images stream in stages of kcs k8
+//   steps of one column tile (32 KB where three fit, else 16 KB) through a
+//   ring.  Where two units fit beside the ring (C <= 336: "solo") each
+//   warpgroup walks its own units, one slot each (two where they fit), and
+//   both read every stage: 128 tokens a pass over the weight (~1.8 GB of
+//   L2 -> SM traffic at stage 1/5).  Above ("shared": stage 3) both
+//   warpgroups work on one unit in one slot, each on half of its column
+//   tiles, each with its own ring.  No warp waits for another to free a
+//   slot: each counts itself done with a stage or a unit, and the last
+//   issues the slot's next load.
+// - Operands: the bf16 kernel holds a unit's fragments for the whole K (C /
+//   2 registers); split into hi and lo they would be 2 C.  So each column
+//   tile forms them again from the raw f32 slot, a commit group of two k8
+//   steps at a time, split in registers (wgmma.cuh tf32_split), two sets
+//   alternating: one group's fragments are read while the last group's
+//   products run.  B: the tile's hi and lo images (the pack launch), rows
+//   in the FFN stream's order 0, 2, 4, 6, 1, 3, 5, 7, so a register pair is
+//   two neighbouring features (one 8-byte read where S is even).  Each
+//   group's six products go into a fresh register tile, added into the
+//   tile's sum with f32 adds: one long chain into one tile drifts toward
+//   zero (the tensor cores truncate as they accumulate; the conv chain's
+//   and the FFN's f32 kernels met it).
+// - ptxas serializes a kernel's wgmmas (a wait after each, C7513 / C7514 /
+//   C7520) when a branch or loop lies between a group's wait and its
+//   products, or when it recomputes the fragments into one register quad
+//   just before each product.  So that span is straight-line code (the
+//   waits and arrivals go before it or after the commit), and a running
+//   xor reads each fragment set before its products and after they are
+//   done, which keeps the sets in registers of their own (ptxas sees no
+//   empty asm statement, so pinning them that way does nothing).
+// - Epilogue: the slot holds x until the unit's last tile has read it, so
+//   the output is not staged there: max(acc + b, floor) / C goes from the
+//   accumulator to h or w (8-byte stores where S is even: a quad's lanes
+//   write 32 contiguous bytes of one position).
+// - Sums: as the bf16 kernel's (registers at the compile-time path shapes,
+//   channel arrays elsewhere), one partial row a warpgroup; c's partials
+//   from morphfc_partial_kernel, the final pass as before.
+// The scalar kernel this replaced (one block per ch x WT slab, the tokens
+// scattered into shared memory a float at a time, C x 32 weight tiles from
+// L2 for every 32 token rows, two shared loads an FMA, the product through
+// shared memory) ran at 0.077 (stage 1/5) and 0.056 (stage 3) of its
+// f32-FMA bound and lost 2.3-4.5x to the 'hybrid' form (PERF.md).
+constexpr int kTfStMax = 8;  // weight ring stages a stream
+constexpr int kTfKB = 2;     // k8 steps a commit group
+
+// The plan as the wrapper computes it (morphfc_fused.token_f32_plan, its
+// fields in the order of TOKEN_F32_PLAN_FIELDS, then TOKEN_BRANCH_FIELDS
+// a branch); the walkers are warpgroups (solo) or blocks (shared).
+struct TokF32Plan {
+  int nt, exact, shared, ring, kcs, nst, nws, sc, per_c, stot;
+  TokPlanBranch br[2];
+};
+
+struct TokF32Branch {
+  const float* img;       // hi and lo images: ntiles x (C / 8) x 2 x 2 x NT x 4
+  const float* bias;      // ntiles x NT; null: no bias
+  float* out;             // h or w, (N, H, W, C)
+  int L, S, lgu, tpz;     // as TokBranch's
+  int ucols, upf, ntiles;
+  unsigned box_bytes;     // a unit's x box
+  int blocks, block0, wpf, fpw, slot0;
+};
+
+struct TokF32Args {
+  TokF32Branch br[2];
+  float* partial;
+  int N, H, W, C, stot;
+  float floor;  // 0, or -inf (non_linear off)
+  int shared, ring, kcs, nst, nws;
+  unsigned slot_bytes, off_w, off_sum, off_bar;
+};
+
+// The shared memory (morphfc_fused.token_f32_smem): the x slots (a ring a
+// warpgroup, or one a block where shared), the weight rings (one, or one a
+// warpgroup), nws channel arrays a warpgroup, the barriers.
+struct TokF32Layout {
+  unsigned slot, off_w, off_sum, off_bar, total;
+  __host__ __device__ TokF32Layout(int C, int NT, int shared, int ring, int kcs, int nst,
+                                   int nws) {
+    slot = ((unsigned)64 * C * 4 + 127) / 128 * 128;
+    off_w = (shared ? 1 : kTokWg) * ring * slot;
+    off_sum = off_w + (shared ? kTokWg : 1) * nst * (unsigned)kcs * 64 * NT;
+    off_bar = off_sum + kTokWg * nws * C * 4;
+    total = off_bar + (kTokWg * kTokRingMax + kTokRingMax + 4 * kTfStMax) * 8;
+  }
+};
+
+// the pack launch: each branch's hi and lo images, and bias image (none
+// without a bias)
+struct TokPackF32 {
+  const float* k[2];
+  const float* b[2];  // null: no bias
+  float* img[2];
+  float* bimg[2];
+  int L[2], S[2], tpz[2];
+  int C, NT, items0, items;  // (tile, k8 step, kb, column) items of branch 0's images, of both
+};
+
+// item (t, s, kb, n): k positions 4 kb + e (rows 8 s + 2 e + kb) of image
+// column n of tile t -- channel Z = 8 (t / tpz) + n % 8 at chunk position P
+// = (t % tpz) NT / 8 + n / 8, plain column P S + Z (zero past S or the
+// chunk), as the bf16 image's -- its hi at ((t C / 8 + s) 16 NT + (kb NT +
+// n) 4), its lo 8 NT further
+__global__ void __launch_bounds__(256)
+morphfc_axes_token_pack_tf32_kernel(const TokPackF32 p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.items) return;
+  const int br = i < p.items0 ? 0 : 1, e = br ? i - p.items0 : i;
+  const int C = p.C, NT = p.NT, KS8 = C / 8;
+  const int nn = e % NT, rest = e / NT, kb = rest & 1, s = (rest >> 1) % KS8,
+            t = (rest >> 1) / KS8;
+  const int Z = 8 * (t / p.tpz[br]) + nn % 8, P = (t % p.tpz[br]) * (NT / 8) + nn / 8;
+  const bool real = Z < p.S[br] && P < p.L[br];
+  const int f = P * p.S[br] + Z;
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    tf32_split(real ? p.k[br][(size_t)(8 * s + 2 * q + kb) * C + f] : 0.f, hi[q], lo[q]);
+  float* o = p.img[br] + ((size_t)t * KS8 + s) * 16 * NT + (size_t)(kb * NT + nn) * 4;
+  *reinterpret_cast<uint4*>(o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(o + 8 * NT) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  if (s == 0 && kb == 0 && p.b[br] != nullptr) p.bimg[br][t * NT + nn] = real ? p.b[br][f] : 0.f;
+}
+
+// NT: columns a tile (8 G); CX > 0: the shape is compile-time, C = CX and
+// both chunks LX (the path shapes: C = 224, chunk 16, NT = 128; C = 448,
+// chunk 8, NT = 64), so the index arithmetic folds and the sums stay in
+// registers
+template <int NT, int CX, int LX>
+__global__ void __launch_bounds__(kTokWg * 128, 1)
+morphfc_axes_token_tf32_kernel(const __grid_constant__ TokMaps maps,
+                               const __grid_constant__ TokF32Args a) {
+  constexpr bool EXACT = CX > 0;
+  constexpr int NG = NT / 8;  // chunk positions a tile
+  // the compile-time shapes keep their sums in registers: rsum[zb][e] is
+  // channel 8 zb + 2 l4 + e of the thread's segment, over its units of the frame
+  constexpr int LXD = LX > 0 ? LX : 1;
+  constexpr int NZB = EXACT ? (CX / LXD + 7) / 8 : 1;
+  constexpr int KB = kTfKB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw;
+  if ((su32(base) & 127) != 0) __trap();
+  const int b = blockIdx.x < a.br[0].blocks ? 0 : 1;
+  const TokF32Branch& B = a.br[b];
+  const int C = EXACT ? CX : a.C, KS8 = C / 8;
+  const bool shared = a.shared != 0;
+  const int g = threadIdx.x >> 7, tid = threadIdx.x & 127, wq = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, l4 = lane & 3;
+  // the barriers of the x slots and the weight stages, and counters of the
+  // warps done with each (the last to finish issues the slot's next load:
+  // no warp waits for another to release)
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(base + a.off_bar);
+  unsigned* xrel = reinterpret_cast<unsigned*>(xfull + kTokWg * kTokRingMax);
+  uint64_t* wfull = xfull + kTokWg * kTokRingMax + kTokRingMax;  // a stream's kTfStMax each
+  unsigned* wrel = reinterpret_cast<unsigned*>(wfull + 2 * kTfStMax);
+  // the warpgroup's channel arrays: one, or (Gu >= 32) one a warp
+  float* ws = reinterpret_cast<float*>(base + a.off_sum) + (size_t)g * a.nws * C;
+  float* wsw = ws + (size_t)(a.nws == 1 ? 0 : wq) * C;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTokWg * kTokRingMax; ++i) mbar_init(xfull + i, 1), xrel[i] = 0;
+    for (int i = 0; i < 2 * kTfStMax; ++i) mbar_init(wfull + i, 1), wrel[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < kTokWg * a.nws * C; i += blockDim.x)
+    reinterpret_cast<float*>(base + a.off_sum)[i] = 0.f;
+  __syncthreads();
+
+  // walker k of the branch: units [u0, u1) of the branch's list, its
+  // partial row within a frame
+  auto range = [&](int k, int& u0, int& u1, int& slot) {
+    slot = 0;
+    if (B.fpw == 0) {
+      if (k >= a.N * B.wpf) {
+        u0 = u1 = 0;
+        return;
+      }
+      const int f = k / B.wpf, sub = k - f * B.wpf;
+      u0 = f * B.upf + (int)((long long)sub * B.upf / B.wpf);
+      u1 = f * B.upf + (int)((long long)(sub + 1) * B.upf / B.wpf);
+      slot = sub;
+    } else {
+      const int f0 = min(a.N, k * B.fpw), f1 = min(a.N, f0 + B.fpw);
+      u0 = f0 * B.upf, u1 = f1 * B.upf;
+    }
+  };
+  const int blk = blockIdx.x - B.block0;
+  int u0 = 0, u1 = 0, myslot = 0, steps = 0;
+  if (shared) {  // the block is the walker; a row a warpgroup
+    range(blk, u0, u1, myslot);
+    steps = u1 - u0, myslot = 2 * myslot + g;
+  } else {
+#pragma unroll
+    for (int w = 0; w < kTokWg; ++w) {
+      int v0, v1, sv;
+      range(kTokWg * blk + w, v0, v1, sv);
+      steps = max(steps, v1 - v0);
+      if (w == g) u0 = v0, u1 = v1, myslot = sv;
+    }
+  }
+  const int nmine = u1 - u0;
+
+  // The weight stream: solo, one for the block, every column tile of every
+  // step; shared, one a warpgroup, its tiles t = g, g + 2, ...  Stage seq
+  // of a stream holds kcs k8 steps (fewer at a tile's end) of one tile,
+  // into ring slot seq % nst, issued by the last of its slot's readers to be
+  // done with stage seq - nst (a warp counts itself done after the products
+  // reading it; 8 warps solo, the warpgroup's 4 shared).  No warp waits for
+  // another: a producer that waited at each stage for the other
+  // warpgroup's release held the two in step.
+  const int t0 = shared ? g : 0, tstep = shared ? 2 : 1;
+  const int ntl = (B.ntiles - t0 + tstep - 1) / tstep;
+  const int nkc = (KS8 + a.kcs - 1) / a.kcs, per_step = ntl * nkc, wtotal = steps * per_step;
+  const unsigned stage_bytes = (unsigned)a.kcs * 64 * NT;
+  const int st = shared ? g : 0;
+  unsigned char* wring = base + a.off_w + (size_t)st * a.nst * stage_bytes;
+  uint64_t* sfull = wfull + st * kTfStMax;
+  unsigned* srel = wrel + st * kTfStMax;
+  auto issue_w = [&](int seq) {  // one thread
+    if (seq >= wtotal) return;
+    const int s = seq % a.nst, r = seq % per_step, lt = r / nkc, kc = r - lt * nkc;
+    const unsigned bytes = (unsigned)min(a.kcs, KS8 - kc * a.kcs) * 64 * NT;
+    mbar_expect(sfull + s, bytes);
+    bulk_load(wring + (size_t)s * stage_bytes,
+              B.img + ((size_t)(t0 + lt * tstep) * KS8 + (size_t)kc * a.kcs) * 16 * NT, bytes,
+              sfull + s);
+  };
+  // the warp is done with stage seq (whole warp)
+  auto release_w = [&](int seq) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(srel + seq % a.nst, 1u) == (shared ? 3u : 4u * kTokWg - 1)) {
+        atomicExch(srel + seq % a.nst, 0u);
+        issue_w(seq + a.nst);
+      }
+    }
+    __syncwarp();
+  };
+  if (tid == 0 && (shared || g == 0))
+    for (int seq = 0; seq < a.nst; ++seq) issue_w(seq);
+
+  // x: unit i of the walker into slot i % ring, issued by the first warp's
+  // lane 0 (of each warpgroup, or of the first where shared) and then by
+  // the last of the slot's readers to be done with unit i - ring
+  unsigned char* xring = base + (shared ? 0 : (size_t)g * a.ring * a.slot_bytes);
+  uint64_t* full = xfull + (shared ? 0 : g * kTokRingMax);
+  const int L = EXACT ? LX : B.L, S = EXACT ? CX / LXD : B.S;
+  const int lgu = EXACT ? 6 - (LX > 8 ? (LX > 16 ? (LX > 32 ? 6 : 5) : 4) : LX > 4 ? 3 : 2) : B.lgu;
+  const int gu = 1 << lgu, tpz = EXACT ? 1 : B.tpz;
+  const float inv_c = 1.f / C;
+  // unit u of the branch's list: frame n, first row y0, first column x0
+  auto unit_at = [&](int u, int& n, int& y0, int& x0) {
+    n = u / B.upf;
+    const int r = u - n * B.upf, ur = r / B.ucols, uc = r - ur * B.ucols;
+    y0 = ur * (b == 0 ? L : gu);
+    x0 = uc * (b == 0 ? gu : L);
+  };
+  auto issue_x = [&](int i) {  // one thread
+    if (i >= nmine) return;
+    int n, y0, x0;
+    unit_at(u0 + i, n, y0, x0);
+    mbar_expect(full + i % a.ring, B.box_bytes);
+    tma_load_5d(xring + (size_t)(i % a.ring) * a.slot_bytes, &maps.x[b], 0, 0, x0, y0, n,
+                full + i % a.ring);
+  };
+  if (tid == 0 && (!shared || g == 0))
+    for (int i = 0; i < a.ring; ++i) issue_x(i);
+  // the warp is done with unit i's slot (whole warp)
+  auto release_x = [&](int i) {
+    __syncwarp();
+    if (lane == 0) {
+      unsigned* c = xrel + (shared ? 0 : g * kTokRingMax) + i % a.ring;
+      __threadfence_block();
+      if (atomicAdd(c, 1u) == (shared ? 4u * kTokWg - 1 : 3u)) {
+        atomicExch(c, 0u);
+        issue_x(i + a.ring);
+      }
+    }
+    __syncwarp();
+  };
+
+  // the thread's two accumulator rows, as the bf16 kernel's: tokens
+  // (group grp, segment q), a segment's rows in one warp for Gu <= 16
+  const int lqw = max(0, 4 - lgu);
+  int rowpart[2], q[2], grp[2];
+  bool real[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (lgu >= 5) {
+      const int m = 16 * wq + gr + 8 * hh;
+      q[hh] = m >> lgu, grp[hh] = m & (gu - 1);
+    } else if (lqw == 4) {
+      q[hh] = 16 * wq + gr + 8 * hh, grp[hh] = 0;
+    } else {
+      q[hh] = (wq << lqw) + (gr & ((1 << lqw) - 1));
+      grp[hh] = (gr >> lqw) + (hh << (3 - lqw));
+    }
+    real[hh] = q[hh] < L;
+    rowpart[hh] = (b == 0 ? grp[hh] * C : grp[hh] * L * C) + q[hh] * S;
+  }
+  const int cstride = b == 0 ? gu * C : C;
+  const bool even = EXACT ? (CX / LXD) % 2 == 0 : (S & 1) == 0;
+  // fragment column 8 j + 2 l4 (+ 1) is feature (P, Z): its start and its step over j
+  const int P0 = 2 * l4 / S, Z0 = 2 * l4 - P0 * S, dP = 8 / S, dZ = 8 - dP * S;
+  const bool hshare = lqw < 4;
+  const int lsh = min(lqw, 3);
+  const bool owner = (gr >> lsh) == 0;
+  // a position's step in h / w: a row of the frame (H) or a column (W)
+  const size_t pstride = b == 0 ? (size_t)a.W * C : (size_t)C;
+
+  // a tile's per-thread sums rs[hh][e] of channels zc + e into the channel
+  // array: the rows sharing q, then the lanes sharing it
+  auto fold = [&](int zc, float (&rs)[2][2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v0 = rs[0][e], v1 = rs[1][e];
+      if (hshare) v0 += v1;
+      for (int bb = lsh; bb < 3; ++bb) v0 += __shfl_xor_sync(0xffffffffu, v0, 4 << bb);
+      const int Z = zc + e;
+      if (owner && Z < S) {
+        if (real[0]) wsw[q[0] * S + Z] += v0;
+        if (!hshare && real[1]) wsw[q[1] * S + Z] += v1;
+      }
+    }
+  };
+  float rsum[NZB][2];
+#pragma unroll
+  for (int zb = 0; zb < NZB; ++zb) rsum[zb][0] = rsum[zb][1] = 0.f;
+  // the warpgroup's sums of frame n into its partial row
+  auto flush = [&](int n) {
+    float* row = a.partial + ((size_t)n * a.stot + B.slot0 + myslot) * C;
+    if constexpr (EXACT) {
+#pragma unroll
+      for (int zb = 0; zb < NZB; ++zb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = rsum[zb][e];
+          rsum[zb][e] = 0.f;
+          for (int bb = lsh; bb < 3; ++bb) v += __shfl_xor_sync(0xffffffffu, v, 4 << bb);
+          const int Zc = 8 * zb + 2 * l4 + e;
+          if (owner && real[0] && Zc < S) row[q[0] * S + Zc] = v;
+        }
+      return;
+    }
+    wg_bar(g);
+    for (int ch = tid; ch < C; ch += 128) {
+      float t = 0.f;
+      for (int w = 0; w < a.nws; ++w) t += ws[(size_t)w * C + ch], ws[(size_t)w * C + ch] = 0.f;
+      row[ch] = t;
+    }
+    wg_bar(g);
+  };
+
+  int seq = 0, cur = -1;  // the stream's next stage; the frame of the sums
+  // a running xor of the token fragments: read right before a group's
+  // products and again after they are done, so that ptxas computes them
+  // ahead of the products and keeps their registers until then (else it
+  // recomputes each into one register quad just before its product, which
+  // it must then serialize: a wait after every wgmma)
+  uint32_t sink = 0;
+  for (int i = 0; i < steps; ++i) {
+    if (i >= nmine) {  // solo, no unit: keep step with the other warpgroup's stages
+      for (int r = 0; r < per_step; ++r, ++seq) {
+        mbar_wait(sfull + seq % a.nst, (seq / a.nst) & 1);
+        release_w(seq);
+      }
+      continue;
+    }
+    int n, y0, x0;
+    unit_at(u0 + i, n, y0, x0);
+    if (n != cur) {  // one call site: flush inlines
+      if (cur >= 0) flush(cur);
+      cur = n;
+    }
+    mbar_wait(full + i % a.ring, (i / a.ring) & 1);
+    const float* xs = reinterpret_cast<const float*>(xring + (size_t)(i % a.ring) * a.slot_bytes);
+    // the rows' tokens in the frame (stores and sums), their first
+    // element in h / w, and (H) the chunk positions P < prow
+    bool sv[2];
+    size_t ob[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int yy = b == 0 ? y0 : y0 + grp[hh], xx = b == 0 ? x0 + grp[hh] : x0;
+      sv[hh] = real[hh] && yy < a.H && xx < a.W;
+      ob[hh] = sv[hh] ? (((size_t)n * a.H + yy) * a.W + xx) * C + q[hh] * S : 0;
+    }
+    const int prow = b == 0 ? min(L, a.H - y0) : L;
+
+    for (int lt = 0; lt < ntl; ++lt) {
+      const int t = t0 + lt * tstep;
+      const int zb = t / tpz, pb = (t - zb * tpz) * NG, Z = 8 * zb + 2 * l4;
+      float acc[NT / 2], part[NT / 2];  // the tile's sum (f32 adds); a group's products
+#pragma unroll
+      for (int k = 0; k < NT / 2; ++k) acc[k] = part[k] = 0.f;
+      uint32_t xh0[KB][4], xl0[KB][4], xh1[KB][4], xl1[KB][4];
+      int P = P0, Zf = Z0;       // the next fragment column's feature
+      int js = 0, held = -1;     // the k8 step in the stage; the stage's ring slot
+      int hseq = -1;             // the stage (its index in the stream)
+      const bool last = lt == ntl - 1;  // the unit's last tile: its reads free the slot
+      auto drain = [&]() {
+        wg_wait<0>();
+        pin_regs(part);
+#pragma unroll
+        for (int k = 0; k < NT / 2; ++k) acc[k] = __fadd_rn(acc[k], part[k]);
+        pin_regs(acc);
+      };
+      // k8 steps j0, j0 + 1.  ptxas serializes every wgmma of the kernel (a
+      // wait after each) if a branch or loop lies between a group's wait and
+      // its products (C7513 / C7514 / C7520), so that span -- the
+      // fragments, the last group's products added (the first group of a
+      // tile adds part's zeros), the descriptors, the products -- is
+      // straight-line code, and the waits and barrier arrivals of the
+      // stages and the slot go before it (the last group's products still
+      // running) or after the commit
+      auto group = [&](uint32_t(&xh)[KB][4], uint32_t(&xl)[KB][4],
+                       uint32_t(&ph)[KB][4], uint32_t(&pl)[KB][4]) {
+        const bool fresh = js == 0;  // the group opens a stage
+        const int prev = hseq;
+        if (fresh) {
+          hseq = seq;
+          held = seq % a.nst;
+          mbar_wait(sfull + held, (seq / a.nst) & 1);
+          ++seq;
+        }
+        __syncwarp();  // the warp converged for the .aligned wgmma
+        const unsigned bsm = su32(wring) + (unsigned)held * stage_bytes + (unsigned)js * 64 * NT;
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          int P1 = P, Z1 = Zf + 1;
+          Z1 = Z1 == S ? 0 : Z1;
+          P1 = Z1 == 0 ? P + 1 : P1;
+          const int c0 = P * cstride + Zf, c1 = P1 * cstride + Z1;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float* src = xs + rowpart[hh];
+            float v0, v1;
+            if (EXACT) {  // S even: one 8-byte read
+              const float2 v = *reinterpret_cast<const float2*>(src + c0);
+              v0 = v.x, v1 = v.y;
+            } else {
+              v0 = src[c0], v1 = src[c1];
+            }
+            tf32_split(real[hh] ? v0 : 0.f, xh[u][hh], xl[u][hh]);
+            tf32_split(real[hh] ? v1 : 0.f, xh[u][2 + hh], xl[u][2 + hh]);
+          }
+          P += dP, Zf += dZ;
+          P = Zf >= S ? P + 1 : P;
+          Zf = Zf >= S ? Zf - S : Zf;
+        }
+        drain();
+#pragma unroll
+        for (int u = 0; u < KB; ++u)
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) sink ^= ph[u][qq] ^ pl[u][qq] ^ xh[u][qq] ^ xl[u][qq];
+        uint64_t dh[KB], dl[KB];  // the steps' hi and lo B descriptors
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          dh[u] = mat_desc(bsm + u * 64 * NT, NT * 16, 128);
+          dl[u] = mat_desc(bsm + u * 64 * NT + 32 * NT, NT * 16, 128);
+        }
+        wg_fence();
+        pin_regs(part);
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          WgmmaTF32<NT>::mma(part, xh[u], dh[u], u != 0);
+          WgmmaTF32<NT>::mma(part, xh[u], dl[u], 1);
+          WgmmaTF32<NT>::mma(part, xl[u], dh[u], 1);
+        }
+        wg_commit();
+        pin_regs(part);
+        js += KB;
+        js = js >= a.kcs ? 0 : js;
+        // the last stage's products were done at this group's drain (a
+        // tile's last stage is released at the tile's end)
+        if (fresh && prev >= 0) release_w(prev);
+      };
+      for (int j = 0; j < KS8; j += 2 * KB) {
+        group(xh0, xl0, xh1, xl1);
+        if (j + KB < KS8) group(xh1, xl1, xh0, xl0);
+      }
+      if (last) release_x(i);  // the unit's last read of its slot
+      // the tile's bias (its columns 8 j + 2 l4 + {0, 1}), in flight during
+      // the last products
+      float2 bj[NG];
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+        bj[j] = B.bias != nullptr
+                    ? __ldg(reinterpret_cast<const float2*>(B.bias + t * NT + 8 * j + 2 * l4))
+                    : make_float2(0.f, 0.f);
+      drain();
+#pragma unroll
+      for (int u = 0; u < KB; ++u)
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) sink ^= xh0[u][qq] ^ xl0[u][qq] ^ xh1[u][qq] ^ xl1[u][qq];
+      release_w(hseq);  // this warp is done with the tile's stages
+      // epilogue: register 4 j + 2 hh + e is row hh, channel Z + e at chunk
+      // position pb + j; stored and summed where the row's token and the
+      // position lie in the frame and the channel is real
+      const bool zok = Z < S;
+      float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const int Pj = pb + j;
+        if (!(EXACT && NG == LX) && Pj >= L) break;  // warp-uniform
+        const bool in = Pj < prow;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float y0v = fmaxf(acc[4 * j + 2 * hh] + bj[j].x, a.floor) * inv_c;
+          const float y1v = fmaxf(acc[4 * j + 2 * hh + 1] + bj[j].y, a.floor) * inv_c;
+          const bool sum = in && sv[hh];
+          if (sum && zok) {
+            float* o = B.out + ob[hh] + Pj * pstride + Z;
+            if (even) {
+              *reinterpret_cast<float2*>(o) = make_float2(y0v, y1v);
+            } else {
+              o[0] = y0v;
+              if (Z + 1 < S) o[1] = y1v;
+            }
+          }
+          rs[hh][0] += sum ? y0v : 0.f;
+          rs[hh][1] += sum ? y1v : 0.f;
+        }
+      }
+      if constexpr (EXACT) {  // the rows share q (hshare at both path shapes)
+#pragma unroll
+        for (int z = 0; z < NZB; ++z)
+          if (z == zb) {
+            rsum[z][0] += rs[0][0] + rs[1][0];
+            rsum[z][1] += rs[0][1] + rs[1][1];
+          }
+      } else {
+        fold(8 * zb + 2 * l4, rs);
+      }
+    }
+  }
+  if (cur >= 0) flush(cur);
+  if (a.N < 0) a.partial[tid] = __uint_as_float(sink);  // never (N >= 1): keeps the xor
+}
+
+template <int NT, int CX, int LX>
+int launch_axes_token_tf32(const TokMaps& m, const TokF32Args& a, int grid, unsigned smem,
+                           cudaStream_t st) {
+  auto kern = morphfc_axes_token_tf32_kernel<NT, CX, LX>;
+  static bool smem_set = false;  // the largest size, once per instantiation
+  if (!smem_set) {
+    const int e = set_smem(kern, kMaxSmem);
+    if (e) return e;
+    smem_set = true;
+  }
+  kern<<<grid, kTokWg * 128, smem, st>>>(m, a);
+  return (int)cudaGetLastError();
+}
+#endif  // part 4
+
 }  // namespace vmg
 
-// The build compiles this file three times (vmg_tpu_torch/_build.py), once
+// The build compiles this file four times (vmg_tpu_torch/_build.py), once
 // per part, so that its kernels' instantiations compile in parallel: part 1
-// defines the axes entry points (the bf16 big form, both token forms), part
-// 3 the f32 big form they call through vmg_morphfc_axes_f32_big, part 2 the
-// reduce and combine entry points.  The build renames parts 2 and 3's
+// defines the axes entry points (the bf16 big form, the token form), part
+// 3 the f32 big form they call through vmg_morphfc_axes_f32_big, part 4 the
+// f32 token form they call through vmg_morphfc_axes_token_f32, part 2 the
+// reduce and combine entry points.  The build renames parts 2-4's
 // namespace, so the objects share no symbol but the C ones.  Undefined:
-// all three parts.
+// all four parts.
 extern "C" int vmg_morphfc_axes_f32_big(const void* maps, const void* args, int grid, int relu,
                                         void* stream);
+extern "C" int vmg_morphfc_axes_token_f32(const void* x, const void* c, const void* kh,
+                                          const float* bh, const void* kw, const float* bw,
+                                          void* h, void* w, void* img, float* bimg,
+                                          float* partial, float* psum, const void* plan, int N,
+                                          int H, int W, int C, int ch, int cw, int relu,
+                                          void* stream);
 
 #if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 3
 // the f32 big form's launch (maps, args: the caller's AxesMaps, AxesArgs)
@@ -2224,6 +2636,119 @@ extern "C" int vmg_morphfc_axes_f32_big(const void* maps, const void* args, int 
               : vmg::axes_wgmma<true, false>(m, a, grid, st);
 }
 #endif  // part 3
+
+#if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 4
+// The f32 token form (vmg_morphfc_axes_token's float32 half): x, c, kh, bh,
+// kw, bw, h, w, psum as there; plan: morphfc_fused.token_f32_plan's
+// (TokF32Plan); img: both branches' hi and lo images (ntiles x C / 8 x 16 x
+// NT f32 each), bimg: their biases (ntiles x NT f32 each); partial: (N,
+// stot, C).  The launches: the pack, c's partials, the kernel, the sums pass.
+extern "C" int vmg_morphfc_axes_token_f32(const void* x, const void* c, const void* kh,
+                                          const float* bh, const void* kw, const float* bw,
+                                          void* h, void* w, void* img, float* bimg,
+                                          float* partial, float* psum, const void* plan, int N,
+                                          int H, int W, int C, int ch, int cw, int relu,
+                                          void* stream) {
+  if (plan == nullptr || img == nullptr || (uintptr_t)img % 16 != 0 ||
+      (bh != nullptr && (bimg == nullptr || (uintptr_t)bimg % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const vmg::TokF32Plan& p = *static_cast<const vmg::TokF32Plan*>(plan);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int NT = p.nt;
+  const bool exact = p.exact != 0, shared = p.shared != 0;
+  // the instantiations: the path shapes at their tile widths, else NT =
+  // 16, 32 or 64
+  if (exact ? !((C == 224 && ch == 16 && cw == 16 && NT == 128) ||
+                (C == 448 && ch == 8 && cw == 8 && NT == 64)) || p.nws != 0
+            : (NT != 16 && NT != 32 && NT != 64) || (p.nws != 1 && p.nws != 4))
+    return (int)cudaErrorInvalidValue;
+  if ((p.shared != 0 && p.shared != 1) || (p.ring != 1 && p.ring != 2) || p.nst < 2 ||
+      p.nst > vmg::kTfStMax || p.kcs < vmg::kTfKB || p.kcs % vmg::kTfKB != 0 || p.kcs > C / 8)
+    return (int)cudaErrorInvalidValue;
+  vmg::TokF32Args a = {};
+  vmg::TokPackF32 pk = {};
+  const int Ls[2] = {ch, cw};
+  const void* ks[2] = {kh, kw};
+  const float* bs[2] = {bh, bw};
+  void* outs[2] = {h, w};
+  const int wpb = shared ? 1 : vmg::kTokWg;  // walkers a block
+  int slots = 0;
+  for (int br = 0; br < 2; ++br) {
+    const vmg::TokPlanBranch& q = p.br[br];
+    vmg::TokF32Branch& B = a.br[br];
+    // as the bf16 entry's checks; where shared, each warpgroup has a tile
+    const int L = Ls[br], gu = q.lgu >= 0 && q.lgu <= 6 ? 1 << q.lgu : 0;
+    const int bw_ = br == 0 ? gu : L, bh_ = br == 0 ? L : gu;
+    int cp = 1;
+    while (cp < L) cp *= 2;
+    const int Gw = wpb * q.blocks;
+    if (q.L != L || q.S != C / L || gu * cp != 64 || (gu >= 32 && !exact && p.nws != 4) ||
+        q.tpz < 1 || q.tpz * (NT / 8) < L || (exact && q.tpz != 1) ||
+        q.ntiles != (q.S + 7) / 8 * q.tpz || (shared && q.ntiles < 2) || q.ucols < 1 ||
+        (long long)q.ucols * bw_ < W || q.upf < q.ucols || q.upf % q.ucols != 0 ||
+        (long long)(q.upf / q.ucols) * bh_ < H || (long long)N * q.upf > 0x7fffffff ||
+        q.blocks < 1 ||
+        (q.fpw == 0 ? (q.wpf < 1 || q.wpf > q.upf || (long long)N * q.wpf > Gw)
+                    : (q.wpf != 1 || (long long)q.fpw * Gw < N)))
+      return (int)cudaErrorInvalidValue;
+    B.L = L, B.S = q.S, B.lgu = q.lgu, B.tpz = q.tpz;
+    B.ucols = q.ucols, B.upf = q.upf, B.ntiles = q.ntiles;
+    B.box_bytes = (unsigned)gu * L * C * 4;
+    B.blocks = q.blocks, B.block0 = br == 0 ? 0 : p.br[0].blocks;
+    B.wpf = q.wpf, B.fpw = q.fpw, B.slot0 = slots;
+    slots += (B.fpw == 0 ? B.wpf : 1) * (shared ? 2 : 1);
+    pk.k[br] = (const float*)ks[br], pk.b[br] = bs[br];
+    pk.img[br] = (float*)img + (br == 0 ? 0 : (size_t)a.br[0].ntiles * C * 2 * NT);
+    pk.bimg[br] = bs[br] == nullptr ? nullptr : bimg + (br == 0 ? 0 : a.br[0].ntiles * NT);
+    pk.L[br] = L, pk.S[br] = B.S, pk.tpz[br] = B.tpz;
+    B.img = pk.img[br], B.bias = pk.bimg[br], B.out = (float*)outs[br];
+  }
+  if (p.stot != slots + p.sc) return (int)cudaErrorInvalidValue;
+  const vmg::TokF32Layout lay(C, NT, p.shared, p.ring, p.kcs, p.nst, p.nws);
+  if (lay.total > vmg::kMaxSmem) return (int)cudaErrorInvalidValue;
+  a.partial = partial;
+  a.N = N, a.H = H, a.W = W, a.C = C, a.stot = p.stot;
+  a.floor = relu ? 0.f : -INFINITY;
+  a.shared = p.shared, a.ring = p.ring, a.kcs = p.kcs, a.nst = p.nst, a.nws = p.nws;
+  a.slot_bytes = lay.slot, a.off_w = lay.off_w, a.off_sum = lay.off_sum, a.off_bar = lay.off_bar;
+  // both weights as hi and lo images
+  pk.C = C, pk.NT = NT;
+  pk.items0 = a.br[0].ntiles * (C / 8) * 2 * NT;
+  pk.items = pk.items0 + a.br[1].ntiles * (C / 8) * 2 * NT;
+  vmg::morphfc_axes_token_pack_tf32_kernel<<<(pk.items + 255) / 256, 256, 0, st>>>(pk);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  // c's per-frame partials: rows slots .. stot - 1
+  const void* cptr[1] = {c};
+  if (!vmg::partial_plan_ok(cptr, 1, N, H * W, C, p.sc, p.per_c, 4, 4))
+    return (int)cudaErrorInvalidValue;
+  e = vmg::launch_partial<float, 1>((const float*)c, (const float*)c, (const float*)c, partial, N,
+                                    H * W, C, p.sc, p.per_c, 4, p.stot, slots, st);
+  if (e) return e;
+  vmg::TokMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  int nsp = (C + 255) / 256;
+  while (C % nsp != 0 || (C / nsp) % 8 != 0) ++nsp;
+  for (int br = 0; br < 2; ++br) {  // a box a unit
+    const int gu = 1 << a.br[br].lgu;
+    e = vmg::nhwc_split_map(&maps.x[br], x, N, H, W, C, nsp, br == 0 ? gu : cw, br == 0 ? ch : gu,
+                            true);
+    if (e) return e;
+  }
+  const int grid = p.br[0].blocks + p.br[1].blocks;
+  if (exact)
+    e = C == 224 ? vmg::launch_axes_token_tf32<128, 224, 16>(maps, a, grid, lay.total, st)
+                 : vmg::launch_axes_token_tf32<64, 448, 8>(maps, a, grid, lay.total, st);
+  else if (NT == 16)
+    e = vmg::launch_axes_token_tf32<16, 0, 0>(maps, a, grid, lay.total, st);
+  else if (NT == 32)
+    e = vmg::launch_axes_token_tf32<32, 0, 0>(maps, a, grid, lay.total, st);
+  else
+    e = vmg::launch_axes_token_tf32<64, 0, 0>(maps, a, grid, lay.total, st);
+  if (e) return e;
+  return vmg::launch_final(partial, psum, N, C, p.stot, st);
+}
+#endif  // part 4
 
 #if !defined(VMG_MORPHFC_PART) || VMG_MORPHFC_PART == 1
 // x, c, h, w: (N, H, W, C); kh, kw: (C_in, C_out) decayed axis weights;
@@ -2286,11 +2811,10 @@ extern "C" int vmg_morphfc_axes(const void* x, const void* c, const void* kh,
 }
 
 // The token form: x, c, kh, bh, kw, bw, h, w, psum as vmg_morphfc_axes; C %
-// 16 == 0, C <= 512.  f32: one block per slab of ch x WT; partial: (N,
-// ceil(H/ch) * ceil(W/WT), C); img, bimg and plan unused.  bf16: plan is
-// morphfc_fused.token_plan's (TokPlan), WT unused; img: both B images
-// (ntiles x C x NT bf16 each), bimg: their biases (ntiles x NT f32 each);
-// partial: (N, stot, C).
+// 16 == 0, C <= 512; WT unused.  bf16: plan is morphfc_fused.token_plan's
+// (TokPlan); img: both B images (ntiles x C x NT bf16 each), bimg: their
+// biases (ntiles x NT f32 each); partial: (N, stot, C).  f32:
+// vmg_morphfc_axes_token_f32 (part 4), plan morphfc_fused.token_f32_plan's.
 extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* kh,
                                       const float* bh, const void* kw, const float* bw,
                                       void* h, void* w, void* img, float* bimg, float* partial,
@@ -2304,9 +2828,8 @@ extern "C" int vmg_morphfc_axes_token(const void* x, const void* c, const void* 
     if ((uintptr_t)p % vmg::kVecBytes != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return vmg::launch_axes_token_f32((const float*)x, (const float*)c, (const float*)kh, bh,
-                                      (const float*)kw, bw, (float*)h, (float*)w, partial, psum,
-                                      N, H, W, C, ch, cw, WT, relu ? 0.f : -INFINITY, st);
+    return vmg_morphfc_axes_token_f32(x, c, kh, bh, kw, bw, h, w, img, bimg, partial, psum, plan,
+                                      N, H, W, C, ch, cw, relu, stream);
   if (dtype != 1 || plan == nullptr || img == nullptr ||
       (bh != nullptr && (bimg == nullptr || (uintptr_t)bimg % 16 != 0)) ||
       (uintptr_t)img % 16 != 0)

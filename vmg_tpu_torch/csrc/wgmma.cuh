@@ -403,23 +403,26 @@ inline int nhwc_box_map(CUtensorMap* map, const void* t, int N, int H, int W, in
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A 5-D tensor map over an (N, H, W, C) bf16 tensor with C split into nsp
-// pieces of C / nsp (a box dimension holds at most 256 elements): boxes of
-// all C channels x box_w columns x box_h rows of one frame, landing in
-// shared memory as (box_h, box_w, C), no swizzle, zeros out of bounds.
+// A 5-D tensor map over an (N, H, W, C) bf16 (or, f32 true, float32)
+// tensor with C split into nsp pieces of C / nsp (a box dimension holds at
+// most 256 elements): boxes of all C channels x box_w columns x box_h rows
+// of one frame, landing in shared memory as (box_h, box_w, C), no swizzle,
+// zeros out of bounds.
 inline int nhwc_split_map(CUtensorMap* map, const void* t, int N, int H, int W, int C, int nsp,
-                          int box_w, int box_h) {
+                          int box_w, int box_h, bool f32 = false) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const int cs = C / nsp;
+  const cuuint64_t e = f32 ? 4 : 2;
   const cuuint64_t dims[5] = {(cuuint64_t)cs, (cuuint64_t)nsp, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)N};
-  const cuuint64_t strides[4] = {(cuuint64_t)cs * 2, (cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
+  const cuuint64_t strides[4] = {(cuuint64_t)cs * e, (cuuint64_t)C * e, (cuuint64_t)W * C * e,
+                                 (cuuint64_t)H * W * C * e};
   const cuuint32_t box[5] = {(cuuint32_t)cs, (cuuint32_t)nsp, (cuuint32_t)box_w,
                              (cuuint32_t)box_h, 1},
                    elem[5] = {1, 1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(t), dims, strides,
+  CUresult r = enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   5, const_cast<void*>(t), dims, strides,
                    box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -206,6 +206,20 @@ def token_smem(C: int, nt: int, ring: int, wtiles: int, nws: int) -> int:
             + (TOKEN_WG * TOKEN_RING_MAX + 2 * TOKEN_WMAX) * 8)
 
 
+def _split_walkers(brs, N: int, sms: int, wpb: int) -> None:
+    """Each branch's ``blocks`` (the grid, at most ``sms`` blocks, split by
+    the branches' units) and walkers (``wpb`` a block): ``wpf`` walkers
+    share each frame's units, or one walker takes ``fpw`` whole frames."""
+    units = [N * b["upf"] for b in brs]
+    caps = [-(-u // wpb) for u in units]
+    grid = max(2, min(sms, sum(caps)))
+    bh = min(caps[0], grid - 1, max(1, round(grid * units[0] / sum(units))))
+    for b, blocks in zip(brs, (bh, min(caps[1], grid - bh))):
+        G = wpb * blocks
+        b.update(blocks=blocks, wpf=min(G // N, b["upf"]), fpw=0) if N <= G else \
+            b.update(blocks=blocks, wpf=1, fpw=-(-N // G))
+
+
 def token_plan(N: int, H: int, W: int, C: int, chunk_h: int, chunk_w: int, sms: int):
     """The bf16 token kernel's plan, or None where it has none: a dict
     with ``branches`` (:func:`token_branch` of H then W, each with its
@@ -237,14 +251,7 @@ def token_plan(N: int, H: int, W: int, C: int, chunk_h: int, chunk_w: int, sms: 
             break
     if ring is None:
         return None
-    units = [N * b["upf"] for b in brs]
-    caps = [-(-u // TOKEN_WG) for u in units]
-    grid = max(2, min(sms, sum(caps)))
-    bh = min(caps[0], grid - 1, max(1, round(grid * units[0] / sum(units))))
-    for b, blocks in zip(brs, (bh, min(caps[1], grid - bh))):
-        G = TOKEN_WG * blocks
-        b.update(blocks=blocks, wpf=min(G // N, b["upf"]), fpw=0) if N <= G else \
-            b.update(blocks=blocks, wpf=1, fpw=-(-N // G))
+    _split_walkers(brs, N, sms, TOKEN_WG)
     sc, per_c = reduce_plan(N, H * W, C, 8, sms)
     slots = sum(b["wpf"] if b["fpw"] == 0 else 1 for b in brs)
     return dict(branches=brs, nt=nt, exact=token_exact(C, chunk_h, chunk_w),
@@ -252,11 +259,94 @@ def token_plan(N: int, H: int, W: int, C: int, chunk_h: int, chunk_w: int, sms: 
                 stot=slots + sc)
 
 
-def token_plan_ints(plan) -> list:
-    """A :func:`token_plan` as the C entry point reads it: the
-    TOKEN_PLAN_FIELDS, then each branch's TOKEN_BRANCH_FIELDS."""
-    return ([int(plan[k]) for k in TOKEN_PLAN_FIELDS]
+def token_plan_ints(plan, fields=TOKEN_PLAN_FIELDS) -> list:
+    """A :func:`token_plan` (or, with TOKEN_F32_PLAN_FIELDS, a
+    :func:`token_f32_plan`) as the C entry point reads it: the plan's
+    fields, then each branch's TOKEN_BRANCH_FIELDS."""
+    return ([int(plan[k]) for k in fields]
             + [int(b[k]) for b in plan["branches"] for k in TOKEN_BRANCH_FIELDS])
+
+
+# The f32 token form (csrc/morphfc.cu ``morphfc_axes_token_tf32_kernel``):
+# the bf16 kernel's units and branches on 3xTF32 wgmma, each weight's hi and
+# lo images streamed in stages of ``kcs`` k8 steps (twice
+# TOKEN_F32_STAGE_BYTES where three such stages fit, else once) of a column
+# tile through rings of up to TOKEN_F32_STAGES slots.
+TOKEN_F32_STAGES = 8
+TOKEN_F32_STAGE_BYTES = 16384
+TOKEN_F32_PLAN_FIELDS = ("nt", "exact", "shared", "ring", "kcs", "nst", "nws", "sc", "per_c",
+                         "stot")
+
+
+def token_f32_nt(C: int, chunk_h: int, chunk_w: int) -> int:
+    """Columns a weight tile of the f32 token kernel: at the compile-time
+    path shapes (:func:`token_exact`) an 8-channel block at every chunk
+    position (128 at stages 1/5, 64 at stage 3); else 8 G, G = the chunks
+    rounded up to powers of two (>= 2), at most 8."""
+    if token_exact(C, chunk_h, chunk_w):
+        return 8 * chunk_h
+    return 8 * min(max(2, _pow2(chunk_h)), max(2, _pow2(chunk_w)), 8)
+
+
+def token_f32_smem(C: int, nt: int, shared: bool, ring: int, kcs: int, nst: int,
+                   nws: int) -> int:
+    """Shared memory of the f32 token kernel (``TokF32Layout`` in the
+    source): the x slots of 64 f32 tokens (``ring`` a warpgroup, or a block
+    where ``shared``), the weight rings of ``nst`` stages of ``kcs`` k8
+    steps' hi and lo images (one, or one a warpgroup where ``shared``),
+    ``nws`` channel arrays a warpgroup, the barriers."""
+    slot = -(-64 * C * 4 // 128) * 128
+    return ((1 if shared else TOKEN_WG) * ring * slot
+            + (TOKEN_WG if shared else 1) * nst * kcs * 64 * nt + TOKEN_WG * nws * C * 4
+            + (TOKEN_WG * TOKEN_RING_MAX + TOKEN_RING_MAX + 4 * TOKEN_F32_STAGES) * 8)
+
+
+def token_f32_plan(N: int, H: int, W: int, C: int, chunk_h: int, chunk_w: int, sms: int):
+    """The f32 token kernel's plan, or None where it has none: the bf16
+    plan's fields (:func:`token_plan`: ``branches`` with their ``blocks``
+    and walkers, ``nt``, ``exact``, ``nws``, c's reduce plan, ``stot``)
+    and the stream's: ``kcs`` k8 steps a stage (32 KB where three such
+    stages fit, else 16 KB) and ``nst`` ring stages.  "Solo" where two x
+    slots fit beside a ring of three stages (up to C = 336): each
+    warpgroup walks its own units (a walker; ``ring`` slots each, two
+    where they fit) and both read every stage.  Else ``shared``: a block
+    is one walker whose warpgroups work on each unit together, warpgroup g
+    on column tiles g, g + 2, ..., each with its own ring and its own
+    partial row.  The grid (at most ``sms`` blocks) is split between the
+    branches by their units.  The C entry point only checks the plan
+    (:func:`token_plan_ints` with TOKEN_F32_PLAN_FIELDS)."""
+    if C % 16 or C > 512 or chunk_h > 64 or chunk_w > 64:
+        return None
+    nt = token_f32_nt(C, chunk_h, chunk_w)
+    brs = [token_branch(H, W, C, chunk_h, 1, nt), token_branch(H, W, C, chunk_w, 2, nt)]
+    exact = token_exact(C, chunk_h, chunk_w)
+    nws = 0 if exact else 4 if min(chunk_h, chunk_w) <= 2 else 1
+    choice = None
+    for least, target in ((3, 2 * TOKEN_F32_STAGE_BYTES), (3, TOKEN_F32_STAGE_BYTES),
+                          (2, TOKEN_F32_STAGE_BYTES)):
+        kcs = min(C // 8, max(2, target // (64 * nt)))
+        for shared in (False, True):
+            if shared and min(b["ntiles"] for b in brs) < 2:
+                continue
+            for ring in (2, 1):
+                rest = MAX_SMEM - token_f32_smem(C, nt, shared, ring, kcs, 0, nws)
+                nst = min(TOKEN_F32_STAGES,
+                          rest // ((TOKEN_WG if shared else 1) * kcs * 64 * nt))
+                if nst >= least:
+                    choice = (shared, ring, kcs, nst)
+                    break
+            if choice:
+                break
+        if choice:
+            break
+    if choice is None:
+        return None
+    shared, ring, kcs, nst = choice
+    _split_walkers(brs, N, sms, 1 if shared else TOKEN_WG)
+    sc, per_c = reduce_plan(N, H * W, C, 4, sms)
+    rows = sum(b["wpf"] if b["fpw"] == 0 else 1 for b in brs) * (2 if shared else 1)
+    return dict(branches=brs, nt=nt, exact=exact, shared=shared, ring=ring, kcs=kcs, nst=nst,
+                nws=nws, sc=sc, per_c=per_c, stot=rows + sc)
 
 
 def fused_morphfc_axes(x, c, kh, bh, kw, bw, *, chunk_h: int, chunk_w: int,
@@ -316,30 +406,24 @@ def _axes_cuda(x, c, kh, bh, kw, bw, chunk_h: int, chunk_w: int, form: str,
         S = npass * grid * nwg
         scratch = torch.empty((grid * nwg, (C // 2 + 8) * 128), dtype=torch.float32,
                               device=dev)
+        img = bimg = plan_ints = None
     else:
-        # the token form: in f32 one block per slab of whole W chunks, >= 64
-        # tokens per branch, a multiple of 16 (the bf16 token kernel takes
-        # its own plan below)
-        kg = -(-64 // (chunk_h * chunk_w))
-        while chunk_h * chunk_w * kg % 16:
-            kg += 1
-        WT = chunk_w * kg
-        S = -(-H // chunk_h) * -(-W // WT)
-        scratch, nwg, ring, npass, grid = None, 0, 0, 0, 0
-    # the bf16 token form: the pack, c's partials, the kernel, the sums pass
-    img = bimg = plan_ints = None
-    if form == "token" and dt == torch.bfloat16:
-        tp = token_plan(N, H, W, C, chunk_h, chunk_w, sms)
+        # the token form: the pack, c's partials, the kernel, the sums pass;
+        # bf16 images (C x NT a tile), f32 hi and lo images (2 C x NT)
+        f32 = dt == torch.float32
+        tp = (token_f32_plan if f32 else token_plan)(N, H, W, C, chunk_h, chunk_w, sms)
         if tp is None:
-            raise ValueError(f"the token form takes C % 16 == 0, C <= 512 and chunks <= 64 "
-                             f"in bf16; got C={C}, chunks ({chunk_h}, {chunk_w})")
+            raise ValueError(f"the token form takes C % 16 == 0, C <= 512 and chunks <= 64; "
+                             f"got C={C}, chunks ({chunk_h}, {chunk_w})")
         tiles = sum(b["ntiles"] for b in tp["branches"])  # both images, back to back
-        img = torch.empty(tiles * C * tp["nt"], dtype=dt, device=dev)
+        img = torch.empty(tiles * C * tp["nt"] * (2 if f32 else 1), dtype=dt, device=dev)
+        bimg = None
         if bh is not None:  # no bias: no bias image
             bimg = torch.empty(tiles * tp["nt"], dtype=torch.float32, device=dev)
         S = tp["stot"]
-        ints = token_plan_ints(tp)
+        ints = token_plan_ints(tp, TOKEN_F32_PLAN_FIELDS if f32 else TOKEN_PLAN_FIELDS)
         plan_ints = (ctypes.c_int * len(ints))(*ints)
+        WT, nwg, ring, npass, grid, scratch = 0, 0, 0, 0, 0, None
     partial = torch.empty((N, S, C), dtype=torch.float32, device=dev)
     pointers = (x.data_ptr(), c.data_ptr(), kh.data_ptr(), _build.ptr(bh), kw.data_ptr(),
                 _build.ptr(bw), h.data_ptr(), w.data_ptr())

@@ -58,13 +58,15 @@ import torch
 CLIPS = {"full": (16, 180, 320), "few_levels": (32, 128, 128), "vid4_tile": (16, 128, 128)}
 FEW_EVAL = dict(num_frames=32, traj_win=(32, None), flow_fix=None)
 
-# (category, kernel-name pattern), first match wins
+# (category, kernel-name pattern), first match wins; `morphfc.cu` compiles
+# as parts whose namespace is vmg, vmg_part2, ... (``_build.SPLITS``)
+_NS = r"vmg(_part\d+)?::"
 CATEGORIES = [
-    ("FFN kernel", r"vmg::group_ffn"),
-    ("MorphFC axes kernel", r"vmg::morphfc_axes"),
-    ("MorphFC reduce kernel (pass 1)", r"vmg::morphfc_partial"),
-    ("MorphFC sums, fixed-order pass (axes, reduce)", r"vmg::morphfc_final"),
-    ("MorphFC combine kernel", r"vmg::morphfc_combine"),
+    ("FFN kernel", _NS + "group_ffn"),
+    ("MorphFC axes kernel", _NS + "morphfc_axes"),
+    ("MorphFC reduce kernel (pass 1)", _NS + "morphfc_partial"),
+    ("MorphFC sums, fixed-order pass (axes, reduce)", _NS + "morphfc_final"),
+    ("MorphFC combine kernel", _NS + "morphfc_combine"),
     ("LTAM backward kernels", r"vmg::ltam_bwd"),
     ("LTAM kernel", r"vmg::ltam"),
     ("conv chain kernel", r"vmg::conv3x3_(wgmma|tf32)|vmg::conv_chain|vmg::chain_psum"),

@@ -65,7 +65,9 @@ beside the module form with TF32 off (``f32_ffn_module_*``) and with
 cuDNN's default TF32 on (``f32_ffn_module_tf32_*``, as the evaluation
 command runs its convolutions), and the axes kernel's big form at
 16x128x128x112 and 16x184x320x112 (chunk 8) beside the 'hybrid' form
-(``f32_hybrid_*``); the combine (tanh, folded residual) at the eval tile's
+(``f32_hybrid_*``), its token form at FULL_PRESET's stages 1/5 and 3
+(``f32_token_*``) beside the 'hybrid' form (``f32_token_hybrid_*``;
+``--only f32_token`` times just these); the combine (tanh, folded residual) at the eval tile's
 four shapes and 16x184x320x112 beside its plain version
 (``f32_combine_plain_*``), on the Pk operand its tree's kernel takes; the
 conv chain on one resblock (1x184x320x112 and 1x128x128x112, residual
@@ -638,6 +640,35 @@ def _side_f32(root: Path, reps: int, only=None) -> dict:
 
             out["f32_" + token_key((N, h, w, C, ck), "hybrid")] = time_both(hybrid)
             del x, xc, aargs, got, ref
+        for N, h, w, C, ck in TOKEN_SHAPES:
+            key = "f32_" + token_key((N, h, w, C, ck))
+            if not wanted(key, "f32_" + token_key((N, h, w, C, ck), "token_hybrid")):
+                continue
+            x, xc = rn(N, h, w, C), rn(N, h, w, C, scale=0.01)
+            kh, kw = rn(C, C, scale=0.02), rn(C, C, scale=0.02)
+            bh, bw = rn(C, scale=0.1), rn(C, scale=0.1)
+            aargs = (x, xc, kh, bh, kw, bw)
+
+            def token():
+                return morphfc_fused.fused_morphfc_axes(*aargs, chunk_h=ck, chunk_w=ck,
+                                                        form="token")
+
+            got = token()
+            ref = morphfc_fused.morphfc_axes_plain(*aargs, chunk_h=ck, chunk_w=ck)
+            terms = sum(v.abs().sum(dim=(1, 2)) for v in (ref[0], ref[1], xc))
+            err = max(held("token h", got[0], ref[0]), held("token w", got[1], ref[1]))
+            serr = ((got[2] - ref[2]).abs() / terms).max().item()
+            if not serr <= 1e-6:
+                raise AssertionError(f"token psum: off by {serr} of sum|terms|")
+            out[key] = {**time_both(token), "max_rel_err": err, "sums_rel_err": serr}
+
+            def hybrid():
+                hb = _axis_mix(x, kh, bh, ck, 1).contiguous()
+                wb = _axis_mix(x, kw, bw, ck, 2).contiguous()
+                return morphfc_fused.fused_morphfc_reduce(hb, wb, xc)
+
+            out["f32_" + token_key((N, h, w, C, ck), "token_hybrid")] = time_both(hybrid)
+            del x, xc, aargs, got, ref
         # the combine (tanh, folded residual) on the Pk operand its tree's f32
         # kernel takes: the packed image where combine_image_shape takes the
         # dtype, else the plain matrix
@@ -749,6 +780,8 @@ def main(argv=None) -> int:
              for kind in ("f32_ffn", "f32_ffn_module", "f32_ffn_module_tf32")]
     keys += ["f32_" + token_key(shape, kind) for shape in F32_AXES_SHAPES
              for kind in ("axes", "hybrid")]
+    keys += ["f32_" + token_key(shape, kind) for shape in TOKEN_SHAPES
+             for kind in ("token", "token_hybrid")]
     keys += [f"f32_{kind}_" + "x".join(map(str, shape)) for shape in F32_COMBINE_SHAPES
              for kind in ("combine", "combine_plain")]
     keys += [f"f32_chain_{kind}{label}" for label, _, _ in F32_CHAIN_CASES
