@@ -140,7 +140,33 @@ Phases (any failure exits non-zero):
      peak memory, the LTAM, FFN, axes, reduce and combine kernels
      launched), one bf16 training step at phase 6's size; phase 2 holds the
      four axes instantiations in these forms (AXES_OPTIONS) to their plain
-     versions.
+     versions;
+ 11. T-sharded serving (``parallel/seq.py``): FULL_PRESET bf16 (tanh GELU,
+     fast flow), default forms, in two processes on the one card (a gloo
+     group: NCCL refuses two ranks on one device, so the halos, carries,
+     flows and sums cross through host memory while the compute stays on
+     the card), built once here and loaded by both: 1x32x180x320 (16 frames
+     a process, the trajectory windows aligned) and 1x16x180x320 (8, the
+     window split, its carry handed over), each against the one-process
+     forward of the clip (SEQ_TOLS: the split window bit for bit), with
+     frames/s (both sides the model's forward on an input on the card, the
+     output left there), each process's peak memory beside the one-process
+     peak, the kernel launches a process (the LTAM, FFN, axes, reduce and
+     combine kernels in both) and the bytes each exchange sent; then
+     float32 at 1x8x64x64 (one trajectory window over both processes)
+     against the plain path on CPU tensors (phase 3's tolerance); then the
+     time means as modules (SEQ_MEANS) against one process's;
+ 12. tensor parallelism (``parallel/tp.py``): a (1, 2) mesh of two processes
+     on the card at phase 6's size (lr 1e-4), 2 steps against one process's:
+     the losses of both steps and the parameters after the first within
+     tests/test_parallel_mesh.py:77-84's bounds (after the second reported),
+     the first step's gradient leaf by leaf and its global norm
+     (TP_GRAD_RTOL, TP_GRAD_ATOL, TP_GRAD_SPREAD: one process run twice
+     gives the spread), the count of sharded leaves, each
+     process's bytes of masters and AdamW moments beside one process's.
+``python3 chip_smoke.py --nccl N`` runs phases 1, 11 and 12 alone with
+their processes one a card on N cards in an NCCL group (phase 12 on a
+(N / 2, 2) mesh, a batch of N / 2 clips).
 Prints a {"train_loop": {...}} JSON line, a {"kernels": [...]} JSON line (each kernel with its launches on
 the path that runs it -- the token form's and the probes' on their entry
 points in phases 2/2p, none on the model paths -- its times, its bound and
@@ -623,6 +649,482 @@ VARIANT = dict(temporal_type=(False, True, None, None), temporal_empty=False,
                non_linear=False, qkv_bias=False)
 VARIANT_PATH = ("ltam_attention_2x2", "fused_group_ffn", "fused_morphfc_axes",
                 "fused_morphfc_reduce", "fused_morphfc_combine")
+
+
+# Phase 11: the T-sharded serving forward (parallel/seq.py) in two processes
+# on the one card.  Clips (T, H, W): 16 frames a process, the trajectory
+# windows (16) aligned with the shards, and 8, a window split so its carry
+# crosses; then float32 at 1x8x64x64 against the plain path on CPU tensors.
+SEQ_CLIPS = ((32, 180, 320), (16, 180, 320))
+SEQ_F32 = (8, 64, 64)
+# each clip's output against the one-process forward: the split window
+# (1x16) runs the same kernels at the same shapes and batch in both, so it
+# is held bit for bit; the aligned clip's one-process forward batches its
+# two windows, each process here one, so cuDNN may pick other algorithms:
+# one bf16 rounding step of an output below 0.5 (2**-9; the first card run
+# measured 2**-12)
+SEQ_TOLS = (2.0 ** -9, 0.0)
+# the time means over (T, H, W) on the card: the MorphFC-decay mixer in
+# its two kernel forms at the path's shapes (stage 0: axes + combine, at
+# 1x16x64x64 as phase 3's stage 0; stage 1: reduce + combine), plain
+# MorphFC and the shift FFN; float32, torch-initialised with the reweight
+# MLPs at 10x, on a clip whose second half is 4x brighter; against the
+# same module on the whole clip in this process at
+# tests/test_torch_seq.py's tolerance (atol 2e-5, rtol 1e-4), as an error
+# ratio to it; each process's own mean must move the output past 10x that
+# tolerance, or the check could not see a wrong sum
+SEQ_MEANS = (("MorphFCDecay", (112, 8, 8), (1, 16, 64, 64, 112)),
+             ("MorphFCDecay", (224, 16, 16), (1, 16, 32, 32, 224)),
+             ("MorphFC", (112, 8, 8), (1, 16, 64, 64, 112)),
+             ("MlpCnnShift", (112,), (1, 16, 64, 64, 112)))
+SEQ_MEAN_ATOL, SEQ_MEAN_RTOL, SEQ_MEAN_SEEN = 2e-5, 1e-4, 10.0
+# Phase 12: tensor parallelism (parallel/tp.py) on a (1, 2) mesh of two
+# processes at phase 6's size, two steps, against one process's; lr 1e-4 as
+# tests/test_parallel_mesh.py, whose bounds (:77-84) hold the losses of both
+# steps and the parameters after the first (the bound's premise: one AdamW
+# step moves a parameter by ~lr, so a near-zero gradient whose sign a
+# reassociated sum flips moves it by up to 2 lr; after the second step the
+# difference is reported).  Since one step moves every parameter by about
+# lr whatever its gradient, the first step's gradient is held too, leaf by
+# leaf (each rank's slice of a sharded leaf against the same slice of one
+# process's): |g - g1| <= TP_GRAD_RTOL |g1| + TP_GRAD_ATOL G +
+# TP_GRAD_SPREAD |g1' - g1|, norms over the leaf, G one process's global
+# norm (a typical leaf's is G / 29 of the 824), g1' one process's first
+# gradient again from the same state: atomic sums in the backward (cuDNN's
+# weight gradients, the warps' grid_sample) may make two runs differ, and
+# the bound takes that spread in -- a slice zeroed, doubled or swapped
+# moves a leaf by its own norm
+TP_STEPS, TP_LR = 2, 1e-4
+TP_LOSS_RTOL, TP_LOSS_ATOL, TP_PARAM_TOL = 2e-5, 1e-6, 2.5e-4
+TP_GRAD_RTOL, TP_GRAD_ATOL, TP_GRAD_SPREAD = 5e-2, 1e-3, 3.0
+PARALLEL_TIMEOUT = 600  # seconds a phase's processes may take
+
+
+def _join_group(rank, world, port, backend):
+    """A child of phases 11/12: under gloo every process on card 0 (NCCL
+    refuses two ranks on one device), under NCCL process r on card r; the
+    kernels loaded from the parent's build."""
+    import torch.distributed as dist
+
+    from vmg_tpu_torch import _build
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    _build.load_library()
+
+
+def _seq_child(rank, world, port, backend, src, out):
+    import torch.distributed as dist
+
+    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.parallel import make_mesh, make_seq_sharded_forward, shard_clip_over_time
+    from vmg_tpu_torch.parallel.exchange import BYTES, SeqShard, seq_sharded, zero_bytes
+    from vmg_tpu_torch.serve import SRServer
+
+    _join_group(rank, world, port, backend)
+    try:
+        data = torch.load(src, weights_only=False)
+        mesh = make_mesh((0, 1))
+        model = SRServer(FULL_PRESET, data["sd"], "cuda", torch.bfloat16, gelu="tanh",
+                         fast_flow=True).model
+        fwd = make_seq_sharded_forward(model, mesh)
+        res = {"clips": []}
+        for clip in data["clips"]:
+            x = shard_clip_over_time(mesh, torch.from_numpy(clip)).cuda()
+            with torch.inference_mode():
+                fwd(x)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                zero_bytes()
+                times = []
+                for _ in range(2):  # on-device input and output, as the one-process timing
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    y = fwd(x)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            counts = {k: v // 2 for k, v in read_counts().items()}
+            res["clips"].append({"y": y.cpu().numpy(), "s": times, "launches": counts,
+                                 "bytes": {k: v // 2 for k, v in BYTES.items()},
+                                 "peak": torch.cuda.max_memory_allocated()})
+        del model, fwd
+        f32 = create_model(FULL_PRESET, device="cuda")
+        f32.load_state_dict(data["sd"])
+        zero_bytes()
+        with torch.inference_mode():
+            y = make_seq_sharded_forward(f32, mesh)(
+                shard_clip_over_time(mesh, torch.from_numpy(data["f32"])).cuda())
+        res["f32"] = {"y": y.cpu().numpy(), "bytes": dict(BYTES)}
+        res["means"] = []
+        for module, clip in data["means"]:
+            module = module.cuda()
+            shard = SeqShard(mesh.data_group, mesh.data_ranks(), mesh.data_index, clip.shape[1])
+            with torch.inference_mode(), seq_sharded(shard):
+                y = module(shard_clip_over_time(mesh, torch.from_numpy(clip)).cuda())
+            res["means"].append(y.cpu().numpy())
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_child(rank, world, port, backend, src, out):
+    import torch.distributed as dist
+
+    from vmg_tpu_torch.ckpt.io import trainer_state
+    from vmg_tpu_torch.parallel import (gather_state, make_mesh, make_sharded_train_step,
+                                        param_shardings, process_local_batch_slice,
+                                        shard_params)
+    from vmg_tpu_torch.parallel.exchange import BYTES, zero_bytes
+
+    _join_group(rank, world, port, backend)
+    try:
+        data = torch.load(src, weights_only=False)
+        model, tcfg, batch, gen = _tp_setup(data)
+        mesh = make_mesh((0, 2))
+        rule = param_shardings(mesh, model)
+        shard_params(mesh, model)
+        step = make_sharded_train_step(model, tcfg, mesh, flow_fix=0)
+        local, first = process_local_batch_slice(batch["LRs"].shape[0], mesh)
+        batch = {k: v[first:first + local] for k, v in batch.items()}
+        def params():  # the whole parameters, gathered (every rank takes part)
+            state = gather_state(mesh, trainer_state(model, step), model)
+            return {k: v.cpu() for k, v in state["params"].items()} if rank == 0 else None
+
+        zero_bytes()
+        res = _tp_steps(step, batch, gen, params)
+        res["bytes"] = {k: v // TP_STEPS for k, v in BYTES.items()}
+        res.update(held=_tp_bytes(model), sharded=sum(v is not None for v in rule.values()),
+                   rule=rule, params=params())
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_setup(data):
+    """Phase 6's training size (FULL_PRESET, bf16 on f32 masters, remat,
+    T=16, 64x64 crops; B=1 a data index) at lr 1e-4, from ``data``'s
+    weights and batch."""
+    from vmg_tpu_torch.configs import FULL_PRESET, TrainConfig
+    from vmg_tpu_torch.models.vmg import create_model
+
+    model = create_model(dataclasses.replace(FULL_PRESET, remat=True), is_train=True,
+                         device="cuda")
+    model.load_state_dict(data["sd"])
+    tcfg = TrainConfig(lr=TP_LR, T_period=(400000,), if_aux=True, amp=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data["batch"].items()}
+    return model, tcfg, batch, torch.Generator(device="cuda").manual_seed(1)
+
+
+def _record_grads(step):
+    """Wrap ``step``'s optimizer so that its first update keeps the
+    gradients it is given (after the data-axis mean), on the CPU, by plain
+    state-dict name -- a sharded leaf's as this rank's slice -- and their
+    global norm."""
+    opt = step.optimizer
+    names = {id(p): n.replace("parametrizations.", "").replace(".original", "")
+             for n, p in step.model.named_parameters()}
+    rec, update = {}, opt.step
+
+    def first(grads, norm=None):
+        if not rec:
+            rec["grads"] = {names[id(p)]: g.detach().float().cpu()
+                            for p, g in zip(opt.params, grads)}
+            rec["norm"] = float(norm)
+        return update(grads, norm)
+
+    opt.step = first
+    return rec
+
+
+def _tp_steps(step, batch, gen, params):
+    """TP_STEPS timed steps (the first keeps its gradients on the host:
+    :func:`_record_grads`); ``params()`` after the first, untimed and out
+    of the peak of allocated memory."""
+    rec = _record_grads(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, first, peak = [], [], None, 0
+    for i in range(TP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, gen)["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        if i == 0:
+            first = params()
+            torch.cuda.reset_peak_memory_stats()
+    return {"losses": losses, "ms": ms, "peak": peak, "first": first, "grads": rec["grads"],
+            "grad_norm": rec["norm"]}
+
+
+def _tp_bytes(model):
+    """Bytes of the float32 masters and their AdamW m and v."""
+    return 3 * sum(p.numel() * 4 for p in model.parameters())
+
+
+def _spawn(target, world, backend, src, root):
+    """Run ``target(rank, world, port, backend, src, out)`` in ``world``
+    spawned processes, each killed past PARALLEL_TIMEOUT; returns their
+    results."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(root, f"rank{r}.pt") for r in range(world)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, port, backend, src, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PARALLEL_TIMEOUT
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{target.__name__}: process exit codes {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _exchange_note(world, backend):
+    if backend == "gloo":
+        return (f"gloo between {world} processes on card 0, through host memory (NCCL "
+                "refuses two ranks on one device); compute on the card")
+    return f"NCCL between {world} processes, one card each"
+
+
+def _seq_means(world):
+    """SEQ_MEANS's modules (on the CPU) and their clips, each module's
+    output on the whole clip on the card, and its ratio to the tolerance
+    when each of ``world`` shards takes its own mean."""
+    from vmg_tpu_torch.models import blocks
+
+    cases, want, own = [], [], []
+    rng = np.random.default_rng(13)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for i, (name, args, shape) in enumerate(SEQ_MEANS):
+            torch.manual_seed(i)
+            module = getattr(blocks, name)(*args).eval()
+            with torch.no_grad():
+                for pname, p in module.named_parameters():
+                    if "reweight" in pname:
+                        p.mul_(10.0)
+            clip = rng.random(shape, dtype=np.float32)
+            clip[:, shape[1] // 2:] = 4.0 * (1.0 + clip[:, shape[1] // 2:])
+            m, x = module.cuda(), torch.from_numpy(clip).cuda()
+            with torch.inference_mode():
+                y = m(x)
+                alone = torch.cat([m(part) for part in x.chunk(world, dim=1)], dim=1)
+            want.append(y.cpu().numpy())
+            own.append(_mean_ratio(alone.cpu().numpy(), want[-1]))
+            cases.append((module.cpu(), clip))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return cases, want, own
+
+
+def _mean_ratio(got, want):
+    return float((np.abs(got - want) / (SEQ_MEAN_ATOL + SEQ_MEAN_RTOL * np.abs(want))).max())
+
+
+def seq_phase(report, sd, smi, kind, world=2, backend="gloo"):
+    """Phase 11 (see the module docstring); with ``backend`` "nccl",
+    ``world`` processes on as many cards."""
+    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.serve import SRServer
+
+    t_start = time.time()
+    rng = np.random.default_rng(11)
+    clips = [rng.random((1, *s, 3), dtype=np.float32) for s in SEQ_CLIPS]
+    x32 = rng.random((1, *SEQ_F32, 3), dtype=np.float32)
+    model = SRServer(FULL_PRESET, sd, "cuda", torch.bfloat16, gelu="tanh", fast_flow=True).model
+    one = []
+    for c in clips:  # timed as the processes are: input and output on the card
+        x = torch.from_numpy(c).cuda()
+        with torch.inference_mode():
+            model(x)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                y = model(x)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        one.append({"y": y.cpu().numpy(), "s": min(times),
+                    "peak": torch.cuda.max_memory_allocated()})
+        del x, y
+    del model
+    torch.cuda.empty_cache()
+    cpu_model = create_model(FULL_PRESET, device="cpu")
+    cpu_model.load_state_dict(sd)
+    with torch.inference_mode():
+        want32 = cpu_model(torch.from_numpy(x32)).numpy()
+    del cpu_model
+    means, want_means, own_means = _seq_means(world)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results", "chip_smoke_11")
+    os.makedirs(root, exist_ok=True)
+    src = os.path.join(root, "inputs.pt")
+    torch.save({"sd": sd, "clips": clips, "f32": x32, "means": means}, src)
+    ranks = _spawn(_seq_child, world, backend, src, root)
+    out = {"clips": [], "exchange": _exchange_note(world, backend)}
+    report(f"    exchange: {out['exchange']}")
+    for i, (shape, c, tol) in enumerate(zip(SEQ_CLIPS, one, SEQ_TOLS)):
+        got = np.concatenate([r["clips"][i]["y"] for r in ranks], axis=1)
+        err = float(np.abs(got - c["y"]).max())
+        # a run's time: its slower process; the clip's: the better of 2 runs
+        s = min(max(r["clips"][i]["s"][k] for r in ranks) for k in range(2))
+        per = [{"peak": r["clips"][i]["peak"], "launches": r["clips"][i]["launches"],
+                "bytes": r["clips"][i]["bytes"]} for r in ranks]
+        rec = {"shape": (1, *shape, 3), "max_abs_err": err, "tol": tol,
+               "frames_per_s": shape[0] / s, "one_process_frames_per_s": shape[0] / c["s"],
+               "one_process_peak": c["peak"], "processes": per}
+        out["clips"].append(rec)
+        report(f"    1x{shape[0]}x{shape[1]}x{shape[2]} ({shape[0] // world} frames a process): "
+               f"max_abs_err vs one process {err:.3e} (tol {tol:.3e}); "
+               f"{rec['frames_per_s']:.3f} frames/s (one process "
+               f"{rec['one_process_frames_per_s']:.3f}; both: model forward, input and output on "
+               f"the card, host clock, the better of 2 runs, a run timed by its slower process); "
+               f"peak allocated per process {[round(p['peak'] / 2**30, 2) for p in per]} GiB, "
+               f"one process {c['peak'] / 2**30:.2f} GiB; {kind}; card {smi}")
+        for r, p in enumerate(per):
+            report(f"      process {r}: launches a clip {p['launches']}; bytes sent {p['bytes']}")
+        if got.shape != c["y"].shape or not np.isfinite(got).all() or err > tol:
+            raise AssertionError(f"T-sharded serving at {shape} failed: err {err:.3e}")
+        missing = [(r, k) for r, p in enumerate(per) for k in VARIANT_PATH if p["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"T-sharded serving: kernels never launched {missing}")
+    got32 = np.concatenate([r["f32"]["y"] for r in ranks], axis=1)
+    err32 = float(np.abs(got32 - want32).max())
+    out["f32"] = {"shape": (1, *SEQ_F32, 3), "max_abs_err": err32, "tol": SLICE_TOL,
+                  "bytes": [r["f32"]["bytes"] for r in ranks]}
+    report(f"    f32 1x{SEQ_F32[0]}x{SEQ_F32[1]}x{SEQ_F32[2]} (one trajectory window over both "
+           f"processes) vs the one-process plain path on CPU tensors: max_abs_err={err32:.3e} "
+           f"(tol {SLICE_TOL}); bytes sent {[r['f32']['bytes'] for r in ranks]}")
+    if not (np.isfinite(got32).all() and err32 <= SLICE_TOL):
+        raise AssertionError("T-sharded f32 parity failed")
+    out["means"] = []
+    for i, ((name, args, shape), want, own) in enumerate(zip(SEQ_MEANS, want_means, own_means)):
+        got = np.concatenate([r["means"][i] for r in ranks], axis=1)
+        ratio = _mean_ratio(got, want)
+        out["means"].append({"module": name, "args": args, "shape": shape,
+                             "err_ratio": ratio, "own_mean_ratio": own})
+        report(f"    time mean {name}{args} f32 at {shape}: error / tolerance {ratio:.3g} "
+               f"(atol {SEQ_MEAN_ATOL:g}, rtol {SEQ_MEAN_RTOL:g}; must be <= 1); each process's "
+               f"own mean would give {own:.3g} (must be > {SEQ_MEAN_SEEN:g})")
+        if not (np.isfinite(got).all() and ratio <= 1.0 and own > SEQ_MEAN_SEEN):
+            raise AssertionError(f"T-sharded time mean of {name}{args} failed")
+    out["seconds"] = time.time() - t_start
+    report(f"    phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
+def tp_phase(report, smi, kind, world=2, backend="gloo"):
+    """Phase 12 (see the module docstring); with ``backend`` "nccl", a
+    (world / 2, 2) mesh of processes on as many cards, a batch of world / 2
+    clips."""
+    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.models.vmg import create_model
+    from vmg_tpu_torch.train.train_step import make_train_step
+
+    t_start = time.time()
+    sd = create_model(dataclasses.replace(FULL_PRESET, remat=True), is_train=True, device="cpu",
+                      generator=torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(12)
+    B = world // 2
+    data = {"sd": sd, "batch": {"LRs": rng.random((B, T, 64, 64, 3), dtype=np.float32),
+                                "HRs": rng.random((B, T, 256, 256, 3), dtype=np.float32)}}
+    model, tcfg, batch, gen = _tp_setup(data)
+    step = make_train_step(model, tcfg, flow_fix=0)
+    one = _tp_steps(step, batch, gen,
+                    lambda: {k: v.cpu() for k, v in model.state_dict().items()})
+    one["held"] = _tp_bytes(model)
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    model, tcfg, batch, gen = _tp_setup(data)  # the first step again, same state
+    step = make_train_step(model, tcfg, flow_fix=0)
+    again = _record_grads(step)
+    step(batch, gen)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results", "chip_smoke_12")
+    os.makedirs(root, exist_ok=True)
+    src = os.path.join(root, "inputs.pt")
+    torch.save(data, src)
+    ranks = _spawn(_tp_child, world, backend, src, root)
+    report(f"    exchange: {_exchange_note(world, backend)}; mesh ({world // 2}, 2), batch {B}")
+    def worst(got, want):
+        return max(float((got[k] - v).abs().max()) for k, v in want.items())
+
+    diff1, diff = worst(ranks[0]["first"], one["first"]), worst(ranks[0]["params"], want)
+    loss_ok = all(abs(a - b) <= TP_LOSS_ATOL + TP_LOSS_RTOL * abs(b)
+                  for r in ranks for a, b in zip(r["losses"], one["losses"]))
+    # the first gradient, leaf by leaf, over the tensor group of data index 0
+    # (ranks 0 and 1; the data axis's mean leaves every data index the same)
+    G, ratios, spread = one["grad_norm"], {}, {}
+    for name, g1 in one["grads"].items():
+        dim = ranks[0]["rule"][name]
+        parts = [(ranks[0]["grads"][name], g1)] if dim is None else \
+            [(ranks[j]["grads"][name], g1.chunk(2, dim)[j]) for j in range(2)]
+        err = float(sum(((g - w) ** 2).sum() for g, w in parts)) ** 0.5
+        floor = TP_GRAD_RTOL * float(g1.norm()) + TP_GRAD_ATOL * G
+        self_err = float((again["grads"][name] - g1).norm())
+        ratios[name] = err / (floor + TP_GRAD_SPREAD * self_err)
+        spread[name] = (err / floor, self_err / floor)
+    worst_leaf = max(ratios, key=ratios.get)
+    worst_tp = max(spread, key=lambda k: spread[k][0])
+    worst_self = max(spread, key=lambda k: spread[k][1])
+    norms = [r["grad_norm"] for r in ranks]
+    grad_ok = (len(ratios) == len(ranks[0]["rule"]) and ratios[worst_leaf] <= 1.0
+               and all(abs(n - G) <= TP_GRAD_RTOL * G for n in norms))
+    out = {"losses_one": one["losses"], "losses": [r["losses"] for r in ranks],
+           "max_param_diff_step1": diff1, "max_param_diff": diff,
+           "grad_norm_one": G, "grad_norm_one_again": again["norm"], "grad_norm": norms,
+           "grad_worst_leaf": worst_leaf, "grad_worst_ratio": ratios[worst_leaf],
+           "grad_worst_floor_ratio": [worst_tp, spread[worst_tp][0]],
+           "grad_worst_floor_ratio_one_again": [worst_self, spread[worst_self][1]],
+           "sharded_leaves": ranks[0]["sharded"],
+           "held_bytes": [r["held"] for r in ranks], "one_process_held_bytes": one["held"],
+           "step_ms": [r["ms"] for r in ranks], "one_process_step_ms": one["ms"],
+           "peak": [r["peak"] for r in ranks], "one_process_peak": one["peak"],
+           "bytes": [r["bytes"] for r in ranks]}
+    report(f"    losses {[[round(v, 7) for v in r['losses']] for r in ranks]} vs one process "
+           f"{[round(v, 7) for v in one['losses']]} (rtol {TP_LOSS_RTOL:g}, atol "
+           f"{TP_LOSS_ATOL:g}); max |param diff| after step 1 {diff1:.3e} (tol "
+           f"{TP_PARAM_TOL:g}), after step {TP_STEPS} {diff:.3e}")
+    report(f"    first gradient: global norm {[round(n, 6) for n in norms]} vs one process "
+           f"{G:.6f} (again {again['norm']:.6f}); leaf by leaf |g - g1| / ({TP_GRAD_RTOL:g} "
+           f"|g1| + {TP_GRAD_ATOL:g} G + {TP_GRAD_SPREAD:g} |g1' - g1|) at most "
+           f"{ratios[worst_leaf]:.3g} ({worst_leaf}; must be <= 1) over {len(ratios)} leaves; "
+           f"without the spread term {spread[worst_tp][0]:.3g} ({worst_tp}), one process "
+           f"again against itself {spread[worst_self][1]:.3g} ({worst_self})")
+    report(f"    {out['sharded_leaves']} sharded leaves; masters + AdamW m, v per process "
+           f"{[round(b / 2**20, 2) for b in out['held_bytes']]} MiB vs one process "
+           f"{one['held'] / 2**20:.2f} MiB; step ms {out['step_ms']} (one process "
+           f"{[round(v, 1) for v in one['ms']]}); peak allocated "
+           f"{[round(p / 2**30, 2) for p in out['peak']]} GiB (one process "
+           f"{one['peak'] / 2**30:.2f}); bytes sent a step {out['bytes']}; {kind}; card {smi}")
+    if not (loss_ok and grad_ok and diff1 < TP_PARAM_TOL and out["sharded_leaves"] > 0
+            and all(b < one["held"] for b in out["held_bytes"])):
+        raise AssertionError("tensor-parallel training failed its bounds")
+    out["seconds"] = time.time() - t_start
+    report(f"    phase 12 took {out['seconds']:.1f} s")
+    return out
 
 
 def variant_phase(report, smi, kind):
@@ -2285,6 +2787,17 @@ def main() -> int:
            "bf16 training step")
     variant = variant_phase(report, smi, kind)
 
+    report(f"[11] T-sharded serving (parallel/seq.py): FULL_PRESET bf16 (tanh GELU, fast flow) "
+           f"in two processes on the one card, clips {SEQ_CLIPS} (T, H, W), against one "
+           f"process; f32 1x{SEQ_F32[0]}x{SEQ_F32[1]}x{SEQ_F32[2]} against the plain path on CPU "
+           "tensors")
+    seq = seq_phase(report, sd, smi, kind)
+
+    report(f"[12] tensor parallelism (parallel/tp.py): a (1, 2) mesh of two processes on the "
+           f"card, FULL_PRESET bf16 on f32 masters, remat, B=1 T={T} 64x64, lr {TP_LR:g}, "
+           f"{TP_STEPS} steps, against one process's")
+    tp = tp_phase(report, smi, kind)
+
     # each kernel's launches on the path that runs it: the LTAM backward in
     # training (phase 6), the conv chain and the norm in kernel-form serving
     # (phase 4b, 3 clips), the pin in the barrier form (phase 4b, 1 clip),
@@ -2320,6 +2833,8 @@ def main() -> int:
                         "launches_eval": ev["launches"][name],
                         "launches_train_loop": loop_launches[name],
                         "launches_phase10": variant["launches"][name],
+                        "launches_phase11_per_process": [
+                            p["launches"][name] for p in seq["clips"][0]["processes"]],
                         "bound_bytes": e["bound_bytes"], "bound_flops": e["bound_flops"],
                         "bound_peak": e["bound_peak"], **extra})
     print(json.dumps({"serving": {"frames_per_s": fps, "per_request_frames_per_s": per_request,
@@ -2342,6 +2857,7 @@ def main() -> int:
     print(json.dumps({"train_loop": loop}))
     print(json.dumps({"export": exported}))
     print(json.dumps({"phase10": {k: v for k, v in variant.items() if k != "launches"}}))
+    print(json.dumps({"phase11_seq": seq, "phase12_tp": tp}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2349,5 +2865,39 @@ def main() -> int:
     return 0
 
 
+def parallel_main(n: int) -> int:
+    """``python3 chip_smoke.py --nccl N``: phases 1, 11 and 12 alone, their
+    processes one a card on N cards in an NCCL group (the one-process
+    references on card 0)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke --nccl {n}: needs {n} CUDA devices", file=sys.stderr)
+        return 1
+    from vmg_tpu_torch import _build
+    from vmg_tpu_torch.configs import FULL_PRESET
+    from vmg_tpu_torch.models.vmg import create_model
+
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[1] cards: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.time()
+    _build.load_library()
+    print(f"[1] kernels built and loaded in {time.time() - t0:.1f} s", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sd = create_model(FULL_PRESET, device="cpu",
+                      generator=torch.Generator().manual_seed(0)).state_dict()
+    print(f"[11] T-sharded serving over {n} cards (NCCL), clips {SEQ_CLIPS}", flush=True)
+    seq = seq_phase(print, sd, smi, kind, world=n, backend="nccl")
+    print(f"[12] tensor parallelism over {n} cards (NCCL)", flush=True)
+    tp = tp_phase(print, smi, kind, world=n, backend="nccl")
+    print(json.dumps({"phase11_seq": seq, "phase12_tp": tp}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--nccl":
+        sys.exit(parallel_main(int(sys.argv[2])))
     sys.exit(main())

@@ -40,9 +40,10 @@ from vmg_tpu.configs import load_config
 from vmg_tpu.eval import eval_utils as j_utils
 from vmg_tpu.eval import metrics as j_metrics
 from vmg_tpu.eval.inference import SlidingEvaluator as JEvaluator
-from vmg_tpu_torch.configs import EVAL_PRESETS
+from vmg_tpu_torch.configs import EVAL_PRESETS, TINY_TEST_PRESET
 from vmg_tpu_torch.eval import eval_utils, metrics, png, run_eval
 from vmg_tpu_torch.eval.inference import SlidingEvaluator
+from vmg_tpu_torch.models.vmg import create_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = os.path.join(REPO, "vmg_tpu", "configs", "presets")
@@ -248,11 +249,19 @@ def test_eval_presets_match_yaml(name):
 
 
 def test_run_eval_refuses_flops_and_a_missing_card(tmp_path):
+    # dataset.FLOPs is counted and logged now (eval/flops.py), as the JAX CLI logs it
     cfg = copy.deepcopy(EVAL_PRESETS["vid4"])
     cfg.dataset.FLOPs = True
+    cfg.dataset.flops_num_frames = 2
     cfg.path.output_dir = str(tmp_path)
-    with pytest.raises(ValueError, match="FLOP"):
-        run_eval(cfg, lr_root=str(tmp_path), device="cpu")
+    model = create_model(TINY_TEST_PRESET, device="cpu")
+    res = run_eval(cfg, lr_root=str(tmp_path), device="cpu", model=model)
+    assert res["frames"] == []
+    logs = "".join(open(os.path.join(tmp_path, f)).read() for f in os.listdir(tmp_path)
+                   if f.endswith(".log"))
+    assert "FLOPs = " in logs and "on (1, 2, 144, 176, 3)" in logs
+    # G: FULL_PRESET is ~1.4 TFLOP a 144x176 frame
+    assert float(logs.split("FLOPs = ")[1].split()[0]) > 1000
     if not torch.cuda.is_available():
         cfg.dataset.FLOPs = False
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -138,6 +138,13 @@ import vmg_tpu_torch.utils.scalars
 import vmg_tpu_torch.utils.collect_env
 import vmg_tpu_torch.models.swin3d
 import vmg_tpu_torch.ops.deform
+import vmg_tpu_torch.parallel.exchange
+import vmg_tpu_torch.parallel.seq
+import vmg_tpu_torch.parallel.tp
+import vmg_tpu_torch.eval.flops
+import vmg_tpu_torch.eval.niqe
+import vmg_tpu_torch.eval.matting_metrics
+import vmg_tpu_torch.utils.video
 import vmg_tpu_torch.ops.window
 from vmg_tpu_torch.ckpt import load_reference_checkpoint, reference_state_dict
 from vmg_tpu_torch.models.vmg import KERNEL_FORMS

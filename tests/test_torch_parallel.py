@@ -16,7 +16,7 @@ grow with the depth; every module stays), float32:
   the global microbatch's stochastic-depth masks and keeps its rows, so
   two processes equal one (the same bounds);
 * both processes hold the same parameters after the step.
-The mesh refuses a ``tensor`` axis above 1 by name; one process's batch
+One process's mesh refuses a shape that does not span it; its batch
 slice is the whole batch.
 """
 
@@ -132,7 +132,7 @@ def test_mesh_and_batch_slice_in_one_process():
     mesh = make_mesh((0, 1))
     assert (mesh.data, mesh.tensor, mesh.rank) == (1, 1, 0)
     assert make_mesh((1, 1)) == mesh
-    with pytest.raises(NotImplementedError, match="tensor"):
+    with pytest.raises(ValueError, match="tensor axis"):
         make_mesh((1, 2))
     with pytest.raises(ValueError, match="data axis"):
         make_mesh((2, 1))

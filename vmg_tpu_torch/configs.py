@@ -292,7 +292,7 @@ class ExperimentConfig:
     logger: LoggerConfig = field(default_factory=LoggerConfig)
     path: PathConfig = field(default_factory=PathConfig)
     # parallelism: the (data, tensor) process mesh (parallel/mesh.py); a
-    # tensor axis above 1 is not ported
+    # tensor axis above 1 shards the wide weights (parallel/tp.py)
     mesh_shape: Tuple[int, int] = (1, 1)
 
 

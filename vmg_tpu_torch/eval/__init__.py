@@ -117,6 +117,24 @@ def make_forwards(model, cfg, device_tiles: bool = False):
     return forward_fn, device_tiled_fn
 
 
+def flops_line(cfg) -> str:
+    """``dataset.FLOPs``' log line (``tools/eval.py:67-78``): the forward
+    FLOPs of the network on one clip of ``flops_num_frames`` LR frames of
+    ``image_shape``, counted on fake tensors of a model on the meta device
+    (nothing is computed or allocated; ``eval/flops.py``: convolutions and
+    matrix products, 2 x the multiply-adds)."""
+    import torch
+
+    from vmg_tpu_torch.eval.flops import model_flops
+    from vmg_tpu_torch.models.vmg import create_model
+
+    h, w = cfg.dataset.image_shape[1] // cfg.scale, cfg.dataset.image_shape[2] // cfg.scale
+    T = cfg.dataset.flops_num_frames
+    model = create_model(cfg.network, device="meta")
+    x = torch.zeros((1, T, h, w, 3), device="meta")
+    return f"FLOPs = {model_flops(model, x) / 1e9:.2f} G on (1, {T}, {h}, {w}, 3)"
+
+
 def run_eval(cfg, *, checkpoint: Optional[str] = None, lr_root: Optional[str] = None,
              gt_root: Optional[str] = None, max_clips: Optional[int] = None,
              topk: Optional[int] = None, device_tiles: bool = False, fast_gelu: bool = False,
@@ -127,10 +145,9 @@ def run_eval(cfg, *, checkpoint: Optional[str] = None, lr_root: Optional[str] = 
     psnr)]}.  ``model``: an eval model to use instead of loading one."""
     from vmg_tpu_torch.utils.logging_utils import AverageMeter, setup_logger
 
-    if cfg.dataset.FLOPs:
-        raise ValueError("dataset.FLOPs: the FLOP count is not ported yet (ROADMAP Queue 1); "
-                         "set it to False")
     logger = setup_logger("vmg_tpu_torch.eval", cfg.path.output_dir, "eval")
+    if cfg.dataset.FLOPs:
+        logger.info(flops_line(cfg))
     lr_root = lr_root or cfg.dataset.dataset_root
     if not lr_root:
         raise ValueError("no LR root: set dataset.dataset_root in the config or pass lr_root")

@@ -2,13 +2,15 @@
 
     python -m vmg_tpu_torch.eval --preset vid4 --checkpoint VMG.pth \\
         [--lr-root DIR] [--gt-root DIR] [--max-clips N] [--topk K] \\
-        [--device-tiles] [--fast-gelu] [--output-dir DIR] [--device cpu]
+        [--device-tiles] [--fast-gelu] [--output-dir DIR] [--flops] [--device cpu]
 
 ``--preset`` names one of the JAX package's evaluation configs
 (``configs.EVAL_PRESETS``; there is no YAML loader on the card).
 ``--checkpoint``: a reference ``.pth``, a directory of the port's trainer
-checkpoints, or ``random`` (seed-0 weights).  Runs on the card unless
-``--device cpu``; without a card it raises.
+checkpoints, or ``random`` (seed-0 weights).  ``--flops`` sets the
+config's ``dataset.FLOPs``: the log's first line is then the network's
+FLOP count (``eval/flops.py``).  Runs on the card unless ``--device cpu``;
+without a card it raises.
 """
 
 from __future__ import annotations
@@ -34,11 +36,15 @@ def main(argv=None) -> int:
                    help="run the spatial tile loop on the device (one upload, one download)")
     p.add_argument("--fast-gelu", action="store_true", help="tanh-approximate GELU")
     p.add_argument("--output-dir", default=None, help="override the PNG and log directory")
+    p.add_argument("--flops", action="store_true",
+                   help="log the network's FLOPs on one clip first (dataset.FLOPs)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     cfg = copy.deepcopy(EVAL_PRESETS[args.preset])
     if args.output_dir:
         cfg.path.output_dir = args.output_dir
+    if args.flops:
+        cfg.dataset.FLOPs = True
     run_eval(cfg, checkpoint=args.checkpoint, lr_root=args.lr_root, gt_root=args.gt_root,
              max_clips=args.max_clips, topk=args.topk, device_tiles=args.device_tiles,
              fast_gelu=args.fast_gelu, device=args.device)

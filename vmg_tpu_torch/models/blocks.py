@@ -35,7 +35,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
-from torch.utils._pytree import tree_map
+from torch.nn.utils import parametrize
+from torch.utils._pytree import tree_flatten, tree_map
 
 from vmg_tpu_torch.models.norms import RMSNorm, TorchLayerNorm
 from vmg_tpu_torch.ops.conv_chain import fused_conv_chain, pack_conv_taps
@@ -50,6 +51,7 @@ from vmg_tpu_torch.ops.morphfc_fused import (
     pack_combine_weight,
     symm_gate,
 )
+from vmg_tpu_torch.parallel.exchange import current_seq, mean_over_time
 
 
 def conv_cl(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -98,16 +100,23 @@ class PackedOperands(nn.Module):
                 raise RuntimeError(f"{type(self).__name__}: no packed operands to trace; run "
                                    "the model eagerly once before exporting it")
             return self._ops
-        key = tuple(t._version for t in sources)
+        # a tensor-sharded leaf (parallel/tp.py) reads as a fresh gather:
+        # its stored slice's version counts
+        key = tuple(t._version for t in sources) + tuple(
+            p._version for m in self.modules() if parametrize.is_parametrized(m)
+            for p in m.parametrizations.parameters())
         if self._ops is None or key != self._ops_key:
             with torch.no_grad():
+                ops = self._pack()
+                if any(is_fake(t) for t in tree_flatten(ops)[0] if isinstance(t, torch.Tensor)):
+                    return ops  # packed under a fake mode (a FLOP count): not kept
                 # an operand that is a source tensor itself (a float32 bias)
                 # is copied: the operands own their storage, as the
                 # constants of an exported program must
                 storages = {t.untyped_storage().data_ptr() for t in sources}
                 self._ops = tree_map(
                     lambda t: t.clone() if isinstance(t, torch.Tensor)
-                    and t.untyped_storage().data_ptr() in storages else t, self._pack())
+                    and t.untyped_storage().data_ptr() in storages else t, ops)
             self._ops_key = key
         return self._ops
 
@@ -319,7 +328,10 @@ class MlpCnnShift(nn.Module):
         y = gelu(self.fc(x), g)
         h = patch_shift_2d(gelu(self.fc1(patch_shift_2d(y)), g), inv=True)
         w = gelu(self.fc2(y), g)
-        a = self.reweight((h + w).mean(dim=(1, 2, 3)))
+        s = h + w
+        # the clip's mean: over every process's frames where T is sharded
+        a = s.mean(dim=(1, 2, 3)) if current_seq() is None else mean_over_time(s).to(s.dtype)
+        a = self.reweight(a)
         a = a.reshape(B, C, 2).permute(2, 0, 1).softmax(dim=0)[:, :, None, None, None, :]
         return self.proj(h * a[0] + w * a[1])
 
@@ -412,7 +424,7 @@ def _reweight(mix, h, w, c, B, C):
     """Squeeze-mean of the three branches in float32, the reweight MLP in
     the branches' dtype, and the branch softmax in float32 -> (3, B, 1, 1,
     1, C) weights in the branches' dtype."""
-    a = (h + w + c).float().mean(dim=(1, 2, 3))
+    a = mean_over_time(h + w + c)
     a = mix(a.to(h.dtype))
     a = a.reshape(B, C, 3).permute(2, 0, 1).float().softmax(dim=0)
     return a.to(h.dtype)[:, :, None, None, None, :]
@@ -614,7 +626,9 @@ class MorphFCDecay(PackedOperands):
                            relu=self.non_linear).contiguous()
             psum = fused_morphfc_reduce(hf, wf, cf)
 
-        a = psum.reshape(B, T, C).sum(dim=1) / float(T * H * W)
+        a = psum.reshape(B, T, C).sum(dim=1)
+        seq = current_seq()  # T sharded: the per-frame sums of every process's frames
+        a = a / float(T * H * W) if seq is None else seq.time_sum(a) / float(seq.T * H * W)
         a = self.reweight(a.to(x.dtype))
         a = a.reshape(B, C, 3).permute(2, 0, 1).float().softmax(dim=0)
         a = a.to(x.dtype).permute(1, 0, 2)[:, None].expand(B, T, 3, C)

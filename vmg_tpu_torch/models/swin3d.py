@@ -25,6 +25,7 @@ from torch import nn
 from vmg_tpu_torch.models.blocks import Mlp
 from vmg_tpu_torch.models.norms import TorchLayerNorm
 from vmg_tpu_torch.ops.warp import flow_warp
+from vmg_tpu_torch.parallel.exchange import current_seq
 from vmg_tpu_torch.ops.window import (
     compute_shift_mask_3d,
     get_window_size,
@@ -253,6 +254,16 @@ class DecoderLayer(nn.Module):
             for i in range(depth))
 
     def forward(self, x, flow_f=None, flow_b=None):
+        seq = current_seq()
+        if seq is not None:
+            # T sharded: the windows span T and the shifted ones wrap around
+            # it, so the layer runs on the whole clip, gathered from every
+            # process, and keeps this process's frames
+            whole = self._forward(seq.gather_frames(x), flow_f, flow_b)
+            return whole[:, seq.a:seq.b]
+        return self._forward(x, flow_f, flow_b)
+
+    def _forward(self, x, flow_f=None, flow_b=None):
         D = x.shape[1]
         wt = self.window_size[0]
         seq_back = None

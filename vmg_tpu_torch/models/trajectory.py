@@ -45,6 +45,7 @@ from vmg_tpu_torch.ops.decay import ltam_decay_np
 from vmg_tpu_torch.ops.ltam_attention import ltam_attention_2x2
 from vmg_tpu_torch.ops.resize import adaptive_avg_pool2d
 from vmg_tpu_torch.ops.warp import flow_warp, grid_sample
+from vmg_tpu_torch.parallel.exchange import current_seq
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -305,24 +306,33 @@ class TrajectoryMultiHead(nn.Module):
         out = grid_sample(bufs, grid, mode="nearest", padding_mode="zeros")
         return out.reshape(n, K, h, w, -1).permute(0, 2, 3, 1, 4).reshape(n, h, w, -1)
 
-    def _direction(self, feats, flows):
+    def _direction(self, feats, flows, carry=None, s0: int = 0):
         """feats: T tensors (N, H, W, C); flows: T tensors (N, H, W, 2) or
-        None (step s >= 1 warps with flows[s])."""
+        None (step s >= 1 warps with flows[s]).  ``carry``: the state to
+        start from (:meth:`_direction`'s second result; None: the window's
+        start), ``s0`` its step count within the window.  Returns the
+        outputs and the state after the last step: [feat_prop, warped] and,
+        under the 'loc' carry, the slots' buffers (N, H, W, K, S*C)."""
         N, H, W, C = feats[0].shape
-        feat_prop = torch.zeros_like(feats[0])
         loc_mode = self.carry_impl == "loc"
         dev = feats[0].device
-        warped = torch.zeros((N, H, W, 0), device=dev,
-                             dtype=torch.float32 if loc_mode else feats[0].dtype)
+        if carry is None:
+            feat_prop = torch.zeros_like(feats[0])
+            warped = torch.zeros((N, H, W, 0), device=dev,
+                                 dtype=torch.float32 if loc_mode else feats[0].dtype)
+        else:
+            feat_prop, warped = carry[0], carry[1]
         if loc_mode:  # the slots' buffers (self._slots, for _gather) and locations
             gy, gx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
                                     torch.arange(W, dtype=torch.float32, device=dev),
                                     indexing="ij")
             grid0 = torch.stack([gx, gy], dim=-1).expand(N, H, W, 2)
-            slots = []
+            slots = [] if carry is None or carry[2].shape[3] == 0 else list(carry[2].unbind(3))
+            if slots:
+                self._slots = torch.stack(slots, dim=3)
         outs = []
         remat = self.remat and self.training and torch.is_grad_enabled()
-        for s, (lr, flow) in enumerate(zip(feats, flows)):
+        for s, (lr, flow) in enumerate(zip(feats, flows), start=s0):
             if remat:  # nothing random runs inside a step
                 feat_prop, warped = checkpoint(self._step, lr, feat_prop, warped, flow,
                                                use_reentrant=False,
@@ -341,30 +351,124 @@ class TrajectoryMultiHead(nn.Module):
                     self._slots = torch.stack(slots, dim=3)
                 else:
                     warped = torch.cat([warped, *entry], dim=-1)
-        return outs
+        state = [feat_prop, warped]
+        if loc_mode:
+            state.append(self._slots if slots else
+                         feat_prop.new_zeros((N, H, W, 0, (4 if self.en_field else 2) * C)))
+        return outs, state
 
     def forward(self, x, flows_forward, flows_backward):
-        B_in, T_in = x.shape[:2]
-        if self.traj_win is not None and 0 < self.traj_win < T_in:
-            tw = int(self.traj_win)
-            if T_in % tw:
-                raise ValueError(f"traj_win={tw} must divide the clip length T={T_in}")
-            s = T_in // tw
-            x = x.reshape(B_in * s, tw, *x.shape[2:])
-            # window i keeps flows i .. i+tw-2; the flow crossing into the
-            # next window is dropped
-            widx = (torch.arange(s)[:, None] * tw + torch.arange(tw - 1)[None, :]).reshape(-1)
-            flows_forward = flows_forward[:, widx].reshape(B_in * s, tw - 1, *flows_forward.shape[2:])
-            flows_backward = flows_backward[:, widx].reshape(B_in * s, tw - 1, *flows_backward.shape[2:])
-        B, T, H, W, C = x.shape
+        """Both directions of the recurrence over ``x`` (B, T, H, W, C),
+        fused with it.  In one process the flows are the clip's T - 1
+        (frame i's forward flow ``flows_forward[:, i - 1]`` from i - 1, its
+        backward flow ``flows_backward[:, i]`` from i + 1).  T sharded
+        (``current_seq``), ``x`` holds this process's frames ``seq.a ..
+        seq.b - 1`` and the flows are their one-a-frame views
+        (``SeqShard.local_flows``: frame i's forward flow at i, backward at
+        i).  The clip's ``traj_win`` windows are cut into this process's
+        segments: whole windows run batched along B, and nothing crosses; a
+        window that spans processes hands its carry over -- the forward
+        direction's from the process before, the backward direction's from
+        the one after -- sequentially in T, as the recurrence is.  A
+        segment runs first the direction that waits for no carry, so two
+        processes that share a window run both chains at once and swap
+        their carries in one exchange; the receiver sizes each carry from
+        its step count (:meth:`_carry_like`)."""
+        seq = current_seq()
+        B, Tl, H, W, C = x.shape
+        a, T = (0, Tl) if seq is None else (seq.a, seq.T)
+        off = -1 if seq is None else 0  # frame i's forward flow: flows_forward[:, i + off]
+        tw = int(self.traj_win) if self.traj_win is not None and 0 < self.traj_win < T else T
+        if T % tw:
+            raise ValueError(f"traj_win={tw} must divide the clip length T={T}")
+        segs, s = [], a
+        while s < a + Tl:
+            e = min((s // tw + 1) * tw, a + Tl)
+            segs.append((s - a, e - a, s % tw))  # local start, end, step in the window
+            s = e
+        pieces = []  # (local start, backward outputs, forward outputs), (B, n, H, W, C) each
+        whole = [i for i, j, k in segs if k == 0 and j - i == tw]
+        if whole:  # whole windows (contiguous), batched along B
+            i0, nw = whole[0], len(whole)
+            xs = x[:, i0:i0 + nw * tw].reshape(B * nw, tw, H, W, C)
 
-        frames = list(x.unbind(1))
-        # backward pass: frames T-1 .. 0, flows_backward[i] warps i+1 -> i
-        back = self._direction(frames[::-1],
-                               [None] + list(flows_backward.unbind(1))[::-1])[::-1]
-        # forward pass: frames 0 .. T-1, flows_forward[i-1] warps i-1 -> i
-        fwd = self._direction(frames, [None] + list(flows_forward.unbind(1)))
-        fused = torch.cat([torch.stack(back, 1), x, torch.stack(fwd, 1)], dim=-1)
+            def window_flows(f, d):
+                """Each window's own tw - 1 flows (the flow crossing into the
+                next window is dropped), the first at ``i0 + d``."""
+                if nw == 1:
+                    return f[:, i0 + d:i0 + d + tw - 1]
+                idx = (torch.arange(nw)[:, None] * tw + torch.arange(tw - 1)[None, :]).reshape(-1)
+                return f[:, idx + i0 + d].reshape(B * nw, tw - 1, *f.shape[2:])
+
+            fs, bs = window_flows(flows_forward, 1 + off), window_flows(flows_backward, 0)
+            frames = list(xs.unbind(1))
+            # backward pass: frames tw-1 .. 0, bs[i] warps i+1 -> i
+            bo = self._direction(frames[::-1], [None] + list(bs.unbind(1))[::-1])[0][::-1]
+            # forward pass: frames 0 .. tw-1, fs[i-1] warps i-1 -> i
+            fo = self._direction(frames, [None] + list(fs.unbind(1)))[0]
+            pieces.append((i0, torch.stack(bo, 1).reshape(B, nw * tw, H, W, C),
+                           torch.stack(fo, 1).reshape(B, nw * tw, H, W, C)))
+        frames = None  # the frames of the segments that share a window with another process
+        ff = lambda i: flows_forward[:, i + off]  # noqa: E731
+        fb = lambda i: flows_backward[:, i]  # noqa: E731
+        # a carry to hand over waits for this process's next receive and goes
+        # out in the same exchange (one batch: see parallel.exchange.exchange)
+        pending = {}
+
+        def receive(src, steps):
+            carry = self._carry_like(frames[0], steps)
+            seq.exchange(pending, {src: carry}, "carry")
+            pending.clear()
+            return carry
+
+        for i, j, k in segs:
+            left, right = k > 0, k + (j - i) < tw  # the window goes on before / after
+            if not (left or right):
+                continue
+            frames = frames or x.unbind(1)
+            back, fwd = None, None
+            # first the direction that waits for no carry, so two processes
+            # that share a window hand their carries over in one exchange
+            for direction in ("back", "fwd") if left and not right else ("fwd", "back"):
+                if direction == "fwd":
+                    carry = receive(seq.index - 1, k) if left else None
+                    fwd, state = self._direction(
+                        list(frames[i:j]), [ff(i) if left else None] +
+                        [ff(t) for t in range(i + 1, j)], carry, k)
+                    if right:
+                        pending[seq.index + 1] = state
+                else:
+                    steps = tw - k - (j - i)  # backward steps already taken in the window
+                    carry = receive(seq.index + 1, steps) if right else None
+                    back, state = self._direction(
+                        list(frames[i:j])[::-1], [fb(j - 1) if right else None] +
+                        [fb(t) for t in range(j - 2, i - 1, -1)], carry, steps)
+                    back = back[::-1]
+                    if left:
+                        pending[seq.index - 1] = state
+            pieces.append((i, torch.stack(back, 1), torch.stack(fwd, 1)))
+        if pending:
+            seq.exchange(pending, {}, "carry")
+        pieces.sort(key=lambda p: p[0])
+        back, fwd = ((torch.cat([p[n] for p in pieces], dim=1) if len(pieces) > 1
+                      else pieces[0][n]) for n in (1, 2))
+        return self._fuse(x, back, fwd)
+
+    def _fuse(self, x, back, fwd):
+        B, T, H, W, C = x.shape
+        fused = torch.cat([back, x, fwd], dim=-1)
         out = conv_cl(self.fusion, fused.reshape(B * T, H, W, 3 * C))
-        out = F.leaky_relu(out, 0.1)
-        return out.reshape(B_in, T_in, H, W, C)
+        return F.leaky_relu(out, 0.1).reshape(B, T, H, W, C)
+
+    def _carry_like(self, frame, steps: int):
+        """Empty tensors shaped as :meth:`_direction`'s state after ``steps``
+        steps of a window from frames like ``frame`` (N, H, W, C): a slot
+        is appended at every ``keyframe_stride``-th step."""
+        N, H, W, C = frame.shape
+        K = -(-steps // self.keyframe_stride) if self.ltam else 0
+        S = 4 if self.en_field else 2
+        if self.carry_impl == "loc":
+            return [torch.empty_like(frame),
+                    frame.new_empty((N, H, W, 2 * K), dtype=torch.float32),
+                    frame.new_empty((N, H, W, K, S * C))]
+        return [torch.empty_like(frame), frame.new_empty((N, H, W, K * S * C))]

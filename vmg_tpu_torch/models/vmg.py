@@ -51,6 +51,7 @@ from vmg_tpu_torch.models.trajectory import (ResidualBlockNoBN, ResidualBlocksWi
 from vmg_tpu_torch.ops.deform import modulated_deform_conv2d
 from vmg_tpu_torch.ops.ltam_attention import MAX_HEAD_WIDTH
 from vmg_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+from vmg_tpu_torch.parallel.exchange import current_seq
 from vmg_tpu_torch.ops.warp import flow_warp
 from vmg_tpu_torch.ops.resize import (
     adaptive_avg_pool2d,
@@ -266,19 +267,31 @@ class MlpEncoderStage(nn.Module):
     def _dcn_alignment(self, x, flow_forward, flow_backward):
         """Both neighbours aligned to every frame by the DCN (frame i + 1 ->
         i backward, i - 1 -> i forward; zeros at the ends), fused with it by
-        ``pa_fuse``."""
+        ``pa_fuse``.  T sharded (``parallel/seq.py``): the neighbours across
+        the shard's ends come from the adjacent processes, and the flows are
+        the shard's one-a-frame views (``SeqShard.local_flows``)."""
         B, T, H, W, C = x.shape
         zeros = x.new_zeros((B, 1, H, W, C))
 
         def align(src, cur, flow):
-            src = src.reshape(B * (T - 1), H, W, C)
-            flow = flow.reshape(B * (T - 1), H, W, 2)
+            n = src.shape[1]
+            src = src.reshape(B * n, H, W, C)
+            flow = flow.reshape(B * n, H, W, 2)
             warped = flow_warp(src, flow, "bilinear", "zeros")
             out = self.pa_deform(src, warped, cur.reshape(src.shape), flow)
-            return out.reshape(B, T - 1, H, W, C)
+            return out.reshape(B, n, H, W, C)
 
-        x_backward = torch.cat([align(x[:, 1:], x[:, :-1], flow_backward), zeros], dim=1)
-        x_forward = torch.cat([zeros, align(x[:, :-1], x[:, 1:], flow_forward)], dim=1)
+        seq = current_seq()
+        prev, nxt = (None, None) if seq is None else seq.halo(x)
+        xb = x if nxt is None else torch.cat([x, nxt], dim=1)
+        xf = x if prev is None else torch.cat([prev, x], dim=1)
+        x_backward = align(xb[:, 1:], xb[:, :-1], flow_backward[:, :xb.shape[1] - 1])
+        x_forward = align(xf[:, :-1], xf[:, 1:],
+                          flow_forward[:, flow_forward.shape[1] + 1 - xf.shape[1]:])
+        if nxt is None:  # the clip's last frame: no neighbour after it
+            x_backward = torch.cat([x_backward, zeros], dim=1)
+        if prev is None:
+            x_forward = torch.cat([zeros, x_forward], dim=1)
         fused = torch.cat([x, x_backward, x_forward], dim=-1)
         return self.pa_fuse(fused.reshape(B * T, H, W, 3 * C)).reshape(B, T, H, W, C)
 
@@ -414,7 +427,15 @@ class VMG(nn.Module):
         """Per-stage flow pyramid: SPyNet on every level (``'per_level'``),
         or at level 0 only, whose flows are average-pooled down to level i
         and scaled by 0.5**i, the flow values halving with the resolution
-        (``'shared'``)."""
+        (``'shared'``).  T sharded (``parallel/seq.py``): each process runs
+        the pairs from its frames to the next frame -- the pair across its
+        end takes the next process's first level-0 frame, pooled here --
+        the clip's flows are gathered, and each stage gets this process's
+        one-a-frame views of them (``SeqShard.local_flows``)."""
+        seq = current_seq()
+        if seq is not None:
+            _, nxt = seq.halo(xp, prev=False)
+            xp = xp if nxt is None else torch.cat([xp, nxt], dim=1)
         B, T, Hp, Wp, C = xp.shape
         shared = self.cfg.flow_levels == "shared"
         flows_f, flows_b = [], []
@@ -429,9 +450,16 @@ class VMG(nn.Module):
             src_fwd = lv[:, :-1].reshape(B * (T - 1), h, w, C)
             src_bwd = lv[:, 1:].reshape(B * (T - 1), h, w, C)
             fwd = self.spynet(src_bwd, src_fwd).reshape(B, T - 1, h, w, 2)
+            bwd = None if frames_mirror else \
+                self.spynet(src_fwd, src_bwd).reshape(B, T - 1, h, w, 2)
+            if seq is not None:
+                fwd = seq.gather_flows(fwd)
+                bwd = None if bwd is None else seq.gather_flows(bwd)
             flows_f.append(fwd)
-            flows_b.append(fwd.flip(1) if frames_mirror else
-                           self.spynet(src_fwd, src_bwd).reshape(B, T - 1, h, w, 2))
+            flows_b.append(fwd.flip(1) if frames_mirror else bwd)
+        if seq is not None:
+            flows_f = [seq.local_flows(f, forward=True) for f in flows_f]
+            flows_b = [seq.local_flows(f, forward=False) for f in flows_b]
         return flows_f, flows_b
 
     @staticmethod

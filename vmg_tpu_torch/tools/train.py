@@ -4,7 +4,7 @@
         [--dataroot-hr DIR --dataroot-lr DIR] [--cache-keys PKL] \\
         [--experiments-root DIR] [--resume] [--batchsize B] [--max-steps N] \\
         [--max-retries R] [--val-lr-root DIR --val-gt-root DIR --val-clips K] \\
-        [--device cuda|cpu] [--multihost]
+        [--device cuda|cpu] [--multihost [--mesh-shape D T]]
 
 ``--config`` names one of the JAX package's training configs
 (``configs.TRAIN_PRESETS``: reds_full, reds_few_levels, tiny_demo,
@@ -24,14 +24,17 @@ checkpoint, or the host snapshot taken at the start and every 1000 steps,
 and goes on; past the retries the error is raised.  Runs on the card
 unless ``--device cpu``; without a card it raises.
 
-``--multihost``: data parallelism over processes (``parallel/``), one card
-each.  Each process joins the process group from the usual environment
-(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; NCCL on the
-card, gloo with ``--device cpu``), the config's ``mesh_shape`` puts every
-process on the data axis, each loads its share of the global batch
-(``batch_size`` is global), the step averages the gradients over the
-processes, and process 0 alone logs, validates and writes checkpoints.
-Two processes on the CPU:
+``--multihost``: data and tensor parallelism over processes
+(``parallel/``), one card each.  Each process joins the process group from
+the usual environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+``RANK``; NCCL on the card, gloo with ``--device cpu``); the config's
+``mesh_shape`` (d, t) keeps its tensor size t and puts world / t processes
+on the data axis.  Each data index loads its share of the global batch
+(``batch_size`` is global), the step averages the gradients over the data
+group, and with t > 1 the wide weights and their AdamW moments are stored
+sharded over the tensor group (``parallel/tp.py``; a checkpoint holds them
+whole).  Process 0 alone logs, validates and writes checkpoints.  Two
+processes on the CPU:
 
     MASTER_ADDR=localhost MASTER_PORT=29512 WORLD_SIZE=2 RANK=0 \\
         python -m vmg_tpu_torch.tools.train --config tiny_demo --device cpu --multihost ... &
@@ -58,7 +61,8 @@ from vmg_tpu_torch.configs import TRAIN_PRESETS, ExperimentConfig
 from vmg_tpu_torch.data.clip_dataset import create_dataset
 from vmg_tpu_torch.data.loader import DeviceFeed, accumulate_batches, create_dataloader
 from vmg_tpu_torch.models.vmg import create_model
-from vmg_tpu_torch.parallel import initialize_distributed, make_mesh
+from vmg_tpu_torch.parallel import (gather_state, initialize_distributed, make_mesh,
+                                    shard_params, shard_state)
 from vmg_tpu_torch.train.schedule import main_lr_schedule
 from vmg_tpu_torch.train.train_step import make_train_step
 from vmg_tpu_torch.utils.collect_env import collect_env
@@ -129,7 +133,7 @@ def train(cfg: ExperimentConfig, *, resume: bool = False, max_steps: Optional[in
                            "to train on the CPU")
     exp_root = os.path.join(cfg.path.experiments_root, cfg.name)
     ckpt_dir = os.path.join(exp_root, "ckpt")
-    # over a process group: the data-parallel mesh; process 0 alone logs
+    # over a process group: the (data, tensor) mesh; process 0 alone logs
     mesh = make_mesh(cfg.mesh_shape) if dist.is_initialized() else None
     lead = mesh is None or mesh.rank == 0
     logger = setup_logger(f"vmg_tpu_torch.train:{os.path.abspath(exp_root)}", exp_root, "train",
@@ -157,6 +161,9 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
                          generator=torch.Generator().manual_seed(seed))
     if init_state is not None:
         model.load_state_dict(init_state, strict=True)
+    tp = mesh is not None and mesh.tensor > 1
+    if tp:  # the wide weights stored sharded over the tensor group
+        shard_params(mesh, model)
     logger.info(f"model init: {count_params(model) / 1e6:.3f}M params "
                 f"({time.time() - t0:.1f}s) on {dev}")
 
@@ -167,19 +174,23 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
     lead = mesh is None or mesh.rank == 0
 
     def save(step):  # process 0 writes; the others wait for the file
+        state = trainer_state(model, step_fn, gen)
+        if tp:  # whole, as an unsharded trainer saves it
+            state = gather_state(mesh, state, model)
         if lead:
-            save_checkpoint(ckpt_dir, step, trainer_state(model, step_fn, gen))
+            save_checkpoint(ckpt_dir, step, state)
         if mesh is not None:
             dist.barrier()
     gen = torch.Generator(device=dev).manual_seed(seed + 777)
     start_step = 0
     if resume and latest_step(ckpt_dir) is not None:
-        start_step = load_trainer_state(restore_checkpoint(ckpt_dir), model, step_fn, gen)
+        start_step = load_trainer_state(_restore(ckpt_dir, None, mesh, model), model, step_fn,
+                                        gen)
         logger.info(f"resumed from step {start_step}")
 
     dataset = create_dataset(ds, cfg.scale)
     loader = create_dataloader(dataset, ds, num_replicas=1 if mesh is None else mesh.data,
-                               rank=0 if mesh is None else mesh.rank,
+                               rank=0 if mesh is None else mesh.data_index,
                                pin_memory=dev.type == "cuda")
     val_hook = None
     if val_lr_root and lead:
@@ -193,7 +204,8 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
     step, epoch = start_step, 0
     rec = {"start_step": start_step, "steps": [], "losses": [], "grad_norms": [],
            "step_ms": [], "data_wait_s": [], "epochs": 0, "retries": 0,
-           "grad_acc": grad_acc, "processes": 1 if mesh is None else mesh.data}
+           "grad_acc": grad_acc, "processes": 1 if mesh is None else mesh.data * mesh.tensor,
+           "mesh": (1, 1) if mesh is None else (mesh.data, mesh.tensor)}
     t_log = time.time()
     # failure recovery: a host copy to restore from while no checkpoint is newer
     host_snapshot, snapshot_step = _host_copy(trainer_state(model, step_fn, gen)), step
@@ -218,8 +230,8 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
                     raise
                 ck = latest_step(ckpt_dir)
                 if ck is not None and ck >= snapshot_step:
-                    step = load_trainer_state(restore_checkpoint(ckpt_dir, ck), model, step_fn,
-                                              gen)
+                    step = load_trainer_state(_restore(ckpt_dir, ck, mesh, model), model,
+                                              step_fn, gen)
                     logger.warning(f"restored checkpoint step {ck}")
                 else:
                     step = load_trainer_state(host_snapshot, model, step_fn, gen)
@@ -262,6 +274,15 @@ def _train(cfg, dev, ckpt_dir, logger, scalars, resume, max_steps, max_retries, 
     return rec
 
 
+def _restore(ckpt_dir, step, mesh, model):
+    """A saved trainer state, as this process's slices where the model is
+    tensor-sharded."""
+    state = restore_checkpoint(ckpt_dir, step)
+    if mesh is not None and mesh.tensor > 1:
+        state = shard_state(mesh, state, model)
+    return state
+
+
 def config_from_args(args) -> ExperimentConfig:
     cfg = copy.deepcopy(TRAIN_PRESETS[args.config])
     if args.batchsize:
@@ -272,13 +293,15 @@ def config_from_args(args) -> ExperimentConfig:
             setattr(cfg.dataset, attr, val or None)
     if args.experiments_root:
         cfg.path.experiments_root = args.experiments_root
+    if args.mesh_shape:
+        cfg.mesh_shape = tuple(args.mesh_shape)
     return cfg
 
 
 def join_process_group(cfg: ExperimentConfig, device) -> None:
     """``--multihost``: join the process group from the environment (NCCL
-    on the card, gloo on the CPU) and put every process on the data axis
-    of ``cfg.mesh_shape``."""
+    on the card, gloo on the CPU); ``cfg.mesh_shape`` keeps its tensor size
+    and its data axis takes the rest of the processes."""
     initialize_distributed("gloo" if torch.device(device).type == "cpu" else "nccl")
     cfg.mesh_shape = (0, cfg.mesh_shape[1])
 
@@ -302,6 +325,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the clip-key pickle ('' for none: the tree's own keys)")
     p.add_argument("--experiments-root", default=None,
                    help="override the root of the log, scalars and checkpoints")
+    p.add_argument("--mesh-shape", type=int, nargs=2, default=None, metavar=("D", "T"),
+                   help="override the config's (data, tensor) mesh_shape, e.g. 0 2: tensor "
+                        "parallelism over pairs of processes (with --multihost)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--multihost", action="store_true",
                    help="data parallelism over processes: join the process group from the "

@@ -43,10 +43,12 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: unchanged below ``max_norm``, else
-    ``g / norm * max_norm``."""
-    norm = global_norm(grads)
+    ``g / norm * max_norm``.  ``norm``: the gradients' global norm, if the
+    caller has it (default: :func:`global_norm` of ``grads``)."""
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm * max_norm) for g in grads]
 
@@ -76,10 +78,13 @@ class AdamW:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> None:
+    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
+        """``norm``: the gradients' global norm for the clip, where the
+        caller has it (a tensor-sharded model's sums its slices over the
+        tensor group)."""
         cfg = self.cfg
         if cfg.if_grad_clip:
-            grads = clip_by_global_norm(grads, cfg.grad_clip_up)
+            grads = clip_by_global_norm(grads, cfg.grad_clip_up, norm)
         b1, b2, eps = cfg.beta1, cfg.beta2, 1e-8
         t = self.count + 1
         c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
